@@ -5,21 +5,31 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure raises and exits non-zero; no result is printed):
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build both CUDA kernels from ops/kernels/*.cu (one nvcc each, in
-     parallel) and print the build time and ptxas register report;
+  2. build the three CUDA kernels from ops/kernels/*.cu (one nvcc each,
+     in parallel) and print the build time and ptxas register report;
   3. hold each kernel against its plain torch version on the card, bit for
-     bit, at the main path's full shapes (i4_search: S = 16*4096 random
+     bit, at the main paths' full shapes (i4_search: S = 16*4096 random
      sub-blocks; wavefront_fixed: B=16 at 1024x1024 with random i4/i16
-     mixes and 4 segments, error diffusion on and off, recon on and off),
-     and time both with CUDA events;
-  4. the main path: 32 natural images of 1024x1024 through
+     mixes and 4 segments, error diffusion on and off, recon on and off;
+     yuv420_to_rgba: B=16 at 1024x1024 with and without an alpha plane,
+     B=2 at 1021x1023 in MB-padded planes, and B=32 at 1024x1024, the
+     decode path's shape), and time each with CUDA events;
+  4. the encode path: 32 natural images of 1024x1024 through
      encode_rgba_batch(device="cuda") in two chunks of 16, with the
      kernels' launch counters reset just before and read just after; then
      a second, timed run with the per-stage split from CUDA events;
-  5. parity: 2 of those images through the same path on the CPU (the
-     kernels' plain versions) must give identical .webp bytes, and every
-     output's RIFF/VP8 headers must be well-formed 1024x1024 frames;
-  6. the kernels' JSON line, the card line, and the final result line.
+  5. encode parity: 2 of those images through the same path on the CPU
+     (the kernels' plain versions) must give identical .webp bytes, and
+     every output's RIFF/VP8 headers must be well-formed 1024x1024 frames;
+  6. the decode path: phase 4's 32 files through
+     decode_rgba_batch(device="cuda"), with the yuv420_to_rgba launch
+     counter reset just before and read just after; a second, timed run
+     with the per-stage split (host symbols, then CUDA-event spans); a
+     device_out=True run whose CUDA tensors must equal the host results;
+  7. decode parity: 2 files through device="cpu" must give identical
+     RGBA, and every decoded image must come within 20 dB PSNR of its
+     source image (an error shared by both paths would not);
+  8. the kernels' JSON line, the card line, and the final result line.
 
 Needs a CUDA GPU, nvcc (CUDA_HOME, PATH or /usr/local/cuda) and g++.
 Imports nothing of JAX or of the gowebp_tpu package.
@@ -49,6 +59,10 @@ OPS_FDCT, OPS_IDCT, OPS_QUANT, OPS_DEQUANT = 160, 164, 96, 16
 OPS_PRED_I16, OPS_PRED_B4 = 32, 80
 OPS_RES_RECON = 16 + 48
 OPS_RATE_POS, OPS_RATE_EOB, OPS_DIST_COST = 10, 5, 60
+# yuv420_to_rgba, per output pixel (ops/kernels/yuv420_to_rgba.cu): a
+# quarter of a 2x2 quad's 18 chroma loads and 8 upsample taps (~10 ops
+# each), ~26 for the BT.601 conversion and clips, the luma load and store.
+OPS_YUV_PIXEL = 50
 
 
 def log(msg: str) -> None:
@@ -235,27 +249,79 @@ def check_wavefront(dev, gen):
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def check_yuv420(dev, gen):
+    """Phase 3c: yuv420_to_rgba kernel vs plain on MB-padded planes."""
+    import torch
+
+    from gowebp_tpu_torch.ops.kernels.yuv420_to_rgba import (
+        yuv420_to_rgba, yuv420_to_rgba_plain)
+
+    U8 = torch.uint8
+
+    def planes(B, H, W, alpha):
+        Hp, Wp = -(-H // 16) * 16, -(-W // 16) * 16
+        ps = [torch.randint(0, 256, s, generator=gen, dtype=U8).to(dev)
+              for s in ((B, Hp, Wp), (B, Hp // 2, Wp // 2),
+                        (B, Hp // 2, Wp // 2))]
+        a = (torch.randint(0, 256, (B, H, W), generator=gen, dtype=U8)
+             .to(dev) if alpha else None)
+        return ps + [H, W, a]
+
+    err = 0
+    for B, H, W, alpha in ((16, 1024, 1024, False), (16, 1024, 1024, True),
+                           (2, 1021, 1023, False), (32, 1024, 1024, False)):
+        args = planes(B, H, W, alpha)
+        got = yuv420_to_rgba(*args)
+        want = yuv420_to_rgba_plain(*args)
+        torch.cuda.synchronize()
+        e = max_abs_err({"rgba": got}, {"rgba": want}, ["rgba"])
+        err = max(err, e)
+        if not torch.equal(got, want):
+            raise AssertionError(f"yuv420_to_rgba kernel != plain at B={B} "
+                                 f"{H}x{W} alpha={alpha} (max |err| {e})")
+        log(f"yuv420_to_rgba B={B} {H}x{W} alpha={alpha}: bit-exact")
+    # timed at the decode path's shape, the last one checked
+    ms = time_ms(lambda: yuv420_to_rgba(*args), reps=20, warmup=3)
+    plain_ms = time_ms(lambda: yuv420_to_rgba_plain(*args), reps=3)
+    B, H, W = 32, 1024, 1024
+    nbytes = B * (H * W + 2 * ((H + 1) // 2) * ((W + 1) // 2)) + 4 * B * H * W
+    ops = B * H * W * OPS_YUV_PIXEL
+    bound_ms, bound_by = bound(nbytes, ops)
+    return {"name": "yuv420_to_rgba", "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
 def check_webp(data: bytes, w: int, h: int) -> None:
     """RIFF/WEBP/VP8 header sanity of one simple lossy file."""
     import struct
+
+    from gowebp_tpu_torch.container.riff import parse_riff, vp8_dimensions
 
     if data[:4] != b"RIFF" or data[8:16] != b"WEBPVP8 ":
         raise AssertionError("not a simple lossy WebP file")
     if struct.unpack("<I", data[4:8])[0] != len(data) - 8:
         raise AssertionError("RIFF size mismatch")
-    size = struct.unpack("<I", data[16:20])[0]
-    if 20 + size + (size & 1) != len(data):
+    chunks = parse_riff(data).chunks
+    size = len(chunks[0].payload)
+    if len(chunks) != 1 or 20 + size + (size & 1) != len(data):
         raise AssertionError("VP8 chunk size mismatch")
-    frame = data[20:]
-    if frame[3:6] != b"\x9d\x01\x2a":
-        raise AssertionError("VP8 start code missing")
-    fw, fh = (struct.unpack("<H", frame[6:8])[0] & 0x3FFF,
-              struct.unpack("<H", frame[8:10])[0] & 0x3FFF)
-    if (fw, fh) != (w, h):
-        raise AssertionError(f"frame {fw}x{fh}, expected {w}x{h}")
+    if vp8_dimensions(chunks[0].payload) != (w, h):
+        raise AssertionError(
+            f"frame {vp8_dimensions(chunks[0].payload)}, expected {(w, h)}")
+
+
+def psnr(a, b) -> float:
+    """PSNR in dB of two uint8 RGB images."""
+    import numpy as np
+
+    d = a.astype(np.float64) - b.astype(np.float64)
+    mse = float(np.mean(d * d))
+    return float("inf") if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
 
 
 def main() -> int:
+    t_start = time.perf_counter()
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -263,11 +329,13 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     import gowebp_tpu_torch  # noqa: F401  (fails outside a checkout)
-    from gowebp_tpu_torch import encode_rgba_batch
+    from gowebp_tpu_torch import decode_rgba_batch, encode_rgba_batch
+    from gowebp_tpu_torch.models.vp8.decoder import symbol_engine
     from gowebp_tpu_torch.ops.encode_pipeline import (
         encode_rgba_batch_pipelined)
     from gowebp_tpu_torch.ops.kernels import i4_search as i4m
     from gowebp_tpu_torch.ops.kernels import wavefront_fixed as wfm
+    from gowebp_tpu_torch.ops.kernels import yuv420_to_rgba as yuvm
     from gowebp_tpu_torch.ops.kernels.cuda_build import build_all
     from gowebp_tpu_torch.utils.corpus import natural_images
 
@@ -282,23 +350,25 @@ def main() -> int:
 
     # ---- phase 2: build ----
     t0 = time.perf_counter()
-    build_all([i4m.LIBRARY, wfm.LIBRARY])
-    log(f"build: both kernels in {time.perf_counter() - t0:.1f} s (nvcc, "
+    libraries = [i4m.LIBRARY, wfm.LIBRARY, yuvm.LIBRARY]
+    build_all(libraries)
+    log(f"build: 3 kernels in {time.perf_counter() - t0:.1f} s (nvcc, "
         "parallel)")
-    for lib in (i4m.LIBRARY, wfm.LIBRARY):
+    for lib in libraries:
         for line in lib.ptxas_log.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"ptxas {lib.source.name}: {line.strip()}")
 
     # ---- phase 3: kernels vs plain versions, full shapes ----
     gen = torch.Generator().manual_seed(20261016)
-    rows = [check_i4_search(dev, gen), check_wavefront(dev, gen)]
+    rows = [check_i4_search(dev, gen), check_wavefront(dev, gen),
+            check_yuv420(dev, gen)]
     for r in rows:
         log(f"kernel {r['name']}: bit-exact vs plain; {r['ms']:.3f} ms "
             f"(plain {r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
             f"by {r['bound_by']}) {tag}")
 
-    # ---- phase 4: the main path ----
+    # ---- phase 4: the encode path ----
     t0 = time.perf_counter()
     images = list(natural_images(32, 1024, 1024, seed=7))
     log(f"corpus: 32 x 1024x1024 in {time.perf_counter() - t0:.1f} s")
@@ -312,11 +382,11 @@ def main() -> int:
     first_s = time.perf_counter() - t0
     launches = {"i4_search": i4m.i4_search.launches,
                 "wavefront_fixed": wfm.wavefront_fixed.launches}
-    log(f"main path launches: {launches}")
+    log(f"encode path launches: {launches}")
     for name, n in launches.items():
         if n == 0:
-            raise AssertionError(f"main path never launched {name}")
-    log(f"main path first run: {mp / first_s:.3f} MP/s e2e "
+            raise AssertionError(f"encode path never launched {name}")
+    log(f"encode path first run: {mp / first_s:.3f} MP/s e2e "
         f"({first_s:.2f} s for 32 MP) {tag}")
     timings = {}
     t0 = time.perf_counter()
@@ -327,7 +397,7 @@ def main() -> int:
     second_s = time.perf_counter() - t0
     if again != out:
         raise AssertionError("second run's bytes differ from the first's")
-    log(f"main path timed run: {mp / second_s:.3f} MP/s e2e "
+    log(f"encode path timed run: {mp / second_s:.3f} MP/s e2e "
         f"({second_s:.2f} s for 32 MP) {tag}")
     for k, ms in timings["stage_ms"].items():
         log(f"stage {k}: {ms:.1f} ms total over 2 chunks {tag}")
@@ -346,13 +416,66 @@ def main() -> int:
         raise AssertionError("GPU and CPU .webp bytes differ")
     log("parity: GPU bytes == CPU bytes on 2 images; 32 headers ok")
 
-    # ---- phase 6: result lines ----
+    # ---- phase 6: the decode path ----
+    log(f"decode: symbol engine {symbol_engine()} on this host")
+    yuvm.yuv420_to_rgba.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rgba = decode_rgba_batch(out, device="cuda")
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches["yuv420_to_rgba"] = yuvm.yuv420_to_rgba.launches
+    log(f"decode path launches: yuv420_to_rgba "
+        f"{launches['yuv420_to_rgba']}")
+    if launches["yuv420_to_rgba"] == 0:
+        raise AssertionError("decode path never launched yuv420_to_rgba")
+    log(f"decode first run: {mp / first_s:.3f} MP/s e2e "
+        f"({first_s:.2f} s for 32 MP) {tag}")
+    timings = {}
+    t0 = time.perf_counter()
+    again = decode_rgba_batch(out, device="cuda", timings=timings)
+    torch.cuda.synchronize()
+    second_s = time.perf_counter() - t0
+    if not all(np.array_equal(a, b) for a, b in zip(again, rgba)):
+        raise AssertionError("second decode's pixels differ from the first's")
+    log(f"decode timed run: {mp / second_s:.3f} MP/s e2e "
+        f"({second_s:.2f} s for 32 MP) {tag}")
+    log(f"decode stage host symbols: {timings['symbols_s'] * 1e3:.1f} ms "
+        f"(thread time, 32 images) {tag}")
+    for k, ms in timings["stage_ms"].items():
+        log(f"decode stage {k}: {ms:.1f} ms {tag}")
+    dev_out = decode_rgba_batch(out, device="cuda", device_out=True)
+    for a, b in zip(dev_out, rgba):
+        if not (a.is_cuda and a.dtype == torch.uint8
+                and np.array_equal(a.cpu().numpy(), b)):
+            raise AssertionError("device_out result differs from the host's")
+    log("decode device_out: 32 CUDA uint8 tensors == host results")
+
+    # ---- phase 7: decode parity ----
+    for a in rgba:
+        if a.shape != (1024, 1024, 4) or not (a[..., 3] == 255).all():
+            raise AssertionError(f"bad decoded image {a.shape}")
+    t0 = time.perf_counter()
+    cpu_rgba = decode_rgba_batch(out[:2], device="cpu")
+    log(f"decode cpu parity run: 2 images in {time.perf_counter() - t0:.1f} s")
+    if not all(np.array_equal(a, b) for a, b in zip(cpu_rgba, rgba[:2])):
+        raise AssertionError("GPU and CPU decoded RGBA differ")
+    log("decode parity: GPU RGBA == CPU RGBA on 2 images")
+    scores = [psnr(a[..., :3], im[..., :3]) for a, im in zip(rgba, images)]
+    log(f"decode PSNR vs source: mean {statistics.mean(scores):.3f} dB, "
+        f"min {min(scores):.3f} dB over 32 images")
+    if min(scores) < 20.0:
+        raise AssertionError(f"decoded image below 20 dB ({min(scores):.3f})")
+
+    # ---- phase 8: result lines ----
     kernels = []
     for r in rows:
         src = f"gowebp_tpu_torch/ops/kernels/{r['name']}.cu"
         replaces = {"i4_search": "gowebp_tpu/ops/pallas/i4_search.py:286",
                     "wavefront_fixed":
-                    "gowebp_tpu/ops/pallas/wavefront_fixed.py:564"}[r["name"]]
+                    "gowebp_tpu/ops/pallas/wavefront_fixed.py:564",
+                    "yuv420_to_rgba":
+                    "gowebp_tpu/ops/pallas/decode_post.py:162"}[r["name"]]
         kernels.append({
             "name": r["name"], "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[r["name"]],
@@ -360,6 +483,7 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
         })
+    log(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,15 @@
-"""gowebp_tpu_torch — the WebP codec's batch lossy encode on PyTorch + CUDA.
+"""gowebp_tpu_torch — the WebP codec's batch lossy encode and decode on
+PyTorch + CUDA.
 
-A port of the gowebp_tpu package's hybrid batch encode to PyTorch with
-hand-written Hopper (sm_90a) CUDA kernels.  Entry point:
-``encode_rgba_batch(images, quality=75.0, device=None)``; ``device``
-None means CUDA, ``device="cpu"`` runs the kernels' plain torch
-versions and gives identical bytes.
+A port of the gowebp_tpu package's hybrid batch encode and batch lossy
+decode to PyTorch with hand-written Hopper (sm_90a) CUDA kernels.  Entry
+points: ``encode_rgba_batch(images, quality=75.0, device=None)`` and
+``decode_rgba_batch(datas, device=None, device_out=False)``; ``device``
+None means CUDA, ``device="cpu"`` runs the kernels' plain torch versions
+and gives identical bytes and pixels.
 """
 
+from .decode import decode_rgba_batch
 from .encode import encode_rgba_batch
 
-__all__ = ["encode_rgba_batch"]
+__all__ = ["decode_rgba_batch", "encode_rgba_batch"]

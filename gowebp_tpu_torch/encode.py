@@ -18,7 +18,8 @@ def encode_rgba_batch(images: list, *, quality: float = 75.0,
     the kernels' plain versions (identical bytes).  A batch of mixed
     shapes raises.  Returns one .webp byte string per image.
     """
-    from .ops.encode_pipeline import encode_rgba_batch_pipelined, resolve_device
+    from .device import resolve_device
+    from .ops.encode_pipeline import encode_rgba_batch_pipelined
 
     if not images:
         return []

@@ -2,8 +2,10 @@
 
 Compiles gowebp_tpu_torch/entropy/native/*.cpp with g++ into one shared
 library under gowebp_tpu_torch/_build/ on first use (cached by source
-hash).  The batch encoder has no pure-Python fallback for these
-functions: a failed build raises.
+hash), for the build host's own instruction set (``-march=native``): the
+interleaved symbol decoder (vp8_dec_batch.cpp) vectorises only where
+AVX-512 is there.  The batch encoder and decoder have no pure-Python
+fallback for these functions: a failed build raises.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-from ..errors import EncodeError
+from ..errors import WebPError
 
 _NATIVE_DIR = Path(__file__).parent / "native"
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -26,10 +28,14 @@ def _sources() -> list[Path]:
     return sorted(_NATIVE_DIR.glob("*.cpp"))
 
 
+_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17", "-pthread",
+          "-fno-exceptions", "-march=native", "-funroll-loops"]
+
+
 def _build() -> Path:
     srcs = _sources()
-    h = hashlib.sha256()
-    for s in srcs:
+    h = hashlib.sha256(" ".join(_FLAGS).encode())
+    for s in srcs + sorted(_NATIVE_DIR.glob("*.h")):
         h.update(s.read_bytes())
     tag = h.hexdigest()[:16]
     _BUILD_DIR.mkdir(exist_ok=True)
@@ -37,18 +43,15 @@ def _build() -> Path:
     if so_path.exists():
         return so_path
     tmp = so_path.with_suffix(f".{threading.get_ident()}.tmp")
-    cmd = [
-        "g++", "-O3", "-fPIC", "-shared", "-std=c++17", "-pthread",
-        "-fno-exceptions", "-o", str(tmp),
-    ] + [str(s) for s in srcs]
+    cmd = ["g++", *_FLAGS, "-o", str(tmp)] + [str(s) for s in srcs]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=300)
     except subprocess.CalledProcessError as e:
-        raise EncodeError(
+        raise WebPError(
             "native host library build failed:\n"
             + e.stderr.decode(errors="replace")[-4000:]) from e
     except (FileNotFoundError, subprocess.TimeoutExpired) as e:
-        raise EncodeError(f"native host library build failed: {e}") from e
+        raise WebPError(f"native host library build failed: {e}") from e
     tmp.replace(so_path)
     return so_path
 
@@ -94,6 +97,40 @@ def _configure(lib) -> None:
     lib.wtpu_rgba_to_yuv420.restype = None
     lib.wtpu_rgba_to_yuv420.argtypes = [
         u8p, c.c_int, c.c_int, u8p, u8p, u8p,
+    ]
+
+    i32p = c.POINTER(c.c_int32)
+    u32p = c.POINTER(c.c_uint32)
+    lib.wtpu_vp8_parse_probs.restype = c.c_int
+    lib.wtpu_vp8_parse_probs.argtypes = [
+        u8p, c.c_uint64, u64p,                # data, size, state[4]
+        u8p, u8p,                             # update_probs, probs (inout)
+    ]
+    lib.wtpu_vp8_decode_symbols.restype = c.c_int
+    lib.wtpu_vp8_decode_symbols.argtypes = [
+        u8p, c.c_uint64, c.c_uint64, c.c_uint32, c.c_uint32, c.c_uint32,
+        u8p, u64p, c.c_int,                   # parts, offsets, num_parts
+        c.c_int, c.c_int,                     # mb_w, mb_h
+        c.c_int, u8p,                         # update_map, segment_probs
+        c.c_int, c.c_int,                     # use_skip, skip_p
+        u8p, i32p,                            # coeff_probs, quants
+        i16p, u8p,                            # coeffs_out, modes_out
+    ]
+    lib.wtpu_vp8_batch_is_vectorized.restype = c.c_int
+    lib.wtpu_vp8_batch_is_vectorized.argtypes = []
+    lib.wtpu_vp8_decode_symbols_batch.restype = c.c_int
+    lib.wtpu_vp8_decode_symbols_batch.argtypes = [
+        c.c_int,                              # n_img
+        u8p, u64p,                            # p0_all, p0_off
+        u64p, u32p, u32p, u32p,               # p0 pos/value/range/bitcount
+        u8p, u64p,                            # parts_all, parts_off
+        u64p, i32p,                           # part_bounds, part_bounds_off
+        i32p,                                 # num_parts
+        i32p, i32p,                           # mb_dims, hdr_flags
+        u8p, u8p, i32p,                       # seg_probs, coeff_probs, quants
+        i16p, u64p,                           # coeffs_all, coeffs_off
+        u8p, u64p,                            # modes_all, modes_off
+        i32p,                                 # rc_out
     ]
 
 

@@ -1,0 +1,455 @@
+"""VP8 (WebP lossy) decoder, host half: headers and the symbol engines.
+
+The decode is split in two.  This module runs the sequential entropy
+decode on the host: the frame header in Python, then the per-MB modes
+and coefficient tokens in the native C++ layer (ctypes, GIL released).
+It produces dense per-MB arrays: dequantized coefficients, modes and
+loop-filter parameters.  Everything pixel-shaped (iDCT, intra
+prediction, the loop filter, upsampling and colour conversion) runs on
+the device in ops/vp8_recon.py, ops/yuv.py and the yuv420_to_rgba kernel.
+
+Written from RFC 6386.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from ...constants import VP8_SIGNATURE
+from ...entropy.bool_coder import BoolDecoder
+from ...entropy.native_loader import get_lib
+from ...errors import BitstreamError, UnsupportedFeature
+from .tables import AC_QUANT, COEFF_PROBAS, COEFF_UPDATE_PROBAS, DC_QUANT
+
+# ---------------------------------------------------------------------------
+# Headers
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class SegmentHeader:
+    use_segment: bool = False
+    update_map: bool = False
+    absolute_delta: bool = True
+    quantizer: list = field(default_factory=lambda: [0] * 4)
+    filter_strength: list = field(default_factory=lambda: [0] * 4)
+
+
+@dataclass
+class FilterHeader:
+    simple: bool = False
+    level: int = 0
+    sharpness: int = 0
+    use_lf_delta: bool = False
+    ref_lf_delta: list = field(default_factory=lambda: [0] * 4)
+    mode_lf_delta: list = field(default_factory=lambda: [0] * 4)
+
+
+@dataclass
+class QuantMatrix:
+    y1_dc: int = 0
+    y1_ac: int = 0
+    y2_dc: int = 0
+    y2_ac: int = 0
+    uv_dc: int = 0
+    uv_ac: int = 0
+
+
+@dataclass
+class FrameState:
+    width: int = 0
+    height: int = 0
+    mb_w: int = 0
+    mb_h: int = 0
+    segment_hdr: SegmentHeader = field(default_factory=SegmentHeader)
+    filter_hdr: FilterHeader = field(default_factory=FilterHeader)
+    filter_type: int = 0            # 0=none, 1=simple, 2=complex
+    dqm: list = field(default_factory=list)        # QuantMatrix per segment
+    segment_probs: list = field(default_factory=lambda: [255] * 3)
+    coeff_probs: np.ndarray | None = None           # (4,8,3,11)
+    use_skip_proba: bool = False
+    skip_p: int = 0
+    partition_bytes: list = field(default_factory=list)
+
+    def quant_rows(self) -> np.ndarray:
+        """(4, 6) int32 [y1_dc, y1_ac, y2_dc, y2_ac, uv_dc, uv_ac] rows."""
+        return np.array([[m.y1_dc, m.y1_ac, m.y2_dc, m.y2_ac, m.uv_dc,
+                          m.uv_ac] for m in self.dqm], np.int32)
+
+
+def _clip(v, mx):
+    return 0 if v < 0 else (mx if v > mx else v)
+
+
+def parse_frame_header(payload: bytes) -> tuple[FrameState, BoolDecoder]:
+    """Parse the uncompressed frame tag + first partition headers."""
+    if len(payload) < 10:
+        raise BitstreamError("VP8 payload too small")
+    tag = payload[0] | (payload[1] << 8) | (payload[2] << 16)
+    if tag & 1:
+        raise UnsupportedFeature("not a key frame")
+    show = (tag >> 4) & 1
+    part0_len = tag >> 5
+    if not show:
+        raise UnsupportedFeature("non-displayable frame")
+    if ((payload[3] << 16) | (payload[4] << 8) | payload[5]) != VP8_SIGNATURE:
+        raise BitstreamError("bad VP8 start code")
+    st = FrameState()
+    st.width = (payload[6] | (payload[7] << 8)) & 0x3FFF
+    st.height = (payload[8] | (payload[9] << 8)) & 0x3FFF
+    if st.width == 0 or st.height == 0:
+        raise BitstreamError("bad dimensions")
+    st.mb_w = (st.width + 15) >> 4
+    st.mb_h = (st.height + 15) >> 4
+
+    body = payload[10:]
+    if part0_len > len(body):
+        raise BitstreamError("bad partition0 length")
+    bd = BoolDecoder(body[:part0_len])
+
+    bd.get_flag()  # color_space
+    bd.get_flag()  # clamp_type
+
+    # Segment header (RFC 9.3).
+    sh = st.segment_hdr
+    sh.use_segment = bool(bd.get_flag())
+    if sh.use_segment:
+        sh.update_map = bool(bd.get_flag())
+        if bd.get_flag():  # update data
+            sh.absolute_delta = bool(bd.get_flag())
+            for s in range(4):
+                sh.quantizer[s] = bd.get_signed_literal(7) if bd.get_flag() else 0
+            for s in range(4):
+                sh.filter_strength[s] = bd.get_signed_literal(6) if bd.get_flag() else 0
+        if sh.update_map:
+            for s in range(3):
+                st.segment_probs[s] = bd.get_literal(8) if bd.get_flag() else 255
+
+    # Filter header (RFC 9.4).
+    fh = st.filter_hdr
+    fh.simple = bool(bd.get_flag())
+    fh.level = bd.get_literal(6)
+    fh.sharpness = bd.get_literal(3)
+    fh.use_lf_delta = bool(bd.get_flag())
+    if fh.use_lf_delta:
+        if bd.get_flag():
+            for i in range(4):
+                if bd.get_flag():
+                    fh.ref_lf_delta[i] = bd.get_signed_literal(6)
+            for i in range(4):
+                if bd.get_flag():
+                    fh.mode_lf_delta[i] = bd.get_signed_literal(6)
+    st.filter_type = 0 if fh.level == 0 else (1 if fh.simple else 2)
+
+    # Token partitions (RFC 9.5).
+    rest = body[part0_len:]
+    num_parts = 1 << bd.get_literal(2)
+    sizes_bytes = 3 * (num_parts - 1)
+    if len(rest) < sizes_bytes:
+        raise BitstreamError("cannot read partition sizes")
+    pos = sizes_bytes
+    for p in range(num_parts - 1):
+        psz = rest[3 * p] | (rest[3 * p + 1] << 8) | (rest[3 * p + 2] << 16)
+        psz = min(psz, len(rest) - pos)
+        st.partition_bytes.append(rest[pos : pos + psz])
+        pos += psz
+    st.partition_bytes.append(rest[pos:])
+
+    # Quantizers (RFC 9.6).
+    base_q0 = bd.get_literal(7)
+    dqy1_dc = bd.get_signed_literal(4) if bd.get_flag() else 0
+    dqy2_dc = bd.get_signed_literal(4) if bd.get_flag() else 0
+    dqy2_ac = bd.get_signed_literal(4) if bd.get_flag() else 0
+    dquv_dc = bd.get_signed_literal(4) if bd.get_flag() else 0
+    dquv_ac = bd.get_signed_literal(4) if bd.get_flag() else 0
+    st.dqm = []
+    for s in range(4):
+        if sh.use_segment:
+            q = sh.quantizer[s] + (0 if sh.absolute_delta else base_q0)
+        else:
+            q = base_q0
+        m = QuantMatrix()
+        m.y1_dc = int(DC_QUANT[_clip(q + dqy1_dc, 127)])
+        m.y1_ac = int(AC_QUANT[_clip(q, 127)])
+        m.y2_dc = int(DC_QUANT[_clip(q + dqy2_dc, 127)]) * 2
+        m.y2_ac = max(8, (int(AC_QUANT[_clip(q + dqy2_ac, 127)]) * 101581) >> 16)
+        m.uv_dc = int(DC_QUANT[_clip(q + dquv_dc, 117)])
+        m.uv_ac = int(AC_QUANT[_clip(q + dquv_ac, 127)])
+        st.dqm.append(m)
+
+    # Probability updates (RFC 9.8-9.11): ~1100 boolean decisions, parsed
+    # natively so that the batch decoder's threads do not serialise on
+    # the GIL here.
+    st.coeff_probs = _parse_probs_native(st, bd)
+    return st, bd
+
+
+_UPDATE_PROBAS_U8 = np.ascontiguousarray(COEFF_UPDATE_PROBAS, np.uint8).reshape(-1)
+
+
+def _parse_probs_native(st: FrameState, bd: BoolDecoder) -> np.ndarray:
+    """Native coeff-proba block parse; syncs the bool decoder state and
+    sets ``st``'s skip probability.  Returns the (4, 8, 3, 11) table."""
+    lib = get_lib()
+    pflat = np.ascontiguousarray(COEFF_PROBAS, np.uint8).reshape(-1).copy()
+    state = np.array([bd.pos, bd.value, bd.range, bd.bit_count], np.uint64)
+    data = bd.data if isinstance(bd.data, bytes) else bytes(bd.data)
+    dview = np.frombuffer(data, np.uint8)   # zero-copy view
+    rc = lib.wtpu_vp8_parse_probs(
+        dview.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), len(data),
+        state.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+        _UPDATE_PROBAS_U8.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        pflat.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+    )
+    if rc < 0:
+        raise BitstreamError("truncated frame header")
+    bd.pos, bd.value, bd.range, bd.bit_count = (
+        int(state[0]), int(state[1]), int(state[2]), int(state[3]))
+    st.use_skip_proba = bool(rc >> 8)
+    st.skip_p = rc & 0xFF
+    return pflat.reshape(COEFF_PROBAS.shape)
+
+
+# ---------------------------------------------------------------------------
+# Loop-filter strengths
+# ---------------------------------------------------------------------------
+
+
+def _precompute_filter_info(st: FrameState):
+    """Per (segment, is_i4): (limit, ilevel, hev_thresh) or None."""
+    fh = st.filter_hdr
+    info = [[None, None] for _ in range(4)]
+    if st.filter_type == 0:
+        return info
+    for s in range(4):
+        if st.segment_hdr.use_segment:
+            base = st.segment_hdr.filter_strength[s]
+            if not st.segment_hdr.absolute_delta:
+                base += fh.level
+        else:
+            base = fh.level
+        for i4 in range(2):
+            level = base
+            if fh.use_lf_delta:
+                level += fh.ref_lf_delta[0]
+                if i4:
+                    level += fh.mode_lf_delta[0]
+            level = _clip(level, 63)
+            if level > 0:
+                ilevel = level
+                if fh.sharpness > 0:
+                    ilevel = ilevel >> 2 if fh.sharpness > 4 else ilevel >> 1
+                    ilevel = min(ilevel, 9 - fh.sharpness)
+                ilevel = max(1, ilevel)
+                hev_t = 2 if level >= 40 else (1 if level >= 15 else 0)
+                info[s][i4] = (2 * level + ilevel, ilevel, hev_t)
+            else:
+                info[s][i4] = None
+    return info
+
+
+def vp8_filter_params(st: FrameState, modes: np.ndarray) -> np.ndarray:
+    """Per-MB loop-filter parameters for the device filter.
+
+    Returns int32 (mb_h, mb_w, 4): [limit, ilevel, hev_thresh, inner];
+    limit < 0 disables filtering for the MB.
+    """
+    finfo = _precompute_filter_info(st)
+    n = st.mb_w * st.mb_h
+    out = np.full((n, 4), -1, np.int32)
+    if st.filter_type == 0:
+        return out.reshape(st.mb_h, st.mb_w, 4)
+    is_i4 = modes[:, 0].astype(np.int64)
+    seg = modes[:, 2].astype(np.int64)
+    skip = modes[:, 3].astype(np.int64)
+    for s in range(4):
+        for i4 in range(2):
+            fi = finfo[s][i4]
+            if fi is None:
+                continue
+            sel = (seg == s) & (is_i4 == i4)
+            out[sel, 0] = fi[0]
+            out[sel, 1] = fi[1]
+            out[sel, 2] = fi[2]
+    # inner edges filter when the MB is i4 or has coefficients
+    inner = ((is_i4 != 0) | (skip == 0)).astype(np.int32)
+    out[:, 3] = inner
+    return out.reshape(st.mb_h, st.mb_w, 4)
+
+
+# ---------------------------------------------------------------------------
+# Symbol engines
+# ---------------------------------------------------------------------------
+
+
+def _partition_bounds(st: FrameState) -> tuple[bytes, np.ndarray]:
+    """All token partitions back to back, and their (P + 1) byte offsets."""
+    bounds = np.zeros(len(st.partition_bytes) + 1, np.uint64)
+    bounds[1:] = np.cumsum([len(pb) for pb in st.partition_bytes])
+    return b"".join(st.partition_bytes), bounds
+
+
+def decode_vp8_symbols(payload: bytes):
+    """Host entropy phase of one image, single-stream engine.
+
+    Returns ``(st, coeffs, modes)``: ``coeffs`` int16 (mb_h*mb_w, 24, 16)
+    dequantized coefficients in raster order within each block (luma DCs
+    already inverse-WHT'd for i16 MBs), ``modes`` uint8 (mb_h*mb_w, 21):
+    [is_i4, uvmode, segment, skip, dither, imodes x16].
+    """
+    st, bd = parse_frame_header(payload)
+    n = st.mb_w * st.mb_h
+    coeffs = np.zeros((n, 24, 16), np.int16)
+    modes = np.zeros((n, 21), np.uint8)
+    _decode_vp8_symbols_native(st, bd, coeffs, modes)
+    return st, coeffs, modes
+
+
+def _decode_vp8_symbols_native(st: FrameState, bd: BoolDecoder,
+                               coeffs: np.ndarray, modes: np.ndarray) -> None:
+    """C++ single-stream entropy decode into the provided arrays."""
+    lib = get_lib()
+    parts, offsets = _partition_bounds(st)
+    seg_probs = np.array(st.segment_probs, np.uint8)
+    probs = np.ascontiguousarray(st.coeff_probs, np.uint8)
+    quants = st.quant_rows()
+    p0 = bd.data if isinstance(bd.data, bytes) else bytes(bd.data)
+    p0_buf = (ctypes.c_uint8 * len(p0)).from_buffer_copy(p0) if p0 else None
+    parts_buf = (ctypes.c_uint8 * max(1, len(parts))).from_buffer_copy(
+        parts if parts else b"\x00"
+    )
+    rc = lib.wtpu_vp8_decode_symbols(
+        p0_buf, len(p0), bd.pos, bd.value, bd.range, bd.bit_count,
+        parts_buf,
+        offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+        len(st.partition_bytes),
+        st.mb_w, st.mb_h,
+        int(st.segment_hdr.update_map),
+        seg_probs.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        int(st.use_skip_proba), st.skip_p,
+        probs.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        quants.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        coeffs.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)),
+        modes.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+    )
+    if rc != 0:
+        raise BitstreamError(f"native vp8 symbol decode failed (code {rc})")
+
+
+def symbol_engine() -> str:
+    """"vector" when the interleaved batch engine was built with its
+    AVX-512 step (then decode_vp8_symbols_batch uses it), else
+    "single-stream"."""
+    return "vector" if get_lib().wtpu_vp8_batch_is_vectorized() else \
+        "single-stream"
+
+
+def decode_vp8_symbols_batch(payloads: list):
+    """Entropy phase of many images; per-image output as
+    :func:`decode_vp8_symbols`.
+
+    Where the native layer was built with AVX-512, all images' token
+    partitions are decoded as interleaved bitstreams in ONE native call
+    (entropy/native/vp8_dec_batch.cpp): the boolean decoder is a serial
+    dependency chain, so stepping many independent chains in vector
+    lanes overlaps them.  Elsewhere that engine's scalar round-robin is
+    slower than the single-stream decoder, which then runs per image.
+    Both give identical arrays.
+    """
+    lib = get_lib()
+    if not lib.wtpu_vp8_batch_is_vectorized():
+        return [decode_vp8_symbols(p) for p in payloads]
+
+    n = len(payloads)
+    sts = []
+    p0s, poss, vals, rngs, bcs = [], [], [], [], []
+    parts_list, bounds_list, nparts = [], [], []
+    dims, flags, segps, probs_l, quants_l = [], [], [], [], []
+    for payload in payloads:
+        st, bd = parse_frame_header(payload)
+        sts.append(st)
+        p0 = bd.data if isinstance(bd.data, bytes) else bytes(bd.data)
+        p0s.append(np.frombuffer(p0, np.uint8))
+        poss.append(bd.pos)
+        vals.append(bd.value)
+        rngs.append(bd.range)
+        bcs.append(bd.bit_count)
+        parts, bounds = _partition_bounds(st)
+        parts_list.append(np.frombuffer(parts, np.uint8)
+                          if parts else np.zeros(1, np.uint8))
+        bounds_list.append(bounds)
+        nparts.append(len(st.partition_bytes))
+        dims.append((st.mb_w, st.mb_h))
+        flags.append((int(st.segment_hdr.update_map),
+                      int(st.use_skip_proba), st.skip_p))
+        segps.append(np.array(st.segment_probs, np.uint8))
+        probs_l.append(np.ascontiguousarray(st.coeff_probs,
+                                            np.uint8).reshape(-1))
+        quants_l.append(st.quant_rows().reshape(-1))
+
+    def flat(arrs, dtype):
+        off = np.zeros(len(arrs) + 1, np.uint64)
+        off[1:] = np.cumsum([a.size for a in arrs])
+        return np.ascontiguousarray(np.concatenate(arrs).astype(dtype)), off
+
+    p0_all, p0_off = flat(p0s, np.uint8)
+    parts_all, parts_off = flat(parts_list, np.uint8)
+    bounds_all = np.concatenate(bounds_list).astype(np.uint64)
+    bounds_off = np.zeros(n, np.int32)
+    bounds_off[1:] = np.cumsum([b.size for b in bounds_list[:-1]])
+    totals = np.array([w * h for w, h in dims], np.int64)
+    coeffs_off = np.zeros(n + 1, np.uint64)
+    coeffs_off[1:] = np.cumsum(totals * 24 * 16)
+    modes_off = np.zeros(n + 1, np.uint64)
+    modes_off[1:] = np.cumsum(totals * 21)
+    coeffs_all = np.empty(int(coeffs_off[-1]), np.int16)
+    modes_all = np.empty(int(modes_off[-1]), np.uint8)
+    rc = np.zeros(n, np.int32)
+
+    def cp(a, t):
+        return a.ctypes.data_as(ctypes.POINTER(t))
+
+    u8, i16, i32, u32, u64 = (ctypes.c_uint8, ctypes.c_int16, ctypes.c_int32,
+                              ctypes.c_uint32, ctypes.c_uint64)
+    nfail = lib.wtpu_vp8_decode_symbols_batch(
+        n, cp(p0_all, u8), cp(p0_off, u64),
+        cp(np.array(poss, np.uint64), u64),
+        cp(np.array(vals, np.uint32), u32),
+        cp(np.array(rngs, np.uint32), u32),
+        cp(np.array(bcs, np.uint32), u32),
+        cp(parts_all, u8), cp(parts_off, u64),
+        cp(bounds_all, u64), cp(bounds_off, i32),
+        cp(np.array(nparts, np.int32), i32),
+        cp(np.array(dims, np.int32).reshape(-1), i32),
+        cp(np.array(flags, np.int32).reshape(-1), i32),
+        cp(np.concatenate(segps), u8),
+        cp(np.concatenate(probs_l), u8),
+        cp(np.concatenate(quants_l).astype(np.int32), i32),
+        cp(coeffs_all, i16), cp(coeffs_off, u64),
+        cp(modes_all, u8), cp(modes_off, u64),
+        cp(rc, i32),
+    )
+    if nfail:
+        bad = [i for i in range(n) if rc[i] != 0]
+        raise BitstreamError(
+            f"native batch vp8 symbol decode failed for images {bad}")
+    out = []
+    for i, st in enumerate(sts):
+        t = int(totals[i])
+        coeffs = coeffs_all[int(coeffs_off[i]):int(coeffs_off[i + 1])]
+        modes = modes_all[int(modes_off[i]):int(modes_off[i + 1])]
+        out.append((st, coeffs.reshape(t, 24, 16), modes.reshape(t, 21)))
+    return out
+
+
+__all__ = [
+    "FrameState",
+    "decode_vp8_symbols",
+    "decode_vp8_symbols_batch",
+    "parse_frame_header",
+    "symbol_engine",
+    "vp8_filter_params",
+]

@@ -39,6 +39,7 @@ import torch
 from ..config import EncoderConfig
 from ..constants import CHUNK_VP8
 from ..container.riff import Chunk, assemble_simple
+from ..device import StageClock, resolve_device
 from ..errors import EncodeError
 from ..models.vp8.encoder import (ERROR_DIFFUSION_QUALITY, _default_cost_tables,
                                   _i4_config_seg, _segment_tree_probs,
@@ -48,19 +49,6 @@ from ..params import params_from_numpy
 from .encode_wavefront import encode_hybrid_core
 
 GROUP = 4  # coefficients per group state
-
-
-def resolve_device(device=None) -> torch.device:
-    """None means CUDA.  A CUDA device without CUDA raises: the CPU runs
-    only when the caller asks for it."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available; pass device='cpu' to run the plain "
-            "torch versions of the kernels")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev
 
 
 def _plan(h: int, w: int):
@@ -212,36 +200,6 @@ def _bucket(kmax: int, cap: int) -> int:
     while b < kmax:
         b *= 2
     return min(b, cap)
-
-
-class _StageClock:
-    """Stage boundaries of one chunk: CUDA events on the current stream
-    (device time), or the host clock on the CPU (which computes
-    synchronously)."""
-
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
-        self.names, self.stamps = [], []
-        self("start")
-
-    def __call__(self, name: str) -> None:
-        if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.stamps.append(ev)
-        else:
-            self.stamps.append(time.perf_counter())
-        self.names.append(name)
-
-    def spans_ms(self) -> dict:
-        """Milliseconds per stage; call once the stream passed the last
-        mark."""
-        if self.cuda:
-            self.stamps[-1].synchronize()
-            ms = [a.elapsed_time(b) for a, b in zip(self.stamps, self.stamps[1:])]
-        else:
-            ms = [(b - a) * 1e3 for a, b in zip(self.stamps, self.stamps[1:])]
-        return dict(zip(self.names[1:], ms))
 
 
 def encode_rgba_batch_pipelined(images, *, quality: float = 75.0,
@@ -416,7 +374,7 @@ def encode_rgba_batch_pipelined(images, *, quality: float = 75.0,
             prepped = nxt.result()
             if i + 1 < len(starts):        # host prep of the next chunk
                 nxt = ahead.submit(prep_chunk, starts[i + 1], pool)
-            clock = _StageClock(dev) if timings is not None else None
+            clock = StageClock(dev) if timings is not None else None
             out = dispatch(prepped, clock)
             got = fetch(out, clock)
             if clock is not None:
@@ -442,6 +400,5 @@ def encode_rgba_batch_pipelined(images, *, quality: float = 75.0,
 __all__ = [
     "encode_rgba_batch_pipelined",
     "planes_wavefront_packed_step",
-    "resolve_device",
     "unpack_g4v2",
 ]

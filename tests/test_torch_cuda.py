@@ -1,5 +1,6 @@
 """PyTorch port on the card: each CUDA kernel vs its plain torch version,
-and the batch encode's GPU bytes vs its CPU bytes, at small sizes.
+the batch encode's GPU bytes vs its CPU bytes, and the batch decode's GPU
+pixels vs its CPU pixels, at small sizes.
 
 Marked ``cuda``; every test skips on a host without a CUDA GPU.  This
 file imports nothing of JAX, so it runs on a GPU machine without JAX:
@@ -99,3 +100,63 @@ def test_batch_encode_gpu_bytes_equal_cpu_bytes(cuda):
     for quality in (75.0, 99.0):
         got = encode_rgba_batch(imgs, quality=quality, device="cuda")
         assert got == encode_rgba_batch(imgs, quality=quality, device="cpu")
+
+
+@pytest.mark.parametrize("b,h,w,ph,pw,alpha", [
+    (3, 61, 95, 64, 96, False),     # MB-padded planes, odd visible size
+    (2, 64, 96, 64, 96, True),      # even size, alpha plane
+    (1, 1, 1, 16, 16, False),
+    (2, 17, 2, 32, 16, True),
+    (1, 40, 33, 48, 48, False),
+])
+def test_yuv420_to_rgba_kernel_matches_plain(cuda, b, h, w, ph, pw, alpha):
+    from gowebp_tpu_torch.ops.kernels.yuv420_to_rgba import (
+        yuv420_to_rgba, yuv420_to_rgba_plain)
+
+    g = torch.Generator().manual_seed(h * 1000 + w)
+    U8 = torch.uint8
+    y = torch.randint(0, 256, (b, ph, pw), generator=g, dtype=U8)
+    u = torch.randint(0, 256, (b, ph // 2, pw // 2), generator=g, dtype=U8)
+    v = torch.randint(0, 256, (b, ph // 2, pw // 2), generator=g, dtype=U8)
+    a = (torch.randint(0, 256, (b, h, w), generator=g, dtype=U8)
+         if alpha else None)
+    args = [t.to(cuda) for t in (y, u, v)]
+    ad = a.to(cuda) if alpha else None
+    before = yuv420_to_rgba.launches
+    got = yuv420_to_rgba(*args, h, w, ad)
+    want = yuv420_to_rgba_plain(*args, h, w, ad)
+    torch.cuda.synchronize()
+    assert yuv420_to_rgba.launches == before + 1
+    assert got.shape == (b, h, w, 4) and torch.equal(got, want)
+
+
+def test_yuv420_to_rgba_rejects_bad_tensors(cuda):
+    from gowebp_tpu_torch.ops.kernels.yuv420_to_rgba import yuv420_to_rgba
+
+    y = torch.zeros((2, 32, 32), dtype=torch.uint8, device=cuda)
+    c = torch.zeros((2, 16, 16), dtype=torch.uint8, device=cuda)
+    with pytest.raises(TypeError):
+        yuv420_to_rgba(y.to(torch.int32), c, c, 32, 32)
+    with pytest.raises(ValueError):
+        yuv420_to_rgba(y, c[:, :, :8], c[:, :, :8], 32, 32)   # too narrow
+    with pytest.raises(ValueError):
+        yuv420_to_rgba(y, c.transpose(1, 2), c, 32, 32)       # a view
+    with pytest.raises(ValueError):
+        yuv420_to_rgba(y, c, c, 32, 32, alpha=y[:, :16])      # alpha shape
+
+
+def test_batch_decode_gpu_pixels_equal_cpu_pixels(cuda):
+    from gowebp_tpu_torch import decode_rgba_batch, encode_rgba_batch
+    from gowebp_tpu_torch.utils.corpus import natural_image
+
+    datas = []
+    for h, w in ((45, 61), (64, 64)):
+        imgs = [natural_image(h, w, seed=s) for s in (1, 2)]
+        datas += encode_rgba_batch(imgs, quality=75.0, device="cuda")
+    got = decode_rgba_batch(datas, device="cuda")
+    want = decode_rgba_batch(datas, device="cpu")
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and np.array_equal(a, b)
+    dev = decode_rgba_batch(datas, device="cuda", device_out=True)
+    for a, b in zip(dev, want):
+        assert a.is_cuda and np.array_equal(a.cpu().numpy(), b)

@@ -51,6 +51,29 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
     assert not ran
 
 
+def test_decode_default_device_is_cuda_and_raises_without_it(monkeypatch):
+    """decode_rgba_batch without device= needs CUDA too: without it, it
+    raises before any host or device work."""
+    import io
+
+    from PIL import Image
+
+    import gowebp_tpu_torch.decode as dec
+    from gowebp_tpu_torch import decode_rgba_batch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ran = []
+    monkeypatch.setattr(dec, "decode_vp8_symbols_batch",
+                        lambda *a, **k: ran.append(1))
+    buf = io.BytesIO()
+    Image.fromarray(np.zeros((16, 16, 3), np.uint8)).save(buf, "WEBP")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        decode_rgba_batch([buf.getvalue()])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        decode_rgba_batch([buf.getvalue()], device="cuda", device_out=True)
+    assert not ran
+
+
 def test_mixed_shapes_raise():
     from gowebp_tpu_torch import encode_rgba_batch
     from gowebp_tpu_torch.errors import EncodeError
