@@ -5,15 +5,19 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure raises and exits non-zero; no result is printed):
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build the three CUDA kernels from ops/kernels/*.cu (one nvcc each,
-     in parallel) and print the build time and ptxas register report;
+  2. build the five CUDA kernels from the four ops/kernels/*.cu sources
+     (one nvcc each, in parallel) and print the build time and ptxas
+     register report;
   3. hold each kernel against its plain torch version on the card, bit for
      bit, at the main paths' full shapes (i4_search: S = 16*4096 random
      sub-blocks; wavefront_fixed: B=16 at 1024x1024 with random i4/i16
      mixes and 4 segments, error diffusion on and off, recon on and off;
      yuv420_to_rgba: B=16 at 1024x1024 with and without an alpha plane,
      B=2 at 1021x1023 in MB-padded planes, and B=32 at 1024x1024, the
-     decode path's shape), and time each with CUDA events;
+     decode path's shape; encode_luma and encode_chroma: B=16 at
+     1024x1024 random planes in one wire buffer, as the open-loop path
+     lays them out, with two quantizer sets, and B=2 at odd MB counts),
+     and time each with CUDA events;
   4. the encode path: 32 natural images of 1024x1024 through
      encode_rgba_batch(device="cuda") in two chunks of 16, with the
      kernels' launch counters reset just before and read just after; then
@@ -29,7 +33,13 @@ Phases (any failure raises and exits non-zero; no result is printed):
   7. decode parity: 2 files through device="cpu" must give identical
      RGBA, and every decoded image must come within 20 dB PSNR of its
      source image (an error shared by both paths would not);
-  8. the kernels' JSON line, the card line, and the final result line.
+  8. the open-loop encode path: phase 4's 32 images through
+     encode_rgba_batch(engine="openloop", device="cuda"), with the
+     encode_luma and encode_chroma launch counters reset just before and
+     read just after; a second, timed run with the stage split; GPU bytes
+     == CPU bytes on 2 images, 32 headers checked; 4 files decoded on the
+     card, each above OPENLOOP_PSNR_FLOOR_DB against its source;
+  9. the kernels' JSON line, the card line, and the final result line.
 
 Needs a CUDA GPU, nvcc (CUDA_HOME, PATH or /usr/local/cuda) and g++.
 Imports nothing of JAX or of the gowebp_tpu package.
@@ -63,6 +73,34 @@ OPS_RATE_POS, OPS_RATE_EOB, OPS_DIST_COST = 10, 5, 60
 # quarter of a 2x2 quad's 18 chroma loads and 8 upsample taps (~10 ops
 # each), ~26 for the BT.601 conversion and clips, the luma load and store.
 OPS_YUV_PIXEL = 50
+# encode_luma / encode_chroma (ops/kernels/encode_plane.cu), per pixel:
+# the four candidates' predictions (TM: add, subtract, two clamps) and
+# squared differences (3 each); the chosen prediction and the residual.
+# Per 4x4 block: OPS_FDCT + OPS_QUANT.  Per luma MB, the Y2 path: 16
+# coefficients of 16 signed adds each, and one 16-coefficient quantization.
+OPS_SEARCH_PX, OPS_RESIDUAL_PX = 16, 4
+OPS_Y2 = 16 * 16 + OPS_QUANT
+
+# The open-loop decode's PSNR floor: 3 dB under the JAX package's
+# open-loop minimum (23.512 dB over natural_images(4, 256, 256, seed=7)
+# at q75, decoded by libwebp; tests/test_torch_encode_plane.py measures it
+# and holds this constant to it).
+OPENLOOP_PSNR_FLOOR_DB = 20.5
+
+SOURCES = {
+    "i4_search": "gowebp_tpu_torch/ops/kernels/i4_search.cu",
+    "wavefront_fixed": "gowebp_tpu_torch/ops/kernels/wavefront_fixed.cu",
+    "yuv420_to_rgba": "gowebp_tpu_torch/ops/kernels/yuv420_to_rgba.cu",
+    "encode_luma": "gowebp_tpu_torch/ops/kernels/encode_plane.cu",
+    "encode_chroma": "gowebp_tpu_torch/ops/kernels/encode_plane.cu",
+}
+REPLACES = {
+    "i4_search": "gowebp_tpu/ops/pallas/i4_search.py:286",
+    "wavefront_fixed": "gowebp_tpu/ops/pallas/wavefront_fixed.py:564",
+    "yuv420_to_rgba": "gowebp_tpu/ops/pallas/decode_post.py:162",
+    "encode_luma": "gowebp_tpu/ops/pallas/encode_plane.py:322",
+    "encode_chroma": "gowebp_tpu/ops/pallas/encode_plane.py:354",
+}
 
 
 def log(msg: str) -> None:
@@ -291,6 +329,79 @@ def check_yuv420(dev, gen):
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def plane_quants(quality: float):
+    """The open-loop path's (Y1, Y2, UV) kernel quantizer tuples."""
+    from gowebp_tpu_torch.models.vp8.encoder import make_quants, quality_to_q
+
+    q = make_quants(quality_to_q(quality))
+
+    def iq(s):
+        return (1 << 17) // s.q
+
+    return ((iq(q.y1_dc), 96 << 9, iq(q.y1_ac), 110 << 9),
+            (iq(q.y2_dc), 96 << 9, iq(q.y2_ac), 96 << 9),
+            (iq(q.uv_dc), 110 << 9, iq(q.uv_ac), 110 << 9))
+
+
+def check_encode_plane(dev, gen):
+    """Phase 3d: encode_luma and encode_chroma vs plain."""
+    import torch
+
+    from gowebp_tpu_torch.ops.kernels.encode_plane import (
+        encode_chroma, encode_chroma_plain, encode_luma, encode_luma_plain)
+
+    def planes(B, H, W):
+        """Views of one (B, 1.5*H*W) uint8 wire buffer, as the pipeline
+        uploads them."""
+        ys, cs = H * W, (H // 2) * (W // 2)
+        buf = torch.randint(0, 256, (B, ys + 2 * cs), generator=gen,
+                            dtype=torch.uint8).to(dev)
+        return (buf[:, :ys].reshape(B, H, W),
+                buf[:, ys:ys + cs].reshape(B, H // 2, W // 2),
+                buf[:, ys + cs:].reshape(B, H // 2, W // 2))
+
+    err = {"encode_luma": 0, "encode_chroma": 0}
+    for B, H, W, quality in ((16, 1024, 1024, 75.0), (16, 1024, 1024, 99.0),
+                             (2, 48, 80, 75.0), (2, 80, 48, 40.0)):
+        y, u, v = planes(B, H, W)
+        lq, y2q, cq = plane_quants(quality)
+        for name, got, want in (
+                ("encode_luma", encode_luma(y, lq, y2q),
+                 encode_luma_plain(y, lq, y2q)),
+                ("encode_chroma", encode_chroma(u, v, cq),
+                 encode_chroma_plain(u, v, cq))):
+            torch.cuda.synchronize()
+            keys = [str(i) for i in range(len(got))]
+            e = max_abs_err(dict(zip(keys, got)), dict(zip(keys, want)), keys)
+            err[name] = max(err[name], e)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"{name} kernel != plain at B={B} "
+                                     f"{H}x{W} q{quality} (max |err| {e})")
+        log(f"encode_luma, encode_chroma B={B} {H}x{W} q{quality}: bit-exact")
+
+    # timed at the open-loop path's shape and quantizers (B=16, q75)
+    B, H, W = 16, 1024, 1024
+    y, u, v = planes(B, H, W)
+    lq, y2q, cq = plane_quants(75.0)
+    n_mb = B * (H // 16) * (W // 16)
+    rows = []
+    for name, fn, plain, ins, px, blocks, y2 in (
+            ("encode_luma", lambda: encode_luma(y, lq, y2q),
+             lambda: encode_luma_plain(y, lq, y2q), (y,), 256, 16, 1),
+            ("encode_chroma", lambda: encode_chroma(u, v, cq),
+             lambda: encode_chroma_plain(u, v, cq), (u, v), 128, 8, 0)):
+        ms = time_ms(fn, reps=20, warmup=3)
+        plain_ms = time_ms(plain, reps=3)
+        nbytes = sum(t.numel() * t.element_size() for t in ins + fn())
+        ops = n_mb * (px * (OPS_SEARCH_PX + OPS_RESIDUAL_PX)
+                      + blocks * (OPS_FDCT + OPS_QUANT) + y2 * OPS_Y2)
+        bound_ms, bound_by = bound(nbytes, ops)
+        rows.append({"name": name, "max_abs_err": err[name], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by})
+    return rows
+
+
 def check_webp(data: bytes, w: int, h: int) -> None:
     """RIFF/WEBP/VP8 header sanity of one simple lossy file."""
     import struct
@@ -333,6 +444,7 @@ def main() -> int:
     from gowebp_tpu_torch.models.vp8.decoder import symbol_engine
     from gowebp_tpu_torch.ops.encode_pipeline import (
         encode_rgba_batch_pipelined)
+    from gowebp_tpu_torch.ops.kernels import encode_plane as epm
     from gowebp_tpu_torch.ops.kernels import i4_search as i4m
     from gowebp_tpu_torch.ops.kernels import wavefront_fixed as wfm
     from gowebp_tpu_torch.ops.kernels import yuv420_to_rgba as yuvm
@@ -350,10 +462,10 @@ def main() -> int:
 
     # ---- phase 2: build ----
     t0 = time.perf_counter()
-    libraries = [i4m.LIBRARY, wfm.LIBRARY, yuvm.LIBRARY]
+    libraries = [i4m.LIBRARY, wfm.LIBRARY, yuvm.LIBRARY, epm.LIBRARY]
     build_all(libraries)
-    log(f"build: 3 kernels in {time.perf_counter() - t0:.1f} s (nvcc, "
-        "parallel)")
+    log(f"build: 5 kernels from {len(libraries)} sources in "
+        f"{time.perf_counter() - t0:.1f} s (nvcc, parallel)")
     for lib in libraries:
         for line in lib.ptxas_log.splitlines():
             if "registers" in line or "spill" in line:
@@ -362,7 +474,7 @@ def main() -> int:
     # ---- phase 3: kernels vs plain versions, full shapes ----
     gen = torch.Generator().manual_seed(20261016)
     rows = [check_i4_search(dev, gen), check_wavefront(dev, gen),
-            check_yuv420(dev, gen)]
+            check_yuv420(dev, gen)] + check_encode_plane(dev, gen)
     for r in rows:
         log(f"kernel {r['name']}: bit-exact vs plain; {r['ms']:.3f} ms "
             f"(plain {r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
@@ -467,18 +579,66 @@ def main() -> int:
     if min(scores) < 20.0:
         raise AssertionError(f"decoded image below 20 dB ({min(scores):.3f})")
 
-    # ---- phase 8: result lines ----
+    # ---- phase 8: the open-loop encode path ----
+    epm.encode_luma.launches = 0
+    epm.encode_chroma.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fast = encode_rgba_batch(images, quality=75.0, device="cuda",
+                             engine="openloop")
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches["encode_luma"] = epm.encode_luma.launches
+    launches["encode_chroma"] = epm.encode_chroma.launches
+    log(f"openloop path launches: encode_luma {launches['encode_luma']}, "
+        f"encode_chroma {launches['encode_chroma']}")
+    for name in ("encode_luma", "encode_chroma"):
+        if launches[name] == 0:
+            raise AssertionError(f"openloop path never launched {name}")
+    log(f"openloop first run: {mp / first_s:.3f} MP/s e2e "
+        f"({first_s:.2f} s for 32 MP) {tag}")
+    timings = {}
+    t0 = time.perf_counter()
+    again = encode_rgba_batch_pipelined(images, quality=75.0, threads=8,
+                                        chunk=16, device="cuda",
+                                        engine="openloop", timings=timings)
+    torch.cuda.synchronize()
+    second_s = time.perf_counter() - t0
+    if again != fast:
+        raise AssertionError("second openloop run's bytes differ")
+    log(f"openloop timed run: {mp / second_s:.3f} MP/s e2e "
+        f"({second_s:.2f} s for 32 MP) {tag}")
+    for k, ms in timings["stage_ms"].items():
+        log(f"openloop stage {k}: {ms:.1f} ms total over 2 chunks {tag}")
+    log(f"openloop stage host emit: {timings['emit_thread_s'] * 1e3:.1f} ms "
+        f"summed over 32 images in 8 threads {tag}")
+    log(f"openloop bytes: {sum(len(o) for o in fast)} total, "
+        f"{sum(len(o) for o in fast) * 8 / (32 * 1024 * 1024):.4f} bpp")
+    for data in fast:
+        check_webp(data, 1024, 1024)
+    t0 = time.perf_counter()
+    cpu = encode_rgba_batch(images[:2], quality=75.0, device="cpu",
+                            engine="openloop")
+    log(f"openloop cpu parity run: 2 images in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if cpu != fast[:2]:
+        raise AssertionError("openloop GPU and CPU .webp bytes differ")
+    log("openloop parity: GPU bytes == CPU bytes on 2 images; 32 headers ok")
+    dec = decode_rgba_batch(fast[:4], device="cuda")
+    scores = [psnr(a[..., :3], im[..., :3]) for a, im in zip(dec, images)]
+    log(f"openloop PSNR vs source (4 files decoded on the card): "
+        f"{', '.join(f'{s:.3f}' for s in scores)} dB; floor "
+        f"{OPENLOOP_PSNR_FLOOR_DB} dB")
+    if min(scores) < OPENLOOP_PSNR_FLOOR_DB:
+        raise AssertionError(f"openloop decode below its PSNR floor "
+                             f"({min(scores):.3f} dB)")
+
+    # ---- phase 9: result lines ----
     kernels = []
     for r in rows:
-        src = f"gowebp_tpu_torch/ops/kernels/{r['name']}.cu"
-        replaces = {"i4_search": "gowebp_tpu/ops/pallas/i4_search.py:286",
-                    "wavefront_fixed":
-                    "gowebp_tpu/ops/pallas/wavefront_fixed.py:564",
-                    "yuv420_to_rgba":
-                    "gowebp_tpu/ops/pallas/decode_post.py:162"}[r["name"]]
         kernels.append({
-            "name": r["name"], "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[r["name"]],
+            "name": r["name"], "route": "cuda", "source": SOURCES[r["name"]],
+            "replaces": REPLACES[r["name"]], "launches": launches[r["name"]],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,

@@ -8,19 +8,25 @@ from .errors import EncodeError
 
 
 def encode_rgba_batch(images: list, *, quality: float = 75.0,
-                      threads: int = 0, device=None) -> list:
+                      threads: int = 0, device=None,
+                      engine: str = "hybrid") -> list:
     """Lossy-encode a batch of same-shaped (H, W, 3|4) uint8 images.
 
-    Runs the pipelined hybrid engine (ops/encode_pipeline.py):
-    segmentation, i4 mode search, per-segment quantizers, exact
-    closed-loop coding, native token emission.  ``device`` None means
-    CUDA and raises when CUDA is absent; pass ``device="cpu"`` to run
-    the kernels' plain versions (identical bytes).  A batch of mixed
-    shapes raises.  Returns one .webp byte string per image.
+    Runs the pipelined batch encoder (ops/encode_pipeline.py) with the
+    dense engine ``engine`` names: "hybrid" (default: segmentation, i4
+    mode search, per-segment quantizers, exact closed-loop coding) or
+    "openloop" (fastest, lower quality: one quantizer, i16 modes from
+    the source planes, prediction drift); "wavefront" is not ported yet
+    and raises ``UnsupportedFeature``.  Token emission is native.
+    ``device`` None means CUDA and raises when CUDA is absent; pass
+    ``device="cpu"`` to run the kernels' plain versions (identical
+    bytes).  A batch of mixed shapes raises.  Returns one .webp byte
+    string per image.
     """
     from .device import resolve_device
-    from .ops.encode_pipeline import encode_rgba_batch_pipelined
+    from .ops.encode_pipeline import check_engine, encode_rgba_batch_pipelined
 
+    check_engine(engine)
     if not images:
         return []
     dev = resolve_device(device)
@@ -34,7 +40,7 @@ def encode_rgba_batch(images: list, *, quality: float = 75.0,
     return encode_rgba_batch_pipelined(
         arrays, quality=quality,
         threads=(threads if threads > 0 else min(8, len(arrays))),
-        chunk=min(16, len(arrays)), device=dev)
+        chunk=min(16, len(arrays)), device=dev, engine=engine)
 
 
 __all__ = ["encode_rgba_batch"]

@@ -6,9 +6,12 @@ Per chunk of same-shaped images:
      pad to macroblock multiples, segmentation and the per-image
      quantizer/penalty rows;
   2. one h2d upload of the chunk's packed uint8 planes;
-  3. device: the hybrid encode (ops/encode_wavefront.py: cold search,
-     wavefront, refine search with the i4 kernel, wavefront) and a
-     group-of-4 nibble/byte pack of the level tensors (G4PACKv2);
+  3. device: the dense encode and a group-of-4 nibble/byte pack of the
+     level tensors (G4PACKv2).  engine="hybrid" runs
+     ops/encode_wavefront.py (cold search, wavefront, refine search with
+     the i4 kernel, wavefront); engine="openloop" runs
+     ops/encode_plane.py (the luma and chroma plane kernels, no
+     segmentation, one quantizer set, i16 modes only);
   4. one d2h download of a single fused uint8 buffer;
   5. host (thread pool, overlapping the next chunk's device work):
      unpack to dense int16 levels and two-pass token emission through
@@ -40,15 +43,28 @@ from ..config import EncoderConfig
 from ..constants import CHUNK_VP8
 from ..container.riff import Chunk, assemble_simple
 from ..device import StageClock, resolve_device
-from ..errors import EncodeError
+from ..errors import EncodeError, UnsupportedFeature
 from ..models.vp8.encoder import (ERROR_DIFFUSION_QUALITY, _default_cost_tables,
                                   _i4_config_seg, _segment_tree_probs,
                                   analyze_segments, emit_frame_arrays,
                                   make_quants, quality_to_q, rgb_to_yuv420)
 from ..params import params_from_numpy
+from .encode_plane import encode_plane_core_v2
 from .encode_wavefront import encode_hybrid_core
 
 GROUP = 4  # coefficients per group state
+ENGINES = ("hybrid", "openloop")
+
+
+def check_engine(engine: str) -> None:
+    """Raise unless ``engine`` names a ported dense encoder."""
+    if engine == "wavefront":
+        raise UnsupportedFeature(
+            'engine="wavefront" (the exact full-search wavefront) is not '
+            "ported yet (ROADMAP.md Queue 1 item 2)")
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r}; expected one of "
+                         f"{ENGINES}")
 
 
 def _plan(h: int, w: int):
@@ -150,30 +166,41 @@ def planes_wavefront_packed_step(y, u, v, seg_map, qsteps, tables, *,
     Everything stays on the planes' device; the modes and the dense
     levels ride along for emission and the escape path.
     """
-    B, H, W = y.shape
-    plan = _plan(H, W)
     out = encode_hybrid_core(y, u, v, seg_map, qsteps, tables,
                              i4_penalty=i4_penalty, use_derr=use_derr,
                              marks=marks)
+    return _with_pack(out, y.shape, cap_s, cap_b, marks)
+
+
+def planes_packed_step(y, u, v, *, y1_dc, y1_ac, y2_dc, y2_ac, uv_dc,
+                       uv_ac, cap_s, cap_b, marks=None):
+    """uint8 MB-padded YUV420 planes → open-loop encode + G4PACKv2.
+
+    One quantizer set for every MB (no segments); the result carries no
+    is_i4/imodes (every MB is i16).
+    """
+    out = encode_plane_core_v2(y, u, v, y1_dc=y1_dc, y1_ac=y1_ac,
+                               y2_dc=y2_dc, y2_ac=y2_ac, uv_dc=uv_dc,
+                               uv_ac=uv_ac, marks=marks)
+    return _with_pack(out, y.shape, cap_s, cap_b, marks)
+
+
+def _with_pack(out, shape, cap_s: int, cap_b: int, marks):
+    """The dense engine's outputs plus their G4PACKv2 pack."""
     mask2, small, big, cs, cb, maxabs = _pack_g4v2(
-        _levels_to_flat(out, plan), cap_s, cap_b)
+        _levels_to_flat(out, _plan(shape[1], shape[2])), cap_s, cap_b)
     if marks is not None:
         marks("pack")
-    return {
-        "mask2": mask2, "small": small, "big": big,
-        "hdr": torch.stack([cs, cb, maxabs], dim=1),
-        "ymode": out["ymode"], "uvmode": out["uvmode"],
-        "is_i4": out["is_i4"], "imodes": out["imodes"],
-        "y_levels": out["y_levels"], "y2_levels": out["y2_levels"],
-        "uv_levels": out["uv_levels"],
-    }
+    return dict(out, mask2=mask2, small=small, big=big,
+                hdr=torch.stack([cs, cb, maxabs], dim=1))
 
 
 def _export_packed_v2(out, *, ks: int, kb: int):
     """One fused uint8 device buffer per chunk (one d2h).
 
     Per image: [hdr (counts_s, counts_b, maxabs) int32 as 12 bytes |
-    mask2 | small[:ks] | big[:kb] | ymode | uvmode | is_i4 | imodes].
+    mask2 | small[:ks] | big[:kb] | ymode | uvmode], then, for the
+    hybrid engine only, [is_i4 | imodes].
     """
     B = out["mask2"].shape[0]
     u8 = torch.uint8
@@ -184,9 +211,10 @@ def _export_packed_v2(out, *, ks: int, kb: int):
         out["big"][:, :kb].contiguous().view(u8).reshape(B, -1),
         out["ymode"].reshape(B, -1).to(u8),
         out["uvmode"].reshape(B, -1).to(u8),
-        out["is_i4"].reshape(B, -1).to(u8),
-        out["imodes"].reshape(B, -1).to(u8),
     ]
+    if "is_i4" in out:
+        parts += [out["is_i4"].reshape(B, -1).to(u8),
+                  out["imodes"].reshape(B, -1).to(u8)]
     return torch.cat(parts, dim=1)
 
 
@@ -204,10 +232,14 @@ def _bucket(kmax: int, cap: int) -> int:
 
 def encode_rgba_batch_pipelined(images, *, quality: float = 75.0,
                                 threads: int = 2, chunk: int = 8,
-                                device=None, timings: dict | None = None):
-    """Lossy-encode same-shaped uint8 RGB(A) images with the hybrid engine.
+                                device=None, engine: str = "hybrid",
+                                timings: dict | None = None):
+    """Lossy-encode same-shaped uint8 RGB(A) images.
 
     Default encoder settings (method 4, 4 segments) at ``quality``.
+    ``engine`` "hybrid" runs the exact closed-loop hybrid encode;
+    "openloop" the open-loop plane engine (fastest, lower quality: no
+    segmentation, i16 modes only, prediction drift).
 
     Returns a list of complete .webp byte strings (order preserved).
     ``device`` None means CUDA (raises without it); "cpu" runs the
@@ -216,9 +248,11 @@ def encode_rgba_batch_pipelined(images, *, quality: float = 75.0,
     stages from CUDA events on a GPU), host emit seconds under
     "emit_thread_s" and the wall clock under "total".
     """
+    check_engine(engine)
     if not images:
         return []
     dev = resolve_device(device)
+    openloop = engine == "openloop"
     t_total = time.perf_counter()
     config = EncoderConfig(lossless=False, quality=quality)
     config.validate()
@@ -234,6 +268,8 @@ def encode_rgba_batch_pipelined(images, *, quality: float = 75.0,
                 sq.uv_dc.q, sq.uv_ac.q)
 
     base_row = np.array(qrow(q), np.int32)
+    quants = dict(zip(("y1_dc", "y1_ac", "y2_dc", "y2_ac", "uv_dc", "uv_ac"),
+                      (int(x) for x in base_row)))
     first = np.asarray(images[0])
     h, w = first.shape[:2]
     plan = _plan(h + (h & 1), w + (w & 1))
@@ -250,7 +286,8 @@ def encode_rgba_batch_pipelined(images, *, quality: float = 75.0,
             timings.setdefault(k, 0.0)
 
     def prep_one(im):
-        """Host: MB-padded planes in one wire buffer + segmentation."""
+        """Host: MB-padded planes in one wire buffer + segmentation (the
+        hybrid engine only)."""
         im = np.asarray(im)
         if im.shape[:2] != (h, w):
             raise EncodeError("all images of a batch must share one shape")
@@ -269,7 +306,7 @@ def encode_rgba_batch_pipelined(images, *, quality: float = 75.0,
         flat = np.concatenate([yp.reshape(-1), up.reshape(-1), vp.reshape(-1)])
         rows = np.broadcast_to(base_row, (4, 6))
         seg = None
-        if config.segments > 1:
+        if not openloop and config.segments > 1:
             seg_map, deltas = analyze_segments(
                 yp, mw, mh, config.segments, config.sns_strength, base_q)
             if len(set(deltas[: config.segments])) > 1:
@@ -281,7 +318,8 @@ def encode_rgba_batch_pipelined(images, *, quality: float = 75.0,
                                for d in deltas],
                 }
                 rows = np.array([qrow(s) for s in seg["quants"]], np.int32)
-        _, pens = _i4_config_seg(rows, config.method, config.partition_limit)
+        pens = (np.zeros(4, np.int32) if openloop else
+                _i4_config_seg(rows, config.method, config.partition_limit)[1])
         return flat, seg, rows, pens
 
     def emit_one(j, fetched, seg, dense):
@@ -312,6 +350,9 @@ def encode_rgba_batch_pipelined(images, *, quality: float = 75.0,
         yd = buf[:, :ys_len].reshape(B, H, W)
         ud = buf[:, ys_len:ys_len + cs_len].reshape(B, H // 2, W // 2)
         vd = buf[:, ys_len + cs_len:].reshape(B, H // 2, W // 2)
+        if openloop:
+            return planes_packed_step(yd, ud, vd, cap_s=cap_s, cap_b=cap_b,
+                                      marks=clock, **quants)
         seg_maps = np.stack([
             (s["map"].reshape(mh, mw) if s is not None
              else np.zeros((mh, mw), np.int32)) for s in segs])
@@ -351,8 +392,12 @@ def encode_rgba_batch_pipelined(images, *, quality: float = 75.0,
             nb, kb, GROUP); o += kb * GROUP
         got["ymode"] = buf[:, o:o + t]; o += t
         got["uvmode"] = buf[:, o:o + t]; o += t
-        got["is_i4"] = buf[:, o:o + t]; o += t
-        got["imodes"] = buf[:, o:o + t * 16].reshape(nb, t, 16)
+        if "is_i4" in out:
+            got["is_i4"] = buf[:, o:o + t]; o += t
+            got["imodes"] = buf[:, o:o + t * 16].reshape(nb, t, 16)
+        else:                      # open-loop: every MB i16
+            got["is_i4"] = np.zeros((nb, t), np.uint8)
+            got["imodes"] = (None,) * nb
         return got
 
     results = [None] * n
@@ -398,7 +443,9 @@ def encode_rgba_batch_pipelined(images, *, quality: float = 75.0,
 
 
 __all__ = [
+    "check_engine",
     "encode_rgba_batch_pipelined",
+    "planes_packed_step",
     "planes_wavefront_packed_step",
     "unpack_g4v2",
 ]

@@ -32,7 +32,7 @@ from .dct import BIAS
 from .kernels.i4_search import i4_search, t3_tables
 from .kernels.wavefront_fixed import wavefront_fixed
 from .rate import block_rate256, mul_shr16
-from .vp8_recon import predict4_blocks
+from .vp8_recon import mb_context, predict4_blocks
 
 I32 = torch.int32
 
@@ -46,41 +46,6 @@ def _per_mb(table, seg):
     """(B, 4, ...) per-segment rows → (B, N, ...) per-MB rows."""
     B = table.shape[0]
     return table[torch.arange(B, device=seg.device)[:, None], seg]
-
-
-def _mb_context(cy, mh, mw, size):
-    """Plane (B, H, W) → per-MB top/left/top-left context (B, N, ...).
-
-    Edge rules of the closed-loop engine: the top MB row reads 127
-    (corner included), the left MB column 129; the top-right 4 pixels
-    of the last MB column repeat the row above's last pixel.
-    Returns (top (B,N,s), tr4 (B,N,4) [luma only, else None],
-    left (B,N,s), tl (B,N)) with the edge fills applied, plus the (N,)
-    have_top/have_left masks.
-    """
-    B = cy.shape[0]
-    dev = cy.device
-    my = torch.arange(mh, device=dev)
-    mx = torch.arange(mw, device=dev)
-    row_above = cy[:, (size * my - 1).clamp_min(0)]            # (B, mh, W)
-    top = row_above.reshape(B, mh, mw, size)
-    col_left = cy[:, :, (size * mx - 1).clamp_min(0)]          # (B, H, mw)
-    left = col_left.reshape(B, mh, size, mw).transpose(2, 3)
-    tl = row_above[:, :, (size * mx - 1).clamp_min(0)]         # (B, mh, mw)
-    ht = (my > 0)[:, None].expand(mh, mw).reshape(-1)
-    hl = (mx > 0)[None, :].expand(mh, mw).reshape(-1)
-    top = torch.where(ht[:, None], top.reshape(B, -1, size), 127)
-    left = torch.where(hl[:, None], left.reshape(B, -1, size), 129)
-    tl = torch.where(ht, torch.where(hl, tl.reshape(B, -1), 129), 127)
-    tr4 = None
-    if size == 16:
-        cols = size * (mx[:, None] + 1) + torch.arange(4, device=dev)
-        tr4 = row_above[:, :, cols.clamp_max(size * mw - 1)]   # (B,mh,mw,4)
-        last = (mx == mw - 1)[None, :].expand(mh, mw).reshape(-1)
-        tr4 = torch.where(last[:, None], top[:, :, 15:16],
-                          tr4.reshape(B, -1, 4))
-        tr4 = torch.where(ht[:, None], tr4, 127)
-    return top, tr4, left, tl, ht, hl
 
 
 def openloop_mode_search(y, u, v, seg_map, qsteps, tables, *, try_i4: bool,
@@ -111,7 +76,7 @@ def openloop_mode_search(y, u, v, seg_map, qsteps, tables, *, try_i4: bool,
     # ---- MB-level context (exact engine edge conventions) ----
     src = y.to(I32).reshape(B, mh, 16, mw, 16).permute(0, 1, 3, 2, 4)
     src = src.reshape(B, N, 16, 16)
-    top16, tr4, left16, tlpx, ht, hl = _mb_context(cy, mh, mw, 16)
+    top16, tr4, left16, tlpx, ht, hl = mb_context(cy, mh, mw, 16)
 
     # ---- i16 candidate ----
     pred4 = predict4_blocks(top16, left16, tlpx, ht, hl, 16)  # (4,B,N,16,16)
@@ -159,7 +124,7 @@ def openloop_mode_search(y, u, v, seg_map, qsteps, tables, *, try_i4: bool,
     sse_uv = 0
     for p, cp in ((u, cu), (v, cv)):
         blocks = p.to(I32).reshape(B, mh, 8, mw, 8).permute(0, 1, 3, 2, 4)
-        t8, _, l8, tl8, _, _ = _mb_context(cp, mh, mw, 8)
+        t8, _, l8, tl8, _, _ = mb_context(cp, mh, mw, 8)
         cpred4 = predict4_blocks(t8, l8, tl8, ht, hl, 8)
         sse_uv = sse_uv + _sse(blocks.reshape(B, N, 8, 8)[None], cpred4,
                                (-1, -2))

@@ -1,0 +1,195 @@
+"""Open-loop luma and chroma plane encode: the Hopper kernels, their
+binding and their plain versions.
+
+``encode_luma`` and ``encode_chroma`` run the open-loop engine's dense
+work for every macroblock at once: the DC/TM/VE/HE SSE mode search with
+prediction context read from the source plane, the residual FDCT and
+the quantization; ``encode_luma`` also runs the Y2 path (the WHT of each
+MB's 16 DC coefficients and its quantization).  On a CUDA tensor they
+launch the kernels in ``encode_plane.cu`` (replacing the TPU kernels
+``_run_luma`` and ``_run_chroma`` of gowebp_tpu/ops/pallas/encode_plane.py,
+and, for the Y2 path, the XLA ops around the first); on a CPU tensor they
+run ``encode_luma_plain`` / ``encode_chroma_plain``, the same arithmetic
+as vectorised torch ops.
+
+Layout:
+  y        (B, 16*mh, 16*mw) uint8 MB-padded luma plane
+  u, v     (B, 8*mh, 8*mw) uint8 chroma planes
+           (rows contiguous; any batch stride, so views of one wire
+           buffer need no copy)
+  quants   (iq_dc, bias_dc, iq_ac, bias_ac) ints, iq = (1 << 17) // q;
+           luma takes the Y1 and the Y2 quantizers, chroma the UV ones
+Outputs, macroblock-major as the emitter reads them:
+  encode_luma   → ymode (B, mh, mw) uint8; y_levels (B, mh, mw, 16, 16)
+                  int16 zigzag, DC slot zeroed (Y1); y2_levels
+                  (B, mh, mw, 16) int16 zigzag
+  encode_chroma → uvmode (B, mh, mw) uint8; uv_levels (B, mh, mw, 8, 16)
+                  int16 zigzag, U blocks 0-3 then V blocks 4-7
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import dct
+from ..vp8_recon import mb_context, predict4_blocks
+from .cuda_build import CudaLibrary, stream_handle
+
+I16, I32, U8 = torch.int16, torch.int32, torch.uint8
+
+
+def _configure(lib) -> None:
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.encode_luma_launch.restype = ctypes.c_int
+    lib.encode_luma_launch.argtypes = [p, ll] + [i] * 11 + [p, p, p, p]
+    lib.encode_chroma_launch.restype = ctypes.c_int
+    lib.encode_chroma_launch.argtypes = [p, ll, p, ll, i, i, i, i, i, i, i,
+                                         p, p, p]
+
+
+LIBRARY = CudaLibrary("encode_plane.cu", _configure)
+
+
+def _first_min(sse):
+    """(4, ...) SSEs → index of the first minimum: DC, TM, VE, HE in
+    order, a later mode wins only when strictly smaller."""
+    best, mode = sse[0], torch.zeros_like(sse[0])
+    for m in range(1, 4):
+        better = sse[m] < best
+        mode = torch.where(better, m, mode)
+        best = torch.where(better, sse[m], best)
+    return mode
+
+
+def _search(planes, size: int):
+    """Joint SSE mode search of MB-aligned planes sharing one MB grid →
+    (mode (B, N), [residual blocks (B, N, nb*nb, 4, 4) per plane])."""
+    B, H, W = planes[0].shape
+    mh, mw = H // size, W // size
+    N, nb = mh * mw, size // 4
+    sse, pairs = 0, []
+    for p in planes:
+        p = p.to(I32)
+        top, _, left, tl, ht, hl = mb_context(p, mh, mw, size)
+        pred4 = predict4_blocks(top, left, tl, ht, hl, size)  # (4,B,N,s,s)
+        src = p.reshape(B, mh, size, mw, size).permute(0, 1, 3, 2, 4)
+        src = src.reshape(B, N, size, size)
+        d = src[None] - pred4
+        sse = sse + (d * d).sum(dim=(-1, -2), dtype=I32)
+        pairs.append((src, pred4))
+    mode = _first_min(sse)
+    b = torch.arange(B, device=mode.device)[:, None]
+    n = torch.arange(N, device=mode.device)[None, :]
+    res = []
+    for src, pred4 in pairs:
+        r = src - pred4[mode.long(), b, n]
+        res.append(r.reshape(B, N, nb, 4, nb, 4).permute(0, 1, 2, 4, 3, 5)
+                   .reshape(B, N, nb * nb, 4, 4))
+    return mode, res
+
+
+def encode_luma_plain(y, quants, y2_quants):
+    """Plain torch version of the luma kernel (any device)."""
+    B, H, W = y.shape
+    mh, mw = H // 16, W // 16
+    mode, (res,) = _search([y], 16)
+    cf = dct.fdct4x4(res)                                # (B, N, 16, 4, 4)
+    lv = dct.quantize(cf, *quants, first_ac=True)
+    y2 = dct.fwht4x4(cf[..., 0, 0].reshape(B, mh * mw, 4, 4))
+    return (mode.reshape(B, mh, mw).to(U8),
+            lv.reshape(B, mh, mw, 16, 16).to(I16),
+            dct.quantize(y2, *y2_quants).reshape(B, mh, mw, 16).to(I16))
+
+
+def encode_chroma_plain(u, v, quants):
+    """Plain torch version of the chroma kernel (any device)."""
+    B, H, W = u.shape
+    mh, mw = H // 8, W // 8
+    mode, res = _search([u, v], 8)
+    lv = dct.quantize(dct.fdct4x4(torch.cat(res, dim=2)), *quants)
+    return (mode.reshape(B, mh, mw).to(U8),
+            lv.reshape(B, mh, mw, 8, 16).to(I16))
+
+
+def _check_plane(name: str, t, size: int, device):
+    """Raise unless ``t`` is a (B, H, W) uint8 plane on ``device`` with
+    H, W multiples of ``size`` and contiguous rows; → (B, mh, mw)."""
+    if t.dtype != U8:
+        raise TypeError(f"{name}: expected torch.uint8, got {t.dtype}")
+    if t.dim() != 3 or t.shape[1] % size or t.shape[2] % size \
+            or 0 in t.shape:
+        raise ValueError(f"{name}: expected (B, H, W) with H and W "
+                         f"multiples of {size}, got {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name}: expected device {device}, got {t.device}")
+    if t.stride(2) != 1 or t.stride(1) != t.shape[2]:
+        raise ValueError(f"{name}: rows must be contiguous")
+    return t.shape[0], t.shape[1] // size, t.shape[2] // size
+
+
+def _quant_args(quants):
+    return tuple(int(q) for q in quants)
+
+
+def encode_luma(y, quants, y2_quants):
+    """Kernel on a CUDA tensor, plain version on a CPU tensor.
+
+    ``encode_luma.launches`` counts kernel launches (one per call on
+    CUDA).
+    """
+    dev = y.device
+    if dev.type == "cpu":
+        return encode_luma_plain(y, quants, y2_quants)
+    if dev.type != "cuda":
+        raise ValueError(f"encode_luma: unsupported device {dev}")
+    B, mh, mw = _check_plane("y", y, 16, dev)
+    lib = LIBRARY.load()
+    ymode = torch.empty((B, mh, mw), dtype=U8, device=dev)
+    levels = torch.empty((B, mh, mw, 16, 16), dtype=I16, device=dev)
+    y2_levels = torch.empty((B, mh, mw, 16), dtype=I16, device=dev)
+    err = lib.encode_luma_launch(
+        y.data_ptr(), y.stride(0), B, mh, mw, *_quant_args(quants),
+        *_quant_args(y2_quants), levels.data_ptr(), y2_levels.data_ptr(),
+        ymode.data_ptr(), stream_handle(dev))
+    if err != 0:
+        raise RuntimeError(
+            f"encode_luma kernel launch failed: CUDA error {err}")
+    encode_luma.launches += 1
+    return ymode, levels, y2_levels
+
+
+def encode_chroma(u, v, quants):
+    """Kernel on a CUDA tensor, plain version on a CPU tensor.
+
+    ``encode_chroma.launches`` counts kernel launches (one per call on
+    CUDA).
+    """
+    dev = u.device
+    if dev.type == "cpu":
+        return encode_chroma_plain(u, v, quants)
+    if dev.type != "cuda":
+        raise ValueError(f"encode_chroma: unsupported device {dev}")
+    B, mh, mw = _check_plane("u", u, 8, dev)
+    if _check_plane("v", v, 8, dev) != (B, mh, mw):
+        raise ValueError("encode_chroma: u and v planes differ in shape")
+    lib = LIBRARY.load()
+    uvmode = torch.empty((B, mh, mw), dtype=U8, device=dev)
+    levels = torch.empty((B, mh, mw, 8, 16), dtype=I16, device=dev)
+    err = lib.encode_chroma_launch(
+        u.data_ptr(), u.stride(0), v.data_ptr(), v.stride(0), B, mh, mw,
+        *_quant_args(quants), levels.data_ptr(), uvmode.data_ptr(),
+        stream_handle(dev))
+    if err != 0:
+        raise RuntimeError(
+            f"encode_chroma kernel launch failed: CUDA error {err}")
+    encode_chroma.launches += 1
+    return uvmode, levels
+
+
+encode_luma.launches = 0
+encode_chroma.launches = 0
+
+__all__ = ["LIBRARY", "encode_chroma", "encode_chroma_plain", "encode_luma",
+           "encode_luma_plain"]

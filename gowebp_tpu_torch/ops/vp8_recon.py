@@ -2,8 +2,9 @@
 
 Shared with the encode paths: all 10 B-mode (4x4 luma) predictions of a
 sub-block (the 8 shift-composable B-modes are integer indexing into one
-shared feature vector), the whole-block DC/TM/VE/HE predictions, and the
-anti-diagonal count of the macroblock wavefront.
+shared feature vector), the whole-block DC/TM/VE/HE predictions and
+their per-MB context read from a plane, and the anti-diagonal count of
+the macroblock wavefront.
 
 The decode (``recon_frame``): dense per-MB symbols from the host →
 reconstructed, loop-filtered uint8 planes, as plain torch ops:
@@ -191,6 +192,41 @@ def predict4_blocks(top, left, tl, have_top, have_left, size: int):
     pred_ve = top[..., None, :].expand(shape)
     pred_he = left[..., :, None].expand(shape)
     return torch.stack([pred_dc, pred_tm.to(I32), pred_ve, pred_he])
+
+
+def mb_context(cy, mh, mw, size):
+    """Plane (B, H, W) → per-MB top/left/top-left context (B, N, ...).
+
+    Edge rules of the intra encoders: the top MB row reads 127
+    (corner included), the left MB column 129; the top-right 4 pixels
+    of the last MB column repeat the row above's last pixel.
+    Returns (top (B,N,s), tr4 (B,N,4) [luma only, else None],
+    left (B,N,s), tl (B,N)) with the edge fills applied, plus the (N,)
+    have_top/have_left masks.
+    """
+    B = cy.shape[0]
+    dev = cy.device
+    my = torch.arange(mh, device=dev)
+    mx = torch.arange(mw, device=dev)
+    row_above = cy[:, (size * my - 1).clamp_min(0)]            # (B, mh, W)
+    top = row_above.reshape(B, mh, mw, size)
+    col_left = cy[:, :, (size * mx - 1).clamp_min(0)]          # (B, H, mw)
+    left = col_left.reshape(B, mh, size, mw).transpose(2, 3)
+    tl = row_above[:, :, (size * mx - 1).clamp_min(0)]         # (B, mh, mw)
+    ht = (my > 0)[:, None].expand(mh, mw).reshape(-1)
+    hl = (mx > 0)[None, :].expand(mh, mw).reshape(-1)
+    top = torch.where(ht[:, None], top.reshape(B, -1, size), 127)
+    left = torch.where(hl[:, None], left.reshape(B, -1, size), 129)
+    tl = torch.where(ht, torch.where(hl, tl.reshape(B, -1), 129), 127)
+    tr4 = None
+    if size == 16:
+        cols = size * (mx[:, None] + 1) + torch.arange(4, device=dev)
+        tr4 = row_above[:, :, cols.clamp_max(size * mw - 1)]   # (B,mh,mw,4)
+        last = (mx == mw - 1)[None, :].expand(mh, mw).reshape(-1)
+        tr4 = torch.where(last[:, None], top[:, :, 15:16],
+                          tr4.reshape(B, -1, 4))
+        tr4 = torch.where(ht[:, None], tr4, 127)
+    return top, tr4, left, tl, ht, hl
 
 
 def num_diagonals(mb_w: int, mb_h: int) -> int:
@@ -558,5 +594,6 @@ def recon_frame(coeffs, is_i4, imodes, uvmode, fparams, *, mb_w, mb_h,
 
 
 __all__ = ["Diagonals", "_pred_luma4_all", "idct4x4_batch",
-           "loop_filter_wavefront", "num_diagonals", "predict4_blocks",
-           "recon_frame", "recon_wavefront", "residual_blocks"]
+           "loop_filter_wavefront", "mb_context", "num_diagonals",
+           "predict4_blocks", "recon_frame", "recon_wavefront",
+           "residual_blocks"]

@@ -1,6 +1,7 @@
 """PyTorch port on the card: each CUDA kernel vs its plain torch version,
-the batch encode's GPU bytes vs its CPU bytes, and the batch decode's GPU
-pixels vs its CPU pixels, at small sizes.
+the batch encode's GPU bytes vs its CPU bytes (hybrid and open-loop
+engines), and the batch decode's GPU pixels vs its CPU pixels, at small
+sizes.
 
 Marked ``cuda``; every test skips on a host without a CUDA GPU.  This
 file imports nothing of JAX, so it runs on a GPU machine without JAX:
@@ -160,3 +161,67 @@ def test_batch_decode_gpu_pixels_equal_cpu_pixels(cuda):
     dev = decode_rgba_batch(datas, device="cuda", device_out=True)
     for a, b in zip(dev, want):
         assert a.is_cuda and np.array_equal(a.cpu().numpy(), b)
+
+
+@pytest.mark.parametrize("b,h,w,quality", [
+    (3, 64, 96, 75.0),
+    (2, 16, 64, 99.0),       # one MB row
+    (1, 64, 16, 40.0),       # one MB column
+    (1, 16, 16, 75.0),       # one MB: the grid's last CUDA block is ragged
+])
+def test_encode_plane_kernels_match_plain(cuda, b, h, w, quality):
+    from gowebp_tpu_torch.models.vp8.encoder import make_quants, quality_to_q
+    from gowebp_tpu_torch.ops.kernels.encode_plane import (
+        encode_chroma, encode_chroma_plain, encode_luma, encode_luma_plain)
+
+    g = torch.Generator().manual_seed(h * 100 + w)
+    ys, cs = h * w, (h // 2) * (w // 2)
+    buf = torch.randint(0, 256, (b, ys + 2 * cs), generator=g,
+                        dtype=torch.uint8).to(cuda)
+    y = buf[:, :ys].reshape(b, h, w)                  # views, as the
+    u = buf[:, ys:ys + cs].reshape(b, h // 2, w // 2)  # pipeline gives
+    v = buf[:, ys + cs:].reshape(b, h // 2, w // 2)
+    q = make_quants(quality_to_q(quality))
+    lq = ((1 << 17) // q.y1_dc.q, 96 << 9, (1 << 17) // q.y1_ac.q, 110 << 9)
+    y2q = ((1 << 17) // q.y2_dc.q, 96 << 9, (1 << 17) // q.y2_ac.q, 96 << 9)
+    cq = ((1 << 17) // q.uv_dc.q, 110 << 9, (1 << 17) // q.uv_ac.q, 110 << 9)
+    before = (encode_luma.launches, encode_chroma.launches)
+    got = encode_luma(y, lq, y2q) + encode_chroma(u, v, cq)
+    want = encode_luma_plain(y, lq, y2q) + encode_chroma_plain(u, v, cq)
+    torch.cuda.synchronize()
+    assert (encode_luma.launches, encode_chroma.launches) == tuple(
+        n + 1 for n in before)
+    for a, e in zip(got, want):
+        assert a.dtype == e.dtype and torch.equal(a, e)
+
+
+def test_encode_plane_wrappers_reject_bad_tensors(cuda):
+    from gowebp_tpu_torch.ops.kernels.encode_plane import (encode_chroma,
+                                                           encode_luma)
+
+    q = (8192, 96 << 9, 8192, 110 << 9)
+    y = torch.zeros((2, 32, 48), dtype=torch.uint8, device=cuda)
+    c = torch.zeros((2, 16, 24), dtype=torch.uint8, device=cuda)
+    with pytest.raises(TypeError):
+        encode_luma(y.to(torch.int32), q, q)
+    with pytest.raises(ValueError):
+        encode_luma(y[:, :24], q, q)                      # not MB-aligned
+    with pytest.raises(ValueError):
+        encode_luma(y.transpose(1, 2).contiguous().transpose(1, 2), q, q)
+    with pytest.raises(ValueError):
+        encode_chroma(c, c[:, :8], q)                     # u, v differ
+
+
+def test_openloop_encode_gpu_bytes_equal_cpu_bytes(cuda):
+    from gowebp_tpu_torch import encode_rgba_batch
+    from gowebp_tpu_torch.ops.kernels.encode_plane import encode_luma
+    from gowebp_tpu_torch.utils.corpus import natural_image
+
+    imgs = [natural_image(45, 61, seed=s) for s in (1, 2)]
+    for quality in (75.0, 99.0):
+        before = encode_luma.launches
+        got = encode_rgba_batch(imgs, quality=quality, device="cuda",
+                                engine="openloop")
+        assert encode_luma.launches == before + 1
+        assert got == encode_rgba_batch(imgs, quality=quality, device="cpu",
+                                        engine="openloop")
