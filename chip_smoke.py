@@ -5,23 +5,31 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure raises and exits non-zero; no result is printed):
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build the five CUDA kernels from the four ops/kernels/*.cu sources
+  2. build the six CUDA kernels from the four ops/kernels/*.cu sources
      (one nvcc each, in parallel) and print the build time and ptxas
      register report;
   3. hold each kernel against its plain torch version on the card, bit for
-     bit, at the main paths' full shapes (i4_search: S = 16*4096 random
-     sub-blocks; wavefront_fixed: B=16 at 1024x1024 with random i4/i16
-     mixes and 4 segments, error diffusion on and off, recon on and off;
-     yuv420_to_rgba: B=16 at 1024x1024 with and without an alpha plane,
-     B=2 at 1021x1023 in MB-padded planes, and B=32 at 1024x1024, the
-     decode path's shape; encode_luma and encode_chroma: B=16 at
-     1024x1024 random planes in one wire buffer, as the open-loop path
-     lays them out, with two quantizer sets, and B=2 at odd MB counts),
-     and time each with CUDA events;
+     bit, at the main paths' full shapes, and time each with CUDA events:
+     i4_search at S = 16*4096 random sub-blocks; i4_walk at B=16 on 16 of
+     the corpus images' refine inputs (q75, 4 segments, context from one
+     wavefront_fixed pass over the cold modes), timed beside the same walk
+     as 16 flat i4_search launches with their glue; wavefront_fixed at B=16
+     1024x1024 with random i4/i16 mixes and 4 segments, error diffusion on
+     and off, recon on and off, 3 repeated runs, odd MB grids (1x5, 5x1,
+     1x1, 3x5, 5x3) and B=256 at 512x64 (8,192 MB rows, more than the card
+     holds blocks), and timed alone on one image (the dependency chain);
+     yuv420_to_rgba at B=16 1024x1024 with and without an alpha plane, B=2
+     at 1021x1023 in MB-padded planes, and B=32 at 1024x1024, the decode
+     path's shape; encode_luma and encode_chroma at B=16 1024x1024 random
+     planes in one wire buffer, as the open-loop path lays them out, with
+     two quantizer sets, and B=2 at odd MB counts;
   4. the encode path: 32 natural images of 1024x1024 through
      encode_rgba_batch(device="cuda") in two chunks of 16, with the
-     kernels' launch counters reset just before and read just after; then
-     a second, timed run with the per-stage split from CUDA events;
+     kernels' launch counters reset just before and read just after
+     (i4_walk and wavefront_fixed must have launched); then
+     a second, timed run with the per-stage split from CUDA events, and
+     the hybrid stages on one chunk of 16 with the host quiet (CUDA-event
+     spans, median of 3);
   5. encode parity: 2 of those images through the same path on the CPU
      (the kernels' plain versions) must give identical .webp bytes, and
      every output's RIFF/VP8 headers must be well-formed 1024x1024 frames;
@@ -89,6 +97,7 @@ OPENLOOP_PSNR_FLOOR_DB = 20.5
 
 SOURCES = {
     "i4_search": "gowebp_tpu_torch/ops/kernels/i4_search.cu",
+    "i4_walk": "gowebp_tpu_torch/ops/kernels/i4_search.cu",
     "wavefront_fixed": "gowebp_tpu_torch/ops/kernels/wavefront_fixed.cu",
     "yuv420_to_rgba": "gowebp_tpu_torch/ops/kernels/yuv420_to_rgba.cu",
     "encode_luma": "gowebp_tpu_torch/ops/kernels/encode_plane.cu",
@@ -96,6 +105,8 @@ SOURCES = {
 }
 REPLACES = {
     "i4_search": "gowebp_tpu/ops/pallas/i4_search.py:286",
+    "i4_walk": ("gowebp_tpu/ops/encode_wavefront_jax.py:511 (the walk) and "
+                "gowebp_tpu/ops/pallas/i4_search.py:286"),
     "wavefront_fixed": "gowebp_tpu/ops/pallas/wavefront_fixed.py:564",
     "yuv420_to_rgba": "gowebp_tpu/ops/pallas/decode_post.py:162",
     "encode_luma": "gowebp_tpu/ops/pallas/encode_plane.py:322",
@@ -167,15 +178,34 @@ def quant_rows(deltas):
     return np.array(rows, np.int32)
 
 
+def search_ops(ctx13, src16, quants5) -> int:
+    """Integer operations of the 10-candidate search of these sub-blocks,
+    each candidate's rate walk as long as its levels need."""
+    import torch
+
+    from gowebp_tpu_torch.ops import dct
+    from gowebp_tpu_torch.ops.vp8_recon import _pred_luma4_all
+
+    S = ctx13.shape[0]
+    preds = _pred_luma4_all(ctx13[:, 0], ctx13[:, 1:5], ctx13[:, 5:9],
+                            ctx13[:, 9:13])
+    lv = dct.quantize(dct.fdct4x4(src16.reshape(S, 1, 4, 4) - preds),
+                      quants5[:, 0:1], dct.BIAS["y1_dc"], quants5[:, 1:2],
+                      dct.BIAS["y1_ac"])
+    idx = torch.arange(16, device=lv.device)
+    walked = (torch.where(lv != 0, idx, -1).amax(-1) + 1).sum().item()
+    per_cand = (OPS_FDCT + OPS_QUANT + OPS_DEQUANT + OPS_IDCT + OPS_PRED_B4
+                + OPS_RES_RECON + OPS_RATE_EOB + OPS_DIST_COST)
+    return S * 10 * per_cand + walked * OPS_RATE_POS
+
+
 def check_i4_search(dev, gen):
     """Phase 3a: i4_search kernel vs plain at S = 16*4096."""
     import torch
 
     from gowebp_tpu_torch.models.vp8.encoder import _default_cost_tables
-    from gowebp_tpu_torch.ops import dct
     from gowebp_tpu_torch.ops.kernels.i4_search import (
         i4_search, i4_search_plain, t3_tables)
-    from gowebp_tpu_torch.ops.vp8_recon import _pred_luma4_all
 
     S = 16 * 4096
     I32 = torch.int32
@@ -204,30 +234,16 @@ def check_i4_search(dev, gen):
     # of 10 candidates, with the rate walk's length taken from this data
     nbytes = sum(a.numel() * a.element_size() for a in args + tuple(t3))
     nbytes += sum(o.numel() * o.element_size() for o in got)
-    tl, top, tr, left = (args[0][:, 0], args[0][:, 1:5], args[0][:, 5:9],
-                         args[0][:, 9:13])
-    preds = _pred_luma4_all(tl, top, tr, left)
-    lv = dct.quantize(dct.fdct4x4(args[1].reshape(S, 1, 4, 4) - preds),
-                      args[2][:, 0:1], dct.BIAS["y1_dc"], args[2][:, 1:2],
-                      dct.BIAS["y1_ac"])
-    idx = torch.arange(16, device=dev)
-    walked = (torch.where(lv != 0, idx, -1).amax(-1) + 1).sum().item()
-    per_cand = (OPS_FDCT + OPS_QUANT + OPS_DEQUANT + OPS_IDCT + OPS_PRED_B4
-                + OPS_RES_RECON + OPS_RATE_EOB + OPS_DIST_COST)
-    ops = S * 10 * per_cand + walked * OPS_RATE_POS
+    ops = search_ops(*args)
     bound_ms, bound_by = bound(nbytes, ops)
     return {"name": "i4_search", "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def check_wavefront(dev, gen):
-    """Phase 3b: wavefront_fixed kernel vs plain, B=16 at 1024x1024."""
+def wavefront_args(dev, gen, B, H, W, i4_share=0.6):
+    """Random planes, 4 segments of q75 quantizers, random i4/i16 modes."""
     import torch
 
-    from gowebp_tpu_torch.ops.kernels.wavefront_fixed import (
-        wavefront_fixed, wavefront_fixed_plain)
-
-    B, H, W = 16, 1024, 1024
     mh, mw = H // 16, W // 16
     I32, U8 = torch.int32, torch.uint8
     y = torch.randint(0, 256, (B, H, W), generator=gen, dtype=U8)
@@ -238,12 +254,34 @@ def check_wavefront(dev, gen):
         B, 4, 6).contiguous()
     ymode = torch.randint(0, 4, (B, mh, mw), generator=gen, dtype=I32)
     uvmode = torch.randint(0, 4, (B, mh, mw), generator=gen, dtype=I32)
-    is_i4 = (torch.rand((B, mh, mw), generator=gen) < 0.6).to(I32)
+    is_i4 = (torch.rand((B, mh, mw), generator=gen) < i4_share).to(I32)
     imodes = torch.randint(0, 10, (B, mh, mw, 16), generator=gen, dtype=I32)
-    args = tuple(a.to(dev).contiguous() for a in
+    return tuple(a.to(dev).contiguous() for a in
                  (y, u, v, seg, qs, ymode, uvmode, is_i4, imodes))
-    keys = ("y_levels", "y2_levels", "uv_levels")
-    rkeys = ("recon_y", "recon_u", "recon_v")
+
+
+WF_KEYS = ("y_levels", "y2_levels", "uv_levels")
+WF_RKEYS = ("recon_y", "recon_u", "recon_v")
+
+
+def check_wavefront(dev, gen):
+    """Phase 3b: wavefront_fixed kernel vs plain: B=16 at 1024x1024, odd
+    MB grids, more rows than the card holds blocks, repeated runs."""
+    import torch
+
+    from gowebp_tpu_torch.ops.kernels.wavefront_fixed import (
+        wavefront_fixed, wavefront_fixed_plain)
+
+    def compare(got, want, ks, what):
+        e = max_abs_err(got, want, ks)
+        if not all(torch.equal(got[k], want[k]) for k in ks):
+            raise AssertionError(f"wavefront_fixed kernel != plain ({what}, "
+                                 f"max |err| {e})")
+        return e
+
+    B, H, W = 16, 1024, 1024
+    mh, mw = H // 16, W // 16
+    args = wavefront_args(dev, gen, B, H, W)
     err = 0
     plain_ms = None
     for derr in (True, False):
@@ -255,26 +293,50 @@ def check_wavefront(dev, gen):
         b.synchronize()
         if derr:
             plain_ms = a.elapsed_time(b)
+            main_want = want
         for recon in (True, False):
             got = wavefront_fixed(*args, use_derr=derr, want_recon=recon)
             torch.cuda.synchronize()
-            ks = keys + (rkeys if recon else ())
-            e = max_abs_err(got, want, ks)
-            err = max(err, e)
-            if not all(torch.equal(got[k], want[k]) for k in ks):
-                raise AssertionError(
-                    f"wavefront_fixed kernel != plain (derr={derr}, "
-                    f"recon={recon}, max |err| {e})")
+            err = max(err, compare(got, want, WF_KEYS + (WF_RKEYS if recon
+                                                         else ()),
+                                   f"derr={derr}, recon={recon}"))
             log(f"wavefront_fixed derr={derr} recon={recon}: bit-exact")
+    # the main path's setting three more times: a race would show here
+    for i in range(3):
+        got = wavefront_fixed(*args, use_derr=True, want_recon=True)
+        torch.cuda.synchronize()
+        compare(got, main_want, WF_KEYS + WF_RKEYS, f"repeat {i + 1}")
+    log("wavefront_fixed: 3 repeated runs identical to plain")
+    # odd MB grids, and 8192 rows (far more than the card holds blocks)
+    for b_, h_, w_ in ((2, 80, 16), (2, 16, 80), (1, 16, 16), (2, 48, 80),
+                       (2, 80, 48), (256, 512, 64)):
+        oargs = wavefront_args(dev, gen, b_, h_, w_)
+        for derr in (True, False):
+            want = wavefront_fixed_plain(*oargs, use_derr=derr,
+                                         want_recon=True)
+            got = wavefront_fixed(*oargs, use_derr=derr, want_recon=True)
+            torch.cuda.synchronize()
+            err = max(err, compare(got, want, WF_KEYS + WF_RKEYS,
+                                   f"B={b_} {h_}x{w_} derr={derr}"))
+        log(f"wavefront_fixed B={b_} {h_}x{w_} ({b_ * h_ // 16} MB rows): "
+            f"bit-exact")
     # time the main path's setting (q75: diffusion on), with recon as in
     # the first of the two passes
     ms = time_ms(lambda: wavefront_fixed(*args, use_derr=True,
                                          want_recon=True), reps=5)
-    got = wavefront_fixed(*args, use_derr=True, want_recon=True)
+    # one image: its chain of (mw - 1) + 2*(mh - 1) + 1 dependent MB steps
+    # (one per anti-diagonal) alone
+    one = tuple(t[:1].contiguous() for t in args)
+    one_ms = time_ms(lambda: wavefront_fixed(*one, use_derr=True,
+                                             want_recon=True), reps=5)
+    steps = (mw - 1) + 2 * (mh - 1) + 1
+    log(f"wavefront_fixed B=1 1024x1024: {one_ms:.3f} ms = "
+        f"{one_ms / steps * 1e3:.2f} us per chained MB step ({steps} steps)")
+    got = main_want
     nbytes = sum(t.numel() * t.element_size() for t in args)
     nbytes += sum(t.numel() * t.element_size() for t in got.values())
     n_mb = B * mh * mw
-    n_i4 = int(is_i4.sum())
+    n_i4 = int(args[7].sum())
     i16_mb = 16 * (OPS_PRED_I16 + OPS_FDCT + OPS_QUANT + OPS_DEQUANT
                    + OPS_IDCT + OPS_RES_RECON) + 64 + OPS_QUANT + 16 + 72
     i4_mb = 16 * (OPS_PRED_B4 + OPS_FDCT + OPS_QUANT + OPS_DEQUANT
@@ -284,6 +346,77 @@ def check_wavefront(dev, gen):
     ops = n_i4 * i4_mb + (n_mb - n_i4) * i16_mb + n_mb * uv_mb
     bound_ms, bound_by = bound(nbytes, ops)
     return {"name": "wavefront_fixed", "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def check_i4_walk(dev, inputs):
+    """Phase 3c: i4_walk kernel vs plain on the refine round's inputs for
+    one chunk of the corpus images (q75, 4 segments), with context from
+    one wavefront_fixed pass over the cold round's modes; timed beside the
+    same walk as 16 launches of the flat i4_search with their torch glue."""
+    import torch
+
+    from gowebp_tpu_torch.ops.encode_wavefront import (
+        encode_wavefront_core, openloop_mode_search, search_penalty)
+    from gowebp_tpu_torch.ops.kernels.i4_search import (
+        i4_search, i4_search_plain, i4_walk, i4_walk_plain, t3_tables)
+    from gowebp_tpu_torch.ops.vp8_recon import mb_context
+
+    I32 = torch.int32
+    y, u, v, seg, qs, tables = (inputs[k] for k in ("y", "u", "v", "seg",
+                                                    "qsteps", "tables"))
+    B, H, W = y.shape
+    mh, mw = H // 16, W // 16
+    N = mh * mw
+    pen = search_penalty(inputs["pens"])
+    cold = openloop_mode_search(y, u, v, seg, qs, tables, try_i4=False,
+                                i4_penalty=pen)
+    recon = encode_wavefront_core(
+        y, u, v, seg, qs, want_recon=True, use_derr=inputs["use_derr"],
+        modes=tuple(cold[k] for k in ("ymode", "uvmode", "is_i4", "imodes")))
+    # the walk's inputs, as openloop_mode_search builds them
+    src = y.to(I32).reshape(B, mh, 16, mw, 16).permute(0, 1, 3, 2, 4)
+    src = src.reshape(B, N, 16, 16)
+    top16, tr4, left16, tl, _, _ = mb_context(recon["recon_y"].to(I32), mh,
+                                              mw, 16)
+    segl = seg.reshape(B, N).long()
+    bidx = torch.arange(B, device=dev)[:, None]
+    qlane = qs[bidx, segl].contiguous()
+    iqlane = ((1 << 17) // qs.clamp_min(1))[bidx, segl].contiguous()
+    pen_n = pen[bidx, segl].contiguous()
+    args = (src, top16, tr4, left16, tl, qlane, iqlane, pen_n)
+    t3 = t3_tables(tables)
+    ops = 0
+
+    def counted(ctx13, src16, quants5, t3_):
+        """The plain search, counting each substep's operations."""
+        nonlocal ops
+        ops += search_ops(ctx13, src16, quants5)
+        return i4_search_plain(ctx13, src16, quants5, t3_)
+
+    got = i4_walk(*args, t3, want_recon=True)
+    want = i4_walk_plain(*args, t3, want_recon=True, search=counted)
+    flat = i4_walk_plain(*args, t3, want_recon=True, search=i4_search)
+    torch.cuda.synchronize()
+    names = ("bmodes", "s4", "recon")
+    err = max_abs_err(dict(zip(names, got)), dict(zip(names, want)), names)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"i4_walk kernel != plain (max |err| {err})")
+    if not all(torch.equal(a, b) for a, b in zip(flat, want)):
+        raise AssertionError("the walk as 16 flat i4_search launches != plain")
+    log(f"i4_walk B={B} {H}x{W} (refine inputs): bit-exact; modes won "
+        f"{torch.bincount(want[0].reshape(-1), minlength=10).tolist()}")
+    ms = time_ms(lambda: i4_walk(*args, t3), reps=10, warmup=2)
+    plain_ms = time_ms(lambda: i4_walk_plain(*args, t3), reps=2)
+    flat_ms = time_ms(lambda: i4_walk_plain(*args, t3, search=i4_search),
+                      reps=10, warmup=2)
+    log(f"i4_walk: one launch {ms:.3f} ms; the same walk as 16 flat "
+        f"i4_search launches with their torch glue {flat_ms:.3f} ms")
+    outs = i4_walk(*args, t3)
+    nbytes = sum(a.numel() * a.element_size() for a in args + tuple(t3))
+    nbytes += sum(o.numel() * o.element_size() for o in outs)
+    bound_ms, bound_by = bound(nbytes, ops)
+    return {"name": "i4_walk", "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
@@ -402,6 +535,51 @@ def check_encode_plane(dev, gen):
     return rows
 
 
+HYBRID_STAGES = ("cold", "wavefront1", "refine", "wavefront2")
+
+
+def chunk_inputs(dev, images, quality: float = 75.0):
+    """encode_hybrid_core's inputs for a chunk of same-shaped RGBA images,
+    built by the encode pipeline's own host steps and upload."""
+    from gowebp_tpu_torch.models.vp8.encoder import _default_cost_tables
+    from gowebp_tpu_torch.ops.encode_pipeline import (
+        encode_setup, hybrid_params, prep_image, stack_prepped, upload_planes)
+
+    h, w = images[0].shape[:2]
+    setup = encode_setup(quality, h, w)
+    flat, segs, rows, pens = stack_prepped(
+        [prep_image(im, setup, openloop=False) for im in images])
+    y, u, v = upload_planes(flat, setup["plan"], dev)
+    tables, qs, seg, pens = hybrid_params(segs, rows, pens, setup["plan"],
+                                          _default_cost_tables(), dev)
+    return {"y": y, "u": u, "v": v, "seg": seg, "qsteps": qs, "pens": pens,
+            "tables": tables, "use_derr": setup["use_derr"]}
+
+
+def stage_spans(dev, inputs, reps: int):
+    """The hybrid core's stage spans (CUDA events) on one chunk with the
+    host quiet: per stage, the median ms of ``reps`` runs after one
+    warm-up run."""
+    import torch
+
+    from gowebp_tpu_torch.device import StageClock
+    from gowebp_tpu_torch.ops.encode_wavefront import encode_hybrid_core
+
+    samples = {k: [] for k in HYBRID_STAGES}
+    for i in range(reps + 1):
+        torch.cuda.synchronize()
+        clock = StageClock(dev)
+        encode_hybrid_core(inputs["y"], inputs["u"], inputs["v"],
+                           inputs["seg"], inputs["qsteps"], inputs["tables"],
+                           i4_penalty=inputs["pens"],
+                           use_derr=inputs["use_derr"], marks=clock)
+        spans = clock.spans_ms()
+        if i > 0:
+            for k in HYBRID_STAGES:
+                samples[k].append(spans[k])
+    return {k: statistics.median(v) for k, v in samples.items()}
+
+
 def check_webp(data: bytes, w: int, h: int) -> None:
     """RIFF/WEBP/VP8 header sanity of one simple lossy file."""
     import struct
@@ -464,7 +642,7 @@ def main() -> int:
     t0 = time.perf_counter()
     libraries = [i4m.LIBRARY, wfm.LIBRARY, yuvm.LIBRARY, epm.LIBRARY]
     build_all(libraries)
-    log(f"build: 5 kernels from {len(libraries)} sources in "
+    log(f"build: 6 kernels from {len(libraries)} sources in "
         f"{time.perf_counter() - t0:.1f} s (nvcc, parallel)")
     for lib in libraries:
         for line in lib.ptxas_log.splitlines():
@@ -472,20 +650,23 @@ def main() -> int:
                 log(f"ptxas {lib.source.name}: {line.strip()}")
 
     # ---- phase 3: kernels vs plain versions, full shapes ----
+    t0 = time.perf_counter()
+    images = list(natural_images(32, 1024, 1024, seed=7))
+    log(f"corpus: 32 x 1024x1024 in {time.perf_counter() - t0:.1f} s")
     gen = torch.Generator().manual_seed(20261016)
-    rows = [check_i4_search(dev, gen), check_wavefront(dev, gen),
-            check_yuv420(dev, gen)] + check_encode_plane(dev, gen)
+    chunk = chunk_inputs(dev, images[:16])
+    rows = [check_i4_search(dev, gen), check_i4_walk(dev, chunk),
+            check_wavefront(dev, gen), check_yuv420(dev, gen)]
+    rows += check_encode_plane(dev, gen)
     for r in rows:
         log(f"kernel {r['name']}: bit-exact vs plain; {r['ms']:.3f} ms "
             f"(plain {r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
             f"by {r['bound_by']}) {tag}")
 
     # ---- phase 4: the encode path ----
-    t0 = time.perf_counter()
-    images = list(natural_images(32, 1024, 1024, seed=7))
-    log(f"corpus: 32 x 1024x1024 in {time.perf_counter() - t0:.1f} s")
     mp = 32 * 1024 * 1024 / 1e6
     i4m.i4_search.launches = 0
+    i4m.i4_walk.launches = 0
     wfm.wavefront_fixed.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -493,10 +674,12 @@ def main() -> int:
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = {"i4_search": i4m.i4_search.launches,
+                "i4_walk": i4m.i4_walk.launches,
                 "wavefront_fixed": wfm.wavefront_fixed.launches}
-    log(f"encode path launches: {launches}")
-    for name, n in launches.items():
-        if n == 0:
+    log(f"encode path launches: {launches} (the flat i4_search is not on "
+        f"this path: the refine round runs i4_walk)")
+    for name in ("i4_walk", "wavefront_fixed"):
+        if launches[name] == 0:
             raise AssertionError(f"encode path never launched {name}")
     log(f"encode path first run: {mp / first_s:.3f} MP/s e2e "
         f"({first_s:.2f} s for 32 MP) {tag}")
@@ -513,6 +696,10 @@ def main() -> int:
         f"({second_s:.2f} s for 32 MP) {tag}")
     for k, ms in timings["stage_ms"].items():
         log(f"stage {k}: {ms:.1f} ms total over 2 chunks {tag}")
+    quiet = stage_spans(dev, chunk, reps=3)
+    log("hybrid stages on one chunk of 16, host quiet (median of 3): "
+        + ", ".join(f"{k} {quiet[k]:.3f} ms" for k in HYBRID_STAGES)
+        + f" {tag}")
     log(f"stage host emit: {timings['emit_thread_s'] * 1e3:.1f} ms summed "
         f"over 32 images in 8 threads {tag}")
     log(f"bytes: {sum(len(o) for o in out)} total, "

@@ -230,6 +230,103 @@ def _bucket(kmax: int, cap: int) -> int:
     return min(b, cap)
 
 
+def _qrow(sq):
+    """A quantizer set's steps: y1 dc/ac, y2 dc/ac, uv dc/ac."""
+    return (sq.y1_dc.q, sq.y1_ac.q, sq.y2_dc.q, sq.y2_ac.q, sq.uv_dc.q,
+            sq.uv_ac.q)
+
+
+def encode_setup(quality: float, h: int, w: int) -> dict:
+    """A batch's settings: the default lossy config at ``quality``, its
+    base quantizer (clamped to qmin/qmax) and quantizer row, whether UV
+    DC error diffusion is on, and the MB layout of h x w images."""
+    config = EncoderConfig(lossless=False, quality=quality)
+    config.validate()
+    base_q = quality_to_q(config.quality)
+    base_q = max(config.qmin * 127 // 100,
+                 min(config.qmax * 127 // 100, base_q))
+    return {"config": config, "base_q": base_q,
+            "base_row": np.array(_qrow(make_quants(base_q)), np.int32),
+            "use_derr": config.quality <= ERROR_DIFFUSION_QUALITY,
+            "h": h, "w": w, "plan": _plan(h + (h & 1), w + (w & 1))}
+
+
+def prep_image(im, setup: dict, *, openloop: bool):
+    """Host: one image's MB-padded planes in one wire buffer, and its
+    segmentation (the hybrid engine only).
+
+    Returns (flat uint8 y|u|v, seg dict or None, quantizer rows (4, 6),
+    per-segment i4 penalties (4,)).
+    """
+    config, base_q, plan = setup["config"], setup["base_q"], setup["plan"]
+    h, w = setup["h"], setup["w"]
+    H, W, mh, mw = plan["H"], plan["W"], plan["mb_h"], plan["mb_w"]
+    im = np.asarray(im)
+    if im.shape[:2] != (h, w):
+        raise EncodeError("all images of a batch must share one shape")
+    rgb = im[..., :3]
+    if (h & 1) or (w & 1):
+        rgb = np.pad(rgb, ((0, h & 1), (0, w & 1), (0, 0)), mode="edge")
+    yp, up, vp = rgb_to_yuv420(rgb)
+    yp = np.pad(yp.astype(np.uint8),
+                ((0, H - yp.shape[0]), (0, W - yp.shape[1])), mode="edge")
+    up = np.pad(up.astype(np.uint8),
+                ((0, H // 2 - up.shape[0]), (0, W // 2 - up.shape[1])),
+                mode="edge")
+    vp = np.pad(vp.astype(np.uint8),
+                ((0, H // 2 - vp.shape[0]), (0, W // 2 - vp.shape[1])),
+                mode="edge")
+    flat = np.concatenate([yp.reshape(-1), up.reshape(-1), vp.reshape(-1)])
+    rows = np.broadcast_to(setup["base_row"], (4, 6))
+    seg = None
+    if not openloop and config.segments > 1:
+        seg_map, deltas = analyze_segments(
+            yp, mw, mh, config.segments, config.sns_strength, base_q)
+        if len(set(deltas[: config.segments])) > 1:
+            seg = {
+                "map": seg_map,
+                "deltas": deltas,
+                "probs": _segment_tree_probs(seg_map),
+                "quants": [make_quants(max(0, min(127, base_q + d)))
+                           for d in deltas],
+            }
+            rows = np.array([_qrow(s) for s in seg["quants"]], np.int32)
+    pens = (np.zeros(4, np.int32) if openloop else
+            _i4_config_seg(rows, config.method, config.partition_limit)[1])
+    return flat, seg, rows, pens
+
+
+def stack_prepped(prepped):
+    """``prep_image`` results of a chunk → (flat (B, n) uint8, segs,
+    rows (B, 4, 6), pens (B, 4))."""
+    return (np.stack([p[0] for p in prepped]), [p[1] for p in prepped],
+            np.stack([p[2] for p in prepped]),
+            np.stack([p[3] for p in prepped]))
+
+
+def upload_planes(flat, plan, dev):
+    """A chunk's wire buffer → y, u, v planes on ``dev``: one h2d, then
+    views."""
+    B = flat.shape[0]
+    H, W = plan["H"], plan["W"]
+    ys_len, cs_len = H * W, (H // 2) * (W // 2)
+    buf = torch.from_numpy(flat).to(dev)
+    return (buf[:, :ys_len].reshape(B, H, W),
+            buf[:, ys_len:ys_len + cs_len].reshape(B, H // 2, W // 2),
+            buf[:, ys_len + cs_len:].reshape(B, H // 2, W // 2))
+
+
+def hybrid_params(segs, rows, pens, plan, tables_np, dev):
+    """A chunk's segmentations, quantizer rows and penalties, and the
+    cost tables → the hybrid core's (tables, qsteps, seg_map, i4_penalty)
+    on ``dev``; an image with one segment gets an all-zero map."""
+    mh, mw = plan["mb_h"], plan["mb_w"]
+    seg_maps = np.stack([
+        (s["map"].reshape(mh, mw) if s is not None
+         else np.zeros((mh, mw), np.int32)) for s in segs])
+    return params_from_numpy(tables_np, rows, seg_maps, pens, device=dev)
+
+
 def encode_rgba_batch_pipelined(images, *, quality: float = 75.0,
                                 threads: int = 2, chunk: int = 8,
                                 device=None, engine: str = "hybrid",
@@ -254,73 +351,24 @@ def encode_rgba_batch_pipelined(images, *, quality: float = 75.0,
     dev = resolve_device(device)
     openloop = engine == "openloop"
     t_total = time.perf_counter()
-    config = EncoderConfig(lossless=False, quality=quality)
-    config.validate()
-    base_q = quality_to_q(config.quality)
-    base_q = max(config.qmin * 127 // 100,
-                 min(config.qmax * 127 // 100, base_q))
-    q = make_quants(base_q)
-    tables_np = _default_cost_tables()
-    use_derr = config.quality <= ERROR_DIFFUSION_QUALITY
-
-    def qrow(sq):
-        return (sq.y1_dc.q, sq.y1_ac.q, sq.y2_dc.q, sq.y2_ac.q,
-                sq.uv_dc.q, sq.uv_ac.q)
-
-    base_row = np.array(qrow(q), np.int32)
-    quants = dict(zip(("y1_dc", "y1_ac", "y2_dc", "y2_ac", "uv_dc", "uv_ac"),
-                      (int(x) for x in base_row)))
     first = np.asarray(images[0])
     h, w = first.shape[:2]
-    plan = _plan(h + (h & 1), w + (w & 1))
+    setup = encode_setup(quality, h, w)
+    config, base_q, plan = setup["config"], setup["base_q"], setup["plan"]
+    tables_np = _default_cost_tables()
+    quants = dict(zip(("y1_dc", "y1_ac", "y2_dc", "y2_ac", "uv_dc", "uv_ac"),
+                      (int(x) for x in setup["base_row"])))
     n = len(images)
-    H, W = plan["H"], plan["W"]
     mh, mw = plan["mb_h"], plan["mb_w"]
     cap_s = plan["n_group_pad"] // 2
     cap_b = plan["n_group_pad"] // 4
-    ys_len = H * W
-    cs_len = (H // 2) * (W // 2)
     if timings is not None:
         timings.setdefault("stage_ms", {})
         for k in ("emit_thread_s", "total"):
             timings.setdefault(k, 0.0)
 
     def prep_one(im):
-        """Host: MB-padded planes in one wire buffer + segmentation (the
-        hybrid engine only)."""
-        im = np.asarray(im)
-        if im.shape[:2] != (h, w):
-            raise EncodeError("all images of a batch must share one shape")
-        rgb = im[..., :3]
-        if (h & 1) or (w & 1):
-            rgb = np.pad(rgb, ((0, h & 1), (0, w & 1), (0, 0)), mode="edge")
-        yp, up, vp = rgb_to_yuv420(rgb)
-        yp = np.pad(yp.astype(np.uint8),
-                    ((0, H - yp.shape[0]), (0, W - yp.shape[1])), mode="edge")
-        up = np.pad(up.astype(np.uint8),
-                    ((0, H // 2 - up.shape[0]), (0, W // 2 - up.shape[1])),
-                    mode="edge")
-        vp = np.pad(vp.astype(np.uint8),
-                    ((0, H // 2 - vp.shape[0]), (0, W // 2 - vp.shape[1])),
-                    mode="edge")
-        flat = np.concatenate([yp.reshape(-1), up.reshape(-1), vp.reshape(-1)])
-        rows = np.broadcast_to(base_row, (4, 6))
-        seg = None
-        if not openloop and config.segments > 1:
-            seg_map, deltas = analyze_segments(
-                yp, mw, mh, config.segments, config.sns_strength, base_q)
-            if len(set(deltas[: config.segments])) > 1:
-                seg = {
-                    "map": seg_map,
-                    "deltas": deltas,
-                    "probs": _segment_tree_probs(seg_map),
-                    "quants": [make_quants(max(0, min(127, base_q + d)))
-                               for d in deltas],
-                }
-                rows = np.array([qrow(s) for s in seg["quants"]], np.int32)
-        pens = (np.zeros(4, np.int32) if openloop else
-                _i4_config_seg(rows, config.method, config.partition_limit)[1])
-        return flat, seg, rows, pens
+        return prep_image(im, setup, openloop=openloop)
 
     def emit_one(j, fetched, seg, dense):
         t0 = time.perf_counter()
@@ -343,24 +391,17 @@ def encode_rgba_batch_pipelined(images, *, quality: float = 75.0,
 
     def dispatch(prepped, clock):
         flat, segs, qs, pens = prepped
-        B = flat.shape[0]
-        buf = torch.from_numpy(flat).to(dev)                  # ONE h2d
+        yd, ud, vd = upload_planes(flat, plan, dev)          # ONE h2d
         if clock is not None:
             clock("h2d")
-        yd = buf[:, :ys_len].reshape(B, H, W)
-        ud = buf[:, ys_len:ys_len + cs_len].reshape(B, H // 2, W // 2)
-        vd = buf[:, ys_len + cs_len:].reshape(B, H // 2, W // 2)
         if openloop:
             return planes_packed_step(yd, ud, vd, cap_s=cap_s, cap_b=cap_b,
                                       marks=clock, **quants)
-        seg_maps = np.stack([
-            (s["map"].reshape(mh, mw) if s is not None
-             else np.zeros((mh, mw), np.int32)) for s in segs])
-        tables, qs_t, seg_t, pens_t = params_from_numpy(
-            tables_np, qs, seg_maps, pens, device=dev)
+        tables, qs_t, seg_t, pens_t = hybrid_params(segs, qs, pens, plan,
+                                                    tables_np, dev)
         return planes_wavefront_packed_step(
             yd, ud, vd, seg_t, qs_t, tables, cap_s=cap_s, cap_b=cap_b,
-            i4_penalty=pens_t, use_derr=use_derr, marks=clock)
+            i4_penalty=pens_t, use_derr=setup["use_derr"], marks=clock)
 
     sticky = {"ks": min(4096, cap_s), "kb": min(4096, cap_b)}
     t = plan["total"]
@@ -405,10 +446,7 @@ def encode_rgba_batch_pipelined(images, *, quality: float = 75.0,
     starts = list(range(0, n, chunk))
 
     def prep_chunk(s, pool):
-        prepped = list(pool.map(prep_one, images[s:s + chunk]))
-        return (np.stack([p[0] for p in prepped]), [p[1] for p in prepped],
-                np.stack([p[2] for p in prepped]),
-                np.stack([p[3] for p in prepped]))
+        return stack_prepped(list(pool.map(prep_one, images[s:s + chunk])))
 
     workers = max(1, threads)
     with cf.ThreadPoolExecutor(max_workers=workers) as pool, \
@@ -445,7 +483,12 @@ def encode_rgba_batch_pipelined(images, *, quality: float = 75.0,
 __all__ = [
     "check_engine",
     "encode_rgba_batch_pipelined",
+    "encode_setup",
+    "hybrid_params",
     "planes_packed_step",
     "planes_wavefront_packed_step",
+    "prep_image",
+    "stack_prepped",
     "unpack_g4v2",
+    "upload_planes",
 ]

@@ -6,11 +6,10 @@ The hybrid engine splits the encoder's work in two:
   per-sub-block i4 modes, i4-vs-i16 adoption, uv mode) for all MBs of
   all images at once, with prediction context read from a plane — the
   source on the cold round, the previous round's reconstruction on a
-  refine round.  The refine round walks each MB's 16 sub-blocks in
-  raster order (Gauss-Seidel: each winner's recon is the next
-  sub-block's context), and each of those 16 substeps scores all 10
-  B-modes of every MB's sub-block with the i4 search kernel
-  (ops/kernels/i4_search.py).
+  refine round.  The refine round walks each MB's 16 sub-blocks
+  (Gauss-Seidel: each winner's recon is the context of the sub-blocks
+  after it), scoring all 10 B-modes of each, in one launch of the i4
+  walk kernel (ops/kernels/i4_search.py).
 - ``encode_wavefront_core`` codes the MBs with those modes exactly
   closed-loop, in anti-diagonal order, with the wavefront kernel
   (ops/kernels/wavefront_fixed.py), so the stream has zero prediction
@@ -29,7 +28,7 @@ import torch
 from ..models.vp8.encoder import I4_PENALTY_MAX
 from . import dct
 from .dct import BIAS
-from .kernels.i4_search import i4_search, t3_tables
+from .kernels.i4_search import i4_walk, t3_tables
 from .kernels.wavefront_fixed import wavefront_fixed
 from .rate import block_rate256, mul_shr16
 from .vp8_recon import mb_context, predict4_blocks
@@ -140,38 +139,13 @@ def openloop_mode_search(y, u, v, seg_map, qsteps, tables, *, try_i4: bool,
 
 def _i4_gauss_seidel(src, top16, tr4, left16, tlpx, qlane, iqlane, pen_n,
                      t3):
-    """The 16-substep within-MB i4 walk over every MB at once.
+    """The 16-substep within-MB i4 walk over every MB at once: one
+    ``i4_walk`` launch on CUDA tensors, its plain version on CPU tensors.
 
-    The scratch mirrors the closed-loop engine's (17, 21) border: row 0
-    = [tl, top16, tr4], column 0 = left16 (from the context plane), the
-    interior filled with each substep's winning recon.  Sub-blocks with
-    gx == 3 take their top-right pixels from the MB's tr4 (row 0, cols
-    17-20).  Returns (bmodes (B, N, 16), summed RD score s4 (B, N)).
+    Returns (bmodes (B, N, 16), summed RD score s4 (B, N)).
     """
-    B, N = src.shape[:2]
-    dev = src.device
-    scr = torch.zeros((B, N, 17, 21), dtype=I32, device=dev)
-    scr[:, :, 0, 0] = tlpx
-    scr[:, :, 0, 1:17] = top16
-    scr[:, :, 0, 17:21] = tr4
-    scr[:, :, 1:17, 0] = left16
-    quants5 = torch.stack([iqlane[..., 0], iqlane[..., 1], qlane[..., 0],
-                           qlane[..., 1], pen_n], dim=-1).reshape(B * N, 5)
-    bmodes = torch.zeros((B, N, 16), dtype=I32, device=dev)
-    s4 = torch.zeros((B, N), dtype=I32, device=dev)
-    for n in range(16):
-        gy, gx = n >> 2, n & 3
-        r, c = 4 * gy, 4 * gx
-        tr = scr[:, :, 0, 17:21] if gx == 3 else scr[:, :, r, c + 5:c + 9]
-        ctx13 = torch.cat([scr[:, :, r, c:c + 5], tr,
-                           scr[:, :, r + 1:r + 5, c]], dim=-1)
-        src16 = src[:, :, r:r + 4, c:c + 4].reshape(B * N, 16)
-        bmode, bcost, brec = i4_search(ctx13.reshape(B * N, 13).contiguous(),
-                                       src16.contiguous(), quants5, t3)
-        scr[:, :, r + 1:r + 5, c + 1:c + 5] = brec.reshape(B, N, 4, 4)
-        bmodes[:, :, n] = bmode.reshape(B, N)
-        s4 += bcost.reshape(B, N)
-    return bmodes, s4
+    return i4_walk(*(t.contiguous() for t in (src, top16, tr4, left16, tlpx,
+                                              qlane, iqlane, pen_n)), t3)
 
 
 def encode_wavefront_core(y, u, v, seg_map, qsteps, *, modes,

@@ -38,9 +38,6 @@ namespace {
 constexpr int kThreads = 128;
 constexpr unsigned kFull = 0xffffffffu;
 
-// Zigzag position of each raster coefficient (inverse of vp8::kZigzag).
-__constant__ int kInvZigzag[16] = {0, 1, 5, 6, 2, 4, 7, 12,
-                                   3, 8, 11, 13, 9, 10, 14, 15};
 // Signs of the 4-point Walsh-Hadamard rows of vp8's FWHT, bit c of row i
 // set where the factor is -1: [+ + + +], [+ + - -], [+ - - +], [+ - + -].
 __constant__ int kWalshNeg[4] = {0x0, 0xC, 0x6, 0xA};
@@ -190,7 +187,7 @@ encode_luma_kernel(const uint8_t* __restrict__ y, long long stride_b, int n_mb, 
   const int y2_level = blk == 0 ? quant1(y2, iq2_dc, bias2_dc) : quant1(y2, iq2_ac, bias2_ac);
   if (!valid) return;
   store_levels(levels + ((size_t)mb * 16 + blk) * 16, lv);
-  y2_levels[(size_t)mb * 16 + kInvZigzag[blk]] = (int16_t)y2_level;
+  y2_levels[(size_t)mb * 16 + vp8::inv_zigzag(blk)] = (int16_t)y2_level;
   if (blk == 0) modes[mb] = (uint8_t)mode;
 }
 

@@ -1,4 +1,4 @@
-"""i4 candidate search: the Hopper kernel, its binding and its plain version.
+"""i4 candidate search: the Hopper kernels, their bindings and plain versions.
 
 ``i4_search`` scores all 10 B-modes of S independent 4x4 luma
 sub-blocks and returns, per sub-block, the RD-argmin mode, its cost and
@@ -6,6 +6,11 @@ its 16 reconstructed pixels.  On a CUDA tensor it launches the kernel in
 ``i4_search.cu`` (replacing the TPU kernel
 gowebp_tpu/ops/pallas/i4_search.py); on a CPU tensor it runs
 ``i4_search_plain``, the same arithmetic as vectorised torch ops.
+
+``i4_walk`` runs the hybrid refine round's whole 16-substep Gauss-Seidel
+walk over every MB in one launch (each substep's winning recon is the
+next sub-blocks' context); ``i4_walk_plain`` is the same walk as 16
+``i4_search_plain`` calls in raster order.
 
 Layout, one row per sub-block:
   ctx13   (S, 13) int32  [tl, top0-3, tr0-3, left0-3]
@@ -36,6 +41,8 @@ def _configure(lib) -> None:
     lib.i4_search_launch.restype = ctypes.c_int
     lib.i4_search_launch.argtypes = [p, p, p, p, p, p, ctypes.c_int,
                                      p, p, p, p]
+    lib.i4_walk_launch.restype = ctypes.c_int
+    lib.i4_walk_launch.argtypes = [p] * 11 + [ctypes.c_int] + [p] * 4
 
 
 LIBRARY = CudaLibrary("i4_search.cu", _configure)
@@ -105,4 +112,92 @@ def i4_search(ctx13, src16, quants5, t3):
 
 i4_search.launches = 0
 
-__all__ = ["LIBRARY", "i4_search", "i4_search_plain", "t3_tables"]
+
+def i4_walk_plain(src, top16, tr4, left16, tl, qlane, iqlane, pen, t3, *,
+                  want_recon: bool = False, search=i4_search_plain):
+    """The 16-substep within-MB i4 walk over every MB at once (any device).
+
+    src (B, N, 16, 16) int32 source MBs; top16 (B, N, 16), tr4 (B, N, 4),
+    left16 (B, N, 16), tl (B, N) int32 context pixels; qlane/iqlane
+    (B, N, 6) int32 per-MB quantizer steps and their reciprocals; pen
+    (B, N) int32 RD lambdas; t3 the type-3 rate tables.  The scratch
+    mirrors the closed-loop engine's (17, 21) border: row 0 = [tl, top16,
+    tr4], column 0 = left16, the interior filled with each substep's
+    winning recon.  Sub-blocks with gx == 3 take their top-right pixels
+    from the MB's tr4.  Returns (bmodes (B, N, 16), summed RD score
+    s4 (B, N)) int32, and with ``want_recon`` the winners' recon (B, N,
+    16, 16) uint8.  ``search`` scores each substep's B*N sub-blocks
+    (``i4_search`` makes the walk 16 launches of the flat kernel).
+    """
+    B, N = src.shape[:2]
+    dev = src.device
+    scr = torch.zeros((B, N, 17, 21), dtype=I32, device=dev)
+    scr[:, :, 0, 0] = tl
+    scr[:, :, 0, 1:17] = top16
+    scr[:, :, 0, 17:21] = tr4
+    scr[:, :, 1:17, 0] = left16
+    quants5 = torch.stack([iqlane[..., 0], iqlane[..., 1], qlane[..., 0],
+                           qlane[..., 1], pen], dim=-1).reshape(B * N, 5)
+    bmodes = torch.zeros((B, N, 16), dtype=I32, device=dev)
+    s4 = torch.zeros((B, N), dtype=I32, device=dev)
+    for n in range(16):
+        gy, gx = n >> 2, n & 3
+        r, c = 4 * gy, 4 * gx
+        tr = scr[:, :, 0, 17:21] if gx == 3 else scr[:, :, r, c + 5:c + 9]
+        ctx13 = torch.cat([scr[:, :, r, c:c + 5], tr,
+                           scr[:, :, r + 1:r + 5, c]], dim=-1)
+        src16 = src[:, :, r:r + 4, c:c + 4].reshape(B * N, 16)
+        bmode, bcost, brec = search(ctx13.reshape(B * N, 13), src16,
+                                    quants5, t3)
+        scr[:, :, r + 1:r + 5, c + 1:c + 5] = brec.reshape(B, N, 4, 4)
+        bmodes[:, :, n] = bmode.reshape(B, N)
+        s4 += bcost.reshape(B, N)
+    if want_recon:
+        return bmodes, s4, scr[:, :, 1:17, 1:17].to(torch.uint8)
+    return bmodes, s4
+
+
+def i4_walk(src, top16, tr4, left16, tl, qlane, iqlane, pen, t3, *,
+            want_recon: bool = False):
+    """Kernel on CUDA tensors, ``i4_walk_plain`` on CPU tensors.
+
+    ``i4_walk.launches`` counts kernel launches (one per call on CUDA).
+    """
+    dev = src.device
+    if dev.type == "cpu":
+        return i4_walk_plain(src, top16, tr4, left16, tl, qlane, iqlane, pen,
+                             t3, want_recon=want_recon)
+    if dev.type != "cuda":
+        raise ValueError(f"i4_walk: unsupported device {dev}")
+    B, N = src.shape[:2]
+    check_tensor("src", src, I32, (B, N, 16, 16), dev)
+    for name, tns, shape in (("top16", top16, (B, N, 16)),
+                             ("tr4", tr4, (B, N, 4)),
+                             ("left16", left16, (B, N, 16)),
+                             ("tl", tl, (B, N)), ("qlane", qlane, (B, N, 6)),
+                             ("iqlane", iqlane, (B, N, 6)),
+                             ("pen", pen, (B, N))):
+        check_tensor(name, tns, I32, shape, dev)
+    for name, tab, shape in zip(("p0", "p1", "val"), t3,
+                                ((16, 3, 2), (16, 3, 2), (16, 3, 68))):
+        check_tensor(name, tab, I32, shape, dev)
+    lib = LIBRARY.load()
+    bmodes = torch.empty((B, N, 16), dtype=I32, device=dev)
+    s4 = torch.empty((B, N), dtype=I32, device=dev)
+    rec = (torch.empty((B, N, 16, 16), dtype=torch.uint8, device=dev)
+           if want_recon else None)
+    err = lib.i4_walk_launch(
+        *(t.data_ptr() for t in (src, top16, tr4, left16, tl, qlane, iqlane,
+                                 pen) + tuple(t3)),
+        B * N, bmodes.data_ptr(), s4.data_ptr(),
+        rec.data_ptr() if want_recon else None, stream_handle(dev))
+    if err != 0:
+        raise RuntimeError(f"i4_walk kernel launch failed: CUDA error {err}")
+    i4_walk.launches += 1
+    return (bmodes, s4, rec) if want_recon else (bmodes, s4)
+
+
+i4_walk.launches = 0
+
+__all__ = ["LIBRARY", "i4_search", "i4_search_plain", "i4_walk",
+           "i4_walk_plain", "t3_tables"]

@@ -1,34 +1,58 @@
-// Fixed-mode closed-loop VP8 macroblock encode as an anti-diagonal
-// wavefront — the hybrid encoder's phase 2.
+// Fixed-mode closed-loop VP8 macroblock encode in wavefront order — the
+// hybrid encoder's phase 2 — as one persistent launch.
 //
 // Replaces the TPU kernel gowebp_tpu/ops/pallas/wavefront_fixed.py
-// (wavefront_fixed_pallas -> _make_kernel).  MBs on the anti-diagonal
-// t = 2*my + mx depend only on MBs of earlier diagonals (left, top-left,
-// top, top-right), so one launch encodes one diagonal of every image in
-// the batch: one 32-thread block per active MB (grid = rows x images).
-// Each block reads its neighbours' reconstruction from full uint8 recon
-// planes in device memory and writes its own, so nothing is carried in
-// registers or shared memory across launches; the UV DC error-diffusion
-// carries (two int16 pairs per channel) go through small per-MB arrays.
+// (wavefront_fixed_pallas -> _make_kernel), which ran the whole anti-
+// diagonal wavefront as one grid and kept the boundary state on chip.
 //
-// Inside a block, with the modes given:
-//   - threads 0-15, one per luma 4x4 sub-block: the i16 path (predict,
-//     FDCT, quantize the AC with the DC zeroed, then after thread 0's
-//     Y2 WHT + quantize + dequant + IWHT: dequant, IDCT, recon), or for
-//     an i4 MB thread 0 walks the 16 sub-blocks in raster order (each
-//     one's recon is the next one's context) and threads 0-15 copy the
-//     result out;
-//   - threads 16-23, one per chroma 4x4 sub-block (U 0-3, V 4-7): predict
-//     and FDCT, then threads 16 and 20 run the 2x2 DC error-diffusion
-//     chain of their channel when enabled, then quantize, dequantize,
-//     IDCT and recon.
+// Bound on the card: by the roofline, bytes (planes and modes in, levels
+// and recon out: 0.03 ms at B=16, 1024x1024).  Unreachable: MB (my, mx)
+// needs the recon of (my-1, mx+1), so an image is a chain of
+// (mw - 1) + 2*(mh - 1) + 1 dependent MB steps (190 at 64x64 MBs), each a few
+// thousand cycles of dependent integer work plus, per row, a hand-over
+// through L2.  The design keeps each step short:
 //
-// Bound on the card: bytes by the roofline (levels and recon planes
-// out, planes and modes in), but this form is latency-bound far above
-// that: T = mw + 2*mh - 2 dependent launches, and an i4 MB's 16-step
-// chain runs on one thread.  This is the simple correct form; a single
-// launch with per-row progress counters and a parallel i4 chain is
-// later work.
+// - One launch.  A 96-thread block owns one MB row of one image at a time
+//   and walks it left to right.  Rows are claimed in order from an atomic
+//   ticket (ticket = my*B + b: every image's row 0, then every row 1, ...),
+//   so a block only ever waits on a row that an earlier-started, resident
+//   block owns: no deadlock, whatever the grid or the residency, and the
+//   rows claimed last are the ones that would start last anyway.  The
+//   grid is the number of blocks the card holds at once; each loops over
+//   tickets.
+// - Progress counters.  Before MB (my, mx) thread 0 spins on
+//   ld.acquire.gpu until row my-1 has published min(mx + 2, mw) MBs (top,
+//   top-left, top-right and the UV DC carries dtop; the last column's
+//   top-right repeats its own top), then __syncthreads().  The row
+//   above's pixels and dtop are read with __ldcg (L2, never a stale L1
+//   line).  After each MB the block stores the bottom recon row and dtop,
+//   __syncthreads(), and one thread of warp 2 publishes mx+1 with
+//   st.release.gpu (a release is cumulative over the stores the barrier
+//   ordered before it).  The other outputs (levels, the other recon rows)
+//   are written after the hand-over, off the chain; the next MB's own
+//   inputs (source pixels, modes) are fetched one MB ahead.
+// - Left context on chip.  The left recon column, the corner and the UV
+//   DC carries toward the right come from the previous MB of the same row
+//   and stay in shared memory and registers.
+// - Lane-parallel 4x4 work (vp8_dsp.cuh): a 16-lane segment holds one
+//   4x4 block, one lane per pixel or coefficient; FDCT, IDCT and the Y2
+//   WHT/IWHT are two passes of shuffles, with lane-constant multipliers
+//   and selects, never a branch on the lane.  Warp 1 codes chroma while
+//   warps 0 and 2 code luma:
+//   - i16: warp 0 takes sub-blocks 0-7, warp 2 sub-blocks 8-15, each as 4
+//     rounds of 2 whose shuffles go out together; after a barrier of the
+//     two warps every segment runs the Y2 path (WHT, quantize, IWHT by
+//     shuffle), then dequantize, IDCT and recon.
+//   - i4: warp 0 runs the 16-sub-block chain in sub-block diagonal order
+//     d = 2*gy + gx, 10 steps of up to 2 sub-blocks (one per segment).  A
+//     sub-block reads only its left, top, top-left and top-right
+//     neighbours (or the MB's top-right pixels when gx = 3), all on
+//     earlier diagonals, so every level and pixel equals the raster walk's.
+//     The prediction reads a per-(mode, pixel) table of three feature
+//     offsets and their weights: no branch on the mode or the pixel.
+//   - chroma: one segment per channel, its 4 blocks together; the 2x2 DC
+//     error-diffusion chain runs on the segment's lane 0 between the FDCT
+//     and the quantization.
 
 #include <cuda_runtime.h>
 
@@ -37,6 +61,12 @@
 #include "vp8_dsp.cuh"
 
 namespace {
+
+// warp 0: luma (the i4 chain, half the i16 blocks), warp 1: chroma,
+// warp 2: the other i16 blocks and the hand-over
+constexpr int kThreads = 96;
+constexpr int kSW = 21;       // luma scratch row: [tl, top16, tr4]
+constexpr int kCW = 9;        // chroma scratch row: [tl, top8]
 
 struct Args {
   const uint8_t* y;  // (B, H, W) source planes
@@ -48,16 +78,32 @@ struct Args {
   const int* uvmode;
   const int* is_i4;
   const int* imodes;  // (B, mh, mw, 16)
-  uint8_t* ry;        // (B, H, W) recon planes (read by later diagonals)
+  uint8_t* ry;        // (B, H, W) recon planes (the row below reads them)
   uint8_t* ru;
   uint8_t* rv;
   int16_t* dtop;  // (B, mh, mw, 4) UV DC error carries [ch][k] for the MB below
-  int16_t* dleft;  // (B, mh, mw, 4) ... for the MB to the right
   int16_t* ylv;   // (B, mh, mw, 16, 16) zigzag levels
   int16_t* y2lv;  // (B, mh, mw, 16)
   int16_t* uvlv;  // (B, mh, mw, 8, 16)
-  int mh, mw, use_derr;
+  int* progress;  // (B*mh) MBs published per row, zeroed by the caller
+  int* ticket;    // next ticket (my * B + b) to claim, zeroed by the caller
+  int B, mh, mw, use_derr;
 };
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// Barrier of the two luma warps (0 and 2) alone.
+__device__ __forceinline__ void named_barrier_luma() {
+  asm volatile("bar.sync 1, 64;" ::: "memory");
+}
 
 __device__ __forceinline__ void qsingle_chain(int* dc, int dt0, int dt1, int dl0, int dl1,
                                               int iqdc, int qdc, int* nl, int* nt) {
@@ -83,287 +129,389 @@ __device__ __forceinline__ void qsingle_chain(int* dc, int dt0, int dt1, int dl0
   nt[1] = e3 - lv1;
 }
 
-__global__ void __launch_bounds__(32) wavefront_fixed_kernel(Args a, int t, int my0) {
-  const int my = my0 + blockIdx.x;
-  const int b = blockIdx.y;
-  const int mx = t - 2 * my;
-  const int tid = threadIdx.x;
+// Scratch offset, from a sub-block's corner (r, c), of feature Z[z]
+// (z = 0..14) of its B-mode predictions: Z = [L, L, K, J, I, X, A, B, C,
+// D, E, F, G, H, H] (left bottom-up, corner, top, top-right).  The
+// top-right pixels sit at (r, c+5..c+8): above-right sub-block recon, or
+// for gx = 3 the MB's top-right pixels, which row 0 holds and rows 4, 8
+// and 12 repeat in columns 17-20.
+__device__ __forceinline__ int z_off(int z) {
+  return z <= 4 ? kSW * (1 + min(3, 4 - z)) : (z == 5 ? 0 : min(z, 13) - 5);
+}
+
+// Prediction table entry of mode m, pixel k: three feature offsets o0-o2
+// (bytes 0-2) and, in byte 3, how they combine: the value is
+// clip8((z0 + w1 * z1 + w2 * z2 + sh) >> sh) with w1 (bits 0-1), w2 + 1
+// (bits 2-3) and sh (bits 4-5): a copy (1, 0, 0; 0), avg2 (1, 1, 0; 1),
+// avg3 (1, 2, 1; 2) or TM (1, 1, -1; 0).  Bit 6 marks DC.
+__device__ __forceinline__ unsigned pred_entry(int m, int k) {
+  unsigned o0 = 0, o1 = 0, o2 = 0, op = 1u << 6 | 1u << 2;  // DC
+  if (m == 1) {
+    o0 = kSW * (1 + (k >> 2));  // left of the pixel's row
+    o1 = 1 + (k & 3);           // top of its column
+    op = 1u;                    // z0 + z1 - z2 (z2 = the corner)
+  } else if (m >= 2) {
+    const int f = vp8::kB4Features[8 * k + m - 2];  // Z, avg2 (15-28), avg3 (29-41)
+    const int i0 = f < 15 ? f : (f < 29 ? f - 15 : f - 29);
+    o0 = z_off(i0);
+    o1 = z_off(min(i0 + 1, 14));
+    o2 = z_off(min(i0 + 2, 14));
+    op = f < 15 ? (0u | 1u << 2) : (f < 29 ? (1u | 1u << 2 | 1u << 4) : (2u | 2u << 2 | 2u << 4));
+  }
+  return o0 | (o1 << 8) | (o2 << 16) | (op << 24);
+}
+
+// Lane-parallel B-mode prediction, entry e = pred_entry(mode, k), of
+// pixel k of the sub-block whose context corner is scratch index `base`:
+// three independent shared-memory reads, no branch on the pixel; only DC
+// reads its 8 neighbours instead.
+__device__ __forceinline__ int pred_b4_lane(unsigned e, const int* s, int base) {
+  const int z0 = s[base + (e & 255)], z1 = s[base + ((e >> 8) & 255)];
+  const int z2 = s[base + ((e >> 16) & 255)];
+  const int op = e >> 24, sh = (op >> 4) & 3;
+  const int v = vp8::clip8((z0 + (op & 3) * z1 + (((op >> 2) & 3) - 1) * z2 + sh) >> sh);
+  if (!(op & 64)) return v;
+  int dc = 4;  // DC: (top 4 + left 4 + 4) >> 3
+#pragma unroll
+  for (int i = 0; i < 4; i++) dc += s[base + 1 + i] + s[base + (1 + i) * kSW];
+  return dc >> 3;
+}
+
+// 16 / 8 scratch ints -> 16 / 8 bytes of a plane row.
+__device__ __forceinline__ unsigned pack4(const int* p) {
+  return (unsigned)p[0] | ((unsigned)p[1] << 8) | ((unsigned)p[2] << 16) |
+         ((unsigned)p[3] << 24);
+}
+__device__ __forceinline__ void store_row16(uint8_t* out, const int* p) {
+  *reinterpret_cast<uint4*>(out) = make_uint4(pack4(p), pack4(p + 4), pack4(p + 8), pack4(p + 12));
+}
+__device__ __forceinline__ void store_row8(uint8_t* out, const int* p) {
+  *reinterpret_cast<uint2*>(out) = make_uint2(pack4(p), pack4(p + 4));
+}
+
+// 6 blocks an SM: at most 112 registers, no spills.
+__global__ void __launch_bounds__(kThreads, 6) wavefront_fixed_kernel(Args a) {
+  __shared__ int sy[17 * kSW];     // luma: row 0 [tl, top16, tr4], col 0 left16, recon
+  __shared__ int sc[2][9 * kCW];   // U, V: row 0 [tl, top8], col 0 left8, recon
+  __shared__ __align__(16) uint8_t ss[256], scs[2][64];  // the MB's source pixels
+  __shared__ int s_dc[16], s_im[16];  // the i16 DCs, the MB's B-modes
+  __shared__ int s_q[24], s_iq[24];   // the image's 4 quantizer rows and reciprocals
+  __shared__ unsigned s_ptab[160];  // pred_entry(m, k) at 16 * m + k
+  __shared__ int s_is4, s_ymode, s_uvmode, s_seg, s_row;
+  // the MB's levels (luma 0-255, chroma 256-383, Y2 384-399), written out
+  // after the hand-over
+  __shared__ __align__(16) int16_t s_lv[400];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int k = lane & 15, half = lane >> 4;
+  const int kr = k >> 2, kc = k & 3;
   const int mh = a.mh, mw = a.mw;
   const int W = 16 * mw, H = 16 * mh, Wc = 8 * mw, Hc = 8 * mh;
-  const bool ht = my > 0, hl = mx > 0;
-  const size_t mb = ((size_t)b * mh + my) * mw + mx;
+  for (int i = tid; i < 160; i += kThreads) s_ptab[i] = pred_entry(i >> 4, i & 15);
 
-  __shared__ int s_top[16], s_tr[4], s_left[16], s_tl;
-  __shared__ int c_top[2][8], c_left[2][8], c_tl[2];
-  __shared__ int s_src[256], c_src[2][64];
-  __shared__ int s_q[6], s_iq[6];
-  __shared__ int s_dc[16], s_rdc[16], c_dc[2][4];
-  __shared__ int scr[17 * 21];
-  __shared__ int s_is4, s_ymode, s_uvmode;
-
-  const uint8_t* ysrc = a.y + (size_t)b * H * W;
-  uint8_t* yrec = a.ry + (size_t)b * H * W;
-  const int y0 = 16 * my, x0 = 16 * mx;
-
-  // ---- phase 0: context (edge rules), source, quantizers ----
-  if (tid < 16) {
-    s_top[tid] = ht ? yrec[(size_t)(y0 - 1) * W + x0 + tid] : 127;
-    s_left[tid] = hl ? yrec[(size_t)(y0 + tid) * W + x0 - 1] : 129;
-  }
-  if (tid < 4) {
-    int v = 127;
-    if (ht) v = (mx == mw - 1) ? yrec[(size_t)(y0 - 1) * W + x0 + 15]
-                               : yrec[(size_t)(y0 - 1) * W + x0 + 16 + tid];
-    s_tr[tid] = v;
-  }
-  if (tid == 0) {
-    s_tl = ht ? (hl ? yrec[(size_t)(y0 - 1) * W + x0 - 1] : 129) : 127;
-    s_is4 = a.is_i4[mb] != 0;
-    s_ymode = a.ymode[mb];
-    s_uvmode = a.uvmode[mb];
-  }
-  if (tid >= 16) {
-    const int ch = (tid - 16) >> 3, i = (tid - 16) & 7;
-    const uint8_t* crec = (ch ? a.rv : a.ru) + (size_t)b * Hc * Wc;
-    const int cy0 = 8 * my, cx0 = 8 * mx;
-    c_top[ch][i] = ht ? crec[(size_t)(cy0 - 1) * Wc + cx0 + i] : 127;
-    c_left[ch][i] = hl ? crec[(size_t)(cy0 + i) * Wc + cx0 - 1] : 129;
-    if (i == 0) c_tl[ch] = ht ? (hl ? crec[(size_t)(cy0 - 1) * Wc + cx0 - 1] : 129) : 127;
-  }
-  for (int k = tid; k < 256; k += 32)
-    s_src[k] = ysrc[(size_t)(y0 + (k >> 4)) * W + x0 + (k & 15)];
-  for (int k = tid; k < 128; k += 32) {
-    const int ch = k >> 6, p = k & 63;
-    const uint8_t* cs = (ch ? a.v : a.u) + (size_t)b * Hc * Wc;
-    c_src[ch][p] = cs[(size_t)(8 * my + (p >> 3)) * Wc + 8 * mx + (p & 7)];
-  }
-  if (tid < 6) {
-    const int q = a.qsteps[((size_t)b * 4 + a.seg[mb]) * 6 + tid];
-    s_q[tid] = q;
-    s_iq[tid] = (1 << 17) / (q > 1 ? q : 1);
-  }
-  __syncthreads();
-
-  const bool is4 = s_is4;
-  int pred[16], cf[16], lv[16];
-  int16_t* ylv = a.ylv + mb * 256;
-
-  // ---- phase 1: i16 luma predict/FDCT/AC quant; chroma predict/FDCT ----
-  if (tid < 16 && !is4) {
-    const int gy = tid >> 2, gx = tid & 3;
-    int st = 0, sl = 0;
-    for (int i = 0; i < 16; i++) {
-      st += s_top[i];
-      sl += s_left[i];
+  for (;;) {
+    __syncthreads();  // the last row's shared state is no longer read
+    if (tid == 0) s_row = atomicAdd(a.ticket, 1);
+    __syncthreads();
+    const int t = s_row;  // tickets go row by row across the batch
+    if (t >= a.B * mh) return;
+    const int my = t / a.B, b = t - my * a.B;
+    const int row = b * mh + my;
+    const bool ht = my > 0;
+    const uint8_t* ysrc = a.y + (size_t)b * H * W;
+    uint8_t* yrec = a.ry + (size_t)b * H * W;
+    const int y0 = 16 * my, cy0 = 8 * my;
+    if (tid < 24) {
+      const int q = a.qsteps[(size_t)b * 24 + tid];
+      s_q[tid] = q;
+      s_iq[tid] = (1 << 17) / (q > 1 ? q : 1);
     }
-    const int dcv = vp8::dc_whole(st, sl, ht, hl, 16);
-    const int m = s_ymode;
-    for (int r = 0; r < 4; r++)
-      for (int c = 0; c < 4; c++) {
-        const int R = 4 * gy + r, C = 4 * gx + c;
-        const int p = m == 0 ? dcv
-                      : m == 1 ? vp8::clip8(s_left[R] + s_top[C] - s_tl)
-                      : m == 2 ? s_top[C]
-                               : s_left[R];
-        pred[4 * r + c] = p;
-        cf[4 * r + c] = s_src[R * 16 + C] - p;
-      }
-    int res[16];
-    for (int k = 0; k < 16; k++) res[k] = cf[k];
-    vp8::fdct4x4(res, cf);
-    s_dc[tid] = cf[0];
-    vp8::quantize(cf, s_iq[0], s_iq[1], vp8::kBiasY1Dc, vp8::kBiasY1Ac, true, lv);
-    for (int n = 0; n < 16; n++) ylv[tid * 16 + n] = (int16_t)lv[n];
-  }
-  int ch = 0, kc = 0;
-  if (tid >= 16 && tid < 24) {
-    ch = (tid - 16) >> 2;
-    kc = (tid - 16) & 3;
-    const int gy = kc >> 1, gx = kc & 1;
-    int st = 0, sl = 0;
-    for (int i = 0; i < 8; i++) {
-      st += c_top[ch][i];
-      sl += c_left[ch][i];
-    }
-    const int dcv = vp8::dc_whole(st, sl, ht, hl, 8);
-    const int m = s_uvmode;
-    int res[16];
-    for (int r = 0; r < 4; r++)
-      for (int c = 0; c < 4; c++) {
-        const int R = 4 * gy + r, C = 4 * gx + c;
-        const int p = m == 0 ? dcv
-                      : m == 1 ? vp8::clip8(c_left[ch][R] + c_top[ch][C] - c_tl[ch])
-                      : m == 2 ? c_top[ch][C]
-                               : c_left[ch][R];
-        pred[4 * r + c] = p;
-        res[4 * r + c] = c_src[ch][R * 8 + C] - p;
-      }
-    vp8::fdct4x4(res, cf);
-    c_dc[ch][kc] = cf[0];
-  }
-  __syncthreads();
+    int seen = 0;             // thread 0: row above's last published count
+    int dl0 = 0, dl1 = 0;     // warp 1, lane 0 of each segment: carries to the right
 
-  // ---- phase 2: Y2 (i16) or the i4 chain; UV DC error diffusion ----
-  if (tid == 0) {
-    int16_t* y2 = a.y2lv + mb * 16;
-    if (!is4) {
-      int y2c[16], y2l[16], deq[16];
-      // WHT over the 4x4 grid of sub-block DCs (rows gy, cols gx)
-      int tmp[16];
-      for (int gy = 0; gy < 4; gy++) {
-        const int* d = s_dc + 4 * gy;
-        const int a0 = d[0] + d[3], a1 = d[1] + d[2], a2 = d[1] - d[2], a3 = d[0] - d[3];
-        tmp[4 * gy + 0] = a0 + a1;
-        tmp[4 * gy + 1] = a3 + a2;
-        tmp[4 * gy + 2] = a0 - a1;
-        tmp[4 * gy + 3] = a3 - a2;
+    // This thread's share of an MB's own inputs (no other row writes
+    // them), fetched one MB ahead so that their latency is off the chain.
+    auto fetch = [&](int mx) {
+      const size_t mb = (size_t)row * mw + mx;
+      uint4 w = make_uint4(0, 0, 0, 0);
+      if (tid < 16) {
+        w = __ldg(reinterpret_cast<const uint4*>(ysrc + (size_t)(y0 + tid) * W + 16 * mx));
+      } else if (tid < 32) {
+        const uint8_t* cs = (tid < 24 ? a.u : a.v) + (size_t)b * Hc * Wc;
+        const uint2 c = __ldg(
+            reinterpret_cast<const uint2*>(cs + (size_t)(cy0 + (tid & 7)) * Wc + 8 * mx));
+        w.x = c.x;
+        w.y = c.y;
+      } else if (tid < 48) {
+        w.x = a.imodes[mb * 16 + tid - 32];
+      } else if (tid == 48) {
+        w = make_uint4(a.is_i4[mb] != 0, a.ymode[mb], a.uvmode[mb], a.seg[mb]);
       }
-      for (int gx = 0; gx < 4; gx++) {
-        const int a0 = tmp[gx] + tmp[12 + gx], a1 = tmp[4 + gx] + tmp[8 + gx];
-        const int a2 = tmp[4 + gx] - tmp[8 + gx], a3 = tmp[gx] - tmp[12 + gx];
-        y2c[gx] = (a0 + a1) >> 1;
-        y2c[4 + gx] = (a3 + a2) >> 1;
-        y2c[8 + gx] = (a0 - a1) >> 1;
-        y2c[12 + gx] = (a3 - a2) >> 1;
-      }
-      vp8::quantize(y2c, s_iq[2], s_iq[3], vp8::kBiasY2Dc, vp8::kBiasY2Ac, false, y2l);
-      bool any_ac = false;
-      for (int n = 0; n < 16; n++) {
-        y2[n] = (int16_t)y2l[n];
-        any_ac |= (n > 0 && y2l[n] != 0);
-      }
-      vp8::dequantize(y2l, s_q[2], s_q[3], deq);
-      if (any_ac) {
-        for (int col = 0; col < 4; col++) {
-          const int a0 = deq[col] + deq[12 + col], a1 = deq[4 + col] + deq[8 + col];
-          const int a2 = deq[4 + col] - deq[8 + col], a3 = deq[col] - deq[12 + col];
-          tmp[col] = a0 + a1;
-          tmp[4 + col] = a3 + a2;
-          tmp[8 + col] = a0 - a1;
-          tmp[12 + col] = a3 - a2;
+      return w;
+    };
+    uint4 next = fetch(0);
+
+    for (int mx = 0; mx < mw; mx++) {
+      const bool hl = mx > 0;
+      const size_t mb = (size_t)row * mw + mx;
+      const int x0 = 16 * mx, cx0 = 8 * mx;
+
+      // ---- the MB's own inputs into shared memory; fetch the next MB's ----
+      {
+        if (tid < 16) {
+          *reinterpret_cast<uint4*>(ss + 16 * tid) = next;
+        } else if (tid < 32) {
+          *reinterpret_cast<uint2*>(&scs[tid >= 24][(tid & 7) * 8]) = make_uint2(next.x, next.y);
+        } else if (tid < 48) {
+          s_im[tid - 32] = (int)next.x;
+        } else if (tid == 48) {
+          s_is4 = (int)next.x;
+          s_ymode = (int)next.y;
+          s_uvmode = (int)next.z;
+          s_seg = (int)next.w;
         }
-        for (int row = 0; row < 4; row++) {
-          const int dc = tmp[4 * row] + 3;
-          const int a0 = dc + tmp[4 * row + 3], a1 = tmp[4 * row + 1] + tmp[4 * row + 2];
-          const int a2 = tmp[4 * row + 1] - tmp[4 * row + 2], a3 = dc - tmp[4 * row + 3];
-          s_rdc[4 * row + 0] = (a0 + a1) >> 3;
-          s_rdc[4 * row + 1] = (a3 + a2) >> 3;
-          s_rdc[4 * row + 2] = (a0 - a1) >> 3;
-          s_rdc[4 * row + 3] = (a3 - a2) >> 3;
+        if (mx + 1 < mw) next = fetch(mx + 1);
+      }
+      // ---- wait for the row above ----
+      if (tid == 0 && ht) {
+        const int need = min(mx + 2, mw);
+        for (unsigned spins = 0; seen < need; spins++) {
+          seen = ld_acquire(a.progress + row - 1);
+          // A wait of seconds means a broken hand-over: fail the launch
+          // with an error instead of hanging the card.
+          if (spins == (1u << 22)) __trap();
         }
+      }
+      __syncthreads();
+
+      // ---- context: the row above's bottom pixels (through L2), the left
+      // column and corner from the previous MB of this row (on chip) ----
+      int dt0 = 0, dt1 = 0;
+      if (warp == 0) {
+        int top = 127;
+        if (lane < 20 && ht) {
+          const int col = lane < 16 ? x0 + lane : (mx == mw - 1 ? x0 + 15 : x0 + lane);
+          top = __ldcg(yrec + (size_t)(y0 - 1) * W + col);
+        }
+        const int left = hl ? sy[(1 + k) * kSW + 16] : 129;
+        const int tl = hl ? sy[16] : (ht ? 129 : 127);
+        __syncwarp();
+        if (half == 0) sy[(1 + k) * kSW] = left;
+        if (lane == 16) sy[0] = tl;
+        if (lane < 20) {
+          sy[1 + lane] = top;
+          if (lane >= 16)  // the top-right pixels again for gx = 3 below row 0
+            for (int r = 4; r < 16; r += 4) sy[r * kSW + 1 + lane] = top;
+        }
+      } else if (warp == 1) {
+        int* S = sc[half];
+        int top = 127;
+        if (k < 8 && ht) {
+          const uint8_t* crec = (half ? a.rv : a.ru) + (size_t)b * Hc * Wc;
+          top = __ldcg(crec + (size_t)(cy0 - 1) * Wc + cx0 + k);
+        }
+        if (k == 0 && a.use_derr && ht) {
+          const int16_t* p = a.dtop + (mb - mw) * 4 + 2 * half;
+          dt0 = __ldcg(p);
+          dt1 = __ldcg(p + 1);
+        }
+        const int left = hl ? S[(1 + (k & 7)) * kCW + 8] : 129;
+        const int tl = hl ? S[8] : (ht ? 129 : 127);
+        __syncwarp();
+        if (k < 8) {
+          S[1 + k] = top;
+        } else {
+          S[(k - 7) * kCW] = left;
+          if (k == 8) S[0] = tl;
+        }
+      }
+      __syncwarp();
+
+      if (warp != 1) {
+        // ================= luma =================
+        named_barrier_luma();  // warp 0's top context is in sy
+        const bool is4 = s_is4 != 0;
+        const int* q = s_q + 6 * s_seg;
+        const int* iq = s_iq + 6 * s_seg;
+        const int q0 = q[0], q1 = q[1], iq0 = iq[0], iq1 = iq[1];
+        if (is4) {
+          if (warp == 0) {
+            if (half == 0) s_lv[384 + k] = 0;  // no Y2
+            // Step d codes sub-block (gy0 + half, d - 2 * gy) where it
+            // exists; a segment without one mirrors segment 0's and stores
+            // nothing.
+            for (int d = 0; d < 10; d++) {
+              const int gy0 = d < 3 ? 0 : (d - 2) >> 1;
+              int gy = gy0 + half, gx = d - 2 * gy;
+              const bool valid = gy <= 3 && gx >= 0;
+              if (!valid) {
+                gy = gy0;
+                gx = d - 2 * gy0;
+              }
+              const int n = 4 * gy + gx, R = 4 * gy + kr, C = 4 * gx + kc;
+              const int p = pred_b4_lane(s_ptab[16 * s_im[n] + k], sy, 4 * gy * kSW + 4 * gx);
+              int x = ss[R * 16 + C] - p;
+              vp8::fdct_lanes<1>(&x, k);
+              const int lv = vp8::quant_lane(x, k, iq0, iq1, vp8::kBiasY1Dc, vp8::kBiasY1Ac, false);
+              x = lv * (k == 0 ? q0 : q1);
+              vp8::idct_lanes<1>(&x, k);
+              if (valid) {
+                s_lv[n * 16 + vp8::inv_zigzag(k)] = (int16_t)lv;
+                sy[(R + 1) * kSW + C + 1] = vp8::clip8(p + x);
+              }
+              __syncwarp();
+            }
+          }
+        } else {
+          // warp 0 codes sub-blocks 0-7, warp 2 sub-blocks 8-15
+          const int blk0 = warp == 0 ? 0 : 8;
+          // whole-MB DC: segment 0 sums top16, segment 1 left16
+          int sum = half == 0 ? sy[1 + k] : sy[(1 + k) * kSW];
+#pragma unroll
+          for (int o = 1; o < 16; o <<= 1) sum += __shfl_xor_sync(vp8::kFullMask, sum, o);
+          const int dcv = vp8::dc_whole(__shfl_sync(vp8::kFullMask, sum, 0),
+                                        __shfl_sync(vp8::kFullMask, sum, 16), ht, hl, 16);
+          const int m = s_ymode, tl = sy[0];
+          int x[4], pr[4];  // this warp's 4 rounds of 2 sub-blocks, together
+#pragma unroll
+          for (int rnd = 0; rnd < 4; rnd++) {
+            const int blk = blk0 + 2 * rnd + half;
+            const int R = 4 * (blk >> 2) + kr, C = 4 * (blk & 3) + kc;
+            const int top = sy[1 + C], left = sy[(1 + R) * kSW];
+            pr[rnd] = m == 0 ? dcv : m == 1 ? vp8::clip8(left + top - tl) : m == 2 ? top : left;
+            x[rnd] = ss[R * 16 + C] - pr[rnd];
+          }
+          vp8::fdct_lanes<4>(x, k);
+#pragma unroll
+          for (int rnd = 0; rnd < 4; rnd++) {
+            const int blk = blk0 + 2 * rnd + half;
+            if (k == 0) s_dc[blk] = x[rnd];
+            x[rnd] = vp8::quant_lane(x[rnd], k, iq0, iq1, vp8::kBiasY1Dc, vp8::kBiasY1Ac, true);
+            s_lv[blk * 16 + vp8::inv_zigzag(k)] = (int16_t)x[rnd];
+          }
+          named_barrier_luma();  // all 16 DCs are in s_dc
+          // Y2: every segment computes it, warp 0's segment 0 stores
+          const int l2 = vp8::quant_lane(vp8::fwht_lane(s_dc[k], k), k, iq[2], iq[3],
+                                         vp8::kBiasY2Dc, vp8::kBiasY2Ac, false);
+          if (warp == 0 && half == 0) s_lv[384 + vp8::inv_zigzag(k)] = (int16_t)l2;
+          const bool any_ac = vp8::seg_ballot(k != 0 && l2 != 0) != 0;
+          const int dq2 = l2 * (k == 0 ? q[2] : q[3]);
+          const int iw = vp8::iwht_lane(dq2, k);
+          const int rdc = any_ac ? iw : (vp8::seg_get(dq2, 0) + 3) >> 3;
+#pragma unroll
+          for (int rnd = 0; rnd < 4; rnd++) {
+            const int rb = vp8::seg_get(rdc, blk0 + 2 * rnd + half);
+            x[rnd] = k == 0 ? rb : x[rnd] * q1;
+          }
+          vp8::idct_lanes<4>(x, k);
+#pragma unroll
+          for (int rnd = 0; rnd < 4; rnd++) {
+            const int blk = blk0 + 2 * rnd + half;
+            const int R = 4 * (blk >> 2) + kr, C = 4 * (blk & 3) + kc;
+            sy[(1 + R) * kSW + 1 + C] = vp8::clip8(pr[rnd] + x[rnd]);
+          }
+          named_barrier_luma();  // the whole MB's recon is in sy
+        }
+        if (tid == 15) store_row16(yrec + (size_t)(y0 + 15) * W + x0, sy + 16 * kSW + 1);
       } else {
-        const int dc_only = (deq[0] + 3) >> 3;
-        for (int k = 0; k < 16; k++) s_rdc[k] = dc_only;
-      }
-    } else {
-      for (int n = 0; n < 16; n++) y2[n] = 0;
-      // scratch: row 0 = [tl, top16, tr4], col 0 = left16, interior = recon
-      scr[0] = s_tl;
-      for (int i = 0; i < 16; i++) {
-        scr[1 + i] = s_top[i];
-        scr[(1 + i) * 21] = s_left[i];
-      }
-      for (int i = 0; i < 4; i++) scr[17 + i] = s_tr[i];
-      const int* im = a.imodes + mb * 16;
-      for (int n = 0; n < 16; n++) {
-        const int gy = n >> 2, gx = n & 3, r = 4 * gy, c = 4 * gx;
-        int top[4], tr[4], left[4], res[16], deq[16];
-        for (int i = 0; i < 4; i++) {
-          top[i] = scr[r * 21 + c + 1 + i];
-          tr[i] = gx == 3 ? scr[17 + i] : scr[r * 21 + c + 5 + i];
-          left[i] = scr[(r + 1 + i) * 21 + c];
+        // ================= chroma: segment `half` codes channel U or V =================
+        const int ch = half;
+        int* S = sc[ch];
+        int sum = k < 8 ? S[1 + k] : S[(k - 7) * kCW];  // top8, then left8
+#pragma unroll
+        for (int o = 1; o < 8; o <<= 1) sum += __shfl_xor_sync(vp8::kFullMask, sum, o);
+        const int dcv = vp8::dc_whole(vp8::seg_get(sum, 0), vp8::seg_get(sum, 8), ht, hl, 8);
+        const int m = s_uvmode, tl = S[0];
+        const int* q = s_q + 6 * s_seg;
+        const int* iq = s_iq + 6 * s_seg;
+        int cfr[4], pr[4];
+#pragma unroll
+        for (int blk = 0; blk < 4; blk++) {
+          const int R = 4 * (blk >> 1) + kr, C = 4 * (blk & 1) + kc;
+          const int top = S[1 + C], left = S[(1 + R) * kCW];
+          pr[blk] = m == 0 ? dcv : m == 1 ? vp8::clip8(left + top - tl) : m == 2 ? top : left;
+          cfr[blk] = scs[ch][R * 8 + C] - pr[blk];
         }
-        vp8::pred_b4(im[n], scr[r * 21 + c], top, tr, left, pred);
-        for (int k = 0; k < 16; k++)
-          res[k] = s_src[(r + (k >> 2)) * 16 + c + (k & 3)] - pred[k];
-        vp8::fdct4x4(res, cf);
-        vp8::quantize(cf, s_iq[0], s_iq[1], vp8::kBiasY1Dc, vp8::kBiasY1Ac, false, lv);
-        for (int k = 0; k < 16; k++) ylv[n * 16 + k] = (int16_t)lv[k];
-        vp8::dequantize(lv, s_q[0], s_q[1], deq);
-        vp8::idct4x4(deq, res);
-        for (int k = 0; k < 16; k++)
-          scr[(r + 1 + (k >> 2)) * 21 + c + 1 + (k & 3)] = vp8::clip8(pred[k] + res[k]);
+        vp8::fdct_lanes<4>(cfr, k);
+        if (a.use_derr && k == 0) {
+          int nl[2], nt[2];
+          qsingle_chain(cfr, dt0, dt1, dl0, dl1, iq[4], q[4], nl, nt);
+          a.dtop[mb * 4 + 2 * ch] = (int16_t)nt[0];
+          a.dtop[mb * 4 + 2 * ch + 1] = (int16_t)nt[1];
+          dl0 = (int16_t)nl[0];  // the carries are int16 values
+          dl1 = (int16_t)nl[1];
+        }
+        int16_t* uv = s_lv + 256 + ch * 64;
+#pragma unroll
+        for (int blk = 0; blk < 4; blk++) {
+          const int lv = vp8::quant_lane(cfr[blk], k, iq[4], iq[5], vp8::kBiasUvDc,
+                                         vp8::kBiasUvAc, false);
+          uv[blk * 16 + vp8::inv_zigzag(k)] = (int16_t)lv;
+          cfr[blk] = lv * (k == 0 ? q[4] : q[5]);
+        }
+        vp8::idct_lanes<4>(cfr, k);
+#pragma unroll
+        for (int blk = 0; blk < 4; blk++) {
+          const int R = 4 * (blk >> 1) + kr, C = 4 * (blk & 1) + kc;
+          S[(1 + R) * kCW + 1 + C] = vp8::clip8(pr[blk] + cfr[blk]);
+        }
+        __syncwarp();
+        if (k == 7)
+          store_row8((ch ? a.rv : a.ru) + (size_t)b * Hc * Wc + (size_t)(cy0 + 7) * Wc + cx0,
+                     S + 8 * kCW + 1);
       }
-    }
-  }
-  if (a.use_derr && (tid == 16 || tid == 20)) {
-    const int cc = (tid - 16) >> 2;
-    int dt0 = 0, dt1 = 0, dl0 = 0, dl1 = 0;
-    if (ht) {
-      const int16_t* p = a.dtop + (mb - mw) * 4 + 2 * cc;
-      dt0 = p[0];
-      dt1 = p[1];
-    }
-    if (hl) {
-      const int16_t* p = a.dleft + (mb - 1) * 4 + 2 * cc;
-      dl0 = p[0];
-      dl1 = p[1];
-    }
-    int nl[2], nt[2];
-    qsingle_chain(c_dc[cc], dt0, dt1, dl0, dl1, s_iq[4], s_q[4], nl, nt);
-    a.dleft[mb * 4 + 2 * cc] = (int16_t)nl[0];
-    a.dleft[mb * 4 + 2 * cc + 1] = (int16_t)nl[1];
-    a.dtop[mb * 4 + 2 * cc] = (int16_t)nt[0];
-    a.dtop[mb * 4 + 2 * cc + 1] = (int16_t)nt[1];
-  }
-  __syncthreads();
 
-  // ---- phase 3: luma recon out; chroma quantize + recon ----
-  if (tid < 16) {
-    const int gy = tid >> 2, gx = tid & 3;
-    int rec[16];
-    if (!is4) {
-      int deq[16], res[16];
-      vp8::dequantize(lv, s_q[0], s_q[1], deq);
-      deq[0] = s_rdc[tid];
-      vp8::idct4x4(deq, res);
-      for (int k = 0; k < 16; k++) rec[k] = vp8::clip8(pred[k] + res[k]);
-    } else {
-      for (int k = 0; k < 16; k++)
-        rec[k] = scr[(4 * gy + 1 + (k >> 2)) * 21 + 4 * gx + 1 + (k & 3)];
+      // ---- hand the MB over to the row below: its bottom pixels and dtop
+      // are stored; release them (cumulative over the block's stores,
+      // which the barrier ordered before it) ----
+      __syncthreads();
+      if (tid == 64) st_release(a.progress + row, mx + 1);  // off warps 0-1's path
+
+      // ---- the rest of the MB's outputs, off the chain ----
+      if (tid < 15) {
+        store_row16(yrec + (size_t)(y0 + tid) * W + x0, sy + (1 + tid) * kSW + 1);
+      } else if (tid >= 16 && tid < 30) {
+        const int ch = tid >= 23, r = tid - 16 - 7 * ch;
+        store_row8((ch ? a.rv : a.ru) + (size_t)b * Hc * Wc + (size_t)(cy0 + r) * Wc + cx0,
+                   sc[ch] + (1 + r) * kCW + 1);
+      }
+      const uint4* lv4 = reinterpret_cast<const uint4*>(s_lv);
+      if (tid >= 64)
+        reinterpret_cast<uint4*>(a.ylv + mb * 256)[tid - 64] = lv4[tid - 64];
+      else if (tid >= 32 && tid < 48)
+        reinterpret_cast<uint4*>(a.uvlv + mb * 128)[tid - 32] = lv4[tid];
+      else if (tid >= 48 && tid < 50)
+        reinterpret_cast<uint4*>(a.y2lv + mb * 16)[tid - 48] = lv4[tid];
     }
-    for (int k = 0; k < 16; k++)
-      yrec[(size_t)(y0 + 4 * gy + (k >> 2)) * W + x0 + 4 * gx + (k & 3)] = (uint8_t)rec[k];
-  }
-  if (tid >= 16 && tid < 24) {
-    const int gy = kc >> 1, gx = kc & 1;
-    int deq[16], res[16];
-    cf[0] = c_dc[ch][kc];
-    vp8::quantize(cf, s_iq[4], s_iq[5], vp8::kBiasUvDc, vp8::kBiasUvAc, false, lv);
-    int16_t* uv = a.uvlv + mb * 128 + (ch * 4 + kc) * 16;
-    for (int n = 0; n < 16; n++) uv[n] = (int16_t)lv[n];
-    vp8::dequantize(lv, s_q[4], s_q[5], deq);
-    vp8::idct4x4(deq, res);
-    uint8_t* crec = (ch ? a.rv : a.ru) + (size_t)b * Hc * Wc;
-    for (int k = 0; k < 16; k++)
-      crec[(size_t)(8 * my + 4 * gy + (k >> 2)) * Wc + 8 * mx + 4 * gx + (k & 3)] =
-          (uint8_t)vp8::clip8(pred[k] + res[k]);
   }
 }
 
 }  // namespace
 
-// Runs the whole wavefront: one launch per anti-diagonal on `stream`.
-// Returns the first CUDA error (0 = all launches accepted).
+// Runs the whole wavefront as one launch on `stream`.  `sync` holds B*mh
+// progress counters and the ticket, all zero.  Returns the CUDA error of
+// the launch (0 = accepted).
 extern "C" int wavefront_fixed_launch(const uint8_t* y, const uint8_t* u, const uint8_t* v,
                                       const int* seg, const int* qsteps, const int* ymode,
                                       const int* uvmode, const int* is_i4, const int* imodes,
                                       uint8_t* ry, uint8_t* ru, uint8_t* rv, int16_t* dtop,
-                                      int16_t* dleft, int16_t* ylv, int16_t* y2lv,
-                                      int16_t* uvlv, int B, int mh, int mw, int use_derr,
-                                      void* stream) {
-  Args a{y, u, v, seg, qsteps, ymode, uvmode, is_i4, imodes, ry, ru, rv,
-         dtop, dleft, ylv, y2lv, uvlv, mh, mw, use_derr};
-  const int T = (mw - 1) + 2 * (mh - 1) + 1;
-  for (int t = 0; t < T; t++) {
-    // active rows: 0 <= t - 2*my < mw
-    const int lo = t - mw + 1 > 0 ? (t - mw + 2) / 2 : 0;
-    const int hi = t / 2 < mh - 1 ? t / 2 : mh - 1;
-    if (hi < lo) continue;
-    dim3 grid(hi - lo + 1, B);
-    wavefront_fixed_kernel<<<grid, 32, 0, (cudaStream_t)stream>>>(a, t, lo);
+                                      int16_t* ylv, int16_t* y2lv, int16_t* uvlv, int* sync,
+                                      int B, int mh, int mw, int use_derr, void* stream) {
+  const int rows = B * mh;
+  if (rows <= 0 || mw <= 0) return 0;
+  static int resident = 0;  // blocks the card holds at once
+  if (resident == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, wavefront_fixed_kernel, kThreads, 0);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
+    resident = sms * per_sm > 0 ? sms * per_sm : 1;
   }
-  return 0;
+  Args a{y, u, v, seg, qsteps, ymode, uvmode, is_i4, imodes, ry, ru, rv, dtop,
+         ylv, y2lv, uvlv, sync, sync + rows, B, mh, mw, use_derr};
+  const int grid = rows < resident ? rows : resident;
+  wavefront_fixed_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
 }

@@ -4,11 +4,12 @@
 given (the hybrid encoder's phase 2): i16 predict → FDCT → FWHT →
 quantize → dequantize → IWHT → IDCT → recon, or the 16-sub-block i4
 chain, plus 8x8 chroma with optional UV DC error diffusion — exactly
-closed-loop, in anti-diagonal order.  On a CUDA tensor it runs the
-kernel in ``wavefront_fixed.cu`` (replacing the TPU kernel
-gowebp_tpu/ops/pallas/wavefront_fixed.py); on a CPU tensor it runs
-``wavefront_fixed_plain``, a per-diagonal torch loop with the same
-arithmetic.
+closed-loop, in wavefront order.  On a CUDA tensor it runs the kernel in
+``wavefront_fixed.cu`` (replacing the TPU kernel
+gowebp_tpu/ops/pallas/wavefront_fixed.py), one persistent launch whose
+blocks own MB rows and wait on the row above's progress counter; on a
+CPU tensor it runs ``wavefront_fixed_plain``, a per-diagonal torch loop
+with the same arithmetic.
 
 Inputs: y (B, H, W) uint8 and u, v (B, H/2, W/2) uint8 with H, W
 multiples of 16; seg, ymode, uvmode, is_i4 (B, mh, mw) int32; imodes
@@ -235,8 +236,8 @@ def wavefront_fixed(y, u, v, seg, qsteps, ymode, uvmode, is_i4, imodes,
                     *, use_derr: bool, want_recon: bool):
     """Kernel on CUDA tensors, plain version on CPU tensors.
 
-    ``wavefront_fixed.launches`` counts calls that ran the kernel (one
-    call = one launch per anti-diagonal).
+    ``wavefront_fixed.launches`` counts kernel launches (one per call on
+    CUDA: the whole wavefront is one persistent launch).
     """
     dev = y.device
     if dev.type == "cpu":
@@ -265,7 +266,8 @@ def wavefront_fixed(y, u, v, seg, qsteps, ymode, uvmode, is_i4, imodes,
     ru = torch.empty((B, H // 2, W // 2), dtype=U8, device=dev)
     rv = torch.empty_like(ru)
     dtop = torch.empty((B, mh, mw, 4), dtype=I16, device=dev)
-    dleft = torch.empty_like(dtop)
+    # per-row progress counters, then the row ticket (the kernel's sync)
+    sync = torch.zeros(B * mh + 1, dtype=I32, device=dev)
     ylv = torch.empty((B, mh, mw, 16, 16), dtype=I16, device=dev)
     y2lv = torch.empty((B, mh, mw, 16), dtype=I16, device=dev)
     uvlv = torch.empty((B, mh, mw, 8, 16), dtype=I16, device=dev)
@@ -273,8 +275,8 @@ def wavefront_fixed(y, u, v, seg, qsteps, ymode, uvmode, is_i4, imodes,
         y.data_ptr(), u.data_ptr(), v.data_ptr(), seg.data_ptr(),
         qsteps.data_ptr(), ymode.data_ptr(), uvmode.data_ptr(),
         is_i4.data_ptr(), imodes.data_ptr(), ry.data_ptr(), ru.data_ptr(),
-        rv.data_ptr(), dtop.data_ptr(), dleft.data_ptr(), ylv.data_ptr(),
-        y2lv.data_ptr(), uvlv.data_ptr(), B, mh, mw, int(bool(use_derr)),
+        rv.data_ptr(), dtop.data_ptr(), ylv.data_ptr(), y2lv.data_ptr(),
+        uvlv.data_ptr(), sync.data_ptr(), B, mh, mw, int(bool(use_derr)),
         stream_handle(dev))
     if err != 0:
         raise RuntimeError(

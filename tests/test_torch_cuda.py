@@ -53,13 +53,8 @@ def test_i4_search_kernel_matches_plain(cuda):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("derr", [False, True])
-def test_wavefront_kernel_matches_plain(cuda, derr):
-    from gowebp_tpu_torch.ops.kernels.wavefront_fixed import (
-        wavefront_fixed, wavefront_fixed_plain)
-
-    g = torch.Generator().manual_seed(5 + derr)
-    B, H, W = 3, 64, 96
+def _wavefront_args(cuda, seed, B, H, W):
+    g = torch.Generator().manual_seed(seed)
     mh, mw = H // 16, W // 16
     I32, U8 = torch.int32, torch.uint8
     args = (torch.randint(0, 256, (B, H, W), generator=g, dtype=U8),
@@ -71,18 +66,69 @@ def test_wavefront_kernel_matches_plain(cuda, derr):
             torch.randint(0, 4, (B, mh, mw), generator=g, dtype=I32),
             torch.randint(0, 2, (B, mh, mw), generator=g, dtype=I32),
             torch.randint(0, 10, (B, mh, mw, 16), generator=g, dtype=I32))
-    args = tuple(a.to(cuda) for a in args)
+    return tuple(a.to(cuda) for a in args)
+
+
+@pytest.mark.parametrize("derr", [False, True])
+@pytest.mark.parametrize("B,H,W", [
+    (3, 64, 96),
+    (2, 16, 112),       # one MB row
+    (2, 112, 16),       # one MB column
+    (160, 512, 32),     # 5,120 MB rows: more than the card holds blocks
+])
+def test_wavefront_kernel_matches_plain(cuda, derr, B, H, W):
+    from gowebp_tpu_torch.ops.kernels.wavefront_fixed import (
+        wavefront_fixed, wavefront_fixed_plain)
+
+    args = _wavefront_args(cuda, 5 + derr + H, B, H, W)
     want = wavefront_fixed_plain(*args, use_derr=derr, want_recon=True)
     for recon in (True, False):
+        before = wavefront_fixed.launches
         got = wavefront_fixed(*args, use_derr=derr, want_recon=recon)
         torch.cuda.synchronize()
+        assert wavefront_fixed.launches == before + 1
         assert set(got) <= set(want)
         for k in got:
             assert torch.equal(got[k], want[k]), k
 
 
+def _walk_args(cuda, seed, B, N):
+    g = torch.Generator().manual_seed(seed)
+    I32 = torch.int32
+
+    def rnd(*shape, lo=0, hi=256):
+        return torch.randint(lo, hi, shape, generator=g, dtype=I32)
+
+    q = rnd(B, N, 6, lo=4, hi=160)
+    return (rnd(B, N, 16, 16), rnd(B, N, 16), rnd(B, N, 4), rnd(B, N, 16),
+            rnd(B, N), q, ((1 << 17) // q).to(I32),
+            rnd(B, N, lo=0, hi=1 << 19))
+
+
+@pytest.mark.parametrize("B,N", [(2, 15), (1, 1), (3, 37)])
+def test_i4_walk_kernel_matches_plain(cuda, B, N):
+    """Ragged MB counts: the last block of 6 MBs is partly empty."""
+    from gowebp_tpu_torch.ops.kernels.i4_search import (
+        i4_walk, i4_walk_plain, t3_tables)
+
+    args = tuple(a.to(cuda) for a in _walk_args(cuda, B * 100 + N, B, N))
+    t3 = t3_tables(_tables(cuda))
+    before = i4_walk.launches
+    got = i4_walk(*args, t3, want_recon=True)
+    want = i4_walk_plain(*args, t3, want_recon=True)
+    lean = i4_walk(*args, t3)
+    torch.cuda.synchronize()
+    assert i4_walk.launches == before + 2
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert len(lean) == 2 and all(torch.equal(a, b)
+                                  for a, b in zip(lean, want))
+
+
 def test_kernel_wrappers_reject_bad_tensors(cuda):
-    from gowebp_tpu_torch.ops.kernels.i4_search import i4_search, t3_tables
+    from gowebp_tpu_torch.ops.kernels.i4_search import (i4_search, i4_walk,
+                                                        t3_tables)
+    from gowebp_tpu_torch.ops.kernels.wavefront_fixed import wavefront_fixed
 
     t3 = t3_tables(_tables(cuda))
     ok = torch.zeros((8, 13), dtype=torch.int32, device=cuda)
@@ -91,6 +137,30 @@ def test_kernel_wrappers_reject_bad_tensors(cuda):
     with pytest.raises(ValueError):
         i4_search(ok, torch.zeros((8, 16), dtype=torch.int32, device=cuda),
                   ok[:, :5], t3)                     # a non-contiguous view
+
+    walk = [a.to(cuda) for a in _walk_args(cuda, 1, 2, 3)]
+    bad = {0: walk[0].to(torch.int64),                     # src dtype
+           1: torch.zeros((2, 3, 32), dtype=torch.int32,
+                          device=cuda)[..., ::2],           # a view
+           5: walk[5][..., :5].contiguous()}                # qlane shape
+    before = i4_walk.launches
+    for i, t in bad.items():
+        args = list(walk)
+        args[i] = t
+        with pytest.raises(TypeError if i == 0 else ValueError):
+            i4_walk(*args, t3)
+    assert i4_walk.launches == before
+
+    wf = list(_wavefront_args(cuda, 1, 2, 32, 32))
+    before = wavefront_fixed.launches
+    for i, t in ((0, wf[0].to(torch.int32)),              # y dtype
+                 (0, wf[0].transpose(1, 2))):             # a transposed plane
+        args = list(wf)
+        args[i] = t
+        with pytest.raises(TypeError if t.dtype != torch.uint8
+                           else ValueError):
+            wavefront_fixed(*args, use_derr=True, want_recon=False)
+    assert wavefront_fixed.launches == before
 
 
 def test_batch_encode_gpu_bytes_equal_cpu_bytes(cuda):

@@ -120,6 +120,19 @@ def test_cuda_source_tables_match_python():
         body = re.search(name + r"\[\d+\] = \{([^}]*)\}", text).group(1)
         return [int(x) for x in body.replace("\n", " ").split(",")]
 
-    assert table("kZigzag") == list(ZIGZAG)
-    assert table("kB4Idx") == _B4_IDX.reshape(-1).tolist()
+    def x_macro(name):
+        """Rows of the X(...) entries of ``#define name(X)``."""
+        body = re.search(r"#define " + name + r"\(X\)((?:[^\n]*\\\n)*[^\n]*)",
+                         text).group(1)
+        return [[int(v) for v in m.split(",")]
+                for m in re.findall(r"X\(([\d, ]+)\)", body)]
+
+    assert x_macro("VP8_ZIGZAG") == [[n, z] for n, z in enumerate(ZIGZAG)]
+    b4 = np.asarray(_B4_IDX).reshape(8, 16)
+    assert x_macro("VP8_B4_PIXELS") == [[k] + b4[:, k].tolist()
+                                        for k in range(16)]
     assert table("kMode4Bits256") == list(MODE4_BITS256)
+    nibbles = int(re.search(r"kInvZigzagNibbles = (0x[0-9A-F]+)ull",
+                            text).group(1), 16)
+    assert [(nibbles >> (4 * k)) & 15 for k in range(16)] == [
+        list(ZIGZAG).index(k) for k in range(16)]
