@@ -4,16 +4,20 @@
 Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure raises and exits non-zero; no result is printed):
-  1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
+  1. the card's name and power limit (nvidia-smi), the int32 ceiling the
+     bounds use (SMs x 64 int32 operations a clock x the max SM clock),
+     torch and CUDA versions;
   2. build the six CUDA kernels from the four ops/kernels/*.cu sources
      (one nvcc each, in parallel) and print the build time and ptxas
      register report;
   3. hold each kernel against its plain torch version on the card, bit for
      bit, at the main paths' full shapes, and time each with CUDA events:
-     i4_search at S = 16*4096 random sub-blocks; i4_walk at B=16 on 16 of
-     the corpus images' refine inputs (q75, 4 segments, context from one
-     wavefront_fixed pass over the cold modes), timed beside the same walk
-     as 16 flat i4_search launches with their glue; wavefront_fixed at B=16
+     i4_search on the cold="dense" round's inputs for 16 of the corpus
+     images (S = 16*65536 sub-blocks, context from the source planes),
+     with topk None and 4; i4_walk at B=16 on the same images' refine
+     inputs (q75, 4 segments, context from one wavefront_fixed pass over
+     the cold modes), with topk None and 4, timed beside the same walk as
+     16 flat i4_search launches with their glue; wavefront_fixed at B=16
      1024x1024 with random i4/i16 mixes and 4 segments, error diffusion on
      and off, recon on and off, 3 repeated runs, odd MB grids (1x5, 5x1,
      1x1, 3x5, 5x3) and B=256 at 512x64 (8,192 MB rows, more than the card
@@ -33,6 +37,13 @@ Phases (any failure raises and exits non-zero; no result is printed):
   5. encode parity: 2 of those images through the same path on the CPU
      (the kernels' plain versions) must give identical .webp bytes, and
      every output's RIFF/VP8 headers must be well-formed 1024x1024 frames;
+     then the hybrid options, one chunk of 16 each: cold="dense",
+     refine=2, i4_topk=4 and a config with method=3, each with the launch
+     counters reset just before and read just after (i4_search must
+     launch on cold="dense", no i4 kernel at method=3) and its bytes held
+     to the CPU path's on 2 images; then depth=1 against depth=3 on the 32
+     images in 4 chunks of 8, alternated twice, with MP/s and the host
+     timings, and the synchronizing CUDA calls of one depth=3 run;
   6. the decode path: phase 4's 32 files through
      decode_rgba_batch(device="cuda"), with the yuv420_to_rgba launch
      counter reset just before and read just after; a second, timed run
@@ -55,21 +66,24 @@ Imports nothing of JAX or of the gowebp_tpu package.
 
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# Peak rates of one H100 SXM at its full 700 W (NVIDIA data sheet): HBM
-# bandwidth, and the float32 non-tensor rate, used as the ceiling for the
-# kernels' 32-bit integer operations (the card issues int32 ops at no
-# higher rate).
+# HBM bandwidth of one H100 SXM at its full 700 W (NVIDIA data sheet).
+# The ceiling of the kernels' 32-bit integer operations is computed from
+# the card (int32_peak): an H100 SM issues 64 int32 operations a clock,
+# half its 128 FP32 lanes (NVIDIA's Hopper architecture whitepaper, SM
+# table).
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = 67e12
+INT32_LANES_PER_SM = 64
 
 # Integer operations per 4x4 step, counted from ops/kernels/vp8_dsp.cuh
 # and the kernels (adds, multiplies, shifts, compares, clamps).
@@ -77,6 +91,9 @@ OPS_FDCT, OPS_IDCT, OPS_QUANT, OPS_DEQUANT = 160, 164, 96, 16
 OPS_PRED_I16, OPS_PRED_B4 = 32, 80
 OPS_RES_RECON = 16 + 48
 OPS_RATE_POS, OPS_RATE_EOB, OPS_DIST_COST = 10, 5, 60
+# top-k ranking, per candidate: the prediction's SSE (a subtract, a
+# multiply and an add per pixel) and 10 compare-and-count steps
+OPS_PRED_SSE, OPS_RANK = 48, 40
 # yuv420_to_rgba, per output pixel (ops/kernels/yuv420_to_rgba.cu): a
 # quarter of a 2x2 quad's 18 chroma loads and 8 upsample taps (~10 ops
 # each), ~26 for the BT.601 conversion and clips, the luma load and store.
@@ -126,6 +143,21 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+@functools.lru_cache(maxsize=None)
+def int32_peak():
+    """(int32 operations per second, SMs, max SM clock in MHz) of card 0:
+    SMs x INT32_LANES_PER_SM x the max SM clock."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    return sms * INT32_LANES_PER_SM * mhz * 1e6, sms, mhz
+
+
 def time_ms(fn, reps: int, warmup: int = 1) -> float:
     """Median milliseconds of ``fn()`` on the current stream (CUDA events)."""
     import torch
@@ -159,7 +191,7 @@ def max_abs_err(a: dict, b: dict, keys) -> int:
 
 def bound(nbytes: float, ops: float):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S * 1e3
+    t_ops = ops / int32_peak()[0] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -178,65 +210,83 @@ def quant_rows(deltas):
     return np.array(rows, np.int32)
 
 
-def search_ops(ctx13, src16, quants5) -> int:
-    """Integer operations of the 10-candidate search of these sub-blocks,
-    each candidate's rate walk as long as its levels need."""
+def search_ops(ctx13, src16, quants5, topk=None) -> int:
+    """Integer operations of the search of these sub-blocks: every
+    candidate predicted, and with ``topk`` ranked, and the candidates
+    kept scored, each rate walk as long as its levels need."""
     import torch
 
     from gowebp_tpu_torch.ops import dct
+    from gowebp_tpu_torch.ops.kernels.i4_search import rank_modes
     from gowebp_tpu_torch.ops.vp8_recon import _pred_luma4_all
 
     S = ctx13.shape[0]
+    src = src16.reshape(S, 1, 4, 4)
     preds = _pred_luma4_all(ctx13[:, 0], ctx13[:, 1:5], ctx13[:, 5:9],
                             ctx13[:, 9:13])
-    lv = dct.quantize(dct.fdct4x4(src16.reshape(S, 1, 4, 4) - preds),
+    k, ranking = 10, 0
+    if topk is not None:
+        k, ranking = topk, S * 10 * (OPS_PRED_SSE + OPS_RANK)
+        preds = preds[torch.arange(S, device=preds.device)[:, None],
+                      rank_modes(preds, src, topk)]
+    lv = dct.quantize(dct.fdct4x4(src - preds),
                       quants5[:, 0:1], dct.BIAS["y1_dc"], quants5[:, 1:2],
                       dct.BIAS["y1_ac"])
     idx = torch.arange(16, device=lv.device)
     walked = (torch.where(lv != 0, idx, -1).amax(-1) + 1).sum().item()
-    per_cand = (OPS_FDCT + OPS_QUANT + OPS_DEQUANT + OPS_IDCT + OPS_PRED_B4
+    per_cand = (OPS_FDCT + OPS_QUANT + OPS_DEQUANT + OPS_IDCT
                 + OPS_RES_RECON + OPS_RATE_EOB + OPS_DIST_COST)
-    return S * 10 * per_cand + walked * OPS_RATE_POS
+    return (S * 10 * OPS_PRED_B4 + ranking + S * k * per_cand
+            + walked * OPS_RATE_POS)
 
 
-def check_i4_search(dev, gen):
-    """Phase 3a: i4_search kernel vs plain at S = 16*4096."""
+def check_i4_search(dev, inputs):
+    """Phase 3a: i4_search kernel vs plain on the cold="dense" round's
+    inputs for one chunk of the corpus images (S = 16*65536 sub-blocks),
+    with topk None and 4."""
     import torch
 
-    from gowebp_tpu_torch.models.vp8.encoder import _default_cost_tables
+    from gowebp_tpu_torch.ops.encode_wavefront import (_per_mb,
+                                                       plane_i4_inputs,
+                                                       search_penalty)
     from gowebp_tpu_torch.ops.kernels.i4_search import (
         i4_search, i4_search_plain, t3_tables)
 
-    S = 16 * 4096
     I32 = torch.int32
-    ctx13 = torch.randint(0, 256, (S, 13), generator=gen, dtype=I32)
-    src16 = torch.randint(0, 256, (S, 16), generator=gen, dtype=I32)
-    rows = torch.from_numpy(quant_rows([-6, -2, 3, 8]))
-    seg = torch.randint(0, 4, (S,), generator=gen)
-    q = rows[seg]
-    pen = torch.clamp_max(4 * q[:, 1] * q[:, 1] * 7 >> 2, (1 << 19) - 1)
-    quants5 = torch.stack([(1 << 17) // q[:, 0], (1 << 17) // q[:, 1],
-                           q[:, 0], q[:, 1], pen], 1).to(I32)
-    t3 = t3_tables(tuple(torch.from_numpy(t.astype("int32")).to(dev)
-                         for t in _default_cost_tables()))
-    args = tuple(a.to(dev).contiguous() for a in (ctx13, src16, quants5))
-    got = i4_search(*args, t3)
-    want = i4_search_plain(*args, t3)
-    torch.cuda.synchronize()
+    y, qs, tables = inputs["y"], inputs["qsteps"], inputs["tables"]
+    seg = inputs["seg"].reshape(y.shape[0], -1).long()
+    # as openloop_mode_search builds them for the cold round
+    args = plane_i4_inputs(
+        y, y.to(I32), _per_mb(qs, seg), _per_mb((1 << 17) // qs.clamp_min(1),
+                                                seg),
+        _per_mb(search_penalty(inputs["pens"]), seg))
+    t3 = t3_tables(tables)
     names = ("bmode", "cost", "rec")
-    err = max_abs_err(dict(zip(names, got)), dict(zip(names, want)), names)
-    if not all(torch.equal(a, b) for a, b in zip(got, want)):
-        raise AssertionError(f"i4_search kernel != plain (max |err| {err})")
-    ms = time_ms(lambda: i4_search(*args, t3), reps=20, warmup=3)
-    plain_ms = time_ms(lambda: i4_search_plain(*args, t3), reps=3)
-
+    err, times = 0, {}
+    for topk in (None, 4):
+        got = i4_search(*args, t3, topk=topk)
+        want = i4_search_plain(*args, t3, topk=topk)
+        torch.cuda.synchronize()
+        e = max_abs_err(dict(zip(names, got)), dict(zip(names, want)), names)
+        err = max(err, e)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"i4_search kernel != plain at topk={topk} "
+                                 f"(max |err| {e})")
+        times[topk] = time_ms(lambda: i4_search(*args, t3, topk=topk),
+                              reps=20, warmup=3)
+        if topk is None:
+            plain_ms = time_ms(lambda: i4_search_plain(*args, t3), reps=3)
+            outs = got
     # bound: each input read once, each output written once; operations
-    # of 10 candidates, with the rate walk's length taken from this data
+    # of the candidates, with the rate walk's length taken from this data
     nbytes = sum(a.numel() * a.element_size() for a in args + tuple(t3))
-    nbytes += sum(o.numel() * o.element_size() for o in got)
-    ops = search_ops(*args)
-    bound_ms, bound_by = bound(nbytes, ops)
-    return {"name": "i4_search", "max_abs_err": err, "ms": ms,
+    nbytes += sum(o.numel() * o.element_size() for o in outs)
+    bound_ms, bound_by = bound(nbytes, search_ops(*args))
+    bound4, by4 = bound(nbytes, search_ops(*args, topk=4))
+    log(f"i4_search S={args[0].shape[0]} (cold=\"dense\" inputs): bit-exact "
+        f"with topk None and 4; topk=4 {times[4]:.4f} ms (bound {bound4:.4f} "
+        f"ms by {by4}), topk=None {times[None]:.4f} ms")
+    return {"name": "i4_search", "max_abs_err": err, "ms": times[None],
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
@@ -386,27 +436,35 @@ def check_i4_walk(dev, inputs):
     pen_n = pen[bidx, segl].contiguous()
     args = (src, top16, tr4, left16, tl, qlane, iqlane, pen_n)
     t3 = t3_tables(tables)
-    ops = 0
+    ops = {None: 0, 4: 0}
 
-    def counted(ctx13, src16, quants5, t3_):
+    def counted(ctx13, src16, quants5, t3_, topk):
         """The plain search, counting each substep's operations."""
-        nonlocal ops
-        ops += search_ops(ctx13, src16, quants5)
-        return i4_search_plain(ctx13, src16, quants5, t3_)
+        ops[topk] += search_ops(ctx13, src16, quants5, topk)
+        return i4_search_plain(ctx13, src16, quants5, t3_, topk)
 
-    got = i4_walk(*args, t3, want_recon=True)
-    want = i4_walk_plain(*args, t3, want_recon=True, search=counted)
-    flat = i4_walk_plain(*args, t3, want_recon=True, search=i4_search)
-    torch.cuda.synchronize()
     names = ("bmodes", "s4", "recon")
-    err = max_abs_err(dict(zip(names, got)), dict(zip(names, want)), names)
-    if not all(torch.equal(a, b) for a, b in zip(got, want)):
-        raise AssertionError(f"i4_walk kernel != plain (max |err| {err})")
-    if not all(torch.equal(a, b) for a, b in zip(flat, want)):
-        raise AssertionError("the walk as 16 flat i4_search launches != plain")
-    log(f"i4_walk B={B} {H}x{W} (refine inputs): bit-exact; modes won "
-        f"{torch.bincount(want[0].reshape(-1), minlength=10).tolist()}")
-    ms = time_ms(lambda: i4_walk(*args, t3), reps=10, warmup=2)
+    err, times = 0, {}
+    for topk in (None, 4):
+        got = i4_walk(*args, t3, want_recon=True, topk=topk)
+        want = i4_walk_plain(*args, t3, want_recon=True, topk=topk,
+                             search=counted)
+        flat = i4_walk_plain(*args, t3, want_recon=True, topk=topk,
+                             search=i4_search)
+        torch.cuda.synchronize()
+        e = max_abs_err(dict(zip(names, got)), dict(zip(names, want)), names)
+        err = max(err, e)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"i4_walk kernel != plain at topk={topk} "
+                                 f"(max |err| {e})")
+        if not all(torch.equal(a, b) for a, b in zip(flat, want)):
+            raise AssertionError(f"the walk as 16 flat i4_search launches "
+                                 f"!= plain at topk={topk}")
+        log(f"i4_walk B={B} {H}x{W} (refine inputs) topk={topk}: bit-exact; "
+            f"modes won {torch.bincount(want[0].reshape(-1), minlength=10).tolist()}")
+        times[topk] = time_ms(lambda: i4_walk(*args, t3, topk=topk),
+                              reps=10, warmup=2)
+    ms = times[None]
     plain_ms = time_ms(lambda: i4_walk_plain(*args, t3), reps=2)
     flat_ms = time_ms(lambda: i4_walk_plain(*args, t3, search=i4_search),
                       reps=10, warmup=2)
@@ -415,7 +473,9 @@ def check_i4_walk(dev, inputs):
     outs = i4_walk(*args, t3)
     nbytes = sum(a.numel() * a.element_size() for a in args + tuple(t3))
     nbytes += sum(o.numel() * o.element_size() for o in outs)
-    bound_ms, bound_by = bound(nbytes, ops)
+    bound_ms, bound_by = bound(nbytes, ops[None])
+    bound4, by4 = bound(nbytes, ops[4])
+    log(f"i4_walk topk=4: {times[4]:.3f} ms (bound {bound4:.4f} ms by {by4})")
     return {"name": "i4_walk", "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
@@ -542,14 +602,16 @@ def chunk_inputs(dev, images, quality: float = 75.0):
     """encode_hybrid_core's inputs for a chunk of same-shaped RGBA images,
     built by the encode pipeline's own host steps and upload."""
     from gowebp_tpu_torch.models.vp8.encoder import _default_cost_tables
+    import torch
+
     from gowebp_tpu_torch.ops.encode_pipeline import (
-        encode_setup, hybrid_params, prep_image, stack_prepped, upload_planes)
+        encode_setup, hybrid_params, prep_image, split_planes, stack_prepped)
 
     h, w = images[0].shape[:2]
     setup = encode_setup(quality, h, w)
     flat, segs, rows, pens = stack_prepped(
         [prep_image(im, setup, openloop=False) for im in images])
-    y, u, v = upload_planes(flat, setup["plan"], dev)
+    y, u, v = split_planes(torch.from_numpy(flat).to(dev), setup["plan"])
     tables, qs, seg, pens = hybrid_params(segs, rows, pens, setup["plan"],
                                           _default_cost_tables(), dev)
     return {"y": y, "u": u, "v": v, "seg": seg, "qsteps": qs, "pens": pens,
@@ -619,6 +681,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import gowebp_tpu_torch  # noqa: F401  (fails outside a checkout)
     from gowebp_tpu_torch import decode_rgba_batch, encode_rgba_batch
+    from gowebp_tpu_torch.config import EncoderConfig
     from gowebp_tpu_torch.models.vp8.decoder import symbol_engine
     from gowebp_tpu_torch.ops.encode_pipeline import (
         encode_rgba_batch_pipelined)
@@ -634,6 +697,9 @@ def main() -> int:
     card = card_line()
     tag = f"({card})"
     log(f"card: {card}")
+    peak, sms, mhz = int32_peak()
+    log(f"int32 ceiling: {sms} SMs x {INT32_LANES_PER_SM} int32 ops a clock "
+        f"x {mhz:.0f} MHz (max SM clock) = {peak / 1e12:.3f}e12 ops/s {tag}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} "
         f"device {torch.cuda.get_device_name(0)}")
@@ -655,7 +721,7 @@ def main() -> int:
     log(f"corpus: 32 x 1024x1024 in {time.perf_counter() - t0:.1f} s")
     gen = torch.Generator().manual_seed(20261016)
     chunk = chunk_inputs(dev, images[:16])
-    rows = [check_i4_search(dev, gen), check_i4_walk(dev, chunk),
+    rows = [check_i4_search(dev, chunk), check_i4_walk(dev, chunk),
             check_wavefront(dev, gen), check_yuv420(dev, gen)]
     rows += check_encode_plane(dev, gen)
     for r in rows:
@@ -676,8 +742,8 @@ def main() -> int:
     launches = {"i4_search": i4m.i4_search.launches,
                 "i4_walk": i4m.i4_walk.launches,
                 "wavefront_fixed": wfm.wavefront_fixed.launches}
-    log(f"encode path launches: {launches} (the flat i4_search is not on "
-        f"this path: the refine round runs i4_walk)")
+    log(f"encode path launches: {launches} (the flat i4_search runs only "
+        f"on cold=\"dense\": the refine round runs i4_walk)")
     for name in ("i4_walk", "wavefront_fixed"):
         if launches[name] == 0:
             raise AssertionError(f"encode path never launched {name}")
@@ -714,6 +780,82 @@ def main() -> int:
     if cpu != out[:2]:
         raise AssertionError("GPU and CPU .webp bytes differ")
     log("parity: GPU bytes == CPU bytes on 2 images; 32 headers ok")
+
+    # ---- phase 5b: the hybrid options, one chunk of 16 each ----
+    variants = (
+        ("cold=dense", {"cold": "dense"}),
+        ("refine=2", {"refine": 2}),
+        ("i4_topk=4", {"i4_topk": 4}),
+        ("config method=3", {"config": EncoderConfig(
+            lossless=False, quality=75.0, method=3)}))
+    mp16 = 16 * 1024 * 1024 / 1e6
+    for label, kw in variants:
+        i4m.i4_search.launches = 0
+        i4m.i4_walk.launches = 0
+        wfm.wavefront_fixed.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = encode_rgba_batch_pipelined(images[:16], quality=75.0,
+                                          threads=8, chunk=16, device="cuda",
+                                          **kw)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = {"i4_search": i4m.i4_search.launches,
+                  "i4_walk": i4m.i4_walk.launches,
+                  "wavefront_fixed": wfm.wavefront_fixed.launches}
+        log(f"{label}: launches {counts}; {mp16 / run_s:.3f} MP/s "
+            f"({run_s:.2f} s for 16 MP, first run); "
+            f"{sum(len(o) for o in got) * 8 / (16 * 1024 * 1024):.4f} bpp "
+            f"{tag}")
+        if label == "cold=dense":
+            if counts["i4_search"] == 0:
+                raise AssertionError("cold=\"dense\" never launched i4_search")
+            launches["i4_search"] = counts["i4_search"]
+        if "method=3" in label and counts["i4_search"] + counts["i4_walk"]:
+            raise AssertionError("an i4 kernel launched at method=3")
+        if counts["wavefront_fixed"] == 0:
+            raise AssertionError(f"{label} never launched wavefront_fixed")
+        t0 = time.perf_counter()
+        cpu = encode_rgba_batch_pipelined(images[:2], quality=75.0, chunk=2,
+                                          device="cpu", **kw)
+        if cpu != got[:2]:
+            raise AssertionError(f"{label}: GPU and CPU .webp bytes differ")
+        log(f"{label}: GPU bytes == CPU bytes on 2 images (cpu run "
+            f"{time.perf_counter() - t0:.1f} s)")
+
+    # ---- phase 5c: depth 1 against depth 3, 4 chunks of 8 ----
+    for rep in (1, 2):
+        for depth in (1, 3):
+            timings = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            again = encode_rgba_batch_pipelined(
+                images, quality=75.0, threads=8, chunk=8, device="cuda",
+                depth=depth, timings=timings)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            if again != out:
+                raise AssertionError(f"depth={depth}: bytes differ")
+            log(f"depth={depth} run {rep}: {mp / run_s:.3f} MP/s "
+                f"({run_s:.3f} s for 32 MP, 4 chunks of 8); host s: prep "
+                f"{timings['prep']:.3f}, h2d {timings['h2d']:.4f}, fetch "
+                f"{timings['fetch']:.3f}, emit {timings['emit_thread_s']:.3f} "
+                f"(thread time) {tag}")
+
+    # the pipeline's main thread should never wait for the stream: count
+    # the synchronizing CUDA calls torch's sync debug mode reports in one
+    # run of 4 chunks
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            encode_rgba_batch_pipelined(images, quality=75.0, threads=8,
+                                        chunk=8, device="cuda")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    log(f"synchronizing CUDA calls in one run of 4 chunks of 8 (depth 3): "
+        f"{syncs}")
 
     # ---- phase 6: the decode path ----
     log(f"decode: symbol engine {symbol_engine()} on this host")

@@ -12,8 +12,9 @@ def encode_rgba_batch(images: list, *, quality: float = 75.0,
                       engine: str = "hybrid") -> list:
     """Lossy-encode a batch of same-shaped (H, W, 3|4) uint8 images.
 
-    Runs the pipelined batch encoder (ops/encode_pipeline.py) with the
-    dense engine ``engine`` names: "hybrid" (default: segmentation, i4
+    Runs the pipelined batch encoder (ops/encode_pipeline.py, chunks of
+    up to 16 images, 3 in flight) with the default config at ``quality``
+    and the dense engine ``engine`` names: "hybrid" (default: segmentation, i4
     mode search, per-segment quantizers, exact closed-loop coding) or
     "openloop" (fastest, lower quality: one quantizer, i16 modes from
     the source planes, prediction drift); "wavefront" is not ported yet

@@ -8,6 +8,8 @@ The zigzag permutations are integer indexing.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..models.vp8.tables import ZIGZAG
@@ -20,18 +22,26 @@ BIAS = {  # b8 << 9 quantizer rounding bias per coefficient class
     "uv_dc": 110 << 9, "uv_ac": 110 << 9,
 }
 
-_ZIGZAG = list(ZIGZAG)                                 # out[i] = in[ZZ[i]]
-_INV_ZIGZAG = [ZIGZAG.index(i) for i in range(16)]     # out[i] = in[IZZ[i]]
+_ZIGZAG = tuple(int(i) for i in ZIGZAG)                # out[i] = in[ZZ[i]]
+_INV_ZIGZAG = tuple(_ZIGZAG.index(i) for i in range(16))  # out[i] = in[IZZ[i]]
+
+
+@functools.lru_cache(maxsize=None)
+def index_tensor(order: tuple, device: torch.device) -> torch.Tensor:
+    """A constant index list as a tensor on ``device``, made once: an
+    index list given as such is copied to the device at every use, and
+    that copy waits for the stream."""
+    return torch.tensor(order, dtype=torch.int64, device=device)
 
 
 def zigzag_fwd(flat: torch.Tensor) -> torch.Tensor:
     """(..., 16) raster → zigzag order."""
-    return flat[..., _ZIGZAG]
+    return flat[..., index_tensor(_ZIGZAG, flat.device)]
 
 
 def zigzag_inv(zz: torch.Tensor) -> torch.Tensor:
     """(..., 16) zigzag → raster order."""
-    return zz[..., _INV_ZIGZAG]
+    return zz[..., index_tensor(_INV_ZIGZAG, zz.device)]
 
 
 def _mul1(a):
@@ -163,6 +173,7 @@ def _lanes(q, like: torch.Tensor) -> torch.Tensor:
 
 __all__ = [
     "BIAS",
+    "index_tensor",
     "dequantize",
     "fdct4x4",
     "fwht4x4",

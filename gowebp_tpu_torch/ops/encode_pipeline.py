@@ -1,21 +1,26 @@
 """Pipelined batch lossy encode: host uint8 RGB → .webp bytes.
 
-Per chunk of same-shaped images:
+Per chunk of same-shaped images, with ``depth`` chunks in flight:
 
-  1. host (thread pool, ahead of the device): native RGB→YUV420, edge
-     pad to macroblock multiples, segmentation and the per-image
-     quantizer/penalty rows;
-  2. one h2d upload of the chunk's packed uint8 planes;
-  3. device: the dense encode and a group-of-4 nibble/byte pack of the
-     level tensors (G4PACKv2).  engine="hybrid" runs
-     ops/encode_wavefront.py (cold search, wavefront, refine search with
-     the i4 kernel, wavefront); engine="openloop" runs
-     ops/encode_plane.py (the luma and chroma plane kernels, no
-     segmentation, one quantizer set, i16 modes only);
-  4. one d2h download of a single fused uint8 buffer;
-  5. host (thread pool, overlapping the next chunk's device work):
-     unpack to dense int16 levels and two-pass token emission through
-     the native C++ tokenizer.
+  1. host (thread pools, up to ``depth`` chunks ahead of the device):
+     native RGB→YUV420, edge pad to macroblock multiples, segmentation
+     and the per-image quantizer/penalty rows, written straight into one
+     of ``depth + 1`` pinned staging buffers;
+  2. main thread: one asynchronous h2d of the chunk's packed uint8
+     planes from that buffer (a CUDA event guards the buffer's reuse);
+  3. main thread, device: the dense encode, a group-of-4 nibble/byte
+     pack of the level tensors (G4PACKv2) and the export of a single
+     fused uint8 buffer.  engine="hybrid" runs ops/encode_wavefront.py
+     (cold search, then wavefront passes and refine searches with the i4
+     kernels); engine="openloop" runs ops/encode_plane.py (the luma and
+     chroma plane kernels, no segmentation, one quantizer set, i16 modes
+     only);
+  4. fetch thread: the d2h of that buffer into pinned memory on a side
+     stream that waits only for this chunk's export, so it overlaps the
+     next chunks' device work; the main thread blocks only when
+     ``depth`` fetches are pending;
+  5. host (thread pool): unpack to dense int16 levels and two-pass token
+     emission through the native C++ tokenizer.
 
 G4PACKv2 wire format (per image):
   flat  = concat(y2_levels, y_levels, uv_levels), zigzag int16,
@@ -34,7 +39,10 @@ dense stage to the CUDA kernels or to their plain torch versions.
 from __future__ import annotations
 
 import concurrent.futures as cf
+import contextlib
+import threading
 import time
+from collections import deque
 
 import numpy as np
 import torch
@@ -51,6 +59,7 @@ from ..models.vp8.encoder import (ERROR_DIFFUSION_QUALITY, _default_cost_tables,
 from ..params import params_from_numpy
 from .encode_plane import encode_plane_core_v2
 from .encode_wavefront import encode_hybrid_core
+from .kernels.i4_search import check_topk
 
 GROUP = 4  # coefficients per group state
 ENGINES = ("hybrid", "openloop")
@@ -61,7 +70,7 @@ def check_engine(engine: str) -> None:
     if engine == "wavefront":
         raise UnsupportedFeature(
             'engine="wavefront" (the exact full-search wavefront) is not '
-            "ported yet (ROADMAP.md Queue 1 item 2)")
+            "ported yet (ROADMAP.md Queue 1 item 1)")
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; expected one of "
                          f"{ENGINES}")
@@ -124,8 +133,8 @@ def _pack_g4v2(flat, cap_s: int, cap_b: int):
     counts_s = small.sum(1, dtype=torch.int32)
     counts_b = big.sum(1, dtype=torch.int32)
     maxabs = flat.abs().amax(1).to(torch.int32)
-    w4 = torch.tensor([1, 4, 16, 64], dtype=torch.int32, device=flat.device)
-    mask2 = (state.reshape(B, -1, 4) * w4).sum(-1).to(torch.uint8)
+    shifts = 2 * torch.arange(4, dtype=torch.int32, device=flat.device)
+    mask2 = (state.reshape(B, -1, 4) << shifts).sum(-1).to(torch.uint8)
     n = (_compact(g, small, cap_s, -8) + 8) & 0xF
     small_b = torch.stack([n[..., 0] | (n[..., 1] << 4),
                            n[..., 2] | (n[..., 3] << 4)], -1).to(torch.uint8)
@@ -159,16 +168,20 @@ def unpack_g4v2(mask2: np.ndarray, small: np.ndarray, big: np.ndarray,
 
 
 def planes_wavefront_packed_step(y, u, v, seg_map, qsteps, tables, *,
-                                 cap_s, cap_b, i4_penalty,
-                                 use_derr: bool = False, marks=None):
+                                 cap_s, cap_b, i4_penalty, try_i4: bool = True,
+                                 use_derr: bool = False, refine: int = 1,
+                                 cold: str = "i16", i4_topk=None,
+                                 marks=None):
     """uint8 MB-padded YUV420 planes → hybrid encode + G4PACKv2.
 
     Everything stays on the planes' device; the modes and the dense
-    levels ride along for emission and the escape path.
+    levels ride along for emission and the escape path.  ``try_i4``,
+    ``refine``, ``cold`` and ``i4_topk`` go to ``encode_hybrid_core``.
     """
     out = encode_hybrid_core(y, u, v, seg_map, qsteps, tables,
-                             i4_penalty=i4_penalty, use_derr=use_derr,
-                             marks=marks)
+                             i4_penalty=i4_penalty, try_i4=try_i4,
+                             refine=refine, cold=cold, i4_topk=i4_topk,
+                             use_derr=use_derr, marks=marks)
     return _with_pack(out, y.shape, cap_s, cap_b, marks)
 
 
@@ -218,13 +231,17 @@ def _export_packed_v2(out, *, ks: int, kb: int):
     return torch.cat(parts, dim=1)
 
 
+FIRST_BUCKET = 4096   # groups per stream in a run's first export
+
+
 def _bucket(kmax: int, cap: int) -> int:
-    """Round a chunk's max group count up to a power of two (≥4096).
+    """Round a chunk's max group count up to a power of two (at least
+    FIRST_BUCKET).
 
     Export buckets only grow, so a run downloads a few stable sizes
     instead of one per chunk.
     """
-    b = 4096
+    b = FIRST_BUCKET
     while b < kmax:
         b *= 2
     return min(b, cap)
@@ -236,18 +253,24 @@ def _qrow(sq):
             sq.uv_ac.q)
 
 
-def encode_setup(quality: float, h: int, w: int) -> dict:
-    """A batch's settings: the default lossy config at ``quality``, its
-    base quantizer (clamped to qmin/qmax) and quantizer row, whether UV
-    DC error diffusion is on, and the MB layout of h x w images."""
-    config = EncoderConfig(lossless=False, quality=quality)
+def encode_setup(quality: float, h: int, w: int, config=None) -> dict:
+    """A batch's settings: ``config`` (default: the default lossy config
+    at ``quality``; a given config's own quality rules), its base
+    quantizer (clamped to qmin/qmax) and quantizer row, whether UV DC
+    error diffusion is on, whether the i4 search runs (method >= 4 and
+    partition_limit < 100), and the MB layout of h x w images."""
+    if config is None:
+        config = EncoderConfig(lossless=False, quality=quality)
     config.validate()
     base_q = quality_to_q(config.quality)
     base_q = max(config.qmin * 127 // 100,
                  min(config.qmax * 127 // 100, base_q))
+    try_i4, _ = _i4_config_seg(np.zeros((4, 6), np.int32), config.method,
+                               config.partition_limit)
     return {"config": config, "base_q": base_q,
             "base_row": np.array(_qrow(make_quants(base_q)), np.int32),
             "use_derr": config.quality <= ERROR_DIFFUSION_QUALITY,
+            "try_i4": try_i4,
             "h": h, "w": w, "plan": _plan(h + (h & 1), w + (w & 1))}
 
 
@@ -304,16 +327,50 @@ def stack_prepped(prepped):
             np.stack([p[3] for p in prepped]))
 
 
-def upload_planes(flat, plan, dev):
-    """A chunk's wire buffer → y, u, v planes on ``dev``: one h2d, then
-    views."""
-    B = flat.shape[0]
+def split_planes(buf, plan):
+    """A chunk's (B, 1.5 * H * W) uint8 wire buffer → y, u, v views."""
+    B = buf.shape[0]
     H, W = plan["H"], plan["W"]
     ys_len, cs_len = H * W, (H // 2) * (W // 2)
-    buf = torch.from_numpy(flat).to(dev)
     return (buf[:, :ys_len].reshape(B, H, W),
             buf[:, ys_len:ys_len + cs_len].reshape(B, H // 2, W // 2),
             buf[:, ys_len + cs_len:].reshape(B, H // 2, W // 2))
+
+
+class StagingRing:
+    """``n`` host buffers of (rows, cols) uint8 that take turns holding a
+    chunk's wire buffer for its h2d.
+
+    On CUDA they are pinned, the upload is asynchronous, and the event
+    recorded after it guards the buffer: ``slot`` waits for it before
+    the buffer is written again.  On the CPU the "upload" is a copy.
+    """
+
+    def __init__(self, n: int, rows: int, cols: int, dev: torch.device):
+        self.dev = dev
+        self.cuda = dev.type == "cuda"
+        self.bufs = [torch.empty((rows, cols), dtype=torch.uint8,
+                                 pin_memory=self.cuda) for _ in range(n)]
+        self.events = [None] * n
+
+    def slot(self, i: int) -> np.ndarray:
+        """Buffer of chunk ``i`` as NumPy, once its last upload is done."""
+        k = i % len(self.bufs)
+        if self.events[k] is not None:
+            self.events[k].synchronize()
+        return self.bufs[k].numpy()
+
+    def upload(self, i: int, rows: int) -> torch.Tensor:
+        """The first ``rows`` rows of chunk ``i``'s buffer on the device."""
+        k = i % len(self.bufs)
+        host = self.bufs[k][:rows]
+        if not self.cuda:
+            return host.clone()
+        buf = host.to(self.dev, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        self.events[k] = ev
+        return buf
 
 
 def hybrid_params(segs, rows, pens, plan, tables_np, dev):
@@ -327,33 +384,58 @@ def hybrid_params(segs, rows, pens, plan, tables_np, dev):
     return params_from_numpy(tables_np, rows, seg_maps, pens, device=dev)
 
 
+COLD_ROUNDS = ("i16", "dense")
+
+
+def check_hybrid_options(refine: int, cold: str, i4_topk) -> None:
+    """Raise unless ``refine`` >= 0, ``cold`` names a cold-round search
+    and ``i4_topk`` is None or 1..10."""
+    if isinstance(refine, bool) or not isinstance(refine, int) or refine < 0:
+        raise ValueError(f"refine must be an int >= 0, got {refine!r}")
+    if cold not in COLD_ROUNDS:
+        raise ValueError(f"unknown cold {cold!r}; expected one of "
+                         f"{COLD_ROUNDS}")
+    check_topk(i4_topk)
+
+
 def encode_rgba_batch_pipelined(images, *, quality: float = 75.0,
                                 threads: int = 2, chunk: int = 8,
                                 device=None, engine: str = "hybrid",
-                                timings: dict | None = None):
+                                config=None, depth: int = 3,
+                                timings: dict | None = None,
+                                refine: int = 1, cold: str = "i16",
+                                i4_topk=None):
     """Lossy-encode same-shaped uint8 RGB(A) images.
 
-    Default encoder settings (method 4, 4 segments) at ``quality``.
-    ``engine`` "hybrid" runs the exact closed-loop hybrid encode;
-    "openloop" the open-loop plane engine (fastest, lower quality: no
-    segmentation, i16 modes only, prediction drift).
+    ``config`` (an ``EncoderConfig``; default: method 4, 4 segments at
+    ``quality``) sets the quantizer, segmentation, the i4 search and the
+    frame header's filter and partition fields.  ``engine`` "hybrid"
+    runs the exact closed-loop hybrid encode, with ``refine`` recon
+    rounds, the ``cold`` round's search ("i16" or "dense") and
+    ``i4_topk`` (see ``encode_hybrid_core``); "openloop" the open-loop
+    plane engine (fastest, lower quality: no segmentation, i16 modes
+    only, prediction drift).  ``depth`` chunks are in flight at once.
 
     Returns a list of complete .webp byte strings (order preserved).
     ``device`` None means CUDA (raises without it); "cpu" runs the
     kernels' plain versions with identical output.  ``timings``, if
     given, accumulates per-stage milliseconds under "stage_ms" (device
-    stages from CUDA events on a GPU), host emit seconds under
-    "emit_thread_s" and the wall clock under "total".
+    stages from CUDA events on a GPU) and host seconds under "prep"
+    (chunk prep, thread time), "h2d" (the main thread's upload), "fetch"
+    (the fetch thread's d2h), "emit_thread_s" (emission, thread time)
+    and "total" (the wall clock).
     """
     check_engine(engine)
+    check_hybrid_options(refine, cold, i4_topk)
     if not images:
         return []
     dev = resolve_device(device)
+    cuda = dev.type == "cuda"
     openloop = engine == "openloop"
     t_total = time.perf_counter()
     first = np.asarray(images[0])
     h, w = first.shape[:2]
-    setup = encode_setup(quality, h, w)
+    setup = encode_setup(quality, h, w, config)
     config, base_q, plan = setup["config"], setup["base_q"], setup["plan"]
     tables_np = _default_cost_tables()
     quants = dict(zip(("y1_dc", "y1_ac", "y2_dc", "y2_ac", "uv_dc", "uv_ac"),
@@ -362,13 +444,128 @@ def encode_rgba_batch_pipelined(images, *, quality: float = 75.0,
     mh, mw = plan["mb_h"], plan["mb_w"]
     cap_s = plan["n_group_pad"] // 2
     cap_b = plan["n_group_pad"] // 4
-    if timings is not None:
-        timings.setdefault("stage_ms", {})
-        for k in ("emit_thread_s", "total"):
-            timings.setdefault(k, 0.0)
+    tm = timings if timings is not None else {}
+    tm.setdefault("stage_ms", {})
+    for k in ("prep", "h2d", "fetch", "emit_thread_s", "total"):
+        tm.setdefault(k, 0.0)
+    tm_lock = threading.Lock()
+
+    def acc(key, t0):
+        with tm_lock:
+            tm[key] += time.perf_counter() - t0
+
+    chunk = max(1, min(chunk, n))
+    starts = list(range(0, n, chunk))
+    ahead = max(1, depth)
+    staging = StagingRing(ahead + 1, chunk,
+                          plan["H"] * plan["W"] * 3 // 2, dev)
+    side = torch.cuda.Stream(dev) if cuda else None
+
+    def on_side():
+        return torch.cuda.stream(side) if cuda else contextlib.nullcontext()
 
     def prep_one(im):
         return prep_image(im, setup, openloop=openloop)
+
+    def prep_chunk(i, pool):
+        """Host prep of chunk ``i`` into its staging buffer."""
+        t0 = time.perf_counter()
+        s = starts[i]
+        prepped = list(pool.map(prep_one, images[s:s + chunk]))
+        slot = staging.slot(i)
+        for j, p in enumerate(prepped):
+            slot[j] = p[0]
+        acc("prep", t0)
+        return (len(prepped), [p[1] for p in prepped],
+                np.stack([p[2] for p in prepped]),
+                np.stack([p[3] for p in prepped]))
+
+    sticky = {"ks": min(FIRST_BUCKET, cap_s), "kb": min(FIRST_BUCKET, cap_b)}
+
+    def dispatch(i, prepped, clock):
+        """Main thread: enqueue chunk ``i``'s h2d, dense encode, pack and
+        export at the sticky buckets; nothing here waits on the device."""
+        nb, segs, qs, pens = prepped
+        t0 = time.perf_counter()
+        yd, ud, vd = split_planes(staging.upload(i, nb), plan)  # ONE h2d
+        acc("h2d", t0)
+        if clock is not None:
+            clock("h2d")
+        if openloop:
+            out = planes_packed_step(yd, ud, vd, cap_s=cap_s, cap_b=cap_b,
+                                     marks=clock, **quants)
+        else:
+            tables, qs_t, seg_t, pens_t = hybrid_params(segs, qs, pens, plan,
+                                                        tables_np, dev)
+            out = planes_wavefront_packed_step(
+                yd, ud, vd, seg_t, qs_t, tables, cap_s=cap_s, cap_b=cap_b,
+                i4_penalty=pens_t, try_i4=setup["try_i4"],
+                use_derr=setup["use_derr"], refine=refine, cold=cold,
+                i4_topk=i4_topk, marks=clock)
+        ks, kb = sticky["ks"], sticky["kb"]
+        buf = _export_packed_v2(out, ks=ks, kb=kb)
+        exported = None
+        if cuda:
+            exported = torch.cuda.Event()
+            exported.record()
+        return out, buf, ks, kb, exported
+
+    def download(buf, after=None):
+        """d2h of an export buffer.  On CUDA: a side stream waits for the
+        ``after`` event (recorded behind the export) and copies into
+        pinned memory, so the d2h does not wait for device work enqueued
+        since."""
+        if not cuda:
+            return buf.numpy()
+        with on_side():
+            if after is not None:
+                side.wait_event(after)
+            buf.record_stream(side)
+            host = torch.empty(buf.shape, dtype=torch.uint8, pin_memory=True)
+            host.copy_(buf, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+        done.synchronize()
+        return host.numpy()
+
+    t = plan["total"]
+    n_mask = plan["n_group_pad"] // 4
+
+    def fetch(out, buf, ks, kb, exported, clock):
+        """Fetch thread: the d2h at the export's buckets; one re-export,
+        at buckets grown to fit, when a chunk overflows them."""
+        t0 = time.perf_counter()
+        host = download(buf, exported)
+        hdr = host[:, :12].copy().view(np.int32).reshape(-1, 3)
+        need_ks = _bucket(max(1, int(hdr[:, 0].max())), cap_s)
+        need_kb = _bucket(max(1, int(hdr[:, 1].max())), cap_b)
+        if need_ks > ks or need_kb > kb:
+            ks, kb = max(ks, need_ks), max(kb, need_kb)
+            sticky["ks"] = max(sticky["ks"], ks)
+            sticky["kb"] = max(sticky["kb"], kb)
+            with on_side():          # behind the first copy's wait
+                again = _export_packed_v2(out, ks=ks, kb=kb)
+            host = download(again)
+        if clock is not None:
+            with on_side():
+                clock("d2h")
+        acc("fetch", t0)
+        nb = host.shape[0]
+        o = 12
+        got = {"cs": hdr[:, 0], "cb": hdr[:, 1], "maxabs": hdr[:, 2]}
+        got["mask2"] = host[:, o:o + n_mask]; o += n_mask
+        got["small"] = host[:, o:o + ks * 2].reshape(nb, ks, 2); o += ks * 2
+        got["big"] = host[:, o:o + kb * GROUP].view(np.int8).reshape(
+            nb, kb, GROUP); o += kb * GROUP
+        got["ymode"] = host[:, o:o + t]; o += t
+        got["uvmode"] = host[:, o:o + t]; o += t
+        if "is_i4" in out:
+            got["is_i4"] = host[:, o:o + t]; o += t
+            got["imodes"] = host[:, o:o + t * 16].reshape(nb, t, 16)
+        else:                      # open-loop: every MB i16
+            got["is_i4"] = np.zeros((nb, t), np.uint8)
+            got["imodes"] = (None,) * nb
+        return got
 
     def emit_one(j, fetched, seg, dense):
         t0 = time.perf_counter()
@@ -386,109 +583,69 @@ def encode_rgba_batch_pipelined(images, *, quality: float = 75.0,
                 imodes=fetched["imodes"][j], seg=seg)
             return assemble_simple(Chunk(CHUNK_VP8, payload))
         finally:
-            if timings is not None:
-                timings["emit_thread_s"] += time.perf_counter() - t0
+            acc("emit_thread_s", t0)
 
-    def dispatch(prepped, clock):
-        flat, segs, qs, pens = prepped
-        yd, ud, vd = upload_planes(flat, plan, dev)          # ONE h2d
-        if clock is not None:
-            clock("h2d")
-        if openloop:
-            return planes_packed_step(yd, ud, vd, cap_s=cap_s, cap_b=cap_b,
-                                      marks=clock, **quants)
-        tables, qs_t, seg_t, pens_t = hybrid_params(segs, qs, pens, plan,
-                                                    tables_np, dev)
-        return planes_wavefront_packed_step(
-            yd, ud, vd, seg_t, qs_t, tables, cap_s=cap_s, cap_b=cap_b,
-            i4_penalty=pens_t, use_derr=setup["use_derr"], marks=clock)
-
-    sticky = {"ks": min(4096, cap_s), "kb": min(4096, cap_b)}
-    t = plan["total"]
-    n_mask = plan["n_group_pad"] // 4
-
-    def fetch(out, clock):
-        """Blocking d2h at the sticky buckets; one re-export when a chunk
-        overflows them."""
-        def once(ks, kb):
-            buf = _export_packed_v2(out, ks=ks, kb=kb).cpu().numpy()
-            hdr = buf[:, :12].copy().view(np.int32).reshape(-1, 3)
-            return buf, hdr
-        ks, kb = sticky["ks"], sticky["kb"]
-        buf, hdr = once(ks, kb)
-        need_ks = _bucket(max(1, int(hdr[:, 0].max())), cap_s)
-        need_kb = _bucket(max(1, int(hdr[:, 1].max())), cap_b)
-        if need_ks > ks or need_kb > kb:
-            ks, kb = max(ks, need_ks), max(kb, need_kb)
-            sticky["ks"], sticky["kb"] = ks, kb
-            buf, hdr = once(ks, kb)
-        if clock is not None:
-            clock("d2h")
-        nb = buf.shape[0]
-        o = 12
-        got = {"cs": hdr[:, 0], "cb": hdr[:, 1], "maxabs": hdr[:, 2]}
-        got["mask2"] = buf[:, o:o + n_mask]; o += n_mask
-        got["small"] = buf[:, o:o + ks * 2].reshape(nb, ks, 2); o += ks * 2
-        got["big"] = buf[:, o:o + kb * GROUP].view(np.int8).reshape(
-            nb, kb, GROUP); o += kb * GROUP
-        got["ymode"] = buf[:, o:o + t]; o += t
-        got["uvmode"] = buf[:, o:o + t]; o += t
-        if "is_i4" in out:
-            got["is_i4"] = buf[:, o:o + t]; o += t
-            got["imodes"] = buf[:, o:o + t * 16].reshape(nb, t, 16)
-        else:                      # open-loop: every MB i16
-            got["is_i4"] = np.zeros((nb, t), np.uint8)
-            got["imodes"] = (None,) * nb
-        return got
-
-    results = [None] * n
-    chunk = max(1, chunk)
-    starts = list(range(0, n, chunk))
-
-    def prep_chunk(s, pool):
-        return stack_prepped(list(pool.map(prep_one, images[s:s + chunk])))
-
-    workers = max(1, threads)
-    with cf.ThreadPoolExecutor(max_workers=workers) as pool, \
-            cf.ThreadPoolExecutor(max_workers=1) as ahead:
-        emit_futs = []
-        nxt = ahead.submit(prep_chunk, starts[0], pool)
-        for i, s in enumerate(starts):
-            prepped = nxt.result()
-            if i + 1 < len(starts):        # host prep of the next chunk
-                nxt = ahead.submit(prep_chunk, starts[i + 1], pool)
-            clock = StageClock(dev) if timings is not None else None
-            out = dispatch(prepped, clock)
-            got = fetch(out, clock)
-            if clock is not None:
-                for k, ms in clock.spans_ms().items():
-                    timings["stage_ms"][k] = timings["stage_ms"].get(k, 0.0) + ms
-            segs = prepped[1]
-            for j in range(len(segs)):
-                dense = None
-                if (got["maxabs"][j] > 127 or got["cs"][j] > cap_s
-                        or got["cb"][j] > cap_b):
+    def fetch_and_emit(i, segs, job, clock, pool):
+        """Fetch thread: chunk ``i``'s d2h, then its emit submissions, in
+        image order; an image that escapes the compact pack takes its
+        dense levels (a d2h on the side stream too)."""
+        out = job[0]
+        got = fetch(*job, clock)
+        futs = []
+        for j, seg in enumerate(segs):
+            dense = None
+            if (got["maxabs"][j] > 127 or got["cs"][j] > cap_s
+                    or got["cb"][j] > cap_b):
+                with on_side():
                     dense = (out["y2_levels"][j].cpu().numpy().reshape(t, 16),
                              out["y_levels"][j].cpu().numpy().reshape(t, 16, 16),
                              out["uv_levels"][j].cpu().numpy().reshape(t, 8, 16))
-                emit_futs.append((s + j, pool.submit(
-                    emit_one, j, got, segs[j], dense)))
+            futs.append((starts[i] + j, pool.submit(emit_one, j, got, seg,
+                                                    dense)))
+        if clock is not None:
+            spans = clock.spans_ms()
+            with tm_lock:
+                for k, ms in spans.items():
+                    tm["stage_ms"][k] = tm["stage_ms"].get(k, 0.0) + ms
+        return futs
+
+    results = [None] * n
+    with cf.ThreadPoolExecutor(max_workers=max(1, threads)) as pool, \
+            cf.ThreadPoolExecutor(max_workers=2) as prep_pool, \
+            cf.ThreadPoolExecutor(max_workers=1) as fetch_pool:
+        emit_futs = []
+        pending = deque()
+        preps = deque(prep_pool.submit(prep_chunk, i, pool)
+                      for i in range(min(ahead, len(starts))))
+        for i in range(len(starts)):
+            prepped = preps.popleft().result()
+            if i + ahead < len(starts):
+                preps.append(prep_pool.submit(prep_chunk, i + ahead, pool))
+            clock = StageClock(dev) if timings is not None else None
+            job = dispatch(i, prepped, clock)
+            pending.append(fetch_pool.submit(fetch_and_emit, i, prepped[1],
+                                             job, clock, pool))
+            while len(pending) >= ahead:
+                emit_futs.extend(pending.popleft().result())
+        while pending:
+            emit_futs.extend(pending.popleft().result())
         for gi, fut in emit_futs:
             results[gi] = fut.result()
-    if timings is not None:
-        timings["total"] += time.perf_counter() - t_total
+    acc("total", t_total)
     return results
 
 
 __all__ = [
+    "StagingRing",
     "check_engine",
+    "check_hybrid_options",
     "encode_rgba_batch_pipelined",
     "encode_setup",
     "hybrid_params",
     "planes_packed_step",
     "planes_wavefront_packed_step",
     "prep_image",
+    "split_planes",
     "stack_prepped",
     "unpack_g4v2",
-    "upload_planes",
 ]

@@ -6,10 +6,13 @@ The hybrid engine splits the encoder's work in two:
   per-sub-block i4 modes, i4-vs-i16 adoption, uv mode) for all MBs of
   all images at once, with prediction context read from a plane — the
   source on the cold round, the previous round's reconstruction on a
-  refine round.  The refine round walks each MB's 16 sub-blocks
+  refine round.  A refine round walks each MB's 16 sub-blocks
   (Gauss-Seidel: each winner's recon is the context of the sub-blocks
-  after it), scoring all 10 B-modes of each, in one launch of the i4
-  walk kernel (ops/kernels/i4_search.py).
+  after it), scoring the 10 B-modes of each (or the ``i4_topk``
+  best-predicting), in one launch of the i4 walk kernel
+  (ops/kernels/i4_search.py).  The cold round of ``cold="dense"``
+  scores every sub-block of every MB independently from plane context,
+  in one launch of the flat i4 search kernel.
 - ``encode_wavefront_core`` codes the MBs with those modes exactly
   closed-loop, in anti-diagonal order, with the wavefront kernel
   (ops/kernels/wavefront_fixed.py), so the stream has zero prediction
@@ -28,7 +31,7 @@ import torch
 from ..models.vp8.encoder import I4_PENALTY_MAX
 from . import dct
 from .dct import BIAS
-from .kernels.i4_search import i4_walk, t3_tables
+from .kernels.i4_search import i4_search, i4_walk, t3_tables
 from .kernels.wavefront_fixed import wavefront_fixed
 from .rate import block_rate256, mul_shr16
 from .vp8_recon import mb_context, predict4_blocks
@@ -48,7 +51,8 @@ def _per_mb(table, seg):
 
 
 def openloop_mode_search(y, u, v, seg_map, qsteps, tables, *, try_i4: bool,
-                         i4_penalty, ctx=None):
+                         i4_penalty, ctx=None, i4_parallel: bool = False,
+                         i4_topk=None):
     """Parallel mode search for all MBs with plane prediction context.
 
     y (B, H, W), u/v (B, H/2, W/2) int32-valued planes (H, W multiples
@@ -57,6 +61,9 @@ def openloop_mode_search(y, u, v, seg_map, qsteps, tables, *, try_i4: bool,
     tensor of per-segment RD lambdas.  ``ctx`` (refine rounds): a
     (recon_y, recon_u, recon_v) tuple whose pixels replace the source
     as prediction context, while distortion stays against the source.
+    ``i4_parallel`` scores the sub-blocks independently from plane
+    context (``_i4_search_parallel``) instead of the within-MB walk;
+    ``i4_topk`` keeps the k best-predicting B-modes of each sub-block.
 
     Returns dense (B, mh, mw[, 16]) int32 ymode/uvmode/is_i4/imodes.
     """
@@ -113,8 +120,13 @@ def openloop_mode_search(y, u, v, seg_map, qsteps, tables, *, try_i4: bool,
             y_levels, tables, type=0, first=1, ctx0=1).sum(dim=-1, dtype=I32)
         pen_n = _per_mb(i4_penalty.to(I32), seg)
         s16 = d16 + mul_shr16(pen_n, rate16)
-        bmodes, s4 = _i4_gauss_seidel(src, top16, tr4, left16, tlpx, qlane,
-                                      iqlane, pen_n, t3_tables(tables))
+        t3 = t3_tables(tables)
+        if i4_parallel:
+            bmodes, s4 = _i4_search_parallel(y, cy, qlane, iqlane, pen_n, t3,
+                                             i4_topk)
+        else:
+            bmodes, s4 = _i4_gauss_seidel(src, top16, tr4, left16, tlpx,
+                                          qlane, iqlane, pen_n, t3, i4_topk)
         adopt = s4 < s16
         is4 = adopt.to(I32)
         imodes = torch.where(adopt[..., None], bmodes, imodes)
@@ -138,14 +150,82 @@ def openloop_mode_search(y, u, v, seg_map, qsteps, tables, *, try_i4: bool,
 
 
 def _i4_gauss_seidel(src, top16, tr4, left16, tlpx, qlane, iqlane, pen_n,
-                     t3):
+                     t3, topk=None):
     """The 16-substep within-MB i4 walk over every MB at once: one
     ``i4_walk`` launch on CUDA tensors, its plain version on CPU tensors.
 
     Returns (bmodes (B, N, 16), summed RD score s4 (B, N)).
     """
     return i4_walk(*(t.contiguous() for t in (src, top16, tr4, left16, tlpx,
-                                              qlane, iqlane, pen_n)), t3)
+                                              qlane, iqlane, pen_n)), t3,
+                   topk=topk)
+
+
+def plane_i4_inputs(y, cy, qlane, iqlane, pen_n):
+    """The flat i4 search's rows for every 4x4 sub-block, its context read
+    from the plane ``cy``.
+
+    Edge rules, as the closed-loop engine's: the top row of the frame is
+    127 (its top-left corner included), column 0 is 129, and a sub-block
+    with gx == 3 takes the MB's top-right pixels (the row above the MB,
+    repeated from that row's last pixel in the last MB column, 127 in the
+    top MB row).  y (B, H, W) source; cy (B, H, W) int32 context;
+    qlane/iqlane (B, N, 6) and pen_n (B, N) per-MB quantizers and
+    lambdas.  Returns (ctx13 (S, 13), src16 (S, 16), quants5 (S, 5))
+    int32, one row per sub-block in (image, sub-block row, column) order.
+    """
+    B, H, W = y.shape
+    mh, mw = H // 16, W // 16
+    sh, sw = H // 4, W // 4
+    dev = y.device
+    sy = torch.arange(sh, device=dev)
+    sx = torch.arange(sw, device=dev)
+    above = cy[:, (4 * sy - 1).clamp_min(0)]                  # (B, sh, W)
+    top = above.reshape(B, sh, sw, 4)
+    tl = above[:, :, (4 * sx - 1).clamp_min(0)]               # (B, sh, sw)
+    tr_cols = (4 * sx[:, None] + 4 + torch.arange(4, device=dev)).clamp_max(
+        W - 1)
+    tr = above[:, :, tr_cols]                                 # (B, sh, sw, 4)
+    tr4 = mb_context(cy, mh, mw, 16)[1].reshape(B, mh, 1, mw, 1, 4)
+    tr = torch.where(((sx & 3) == 3)[:, None],
+                     tr4.expand(B, mh, 4, mw, 4, 4).reshape(B, sh, sw, 4), tr)
+    left = cy[:, :, (4 * sx - 1).clamp_min(0)].reshape(
+        B, sh, 4, sw).transpose(2, 3)                         # (B, sh, sw, 4)
+    at_top = (sy == 0)[:, None]
+    at_left = sx == 0
+    top = torch.where(at_top[..., None], 127, top)
+    tr = torch.where(at_top[..., None], 127, tr)
+    left = torch.where(at_left[:, None], 129, left)
+    tl = torch.where(at_top, 127, torch.where(at_left, 129, tl))
+    ctx13 = torch.cat([tl[..., None], top, tr, left], dim=-1)
+    src16 = y.to(I32).reshape(B, sh, 4, sw, 4).permute(0, 1, 3, 2, 4)
+    q5 = torch.cat([iqlane[..., :2], qlane[..., :2], pen_n[..., None]], -1)
+    quants5 = q5.reshape(B, mh, 1, mw, 1, 5).expand(B, mh, 4, mw, 4, 5)
+    return tuple(t.reshape(B * sh * sw, -1).to(I32).contiguous()
+                 for t in (ctx13, src16, quants5))
+
+
+def _i4_search_parallel(y, cy, qlane, iqlane, pen_n, t3, topk=None):
+    """Every 4x4 sub-block's i4 search at once, from PLANE context.
+
+    The cold round's context is approximate anyway (the source), so each
+    sub-block reads its neighbours straight from the context plane
+    (``plane_i4_inputs``) instead of from the within-MB walk: one flat
+    ``i4_search`` launch over all B * H * W / 16 sub-blocks (its plain
+    version on CPU tensors).  Returns (bmodes (B, N, 16) in MB raster
+    order, summed RD score s4 (B, N)) int32.
+    """
+    B, H, W = y.shape
+    mh, mw = H // 16, W // 16
+    bmode, cost, _ = i4_search(*plane_i4_inputs(y, cy, qlane, iqlane, pen_n),
+                               t3, topk=topk)
+
+    def per_mb(a):
+        """(B * H * W / 16,) sub-block values → (B, N, 16), MB raster."""
+        return a.reshape(B, mh, 4, mw, 4).permute(0, 1, 3, 2, 4).reshape(
+            B, mh * mw, 16)
+
+    return per_mb(bmode), per_mb(cost).sum(dim=-1, dtype=I32)
 
 
 def encode_wavefront_core(y, u, v, seg_map, qsteps, *, modes,
@@ -190,37 +270,47 @@ def search_penalty(i4_penalty: torch.Tensor) -> torch.Tensor:
 
 
 def encode_hybrid_core(y, u, v, seg_map, qsteps, tables, *, i4_penalty,
+                       try_i4: bool = True, refine: int = 1,
+                       cold: str = "i16", i4_topk=None,
                        use_derr: bool = False, marks=None):
-    """Hybrid engine: cold i16/uv search, wavefront, one refine round with
-    the Gauss-Seidel i4 walk from that recon, wavefront again.
+    """Hybrid engine: a cold mode search, then ``refine`` rounds of a
+    wavefront pass with recon followed by a search with the Gauss-Seidel
+    i4 walk from that recon, then the final wavefront pass.
 
     i4_penalty: (B, 4) int32 per-segment RD lambdas of the closed-loop
-    engine.  The cold round decides no i4 modes (its only job is to seed
-    the recon context); the refine round re-decides every mode.  ``marks``,
-    if given, is called with a stage name after each stage is enqueued
-    ("cold", "wavefront1", "refine", "wavefront2").
+    engine; every search uses 7/4 of them (``search_penalty``).
+    ``cold`` picks the cold round's search when ``refine`` > 0: "i16"
+    decides no i4 modes (its only job is to seed the recon context; the
+    refine round re-decides every mode), "dense" runs the plane-context
+    i4 search of every sub-block.  With ``refine`` = 0 the cold round is
+    the final search and walks the i4 sub-blocks.  ``try_i4`` False
+    searches no i4 mode anywhere; ``i4_topk`` keeps the k best-predicting
+    B-modes in every i4 search.  ``marks``, if given, is called with a
+    stage name after each stage is enqueued: "cold", then "wavefront1",
+    "refine", "wavefront2", "refine2", "wavefront3", ...
     """
     mark = marks if marks is not None else (lambda name: None)
     pen_search = search_penalty(i4_penalty)
-    modes = openloop_mode_search(y, u, v, seg_map, qsteps, tables,
-                                 try_i4=False, i4_penalty=pen_search)
+    modes = openloop_mode_search(
+        y, u, v, seg_map, qsteps, tables,
+        try_i4=try_i4 and not (cold == "i16" and refine > 0),
+        i4_penalty=pen_search, i4_parallel=refine > 0, i4_topk=i4_topk)
     mark("cold")
     order = ("ymode", "uvmode", "is_i4", "imodes")
-    first = encode_wavefront_core(
-        y, u, v, seg_map, qsteps, modes=tuple(modes[k] for k in order),
-        want_recon=True, use_derr=use_derr)
-    mark("wavefront1")
-    modes = openloop_mode_search(
-        y, u, v, seg_map, qsteps, tables, try_i4=True,
-        i4_penalty=pen_search,
-        ctx=(first["recon_y"], first["recon_u"], first["recon_v"]))
-    mark("refine")
-    out = encode_wavefront_core(
-        y, u, v, seg_map, qsteps, modes=tuple(modes[k] for k in order),
-        want_recon=False, use_derr=use_derr)
-    mark("wavefront2")
+    for r in range(refine + 1):
+        last = r == refine
+        out = encode_wavefront_core(
+            y, u, v, seg_map, qsteps, modes=tuple(modes[k] for k in order),
+            want_recon=not last, use_derr=use_derr)
+        mark(f"wavefront{r + 1}")
+        if not last:
+            modes = openloop_mode_search(
+                y, u, v, seg_map, qsteps, tables, try_i4=try_i4,
+                i4_penalty=pen_search, i4_topk=i4_topk,
+                ctx=(out["recon_y"], out["recon_u"], out["recon_v"]))
+            mark("refine" if r == 0 else f"refine{r + 1}")
     return out
 
 
 __all__ = ["encode_hybrid_core", "encode_wavefront_core",
-           "openloop_mode_search", "search_penalty"]
+           "openloop_mode_search", "plane_i4_inputs", "search_penalty"]

@@ -1,7 +1,7 @@
 // i4 candidate search: score all 10 B-modes of a 4x4 luma sub-block and
 // keep the RD argmin — the hybrid encoder's refine round.
 //
-// Two kernels over one device body (score_b4):
+// Two kernels over one device body (search_group):
 // - i4_search_kernel replaces the TPU kernel
 //   gowebp_tpu/ops/pallas/i4_search.py (i4_search_pallas -> _i4_kernel):
 //   S independent sub-blocks, each with its context given.
@@ -35,6 +35,14 @@
 //   top-right pixels when gx = 3, all on earlier diagonals, so every mode,
 //   cost and pixel equals the raster walk's).  A block carries 6 MBs: 12
 //   sub-blocks on the 2-wide diagonals fill its 12 groups.
+//
+// `topk` (gowebp_tpu/ops/encode_wavefront_jax.py _i4_candidates): with k
+// in 1..10, each lane first predicts its mode and takes the prediction's
+// SSE against the source; a shuffle pass over the group ranks the 10 SSEs
+// (ties to the lower mode) and only the k best lanes run the FDCT,
+// quantization, rate and cost.  The argmin then keeps the first minimum
+// in rank order.  Both kernels are templates on kRanked, so topk = 0
+// (none) compiles to the unranked code above, unchanged.
 
 #include <cuda_runtime.h>
 
@@ -102,13 +110,11 @@ __device__ __forceinline__ int rate_t3(const int* lv, const Tables& t) {
   return r + t.pp[(last + 1) * 3 + ctx].x;
 }
 
-// RD cost of mode m on one sub-block whose source pixel (r, c) is
-// src[r * stride + c]; rec gets its 16 recon pixels.
-__device__ __forceinline__ int score_b4(int m, int tl, const int* top, const int* tr,
-                                        const int* left, const int* src, int stride,
-                                        const Quant& q, const Tables& t, int* rec) {
-  int pred[16], res[16], cf[16], lv[16];
-  vp8::pred_b4_sel(m, tl, top, tr, left, pred);
+// RD cost of mode m, predicted as pred, on one sub-block whose source
+// pixel (r, c) is src[r * stride + c]; rec gets its 16 recon pixels.
+__device__ __forceinline__ int score_pred(int m, const int* pred, const int* src, int stride,
+                                          const Quant& q, const Tables& t, int* rec) {
+  int res[16], cf[16], lv[16];
 #pragma unroll
   for (int k = 0; k < 16; k++) res[k] = src[(k >> 2) * stride + (k & 3)] - pred[k];
   vp8::fdct4x4(res, cf);
@@ -141,6 +147,60 @@ __device__ __forceinline__ int group_argmin(int cost, int base, int* best_cost) 
   return bm;
 }
 
+// Rank of this lane's mode m among lanes base..base+9 by prediction SSE,
+// ties to the lower mode.
+__device__ __forceinline__ int group_rank(int sse, int m, int base) {
+  int rank = 0;
+#pragma unroll
+  for (int j = 0; j < kGroup; j++) {
+    const int sj = __shfl_sync(vp8::kFullMask, sse, base + j);
+    rank += sj < sse || (sj == sse && j < m);
+  }
+  return rank;
+}
+
+// First minimum of the costs of the lanes ranked below topk, in rank order.
+__device__ __forceinline__ int group_argmin_ranked(int cost, int rank, int topk, int base,
+                                                   int* best_cost) {
+  int bc = INT_MAX, br = kGroup, bm = 0;
+#pragma unroll
+  for (int j = 0; j < kGroup; j++) {
+    const int cj = __shfl_sync(vp8::kFullMask, cost, base + j);
+    const int rj = __shfl_sync(vp8::kFullMask, rank, base + j);
+    if (rj < topk && (cj < bc || (cj == bc && rj < br))) {
+      bc = cj;
+      br = rj;
+      bm = j;
+    }
+  }
+  *best_cost = bc;
+  return bm;
+}
+
+// One group's search: lane mode m scores its candidate (kRanked: only if
+// it ranks below topk); returns the winning mode and its cost in *bc, and
+// leaves the winner's recon in its lane's rec.  All 32 lanes call it.
+template <bool kRanked>
+__device__ __forceinline__ int search_group(int m, int base, int tl, const int* top,
+                                            const int* tr, const int* left, const int* src,
+                                            int stride, const Quant& q, const Tables& t,
+                                            int topk, int* rec, int* bc) {
+  int pred[16];
+  vp8::pred_b4_sel(m, tl, top, tr, left, pred);
+  if constexpr (!kRanked) {
+    return group_argmin(score_pred(m, pred, src, stride, q, t, rec), base, bc);
+  }
+  int sse = 0;
+#pragma unroll
+  for (int k = 0; k < 16; k++) {
+    const int d = src[(k >> 2) * stride + (k & 3)] - pred[k];
+    sse += d * d;
+  }
+  const int rank = group_rank(sse, m, base);
+  const int cost = rank < topk ? score_pred(m, pred, src, stride, q, t, rec) : INT_MAX;
+  return group_argmin_ranked(cost, rank, topk, base, bc);
+}
+
 __device__ __forceinline__ void store_rec16(uint8_t* out, const int* rec) {
   unsigned w[4];
 #pragma unroll
@@ -150,11 +210,12 @@ __device__ __forceinline__ void store_rec16(uint8_t* out, const int* rec) {
   *reinterpret_cast<uint4*>(out) = make_uint4(w[0], w[1], w[2], w[3]);
 }
 
+template <bool kRanked>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 i4_search_kernel(const int* __restrict__ ctx13, const int* __restrict__ src16,
                  const int* __restrict__ quants5, const int* __restrict__ p0n,
                  const int* __restrict__ p1n, const int* __restrict__ valn, int S,
-                 int* __restrict__ bmode, int* __restrict__ bcost,
+                 int topk, int* __restrict__ bmode, int* __restrict__ bcost,
                  uint8_t* __restrict__ brec) {
   __shared__ Tables t;
   stage_tables(t, p0n, p1n, valn);
@@ -177,10 +238,9 @@ i4_search_kernel(const int* __restrict__ ctx13, const int* __restrict__ src16,
     }
     const int* qp = quants5 + sc * 5;  // iq_dc, iq_ac, q_dc, q_ac, pen
     const Quant q{qp[0], qp[1], qp[2], qp[3], qp[4]};
-    int rec[16];
-    const int cost = score_b4(m, cx[0], top, tr, left, src16 + sc * 16, 4, q, t, rec);
-    int bc;
-    const int bm = group_argmin(cost, kGroup * g, &bc);
+    int rec[16], bc;
+    const int bm = search_group<kRanked>(m, kGroup * g, cx[0], top, tr, left, src16 + sc * 16,
+                                         4, q, t, topk, rec, &bc);
     if (live && m == bm) {
       bmode[s] = bm;
       bcost[s] = bc;
@@ -189,13 +249,14 @@ i4_search_kernel(const int* __restrict__ ctx13, const int* __restrict__ src16,
   }
 }
 
+template <bool kRanked>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 i4_walk_kernel(const int* __restrict__ src, const int* __restrict__ top16,
                const int* __restrict__ tr4, const int* __restrict__ left16,
                const int* __restrict__ tlpx, const int* __restrict__ qlane,
                const int* __restrict__ iqlane, const int* __restrict__ pen,
                const int* __restrict__ p0n, const int* __restrict__ p1n,
-               const int* __restrict__ valn, int M, int* __restrict__ bmodes,
+               const int* __restrict__ valn, int M, int topk, int* __restrict__ bmodes,
                int* __restrict__ s4, uint8_t* __restrict__ rec_out) {
   __shared__ Tables t;
   __shared__ int scr[kWalkMBs][17 * kSW];
@@ -248,11 +309,9 @@ i4_walk_kernel(const int* __restrict__ src, const int* __restrict__ top16,
           left[i] = S[(r + 1 + i) * kSW + c];
         }
         const Quant q{sq[j][0], sq[j][1], sq[j][2], sq[j][3], sq[j][4]};
-        int rec[16];
-        const int cost =
-            score_b4(m, S[r * kSW + c], top, tr, left, ssrc[j] + r * 16 + c, 16, q, t, rec);
-        int bc;
-        const int bm = group_argmin(cost, kGroup * g, &bc);
+        int rec[16], bc;
+        const int bm = search_group<kRanked>(m, kGroup * g, S[r * kSW + c], top, tr, left,
+                                             ssrc[j] + r * 16 + c, 16, q, t, topk, rec, &bc);
         if (live && m == bm) {
           int* out = scr[j] + (r + 1) * kSW + c + 1;
 #pragma unroll
@@ -282,29 +341,54 @@ int resident_blocks(const void* kernel) {
   return sms * per_sm > 0 ? sms * per_sm : 1;
 }
 
-}  // namespace
-
-extern "C" int i4_search_launch(const int* ctx13, const int* src16, const int* quants5,
-                                const int* p0n, const int* p1n, const int* valn, int S,
-                                int* bmode, int* bcost, uint8_t* brec, void* stream) {
-  if (S <= 0) return 0;
-  static const int resident = resident_blocks((const void*)i4_search_kernel);
+template <bool kRanked>
+int launch_search(const int* ctx13, const int* src16, const int* quants5, const int* p0n,
+                  const int* p1n, const int* valn, int S, int topk, int* bmode, int* bcost,
+                  uint8_t* brec, cudaStream_t stream) {
+  static const int resident = resident_blocks((const void*)i4_search_kernel<kRanked>);
   const int need = (S + kSlots - 1) / kSlots;
-  i4_search_kernel<<<need < resident ? need : resident, kThreads, 0, (cudaStream_t)stream>>>(
-      ctx13, src16, quants5, p0n, p1n, valn, S, bmode, bcost, brec);
+  i4_search_kernel<kRanked><<<need < resident ? need : resident, kThreads, 0, stream>>>(
+      ctx13, src16, quants5, p0n, p1n, valn, S, topk, bmode, bcost, brec);
   return (int)cudaGetLastError();
 }
 
-// The refine round's walk over M MBs; `rec` (M, 256) may be null.
+template <bool kRanked>
+int launch_walk(const int* src, const int* top16, const int* tr4, const int* left16,
+                const int* tl, const int* qlane, const int* iqlane, const int* pen,
+                const int* p0n, const int* p1n, const int* valn, int M, int topk, int* bmodes,
+                int* s4, uint8_t* rec, cudaStream_t stream) {
+  static const int resident = resident_blocks((const void*)i4_walk_kernel<kRanked>);
+  const int need = (M + kWalkMBs - 1) / kWalkMBs;
+  i4_walk_kernel<kRanked><<<need < resident ? need : resident, kThreads, 0, stream>>>(
+      src, top16, tr4, left16, tl, qlane, iqlane, pen, p0n, p1n, valn, M, topk, bmodes, s4,
+      rec);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// S independent sub-blocks; topk 0 scores all 10 modes, 1..10 the k best-predicting.
+extern "C" int i4_search_launch(const int* ctx13, const int* src16, const int* quants5,
+                                const int* p0n, const int* p1n, const int* valn, int S,
+                                int topk, int* bmode, int* bcost, uint8_t* brec, void* stream) {
+  if (S <= 0) return 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  return topk > 0 ? launch_search<true>(ctx13, src16, quants5, p0n, p1n, valn, S, topk, bmode,
+                                        bcost, brec, st)
+                  : launch_search<false>(ctx13, src16, quants5, p0n, p1n, valn, S, 0, bmode,
+                                         bcost, brec, st);
+}
+
+// The refine round's walk over M MBs; `rec` (M, 256) may be null; topk as above.
 extern "C" int i4_walk_launch(const int* src, const int* top16, const int* tr4,
                               const int* left16, const int* tl, const int* qlane,
                               const int* iqlane, const int* pen, const int* p0n,
-                              const int* p1n, const int* valn, int M, int* bmodes, int* s4,
-                              uint8_t* rec, void* stream) {
+                              const int* p1n, const int* valn, int M, int topk, int* bmodes,
+                              int* s4, uint8_t* rec, void* stream) {
   if (M <= 0) return 0;
-  static const int resident = resident_blocks((const void*)i4_walk_kernel);
-  const int need = (M + kWalkMBs - 1) / kWalkMBs;
-  i4_walk_kernel<<<need < resident ? need : resident, kThreads, 0, (cudaStream_t)stream>>>(
-      src, top16, tr4, left16, tl, qlane, iqlane, pen, p0n, p1n, valn, M, bmodes, s4, rec);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  return topk > 0 ? launch_walk<true>(src, top16, tr4, left16, tl, qlane, iqlane, pen, p0n,
+                                      p1n, valn, M, topk, bmodes, s4, rec, st)
+                  : launch_walk<false>(src, top16, tr4, left16, tl, qlane, iqlane, pen, p0n,
+                                       p1n, valn, M, 0, bmodes, s4, rec, st);
 }

@@ -12,6 +12,13 @@ walk over every MB in one launch (each substep's winning recon is the
 next sub-blocks' context); ``i4_walk_plain`` is the same walk as 16
 ``i4_search_plain`` calls in raster order.
 
+``topk`` (both): score only the k best-predicting B-modes of each
+sub-block, ranked by the prediction's SSE against the source with ties
+to the lower mode; the RD argmin then takes the first minimum in RANK
+order, so a cost tie goes to the better-predicting mode (``topk=10``
+differs from ``None`` there).  The SSE is below 16 * 255**2 < 2**24, so
+the key ``sse * 16 + mode`` is exact and unique.
+
 Layout, one row per sub-block:
   ctx13   (S, 13) int32  [tl, top0-3, tr0-3, left0-3]
   src16   (S, 16) int32  raster source pixels
@@ -40,9 +47,9 @@ def _configure(lib) -> None:
     p = ctypes.c_void_p
     lib.i4_search_launch.restype = ctypes.c_int
     lib.i4_search_launch.argtypes = [p, p, p, p, p, p, ctypes.c_int,
-                                     p, p, p, p]
+                                     ctypes.c_int, p, p, p, p]
     lib.i4_walk_launch.restype = ctypes.c_int
-    lib.i4_walk_launch.argtypes = [p] * 11 + [ctypes.c_int] + [p] * 4
+    lib.i4_walk_launch.argtypes = [p] * 11 + [ctypes.c_int] * 2 + [p] * 4
 
 
 LIBRARY = CudaLibrary("i4_search.cu", _configure)
@@ -53,7 +60,27 @@ def t3_tables(tables):
     return position_tables(tables, 3)
 
 
-def i4_search_plain(ctx13, src16, quants5, t3):
+def check_topk(topk) -> None:
+    """Raise unless ``topk`` is None or an int in 1..10."""
+    if topk is None:
+        return
+    if isinstance(topk, bool) or not isinstance(topk, int):
+        raise TypeError(f"topk must be None or an int, got {type(topk)}")
+    if not 1 <= topk <= 10:
+        raise ValueError(f"topk must be in 1..10, got {topk}")
+
+
+def rank_modes(preds, src, topk: int):
+    """The ``topk`` best-predicting B-modes: preds (S, 10, 4, 4), src
+    (S, 1, 4, 4) → mode ids (S, topk), best first, ties to the lower
+    mode."""
+    d = src - preds
+    key = (d * d).sum(dim=(-1, -2), dtype=I32) * 16 + torch.arange(
+        10, dtype=I32, device=preds.device)
+    return torch.sort(key, dim=-1).indices[:, :topk]
+
+
+def i4_search_plain(ctx13, src16, quants5, t3, topk=None):
     """Vectorised torch version of the kernel (any device).
 
     Returns (bmode (S,) int32, cost (S,) int32, rec (S, 16) uint8).
@@ -64,29 +91,34 @@ def i4_search_plain(ctx13, src16, quants5, t3):
     src = src16.to(I32).reshape(S, 1, 4, 4)
     q = quants5.to(I32)
     preds = _pred_luma4_all(tl, top, tr, left)                 # (S,10,4,4)
+    rows = torch.arange(S, device=preds.device)
+    ids = torch.arange(10, device=preds.device).expand(S, 10)
+    if topk is not None:                     # candidates in rank order
+        ids = rank_modes(preds, src, topk)
+        preds = preds[rows[:, None], ids]                      # (S,k,4,4)
     cf = fdct4x4(src - preds)
     lv = quantize(cf, q[:, 0:1], BIAS["y1_dc"], q[:, 1:2],
-                  BIAS["y1_ac"])                              # (S,10,16)
+                  BIAS["y1_ac"])                              # (S,k,16)
     rec = idct_add_clip(dequantize(lv, q[:, 2:3], q[:, 3:4]), preds)
     d = src - rec
     dist = (d * d).sum(dim=(-1, -2), dtype=I32)
     rate = rate_by_position(lv, *t3, first=0, ctx0=1)
-    bits = torch.tensor(MODE4_BITS256, dtype=I32, device=lv.device)
+    bits = torch.tensor(MODE4_BITS256, dtype=I32, device=lv.device)[ids]
     cost = dist + mul_shr16(q[:, 4:5], rate + bits)
-    bmode = torch.argmin(cost, dim=-1)       # first minimum: lowest mode wins
-    rows = torch.arange(S, device=lv.device)
-    brec = rec[rows, bmode].reshape(S, 16).to(torch.uint8)
-    return bmode.to(I32), cost[rows, bmode], brec
+    kidx = torch.argmin(cost, dim=-1)        # first minimum in candidate order
+    brec = rec[rows, kidx].reshape(S, 16).to(torch.uint8)
+    return ids[rows, kidx].to(I32), cost[rows, kidx], brec
 
 
-def i4_search(ctx13, src16, quants5, t3):
+def i4_search(ctx13, src16, quants5, t3, topk=None):
     """Kernel on a CUDA tensor, plain version on a CPU tensor.
 
     ``i4_search.launches`` counts kernel launches (one per call on CUDA).
     """
+    check_topk(topk)
     dev = ctx13.device
     if dev.type == "cpu":
-        return i4_search_plain(ctx13, src16, quants5, t3)
+        return i4_search_plain(ctx13, src16, quants5, t3, topk)
     if dev.type != "cuda":
         raise ValueError(f"i4_search: unsupported device {dev}")
     S = ctx13.shape[0]
@@ -102,7 +134,7 @@ def i4_search(ctx13, src16, quants5, t3):
     rec = torch.empty((S, 16), dtype=torch.uint8, device=dev)
     err = lib.i4_search_launch(
         ctx13.data_ptr(), src16.data_ptr(), quants5.data_ptr(),
-        t3[0].data_ptr(), t3[1].data_ptr(), t3[2].data_ptr(), S,
+        t3[0].data_ptr(), t3[1].data_ptr(), t3[2].data_ptr(), S, topk or 0,
         bmode.data_ptr(), cost.data_ptr(), rec.data_ptr(), stream_handle(dev))
     if err != 0:
         raise RuntimeError(f"i4_search kernel launch failed: CUDA error {err}")
@@ -114,7 +146,7 @@ i4_search.launches = 0
 
 
 def i4_walk_plain(src, top16, tr4, left16, tl, qlane, iqlane, pen, t3, *,
-                  want_recon: bool = False, search=i4_search_plain):
+                  want_recon: bool = False, topk=None, search=i4_search_plain):
     """The 16-substep within-MB i4 walk over every MB at once (any device).
 
     src (B, N, 16, 16) int32 source MBs; top16 (B, N, 16), tr4 (B, N, 4),
@@ -148,7 +180,7 @@ def i4_walk_plain(src, top16, tr4, left16, tl, qlane, iqlane, pen, t3, *,
                            scr[:, :, r + 1:r + 5, c]], dim=-1)
         src16 = src[:, :, r:r + 4, c:c + 4].reshape(B * N, 16)
         bmode, bcost, brec = search(ctx13.reshape(B * N, 13), src16,
-                                    quants5, t3)
+                                    quants5, t3, topk)
         scr[:, :, r + 1:r + 5, c + 1:c + 5] = brec.reshape(B, N, 4, 4)
         bmodes[:, :, n] = bmode.reshape(B, N)
         s4 += bcost.reshape(B, N)
@@ -158,15 +190,16 @@ def i4_walk_plain(src, top16, tr4, left16, tl, qlane, iqlane, pen, t3, *,
 
 
 def i4_walk(src, top16, tr4, left16, tl, qlane, iqlane, pen, t3, *,
-            want_recon: bool = False):
+            want_recon: bool = False, topk=None):
     """Kernel on CUDA tensors, ``i4_walk_plain`` on CPU tensors.
 
     ``i4_walk.launches`` counts kernel launches (one per call on CUDA).
     """
+    check_topk(topk)
     dev = src.device
     if dev.type == "cpu":
         return i4_walk_plain(src, top16, tr4, left16, tl, qlane, iqlane, pen,
-                             t3, want_recon=want_recon)
+                             t3, want_recon=want_recon, topk=topk)
     if dev.type != "cuda":
         raise ValueError(f"i4_walk: unsupported device {dev}")
     B, N = src.shape[:2]
@@ -189,7 +222,7 @@ def i4_walk(src, top16, tr4, left16, tl, qlane, iqlane, pen, t3, *,
     err = lib.i4_walk_launch(
         *(t.data_ptr() for t in (src, top16, tr4, left16, tl, qlane, iqlane,
                                  pen) + tuple(t3)),
-        B * N, bmodes.data_ptr(), s4.data_ptr(),
+        B * N, topk or 0, bmodes.data_ptr(), s4.data_ptr(),
         rec.data_ptr() if want_recon else None, stream_handle(dev))
     if err != 0:
         raise RuntimeError(f"i4_walk kernel launch failed: CUDA error {err}")
@@ -199,5 +232,5 @@ def i4_walk(src, top16, tr4, left16, tl, qlane, iqlane, pen, t3, *,
 
 i4_walk.launches = 0
 
-__all__ = ["LIBRARY", "i4_search", "i4_search_plain", "i4_walk",
-           "i4_walk_plain", "t3_tables"]
+__all__ = ["LIBRARY", "check_topk", "i4_search", "i4_search_plain",
+           "i4_walk", "i4_walk_plain", "rank_modes", "t3_tables"]

@@ -18,15 +18,17 @@ from __future__ import annotations
 import torch
 
 from ..models.vp8.tables import BANDS
+from .dct import index_tensor
 
 I32 = torch.int32
-_BANDS16 = list(BANDS[:16])                            # band of position n
+_BANDS16 = tuple(int(b) for b in BANDS[:16])           # band of position n
 
 
 def position_tables(tables, type: int):
     """(p0, p1, val) [4][8][3][...] → per-position (16, 3, ...) int32 rows."""
     p0_t, p1_t, val_t = tables
-    return tuple(t[type][_BANDS16].to(I32).contiguous()
+    bands = index_tensor(_BANDS16, p0_t.device)
+    return tuple(t[type][bands].to(I32).contiguous()
                  for t in (p0_t, p1_t, val_t))
 
 

@@ -14,7 +14,12 @@ import torch
 
 
 def _t(a, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+    t = torch.from_numpy(np.ascontiguousarray(a, np.int32))
+    if torch.device(device).type == "cuda":
+        # from pinned memory the h2d is enqueued without waiting for the
+        # work already on the stream
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 def params_from_numpy(tables, qsteps, seg_maps, pens, *, device):

@@ -53,6 +53,37 @@ def test_i4_search_kernel_matches_plain(cuda):
         assert torch.equal(a, b)
 
 
+def _search_args(cuda, S, seed):
+    g = torch.Generator().manual_seed(seed)
+    ctx13 = torch.randint(0, 256, (S, 13), generator=g, dtype=torch.int32)
+    src16 = torch.randint(0, 256, (S, 16), generator=g, dtype=torch.int32)
+    q = torch.randint(4, 160, (S, 2), generator=g, dtype=torch.int32)
+    pen = torch.randint(0, 1 << 19, (S,), generator=g, dtype=torch.int32)
+    quants5 = torch.stack([(1 << 17) // q[:, 0], (1 << 17) // q[:, 1],
+                           q[:, 0], q[:, 1], pen], 1).to(torch.int32)
+    return tuple(a.to(cuda) for a in (ctx13, src16, quants5))
+
+
+@pytest.mark.parametrize("topk", [1, 4, 10])
+def test_i4_search_kernel_topk_matches_plain(cuda, topk):
+    """Ranked candidates: the k best-predicting modes, argmin in rank
+    order; random contexts in a narrow range give equal SSEs and costs."""
+    from gowebp_tpu_torch.ops.kernels.i4_search import (
+        i4_search, i4_search_plain, t3_tables)
+
+    t3 = t3_tables(_tables(cuda))
+    for args in (_search_args(cuda, 5000, topk),
+                 tuple(a if i == 2 else 126 + a % 5
+                       for i, a in enumerate(_search_args(cuda, 3001, 7)))):
+        before = i4_search.launches
+        got = i4_search(*args, t3, topk=topk)
+        want = i4_search_plain(*args, t3, topk=topk)
+        torch.cuda.synchronize()
+        assert i4_search.launches == before + 1
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
 def _wavefront_args(cuda, seed, B, H, W):
     g = torch.Generator().manual_seed(seed)
     mh, mw = H // 16, W // 16
@@ -125,6 +156,39 @@ def test_i4_walk_kernel_matches_plain(cuda, B, N):
                                   for a, b in zip(lean, want))
 
 
+@pytest.mark.parametrize("topk", [1, 4, 10])
+def test_i4_walk_kernel_topk_matches_plain(cuda, topk):
+    from gowebp_tpu_torch.ops.kernels.i4_search import (
+        i4_walk, i4_walk_plain, t3_tables)
+
+    args = tuple(a.to(cuda) for a in _walk_args(cuda, 40 + topk, 3, 37))
+    t3 = t3_tables(_tables(cuda))
+    before = i4_walk.launches
+    got = i4_walk(*args, t3, want_recon=True, topk=topk)
+    want = i4_walk_plain(*args, t3, want_recon=True, topk=topk)
+    torch.cuda.synchronize()
+    assert i4_walk.launches == before + 1
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_i4_wrappers_reject_bad_topk(cuda):
+    from gowebp_tpu_torch.ops.kernels.i4_search import (i4_search, i4_walk,
+                                                        t3_tables)
+
+    t3 = t3_tables(_tables(cuda))
+    search = _search_args(cuda, 8, 1)
+    walk = [a.to(cuda) for a in _walk_args(cuda, 1, 2, 3)]
+    before = (i4_search.launches, i4_walk.launches)
+    for topk, err in ((0, ValueError), (11, ValueError), (-1, ValueError),
+                      (4.0, TypeError), ("4", TypeError), (True, TypeError)):
+        with pytest.raises(err):
+            i4_search(*search, t3, topk=topk)
+        with pytest.raises(err):
+            i4_walk(*walk, t3, topk=topk)
+    assert (i4_search.launches, i4_walk.launches) == before
+
+
 def test_kernel_wrappers_reject_bad_tensors(cuda):
     from gowebp_tpu_torch.ops.kernels.i4_search import (i4_search, i4_walk,
                                                         t3_tables)
@@ -171,6 +235,44 @@ def test_batch_encode_gpu_bytes_equal_cpu_bytes(cuda):
     for quality in (75.0, 99.0):
         got = encode_rgba_batch(imgs, quality=quality, device="cuda")
         assert got == encode_rgba_batch(imgs, quality=quality, device="cpu")
+
+
+@pytest.mark.parametrize("kw", [
+    dict(cold="dense"), dict(refine=2, i4_topk=4), dict(cold="dense", depth=1),
+    dict(depth=3, chunk=1)])
+def test_hybrid_options_gpu_bytes_equal_cpu_bytes(cuda, kw):
+    """cold="dense" launches the flat i4_search kernel; every option set
+    gives the CPU path's bytes, at depth 3 (the default) and depth 1."""
+    from gowebp_tpu_torch.ops.encode_pipeline import (
+        encode_rgba_batch_pipelined)
+    from gowebp_tpu_torch.ops.kernels.i4_search import i4_search
+    from gowebp_tpu_torch.utils.corpus import natural_image
+
+    imgs = [natural_image(45, 61, seed=s) for s in (1, 2, 3)]
+    kw = dict(dict(quality=75.0, chunk=2), **kw)
+    before = i4_search.launches
+    got = encode_rgba_batch_pipelined(imgs, device="cuda", **kw)
+    if kw.get("cold") == "dense":
+        assert i4_search.launches > before
+    assert got == encode_rgba_batch_pipelined(imgs, device="cpu", **kw)
+
+
+def test_config_without_i4_launches_no_i4_kernel(cuda):
+    from gowebp_tpu_torch.config import EncoderConfig
+    from gowebp_tpu_torch.ops.encode_pipeline import (
+        encode_rgba_batch_pipelined)
+    from gowebp_tpu_torch.ops.kernels.i4_search import i4_search, i4_walk
+    from gowebp_tpu_torch.utils.corpus import natural_image
+
+    imgs = [natural_image(45, 61, seed=s) for s in (1, 2)]
+    for kw in (dict(method=3), dict(partition_limit=100)):
+        cfg = EncoderConfig(lossless=False, **kw)
+        before = (i4_search.launches, i4_walk.launches)
+        got = encode_rgba_batch_pipelined(imgs, device="cuda", config=cfg,
+                                          cold="dense")
+        assert (i4_search.launches, i4_walk.launches) == before
+        assert got == encode_rgba_batch_pipelined(imgs, device="cpu",
+                                                  config=cfg, cold="dense")
 
 
 @pytest.mark.parametrize("b,h,w,ph,pw,alpha", [

@@ -259,7 +259,7 @@ def test_engine_argument():
     from gowebp_tpu_torch.errors import EncodeError, UnsupportedFeature
 
     im = np.zeros((32, 32, 3), np.uint8)
-    with pytest.raises(UnsupportedFeature, match="Queue 1 item 2"):
+    with pytest.raises(UnsupportedFeature, match="Queue 1 item 1"):
         encode_rgba_batch([im], device="cpu", engine="wavefront")
     with pytest.raises(ValueError, match="unknown engine"):
         encode_rgba_batch([im], device="cpu", engine="fast")
