@@ -7,7 +7,7 @@ Phases (any failure raises and exits non-zero; no result is printed):
   1. the card's name and power limit (nvidia-smi), the int32 ceiling the
      bounds use (SMs x 64 int32 operations a clock x the max SM clock),
      torch and CUDA versions;
-  2. build the six CUDA kernels from the four ops/kernels/*.cu sources
+  2. build the seven CUDA kernels from the five ops/kernels/*.cu sources
      (one nvcc each, in parallel) and print the build time and ptxas
      register report;
   3. hold each kernel against its plain torch version on the card, bit for
@@ -26,7 +26,11 @@ Phases (any failure raises and exits non-zero; no result is printed):
      at 1021x1023 in MB-padded planes, and B=32 at 1024x1024, the decode
      path's shape; encode_luma and encode_chroma at B=16 1024x1024 random
      planes in one wire buffer, as the open-loop path lays them out, with
-     two quantizer sets, and B=2 at odd MB counts;
+     two quantizer sets, and B=2 at odd MB counts; wavefront_search (the
+     exact engine) at B=16 1024x1024 on the phase-4 chunk's real planes,
+     segments and penalties with diffusion and the i4 search on and off,
+     3 repeated runs, and on mixed planes (i16 and i4 MBs) at B=16
+     1024x1024 and odd MB grids (1x5, 5x1); timed alone on one image;
   4. the encode path: 32 natural images of 1024x1024 through
      encode_rgba_batch(device="cuda") in two chunks of 16, with the
      kernels' launch counters reset just before and read just after
@@ -58,6 +62,13 @@ Phases (any failure raises and exits non-zero; no result is printed):
      read just after; a second, timed run with the stage split; GPU bytes
      == CPU bytes on 2 images, 32 headers checked; 4 files decoded on the
      card, each above OPENLOOP_PSNR_FLOOR_DB against its source;
+  8b. the exact engine: phase 4's 32 images through
+     encode_rgba_batch(engine="wavefront", device="cuda"), with the
+     launch counters reset just before and read just after
+     (wavefront_search must launch, no hybrid kernel may); a second, timed
+     run with the stage split (wavefront, pack); GPU bytes == CPU bytes on
+     2 images, 32 headers checked; all 32 files decoded on the card and by
+     Pillow to the same pixels; PSNR and size against the hybrid's files;
   9. the kernels' JSON line, the card line, and the final result line.
 
 Needs a CUDA GPU, nvcc (CUDA_HOME, PATH or /usr/local/cuda) and g++.
@@ -119,6 +130,7 @@ SOURCES = {
     "yuv420_to_rgba": "gowebp_tpu_torch/ops/kernels/yuv420_to_rgba.cu",
     "encode_luma": "gowebp_tpu_torch/ops/kernels/encode_plane.cu",
     "encode_chroma": "gowebp_tpu_torch/ops/kernels/encode_plane.cu",
+    "wavefront_search": "gowebp_tpu_torch/ops/kernels/wavefront_search.cu",
 }
 REPLACES = {
     "i4_search": "gowebp_tpu/ops/pallas/i4_search.py:286",
@@ -128,6 +140,8 @@ REPLACES = {
     "yuv420_to_rgba": "gowebp_tpu/ops/pallas/decode_post.py:162",
     "encode_luma": "gowebp_tpu/ops/pallas/encode_plane.py:322",
     "encode_chroma": "gowebp_tpu/ops/pallas/encode_plane.py:354",
+    "wavefront_search": ("gowebp_tpu/ops/encode_wavefront_jax.py:616 "
+                         "_wavefront_impl (XLA, no pallas_call)"),
 }
 
 
@@ -480,6 +494,142 @@ def check_i4_walk(dev, inputs):
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def mixed_search_args(dev, rng, B, H, W):
+    """wavefront_search's inputs on planes whose MBs are noisy, flat or a
+    gentle gradient (so both i16 and i4 win; the corpus images adopt i4
+    nearly everywhere), 4 segments of q75 quantizers and their penalties."""
+    import numpy as np
+    import torch
+
+    from gowebp_tpu_torch.models.vp8.encoder import _i4_config_seg
+
+    mh, mw = H // 16, W // 16
+    yy, xx = np.mgrid[0:H, 0:W]
+    kind = rng.integers(0, 3, (B, mh, mw)).repeat(16, 1).repeat(16, 2)
+    y = np.where(kind == 0, rng.integers(0, 256, (B, H, W)), np.where(
+        kind == 1, 128, 60 + 100 * xx / W + 50 * yy / H))
+    u = rng.integers(100, 156, (B, H // 2, W // 2))
+    v = 128 + rng.integers(-3, 4, (B, H // 2, W // 2))
+    rows = quant_rows([-6, -2, 3, 8])
+    arrays = [np.clip(a, 0, 255).astype(np.uint8) for a in (y, u, v)]
+    arrays += [rng.integers(0, 4, (B, mh, mw)).astype(np.int32),
+               np.broadcast_to(rows, (B, 4, 6)).astype(np.int32),
+               np.stack([_i4_config_seg(rows, 4, 0)[1]] * B).astype(np.int32)]
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                 for a in arrays)
+
+
+def check_wavefront_search(dev, inputs):
+    """Phase 3d: wavefront_search kernel vs plain, bit for bit on every
+    output and the recon: B=16 at 1024x1024 on one chunk's real planes,
+    segments and penalties, with diffusion and the i4 search on and off;
+    the same shape on mixed planes (i16 and i4 MBs); odd MB grids (1x5,
+    5x1); 3 repeated runs.  Timed at the main setting (q75: diffusion on,
+    i4 on) beside the plain version."""
+    import numpy as np
+    import torch
+
+    from gowebp_tpu_torch.ops.kernels.i4_search import i4_search_plain
+    from gowebp_tpu_torch.ops.kernels.wavefront_fixed import wavefront_plain
+    from gowebp_tpu_torch.ops.kernels.wavefront_search import (
+        SearchModes, search_tables, wavefront_search, wavefront_search_plain)
+
+    rate = search_tables(inputs["tables"])
+    args = tuple(inputs[k].contiguous()
+                 for k in ("y", "u", "v", "seg", "qsteps", "pens"))
+
+    def compare(a, try_i4, derr, what, want=None):
+        if want is None:
+            want = wavefront_search_plain(*a, rate, try_i4=try_i4,
+                                          use_derr=derr, want_recon=True)
+        got = wavefront_search(*a, rate, try_i4=try_i4, use_derr=derr,
+                               want_recon=True)
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want, list(want))
+        if not all(torch.equal(got[k], want[k]) for k in want):
+            raise AssertionError(f"wavefront_search kernel != plain ({what}, "
+                                 f"try_i4={try_i4}, derr={derr}, max |err| "
+                                 f"{e})")
+        log(f"wavefront_search {what} try_i4={try_i4} derr={derr}: "
+            f"bit-exact; i4 MBs {want['is_i4'].float().mean().item():.3f}")
+        return e, want
+
+    B, H, W = args[0].shape
+    err = 0
+    main_want = None
+    for try_i4 in (True, False):
+        for derr in (True, False):
+            e, want = compare(args, try_i4, derr, f"B={B} {H}x{W} (chunk)")
+            err = max(err, e)
+            if try_i4 and derr:
+                main_want = want
+    for i in range(3):
+        err = max(err, compare(args, True, True, f"repeat {i + 1}",
+                               main_want)[0])
+    rng = np.random.default_rng(20261017)
+    for b_, h_, w_ in ((16, 1024, 1024), (2, 16, 80), (2, 80, 16)):
+        margs = mixed_search_args(dev, rng, b_, h_, w_)
+        for try_i4, derr in ((True, True), (True, False), (False, True)):
+            err = max(err, compare(margs, try_i4, derr,
+                                   f"mixed B={b_} {h_}x{w_}")[0])
+    ms = time_ms(lambda: wavefront_search(*args, rate, try_i4=True,
+                                          use_derr=True, want_recon=True),
+                 reps=5)
+    lean_ms = time_ms(lambda: wavefront_search(*args, rate, try_i4=False,
+                                               use_derr=True,
+                                               want_recon=True), reps=5)
+    one = tuple(t[:1].contiguous() for t in args)
+    one_ms = time_ms(lambda: wavefront_search(*one, rate, try_i4=True,
+                                              use_derr=True,
+                                              want_recon=True), reps=5)
+    plain_ms = time_ms(lambda: wavefront_search_plain(
+        *args, rate, try_i4=True, use_derr=True, want_recon=True), reps=1,
+        warmup=0)
+    mh, mw = H // 16, W // 16
+    steps = (mw - 1) + 2 * (mh - 1) + 1
+    log(f"wavefront_search B={B} {H}x{W}: {ms:.3f} ms; try_i4=False "
+        f"{lean_ms:.3f} ms; B=1 {one_ms:.3f} ms = "
+        f"{one_ms / steps * 1e3:.2f} us per chained MB step")
+
+    # bound: the operations this data needs, counted on a plain run: every
+    # walk substep's candidates (search_ops, rate walks as long as their
+    # levels), the i16 rate walks, the i16 and uv mode SSEs, the i16 and
+    # chroma code of every MB and the i4 levels of the adopted ones
+    count = {"search": 0, "rate": 0}
+
+    def counted(ctx13, src16, quants5, t3_, topk):
+        count["search"] += search_ops(ctx13, src16, quants5, topk)
+        return i4_search_plain(ctx13, src16, quants5, t3_, topk)
+
+    class Counting(SearchModes):
+        def scores(self, mb, sg, src, ctx, q, iq, y_lv, y2_lv, recon16):
+            idx = torch.arange(16, device=y_lv.device)
+            for lv, first in ((y_lv, 1), (y2_lv, 0)):
+                nz = (lv != 0) & (idx >= first)
+                last = torch.where(nz, idx, first - 1).amax(-1)
+                count["rate"] += int((last + 1 - first).sum())
+            return super().scores(mb, sg, src, ctx, q, iq, y_lv, y2_lv,
+                                  recon16)
+
+    wavefront_plain(*args[:5], Counting(args[5], rate, True, search=counted),
+                    use_derr=True, want_recon=False)
+    n_mb = B * mh * mw
+    n_i4 = int(main_want["is_i4"].sum())
+    i16_mb = 16 * (OPS_PRED_I16 + OPS_FDCT + OPS_QUANT + OPS_DEQUANT
+                   + OPS_IDCT + OPS_RES_RECON) + 64 + OPS_QUANT + 16 + 72
+    uv_mb = 8 * (OPS_PRED_I16 + OPS_FDCT + OPS_QUANT + OPS_DEQUANT
+                 + OPS_IDCT + OPS_RES_RECON) + 80
+    i4_levels_mb = 16 * (OPS_PRED_B4 + OPS_FDCT + OPS_QUANT)
+    modes_mb = (256 + 128) * OPS_SEARCH_PX + 256 * 3 + 17 * OPS_RATE_EOB
+    ops = (count["search"] + count["rate"] * OPS_RATE_POS
+           + n_mb * (i16_mb + uv_mb + modes_mb) + n_i4 * i4_levels_mb)
+    nbytes = sum(t.numel() * t.element_size() for t in args + rate)
+    nbytes += sum(t.numel() * t.element_size() for t in main_want.values())
+    bound_ms, bound_by = bound(nbytes, ops)
+    return {"name": "wavefront_search", "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
 def check_yuv420(dev, gen):
     """Phase 3c: yuv420_to_rgba kernel vs plain on MB-padded planes."""
     import torch
@@ -670,6 +820,16 @@ def psnr(a, b) -> float:
     return float("inf") if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
 
 
+def pillow_rgba(data: bytes):
+    """RGBA pixels of one .webp file decoded by Pillow (libwebp)."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    return np.asarray(Image.open(io.BytesIO(data)).convert("RGBA"))
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import numpy as np
@@ -688,6 +848,7 @@ def main() -> int:
     from gowebp_tpu_torch.ops.kernels import encode_plane as epm
     from gowebp_tpu_torch.ops.kernels import i4_search as i4m
     from gowebp_tpu_torch.ops.kernels import wavefront_fixed as wfm
+    from gowebp_tpu_torch.ops.kernels import wavefront_search as wsm
     from gowebp_tpu_torch.ops.kernels import yuv420_to_rgba as yuvm
     from gowebp_tpu_torch.ops.kernels.cuda_build import build_all
     from gowebp_tpu_torch.utils.corpus import natural_images
@@ -706,9 +867,10 @@ def main() -> int:
 
     # ---- phase 2: build ----
     t0 = time.perf_counter()
-    libraries = [i4m.LIBRARY, wfm.LIBRARY, yuvm.LIBRARY, epm.LIBRARY]
+    libraries = [i4m.LIBRARY, wfm.LIBRARY, yuvm.LIBRARY, epm.LIBRARY,
+                 wsm.LIBRARY]
     build_all(libraries)
-    log(f"build: 6 kernels from {len(libraries)} sources in "
+    log(f"build: {len(SOURCES)} kernels from {len(libraries)} sources in "
         f"{time.perf_counter() - t0:.1f} s (nvcc, parallel)")
     for lib in libraries:
         for line in lib.ptxas_log.splitlines():
@@ -724,6 +886,7 @@ def main() -> int:
     rows = [check_i4_search(dev, chunk), check_i4_walk(dev, chunk),
             check_wavefront(dev, gen), check_yuv420(dev, gen)]
     rows += check_encode_plane(dev, gen)
+    rows.append(check_wavefront_search(dev, chunk))
     for r in rows:
         log(f"kernel {r['name']}: bit-exact vs plain; {r['ms']:.3f} ms "
             f"(plain {r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
@@ -961,6 +1124,71 @@ def main() -> int:
     if min(scores) < OPENLOOP_PSNR_FLOOR_DB:
         raise AssertionError(f"openloop decode below its PSNR floor "
                              f"({min(scores):.3f} dB)")
+
+    # ---- phase 8b: the exact engine (engine="wavefront") ----
+    hybrid_kernels = (i4m.i4_search, i4m.i4_walk, wfm.wavefront_fixed)
+    wsm.wavefront_search.launches = 0
+    for k in hybrid_kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    exact = encode_rgba_batch(images, quality=75.0, device="cuda",
+                              engine="wavefront")
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches["wavefront_search"] = wsm.wavefront_search.launches
+    log(f"wavefront path launches: wavefront_search "
+        f"{launches['wavefront_search']}; the hybrid's kernels "
+        f"{sum(k.launches for k in hybrid_kernels)}")
+    if launches["wavefront_search"] == 0:
+        raise AssertionError("wavefront path never launched wavefront_search")
+    if any(k.launches for k in hybrid_kernels):
+        raise AssertionError("the wavefront path launched a hybrid kernel")
+    log(f"wavefront first run: {mp / first_s:.3f} MP/s e2e "
+        f"({first_s:.2f} s for 32 MP) {tag}")
+    timings = {}
+    t0 = time.perf_counter()
+    again = encode_rgba_batch_pipelined(images, quality=75.0, threads=8,
+                                        chunk=16, device="cuda",
+                                        engine="wavefront", timings=timings)
+    torch.cuda.synchronize()
+    second_s = time.perf_counter() - t0
+    if again != exact:
+        raise AssertionError("second wavefront run's bytes differ")
+    log(f"wavefront timed run: {mp / second_s:.3f} MP/s e2e "
+        f"({second_s:.2f} s for 32 MP) {tag}")
+    for k, ms in timings["stage_ms"].items():
+        log(f"wavefront stage {k}: {ms:.1f} ms total over 2 chunks {tag}")
+    log(f"wavefront stage host emit: {timings['emit_thread_s'] * 1e3:.1f} "
+        f"ms summed over 32 images in 8 threads {tag}")
+    for data in exact:
+        check_webp(data, 1024, 1024)
+    t0 = time.perf_counter()
+    cpu = encode_rgba_batch(images[:2], quality=75.0, device="cpu",
+                            engine="wavefront")
+    log(f"wavefront cpu parity run: 2 images in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if cpu != exact[:2]:
+        raise AssertionError("wavefront GPU and CPU .webp bytes differ")
+    log("wavefront parity: GPU bytes == CPU bytes on 2 images; 32 headers ok")
+    exact_rgba = decode_rgba_batch(exact, device="cuda")
+    for data, a in zip(exact, exact_rgba):
+        if not np.array_equal(pillow_rgba(data), a):
+            raise AssertionError("a wavefront file decodes to other pixels "
+                                 "through Pillow than through the port")
+    log("wavefront files: 32 decodes through the port == Pillow's")
+    e_scores = [psnr(a[..., :3], im[..., :3])
+                for a, im in zip(exact_rgba, images)]
+    h_scores = [psnr(a[..., :3], im[..., :3]) for a, im in zip(rgba, images)]
+    e_bytes, h_bytes = sum(len(o) for o in exact), sum(len(o) for o in out)
+    log(f"exact vs hybrid: PSNR mean {statistics.mean(e_scores):.3f} / "
+        f"{statistics.mean(h_scores):.3f} dB (min {min(e_scores):.3f} / "
+        f"{min(h_scores):.3f}), {e_bytes * 8 / (32 * 1024 * 1024):.4f} / "
+        f"{h_bytes * 8 / (32 * 1024 * 1024):.4f} bpp; the hybrid's size "
+        f"{h_bytes / e_bytes:.4f}x the exact engine's")
+    if min(e_scores) < 20.0:
+        raise AssertionError(f"exact-engine decode below 20 dB "
+                             f"({min(e_scores):.3f})")
 
     # ---- phase 9: result lines ----
     kernels = []

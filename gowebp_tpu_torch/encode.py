@@ -15,10 +15,12 @@ def encode_rgba_batch(images: list, *, quality: float = 75.0,
     Runs the pipelined batch encoder (ops/encode_pipeline.py, chunks of
     up to 16 images, 3 in flight) with the default config at ``quality``
     and the dense engine ``engine`` names: "hybrid" (default: segmentation, i4
-    mode search, per-segment quantizers, exact closed-loop coding) or
-    "openloop" (fastest, lower quality: one quantizer, i16 modes from
-    the source planes, prediction drift); "wavefront" is not ported yet
-    and raises ``UnsupportedFeature``.  Token emission is native.
+    mode search, per-segment quantizers, exact closed-loop coding),
+    "wavefront" (the same, with every mode searched inside the closed
+    loop: the host encoder's decisions, one full-search kernel launch a
+    chunk) or "openloop" (fastest, lower quality: one quantizer, i16
+    modes from the source planes, prediction drift).  Token emission is
+    native.
     ``device`` None means CUDA and raises when CUDA is absent; pass
     ``device="cpu"`` to run the kernels' plain versions (identical
     bytes).  A batch of mixed shapes raises.  Returns one .webp byte

@@ -12,7 +12,9 @@ Per chunk of same-shaped images, with ``depth`` chunks in flight:
      pack of the level tensors (G4PACKv2) and the export of a single
      fused uint8 buffer.  engine="hybrid" runs ops/encode_wavefront.py
      (cold search, then wavefront passes and refine searches with the i4
-     kernels); engine="openloop" runs ops/encode_plane.py (the luma and
+     kernels); engine="wavefront" runs the exact engine there (the mode
+     search inside the closed loop, one launch of the full-search
+     kernel); engine="openloop" runs ops/encode_plane.py (the luma and
      chroma plane kernels, no segmentation, one quantizer set, i16 modes
      only);
   4. fetch thread: the d2h of that buffer into pinned memory on a side
@@ -51,26 +53,23 @@ from ..config import EncoderConfig
 from ..constants import CHUNK_VP8
 from ..container.riff import Chunk, assemble_simple
 from ..device import StageClock, resolve_device
-from ..errors import EncodeError, UnsupportedFeature
+from ..errors import EncodeError
 from ..models.vp8.encoder import (ERROR_DIFFUSION_QUALITY, _default_cost_tables,
                                   _i4_config_seg, _segment_tree_probs,
                                   analyze_segments, emit_frame_arrays,
                                   make_quants, quality_to_q, rgb_to_yuv420)
 from ..params import params_from_numpy
 from .encode_plane import encode_plane_core_v2
-from .encode_wavefront import encode_hybrid_core
+from .encode_wavefront import encode_hybrid_core, encode_wavefront_core
 from .kernels.i4_search import check_topk
 
 GROUP = 4  # coefficients per group state
-ENGINES = ("hybrid", "openloop")
+ENGINES = ("hybrid", "wavefront", "openloop")
 
 
 def check_engine(engine: str) -> None:
-    """Raise unless ``engine`` names a ported dense encoder."""
-    if engine == "wavefront":
-        raise UnsupportedFeature(
-            'engine="wavefront" (the exact full-search wavefront) is not '
-            "ported yet (ROADMAP.md Queue 1 item 1)")
+    """Raise unless ``engine`` names a dense encoder: "hybrid",
+    "wavefront" (the exact full search) or "openloop"."""
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; expected one of "
                          f"{ENGINES}")
@@ -171,17 +170,30 @@ def planes_wavefront_packed_step(y, u, v, seg_map, qsteps, tables, *,
                                  cap_s, cap_b, i4_penalty, try_i4: bool = True,
                                  use_derr: bool = False, refine: int = 1,
                                  cold: str = "i16", i4_topk=None,
-                                 marks=None):
-    """uint8 MB-padded YUV420 planes → hybrid encode + G4PACKv2.
+                                 search: str = "open", marks=None):
+    """uint8 MB-padded YUV420 planes → closed-loop encode + G4PACKv2.
 
-    Everything stays on the planes' device; the modes and the dense
-    levels ride along for emission and the escape path.  ``try_i4``,
-    ``refine``, ``cold`` and ``i4_topk`` go to ``encode_hybrid_core``.
+    ``search`` "open": the hybrid engine (``encode_hybrid_core``, which
+    takes ``refine``, ``cold`` and ``i4_topk``); "closed": the exact
+    engine (``encode_wavefront_core`` with the mode search in the loop,
+    one stage "wavefront"; ``refine``, ``cold`` and ``i4_topk`` change
+    nothing).  Everything stays on the planes' device; the modes and the
+    dense levels ride along for emission and the escape path.
     """
-    out = encode_hybrid_core(y, u, v, seg_map, qsteps, tables,
-                             i4_penalty=i4_penalty, try_i4=try_i4,
-                             refine=refine, cold=cold, i4_topk=i4_topk,
-                             use_derr=use_derr, marks=marks)
+    if search == "closed":
+        out = encode_wavefront_core(y, u, v, seg_map, qsteps, tables,
+                                    try_i4=try_i4, i4_penalty=i4_penalty,
+                                    use_derr=use_derr)
+        if marks is not None:
+            marks("wavefront")
+    elif search == "open":
+        out = encode_hybrid_core(y, u, v, seg_map, qsteps, tables,
+                                 i4_penalty=i4_penalty, try_i4=try_i4,
+                                 refine=refine, cold=cold, i4_topk=i4_topk,
+                                 use_derr=use_derr, marks=marks)
+    else:
+        raise ValueError(f"unknown search {search!r}; expected \"open\" "
+                         f"or \"closed\"")
     return _with_pack(out, y.shape, cap_s, cap_b, marks)
 
 
@@ -213,7 +225,7 @@ def _export_packed_v2(out, *, ks: int, kb: int):
 
     Per image: [hdr (counts_s, counts_b, maxabs) int32 as 12 bytes |
     mask2 | small[:ks] | big[:kb] | ymode | uvmode], then, for the
-    hybrid engine only, [is_i4 | imodes].
+    engines that code i4 MBs (hybrid and wavefront), [is_i4 | imodes].
     """
     B = out["mask2"].shape[0]
     u8 = torch.uint8
@@ -412,9 +424,12 @@ def encode_rgba_batch_pipelined(images, *, quality: float = 75.0,
     frame header's filter and partition fields.  ``engine`` "hybrid"
     runs the exact closed-loop hybrid encode, with ``refine`` recon
     rounds, the ``cold`` round's search ("i16" or "dense") and
-    ``i4_topk`` (see ``encode_hybrid_core``); "openloop" the open-loop
-    plane engine (fastest, lower quality: no segmentation, i16 modes
-    only, prediction drift).  ``depth`` chunks are in flight at once.
+    ``i4_topk`` (see ``encode_hybrid_core``); "wavefront" the exact
+    full search, every mode decided inside the closed loop (the host
+    encoder's decisions; ``refine``, ``cold`` and ``i4_topk`` change
+    nothing); "openloop" the open-loop plane engine (fastest, lower
+    quality: no segmentation, i16 modes only, prediction drift).
+    ``depth`` chunks are in flight at once.
 
     Returns a list of complete .webp byte strings (order preserved).
     ``device`` None means CUDA (raises without it); "cpu" runs the
@@ -501,7 +516,8 @@ def encode_rgba_batch_pipelined(images, *, quality: float = 75.0,
                 yd, ud, vd, seg_t, qs_t, tables, cap_s=cap_s, cap_b=cap_b,
                 i4_penalty=pens_t, try_i4=setup["try_i4"],
                 use_derr=setup["use_derr"], refine=refine, cold=cold,
-                i4_topk=i4_topk, marks=clock)
+                i4_topk=i4_topk, marks=clock,
+                search="closed" if engine == "wavefront" else "open")
         ks, kb = sticky["ks"], sticky["kb"]
         buf = _export_packed_v2(out, ks=ks, kb=kb)
         exported = None

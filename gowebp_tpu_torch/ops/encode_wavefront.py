@@ -33,6 +33,7 @@ from . import dct
 from .dct import BIAS
 from .kernels.i4_search import i4_search, i4_walk, t3_tables
 from .kernels.wavefront_fixed import wavefront_fixed
+from .kernels.wavefront_search import search_tables, wavefront_search
 from .rate import block_rate256, mul_shr16
 from .vp8_recon import mb_context, predict4_blocks
 
@@ -228,27 +229,41 @@ def _i4_search_parallel(y, cy, qlane, iqlane, pen_n, t3, topk=None):
     return per_mb(bmode), per_mb(cost).sum(dim=-1, dtype=I32)
 
 
-def encode_wavefront_core(y, u, v, seg_map, qsteps, *, modes,
+def encode_wavefront_core(y, u, v, seg_map, qsteps, tables=None, *,
+                          modes=None, try_i4: bool = False, i4_penalty=None,
                           want_recon: bool = False, use_derr: bool = False):
-    """Exact closed-loop encode of every MB with the modes given.
+    """Exact closed-loop encode of every MB, in anti-diagonal order.
 
     y (B, H, W) and u/v (B, H/2, W/2) planes (uint8, or int32 holding
-    0..255); seg_map (B, mh, mw) int32; qsteps (B, 4, 6) int32; modes =
-    (ymode, uvmode, is_i4, imodes) dense int32.  Runs the wavefront
-    kernel on CUDA tensors and its plain version on CPU tensors.
+    0..255); seg_map (B, mh, mw) int32; qsteps (B, 4, 6) int32.
+
+    ``modes`` = (ymode, uvmode, is_i4, imodes) dense int32: code every MB
+    with the modes given (the hybrid engine's wavefront passes; the
+    wavefront kernel).  ``modes`` None: the exact engine, which searches
+    every MB's modes inside the loop (the full-search kernel), with the
+    i4 search when ``try_i4`` (``tables`` the (p0, p1, val) cost tables,
+    ``i4_penalty`` a (B, 4) int32 tensor of per-segment RD lambdas).
+    Runs the kernel on CUDA tensors and its plain version on CPU tensors.
 
     Returns uint8 ymode/uvmode/is_i4/imodes (imodes = ymode repeated
     for i16 MBs), int16 y_levels (B, mh, mw, 16, 16), y2_levels
     (B, mh, mw, 16), uv_levels (B, mh, mw, 8, 16), and with
     ``want_recon`` the uint8 recon planes recon_y/recon_u/recon_v.
     """
-    ymode, uvmode, is_i4, imodes = (m.to(I32).contiguous() for m in modes)
     U8 = torch.uint8
-    out = wavefront_fixed(
-        *(p.to(U8).contiguous() for p in (y, u, v)),
-        seg_map.to(I32).contiguous(), qsteps.to(I32).contiguous(),
-        ymode, uvmode, is_i4, imodes, use_derr=use_derr,
-        want_recon=want_recon)
+    planes = tuple(p.to(U8).contiguous() for p in (y, u, v))
+    seg_map, qsteps = (t.to(I32).contiguous() for t in (seg_map, qsteps))
+    if modes is None:
+        pens = rate = None
+        if try_i4:
+            pens = i4_penalty.to(I32).contiguous()
+            rate = search_tables(tables)
+        return wavefront_search(*planes, seg_map, qsteps, pens, rate,
+                                try_i4=try_i4, use_derr=use_derr,
+                                want_recon=want_recon)
+    ymode, uvmode, is_i4, imodes = (m.to(I32).contiguous() for m in modes)
+    out = wavefront_fixed(*planes, seg_map, qsteps, ymode, uvmode, is_i4,
+                          imodes, use_derr=use_derr, want_recon=want_recon)
     adopt = is_i4 != 0
     out.update(
         ymode=ymode.to(U8), uvmode=uvmode.to(U8), is_i4=adopt.to(U8),

@@ -59,14 +59,24 @@
 #include <cstdint>
 
 #include "vp8_dsp.cuh"
+#include "wavefront_mb.cuh"
 
 namespace {
+
+using vp8::kCW;
+using vp8::kSW;
+using vp8::ld_acquire;
+using vp8::named_barrier_luma;
+using vp8::pred_b4_lane;
+using vp8::pred_entry;
+using vp8::qsingle_chain;
+using vp8::st_release;
+using vp8::store_row16;
+using vp8::store_row8;
 
 // warp 0: luma (the i4 chain, half the i16 blocks), warp 1: chroma,
 // warp 2: the other i16 blocks and the hand-over
 constexpr int kThreads = 96;
-constexpr int kSW = 21;       // luma scratch row: [tl, top16, tr4]
-constexpr int kCW = 9;        // chroma scratch row: [tl, top8]
 
 struct Args {
   const uint8_t* y;  // (B, H, W) source planes
@@ -89,105 +99,6 @@ struct Args {
   int* ticket;    // next ticket (my * B + b) to claim, zeroed by the caller
   int B, mh, mw, use_derr;
 };
-
-__device__ __forceinline__ int ld_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_release(int* p, int v) {
-  asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
-}
-
-// Barrier of the two luma warps (0 and 2) alone.
-__device__ __forceinline__ void named_barrier_luma() {
-  asm volatile("bar.sync 1, 64;" ::: "memory");
-}
-
-__device__ __forceinline__ void qsingle_chain(int* dc, int dt0, int dt1, int dl0, int dl1,
-                                              int iqdc, int qdc, int* nl, int* nt) {
-  auto qs = [&](int vv) {
-    const int av = vv < 0 ? -vv : vv;
-    int lvl = (av * iqdc + vp8::kBiasUvDc) >> 17;
-    lvl = lvl > 2047 ? 2047 : lvl;
-    const int err = av - lvl * qdc;
-    return (vv < 0 ? -err : err) >> 1;
-  };
-  dc[0] = dc[0] + ((7 * dt0 + 8 * dl0) >> 3);
-  const int e0 = qs(dc[0]);
-  dc[1] = dc[1] + ((7 * dt1 + 8 * e0) >> 3);
-  const int e1 = qs(dc[1]);
-  dc[2] = dc[2] + ((7 * e0 + 8 * dl1) >> 3);
-  const int e2 = qs(dc[2]);
-  dc[3] = dc[3] + ((7 * e1 + 8 * e2) >> 3);
-  const int e3 = qs(dc[3]);
-  const int lv1 = (3 * e3) >> 2;
-  nl[0] = e1;
-  nl[1] = lv1;
-  nt[0] = e2;
-  nt[1] = e3 - lv1;
-}
-
-// Scratch offset, from a sub-block's corner (r, c), of feature Z[z]
-// (z = 0..14) of its B-mode predictions: Z = [L, L, K, J, I, X, A, B, C,
-// D, E, F, G, H, H] (left bottom-up, corner, top, top-right).  The
-// top-right pixels sit at (r, c+5..c+8): above-right sub-block recon, or
-// for gx = 3 the MB's top-right pixels, which row 0 holds and rows 4, 8
-// and 12 repeat in columns 17-20.
-__device__ __forceinline__ int z_off(int z) {
-  return z <= 4 ? kSW * (1 + min(3, 4 - z)) : (z == 5 ? 0 : min(z, 13) - 5);
-}
-
-// Prediction table entry of mode m, pixel k: three feature offsets o0-o2
-// (bytes 0-2) and, in byte 3, how they combine: the value is
-// clip8((z0 + w1 * z1 + w2 * z2 + sh) >> sh) with w1 (bits 0-1), w2 + 1
-// (bits 2-3) and sh (bits 4-5): a copy (1, 0, 0; 0), avg2 (1, 1, 0; 1),
-// avg3 (1, 2, 1; 2) or TM (1, 1, -1; 0).  Bit 6 marks DC.
-__device__ __forceinline__ unsigned pred_entry(int m, int k) {
-  unsigned o0 = 0, o1 = 0, o2 = 0, op = 1u << 6 | 1u << 2;  // DC
-  if (m == 1) {
-    o0 = kSW * (1 + (k >> 2));  // left of the pixel's row
-    o1 = 1 + (k & 3);           // top of its column
-    op = 1u;                    // z0 + z1 - z2 (z2 = the corner)
-  } else if (m >= 2) {
-    const int f = vp8::kB4Features[8 * k + m - 2];  // Z, avg2 (15-28), avg3 (29-41)
-    const int i0 = f < 15 ? f : (f < 29 ? f - 15 : f - 29);
-    o0 = z_off(i0);
-    o1 = z_off(min(i0 + 1, 14));
-    o2 = z_off(min(i0 + 2, 14));
-    op = f < 15 ? (0u | 1u << 2) : (f < 29 ? (1u | 1u << 2 | 1u << 4) : (2u | 2u << 2 | 2u << 4));
-  }
-  return o0 | (o1 << 8) | (o2 << 16) | (op << 24);
-}
-
-// Lane-parallel B-mode prediction, entry e = pred_entry(mode, k), of
-// pixel k of the sub-block whose context corner is scratch index `base`:
-// three independent shared-memory reads, no branch on the pixel; only DC
-// reads its 8 neighbours instead.
-__device__ __forceinline__ int pred_b4_lane(unsigned e, const int* s, int base) {
-  const int z0 = s[base + (e & 255)], z1 = s[base + ((e >> 8) & 255)];
-  const int z2 = s[base + ((e >> 16) & 255)];
-  const int op = e >> 24, sh = (op >> 4) & 3;
-  const int v = vp8::clip8((z0 + (op & 3) * z1 + (((op >> 2) & 3) - 1) * z2 + sh) >> sh);
-  if (!(op & 64)) return v;
-  int dc = 4;  // DC: (top 4 + left 4 + 4) >> 3
-#pragma unroll
-  for (int i = 0; i < 4; i++) dc += s[base + 1 + i] + s[base + (1 + i) * kSW];
-  return dc >> 3;
-}
-
-// 16 / 8 scratch ints -> 16 / 8 bytes of a plane row.
-__device__ __forceinline__ unsigned pack4(const int* p) {
-  return (unsigned)p[0] | ((unsigned)p[1] << 8) | ((unsigned)p[2] << 16) |
-         ((unsigned)p[3] << 24);
-}
-__device__ __forceinline__ void store_row16(uint8_t* out, const int* p) {
-  *reinterpret_cast<uint4*>(out) = make_uint4(pack4(p), pack4(p + 4), pack4(p + 8), pack4(p + 12));
-}
-__device__ __forceinline__ void store_row8(uint8_t* out, const int* p) {
-  *reinterpret_cast<uint2*>(out) = make_uint2(pack4(p), pack4(p + 4));
-}
 
 // 6 blocks an SM: at most 112 registers, no spills.
 __global__ void __launch_bounds__(kThreads, 6) wavefront_fixed_kernel(Args a) {
@@ -365,45 +276,11 @@ __global__ void __launch_bounds__(kThreads, 6) wavefront_fixed_kernel(Args a) {
         } else {
           // warp 0 codes sub-blocks 0-7, warp 2 sub-blocks 8-15
           const int blk0 = warp == 0 ? 0 : 8;
-          // whole-MB DC: segment 0 sums top16, segment 1 left16
-          int sum = half == 0 ? sy[1 + k] : sy[(1 + k) * kSW];
-#pragma unroll
-          for (int o = 1; o < 16; o <<= 1) sum += __shfl_xor_sync(vp8::kFullMask, sum, o);
-          const int dcv = vp8::dc_whole(__shfl_sync(vp8::kFullMask, sum, 0),
-                                        __shfl_sync(vp8::kFullMask, sum, 16), ht, hl, 16);
+          const int dcv = vp8::luma_dc(sy, half, k, ht, hl);
           const int m = s_ymode, tl = sy[0];
           int x[4], pr[4];  // this warp's 4 rounds of 2 sub-blocks, together
-#pragma unroll
-          for (int rnd = 0; rnd < 4; rnd++) {
-            const int blk = blk0 + 2 * rnd + half;
-            const int R = 4 * (blk >> 2) + kr, C = 4 * (blk & 3) + kc;
-            const int top = sy[1 + C], left = sy[(1 + R) * kSW];
-            pr[rnd] = m == 0 ? dcv : m == 1 ? vp8::clip8(left + top - tl) : m == 2 ? top : left;
-            x[rnd] = ss[R * 16 + C] - pr[rnd];
-          }
-          vp8::fdct_lanes<4>(x, k);
-#pragma unroll
-          for (int rnd = 0; rnd < 4; rnd++) {
-            const int blk = blk0 + 2 * rnd + half;
-            if (k == 0) s_dc[blk] = x[rnd];
-            x[rnd] = vp8::quant_lane(x[rnd], k, iq0, iq1, vp8::kBiasY1Dc, vp8::kBiasY1Ac, true);
-            s_lv[blk * 16 + vp8::inv_zigzag(k)] = (int16_t)x[rnd];
-          }
-          named_barrier_luma();  // all 16 DCs are in s_dc
-          // Y2: every segment computes it, warp 0's segment 0 stores
-          const int l2 = vp8::quant_lane(vp8::fwht_lane(s_dc[k], k), k, iq[2], iq[3],
-                                         vp8::kBiasY2Dc, vp8::kBiasY2Ac, false);
-          if (warp == 0 && half == 0) s_lv[384 + vp8::inv_zigzag(k)] = (int16_t)l2;
-          const bool any_ac = vp8::seg_ballot(k != 0 && l2 != 0) != 0;
-          const int dq2 = l2 * (k == 0 ? q[2] : q[3]);
-          const int iw = vp8::iwht_lane(dq2, k);
-          const int rdc = any_ac ? iw : (vp8::seg_get(dq2, 0) + 3) >> 3;
-#pragma unroll
-          for (int rnd = 0; rnd < 4; rnd++) {
-            const int rb = vp8::seg_get(rdc, blk0 + 2 * rnd + half);
-            x[rnd] = k == 0 ? rb : x[rnd] * q1;
-          }
-          vp8::idct_lanes<4>(x, k);
+          vp8::code_i16(warp, half, k, m, dcv, tl, sy, ss, q, iq, q1, iq0, iq1, s_dc, s_lv, x,
+                        pr);
 #pragma unroll
           for (int rnd = 0; rnd < 4; rnd++) {
             const int blk = blk0 + 2 * rnd + half;

@@ -9,7 +9,10 @@ closed-loop, in wavefront order.  On a CUDA tensor it runs the kernel in
 gowebp_tpu/ops/pallas/wavefront_fixed.py), one persistent launch whose
 blocks own MB rows and wait on the row above's progress counter; on a
 CPU tensor it runs ``wavefront_fixed_plain``, a per-diagonal torch loop
-with the same arithmetic.
+with the same arithmetic.  That loop, ``wavefront_plain``, takes its
+decisions from a decider: ``GivenModes`` reads them from the inputs, the
+exact engine's search (ops/kernels/wavefront_search.py) makes them
+inside the loop.
 
 Inputs: y (B, H, W) uint8 and u, v (B, H/2, W/2) uint8 with H, W
 multiples of 16; seg, ymode, uvmode, is_i4 (B, mh, mw) int32; imodes
@@ -74,9 +77,51 @@ def _quant_rows(cf, iq, q, k_dc, k_ac, bias_dc, bias_ac, first_ac=False):
     return lv, deq
 
 
+class GivenModes:
+    """The decisions of ``wavefront_plain`` read from its inputs: dense
+    (B, mh, mw) int32 ymode/uvmode/is_i4 and (B, mh, mw, 16) imodes.
+
+    A decider answers three questions for the M MBs ``mb`` = (bb, my,
+    mx) of a diagonal: ``ymode`` from the source and the 4 whole-block
+    predictions; ``i4``, once the i16 code is known, (adopt (M,) bool,
+    the 16 B-modes (M, 16) to code) or None for no i4 chain at all;
+    ``uvmode`` from the chroma source and predictions.
+    """
+
+    def __init__(self, ymode, uvmode, is_i4, imodes):
+        self.modes = (ymode, uvmode, is_i4, imodes)
+
+    def ymode(self, mb, src, pred4):
+        return self.modes[0][mb].long()
+
+    def i4(self, mb, sg, src, ctx, q, iq, y_lv, y2_lv, recon16):
+        return self.modes[2][mb] != 0, self.modes[3][mb].long()
+
+    def uvmode(self, mb, csrc, cpred4):
+        return self.modes[1][mb].long()
+
+
 def wavefront_fixed_plain(y, u, v, seg, qsteps, ymode, uvmode, is_i4, imodes,
                           *, use_derr: bool, want_recon: bool):
     """Per-diagonal torch loop (any device); same contract as the kernel."""
+    out = wavefront_plain(y, u, v, seg, qsteps,
+                          GivenModes(ymode, uvmode, is_i4, imodes),
+                          use_derr=use_derr, want_recon=want_recon)
+    for k in ("ymode", "uvmode", "is_i4", "imodes"):
+        del out[k]
+    return out
+
+
+def wavefront_plain(y, u, v, seg, qsteps, decide, *, use_derr: bool,
+                    want_recon: bool):
+    """The closed-loop MB encode as a per-diagonal torch loop (any device),
+    each MB's modes picked by ``decide`` (``GivenModes``, or the in-loop
+    search of ops/kernels/wavefront_search.py).
+
+    Returns the kernel's outputs plus the modes coded: int32 ymode,
+    uvmode, is_i4 (B, mh, mw) and imodes (B, mh, mw, 16), where an i16
+    MB's imodes repeat its ymode.
+    """
     B, H, W = y.shape
     mh, mw = H // 16, W // 16
     dev = y.device
@@ -91,6 +136,7 @@ def wavefront_fixed_plain(y, u, v, seg, qsteps, ymode, uvmode, is_i4, imodes,
     out_y = torch.zeros((B, mh, mw, 16, 16), dtype=I32, device=dev)
     out_y2 = torch.zeros((B, mh, mw, 16), dtype=I32, device=dev)
     out_uv = torch.zeros((B, mh, mw, 8, 16), dtype=I32, device=dev)
+    out_modes = torch.zeros((B, mh, mw, 19), dtype=I32, device=dev)
 
     for t in range(num_diagonals(mw, mh)):
         lo, hi = active_rows(t, mh, mw)
@@ -100,13 +146,14 @@ def wavefront_fixed_plain(y, u, v, seg, qsteps, ymode, uvmode, is_i4, imodes,
         bb = torch.arange(B, device=dev).repeat_interleave(R)
         my = torch.arange(lo, hi + 1, device=dev).repeat(B)
         mx = t - 2 * my
+        mb = (bb, my, mx)
         M = bb.shape[0]
         lanes = torch.arange(M, device=dev)
         ht, hl = my > 0, mx > 0
         myu, mxl = (my - 1).clamp_min(0), (mx - 1).clamp_min(0)
         mxr = (mx + 1).clamp_max(mw - 1)
         ht1, hl1 = ht[:, None], hl[:, None]
-        sg = seg[bb, my, mx].long()
+        sg = seg[mb].long()
         q = qs[bb, sg]                                  # (M, 6)
         iq = iqs[bb, sg]
 
@@ -118,11 +165,12 @@ def wavefront_fixed_plain(y, u, v, seg, qsteps, ymode, uvmode, is_i4, imodes,
         left16 = torch.where(hl1, Ry[bb, my, mxl][..., :, 15], 129)
         tl = torch.where(ht, torch.where(hl, Ry[bb, myu, mxl, 15, 15], 129),
                          127)
-        src = ys[bb, my, mx]                            # (M, 16, 16)
+        src = ys[mb]                                    # (M, 16, 16)
 
-        # ---- i16 path (given ymode) ----
+        # ---- i16 path ----
         pred4 = predict4_blocks(top16, left16, tl, ht, hl, 16)
-        pred = pred4[ymode[bb, my, mx].long(), lanes]
+        ymode = decide.ymode(mb, src, pred4)
+        pred = pred4[ymode, lanes]
         blk = (src - pred).reshape(M, 4, 4, 4, 4).permute(0, 1, 3, 2, 4)
         coeffs = fdct4x4(blk)                           # (M, gy, gx, 4, 4)
         y2_lv, y2_deq = _quant_rows(fwht4x4(coeffs[..., 0, 0])[:, None], iq,
@@ -139,31 +187,38 @@ def wavefront_fixed_plain(y, u, v, seg, qsteps, ymode, uvmode, is_i4, imodes,
         recon16 = idct_add_clip(deq, pred_blk).permute(0, 1, 3, 2, 4).reshape(
             M, 16, 16)
 
-        # ---- fixed-i4 path: 16 sub-blocks in raster order ----
-        scr = torch.zeros((M, 17, 21), dtype=I32, device=dev)
-        scr[:, 0, 0] = tl
-        scr[:, 0, 1:17] = top16
-        scr[:, 0, 17:21] = tr4
-        scr[:, 1:17, 0] = left16
-        given4 = imodes[bb, my, mx].long()              # (M, 16)
-        yl4 = torch.zeros((M, 16, 16), dtype=I32, device=dev)
-        for n in range(16):
-            gy, gx = n >> 2, n & 3
-            r, c = 4 * gy, 4 * gx
-            tr = scr[:, 0, 17:21] if gx == 3 else scr[:, r, c + 5:c + 9]
-            preds = _pred_luma4_all(scr[:, r, c], scr[:, r, c + 1:c + 5], tr,
-                                    scr[:, r + 1:r + 5, c])
-            pred1 = preds[lanes, given4[:, n]]
-            cf = fdct4x4(src[:, r:r + 4, c:c + 4] - pred1)
-            blv, dq = _quant_rows(cf[:, None], iq, q, 0, 1,
-                                  BIAS["y1_dc"], BIAS["y1_ac"])
-            yl4[:, n] = blv[:, 0]
-            scr[:, r + 1:r + 5, c + 1:c + 5] = idct_add_clip(dq[:, 0], pred1)
-
-        adopt = is_i4[bb, my, mx] != 0
-        y_lv = torch.where(adopt[:, None, None], yl4, y_lv)
-        y2_lv = torch.where(adopt[:, None], 0, y2_lv)
-        recon_y = torch.where(adopt[:, None, None], scr[:, 1:17, 1:17], recon16)
+        # ---- i4 path: the 16 sub-blocks' chain in raster order ----
+        modes16 = ymode[:, None].expand(M, 16)
+        recon_y = recon16
+        pick = decide.i4(mb, sg, src, (top16, tr4, left16, tl), q, iq, y_lv,
+                         y2_lv, recon16)
+        adopt = torch.zeros(M, dtype=torch.bool, device=dev)
+        if pick is not None:
+            adopt, given4 = pick
+            scr = torch.zeros((M, 17, 21), dtype=I32, device=dev)
+            scr[:, 0, 0] = tl
+            scr[:, 0, 1:17] = top16
+            scr[:, 0, 17:21] = tr4
+            scr[:, 1:17, 0] = left16
+            yl4 = torch.zeros((M, 16, 16), dtype=I32, device=dev)
+            for n in range(16):
+                gy, gx = n >> 2, n & 3
+                r, c = 4 * gy, 4 * gx
+                tr = scr[:, 0, 17:21] if gx == 3 else scr[:, r, c + 5:c + 9]
+                preds = _pred_luma4_all(scr[:, r, c], scr[:, r, c + 1:c + 5],
+                                        tr, scr[:, r + 1:r + 5, c])
+                pred1 = preds[lanes, given4[:, n]]
+                cf = fdct4x4(src[:, r:r + 4, c:c + 4] - pred1)
+                blv, dq = _quant_rows(cf[:, None], iq, q, 0, 1,
+                                      BIAS["y1_dc"], BIAS["y1_ac"])
+                yl4[:, n] = blv[:, 0]
+                scr[:, r + 1:r + 5, c + 1:c + 5] = idct_add_clip(dq[:, 0],
+                                                                 pred1)
+            y_lv = torch.where(adopt[:, None, None], yl4, y_lv)
+            y2_lv = torch.where(adopt[:, None], 0, y2_lv)
+            recon_y = torch.where(adopt[:, None, None], scr[:, 1:17, 1:17],
+                                  recon16)
+            modes16 = torch.where(adopt[:, None], given4, modes16)
 
         # ---- chroma (U and V on a leading channel axis) ----
         ctop = torch.where(ht1[None], Rc[:, bb, myu, mx][..., 7, :], 127)
@@ -171,8 +226,9 @@ def wavefront_fixed_plain(y, u, v, seg, qsteps, ymode, uvmode, is_i4, imodes,
         ctl = torch.where(ht[None], torch.where(
             hl[None], Rc[:, bb, myu, mxl][..., 7, 7], 129), 127)
         cpred4 = predict4_blocks(ctop, cleft, ctl, ht[None], hl[None], 8)
-        cpred = cpred4[uvmode[bb, my, mx].long(), :, lanes].permute(1, 0, 2, 3)
-        csrc = torch.stack([us[bb, my, mx], vs[bb, my, mx]])     # (2, M, 8, 8)
+        csrc = torch.stack([us[mb], vs[mb]])                     # (2, M, 8, 8)
+        uvmode = decide.uvmode(mb, csrc, cpred4)
+        cpred = cpred4[uvmode, :, lanes].permute(1, 0, 2, 3)
         cblk = (csrc - cpred).reshape(2, M, 2, 4, 2, 4).permute(0, 1, 2, 4, 3, 5)
         ccf = fdct4x4(cblk)                                      # (2,M,2,2,4,4)
         if use_derr:
@@ -220,10 +276,14 @@ def wavefront_fixed_plain(y, u, v, seg, qsteps, ymode, uvmode, is_i4, imodes,
         out_y[bb, my, mx] = y_lv
         out_y2[bb, my, mx] = y2_lv
         out_uv[bb, my, mx] = clv
+        out_modes[bb, my, mx] = torch.cat(
+            [torch.stack([ymode, uvmode, adopt.long()], 1), modes16], 1).to(I32)
 
     I16 = torch.int16
     out = {"y_levels": out_y.to(I16), "y2_levels": out_y2.to(I16),
-           "uv_levels": out_uv.to(I16)}
+           "uv_levels": out_uv.to(I16), "ymode": out_modes[..., 0],
+           "uvmode": out_modes[..., 1], "is_i4": out_modes[..., 2],
+           "imodes": out_modes[..., 3:]}
     if want_recon:
         U8 = torch.uint8
         out["recon_y"] = _plane(Ry).to(U8)
@@ -290,5 +350,5 @@ def wavefront_fixed(y, u, v, seg, qsteps, ymode, uvmode, is_i4, imodes,
 
 wavefront_fixed.launches = 0
 
-__all__ = ["LIBRARY", "active_rows", "wavefront_fixed",
-           "wavefront_fixed_plain"]
+__all__ = ["GivenModes", "LIBRARY", "active_rows", "wavefront_fixed",
+           "wavefront_fixed_plain", "wavefront_plain"]

@@ -1,0 +1,550 @@
+// Exact full-search closed-loop VP8 macroblock encode in wavefront order
+// — the exact engine (engine="wavefront") — as one persistent launch.
+//
+// Replaces gowebp_tpu/ops/encode_wavefront_jax.py _wavefront_impl with
+// modes=None, which the JAX package ran in XLA (no Pallas kernel): every
+// MB's modes are searched inside the closed loop, from the recon of the
+// MBs coded before it, then the MB is coded with them.
+//
+// Bound on the card: by the roofline, integer operations (the i4 walk's
+// 10 candidates x 16 sub-blocks of every MB, ~0.45 ms at B=16,
+// 1024x1024).  Unreachable: as in wavefront_fixed.cu, an image is a chain
+// of (mw - 1) + 2*(mh - 1) + 1 dependent MB steps (190 at 64x64 MBs), and
+// each step now carries a whole i4 walk: 10 dependent diagonal steps of
+// one candidate score each.  The design keeps wavefront_fixed.cu's
+// persistent schedule and adds the search to each MB step:
+//
+// - One launch, 96-thread blocks claiming MB rows by atomic ticket (row by
+//   row across the batch), progress counters with ld.acquire/st.release,
+//   the left context on chip, the next MB's source fetched one MB ahead
+//   (wavefront_mb.cuh; see wavefront_fixed.cu for the argument that no
+//   wait can deadlock).
+// - i16 mode (warps 0 and 2): each lane takes 4 pixels, predicts them
+//   under the 4 whole-block modes and sums the squared errors; a shuffle
+//   reduction per warp and a barrier of the two warps give the 4 SSEs,
+//   and the first minimum wins (ties to the lowest mode).  Then the
+//   lane-parallel i16 code wavefront_fixed.cu runs too (wavefront_mb.cuh
+//   code_i16): FDCT, Y2 WHT, quantization, IWHT, IDCT; the i16 recon
+//   stays in registers (4 pixels a lane).
+// - try_i4 (a template parameter: false compiles to no rate tables and no
+//   i4 work):
+//   - warp 2 computes the i16 rate with a lane per block (lanes 0-15 the
+//     AC blocks, type 0 from position 1; lane 16 the Y2 block, type 1;
+//     every block with ctx0 = 1) from the levels in shared memory, and
+//     s16 = d16 + (pen * rate16) >> 16, d16 the SSE of the source against
+//     the i16 recon;
+//   - meanwhile warp 0 runs the i4 walk in sub-block diagonal order d =
+//     2*gy + gx: 10 steps of up to 2 sub-blocks, each scored by
+//     i4_score.cuh's search_group, one lane per B-mode (10 lanes a
+//     sub-block); the winner's recon goes into the MB's (17, 21) scratch
+//     border, the next steps' context;
+//   - adopt i4 when s4 < s16 (strict: an equal score keeps i16).  An
+//     adopted MB's levels are recomputed for all 16 sub-blocks at once from
+//     the final scratch (each sub-block's context is final by then) and
+//     its Y2 levels are zero; otherwise the i16 recon goes into the
+//     scratch.
+//   The three per-position rate tables (types 0, 1 and 3, 13,824 bytes
+//   each) are staged once per resident block in dynamic shared memory
+//   (41,472 bytes: the launcher raises the kernel's dynamic limit and
+//   sizes the grid from the occupancy at that size, so every block of the
+//   ticket grid is resident).
+// - uv mode (warp 1, in parallel with the luma work): the joint U+V SSE of
+//   the 4 modes, 4 pixels a lane, first minimum; then the chroma code with
+//   the UV DC error-diffusion chain, as in wavefront_fixed.cu.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "i4_score.cuh"
+#include "vp8_dsp.cuh"
+#include "wavefront_mb.cuh"
+
+namespace {
+
+using vp8::kCW;
+using vp8::kSW;
+using vp8::qsingle_chain;
+using vp8::store_row16;
+using vp8::store_row8;
+
+// warp 0: luma (half the i16 blocks, the i4 walk), warp 1: chroma and its
+// mode, warp 2: the other i16 blocks, the i16 rate and the hand-over
+constexpr int kThreads = 96;
+constexpr int kTableBytes = 3 * (int)sizeof(vp8::Tables);  // types 0, 1, 3
+
+struct Args {
+  const uint8_t* y;  // (B, H, W) source planes
+  const uint8_t* u;  // (B, H/2, W/2)
+  const uint8_t* v;
+  const int* seg;     // (B, mh, mw)
+  const int* qsteps;  // (B, 4, 6) y1dc y1ac y2dc y2ac uvdc uvac
+  const int* pens;    // (B, 4) per-segment RD lambdas (try_i4 only)
+  const int* p0;      // (3, 16, 3, 2) rate tables of types 0, 1, 3 by position
+  const int* p1;      // (3, 16, 3, 2)
+  const int* val;     // (3, 16, 3, 68)
+  uint8_t* ry;        // (B, H, W) recon planes (the row below reads them)
+  uint8_t* ru;
+  uint8_t* rv;
+  int16_t* dtop;  // (B, mh, mw, 4) UV DC error carries [ch][k] for the MB below
+  int16_t* ylv;   // (B, mh, mw, 16, 16) zigzag levels
+  int16_t* y2lv;  // (B, mh, mw, 16)
+  int16_t* uvlv;  // (B, mh, mw, 8, 16)
+  uint8_t* ymode;   // (B, mh, mw) the modes coded
+  uint8_t* uvmode;
+  uint8_t* is_i4;
+  uint8_t* imodes;  // (B, mh, mw, 16); an i16 MB repeats its ymode
+  int* progress;    // (B*mh) MBs published per row, zeroed by the caller
+  int* ticket;      // next ticket (my * B + b) to claim, zeroed by the caller
+  int B, mh, mw, use_derr;
+};
+
+// Sum over the 32 lanes of a warp, in every lane.
+__device__ __forceinline__ int warp_sum(int v) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) v += __shfl_xor_sync(vp8::kFullMask, v, o);
+  return v;
+}
+
+// The first of the 4 modes with the least cost (the costs stay in
+// registers: nothing indexes them at run time).
+__device__ __forceinline__ int argmin4(const int* c) {
+  int m = 0, best = c[0];
+#pragma unroll
+  for (int i = 1; i < 4; i++)
+    if (c[i] < best) {
+      best = c[i];
+      m = i;
+    }
+  return m;
+}
+
+// 4 blocks an SM: the dynamic tables (41,472 bytes) and the static state
+// fit 4 times in an SM's shared memory.
+template <bool kI4>
+__global__ void __launch_bounds__(kThreads, 4) wavefront_search_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char s_tables[];  // kI4: Tables[3]
+  __shared__ int sy[17 * kSW];     // luma: row 0 [tl, top16, tr4], col 0 left16, recon
+  __shared__ int sc[2][9 * kCW];   // U, V: row 0 [tl, top8], col 0 left8, recon
+  __shared__ __align__(16) uint8_t ss[256], scs[2][64];  // the MB's source pixels
+  __shared__ int s_dc[16], s_im[16];  // the i16 DCs, the walk's B-modes
+  __shared__ int s_q[24], s_iq[24], s_pen[4];  // the image's per-segment rows
+  __shared__ unsigned s_ptab[160];  // pred_entry(m, k) at 16 * m + k
+  __shared__ int s_sse[2][4], s_d16[2];  // per luma warp: i16 mode SSEs, d16
+  __shared__ int s_s16, s_s4, s_is4, s_ymode, s_uvmode, s_seg, s_row;
+  // the MB's levels (luma 0-255, chroma 256-383, Y2 384-399), written out
+  // after the hand-over
+  __shared__ __align__(16) int16_t s_lv[400];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int k = lane & 15, half = lane >> 4;
+  const int kr = k >> 2, kc = k & 3;
+  const int mh = a.mh, mw = a.mw;
+  const int W = 16 * mw, H = 16 * mh, Wc = 8 * mw, Hc = 8 * mh;
+  if constexpr (kI4) {
+    for (int i = tid; i < 160; i += kThreads) s_ptab[i] = vp8::pred_entry(i >> 4, i & 15);
+    vp8::Tables* tw = reinterpret_cast<vp8::Tables*>(s_tables);
+    for (int i = 0; i < 3; i++)
+      vp8::stage_tables(tw[i], a.p0 + 96 * i, a.p1 + 96 * i, a.val + vp8::kVal * i);
+  }
+
+  for (;;) {
+    __syncthreads();  // the last row's shared state is no longer read
+    if (tid == 0) s_row = atomicAdd(a.ticket, 1);
+    __syncthreads();
+    const int t = s_row;  // tickets go row by row across the batch
+    if (t >= a.B * mh) return;
+    const int my = t / a.B, b = t - my * a.B;
+    const int row = b * mh + my;
+    const bool ht = my > 0;
+    const uint8_t* ysrc = a.y + (size_t)b * H * W;
+    uint8_t* yrec = a.ry + (size_t)b * H * W;
+    const int y0 = 16 * my, cy0 = 8 * my;
+    if (tid < 24) {
+      const int q = a.qsteps[(size_t)b * 24 + tid];
+      s_q[tid] = q;
+      s_iq[tid] = (1 << 17) / (q > 1 ? q : 1);
+    } else if (kI4 && tid < 28) {
+      s_pen[tid - 24] = a.pens[(size_t)b * 4 + tid - 24];
+    }
+    int seen = 0;             // thread 0: row above's last published count
+    int dl0 = 0, dl1 = 0;     // warp 1, lane 0 of each segment: carries to the right
+
+    // This thread's share of an MB's own inputs (no other row writes
+    // them), fetched one MB ahead so that their latency is off the chain.
+    auto fetch = [&](int mx) {
+      uint4 w = make_uint4(0, 0, 0, 0);
+      if (tid < 16) {
+        w = __ldg(reinterpret_cast<const uint4*>(ysrc + (size_t)(y0 + tid) * W + 16 * mx));
+      } else if (tid < 32) {
+        const uint8_t* cs = (tid < 24 ? a.u : a.v) + (size_t)b * Hc * Wc;
+        const uint2 c = __ldg(
+            reinterpret_cast<const uint2*>(cs + (size_t)(cy0 + (tid & 7)) * Wc + 8 * mx));
+        w.x = c.x;
+        w.y = c.y;
+      } else if (tid == 48) {
+        w.x = a.seg[(size_t)row * mw + mx];
+      }
+      return w;
+    };
+    uint4 next = fetch(0);
+
+    for (int mx = 0; mx < mw; mx++) {
+      const bool hl = mx > 0;
+      const size_t mb = (size_t)row * mw + mx;
+      const int x0 = 16 * mx, cx0 = 8 * mx;
+
+      // ---- the MB's own inputs into shared memory; fetch the next MB's ----
+      {
+        if (tid < 16) {
+          *reinterpret_cast<uint4*>(ss + 16 * tid) = next;
+        } else if (tid < 32) {
+          *reinterpret_cast<uint2*>(&scs[tid >= 24][(tid & 7) * 8]) = make_uint2(next.x, next.y);
+        } else if (tid == 48) {
+          s_seg = (int)next.x;
+        }
+        if (mx + 1 < mw) next = fetch(mx + 1);
+      }
+      // ---- wait for the row above ----
+      if (tid == 0 && ht) {
+        const int need = min(mx + 2, mw);
+        for (unsigned spins = 0; seen < need; spins++) {
+          seen = vp8::ld_acquire(a.progress + row - 1);
+          // A wait of seconds means a broken hand-over: fail the launch
+          // with an error instead of hanging the card.
+          if (spins == (1u << 24)) __trap();
+        }
+      }
+      __syncthreads();
+
+      // ---- context: the row above's bottom pixels (through L2), the left
+      // column and corner from the previous MB of this row (on chip) ----
+      int dt0 = 0, dt1 = 0;
+      if (warp == 0) {
+        int top = 127;
+        if (lane < 20 && ht) {
+          const int col = lane < 16 ? x0 + lane : (mx == mw - 1 ? x0 + 15 : x0 + lane);
+          top = __ldcg(yrec + (size_t)(y0 - 1) * W + col);
+        }
+        const int left = hl ? sy[(1 + k) * kSW + 16] : 129;
+        const int tl = hl ? sy[16] : (ht ? 129 : 127);
+        __syncwarp();
+        if (half == 0) sy[(1 + k) * kSW] = left;
+        if (lane == 16) sy[0] = tl;
+        if (lane < 20) {
+          sy[1 + lane] = top;
+          if (lane >= 16)  // the top-right pixels again for gx = 3 below row 0
+            for (int r = 4; r < 16; r += 4) sy[r * kSW + 1 + lane] = top;
+        }
+      } else if (warp == 1) {
+        int* S = sc[half];
+        int top = 127;
+        if (k < 8 && ht) {
+          const uint8_t* crec = (half ? a.rv : a.ru) + (size_t)b * Hc * Wc;
+          top = __ldcg(crec + (size_t)(cy0 - 1) * Wc + cx0 + k);
+        }
+        if (k == 0 && a.use_derr && ht) {
+          const int16_t* p = a.dtop + (mb - mw) * 4 + 2 * half;
+          dt0 = __ldcg(p);
+          dt1 = __ldcg(p + 1);
+        }
+        const int left = hl ? S[(1 + (k & 7)) * kCW + 8] : 129;
+        const int tl = hl ? S[8] : (ht ? 129 : 127);
+        __syncwarp();
+        if (k < 8) {
+          S[1 + k] = top;
+        } else {
+          S[(k - 7) * kCW] = left;
+          if (k == 8) S[0] = tl;
+        }
+      }
+      __syncwarp();
+
+      if (warp != 1) {
+        // ================= luma =================
+        vp8::named_barrier_luma();  // warp 0's top context is in sy
+        const int sg = s_seg;
+        const int* q = s_q + 6 * sg;
+        const int* iq = s_iq + 6 * sg;
+        const int q0 = q[0], q1 = q[1], iq0 = iq[0], iq1 = iq[1];
+        // warp 0 takes sub-blocks 0-7, warp 2 sub-blocks 8-15
+        const int blk0 = warp == 0 ? 0 : 8;
+        const int dcv = vp8::luma_dc(sy, half, k, ht, hl);
+        const int tl = sy[0];
+        // ---- i16 mode: the SSE of DC/TM/VE/HE over this lane's 4 pixels ----
+        int sse[4] = {0, 0, 0, 0};
+#pragma unroll
+        for (int rnd = 0; rnd < 4; rnd++) {
+          const int blk = blk0 + 2 * rnd + half;
+          const int R = 4 * (blk >> 2) + kr, C = 4 * (blk & 3) + kc;
+          const int top = sy[1 + C], left = sy[(1 + R) * kSW], s = ss[R * 16 + C];
+          const int e0 = s - dcv, e1 = s - vp8::clip8(left + top - tl);
+          const int e2 = s - top, e3 = s - left;
+          sse[0] += e0 * e0;
+          sse[1] += e1 * e1;
+          sse[2] += e2 * e2;
+          sse[3] += e3 * e3;
+        }
+#pragma unroll
+        for (int i = 0; i < 4; i++) sse[i] = warp_sum(sse[i]);
+        if (lane == 0)
+#pragma unroll
+          for (int i = 0; i < 4; i++) s_sse[warp >> 1][i] = sse[i];
+        vp8::named_barrier_luma();  // both warps' SSEs are in s_sse
+        int tot[4];
+#pragma unroll
+        for (int i = 0; i < 4; i++) tot[i] = s_sse[0][i] + s_sse[1][i];
+        const int m = argmin4(tot);
+        if (tid == 0) s_ymode = m;
+
+        // ---- i16 code with mode m; the recon stays in registers ----
+        int x[4], pr[4], rec[4];  // this warp's 4 rounds of 2 sub-blocks, together
+        vp8::code_i16(warp, half, k, m, dcv, tl, sy, ss, q, iq, q1, iq0, iq1, s_dc, s_lv, x, pr);
+#pragma unroll
+        for (int rnd = 0; rnd < 4; rnd++) rec[rnd] = vp8::clip8(pr[rnd] + x[rnd]);
+
+        bool is4 = false;
+        if constexpr (kI4) {
+          // d16: the SSE of the source against the i16 recon
+          int d = 0;
+#pragma unroll
+          for (int rnd = 0; rnd < 4; rnd++) {
+            const int blk = blk0 + 2 * rnd + half;
+            const int e = ss[(4 * (blk >> 2) + kr) * 16 + 4 * (blk & 3) + kc] - rec[rnd];
+            d += e * e;
+          }
+          d = warp_sum(d);
+          if (lane == 0) s_d16[warp >> 1] = d;
+          const int pen = s_pen[sg];
+          const vp8::Tables* T = reinterpret_cast<const vp8::Tables*>(s_tables);
+          vp8::named_barrier_luma();  // the i16 and Y2 levels and both d16 halves are in shared
+          if (warp == 2) {
+            // rate16: lanes 0-15 the AC blocks (type 0 from position 1),
+            // lane 16 the Y2 block (type 1); ctx0 = 1 for every block
+            int r = 0;
+            if (lane < 16)
+              r = vp8::rate_walk<1>(s_lv + 16 * lane, T[0]);
+            else if (lane == 16)
+              r = vp8::rate_walk<0>(s_lv + 384, T[1]);
+            r = warp_sum(r);
+            if (lane == 0) s_s16 = s_d16[0] + s_d16[1] + vp8::mul_shr16(pen, r);
+          } else {
+            // ---- the i4 walk: group g of 10 lanes scores the 10 B-modes of
+            // one sub-block of diagonal d (group 2, and group 1 on a
+            // diagonal of one sub-block, mirror group 0 and store nothing) ----
+            const int g = min(lane / vp8::kGroup, 2), bm_lane = min(lane - vp8::kGroup * g, 9);
+            const vp8::Quant qv{iq0, iq1, q0, q1, pen};
+            int s4 = 0;
+            for (int dg = 0; dg < 10; dg++) {
+              const bool two = dg >= 2 && dg <= 7;  // diagonals holding 2 sub-blocks
+              const bool own = g == 0 || (g == 1 && two);
+              const int gy = (dg < 3 ? 0 : (dg - 2) >> 1) + (g == 1 && two ? 1 : 0);
+              const int gx = dg - 2 * gy;
+              const int r = 4 * gy, c = 4 * gx;
+              int top[4], tr[4], left[4];
+#pragma unroll
+              for (int i = 0; i < 4; i++) {
+                top[i] = sy[r * kSW + c + 1 + i];
+                tr[i] = gx == 3 ? sy[17 + i] : sy[r * kSW + c + 5 + i];
+                left[i] = sy[(r + 1 + i) * kSW + c];
+              }
+              int brec[16], bc;
+              const int bm = vp8::search_group<false>(bm_lane, vp8::kGroup * g, sy[r * kSW + c],
+                                                      top, tr, left, ss + r * 16 + c, 16, qv,
+                                                      T[2], 0, brec, &bc);
+              const int bc1 = __shfl_sync(vp8::kFullMask, bc, vp8::kGroup);
+              s4 += bc + (two ? bc1 : 0);
+              __syncwarp();  // every lane has read this step's context
+              if (own && bm_lane == bm) {
+                int* out = sy + (r + 1) * kSW + c + 1;
+#pragma unroll
+                for (int i = 0; i < 16; i++) out[(i >> 2) * kSW + (i & 3)] = brec[i];
+                s_im[4 * gy + gx] = bm;
+              }
+              __syncwarp();
+            }
+            if (lane == 0) s_s4 = s4;
+          }
+          vp8::named_barrier_luma();  // s16, s4, the walk's modes and scratch are in shared
+          is4 = s_s4 < s_s16;
+        }
+        if (is4) {
+          // the winners' levels, all 16 sub-blocks at once: each one's
+          // context in the scratch is final
+          int z[4];
+#pragma unroll
+          for (int rnd = 0; rnd < 4; rnd++) {
+            const int blk = blk0 + 2 * rnd + half;
+            const int gy = blk >> 2, gx = blk & 3;
+            const int p = vp8::pred_b4_lane(s_ptab[16 * s_im[blk] + k], sy, 4 * gy * kSW + 4 * gx);
+            z[rnd] = ss[(4 * gy + kr) * 16 + 4 * gx + kc] - p;
+          }
+          vp8::fdct_lanes<4>(z, k);
+#pragma unroll
+          for (int rnd = 0; rnd < 4; rnd++) {
+            const int blk = blk0 + 2 * rnd + half;
+            s_lv[blk * 16 + vp8::inv_zigzag(k)] = (int16_t)vp8::quant_lane(
+                z[rnd], k, iq0, iq1, vp8::kBiasY1Dc, vp8::kBiasY1Ac, false);
+          }
+          if (warp == 0 && half == 0) s_lv[384 + k] = 0;  // no Y2
+        } else {
+#pragma unroll
+          for (int rnd = 0; rnd < 4; rnd++) {
+            const int blk = blk0 + 2 * rnd + half;
+            const int R = 4 * (blk >> 2) + kr, C = 4 * (blk & 3) + kc;
+            sy[(1 + R) * kSW + 1 + C] = rec[rnd];
+          }
+        }
+        if (tid == 0) s_is4 = is4;
+        vp8::named_barrier_luma();  // the whole MB's recon is in sy
+        if (tid == 15) vp8::store_row16(yrec + (size_t)(y0 + 15) * W + x0, sy + 16 * kSW + 1);
+      } else {
+        // ================= chroma: segment `half` codes channel U or V =================
+        const int ch = half;
+        int* S = sc[ch];
+        int sum = k < 8 ? S[1 + k] : S[(k - 7) * kCW];  // top8, then left8
+#pragma unroll
+        for (int o = 1; o < 8; o <<= 1) sum += __shfl_xor_sync(vp8::kFullMask, sum, o);
+        const int dcv = vp8::dc_whole(vp8::seg_get(sum, 0), vp8::seg_get(sum, 8), ht, hl, 8);
+        const int tl = S[0];
+        // ---- uv mode: the SSE of U and V together over the 4 modes ----
+        int sse[4] = {0, 0, 0, 0};
+#pragma unroll
+        for (int blk = 0; blk < 4; blk++) {
+          const int R = 4 * (blk >> 1) + kr, C = 4 * (blk & 1) + kc;
+          const int top = S[1 + C], left = S[(1 + R) * kCW], s = scs[ch][R * 8 + C];
+          const int e0 = s - dcv, e1 = s - vp8::clip8(left + top - tl);
+          const int e2 = s - top, e3 = s - left;
+          sse[0] += e0 * e0;
+          sse[1] += e1 * e1;
+          sse[2] += e2 * e2;
+          sse[3] += e3 * e3;
+        }
+#pragma unroll
+        for (int i = 0; i < 4; i++) sse[i] = warp_sum(sse[i]);
+        const int m = argmin4(sse);
+        if (lane == 0) s_uvmode = m;
+        const int* q = s_q + 6 * s_seg;
+        const int* iq = s_iq + 6 * s_seg;
+        int cfr[4], pr[4];
+#pragma unroll
+        for (int blk = 0; blk < 4; blk++) {
+          const int R = 4 * (blk >> 1) + kr, C = 4 * (blk & 1) + kc;
+          const int top = S[1 + C], left = S[(1 + R) * kCW];
+          pr[blk] = m == 0 ? dcv : m == 1 ? vp8::clip8(left + top - tl) : m == 2 ? top : left;
+          cfr[blk] = scs[ch][R * 8 + C] - pr[blk];
+        }
+        vp8::fdct_lanes<4>(cfr, k);
+        if (a.use_derr && k == 0) {
+          int nl[2], nt[2];
+          qsingle_chain(cfr, dt0, dt1, dl0, dl1, iq[4], q[4], nl, nt);
+          a.dtop[mb * 4 + 2 * ch] = (int16_t)nt[0];
+          a.dtop[mb * 4 + 2 * ch + 1] = (int16_t)nt[1];
+          dl0 = (int16_t)nl[0];  // the carries are int16 values
+          dl1 = (int16_t)nl[1];
+        }
+        int16_t* uv = s_lv + 256 + ch * 64;
+#pragma unroll
+        for (int blk = 0; blk < 4; blk++) {
+          const int lv = vp8::quant_lane(cfr[blk], k, iq[4], iq[5], vp8::kBiasUvDc,
+                                         vp8::kBiasUvAc, false);
+          uv[blk * 16 + vp8::inv_zigzag(k)] = (int16_t)lv;
+          cfr[blk] = lv * (k == 0 ? q[4] : q[5]);
+        }
+        vp8::idct_lanes<4>(cfr, k);
+#pragma unroll
+        for (int blk = 0; blk < 4; blk++) {
+          const int R = 4 * (blk >> 1) + kr, C = 4 * (blk & 1) + kc;
+          S[(1 + R) * kCW + 1 + C] = vp8::clip8(pr[blk] + cfr[blk]);
+        }
+        __syncwarp();
+        if (k == 7)
+          store_row8((ch ? a.rv : a.ru) + (size_t)b * Hc * Wc + (size_t)(cy0 + 7) * Wc + cx0,
+                     S + 8 * kCW + 1);
+      }
+
+      // ---- hand the MB over to the row below: its bottom pixels and dtop
+      // are stored; release them (cumulative over the block's stores,
+      // which the barrier ordered before it) ----
+      __syncthreads();
+      if (tid == 64) vp8::st_release(a.progress + row, mx + 1);  // off warps 0-1's path
+
+      // ---- the rest of the MB's outputs, off the chain ----
+      if (tid < 15) {
+        store_row16(yrec + (size_t)(y0 + tid) * W + x0, sy + (1 + tid) * kSW + 1);
+      } else if (tid >= 16 && tid < 30) {
+        const int ch = tid >= 23, r = tid - 16 - 7 * ch;
+        store_row8((ch ? a.rv : a.ru) + (size_t)b * Hc * Wc + (size_t)(cy0 + r) * Wc + cx0,
+                   sc[ch] + (1 + r) * kCW + 1);
+      }
+      const uint4* lv4 = reinterpret_cast<const uint4*>(s_lv);
+      if (tid >= 64)
+        reinterpret_cast<uint4*>(a.ylv + mb * 256)[tid - 64] = lv4[tid - 64];
+      else if (tid >= 32 && tid < 48)
+        reinterpret_cast<uint4*>(a.uvlv + mb * 128)[tid - 32] = lv4[tid];
+      else if (tid >= 48 && tid < 50)
+        reinterpret_cast<uint4*>(a.y2lv + mb * 16)[tid - 48] = lv4[tid];
+      else if (tid == 50) {
+        // imodes: the walk's B-modes for an i4 MB, else ymode repeated
+        unsigned w[4];
+#pragma unroll
+        for (int i = 0; i < 4; i++) {
+          w[i] = 0;
+#pragma unroll
+          for (int j = 0; j < 4; j++)
+            w[i] |= (unsigned)(s_is4 ? s_im[4 * i + j] : s_ymode) << (8 * j);
+        }
+        *reinterpret_cast<uint4*>(a.imodes + mb * 16) = make_uint4(w[0], w[1], w[2], w[3]);
+      } else if (tid == 51) {
+        a.ymode[mb] = (uint8_t)s_ymode;
+        a.uvmode[mb] = (uint8_t)s_uvmode;
+        a.is_i4[mb] = (uint8_t)s_is4;
+      }
+    }
+  }
+}
+
+template <bool kI4>
+int launch(const Args& a, cudaStream_t stream) {
+  const int smem = kI4 ? kTableBytes : 0;
+  static int resident = 0;  // blocks the card holds at once, at this smem
+  if (resident == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    // raise the dynamic limit first: the occupancy, and so the ticket
+    // grid, must be that of the launch's shared memory
+    cudaFuncSetAttribute(wavefront_search_kernel<kI4>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, wavefront_search_kernel<kI4>,
+                                                  kThreads, smem);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    resident = sms * per_sm > 0 ? sms * per_sm : 1;
+  }
+  const int rows = a.B * a.mh;
+  const int grid = rows < resident ? rows : resident;
+  wavefront_search_kernel<kI4><<<grid, kThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Runs the exact engine's whole wavefront as one launch on `stream`.
+// `sync` holds B*mh progress counters and the ticket, all zero.  pens and
+// the rate tables p0/p1/val are read only with try_i4 (else may be null).
+// Returns the CUDA error of the launch (0 = accepted).
+extern "C" int wavefront_search_launch(
+    const uint8_t* y, const uint8_t* u, const uint8_t* v, const int* seg, const int* qsteps,
+    const int* pens, const int* p0, const int* p1, const int* val, uint8_t* ry, uint8_t* ru,
+    uint8_t* rv, int16_t* dtop, int16_t* ylv, int16_t* y2lv, int16_t* uvlv, uint8_t* ymode,
+    uint8_t* uvmode, uint8_t* is_i4, uint8_t* imodes, int* sync, int B, int mh, int mw,
+    int use_derr, int try_i4, void* stream) {
+  const int rows = B * mh;
+  if (rows <= 0 || mw <= 0) return 0;
+  const Args a{y,    u,    v,    seg,    qsteps, pens,  p0,     p1,   val,
+               ry,   ru,   rv,   dtop,   ylv,    y2lv,  uvlv,   ymode, uvmode,
+               is_i4, imodes, sync, sync + rows, B, mh, mw, use_derr};
+  const cudaStream_t st = (cudaStream_t)stream;
+  return try_i4 ? launch<true>(a, st) : launch<false>(a, st);
+}

@@ -1,0 +1,205 @@
+"""Exact full-search wavefront: the Hopper kernel, its binding and its
+plain version.
+
+``wavefront_search`` is the exact engine (``engine="wavefront"``): every
+macroblock's modes are searched inside the closed loop, from the recon of
+the MBs coded before it, in anti-diagonal order, and the MB is then coded
+with them, so its levels, modes and recon equal the host encoder's.  Per
+MB:
+
+- i16: the SSE argmin over the 4 whole-block predictions (ties to the
+  lowest mode), then FDCT, Y2 WHT, quantization and the decoder's recon;
+- with ``try_i4``: the i16 score s16 = d16 + (pen * rate16) >> 16, with
+  d16 the SSE of the source against the i16 recon and rate16 the type-1
+  rate of the Y2 levels plus the type-0 rate of the 16 AC blocks (every
+  block with ctx0 = 1); the 16-sub-block Gauss-Seidel walk over the 10
+  B-modes of each (``i4_walk_plain``), whose summed score s4 adopts i4
+  when s4 < s16 (an equal score keeps i16; an adopted MB has no Y2);
+- uv: the argmin of the U SSE + V SSE over DC/TM/VE/HE, then the chroma
+  code with the UV DC error-diffusion chain when ``use_derr`` is set.
+
+On CUDA tensors it runs the kernel in ``wavefront_search.cu``, one
+persistent launch (it replaces gowebp_tpu/ops/encode_wavefront_jax.py
+``_wavefront_impl`` with ``modes=None``, which the JAX package ran in
+XLA, not in a Pallas kernel); on CPU tensors ``wavefront_search_plain``,
+the fixed-mode wavefront's per-diagonal torch loop with the search as its
+decider.
+
+Inputs: y (B, H, W) uint8 and u, v (B, H/2, W/2) uint8 with H, W
+multiples of 16; seg (B, mh, mw) int32; qsteps (B, 4, 6) int32; pens
+(B, 4) int32 per-segment RD lambdas (below 2**19); ``rate`` the
+per-position rate tables of ``search_tables``.  Returns uint8 ymode,
+uvmode, is_i4 (B, mh, mw) and imodes (B, mh, mw, 16) (an i16 MB's imodes
+repeat its ymode); int16 zigzag y_levels (B, mh, mw, 16, 16), y2_levels
+(B, mh, mw, 16), uv_levels (B, mh, mw, 8, 16); and with ``want_recon``
+the uint8 recon planes recon_y/recon_u/recon_v.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..rate import mul_shr16, position_tables, rate_by_position
+from .cuda_build import CudaLibrary, check_tensor, stream_handle
+from .i4_search import i4_search_plain, i4_walk_plain
+from .wavefront_fixed import wavefront_plain
+
+I32 = torch.int32
+U8 = torch.uint8
+# token types of the rate tables, in their order in ``search_tables``:
+# luma AC after a Y2 block, Y2, and i4 luma
+RATE_TYPES = (0, 1, 3)
+MODE_KEYS = ("ymode", "uvmode", "is_i4", "imodes")
+
+
+def _configure(lib) -> None:
+    p = ctypes.c_void_p
+    i = ctypes.c_int
+    lib.wavefront_search_launch.restype = i
+    lib.wavefront_search_launch.argtypes = [p] * 21 + [i] * 5 + [p]
+
+
+LIBRARY = CudaLibrary("wavefront_search.cu", _configure)
+
+
+def search_tables(tables):
+    """(p0, p1, val) cost tables → the rate tables by position of types 0,
+    1 and 3, stacked: p0 (3, 16, 3, 2), p1 (3, 16, 3, 2), val (3, 16, 3,
+    68) int32."""
+    rows = [position_tables(tables, t) for t in RATE_TYPES]
+    return tuple(torch.stack([r[i] for r in rows]).contiguous()
+                 for i in range(3))
+
+
+def _sse(a, b, dims):
+    d = a - b
+    return (d * d).sum(dim=dims, dtype=I32)
+
+
+class SearchModes:
+    """The exact engine's in-loop decisions, for ``wavefront_plain``.
+
+    ``search`` scores each walk substep's sub-blocks (``i4_walk_plain``'s
+    argument of that name).
+    """
+
+    def __init__(self, pens, rate, try_i4: bool, search=i4_search_plain):
+        self.pens, self.try_i4, self.search = pens, try_i4, search
+        if try_i4:
+            self.t0, self.t1, self.t3 = (tuple(t[k] for t in rate)
+                                         for k in range(3))
+
+    def ymode(self, mb, src, pred4):
+        return torch.argmin(_sse(src[None], pred4, (-1, -2)), dim=0)
+
+    def i4(self, mb, sg, src, ctx, q, iq, y_lv, y2_lv, recon16):
+        if not self.try_i4:
+            return None
+        s16, s4, bmodes = self.scores(mb, sg, src, ctx, q, iq, y_lv, y2_lv,
+                                      recon16)
+        return s4 < s16, bmodes
+
+    def scores(self, mb, sg, src, ctx, q, iq, y_lv, y2_lv, recon16):
+        """The i16 score s16, the walk's summed score s4 and its B-modes
+        (M, 16) of the diagonal's M MBs."""
+        d16 = _sse(src, recon16, (-1, -2))
+        rate16 = rate_by_position(y2_lv, *self.t1, first=0, ctx0=1)
+        rate16 = rate16 + rate_by_position(y_lv, *self.t0, first=1,
+                                           ctx0=1).sum(dim=-1, dtype=I32)
+        pen = self.pens[mb[0], sg]
+        s16 = d16 + mul_shr16(pen, rate16)
+        bmodes, s4 = i4_walk_plain(
+            src[None], *(c[None] for c in ctx), q[None], iq[None], pen[None],
+            self.t3, search=self.search)
+        return s16, s4[0], bmodes[0].long()
+
+    def uvmode(self, mb, csrc, cpred4):
+        return torch.argmin(_sse(csrc[None], cpred4, (-1, -2)).sum(
+            dim=1, dtype=I32), dim=0)
+
+
+def wavefront_search_plain(y, u, v, seg, qsteps, pens, rate, *,
+                           try_i4: bool, use_derr: bool, want_recon: bool):
+    """Per-diagonal torch loop (any device); same contract as the kernel.
+
+    It calls only plain pieces (``i4_walk_plain``, never the i4 kernels),
+    so on CUDA tensors it is the kernel's independent yardstick.
+    """
+    out = wavefront_plain(y, u, v, seg, qsteps,
+                          SearchModes(pens, rate, try_i4),
+                          use_derr=use_derr, want_recon=want_recon)
+    for k in MODE_KEYS:
+        out[k] = out[k].to(U8)
+    return out
+
+
+def wavefront_search(y, u, v, seg, qsteps, pens, rate, *, try_i4: bool,
+                     use_derr: bool, want_recon: bool):
+    """Kernel on CUDA tensors, plain version on CPU tensors.
+
+    ``wavefront_search.launches`` counts kernel launches (one per call on
+    CUDA: the whole wavefront, search included, is one persistent
+    launch).  With ``try_i4`` False, ``pens`` and ``rate`` are not read
+    and may be None.
+    """
+    dev = y.device
+    if dev.type == "cpu":
+        return wavefront_search_plain(y, u, v, seg, qsteps, pens, rate,
+                                      try_i4=try_i4, use_derr=use_derr,
+                                      want_recon=want_recon)
+    if dev.type != "cuda":
+        raise ValueError(f"wavefront_search: unsupported device {dev}")
+    B, H, W = y.shape
+    if H % 16 or W % 16 or H == 0 or W == 0:
+        raise ValueError(f"wavefront_search: planes must be MB multiples, "
+                         f"got {H}x{W}")
+    mh, mw = H // 16, W // 16
+    check_tensor("y", y, U8, (B, H, W), dev)
+    check_tensor("u", u, U8, (B, H // 2, W // 2), dev)
+    check_tensor("v", v, U8, (B, H // 2, W // 2), dev)
+    check_tensor("seg", seg, I32, (B, mh, mw), dev)
+    check_tensor("qsteps", qsteps, I32, (B, 4, 6), dev)
+    ptrs = [None] * 4
+    if try_i4:
+        check_tensor("pens", pens, I32, (B, 4), dev)
+        for name, tab, shape in zip(("p0", "p1", "val"), rate,
+                                    ((3, 16, 3, 2), (3, 16, 3, 2),
+                                     (3, 16, 3, 68))):
+            check_tensor(name, tab, I32, shape, dev)
+        ptrs = [pens.data_ptr()] + [t.data_ptr() for t in rate]
+    lib = LIBRARY.load()
+    I16 = torch.int16
+    ry = torch.empty((B, H, W), dtype=U8, device=dev)
+    ru = torch.empty((B, H // 2, W // 2), dtype=U8, device=dev)
+    rv = torch.empty_like(ru)
+    dtop = torch.empty((B, mh, mw, 4), dtype=I16, device=dev)
+    # per-row progress counters, then the row ticket (the kernel's sync)
+    sync = torch.zeros(B * mh + 1, dtype=I32, device=dev)
+    ylv = torch.empty((B, mh, mw, 16, 16), dtype=I16, device=dev)
+    y2lv = torch.empty((B, mh, mw, 16), dtype=I16, device=dev)
+    uvlv = torch.empty((B, mh, mw, 8, 16), dtype=I16, device=dev)
+    modes = {k: torch.empty((B, mh, mw), dtype=U8, device=dev)
+             for k in MODE_KEYS[:3]}
+    modes["imodes"] = torch.empty((B, mh, mw, 16), dtype=U8, device=dev)
+    err = lib.wavefront_search_launch(
+        *(t.data_ptr() for t in (y, u, v, seg, qsteps)), *ptrs,
+        *(t.data_ptr() for t in (ry, ru, rv, dtop, ylv, y2lv, uvlv)),
+        *(modes[k].data_ptr() for k in MODE_KEYS), sync.data_ptr(),
+        B, mh, mw, int(bool(use_derr)), int(bool(try_i4)),
+        stream_handle(dev))
+    if err != 0:
+        raise RuntimeError(
+            f"wavefront_search kernel launch failed: CUDA error {err}")
+    wavefront_search.launches += 1
+    out = dict(modes, y_levels=ylv, y2_levels=y2lv, uv_levels=uvlv)
+    if want_recon:
+        out.update(recon_y=ry, recon_u=ru, recon_v=rv)
+    return out
+
+
+wavefront_search.launches = 0
+
+__all__ = ["LIBRARY", "RATE_TYPES", "SearchModes", "search_tables",
+           "wavefront_search", "wavefront_search_plain"]

@@ -1,7 +1,7 @@
 """PyTorch port on the card: each CUDA kernel vs its plain torch version,
-the batch encode's GPU bytes vs its CPU bytes (hybrid and open-loop
-engines), and the batch decode's GPU pixels vs its CPU pixels, at small
-sizes.
+the batch encode's GPU bytes vs its CPU bytes (hybrid, exact wavefront and
+open-loop engines), and the batch decode's GPU pixels vs its CPU pixels,
+at small sizes.
 
 Marked ``cuda``; every test skips on a host without a CUDA GPU.  This
 file imports nothing of JAX, so it runs on a GPU machine without JAX:
@@ -397,3 +397,135 @@ def test_openloop_encode_gpu_bytes_equal_cpu_bytes(cuda):
         assert encode_luma.launches == before + 1
         assert got == encode_rgba_batch(imgs, quality=quality, device="cpu",
                                         engine="openloop")
+
+
+def _search_case(cuda, seed, B, H, W):
+    """Planes whose MBs are noisy, flat or a gentle gradient (both i16 and
+    i4 win), 4 segments with their quantizers and penalties."""
+    from gowebp_tpu_torch.models.vp8.encoder import (_i4_config_seg,
+                                                     make_quants,
+                                                     quality_to_q)
+
+    rng = np.random.default_rng(seed)
+    mh, mw = H // 16, W // 16
+    yy, xx = np.mgrid[0:H, 0:W]
+    kind = rng.integers(0, 3, (B, mh, mw)).repeat(16, 1).repeat(16, 2)
+    y = np.where(kind == 0, rng.integers(0, 256, (B, H, W)), np.where(
+        kind == 1, 128, 60 + 100 * xx / W + 50 * yy / H))
+    u = rng.integers(100, 156, (B, H // 2, W // 2))
+    v = 128 + rng.integers(-3, 4, (B, H // 2, W // 2))
+    rows = []
+    for d in (-6, -2, 3, 8):
+        q = make_quants(quality_to_q(75.0) + d)
+        rows.append([q.y1_dc.q, q.y1_ac.q, q.y2_dc.q, q.y2_ac.q, q.uv_dc.q,
+                     q.uv_ac.q])
+    rows = np.array(rows, np.int32)
+    t = lambda a, dt=np.uint8: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(np.clip(a, 0, 255) if dt == np.uint8 else a)
+        .astype(dt)).to(cuda)
+    return (t(y), t(u), t(v),
+            t(rng.integers(0, 4, (B, mh, mw)), np.int32),
+            t(np.broadcast_to(rows, (B, 4, 6)), np.int32),
+            t(np.stack([_i4_config_seg(rows, 4, 0)[1]] * B), np.int32))
+
+
+@pytest.mark.parametrize("try_i4", [True, False])
+@pytest.mark.parametrize("derr", [False, True])
+@pytest.mark.parametrize("B,H,W", [
+    (3, 64, 96),
+    (2, 16, 80),        # one MB row
+    (2, 80, 16),        # one MB column
+    (1, 16, 16),
+    (40, 512, 32),      # 1,280 MB rows: more than the card holds blocks
+])
+def test_wavefront_search_kernel_matches_plain(cuda, try_i4, derr, B, H, W):
+    from gowebp_tpu_torch.ops.kernels.wavefront_search import (
+        search_tables, wavefront_search, wavefront_search_plain)
+
+    args = _search_case(cuda, 7 + H + W, B, H, W)
+    rate = search_tables(_tables(cuda))
+    want = wavefront_search_plain(*args, rate, try_i4=try_i4, use_derr=derr,
+                                  want_recon=True)
+    for recon in (True, False):
+        before = wavefront_search.launches
+        got = wavefront_search(*args, rate, try_i4=try_i4, use_derr=derr,
+                               want_recon=recon)
+        torch.cuda.synchronize()
+        assert wavefront_search.launches == before + 1
+        assert set(got) == set(want) if recon else set(got) < set(want)
+        for k in got:
+            assert torch.equal(got[k], want[k]), k
+    if try_i4 and B * H * W > 4096:
+        assert 0 < want["is_i4"].float().mean() < 1
+
+
+def test_wavefront_search_rejects_bad_tensors(cuda):
+    from gowebp_tpu_torch.ops.kernels.wavefront_search import (
+        search_tables, wavefront_search)
+
+    args = list(_search_case(cuda, 1, 2, 32, 48))
+    rate = search_tables(_tables(cuda))
+    before = wavefront_search.launches
+    for i, t, err in ((0, args[0].to(torch.int32), TypeError),      # y dtype
+                      (0, args[0].transpose(1, 2), ValueError),     # a view
+                      (3, args[3][:, :1], ValueError),              # seg shape
+                      (5, args[5][:, :3].contiguous(), ValueError),  # pens
+                      (5, args[5].cpu(), ValueError)):              # device
+        bad = list(args)
+        bad[i] = t
+        with pytest.raises(err):
+            wavefront_search(*bad, rate, try_i4=True, use_derr=True,
+                             want_recon=False)
+    with pytest.raises(ValueError):              # a table of the wrong shape
+        wavefront_search(*args, (rate[0][:2],) + rate[1:], try_i4=True,
+                         use_derr=True, want_recon=False)
+    with pytest.raises(ValueError):              # not MB multiples
+        wavefront_search(args[0][:, :24], *args[1:], rate, try_i4=True,
+                         use_derr=True, want_recon=False)
+    assert wavefront_search.launches == before
+
+
+def test_wavefront_engine_gpu_bytes_equal_cpu_bytes(cuda):
+    from gowebp_tpu_torch import encode_rgba_batch
+    from gowebp_tpu_torch.ops.kernels.wavefront_search import wavefront_search
+    from gowebp_tpu_torch.utils.corpus import natural_image
+
+    imgs = [natural_image(45, 61, seed=s) for s in (1, 2)]
+    for quality in (75.0, 99.0):
+        before = wavefront_search.launches
+        got = encode_rgba_batch(imgs, quality=quality, device="cuda",
+                                engine="wavefront")
+        assert wavefront_search.launches == before + 1
+        assert got == encode_rgba_batch(imgs, quality=quality, device="cpu",
+                                        engine="wavefront")
+
+
+def test_wavefront_engine_without_i4_runs_the_lean_kernel(cuda, monkeypatch):
+    """A config that turns the i4 search off (method 3) launches the
+    try_i4=False form of the full-search kernel, and no i4 kernel."""
+    from gowebp_tpu_torch.config import EncoderConfig
+    from gowebp_tpu_torch.ops.encode_pipeline import (
+        encode_rgba_batch_pipelined)
+    from gowebp_tpu_torch.ops.kernels import wavefront_search as wsm
+    from gowebp_tpu_torch.ops.kernels.i4_search import i4_search, i4_walk
+    from gowebp_tpu_torch.utils.corpus import natural_image
+
+    class Spy:
+        def __init__(self, lib):
+            self.lib, self.try_i4 = lib, []
+
+        def wavefront_search_launch(self, *a):
+            self.try_i4.append(a[25])          # the try_i4 argument
+            return self.lib.wavefront_search_launch(*a)
+
+    spy = Spy(wsm.LIBRARY.load())
+    monkeypatch.setattr(wsm.LIBRARY, "_lib", spy)
+    imgs = [natural_image(45, 61, seed=s) for s in (1, 2)]
+    cfg = EncoderConfig(lossless=False, method=3)
+    before = (i4_search.launches, i4_walk.launches)
+    got = encode_rgba_batch_pipelined(imgs, device="cuda", config=cfg,
+                                      engine="wavefront")
+    assert spy.try_i4 == [0]
+    assert (i4_search.launches, i4_walk.launches) == before
+    assert got == encode_rgba_batch_pipelined(imgs, device="cpu", config=cfg,
+                                              engine="wavefront")

@@ -256,11 +256,12 @@ def test_openloop_psnr_floor_of_chip_smoke():
 
 
 def test_engine_argument():
-    from gowebp_tpu_torch.errors import EncodeError, UnsupportedFeature
+    from gowebp_tpu_torch.errors import EncodeError
 
     im = np.zeros((32, 32, 3), np.uint8)
-    with pytest.raises(UnsupportedFeature, match="Queue 1 item 1"):
-        encode_rgba_batch([im], device="cpu", engine="wavefront")
+    # "wavefront" (the exact full search) is an engine like the others
+    assert (encode_rgba_batch([im], device="cpu", engine="wavefront")
+            == jax_pipe([im], quality=75.0, chunk=1, engine="wavefront"))
     with pytest.raises(ValueError, match="unknown engine"):
         encode_rgba_batch([im], device="cpu", engine="fast")
     with pytest.raises(EncodeError, match="shape"):

@@ -9,7 +9,11 @@
 - The persistent wavefront's schedule (rows claimed by ticket, row by row
   across the batch; MB (my, mx) after row my-1 has published
   min(mx + 2, mw) MBs) honours every dependency the plain version reads,
-  and finishes with any number of resident blocks.
+  and finishes with any number of resident blocks; the full-search kernel
+  keeps that schedule.
+- The full-search kernel's MB step: its i4 walk in diagonal order, and the
+  i4 levels recomputed after the walk from the final scratch, give the
+  plain full search's modes, recon and levels.
 """
 
 import re
@@ -265,3 +269,74 @@ def test_row_wait_schedule_is_valid(mw, mh):
                         del owner[blk]
             assert moved, "deadlock"
         assert progress == [mw] * rows
+
+
+def test_row_wait_rule_is_the_search_kernels():
+    """wavefront_search.cu keeps the fixed kernel's schedule."""
+    text = (KERNEL_DIR / "wavefront_search.cu").read_text()
+    assert re.search(r"need = min\(mx \+ 2, mw\)", text)
+    assert re.search(r"my = t / a\.B, b = t - my \* a\.B", text)
+    assert re.search(r"row = b \* mh \+ my", text)
+    assert re.search(r"ld_acquire\(a\.progress \+ row - 1\)", text)
+    assert re.search(r"st_release\(a\.progress \+ row, mx \+ 1\)", text)
+
+
+@pytest.mark.parametrize("quality,seed", [(75.0, 6), (99.0, 7), (30.0, 8)])
+def test_full_search_step_in_kernel_order(quality, seed):
+    """wavefront_search's MB step, in the kernel's order, from the context
+    the plain full search's recon gives each MB: the i4 walk in diagonal
+    order finds the plain search's B-modes and recon for every i4 MB, and
+    the levels, recomputed after the walk for all 16 sub-blocks at once
+    from the final scratch (the kernel's order), are the plain chain's."""
+    from gowebp_tpu_torch.ops.kernels.wavefront_search import (
+        search_tables, wavefront_search_plain)
+
+    tables = tuple(torch.from_numpy(t.astype(np.int32))
+                   for t in _default_cost_tables())
+    args = _fixed_i4_case(seed, quality)
+    y, u, v, seg, qs = args[:5]
+    B, H, W = y.shape
+    mh, mw = H // 16, W // 16
+    N = mh * mw
+    y = y.clone()
+    y[:, :16] = 128                             # i16 MBs in the top row
+    rows = qs[torch.arange(B)[:, None], seg.reshape(B, N).long()]  # (B,N,6)
+    pen = (rows[..., 1] ** 2 * 2).to(I32)       # per-MB lambdas < 2**19
+    pens = torch.stack([(qs[:, s, 1] ** 2 * 2).to(I32) for s in range(4)], 1)
+    out = wavefront_search_plain(y, u, v, seg, qs, pens,
+                                 search_tables(tables), try_i4=True,
+                                 use_derr=True, want_recon=True)
+    is4 = out["is_i4"].reshape(B, N).bool()
+    assert is4.any() and not is4.all()
+    recon = out["recon_y"].to(I32)
+    top16, tr4, left16, tl, _, _ = mb_context(recon, mh, mw, 16)
+    src = y.to(I32).reshape(B, mh, 16, mw, 16).permute(0, 1, 3, 2, 4)
+    src = src.reshape(B, N, 16, 16)
+    iq = (1 << 17) // rows
+    bmodes, _, rec = _diagonal_walk(src, top16, tr4, left16, tl, rows, iq,
+                                    pen, t3_tables(tables))
+    final = recon.reshape(B, mh, 16, mw, 16).permute(0, 1, 3, 2, 4).reshape(
+        B, N, 16, 16)
+    imodes = out["imodes"].reshape(B, N, 16).to(I32)
+    assert torch.equal(bmodes[is4], imodes[is4])
+    assert torch.equal(rec[is4].to(I32), final[is4])
+    # the levels of all 16 sub-blocks at once, from the final scratch
+    scr = torch.zeros((B, N, 17, 21), dtype=I32)
+    scr[:, :, 0, 0] = tl
+    scr[:, :, 0, 1:17] = top16
+    scr[:, :, 0, 17:21] = tr4
+    scr[:, :, 1:17, 0] = left16
+    scr[:, :, 1:17, 1:17] = final
+    levels = torch.zeros((B, N, 16, 16), dtype=I32)
+    for n in range(16):
+        r, c = 4 * (n >> 2), 4 * (n & 3)
+        tr = scr[:, :, 0, 17:21] if (n & 3) == 3 else scr[:, :, r, c + 5:c + 9]
+        preds = _pred_luma4_all(scr[:, :, r, c], scr[:, :, r, c + 1:c + 5], tr,
+                                scr[:, :, r + 1:r + 5, c])
+        pred = torch.gather(preds, 2, imodes[:, :, n, None, None, None]
+                            .long().expand(B, N, 1, 4, 4))[:, :, 0]
+        levels[:, :, n] = quantize(fdct4x4(src[:, :, r:r + 4, c:c + 4] - pred),
+                                   iq[..., 0], BIAS["y1_dc"], iq[..., 1],
+                                   BIAS["y1_ac"])
+    got = out["y_levels"].reshape(B, N, 16, 16).to(I32)
+    assert torch.equal(levels[is4], got[is4])

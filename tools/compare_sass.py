@@ -1,0 +1,98 @@
+#!/usr/bin/env python3
+"""Compare the SASS of the port's CUDA kernels built from two checkouts.
+
+    python3 tools/compare_sass.py OLD_CHECKOUT NEW_CHECKOUT [SOURCE ...]
+
+Builds each named ``gowebp_tpu_torch/ops/kernels`` source (default: every
+``*.cu`` both checkouts have) in each checkout with that checkout's own
+``cuda_build`` (nvcc, ``sm_90a``), disassembles both libraries with
+``cuobjdump -sass`` and compares them kernel by kernel, instruction by
+instruction (a kernel's name is taken without its anonymous namespace's
+per-build hash).  Identical SASS means identical work on the card, so a
+change that only moves device code between files can show it changed
+nothing.  Prints one line per kernel, the start of a diff of each kernel
+that differs, and exits 1 when any kernel differs or exists on one side
+only.  Needs nvcc and cuobjdump (the CUDA toolkit:
+$CUDA_HOME/bin, PATH or /usr/local/cuda/bin), not a card.
+"""
+
+from __future__ import annotations
+
+import difflib
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+KERNELS = Path("gowebp_tpu_torch/ops/kernels")
+DIFF_LINES = 60  # diff lines printed per kernel that differs
+
+
+def cuobjdump() -> str:
+    found = shutil.which("cuobjdump")
+    return found or "/usr/local/cuda/bin/cuobjdump"
+
+
+def build(checkout: Path, sources) -> dict:
+    """Build ``sources`` in ``checkout``; returns {source: library path}."""
+    code = (
+        "import sys\n"
+        "sys.path.insert(0, '.')\n"
+        "from gowebp_tpu_torch.ops.kernels.cuda_build import (CudaLibrary,\n"
+        "                                                      build_all)\n"
+        "libs = [CudaLibrary(s, lambda lib: None) for s in sys.argv[1:]]\n"
+        "build_all(libs)\n"
+        "print('\\n'.join(str(lib._so_path()) for lib in libs))\n")
+    out = subprocess.run([sys.executable, "-c", code, *sources], cwd=checkout,
+                         capture_output=True, text=True, check=True).stdout
+    return dict(zip(sources, (checkout / p for p in out.split())))
+
+
+def sass(library: Path) -> dict:
+    """{kernel name without the per-build hash: [instructions]}."""
+    text = subprocess.run([cuobjdump(), "-sass", str(library)],
+                          capture_output=True, text=True, check=True).stdout
+    kernels, current = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            current = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "", m.group(1))
+            kernels[current] = []
+        elif current is not None and "/*" in line:
+            kernels[current].append(re.sub(r"/\*[0-9a-f]{4}\*/", "",
+                                           line).strip())
+    return kernels
+
+
+def main(argv) -> int:
+    if len(argv) < 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    old, new = (Path(a).resolve() for a in argv[:2])
+    sources = argv[2:] or sorted(
+        {p.name for p in (old / KERNELS).glob("*.cu")}
+        & {p.name for p in (new / KERNELS).glob("*.cu")})
+    libs_old, libs_new = build(old, sources), build(new, sources)
+    same_all = True
+    for source in sources:
+        a, b = sass(libs_old[source]), sass(libs_new[source])
+        for name in sorted(set(a) | set(b)):
+            same = a.get(name) == b.get(name)
+            same_all &= same
+            print(f"{source} {name}: {len(a.get(name, []))} / "
+                  f"{len(b.get(name, []))} SASS lines, "
+                  f"{'identical' if same else 'DIFFERENT'}")
+            if not same:
+                diff = list(difflib.unified_diff(
+                    a.get(name, []), b.get(name, []), "old", "new", n=2,
+                    lineterm=""))
+                print("\n".join(diff[:DIFF_LINES]))
+                if len(diff) > DIFF_LINES:
+                    print(f"... {len(diff) - DIFF_LINES} more diff lines")
+    print("all kernels identical" if same_all else "kernels differ")
+    return 0 if same_all else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
