@@ -29,8 +29,11 @@ Phases (any failure raises and exits non-zero; no result is printed):
      two quantizer sets, and B=2 at odd MB counts; wavefront_search (the
      exact engine) at B=16 1024x1024 on the phase-4 chunk's real planes,
      segments and penalties with diffusion and the i4 search on and off,
-     3 repeated runs, and on mixed planes (i16 and i4 MBs) at B=16
-     1024x1024 and odd MB grids (1x5, 5x1); timed alone on one image;
+     3 repeated runs, on mixed planes (i16 and i4 MBs) at B=16
+     1024x1024 and odd MB grids (1x5, 5x1), and on tie-heavy planes
+     (flat and gradient MBs, penalties 0 and 1); its ptxas registers,
+     stack and spills (none allowed) and resident blocks printed; timed
+     alone on one image;
   4. the encode path: 32 natural images of 1024x1024 through
      encode_rgba_batch(device="cuda") in two chunks of 16, with the
      kernels' launch counters reset just before and read just after
@@ -494,14 +497,32 @@ def check_i4_walk(dev, inputs):
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def mixed_search_args(dev, rng, B, H, W):
-    """wavefront_search's inputs on planes whose MBs are noisy, flat or a
-    gentle gradient (so both i16 and i4 win; the corpus images adopt i4
-    nearly everywhere), 4 segments of q75 quantizers and their penalties."""
+def search_args(dev, rng, y, u, v, pens=()):
+    """wavefront_search's inputs for the planes y, u, v: random segments
+    of 4 q75 quantizer rows and their penalties, the first ones replaced
+    by ``pens``."""
     import numpy as np
     import torch
 
     from gowebp_tpu_torch.models.vp8.encoder import _i4_config_seg
+
+    B, H, W = y.shape
+    rows = quant_rows([-6, -2, 3, 8])
+    pen = _i4_config_seg(rows, 4, 0)[1].astype(np.int32)
+    pen[:len(pens)] = pens
+    arrays = [np.clip(a, 0, 255).astype(np.uint8) for a in (y, u, v)]
+    arrays += [rng.integers(0, 4, (B, H // 16, W // 16)).astype(np.int32),
+               np.broadcast_to(rows, (B, 4, 6)).astype(np.int32),
+               np.broadcast_to(pen, (B, 4)).astype(np.int32)]
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                 for a in arrays)
+
+
+def mixed_search_args(dev, rng, B, H, W):
+    """search_args on planes whose MBs are noisy, flat or a gentle
+    gradient (so both i16 and i4 win; the corpus images adopt i4 nearly
+    everywhere)."""
+    import numpy as np
 
     mh, mw = H // 16, W // 16
     yy, xx = np.mgrid[0:H, 0:W]
@@ -510,13 +531,50 @@ def mixed_search_args(dev, rng, B, H, W):
         kind == 1, 128, 60 + 100 * xx / W + 50 * yy / H))
     u = rng.integers(100, 156, (B, H // 2, W // 2))
     v = 128 + rng.integers(-3, 4, (B, H // 2, W // 2))
-    rows = quant_rows([-6, -2, 3, 8])
-    arrays = [np.clip(a, 0, 255).astype(np.uint8) for a in (y, u, v)]
-    arrays += [rng.integers(0, 4, (B, mh, mw)).astype(np.int32),
-               np.broadcast_to(rows, (B, 4, 6)).astype(np.int32),
-               np.stack([_i4_config_seg(rows, 4, 0)[1]] * B).astype(np.int32)]
-    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                 for a in arrays)
+    return search_args(dev, rng, y, u, v)
+
+
+def tie_search_args(dev, rng, B, H, W):
+    """search_args on tie-heavy planes: flat MBs (one value each) and MBs
+    of gentle horizontal, vertical or diagonal gradients, where several
+    B-modes predict alike, with penalties of 0 and 1 on two of the 4
+    segments, where equal SSEs make equal scores (ties between B-modes,
+    and between s4 and s16)."""
+    import numpy as np
+
+    mh, mw = H // 16, W // 16
+    yy, xx = np.mgrid[0:H, 0:W] % 16
+    kind = rng.integers(0, 4, (B, mh, mw)).repeat(16, 1).repeat(16, 2)
+    level = rng.integers(16, 240, (B, mh, mw)).repeat(16, 1).repeat(16, 2)
+    y = level + np.select([kind == 1, kind == 2, kind == 3],
+                          [xx // 4, yy // 4, (xx + yy) // 8], 0)
+    u = np.full((B, H // 2, W // 2), 128)
+    v = rng.integers(120, 124, (B, mh, mw)).repeat(8, 1).repeat(8, 2)
+    return search_args(dev, rng, y, u, v, pens=(0, 1))
+
+
+def ptxas_report(log: str, kernel: str):
+    """[(function, registers, stack bytes, spill store bytes, spill load
+    bytes)] of the functions whose name holds ``kernel``, from nvcc's
+    -Xptxas -v output."""
+    import re
+
+    rows, name, props = [], None, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            props = tuple(int(g) for g in m.groups())
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name and props and kernel in name:
+            rows.append((name, int(m.group(1))) + props)
+            name = props = None
+    return rows
 
 
 def check_wavefront_search(dev, inputs):
@@ -524,15 +582,35 @@ def check_wavefront_search(dev, inputs):
     output and the recon: B=16 at 1024x1024 on one chunk's real planes,
     segments and penalties, with diffusion and the i4 search on and off;
     the same shape on mixed planes (i16 and i4 MBs); odd MB grids (1x5,
-    5x1); 3 repeated runs.  Timed at the main setting (q75: diffusion on,
-    i4 on) beside the plain version."""
+    5x1); tie-heavy planes (flat and gradient MBs, penalties 0 and 1);
+    3 repeated runs.  Prints the kernel's ptxas registers, stack and
+    spills (none allowed) and its resident blocks.  Timed at the main
+    setting (q75: diffusion on, i4 on) beside the plain version."""
     import numpy as np
     import torch
 
     from gowebp_tpu_torch.ops.kernels.i4_search import i4_search_plain
     from gowebp_tpu_torch.ops.kernels.wavefront_fixed import wavefront_plain
     from gowebp_tpu_torch.ops.kernels.wavefront_search import (
-        SearchModes, search_tables, wavefront_search, wavefront_search_plain)
+        LIBRARY, SearchModes, occupancy, search_tables, wavefront_search,
+        wavefront_search_plain)
+
+    report = ptxas_report(LIBRARY.ptxas_log, "wavefront_search_kernel")
+    if not report:
+        log("wavefront_search ptxas: no report (the library was not built "
+            "by this process)")
+    for name, regs, stack, st, ld in report:
+        form = "try_i4" if "ILb1E" in name else "try_i4=False"
+        log(f"wavefront_search ptxas ({form}): {regs} registers, {stack} "
+            f"bytes stack frame, {st} bytes spill stores, {ld} bytes spill "
+            f"loads")
+        if stack or st or ld:
+            raise AssertionError(f"wavefront_search ({form}) uses a stack "
+                                 f"frame or spills")
+    for try_i4 in (True, False):
+        sms, per_sm = occupancy(try_i4)
+        log(f"wavefront_search resident blocks (try_i4={try_i4}): {sms} SMs "
+            f"x {per_sm} = {sms * per_sm} blocks of 96 threads")
 
     rate = search_tables(inputs["tables"])
     args = tuple(inputs[k].contiguous()
@@ -572,6 +650,11 @@ def check_wavefront_search(dev, inputs):
         for try_i4, derr in ((True, True), (True, False), (False, True)):
             err = max(err, compare(margs, try_i4, derr,
                                    f"mixed B={b_} {h_}x{w_}")[0])
+    for b_, h_, w_ in ((4, 512, 512), (2, 48, 80)):
+        targs = tie_search_args(dev, rng, b_, h_, w_)
+        for derr in (True, False):
+            err = max(err, compare(targs, True, derr,
+                                   f"tie-heavy B={b_} {h_}x{w_}")[0])
     ms = time_ms(lambda: wavefront_search(*args, rate, try_i4=True,
                                           use_derr=True, want_recon=True),
                  reps=5)

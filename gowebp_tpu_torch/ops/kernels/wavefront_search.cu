@@ -7,11 +7,11 @@
 // MBs coded before it, then the MB is coded with them.
 //
 // Bound on the card: by the roofline, integer operations (the i4 walk's
-// 10 candidates x 16 sub-blocks of every MB, ~0.45 ms at B=16,
+// 10 candidates x 16 sub-blocks of every MB, ~0.55 ms at B=16,
 // 1024x1024).  Unreachable: as in wavefront_fixed.cu, an image is a chain
 // of (mw - 1) + 2*(mh - 1) + 1 dependent MB steps (190 at 64x64 MBs), and
-// each step now carries a whole i4 walk: 10 dependent diagonal steps of
-// one candidate score each.  The design keeps wavefront_fixed.cu's
+// each step carries a whole i4 walk: 10 dependent diagonal steps of 10 or
+// 20 candidate scores each.  The design keeps wavefront_fixed.cu's
 // persistent schedule and adds the search to each MB step:
 //
 // - One launch, 96-thread blocks claiming MB rows by atomic ticket (row by
@@ -28,21 +28,41 @@
 //   stays in registers (4 pixels a lane).
 // - try_i4 (a template parameter: false compiles to no rate tables and no
 //   i4 work):
-//   - warp 2 computes the i16 rate with a lane per block (lanes 0-15 the
-//     AC blocks, type 0 from position 1; lane 16 the Y2 block, type 1;
-//     every block with ctx0 = 1) from the levels in shared memory, and
-//     s16 = d16 + (pen * rate16) >> 16, d16 the SSE of the source against
-//     the i16 recon;
-//   - meanwhile warp 0 runs the i4 walk in sub-block diagonal order d =
-//     2*gy + gx: 10 steps of up to 2 sub-blocks, each scored by
-//     i4_score.cuh's search_group, one lane per B-mode (10 lanes a
-//     sub-block); the winner's recon goes into the MB's (17, 21) scratch
-//     border, the next steps' context;
+//   - warp 2 first computes the i16 rate by position (i4_lanes.cuh
+//     rate_zigzag: segment h charges AC blocks 8h .. 8h + 7, type 0 from
+//     position 1, segment 0 also the Y2 block, type 1; every block with
+//     ctx0 = 1) from the levels in shared memory, and s16 = d16 + (pen *
+//     rate16) >> 16, d16 the SSE of the source against the i16 recon.  It
+//     runs while warp 0 walks the first two diagonals, which hold one
+//     sub-block each;
+//   - the i4 walk goes in sub-block diagonal order d = 2*gy + gx: 10
+//     steps of 1 or 2 sub-blocks.  Each candidate (a B-mode on a
+//     sub-block) is scored lane-parallel on a 16-lane segment, one lane
+//     per pixel or coefficient (i4_lanes.cuh score_lanes): the
+//     prediction from a per-(mode, pixel) table of scratch offsets, the
+//     FDCT, quantization, dequantization and IDCT by shuffle, the token
+//     rate by position (lane n charges zigzag position n; a ballot gives
+//     the last non-zero), the recon and the SSE by segment reduction.  A
+//     warp takes one sub-block whole: segment h scores B-modes 5h .. 5h +
+//     4 together, so their shuffles go out back to back; warp 0 takes the
+//     diagonal's first sub-block, warp 2 the second where there is one.
+//     The first minimum of (cost, mode) is the least key cost << 4 |
+//     mode: the segment's, then one shuffle against the other segment's.
+//     The winning segment writes its recon into the MB's (17, 21) scratch
+//     (the next steps' context), its levels and its mode.  A barrier of
+//     the two luma warps orders the diagonals from the first that holds
+//     two sub-blocks on;
 //   - adopt i4 when s4 < s16 (strict: an equal score keeps i16).  An
-//     adopted MB's levels are recomputed for all 16 sub-blocks at once from
-//     the final scratch (each sub-block's context is final by then) and
-//     its Y2 levels are zero; otherwise the i16 recon goes into the
-//     scratch.
+//     adopted MB writes out the walk's levels and no Y2; otherwise the i16
+//     recon goes into the scratch.
+//   The trade-off taken: longer rounds (5 candidates a segment, a
+//   sub-block a warp) on the two luma warps of a 96-thread block, not more
+//   warps.  At B=16 an SM holds 4 blocks (the shared memory's limit),
+//   which share its issue slots: spreading a sub-block over more warps
+//   cuts the chain of one image but adds leftover slots, a cross-warp
+//   argmin and its barrier to every step, and in a trial on an H100 it
+//   ran B=16 about twice as long as this layout.  4 resident blocks an SM
+//   also keep the 16 wavefronts of up to 32 rows each in flight.
 //   The three per-position rate tables (types 0, 1 and 3, 13,824 bytes
 //   each) are staged once per resident block in dynamic shared memory
 //   (41,472 bytes: the launcher raises the kernel's dynamic limit and
@@ -56,6 +76,7 @@
 
 #include <cstdint>
 
+#include "i4_lanes.cuh"
 #include "i4_score.cuh"
 #include "vp8_dsp.cuh"
 #include "wavefront_mb.cuh"
@@ -69,7 +90,8 @@ using vp8::store_row16;
 using vp8::store_row8;
 
 // warp 0: luma (half the i16 blocks, the i4 walk), warp 1: chroma and its
-// mode, warp 2: the other i16 blocks, the i16 rate and the hand-over
+// mode, warp 2: the other i16 blocks, the i16 rate, its share of the walk
+// and the hand-over
 constexpr int kThreads = 96;
 constexpr int kTableBytes = 3 * (int)sizeof(vp8::Tables);  // types 0, 1, 3
 
@@ -129,12 +151,14 @@ __global__ void __launch_bounds__(kThreads, 4) wavefront_search_kernel(Args a) {
   __shared__ __align__(16) uint8_t ss[256], scs[2][64];  // the MB's source pixels
   __shared__ int s_dc[16], s_im[16];  // the i16 DCs, the walk's B-modes
   __shared__ int s_q[24], s_iq[24], s_pen[4];  // the image's per-segment rows
-  __shared__ unsigned s_ptab[160];  // pred_entry(m, k) at 16 * m + k
+  __shared__ int4 s_pent[160];  // pred_lane_entry(m, k) at 16 * m + k
   __shared__ int s_sse[2][4], s_d16[2];  // per luma warp: i16 mode SSEs, d16
-  __shared__ int s_s16, s_s4, s_is4, s_ymode, s_uvmode, s_seg, s_row;
+  __shared__ int s_s16, s_s4[2], s_is4, s_ymode, s_uvmode, s_seg, s_row;
   // the MB's levels (luma 0-255, chroma 256-383, Y2 384-399), written out
-  // after the hand-over
+  // after the hand-over; the walk's winners' levels apart (an MB that
+  // keeps i16 writes out the luma levels of s_lv)
   __shared__ __align__(16) int16_t s_lv[400];
+  __shared__ __align__(16) int16_t s_l4[256];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int k = lane & 15, half = lane >> 4;
@@ -142,7 +166,7 @@ __global__ void __launch_bounds__(kThreads, 4) wavefront_search_kernel(Args a) {
   const int mh = a.mh, mw = a.mw;
   const int W = 16 * mw, H = 16 * mh, Wc = 8 * mw, Hc = 8 * mh;
   if constexpr (kI4) {
-    for (int i = tid; i < 160; i += kThreads) s_ptab[i] = vp8::pred_entry(i >> 4, i & 15);
+    for (int i = tid; i < 160; i += kThreads) s_pent[i] = vp8::pred_lane_entry(i >> 4, i & 15);
     vp8::Tables* tw = reinterpret_cast<vp8::Tables*>(s_tables);
     for (int i = 0; i < 3; i++)
       vp8::stage_tables(tw[i], a.p0 + 96 * i, a.p1 + 96 * i, a.val + vp8::kVal * i);
@@ -319,74 +343,63 @@ __global__ void __launch_bounds__(kThreads, 4) wavefront_search_kernel(Args a) {
           const vp8::Tables* T = reinterpret_cast<const vp8::Tables*>(s_tables);
           vp8::named_barrier_luma();  // the i16 and Y2 levels and both d16 halves are in shared
           if (warp == 2) {
-            // rate16: lanes 0-15 the AC blocks (type 0 from position 1),
-            // lane 16 the Y2 block (type 1); ctx0 = 1 for every block
-            int r = 0;
-            if (lane < 16)
-              r = vp8::rate_walk<1>(s_lv + 16 * lane, T[0]);
-            else if (lane == 16)
-              r = vp8::rate_walk<0>(s_lv + 384, T[1]);
-            r = warp_sum(r);
+            // ---- the i16 rate by position: segment h charges AC blocks
+            // 8h .. 8h + 7 (type 0 from position 1), segment 0 also the Y2
+            // block (type 1); ctx0 = 1 for every block ----
+            int ac[8], y2[1];
+            vp8::rate_zigzag<8, 1>(s_lv + 128 * half, k, T[0], ac);
+            vp8::rate_zigzag<1, 0>(s_lv + 384, k, T[1], y2);
+            int r = half == 0 ? y2[0] : 0;
+#pragma unroll
+            for (int b = 0; b < 8; b++) r += ac[b];
+            r += __shfl_xor_sync(vp8::kFullMask, r, 16);
             if (lane == 0) s_s16 = s_d16[0] + s_d16[1] + vp8::mul_shr16(pen, r);
-          } else {
-            // ---- the i4 walk: group g of 10 lanes scores the 10 B-modes of
-            // one sub-block of diagonal d (group 2, and group 1 on a
-            // diagonal of one sub-block, mirror group 0 and store nothing) ----
-            const int g = min(lane / vp8::kGroup, 2), bm_lane = min(lane - vp8::kGroup * g, 9);
-            const vp8::Quant qv{iq0, iq1, q0, q1, pen};
-            int s4 = 0;
-            for (int dg = 0; dg < 10; dg++) {
-              const bool two = dg >= 2 && dg <= 7;  // diagonals holding 2 sub-blocks
-              const bool own = g == 0 || (g == 1 && two);
-              const int gy = (dg < 3 ? 0 : (dg - 2) >> 1) + (g == 1 && two ? 1 : 0);
-              const int gx = dg - 2 * gy;
-              const int r = 4 * gy, c = 4 * gx;
-              int top[4], tr[4], left[4];
-#pragma unroll
-              for (int i = 0; i < 4; i++) {
-                top[i] = sy[r * kSW + c + 1 + i];
-                tr[i] = gx == 3 ? sy[17 + i] : sy[r * kSW + c + 5 + i];
-                left[i] = sy[(r + 1 + i) * kSW + c];
-              }
-              int brec[16], bc;
-              const int bm = vp8::search_group<false>(bm_lane, vp8::kGroup * g, sy[r * kSW + c],
-                                                      top, tr, left, ss + r * 16 + c, 16, qv,
-                                                      T[2], 0, brec, &bc);
-              const int bc1 = __shfl_sync(vp8::kFullMask, bc, vp8::kGroup);
-              s4 += bc + (two ? bc1 : 0);
-              __syncwarp();  // every lane has read this step's context
-              if (own && bm_lane == bm) {
-                int* out = sy + (r + 1) * kSW + c + 1;
-#pragma unroll
-                for (int i = 0; i < 16; i++) out[(i >> 2) * kSW + (i & 3)] = brec[i];
-                s_im[4 * gy + gx] = bm;
-              }
-              __syncwarp();
-            }
-            if (lane == 0) s_s4 = s4;
           }
-          vp8::named_barrier_luma();  // s16, s4, the walk's modes and scratch are in shared
-          is4 = s_s4 < s_s16;
+          // ---- the i4 walk, in sub-block diagonal order d = 2*gy + gx:
+          // warp 0 takes sub-block (gy0, d - 2*gy0) of each diagonal, warp
+          // 2 (after the i16 rate) sub-block (gy0 + 1, d - 2*gy0 - 2) of
+          // the diagonals that hold two; segment `half` scores B-modes
+          // 5*half .. 5*half + 4 together ----
+          const vp8::Quant qv{iq0, iq1, q0, q1, pen};
+          int s4 = 0;
+          for (int dg = 0; dg < 10; dg++) {
+            const bool two = dg >= 2 && dg <= 7;  // diagonals holding 2 sub-blocks
+            // the steps before see the recon they read: both warps' from
+            // diagonal 2 on, warp 0's own before
+            if (dg >= 2 && dg <= 8)
+              vp8::named_barrier_luma();
+            else
+              __syncwarp();
+            if (warp == 2 && !two) continue;
+            const int gy = (dg < 3 ? 0 : (dg - 2) >> 1) + (warp >> 1), gx = dg - 2 * gy;
+            const int r = 4 * gy, c = 4 * gx, n = 4 * gy + gx;
+            int key[5], crec[5], clv[5];
+            vp8::score_lanes<5>(s_pent, 5 * half, k, sy, r * kSW + c, ss[(r + kr) * 16 + c + kc],
+                                qv, T[2], key, crec, clv);
+            // the first minimum of (cost, mode) is the least key: the
+            // segment's, then the sub-block's over both segments
+            const int ks = min(min(min(key[0], key[1]), min(key[2], key[3])), key[4]);
+            const int best = min(ks, __shfl_xor_sync(vp8::kFullMask, ks, 16));
+            if (ks == best) {  // this segment holds the winner
+              int pix = crec[0], lvl = clv[0];
+#pragma unroll
+              for (int j = 1; j < 5; j++)
+                if (key[j] == best) {
+                  pix = crec[j];
+                  lvl = clv[j];
+                }
+              sy[(r + 1 + kr) * kSW + c + 1 + kc] = pix;
+              s_l4[16 * n + vp8::inv_zigzag(k)] = (int16_t)lvl;
+              if (k == 0) s_im[n] = best & 15;
+            }
+            s4 += best >> 4;
+          }
+          if (lane == 0) s_s4[warp >> 1] = s4;
+          vp8::named_barrier_luma();  // s16, s4, the walk's modes, levels and scratch are in shared
+          is4 = s_s4[0] + s_s4[1] < s_s16;
         }
         if (is4) {
-          // the winners' levels, all 16 sub-blocks at once: each one's
-          // context in the scratch is final
-          int z[4];
-#pragma unroll
-          for (int rnd = 0; rnd < 4; rnd++) {
-            const int blk = blk0 + 2 * rnd + half;
-            const int gy = blk >> 2, gx = blk & 3;
-            const int p = vp8::pred_b4_lane(s_ptab[16 * s_im[blk] + k], sy, 4 * gy * kSW + 4 * gx);
-            z[rnd] = ss[(4 * gy + kr) * 16 + 4 * gx + kc] - p;
-          }
-          vp8::fdct_lanes<4>(z, k);
-#pragma unroll
-          for (int rnd = 0; rnd < 4; rnd++) {
-            const int blk = blk0 + 2 * rnd + half;
-            s_lv[blk * 16 + vp8::inv_zigzag(k)] = (int16_t)vp8::quant_lane(
-                z[rnd], k, iq0, iq1, vp8::kBiasY1Dc, vp8::kBiasY1Ac, false);
-          }
-          if (warp == 0 && half == 0) s_lv[384 + k] = 0;  // no Y2
+          if (warp == 0 && half == 0) s_lv[384 + k] = 0;  // no Y2; the levels are in s_l4
         } else {
 #pragma unroll
           for (int rnd = 0; rnd < 4; rnd++) {
@@ -479,7 +492,8 @@ __global__ void __launch_bounds__(kThreads, 4) wavefront_search_kernel(Args a) {
       }
       const uint4* lv4 = reinterpret_cast<const uint4*>(s_lv);
       if (tid >= 64)
-        reinterpret_cast<uint4*>(a.ylv + mb * 256)[tid - 64] = lv4[tid - 64];
+        reinterpret_cast<uint4*>(a.ylv + mb * 256)[tid - 64] =
+            reinterpret_cast<const uint4*>(kI4 && s_is4 ? s_l4 : s_lv)[tid - 64];
       else if (tid >= 32 && tid < 48)
         reinterpret_cast<uint4*>(a.uvlv + mb * 128)[tid - 32] = lv4[tid];
       else if (tid >= 48 && tid < 50)
@@ -504,27 +518,42 @@ __global__ void __launch_bounds__(kThreads, 4) wavefront_search_kernel(Args a) {
   }
 }
 
+// The card's SMs and the blocks an SM holds at once at the launch's
+// shared memory and thread count (cached): every block of the ticket grid
+// must be resident, or a row could wait on a block that never runs.
 template <bool kI4>
-int launch(const Args& a, cudaStream_t stream) {
-  const int smem = kI4 ? kTableBytes : 0;
-  static int resident = 0;  // blocks the card holds at once, at this smem
-  if (resident == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
+cudaError_t occupancy(int* sms_out, int* per_sm_out) {
+  static int sms = 0, per_sm = 0;
+  if (sms == 0) {
+    const int smem = kI4 ? kTableBytes : 0;
+    int dev = 0, n = 0, p = 0;
     cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
     // raise the dynamic limit first: the occupancy, and so the ticket
     // grid, must be that of the launch's shared memory
     cudaFuncSetAttribute(wavefront_search_kernel<kI4>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, wavefront_search_kernel<kI4>,
-                                                  kThreads, smem);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&p, wavefront_search_kernel<kI4>, kThreads,
+                                                  smem);
     const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    resident = sms * per_sm > 0 ? sms * per_sm : 1;
+    if (err != cudaSuccess) return err;
+    sms = n;
+    per_sm = p;
   }
+  *sms_out = sms;
+  *per_sm_out = per_sm;
+  return cudaSuccess;
+}
+
+template <bool kI4>
+int launch(const Args& a, cudaStream_t stream) {
+  int sms = 0, per_sm = 0;
+  const cudaError_t err = occupancy<kI4>(&sms, &per_sm);
+  if (err != cudaSuccess) return (int)err;
+  const int resident = sms * per_sm > 0 ? sms * per_sm : 1;
   const int rows = a.B * a.mh;
   const int grid = rows < resident ? rows : resident;
-  wavefront_search_kernel<kI4><<<grid, kThreads, smem, stream>>>(a);
+  wavefront_search_kernel<kI4><<<grid, kThreads, kI4 ? kTableBytes : 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -547,4 +576,11 @@ extern "C" int wavefront_search_launch(
                is_i4, imodes, sync, sync + rows, B, mh, mw, use_derr};
   const cudaStream_t st = (cudaStream_t)stream;
   return try_i4 ? launch<true>(a, st) : launch<false>(a, st);
+}
+
+// The launch's residency: the card's SMs and the blocks an SM holds at
+// once (the ticket grid is their product, or the rows if fewer).  Returns
+// the CUDA error (0 = ok).
+extern "C" int wavefront_search_occupancy(int try_i4, int* sms, int* per_sm) {
+  return (int)(try_i4 ? occupancy<true>(sms, per_sm) : occupancy<false>(sms, per_sm));
 }

@@ -59,6 +59,9 @@ def _configure(lib) -> None:
     i = ctypes.c_int
     lib.wavefront_search_launch.restype = i
     lib.wavefront_search_launch.argtypes = [p] * 21 + [i] * 5 + [p]
+    lib.wavefront_search_occupancy.restype = i
+    lib.wavefront_search_occupancy.argtypes = [i] + [
+        ctypes.POINTER(ctypes.c_int)] * 2
 
 
 LIBRARY = CudaLibrary("wavefront_search.cu", _configure)
@@ -71,6 +74,19 @@ def search_tables(tables):
     rows = [position_tables(tables, t) for t in RATE_TYPES]
     return tuple(torch.stack([r[i] for r in rows]).contiguous()
                  for i in range(3))
+
+
+def occupancy(try_i4: bool = True):
+    """(SMs, blocks an SM holds at once) of the kernel's launch on the
+    current card: the ticket grid is their product, or the MB rows if
+    fewer.  Needs the card."""
+    lib = LIBRARY.load()
+    sms, per_sm = ctypes.c_int(0), ctypes.c_int(0)
+    err = lib.wavefront_search_occupancy(int(bool(try_i4)), ctypes.byref(sms),
+                                         ctypes.byref(per_sm))
+    if err != 0:
+        raise RuntimeError(f"wavefront_search occupancy: CUDA error {err}")
+    return sms.value, per_sm.value
 
 
 def _sse(a, b, dims):
@@ -201,5 +217,5 @@ def wavefront_search(y, u, v, seg, qsteps, pens, rate, *, try_i4: bool,
 
 wavefront_search.launches = 0
 
-__all__ = ["LIBRARY", "RATE_TYPES", "SearchModes", "search_tables",
-           "wavefront_search", "wavefront_search_plain"]
+__all__ = ["LIBRARY", "RATE_TYPES", "SearchModes", "occupancy",
+           "search_tables", "wavefront_search", "wavefront_search_plain"]

@@ -399,13 +399,35 @@ def test_openloop_encode_gpu_bytes_equal_cpu_bytes(cuda):
                                         engine="openloop")
 
 
-def _search_case(cuda, seed, B, H, W):
-    """Planes whose MBs are noisy, flat or a gentle gradient (both i16 and
-    i4 win), 4 segments with their quantizers and penalties."""
+def _search_tensors(cuda, rng, y, u, v, pens=()):
+    """wavefront_search's inputs for the planes y, u, v: random segments of
+    4 q75 quantizer rows and their penalties, the first ones replaced by
+    ``pens``."""
     from gowebp_tpu_torch.models.vp8.encoder import (_i4_config_seg,
                                                      make_quants,
                                                      quality_to_q)
 
+    B, H, W = y.shape
+    rows = []
+    for d in (-6, -2, 3, 8):
+        q = make_quants(quality_to_q(75.0) + d)
+        rows.append([q.y1_dc.q, q.y1_ac.q, q.y2_dc.q, q.y2_ac.q, q.uv_dc.q,
+                     q.uv_ac.q])
+    rows = np.array(rows, np.int32)
+    pen = _i4_config_seg(rows, 4, 0)[1].astype(np.int32)
+    pen[:len(pens)] = pens
+    t = lambda a, dt=np.uint8: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(np.clip(a, 0, 255) if dt == np.uint8 else a)
+        .astype(dt)).to(cuda)
+    return (t(y), t(u), t(v),
+            t(rng.integers(0, 4, (B, H // 16, W // 16)), np.int32),
+            t(np.broadcast_to(rows, (B, 4, 6)), np.int32),
+            t(np.broadcast_to(pen, (B, 4)), np.int32))
+
+
+def _search_case(cuda, seed, B, H, W):
+    """Planes whose MBs are noisy, flat or a gentle gradient (both i16 and
+    i4 win), 4 segments with their quantizers and penalties."""
     rng = np.random.default_rng(seed)
     mh, mw = H // 16, W // 16
     yy, xx = np.mgrid[0:H, 0:W]
@@ -414,19 +436,23 @@ def _search_case(cuda, seed, B, H, W):
         kind == 1, 128, 60 + 100 * xx / W + 50 * yy / H))
     u = rng.integers(100, 156, (B, H // 2, W // 2))
     v = 128 + rng.integers(-3, 4, (B, H // 2, W // 2))
-    rows = []
-    for d in (-6, -2, 3, 8):
-        q = make_quants(quality_to_q(75.0) + d)
-        rows.append([q.y1_dc.q, q.y1_ac.q, q.y2_dc.q, q.y2_ac.q, q.uv_dc.q,
-                     q.uv_ac.q])
-    rows = np.array(rows, np.int32)
-    t = lambda a, dt=np.uint8: torch.from_numpy(  # noqa: E731
-        np.ascontiguousarray(np.clip(a, 0, 255) if dt == np.uint8 else a)
-        .astype(dt)).to(cuda)
-    return (t(y), t(u), t(v),
-            t(rng.integers(0, 4, (B, mh, mw)), np.int32),
-            t(np.broadcast_to(rows, (B, 4, 6)), np.int32),
-            t(np.stack([_i4_config_seg(rows, 4, 0)[1]] * B), np.int32))
+    return _search_tensors(cuda, rng, y, u, v)
+
+
+def _tie_case(cuda, seed, B, H, W):
+    """Tie-heavy planes: flat MBs and MBs of gentle gradients, where
+    several B-modes predict alike, with penalties 0 and 1 on two of the 4
+    segments, where equal SSEs make equal scores."""
+    rng = np.random.default_rng(seed)
+    mh, mw = H // 16, W // 16
+    yy, xx = np.mgrid[0:H, 0:W] % 16
+    kind = rng.integers(0, 4, (B, mh, mw)).repeat(16, 1).repeat(16, 2)
+    level = rng.integers(16, 240, (B, mh, mw)).repeat(16, 1).repeat(16, 2)
+    y = level + np.select([kind == 1, kind == 2, kind == 3],
+                          [xx // 4, yy // 4, (xx + yy) // 8], 0)
+    u = np.full((B, H // 2, W // 2), 128)
+    v = rng.integers(120, 124, (B, mh, mw)).repeat(8, 1).repeat(8, 2)
+    return _search_tensors(cuda, rng, y, u, v, pens=(0, 1))
 
 
 @pytest.mark.parametrize("try_i4", [True, False])
@@ -457,6 +483,23 @@ def test_wavefront_search_kernel_matches_plain(cuda, try_i4, derr, B, H, W):
             assert torch.equal(got[k], want[k]), k
     if try_i4 and B * H * W > 4096:
         assert 0 < want["is_i4"].float().mean() < 1
+
+
+@pytest.mark.parametrize("derr", [False, True])
+@pytest.mark.parametrize("B,H,W", [(2, 48, 80), (3, 64, 96), (1, 16, 16)])
+def test_wavefront_search_kernel_matches_plain_on_ties(cuda, derr, B, H, W):
+    from gowebp_tpu_torch.ops.kernels.wavefront_search import (
+        search_tables, wavefront_search, wavefront_search_plain)
+
+    args = _tie_case(cuda, 11 + H + W, B, H, W)
+    rate = search_tables(_tables(cuda))
+    want = wavefront_search_plain(*args, rate, try_i4=True, use_derr=derr,
+                                  want_recon=True)
+    got = wavefront_search(*args, rate, try_i4=True, use_derr=derr,
+                           want_recon=True)
+    torch.cuda.synchronize()
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
 
 
 def test_wavefront_search_rejects_bad_tensors(cuda):

@@ -11,8 +11,8 @@
   min(mx + 2, mw) MBs) honours every dependency the plain version reads,
   and finishes with any number of resident blocks; the full-search kernel
   keeps that schedule.
-- The full-search kernel's MB step: its i4 walk in diagonal order, and the
-  i4 levels recomputed after the walk from the final scratch, give the
+- The full-search kernel's MB step: its i4 walk in diagonal order, with
+  each step's winner's levels taken from its own step's context, gives the
   plain full search's modes, recon and levels.
 """
 
@@ -93,8 +93,11 @@ def _walk_case(seed, quality, B=2, N=12):
     return (t(src), *(t(c) for c in ctx), t(qlane), t(iqlane), t(pens))
 
 
-def _diagonal_walk(src, top16, tr4, left16, tl, qlane, iqlane, pen, t3):
-    """The walk of i4_walk_plain, sub-blocks taken in the kernels' order."""
+def _diagonal_walk(src, top16, tr4, left16, tl, qlane, iqlane, pen, t3,
+                   want_levels=False):
+    """The walk of i4_walk_plain, sub-blocks taken in the kernels' order;
+    with ``want_levels`` also each step's winner's zigzag levels (B, N,
+    16, 16), from the context the step sees."""
     B, N = src.shape[:2]
     scr = torch.zeros((B, N, 17, 21), dtype=I32)
     scr[:, :, 0, 0] = tl
@@ -105,6 +108,7 @@ def _diagonal_walk(src, top16, tr4, left16, tl, qlane, iqlane, pen, t3):
                            qlane[..., 1], pen], dim=-1).reshape(B * N, 5)
     bmodes = torch.full((B, N, 16), -1, dtype=I32)
     s4 = torch.zeros((B, N), dtype=I32)
+    levels = torch.zeros((B, N, 16, 16), dtype=I32)
     for step in kernel_diagonals():
         for gy, gx in step:
             r, c = 4 * gy, 4 * gx
@@ -114,10 +118,20 @@ def _diagonal_walk(src, top16, tr4, left16, tl, qlane, iqlane, pen, t3):
             bmode, bcost, brec = i4_search_plain(
                 ctx13.reshape(B * N, 13),
                 src[:, :, r:r + 4, c:c + 4].reshape(B * N, 16), quants5, t3)
+            if want_levels:
+                preds = _pred_luma4_all(ctx13[..., 0], ctx13[..., 1:5],
+                                        ctx13[..., 5:9], ctx13[..., 9:13])
+                pred = torch.gather(preds, 2, bmode.reshape(B, N, 1, 1, 1)
+                                    .long().expand(B, N, 1, 4, 4))[:, :, 0]
+                levels[:, :, 4 * gy + gx] = quantize(
+                    fdct4x4(src[:, :, r:r + 4, c:c + 4] - pred),
+                    iqlane[..., 0], BIAS["y1_dc"], iqlane[..., 1],
+                    BIAS["y1_ac"])
             scr[:, :, r + 1:r + 5, c + 1:c + 5] = brec.reshape(B, N, 4, 4)
             bmodes[:, :, 4 * gy + gx] = bmode.reshape(B, N)
             s4 += bcost.reshape(B, N)
-    return bmodes, s4, scr[:, :, 1:17, 1:17].to(torch.uint8)
+    out = (bmodes, s4, scr[:, :, 1:17, 1:17].to(torch.uint8))
+    return out + (levels,) if want_levels else out
 
 
 @pytest.mark.parametrize("quality,seed", [(75.0, 1), (75.0, 2), (99.0, 3)])
@@ -286,8 +300,9 @@ def test_full_search_step_in_kernel_order(quality, seed):
     """wavefront_search's MB step, in the kernel's order, from the context
     the plain full search's recon gives each MB: the i4 walk in diagonal
     order finds the plain search's B-modes and recon for every i4 MB, and
-    the levels, recomputed after the walk for all 16 sub-blocks at once
-    from the final scratch (the kernel's order), are the plain chain's."""
+    the levels each step's winner writes, from the context that step
+    sees (the kernel's order: no pass after the walk), are the plain
+    chain's."""
     from gowebp_tpu_torch.ops.kernels.wavefront_search import (
         search_tables, wavefront_search_plain)
 
@@ -313,30 +328,14 @@ def test_full_search_step_in_kernel_order(quality, seed):
     src = y.to(I32).reshape(B, mh, 16, mw, 16).permute(0, 1, 3, 2, 4)
     src = src.reshape(B, N, 16, 16)
     iq = (1 << 17) // rows
-    bmodes, _, rec = _diagonal_walk(src, top16, tr4, left16, tl, rows, iq,
-                                    pen, t3_tables(tables))
+    bmodes, _, rec, levels = _diagonal_walk(src, top16, tr4, left16, tl, rows,
+                                            iq, pen, t3_tables(tables),
+                                            want_levels=True)
     final = recon.reshape(B, mh, 16, mw, 16).permute(0, 1, 3, 2, 4).reshape(
         B, N, 16, 16)
     imodes = out["imodes"].reshape(B, N, 16).to(I32)
     assert torch.equal(bmodes[is4], imodes[is4])
     assert torch.equal(rec[is4].to(I32), final[is4])
-    # the levels of all 16 sub-blocks at once, from the final scratch
-    scr = torch.zeros((B, N, 17, 21), dtype=I32)
-    scr[:, :, 0, 0] = tl
-    scr[:, :, 0, 1:17] = top16
-    scr[:, :, 0, 17:21] = tr4
-    scr[:, :, 1:17, 0] = left16
-    scr[:, :, 1:17, 1:17] = final
-    levels = torch.zeros((B, N, 16, 16), dtype=I32)
-    for n in range(16):
-        r, c = 4 * (n >> 2), 4 * (n & 3)
-        tr = scr[:, :, 0, 17:21] if (n & 3) == 3 else scr[:, :, r, c + 5:c + 9]
-        preds = _pred_luma4_all(scr[:, :, r, c], scr[:, :, r, c + 1:c + 5], tr,
-                                scr[:, :, r + 1:r + 5, c])
-        pred = torch.gather(preds, 2, imodes[:, :, n, None, None, None]
-                            .long().expand(B, N, 1, 4, 4))[:, :, 0]
-        levels[:, :, n] = quantize(fdct4x4(src[:, :, r:r + 4, c:c + 4] - pred),
-                                   iq[..., 0], BIAS["y1_dc"], iq[..., 1],
-                                   BIAS["y1_ac"])
     got = out["y_levels"].reshape(B, N, 16, 16).to(I32)
     assert torch.equal(levels[is4], got[is4])
+    assert (out["y2_levels"].reshape(B, N, 16)[is4] == 0).all()
