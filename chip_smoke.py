@@ -7,11 +7,17 @@ Phases (any failure raises and exits non-zero; no result is printed):
   1. the card's name and power limit (nvidia-smi), the int32 ceiling the
      bounds use (SMs x 64 int32 operations a clock x the max SM clock),
      torch and CUDA versions;
-  2. build the seven CUDA kernels from the five ops/kernels/*.cu sources
-     (one nvcc each, in parallel) and print the build time and ptxas
-     register report;
+  2. build the nine CUDA kernels from the five ops/kernels/*.cu sources
+     (one nvcc each, in parallel; encode_plane.cu gives the two plane
+     kernels and their two modes-only forms) and print the build time and
+     ptxas register report;
   3. hold each kernel against its plain torch version on the card, bit for
-     bit, at the main paths' full shapes, and time each with CUDA events:
+     bit, at the main paths' full shapes, and time each with CUDA events,
+     two ways: one call alone (ms, the wrapper's host time included) and
+     the device time of a launch (device_ms: calls queued behind a
+     sleeping stream, so the host's part of each call leaves the card no
+     idle gap); a device time under the kernel's bound fails (that bound
+     counts more work than the function needs):
      i4_search on the cold="dense" round's inputs for 16 of the corpus
      images (S = 16*65536 sub-blocks, context from the source planes),
      with topk None and 4; i4_walk at B=16 on the same images' refine
@@ -24,9 +30,12 @@ Phases (any failure raises and exits non-zero; no result is printed):
      holds blocks), and timed alone on one image (the dependency chain);
      yuv420_to_rgba at B=16 1024x1024 with and without an alpha plane, B=2
      at 1021x1023 in MB-padded planes, and B=32 at 1024x1024, the decode
-     path's shape; encode_luma and encode_chroma at B=16 1024x1024 random
-     planes in one wire buffer, as the open-loop path lays them out, with
-     two quantizer sets, and B=2 at odd MB counts; wavefront_search (the
+     path's shape; encode_luma and encode_chroma and their modes-only
+     forms at B=16 1024x1024 random planes in one wire buffer, as the
+     open-loop path lays them out, with two quantizer sets, at odd MB
+     counts, and on views 1-3 bytes past an aligned address with batch
+     strides that are no multiple of 4, with their ptxas registers, stack
+     and spills (none allowed) and resident warps; wavefront_search (the
      exact engine) at B=16 1024x1024 on the phase-4 chunk's real planes,
      segments and penalties with diffusion and the i4 search on and off,
      3 repeated runs, on mixed planes (i16 and i4 MBs) at B=16
@@ -37,7 +46,8 @@ Phases (any failure raises and exits non-zero; no result is printed):
   4. the encode path: 32 natural images of 1024x1024 through
      encode_rgba_batch(device="cuda") in two chunks of 16, with the
      kernels' launch counters reset just before and read just after
-     (i4_walk and wavefront_fixed must have launched); then
+     (i4_walk and wavefront_fixed must have launched, and the plane
+     kernels' modes-only forms once each a chunk: the cold round); then
      a second, timed run with the per-stage split from CUDA events, and
      the hybrid stages on one chunk of 16 with the host quiet (CUDA-event
      spans, median of 3);
@@ -47,7 +57,9 @@ Phases (any failure raises and exits non-zero; no result is printed):
      then the hybrid options, one chunk of 16 each: cold="dense",
      refine=2, i4_topk=4 and a config with method=3, each with the launch
      counters reset just before and read just after (i4_search must
-     launch on cold="dense", no i4 kernel at method=3) and its bytes held
+     launch on cold="dense" and no modes-only plane kernel there, which
+     every other option set launches once each; no i4 kernel at
+     method=3) and its bytes held
      to the CPU path's on 2 images; then depth=1 against depth=3 on the 32
      images in 4 chunks of 8, alternated twice, with MP/s and the host
      timings, and the synchronizing CUDA calls of one depth=3 run;
@@ -68,11 +80,14 @@ Phases (any failure raises and exits non-zero; no result is printed):
   8b. the exact engine: phase 4's 32 images through
      encode_rgba_batch(engine="wavefront", device="cuda"), with the
      launch counters reset just before and read just after
-     (wavefront_search must launch, no hybrid kernel may); a second, timed
+     (wavefront_search must launch, no hybrid or plane kernel may); a second, timed
      run with the stage split (wavefront, pack); GPU bytes == CPU bytes on
      2 images, 32 headers checked; all 32 files decoded on the card and by
      Pillow to the same pixels; PSNR and size against the hybrid's files;
-  9. the kernels' JSON line, the card line, and the final result line.
+  9. the kernels' JSON line (each kernel's launches on its own path, and
+     on every path driven in ``launches_by_path``; ``ms`` one call alone
+     and ``device_ms`` the device time of a launch, both from phase 3),
+     the card line, and the final result line.
 
 Needs a CUDA GPU, nvcc (CUDA_HOME, PATH or /usr/local/cuda) and g++.
 Imports nothing of JAX or of the gowebp_tpu package.
@@ -112,12 +127,30 @@ OPS_PRED_SSE, OPS_RANK = 48, 40
 # quarter of a 2x2 quad's 18 chroma loads and 8 upsample taps (~10 ops
 # each), ~26 for the BT.601 conversion and clips, the luma load and store.
 OPS_YUV_PIXEL = 50
-# encode_luma / encode_chroma (ops/kernels/encode_plane.cu), per pixel:
-# the four candidates' predictions (TM: add, subtract, two clamps) and
-# squared differences (3 each); the chosen prediction and the residual.
-# Per 4x4 block: OPS_FDCT + OPS_QUANT.  Per luma MB, the Y2 path: 16
-# coefficients of 16 signed adds each, and one 16-coefficient quantization.
-OPS_SEARCH_PX, OPS_RESIDUAL_PX = 16, 4
+# The i16/UV mode search of wavefront_search, per pixel: the four
+# candidates' predictions (TM: add, subtract, two clamps) and squared
+# differences (3 each), in scalar int32.
+OPS_SEARCH_PX = 16
+# encode_luma / encode_chroma (ops/kernels/encode_plane.cu) in the packed
+# formulation they run, each dp4a, multiply-add, 16-bit-pair op and byte
+# permute counted as one operation.  The search, per 4-pixel row: the TM
+# row (the left pixel times 0x10001, two pair adds, a max and a min of
+# 16-bit pairs on each pair, one pack: 8), 5 dp4a (s.s, s.1, s.tm,
+# tm.tm, s.top) and HE's 2 multiply-adds (left x row sum, left^2).  Per
+# 4x4 block: the TM offset pairs (256 - tl, its multiply, two unpacks,
+# two adds: 6), the DC context (a dp4a and 3 adds), the row sums (3),
+# the four SSEs (11) and the block's share of their sums over the MB
+# (4).  Per MB: dc_whole and the first minimum (12).  The modes-only
+# forms (encode_luma_modes, encode_chroma_modes: the hybrid's cold
+# round) do the search alone.  The code, per 4x4 block: the residual (an
+# unpack of the source and of the prediction byte and a subtract, a
+# pixel), the FDCT with each multiply fused into its add (OPS_FDCT less
+# its 32 multiplies) and OPS_QUANT;
+# per luma MB the Y2 path: 16 coefficients of 16 signed adds each, and
+# one 16-coefficient quantization.
+OPS_PLANE_SEARCH_BLOCK = 4 * (8 + 5 + 2) + 6 + 4 + 3 + 11 + 4
+OPS_PLANE_SEARCH_MB = 12
+OPS_PLANE_CODE_BLOCK = 16 * 3 + (OPS_FDCT - 32) + OPS_QUANT
 OPS_Y2 = 16 * 16 + OPS_QUANT
 
 # The open-loop decode's PSNR floor: 3 dB under the JAX package's
@@ -133,6 +166,8 @@ SOURCES = {
     "yuv420_to_rgba": "gowebp_tpu_torch/ops/kernels/yuv420_to_rgba.cu",
     "encode_luma": "gowebp_tpu_torch/ops/kernels/encode_plane.cu",
     "encode_chroma": "gowebp_tpu_torch/ops/kernels/encode_plane.cu",
+    "encode_luma_modes": "gowebp_tpu_torch/ops/kernels/encode_plane.cu",
+    "encode_chroma_modes": "gowebp_tpu_torch/ops/kernels/encode_plane.cu",
     "wavefront_search": "gowebp_tpu_torch/ops/kernels/wavefront_search.cu",
 }
 REPLACES = {
@@ -143,6 +178,12 @@ REPLACES = {
     "yuv420_to_rgba": "gowebp_tpu/ops/pallas/decode_post.py:162",
     "encode_luma": "gowebp_tpu/ops/pallas/encode_plane.py:322",
     "encode_chroma": "gowebp_tpu/ops/pallas/encode_plane.py:354",
+    "encode_luma_modes": ("gowebp_tpu/ops/pallas/encode_plane.py:322 (its "
+                          "modes; the hybrid's cold round ran them in XLA, "
+                          "gowebp_tpu/ops/encode_wavefront_jax.py:385)"),
+    "encode_chroma_modes": ("gowebp_tpu/ops/pallas/encode_plane.py:354 (its "
+                            "modes; the hybrid's cold round ran them in XLA, "
+                            "gowebp_tpu/ops/encode_wavefront_jax.py:385)"),
     "wavefront_search": ("gowebp_tpu/ops/encode_wavefront_jax.py:616 "
                          "_wavefront_impl (XLA, no pallas_call)"),
 }
@@ -191,6 +232,42 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def queued_ms(fn, reps: int = 50, rounds: int = 5):
+    """(device ms of one ``fn()`` launch, host ms to make one call).
+
+    The device time leaves out the host's part of each call: ``reps``
+    calls are enqueued while the stream sleeps (torch.cuda._sleep, longer
+    than the host takes to enqueue them), so they run back to back; CUDA
+    events around them give the mean, and the median of ``rounds`` such
+    means is returned (a round the host outlasted the sleep is redone
+    with a longer sleep)."""
+    import torch
+
+    mhz = int32_peak()[2]
+    for _ in range(3):
+        fn()
+    torch.cuda._sleep(1000)           # loads the sleep kernel
+    sleep_ms, means, hosts = 20.0, [], []
+    while len(means) < rounds:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda._sleep(int(sleep_ms * mhz * 1e3))
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        b.synchronize()
+        if host_ms > 0.8 * sleep_ms:
+            sleep_ms = 2 * host_ms
+            continue
+        means.append(a.elapsed_time(b) / reps)
+        hosts.append(host_ms / reps)
+    return statistics.median(means), statistics.median(hosts)
 
 
 def max_abs_err(a: dict, b: dict, keys) -> int:
@@ -304,7 +381,8 @@ def check_i4_search(dev, inputs):
         f"with topk None and 4; topk=4 {times[4]:.4f} ms (bound {bound4:.4f} "
         f"ms by {by4}), topk=None {times[None]:.4f} ms")
     return {"name": "i4_search", "max_abs_err": err, "ms": times[None],
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+            "fn": lambda: i4_search(*args, t3), "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def wavefront_args(dev, gen, B, H, W, i4_share=0.6):
@@ -413,6 +491,8 @@ def check_wavefront(dev, gen):
     ops = n_i4 * i4_mb + (n_mb - n_i4) * i16_mb + n_mb * uv_mb
     bound_ms, bound_by = bound(nbytes, ops)
     return {"name": "wavefront_fixed", "max_abs_err": err, "ms": ms,
+            "fn": lambda: wavefront_fixed(*args, use_derr=True,
+                                          want_recon=True),
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
@@ -494,6 +574,7 @@ def check_i4_walk(dev, inputs):
     bound4, by4 = bound(nbytes, ops[4])
     log(f"i4_walk topk=4: {times[4]:.3f} ms (bound {bound4:.4f} ms by {by4})")
     return {"name": "i4_walk", "max_abs_err": err, "ms": ms,
+            "fn": lambda: i4_walk(*args, t3),
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
@@ -710,6 +791,8 @@ def check_wavefront_search(dev, inputs):
     nbytes += sum(t.numel() * t.element_size() for t in main_want.values())
     bound_ms, bound_by = bound(nbytes, ops)
     return {"name": "wavefront_search", "max_abs_err": err, "ms": ms,
+            "fn": lambda: wavefront_search(*args, rate, try_i4=True,
+                                           use_derr=True, want_recon=True),
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
@@ -752,6 +835,7 @@ def check_yuv420(dev, gen):
     ops = B * H * W * OPS_YUV_PIXEL
     bound_ms, bound_by = bound(nbytes, ops)
     return {"name": "yuv420_to_rgba", "max_abs_err": err, "ms": ms,
+            "fn": lambda: yuv420_to_rgba(*args),
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
@@ -770,40 +854,77 @@ def plane_quants(quality: float):
 
 
 def check_encode_plane(dev, gen):
-    """Phase 3d: encode_luma and encode_chroma vs plain."""
+    """Phase 3e: encode_luma and encode_chroma, and their modes-only forms
+    (the hybrid's cold round), vs plain: B=16 1024x1024 views of one wire
+    buffer as the open-loop path lays them out, q75 and q99, odd MB
+    grids, and views 1-3 bytes past an aligned address with batch
+    strides that are no multiple of 4.  Prints each form's ptxas
+    registers, stack and spills (none allowed) and resident warps."""
     import torch
 
-    from gowebp_tpu_torch.ops.kernels.encode_plane import (
-        encode_chroma, encode_chroma_plain, encode_luma, encode_luma_plain)
+    from gowebp_tpu_torch.ops.kernels import encode_plane as ep
 
-    def planes(B, H, W):
-        """Views of one (B, 1.5*H*W) uint8 wire buffer, as the pipeline
-        uploads them."""
+    report = ptxas_report(ep.LIBRARY.ptxas_log, "encode_")
+    if not report:
+        log("encode_plane ptxas: no report (the library was not built by "
+            "this process)")
+    for name, regs, stack, st, ld in report:
+        form = ("encode_luma" if "luma" in name else "encode_chroma") + (
+            "" if "ILb1E" in name else "_modes")
+        log(f"{form} ptxas: {regs} registers, {stack} bytes stack frame, "
+            f"{st} bytes spill stores, {ld} bytes spill loads")
+        if stack or st or ld:
+            raise AssertionError(f"{form} uses a stack frame or spills")
+    for name in ep.KERNELS:
+        sms, per_sm = ep.occupancy(name)
+        log(f"{name} resident: {per_sm} blocks of 128 threads an SM = "
+            f"{per_sm * 4} warps of 64, {sms * per_sm * 4} warps on "
+            f"{sms} SMs")
+
+    def planes(B, H, W, offset=0, pad=0):
+        """Views of one uint8 wire buffer, as the pipeline uploads them:
+        each image's y|u|v at ``offset`` plus a multiple of the batch
+        stride 1.5*H*W + ``pad``."""
         ys, cs = H * W, (H // 2) * (W // 2)
-        buf = torch.randint(0, 256, (B, ys + 2 * cs), generator=gen,
+        stride = ys + 2 * cs + pad
+        buf = torch.randint(0, 256, (offset + B * stride,), generator=gen,
                             dtype=torch.uint8).to(dev)
-        return (buf[:, :ys].reshape(B, H, W),
-                buf[:, ys:ys + cs].reshape(B, H // 2, W // 2),
-                buf[:, ys + cs:].reshape(B, H // 2, W // 2))
+        return tuple(buf.as_strided((B, h, w), (stride, w, 1), offset + at)
+                     for at, h, w in ((0, H, W), (ys, H // 2, W // 2),
+                                      (ys + cs, H // 2, W // 2)))
 
-    err = {"encode_luma": 0, "encode_chroma": 0}
-    for B, H, W, quality in ((16, 1024, 1024, 75.0), (16, 1024, 1024, 99.0),
-                             (2, 48, 80, 75.0), (2, 80, 48, 40.0)):
-        y, u, v = planes(B, H, W)
+    def run(y, u, v, quality):
         lq, y2q, cq = plane_quants(quality)
-        for name, got, want in (
-                ("encode_luma", encode_luma(y, lq, y2q),
-                 encode_luma_plain(y, lq, y2q)),
-                ("encode_chroma", encode_chroma(u, v, cq),
-                 encode_chroma_plain(u, v, cq))):
+        return {
+            "encode_luma": (ep.encode_luma(y, lq, y2q),
+                            ep.encode_luma_plain(y, lq, y2q)),
+            "encode_chroma": (ep.encode_chroma(u, v, cq),
+                              ep.encode_chroma_plain(u, v, cq)),
+            "encode_luma_modes": ((ep.encode_luma_modes(y),),
+                                  (ep.encode_luma_modes_plain(y),)),
+            "encode_chroma_modes": ((ep.encode_chroma_modes(u, v),),
+                                    (ep.encode_chroma_modes_plain(u, v),)),
+        }
+
+    err = dict.fromkeys(ep.KERNELS, 0)
+    for B, H, W, quality, offset, pad in (
+            (16, 1024, 1024, 75.0, 0, 0), (16, 1024, 1024, 99.0, 0, 0),
+            (2, 48, 80, 75.0, 0, 0), (2, 80, 48, 40.0, 0, 0),
+            (3, 48, 272, 75.0, 1, 3), (3, 80, 48, 75.0, 2, 1),
+            (4, 64, 96, 99.0, 3, 2), (16, 1024, 1024, 75.0, 1, 1)):
+        y, u, v = planes(B, H, W, offset, pad)
+        for name, (got, want) in run(y, u, v, quality).items():
             torch.cuda.synchronize()
             keys = [str(i) for i in range(len(got))]
             e = max_abs_err(dict(zip(keys, got)), dict(zip(keys, want)), keys)
             err[name] = max(err[name], e)
             if not all(torch.equal(a, b) for a, b in zip(got, want)):
                 raise AssertionError(f"{name} kernel != plain at B={B} "
-                                     f"{H}x{W} q{quality} (max |err| {e})")
-        log(f"encode_luma, encode_chroma B={B} {H}x{W} q{quality}: bit-exact")
+                                     f"{H}x{W} q{quality} offset {offset} "
+                                     f"stride pad {pad} (max |err| {e})")
+        log(f"encode_luma, encode_chroma and modes-only forms B={B} {H}x{W} "
+            f"q{quality} view offset {offset} batch stride "
+            f"{y.stride(0)}: bit-exact")
 
     # timed at the open-loop path's shape and quantizers (B=16, q75)
     B, H, W = 16, 1024, 1024
@@ -811,19 +932,25 @@ def check_encode_plane(dev, gen):
     lq, y2q, cq = plane_quants(75.0)
     n_mb = B * (H // 16) * (W // 16)
     rows = []
-    for name, fn, plain, ins, px, blocks, y2 in (
-            ("encode_luma", lambda: encode_luma(y, lq, y2q),
-             lambda: encode_luma_plain(y, lq, y2q), (y,), 256, 16, 1),
-            ("encode_chroma", lambda: encode_chroma(u, v, cq),
-             lambda: encode_chroma_plain(u, v, cq), (u, v), 128, 8, 0)):
+    for name, fn, plain, ins, blocks, code, y2 in (
+            ("encode_luma", lambda: ep.encode_luma(y, lq, y2q),
+             lambda: ep.encode_luma_plain(y, lq, y2q), (y,), 16, 1, 1),
+            ("encode_chroma", lambda: ep.encode_chroma(u, v, cq),
+             lambda: ep.encode_chroma_plain(u, v, cq), (u, v), 8, 1, 0),
+            ("encode_luma_modes", lambda: (ep.encode_luma_modes(y),),
+             lambda: ep.encode_luma_modes_plain(y), (y,), 16, 0, 0),
+            ("encode_chroma_modes", lambda: (ep.encode_chroma_modes(u, v),),
+             lambda: ep.encode_chroma_modes_plain(u, v), (u, v), 8, 0, 0)):
         ms = time_ms(fn, reps=20, warmup=3)
         plain_ms = time_ms(plain, reps=3)
         nbytes = sum(t.numel() * t.element_size() for t in ins + fn())
-        ops = n_mb * (px * (OPS_SEARCH_PX + OPS_RESIDUAL_PX)
-                      + blocks * (OPS_FDCT + OPS_QUANT) + y2 * OPS_Y2)
+        # the modes-only forms: the search alone (code = y2 = 0)
+        ops = n_mb * (blocks * (OPS_PLANE_SEARCH_BLOCK
+                                + code * OPS_PLANE_CODE_BLOCK)
+                      + OPS_PLANE_SEARCH_MB + y2 * OPS_Y2)
         bound_ms, bound_by = bound(nbytes, ops)
         rows.append({"name": name, "max_abs_err": err[name], "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "fn": fn, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by})
     return rows
 
@@ -936,6 +1063,23 @@ def main() -> int:
     from gowebp_tpu_torch.ops.kernels.cuda_build import build_all
     from gowebp_tpu_torch.utils.corpus import natural_images
 
+    counters = {"i4_search": i4m.i4_search, "i4_walk": i4m.i4_walk,
+                "wavefront_fixed": wfm.wavefront_fixed,
+                "yuv420_to_rgba": yuvm.yuv420_to_rgba,
+                **{name: getattr(epm, name) for name in epm.KERNELS},
+                "wavefront_search": wsm.wavefront_search}
+    by_path = {}
+
+    def reset_counts():
+        for k in counters.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+
+    def read_counts(path):
+        """Every kernel's launches since reset_counts, kept as ``path``'s."""
+        by_path[path] = {n: k.launches for n, k in counters.items()}
+        return by_path[path]
+
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
     card = card_line()
@@ -971,28 +1115,48 @@ def main() -> int:
     rows += check_encode_plane(dev, gen)
     rows.append(check_wavefront_search(dev, chunk))
     for r in rows:
+        # ms: one call timed alone (time_ms: the wrapper's host time
+        # included); device_ms: the device time of a launch, calls queued
+        # so that the host's part of each does not idle the card
+        reps = max(5, min(50, int(20 / r["ms"])))
+        r["device_ms"], host_ms = queued_ms(r.pop("fn"), reps=reps)
+        log(f"kernel {r['name']}: {r['ms']:.4f} ms a call, "
+            f"{r['device_ms']:.4f} ms a launch on the device, the host "
+            f"makes a call in {host_ms:.4f} ms {tag}")
         log(f"kernel {r['name']}: bit-exact vs plain; {r['ms']:.3f} ms "
             f"(plain {r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
-            f"by {r['bound_by']}) {tag}")
+            f"by {r['bound_by']}, {r['bound_ms'] / r['device_ms']:.0%} of "
+            f"the device time) {tag}")
+        if r["device_ms"] < r["bound_ms"]:
+            raise AssertionError(
+                f"{r['name']}: {r['device_ms']:.4f} ms on the device, under "
+                f"its bound of {r['bound_ms']:.4f} ms by {r['bound_by']}: "
+                f"the bound counts more than the function needs")
 
     # ---- phase 4: the encode path ----
     mp = 32 * 1024 * 1024 / 1e6
-    i4m.i4_search.launches = 0
-    i4m.i4_walk.launches = 0
-    wfm.wavefront_fixed.launches = 0
-    torch.cuda.synchronize()
+    reset_counts()
     t0 = time.perf_counter()
     out = encode_rgba_batch(images, quality=75.0, device="cuda")
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = {"i4_search": i4m.i4_search.launches,
-                "i4_walk": i4m.i4_walk.launches,
-                "wavefront_fixed": wfm.wavefront_fixed.launches}
+    counts = read_counts("hybrid")
+    launches = {k: counts[k] for k in ("i4_search", "i4_walk",
+                                       "wavefront_fixed", "encode_luma_modes",
+                                       "encode_chroma_modes")}
     log(f"encode path launches: {launches} (the flat i4_search runs only "
-        f"on cold=\"dense\": the refine round runs i4_walk)")
-    for name in ("i4_walk", "wavefront_fixed"):
+        f"on cold=\"dense\": the refine round runs i4_walk; the cold round "
+        f"the plane kernels' modes-only forms)")
+    for name in ("i4_walk", "wavefront_fixed", "encode_luma_modes",
+                 "encode_chroma_modes"):
         if launches[name] == 0:
             raise AssertionError(f"encode path never launched {name}")
+    for name in ("encode_luma_modes", "encode_chroma_modes"):
+        if launches[name] != launches["wavefront_fixed"] // 2:
+            raise AssertionError(f"{name}: {launches[name]} launches, not "
+                                 f"one a chunk")
+    if counts["encode_luma"] + counts["encode_chroma"]:
+        raise AssertionError("the hybrid launched a full plane kernel")
     log(f"encode path first run: {mp / first_s:.3f} MP/s e2e "
         f"({first_s:.2f} s for 32 MP) {tag}")
     timings = {}
@@ -1036,27 +1200,30 @@ def main() -> int:
             lossless=False, quality=75.0, method=3)}))
     mp16 = 16 * 1024 * 1024 / 1e6
     for label, kw in variants:
-        i4m.i4_search.launches = 0
-        i4m.i4_walk.launches = 0
-        wfm.wavefront_fixed.launches = 0
-        torch.cuda.synchronize()
+        reset_counts()
         t0 = time.perf_counter()
         got = encode_rgba_batch_pipelined(images[:16], quality=75.0,
                                           threads=8, chunk=16, device="cuda",
                                           **kw)
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
-        counts = {"i4_search": i4m.i4_search.launches,
-                  "i4_walk": i4m.i4_walk.launches,
-                  "wavefront_fixed": wfm.wavefront_fixed.launches}
-        log(f"{label}: launches {counts}; {mp16 / run_s:.3f} MP/s "
+        counts = read_counts(label)
+        log(f"{label}: launches {({k: n for k, n in counts.items() if n})}; "
+            f"{mp16 / run_s:.3f} MP/s "
             f"({run_s:.2f} s for 16 MP, first run); "
             f"{sum(len(o) for o in got) * 8 / (16 * 1024 * 1024):.4f} bpp "
             f"{tag}")
+        modes = counts["encode_luma_modes"] + counts["encode_chroma_modes"]
         if label == "cold=dense":
             if counts["i4_search"] == 0:
                 raise AssertionError("cold=\"dense\" never launched i4_search")
+            if modes:
+                raise AssertionError("cold=\"dense\" launched a modes-only "
+                                     "plane kernel")
             launches["i4_search"] = counts["i4_search"]
+        elif modes != 2:
+            raise AssertionError(f"{label}: {modes} modes-only plane kernel "
+                                 f"launches in one chunk, not 2")
         if "method=3" in label and counts["i4_search"] + counts["i4_walk"]:
             raise AssertionError("an i4 kernel launched at method=3")
         if counts["wavefront_fixed"] == 0:
@@ -1105,13 +1272,12 @@ def main() -> int:
 
     # ---- phase 6: the decode path ----
     log(f"decode: symbol engine {symbol_engine()} on this host")
-    yuvm.yuv420_to_rgba.launches = 0
-    torch.cuda.synchronize()
+    reset_counts()
     t0 = time.perf_counter()
     rgba = decode_rgba_batch(out, device="cuda")
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches["yuv420_to_rgba"] = yuvm.yuv420_to_rgba.launches
+    launches["yuv420_to_rgba"] = read_counts("decode")["yuv420_to_rgba"]
     log(f"decode path launches: yuv420_to_rgba "
         f"{launches['yuv420_to_rgba']}")
     if launches["yuv420_to_rgba"] == 0:
@@ -1155,16 +1321,15 @@ def main() -> int:
         raise AssertionError(f"decoded image below 20 dB ({min(scores):.3f})")
 
     # ---- phase 8: the open-loop encode path ----
-    epm.encode_luma.launches = 0
-    epm.encode_chroma.launches = 0
-    torch.cuda.synchronize()
+    reset_counts()
     t0 = time.perf_counter()
     fast = encode_rgba_batch(images, quality=75.0, device="cuda",
                              engine="openloop")
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches["encode_luma"] = epm.encode_luma.launches
-    launches["encode_chroma"] = epm.encode_chroma.launches
+    counts = read_counts("openloop")
+    launches["encode_luma"] = counts["encode_luma"]
+    launches["encode_chroma"] = counts["encode_chroma"]
     log(f"openloop path launches: encode_luma {launches['encode_luma']}, "
         f"encode_chroma {launches['encode_chroma']}")
     for name in ("encode_luma", "encode_chroma"):
@@ -1209,24 +1374,24 @@ def main() -> int:
                              f"({min(scores):.3f} dB)")
 
     # ---- phase 8b: the exact engine (engine="wavefront") ----
-    hybrid_kernels = (i4m.i4_search, i4m.i4_walk, wfm.wavefront_fixed)
-    wsm.wavefront_search.launches = 0
-    for k in hybrid_kernels:
-        k.launches = 0
-    torch.cuda.synchronize()
+    hybrid_kernels = ("i4_search", "i4_walk", "wavefront_fixed",
+                      *epm.KERNELS)
+    reset_counts()
     t0 = time.perf_counter()
     exact = encode_rgba_batch(images, quality=75.0, device="cuda",
                               engine="wavefront")
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches["wavefront_search"] = wsm.wavefront_search.launches
+    counts = read_counts("wavefront")
+    launches["wavefront_search"] = counts["wavefront_search"]
     log(f"wavefront path launches: wavefront_search "
-        f"{launches['wavefront_search']}; the hybrid's kernels "
-        f"{sum(k.launches for k in hybrid_kernels)}")
+        f"{launches['wavefront_search']}; the hybrid's and the plane "
+        f"kernels {sum(counts[k] for k in hybrid_kernels)}")
     if launches["wavefront_search"] == 0:
         raise AssertionError("wavefront path never launched wavefront_search")
-    if any(k.launches for k in hybrid_kernels):
-        raise AssertionError("the wavefront path launched a hybrid kernel")
+    if any(counts[k] for k in hybrid_kernels):
+        raise AssertionError("the wavefront path launched a hybrid or plane "
+                             "kernel")
     log(f"wavefront first run: {mp / first_s:.3f} MP/s e2e "
         f"({first_s:.2f} s for 32 MP) {tag}")
     timings = {}
@@ -1280,8 +1445,11 @@ def main() -> int:
             "name": r["name"], "route": "cuda", "source": SOURCES[r["name"]],
             "replaces": REPLACES[r["name"]], "launches": launches[r["name"]],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
+            "launches_by_path": {path: counts[r["name"]]
+                                 for path, counts in by_path.items()},
         })
     log(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -31,6 +31,7 @@ import torch
 from ..models.vp8.encoder import I4_PENALTY_MAX
 from . import dct
 from .dct import BIAS
+from .kernels.encode_plane import encode_modes
 from .kernels.i4_search import i4_search, i4_walk, t3_tables
 from .kernels.wavefront_fixed import wavefront_fixed
 from .kernels.wavefront_search import search_tables, wavefront_search
@@ -65,6 +66,9 @@ def openloop_mode_search(y, u, v, seg_map, qsteps, tables, *, try_i4: bool,
     ``i4_parallel`` scores the sub-blocks independently from plane
     context (``_i4_search_parallel``) instead of the within-MB walk;
     ``i4_topk`` keeps the k best-predicting B-modes of each sub-block.
+    Without ``try_i4`` and ``ctx`` (the hybrid's cold round) the modes
+    are the open-loop plane kernels' (``encode_modes``, one launch of
+    each modes-only kernel on CUDA).
 
     Returns dense (B, mh, mw[, 16]) int32 ymode/uvmode/is_i4/imodes.
     """
@@ -72,6 +76,15 @@ def openloop_mode_search(y, u, v, seg_map, qsteps, tables, *, try_i4: bool,
     mh, mw = H // 16, W // 16
     N = mh * mw
     dev = y.device
+    if not try_i4 and ctx is None:
+        U8 = torch.uint8
+        ymode, uvmode = (m.to(I32) for m in encode_modes(
+            y.to(U8), u.to(U8), v.to(U8)))
+        return {
+            "ymode": ymode, "uvmode": uvmode,
+            "is_i4": torch.zeros((B, mh, mw), dtype=I32, device=dev),
+            "imodes": ymode[..., None].expand(B, mh, mw, 16).contiguous(),
+        }
     cy, cu, cv = (c.to(I32) for c in (ctx if ctx is not None else (y, u, v)))
 
     qs = qsteps.to(I32)

@@ -25,6 +25,11 @@ Outputs, macroblock-major as the emitter reads them:
                   (B, mh, mw, 16) int16 zigzag
   encode_chroma → uvmode (B, mh, mw) uint8; uv_levels (B, mh, mw, 8, 16)
                   int16 zigzag, U blocks 0-3 then V blocks 4-7
+
+``encode_luma_modes`` and ``encode_chroma_modes`` are the modes-only
+forms (the same kernels built without the transform and the levels):
+ymode / uvmode alone, for the hybrid engine's cold round
+(``encode_modes``).
 """
 
 from __future__ import annotations
@@ -47,6 +52,9 @@ def _configure(lib) -> None:
     lib.encode_chroma_launch.restype = ctypes.c_int
     lib.encode_chroma_launch.argtypes = [p, ll, p, ll, i, i, i, i, i, i, i,
                                          p, p, p]
+    lib.encode_plane_occupancy.restype = i
+    lib.encode_plane_occupancy.argtypes = [i] + [
+        ctypes.POINTER(ctypes.c_int)] * 2
 
 
 LIBRARY = CudaLibrary("encode_plane.cu", _configure)
@@ -63,9 +71,10 @@ def _first_min(sse):
     return mode
 
 
-def _search(planes, size: int):
+def _search(planes, size: int, residual: bool = True):
     """Joint SSE mode search of MB-aligned planes sharing one MB grid →
-    (mode (B, N), [residual blocks (B, N, nb*nb, 4, 4) per plane])."""
+    (mode (B, N), [residual blocks (B, N, nb*nb, 4, 4) per plane], the
+    list empty when not ``residual``)."""
     B, H, W = planes[0].shape
     mh, mw = H // size, W // size
     N, nb = mh * mw, size // 4
@@ -80,6 +89,8 @@ def _search(planes, size: int):
         sse = sse + (d * d).sum(dim=(-1, -2), dtype=I32)
         pairs.append((src, pred4))
     mode = _first_min(sse)
+    if not residual:
+        return mode, []
     b = torch.arange(B, device=mode.device)[:, None]
     n = torch.arange(N, device=mode.device)[None, :]
     res = []
@@ -113,6 +124,24 @@ def encode_chroma_plain(u, v, quants):
             lv.reshape(B, mh, mw, 8, 16).to(I16))
 
 
+def encode_luma_modes_plain(y):
+    """Plain torch version of the luma kernel's modes-only form (any
+    device): ymode (B, mh, mw) uint8.  ``calls`` counts its calls."""
+    encode_luma_modes_plain.calls += 1
+    B, H, W = y.shape
+    return _search([y], 16, residual=False)[0].reshape(
+        B, H // 16, W // 16).to(U8)
+
+
+def encode_chroma_modes_plain(u, v):
+    """Plain torch version of the chroma kernel's modes-only form (any
+    device): uvmode (B, mh, mw) uint8.  ``calls`` counts its calls."""
+    encode_chroma_modes_plain.calls += 1
+    B, H, W = u.shape
+    return _search([u, v], 8, residual=False)[0].reshape(
+        B, H // 8, W // 8).to(U8)
+
+
 def _check_plane(name: str, t, size: int, device):
     """Raise unless ``t`` is a (B, H, W) uint8 plane on ``device`` with
     H, W multiples of ``size`` and contiguous rows; → (B, mh, mw)."""
@@ -133,31 +162,86 @@ def _quant_args(quants):
     return tuple(int(q) for q in quants)
 
 
+KERNELS = ("encode_luma", "encode_chroma", "encode_luma_modes",
+           "encode_chroma_modes")
+
+
+def occupancy(name: str):
+    """(SMs, 128-thread blocks an SM holds at once) of kernel ``name`` (one
+    of ``KERNELS``) on the current card.  Needs the card."""
+    lib = LIBRARY.load()
+    sms, per_sm = ctypes.c_int(0), ctypes.c_int(0)
+    err = lib.encode_plane_occupancy(KERNELS.index(name), ctypes.byref(sms),
+                                     ctypes.byref(per_sm))
+    if err != 0:
+        raise RuntimeError(f"{name} occupancy: CUDA error {err}")
+    return sms.value, per_sm.value
+
+
+_NO_QUANTS = (0, 0, 0, 0)
+
+
+def _device(name: str, t):
+    """t's device; raises unless it is the CPU or CUDA."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return t.device
+
+
+def _launch_luma(y, quants, y2_quants, code: bool):
+    """One luma kernel launch: (ymode, y_levels, y2_levels), the levels
+    None in the modes-only form."""
+    dev = y.device
+    B, mh, mw = _check_plane("y", y, 16, dev)
+    lib = LIBRARY.load()
+    ymode = torch.empty((B, mh, mw), dtype=U8, device=dev)
+    levels = y2_levels = None
+    if code:
+        levels = torch.empty((B, mh, mw, 16, 16), dtype=I16, device=dev)
+        y2_levels = torch.empty((B, mh, mw, 16), dtype=I16, device=dev)
+    err = lib.encode_luma_launch(
+        y.data_ptr(), y.stride(0), B, mh, mw, *_quant_args(quants),
+        *_quant_args(y2_quants), levels.data_ptr() if code else None,
+        y2_levels.data_ptr() if code else None, ymode.data_ptr(),
+        stream_handle(dev))
+    if err != 0:
+        raise RuntimeError(
+            f"encode_luma kernel launch failed: CUDA error {err}")
+    return ymode, levels, y2_levels
+
+
+def _launch_chroma(u, v, quants, code: bool):
+    """One chroma kernel launch: (uvmode, uv_levels), the levels None in
+    the modes-only form."""
+    dev = u.device
+    B, mh, mw = _check_plane("u", u, 8, dev)
+    if _check_plane("v", v, 8, dev) != (B, mh, mw):
+        raise ValueError("encode_chroma: u and v planes differ in shape")
+    lib = LIBRARY.load()
+    uvmode = torch.empty((B, mh, mw), dtype=U8, device=dev)
+    levels = (torch.empty((B, mh, mw, 8, 16), dtype=I16, device=dev)
+              if code else None)
+    err = lib.encode_chroma_launch(
+        u.data_ptr(), u.stride(0), v.data_ptr(), v.stride(0), B, mh, mw,
+        *_quant_args(quants), levels.data_ptr() if code else None,
+        uvmode.data_ptr(), stream_handle(dev))
+    if err != 0:
+        raise RuntimeError(
+            f"encode_chroma kernel launch failed: CUDA error {err}")
+    return uvmode, levels
+
+
 def encode_luma(y, quants, y2_quants):
     """Kernel on a CUDA tensor, plain version on a CPU tensor.
 
     ``encode_luma.launches`` counts kernel launches (one per call on
     CUDA).
     """
-    dev = y.device
-    if dev.type == "cpu":
+    if _device("encode_luma", y).type == "cpu":
         return encode_luma_plain(y, quants, y2_quants)
-    if dev.type != "cuda":
-        raise ValueError(f"encode_luma: unsupported device {dev}")
-    B, mh, mw = _check_plane("y", y, 16, dev)
-    lib = LIBRARY.load()
-    ymode = torch.empty((B, mh, mw), dtype=U8, device=dev)
-    levels = torch.empty((B, mh, mw, 16, 16), dtype=I16, device=dev)
-    y2_levels = torch.empty((B, mh, mw, 16), dtype=I16, device=dev)
-    err = lib.encode_luma_launch(
-        y.data_ptr(), y.stride(0), B, mh, mw, *_quant_args(quants),
-        *_quant_args(y2_quants), levels.data_ptr(), y2_levels.data_ptr(),
-        ymode.data_ptr(), stream_handle(dev))
-    if err != 0:
-        raise RuntimeError(
-            f"encode_luma kernel launch failed: CUDA error {err}")
+    out = _launch_luma(y, quants, y2_quants, code=True)
     encode_luma.launches += 1
-    return ymode, levels, y2_levels
+    return out
 
 
 def encode_chroma(u, v, quants):
@@ -166,30 +250,54 @@ def encode_chroma(u, v, quants):
     ``encode_chroma.launches`` counts kernel launches (one per call on
     CUDA).
     """
-    dev = u.device
-    if dev.type == "cpu":
+    if _device("encode_chroma", u).type == "cpu":
         return encode_chroma_plain(u, v, quants)
-    if dev.type != "cuda":
-        raise ValueError(f"encode_chroma: unsupported device {dev}")
-    B, mh, mw = _check_plane("u", u, 8, dev)
-    if _check_plane("v", v, 8, dev) != (B, mh, mw):
-        raise ValueError("encode_chroma: u and v planes differ in shape")
-    lib = LIBRARY.load()
-    uvmode = torch.empty((B, mh, mw), dtype=U8, device=dev)
-    levels = torch.empty((B, mh, mw, 8, 16), dtype=I16, device=dev)
-    err = lib.encode_chroma_launch(
-        u.data_ptr(), u.stride(0), v.data_ptr(), v.stride(0), B, mh, mw,
-        *_quant_args(quants), levels.data_ptr(), uvmode.data_ptr(),
-        stream_handle(dev))
-    if err != 0:
-        raise RuntimeError(
-            f"encode_chroma kernel launch failed: CUDA error {err}")
+    out = _launch_chroma(u, v, quants, code=True)
     encode_chroma.launches += 1
-    return uvmode, levels
+    return out
+
+
+def encode_luma_modes(y):
+    """The luma kernel's modes-only form on a CUDA tensor, its plain
+    version on a CPU tensor → ymode (B, mh, mw) uint8.
+
+    ``encode_luma_modes.launches`` counts kernel launches.
+    """
+    if _device("encode_luma_modes", y).type == "cpu":
+        return encode_luma_modes_plain(y)
+    ymode = _launch_luma(y, _NO_QUANTS, _NO_QUANTS, code=False)[0]
+    encode_luma_modes.launches += 1
+    return ymode
+
+
+def encode_chroma_modes(u, v):
+    """The chroma kernel's modes-only form on CUDA tensors, its plain
+    version on CPU tensors → uvmode (B, mh, mw) uint8.
+
+    ``encode_chroma_modes.launches`` counts kernel launches.
+    """
+    if _device("encode_chroma_modes", u).type == "cpu":
+        return encode_chroma_modes_plain(u, v)
+    uvmode = _launch_chroma(u, v, _NO_QUANTS, code=False)[0]
+    encode_chroma_modes.launches += 1
+    return uvmode
+
+
+def encode_modes(y, u, v):
+    """The open-loop i16 and uv modes of uint8 MB-padded planes: one
+    launch of each modes-only kernel on CUDA, the plain versions on the
+    CPU → (ymode, uvmode) (B, mh, mw) uint8."""
+    return encode_luma_modes(y), encode_chroma_modes(u, v)
 
 
 encode_luma.launches = 0
 encode_chroma.launches = 0
+encode_luma_modes.launches = 0
+encode_chroma_modes.launches = 0
+encode_luma_modes_plain.calls = 0
+encode_chroma_modes_plain.calls = 0
 
-__all__ = ["LIBRARY", "encode_chroma", "encode_chroma_plain", "encode_luma",
-           "encode_luma_plain"]
+__all__ = ["KERNELS", "LIBRARY", "encode_chroma", "encode_chroma_modes",
+           "encode_chroma_modes_plain", "encode_chroma_plain", "encode_luma",
+           "encode_luma_modes", "encode_luma_modes_plain",
+           "encode_luma_plain", "encode_modes", "occupancy"]

@@ -367,6 +367,95 @@ def test_encode_plane_kernels_match_plain(cuda, b, h, w, quality):
         assert a.dtype == e.dtype and torch.equal(a, e)
 
 
+def _plane_quants(quality):
+    from gowebp_tpu_torch.models.vp8.encoder import make_quants, quality_to_q
+
+    q = make_quants(quality_to_q(quality))
+    return (((1 << 17) // q.y1_dc.q, 96 << 9, (1 << 17) // q.y1_ac.q, 110 << 9),
+            ((1 << 17) // q.y2_dc.q, 96 << 9, (1 << 17) // q.y2_ac.q, 96 << 9),
+            ((1 << 17) // q.uv_dc.q, 110 << 9, (1 << 17) // q.uv_ac.q,
+             110 << 9))
+
+
+def _check_plane_kernels(y, u, v, quality):
+    """Both plane kernels and both modes-only forms against their plain
+    versions, one launch each."""
+    from gowebp_tpu_torch.ops.kernels import encode_plane as ep
+
+    lq, y2q, cq = _plane_quants(quality)
+    counters = (ep.encode_luma, ep.encode_chroma, ep.encode_luma_modes,
+                ep.encode_chroma_modes)
+    before = [k.launches for k in counters]
+    got = (ep.encode_luma(y, lq, y2q) + ep.encode_chroma(u, v, cq)
+           + ep.encode_modes(y, u, v))
+    want = (ep.encode_luma_plain(y, lq, y2q) + ep.encode_chroma_plain(u, v, cq)
+            + (ep.encode_luma_modes_plain(y),
+               ep.encode_chroma_modes_plain(u, v)))
+    torch.cuda.synchronize()
+    assert [k.launches for k in counters] == [n + 1 for n in before]
+    for a, e in zip(got, want):
+        assert a.dtype == e.dtype and torch.equal(a, e)
+
+
+@pytest.mark.parametrize("b,h,w,quality", [
+    (3, 64, 96, 75.0),
+    (2, 16, 64, 99.0),       # one MB row
+    (1, 64, 16, 40.0),       # one MB column
+    (2, 48, 272, 75.0),      # 17 MB columns: luma strips of 8 and 1 MBs
+    (1, 16, 16, 75.0),       # one MB
+])
+def test_modes_only_kernels_match_plain(cuda, b, h, w, quality):
+    g = torch.Generator().manual_seed(h * 10 + w)
+    y = torch.randint(0, 256, (b, h, w), generator=g, dtype=torch.uint8)
+    u = torch.randint(0, 256, (b, h // 2, w // 2), generator=g,
+                      dtype=torch.uint8)
+    v = torch.randint(0, 256, (b, h // 2, w // 2), generator=g,
+                      dtype=torch.uint8)
+    _check_plane_kernels(y.to(cuda), u.to(cuda), v.to(cuda), quality)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("stride_pad", [0, 1, 2, 3, 5])
+def test_plane_kernels_take_unaligned_views(cuda, offset, stride_pad):
+    """Planes that start 1-3 bytes past an aligned address, with batch
+    strides that are no multiple of 4: views of one buffer."""
+    b, h, w = 3, 48, 80
+    ys, cs = h * w, (h // 2) * (w // 2)
+    stride = offset + ys + 2 * cs + stride_pad
+    g = torch.Generator().manual_seed(offset * 10 + stride_pad)
+    buf = torch.randint(0, 256, (b * stride + 16,), generator=g,
+                        dtype=torch.uint8).to(cuda)
+
+    def view(start, rows, cols):
+        return buf.as_strided((b, rows, cols), (stride, cols, 1), start)
+
+    y = view(offset, h, w)
+    u = view(offset + ys + stride_pad, h // 2, w // 2)
+    v = view(offset + ys + cs + 2 * stride_pad, h // 2, w // 2)
+    assert y.data_ptr() % 4 == offset % 4
+    _check_plane_kernels(y, u, v, 75.0)
+
+
+def test_hybrid_cold_round_launches_modes_only_kernels(cuda):
+    """One modes-only launch of each plane kernel a chunk with cold="i16"
+    (and refine=1), none with cold="dense"; the bytes stay the CPU's."""
+    from gowebp_tpu_torch.ops.encode_pipeline import (
+        encode_rgba_batch_pipelined)
+    from gowebp_tpu_torch.ops.kernels import encode_plane as ep
+    from gowebp_tpu_torch.utils.corpus import natural_image
+
+    imgs = [natural_image(45, 61, seed=s) for s in (1, 2, 3)]
+    for cold, per_chunk in (("i16", 1), ("dense", 0)):
+        kw = dict(quality=75.0, chunk=2, cold=cold)
+        before = (ep.encode_luma_modes.launches,
+                  ep.encode_chroma_modes.launches)
+        got = encode_rgba_batch_pipelined(imgs, device="cuda", **kw)
+        assert (ep.encode_luma_modes.launches - before[0],
+                ep.encode_chroma_modes.launches - before[1]) == (
+            2 * per_chunk, 2 * per_chunk)                  # 2 chunks
+        assert got == encode_rgba_batch_pipelined(imgs, device="cpu", **kw)
+
+
 def test_encode_plane_wrappers_reject_bad_tensors(cuda):
     from gowebp_tpu_torch.ops.kernels.encode_plane import (encode_chroma,
                                                            encode_luma)

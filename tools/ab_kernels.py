@@ -1,0 +1,252 @@
+#!/usr/bin/env python3
+"""Time the kernels of several checkouts in turns, on one card, on the same
+inputs.
+
+    python3 tools/ab_kernels.py --kernel KERNEL CHECKOUT [CHECKOUT ...]
+
+e.g. ``python3 tools/ab_kernels.py --kernel encode_plane _archive/parent
+. . _archive/parent`` (a parent unpacked with ``git archive`` under
+``_archive/``, which ``.gitignore`` lists) for the order parent, change,
+change, parent.
+
+The inputs are made once in this process and saved; each checkout then
+runs in a process of its own, which builds its own kernels from its own
+sources (nvcc) and times its own wrappers with CUDA events.  Every run's
+outputs must equal the first run's, bit for bit.  Prints one JSON line
+per run, the card's name and power limit, and exits 1 on a mismatch.
+Needs a CUDA card and nvcc.  KERNEL is one of:
+
+``wavefront_search``
+    The exact engine's chunk: the first 16 of ``natural_images(32, 1024,
+    1024, seed=7)`` through the encode pipeline's own host steps at q75
+    (``chip_smoke.chunk_inputs`` of this checkout).  Times (median of 5
+    calls after a warm-up) B=16 at 1024x1024 with try_i4 and diffusion on
+    (the exact engine's call), the try_i4=False form, and B=1 (one image:
+    the chain of 190 MB steps).
+
+``encode_plane``
+    B=16 random 1024x1024 planes in one wire buffer
+    (``chip_smoke.check_encode_plane``'s timed inputs) with the q75
+    quantizers, and the hybrid's chunk as above.  Times ``encode_luma``
+    and ``encode_chroma``, their modes-only forms where the checkout has
+    them, and the hybrid's cold round (``openloop_mode_search(...,
+    try_i4=False)`` on the chunk), each two ways: ``*_ms`` one call
+    (median of 50 after a warm-up), the wrapper's host time included, as
+    ``chip_smoke.py`` reports ``ms``; ``*_device_ms`` the device time of
+    a launch (calls queued behind a sleeping stream, so the host's part
+    of each call does not idle the card; the median of 5 means of 50
+    calls, 4 for the cold round), as ``chip_smoke.py`` reports
+    ``device_ms``.  Also the hybrid's stage spans on the chunk with the
+    host quiet (``chip_smoke.stage_spans``, median of 10).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+# Run in each checkout: argv[1] the saved inputs, argv[2] where the
+# outputs go (a dict of tensors); prints one JSON line of times.
+COMMON = r"""
+import json, statistics, subprocess, sys, time
+sys.path.insert(0, ".")
+import torch
+
+def time_ms(fn, reps):
+    fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+def queued_ms(fn, reps=50, rounds=5):
+    # reps calls enqueued behind a sleeping stream run back to back: the
+    # device time of a launch, without the host's part of each call (as
+    # chip_smoke.queued_ms, which an older checkout's chip_smoke lacks)
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    for _ in range(3):
+        fn()
+    torch.cuda._sleep(1000)
+    sleep_ms, means = 20.0, []
+    while len(means) < rounds:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda._sleep(int(sleep_ms * mhz * 1e3))
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        b.synchronize()
+        if host_ms > 0.8 * sleep_ms:     # the host outlasted the sleep: redo
+            sleep_ms = 2 * host_ms
+            continue
+        means.append(a.elapsed_time(b) / reps)
+    return statistics.median(means)
+
+saved = torch.load(sys.argv[1])
+dev = torch.device("cuda:0")
+"""
+
+RUNS = {
+    "wavefront_search": r"""
+from gowebp_tpu_torch.ops.kernels.wavefront_search import (LIBRARY,
+                                                           wavefront_search)
+
+LIBRARY.load()
+args = tuple(t.to(dev) for t in saved["args"])
+rate = tuple(t.to(dev) for t in saved["rate"])
+run = lambda a, i4: wavefront_search(*a, rate, try_i4=i4, use_derr=True,
+                                     want_recon=True)
+out = run(args, True)
+torch.cuda.synchronize()
+torch.save({k: v.cpu() for k, v in out.items()}, sys.argv[2])
+one = tuple(t[:1].contiguous() for t in args)
+B, H, W = args[0].shape
+steps = (W // 16 - 1) + 2 * (H // 16 - 1) + 1
+b1 = time_ms(lambda: run(one, True), 5)
+print(json.dumps({"b16_ms": time_ms(lambda: run(args, True), 5),
+                  "lean_ms": time_ms(lambda: run(args, False), 5),
+                  "b1_ms": b1, "us_per_chained_mb_step": b1 / steps * 1e3,
+                  "i4_share": out["is_i4"].float().mean().item()}))
+""",
+    "encode_plane": r"""
+import chip_smoke
+from gowebp_tpu_torch.ops.encode_wavefront import openloop_mode_search
+from gowebp_tpu_torch.ops.kernels import encode_plane as ep
+
+buf = saved["buf"].to(dev)
+B, H, W = saved["shape"]
+ys, cs = H * W, (H // 2) * (W // 2)
+y = buf[:, :ys].reshape(B, H, W)
+u = buf[:, ys:ys + cs].reshape(B, H // 2, W // 2)
+v = buf[:, ys + cs:].reshape(B, H // 2, W // 2)
+lq, y2q, cq = saved["quants"]
+chunk = {k: (t.to(dev) if torch.is_tensor(t) else
+             tuple(x.to(dev) for x in t) if isinstance(t, tuple) else t)
+         for k, t in saved["chunk"].items()}
+cold = lambda: openloop_mode_search(
+    chunk["y"], chunk["u"], chunk["v"], chunk["seg"], chunk["qsteps"],
+    chunk["tables"], try_i4=False, i4_penalty=chunk["pens"])
+out = {f"luma{i}": t for i, t in enumerate(ep.encode_luma(y, lq, y2q))}
+out.update({f"chroma{i}": t for i, t in enumerate(ep.encode_chroma(u, v, cq))})
+out.update({f"cold_{k}": t for k, t in cold().items()})
+torch.cuda.synchronize()
+torch.save({k: t.cpu() for k, t in out.items()}, sys.argv[2])
+fns = {"luma": lambda: ep.encode_luma(y, lq, y2q),
+       "chroma": lambda: ep.encode_chroma(u, v, cq)}
+if hasattr(ep, "encode_luma_modes"):
+    fns["luma_modes"] = lambda: ep.encode_luma_modes(y)
+    fns["chroma_modes"] = lambda: ep.encode_chroma_modes(u, v)
+row = {}
+for name in ("luma", "chroma", "luma_modes", "chroma_modes"):
+    fn = fns.get(name)
+    row[f"{name}_ms"] = time_ms(fn, 50) if fn else None
+    row[f"{name}_device_ms"] = queued_ms(fn) if fn else None
+row["cold_round_ms"] = time_ms(cold, 50)
+row["cold_round_device_ms"] = queued_ms(cold, reps=4)
+spans = chip_smoke.stage_spans(dev, chunk, reps=10)
+row.update({f"span_{k}_ms": ms for k, ms in spans.items()})
+print(json.dumps(row))
+""",
+}
+
+
+def _cpu(t):
+    import torch
+
+    if torch.is_tensor(t):
+        return t.cpu().contiguous()
+    return tuple(x.cpu() for x in t) if isinstance(t, tuple) else t
+
+
+def wavefront_search_inputs(chip_smoke, dev, chunk) -> dict:
+    from gowebp_tpu_torch.ops.kernels.wavefront_search import search_tables
+
+    return {"args": [_cpu(chunk[k]) for k in
+                     ("y", "u", "v", "seg", "qsteps", "pens")],
+            "rate": [t.cpu() for t in search_tables(chunk["tables"])]}
+
+
+def encode_plane_inputs(chip_smoke, dev, chunk) -> dict:
+    import torch
+
+    B, H, W = 16, 1024, 1024
+    gen = torch.Generator().manual_seed(20261017)
+    buf = torch.randint(0, 256, (B, H * W * 3 // 2), generator=gen,
+                        dtype=torch.uint8)
+    return {"buf": buf, "shape": (B, H, W),
+            "quants": chip_smoke.plane_quants(75.0),
+            "chunk": {k: _cpu(t) for k, t in chunk.items()}}
+
+
+INPUTS = {"wavefront_search": wavefront_search_inputs,
+          "encode_plane": encode_plane_inputs}
+
+
+def main(argv) -> int:
+    parser = argparse.ArgumentParser(
+        description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
+    parser.add_argument("--kernel", required=True, choices=sorted(RUNS))
+    parser.add_argument("checkouts", nargs="+")
+    opts = parser.parse_args(argv[1:])
+    import torch
+
+    if not torch.cuda.is_available():
+        print("ab_kernels: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from gowebp_tpu_torch.ops.kernels.cuda_build import BUILD_DIR
+    from gowebp_tpu_torch.utils.corpus import natural_images
+
+    dev = torch.device("cuda:0")
+    images = list(natural_images(32, 1024, 1024, seed=7))[:16]
+    chunk = chip_smoke.chunk_inputs(dev, images)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    inputs = BUILD_DIR / f"ab_{opts.kernel}_inputs.pt"
+    torch.save(INPUTS[opts.kernel](chip_smoke, dev, chunk), inputs)
+    card = chip_smoke.card_line()
+    first = None
+    ok = True
+    for i, checkout in enumerate(opts.checkouts):
+        out = BUILD_DIR / f"ab_{opts.kernel}_out{i}.pt"
+        proc = subprocess.run(
+            [sys.executable, "-c", COMMON + RUNS[opts.kernel], str(inputs),
+             str(out)],
+            cwd=Path(checkout).resolve(), capture_output=True, text=True)
+        if proc.returncode != 0:
+            print(proc.stdout[-3000:], proc.stderr[-6000:], file=sys.stderr)
+            return 1
+        row = json.loads(proc.stdout.strip().splitlines()[-1])
+        got = torch.load(out)
+        if first is None:
+            first = got
+        same = set(got) == set(first) and all(
+            torch.equal(got[k], first[k]) for k in first)
+        ok = ok and same
+        print(json.dumps({"run": i + 1, "checkout": checkout,
+                          "kernel": opts.kernel, "equal_to_run_1": same,
+                          **row, "card": card}), flush=True)
+    print(card)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Compare the SASS of the port's CUDA kernels built from two checkouts.
 
-    python3 tools/compare_sass.py OLD_CHECKOUT NEW_CHECKOUT [SOURCE ...]
+    python3 tools/compare_sass.py [--ops] OLD_CHECKOUT NEW_CHECKOUT [SOURCE ...]
 
 Builds each named ``gowebp_tpu_torch/ops/kernels`` source (default: every
 ``*.cu`` both checkouts have) in each checkout with that checkout's own
@@ -12,12 +12,15 @@ per-build hash).  Identical SASS means identical work on the card, so a
 change that only moves device code between files can show it changed
 nothing.  Prints one line per kernel, the start of a diff of each kernel
 that differs, and exits 1 when any kernel differs or exists on one side
-only.  Needs nvcc and cuobjdump (the CUDA toolkit:
+only.  With ``--ops`` it also prints each kernel's count of every SASS
+opcode (e.g. LDG, SHFL, IDP, the I2F/MUFU/F2I of an integer division).
+Needs nvcc and cuobjdump (the CUDA toolkit:
 $CUDA_HOME/bin, PATH or /usr/local/cuda/bin), not a card.
 """
 
 from __future__ import annotations
 
+import collections
 import difflib
 import re
 import shutil
@@ -65,7 +68,18 @@ def sass(library: Path) -> dict:
     return kernels
 
 
+def opcodes(instructions) -> str:
+    """'OP count' pairs of a kernel's SASS lines, most frequent first
+    (the predicate and the modifiers dropped; each instruction once)."""
+    ops = collections.Counter(
+        re.sub(r"^@!?U?P\w+\s+", "", i).split()[0].split(".")[0].rstrip(";")
+        for i in instructions if not i.startswith("/*"))  # not encodings
+    return ", ".join(f"{op} {n}" for op, n in ops.most_common())
+
+
 def main(argv) -> int:
+    show_ops = "--ops" in argv
+    argv = [a for a in argv if a != "--ops"]
     if len(argv) < 2:
         print(__doc__, file=sys.stderr)
         return 2
@@ -83,6 +97,10 @@ def main(argv) -> int:
             print(f"{source} {name}: {len(a.get(name, []))} / "
                   f"{len(b.get(name, []))} SASS lines, "
                   f"{'identical' if same else 'DIFFERENT'}")
+            if show_ops:
+                for side, k in (("old", a), ("new", b)):
+                    if name in k:
+                        print(f"  {side} opcodes: {opcodes(k[name])}")
             if not same:
                 diff = list(difflib.unified_diff(
                     a.get(name, []), b.get(name, []), "old", "new", n=2,
