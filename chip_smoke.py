@@ -68,6 +68,17 @@ Phases (any failure raises and exits non-zero; no result is printed):
      counter reset just before and read just after; a second, timed run
      with the per-stage split (host symbols, then CUDA-event spans); a
      device_out=True run whose CUDA tensors must equal the host results;
+  6b. the mixed decode: those 32 files with 4 lossy + ALPH and 4 VP8L
+     files of 1024x1024 written by Pillow, in one device_out=True call,
+     counters reset just before and read just after (yuv420_to_rgba must
+     launch, at least once with an alpha plane, and no other kernel);
+     a timed run to host memory with the host thread seconds (symbols,
+     alpha, VP8L) and the stage split, whose images must equal the
+     device_out tensors, Pillow's decode (ALPH and VP8L), phase 6's
+     (hybrid) and the device="cpu" path's (2 ALPH images); then
+     recon_backend="host" on the 32 hybrid files and on the mixed batch
+     (no kernel may launch; pixels equal the device path's), its MP/s
+     beside the device path's;
   7. decode parity: 2 files through device="cpu" must give identical
      RGBA, and every decoded image must come within 20 dB PSNR of its
      source image (an error shared by both paths would not);
@@ -1040,6 +1051,46 @@ def pillow_rgba(data: bytes):
     return np.asarray(Image.open(io.BytesIO(data)).convert("RGBA"))
 
 
+def mixed_decode_files(images):
+    """Phase 6b's non-hybrid files, 1024x1024, written by Pillow (libwebp):
+    4 lossy + ALPH files of sources 0-3 (alpha: a smooth radial ramp on
+    the even ones, hard-edged shapes of 0 and 255 on the odd ones; full
+    alpha quality), and 4 VP8L files of sources 4-7 (two photos, one
+    RGBA with the smooth alpha, saved exact, and one <= 256-colour
+    palette image)."""
+    import io
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from PIL import Image
+
+    h, w = images[0].shape[:2]
+    yy, xx = np.mgrid[0:h, 0:w]
+    smooth = (255 * (1 - np.hypot(yy - h / 2, xx - w / 2) / np.hypot(h, w)
+                     * 2)).clip(0, 255).astype(np.uint8)
+    hard = np.full((h, w), 255, np.uint8)
+    hard[(yy // 128 + xx // 128) % 3 == 0] = 0
+    hard[(yy - h / 3) ** 2 + (xx - w / 3) ** 2 < (h / 5) ** 2] = 0
+
+    def save(img, **kw):
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, "WEBP", **kw)
+        return buf.getvalue()
+
+    jobs = [(np.dstack([images[k], smooth if k % 2 == 0 else hard]),
+             {"quality": 75}) for k in range(4)]
+    palette = np.asarray(Image.fromarray(images[7]).quantize(256)
+                         .convert("RGB"))
+    jobs += [(images[4], {"lossless": True}),
+             (images[5], {"lossless": True}),
+             (np.dstack([images[6], smooth]), {"lossless": True,
+                                               "exact": True}),
+             (palette, {"lossless": True})]
+    with ThreadPoolExecutor(8) as pool:
+        files = list(pool.map(lambda job: save(job[0], **job[1]), jobs))
+    return files[:4], files[4:]
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import numpy as np
@@ -1303,6 +1354,97 @@ def main() -> int:
                 and np.array_equal(a.cpu().numpy(), b)):
             raise AssertionError("device_out result differs from the host's")
     log("decode device_out: 32 CUDA uint8 tensors == host results")
+
+    # ---- phase 6b: the mixed decode: lossy, lossy + ALPH, VP8L ----
+    decode_s = second_s
+    t0 = time.perf_counter()
+    alpha_files, lossless_files = mixed_decode_files(images)
+    mixed = list(out)
+    for k, data in enumerate(alpha_files + lossless_files):
+        mixed.insert(5 * k + 2, data)
+    extra = {5 * k + 2: data
+             for k, data in enumerate(alpha_files + lossless_files)}
+    hybrid_at = [i for i in range(len(mixed)) if i not in extra]
+    log(f"mixed batch: 32 hybrid + 4 lossy+ALPH + 4 VP8L files of "
+        f"1024x1024, written by Pillow in {time.perf_counter() - t0:.1f} s")
+    mp_mixed = len(mixed) * 1024 * 1024 / 1e6
+    # the counted run keeps its pixels on the card (device_out=True); the
+    # timed run brings them back and is checked against it and Pillow
+    reset_counts()
+    yuvm.yuv420_to_rgba.alpha_launches = 0
+    dev_out = decode_rgba_batch(mixed, device="cuda", device_out=True)
+    torch.cuda.synchronize()
+    counts = read_counts("decode_mixed")
+    with_alpha = yuvm.yuv420_to_rgba.alpha_launches
+    log(f"mixed decode launches: yuv420_to_rgba {counts['yuv420_to_rgba']}, "
+        f"{with_alpha} of them with an alpha plane")
+    if counts["yuv420_to_rgba"] < 2 or with_alpha < 1:
+        raise AssertionError("the mixed decode did not launch yuv420_to_rgba "
+                             "for the lossy and the ALPH groups")
+    if any(counts[k] for k in counters if k != "yuv420_to_rgba"):
+        raise AssertionError("the mixed decode launched an encode kernel")
+    timings = {}
+    t0 = time.perf_counter()
+    got = decode_rgba_batch(mixed, device="cuda", timings=timings)
+    torch.cuda.synchronize()
+    mixed_s = time.perf_counter() - t0
+    for a, b in zip(dev_out, got):
+        if not (a.is_cuda and a.dtype == torch.uint8
+                and np.array_equal(a.cpu().numpy(), b)):
+            raise AssertionError("mixed device_out result differs from the "
+                                 "host's")
+    log(f"mixed decode device_out: {len(mixed)} CUDA uint8 tensors == host "
+        f"results")
+    for i, data in extra.items():
+        if not np.array_equal(got[i], pillow_rgba(data)):
+            raise AssertionError(f"mixed file {i} decodes to other pixels "
+                                 f"than Pillow's")
+    for k, i in enumerate(hybrid_at):
+        if not np.array_equal(got[i], rgba[k]):
+            raise AssertionError("a hybrid file in the mixed batch decodes "
+                                 "to other pixels than alone")
+    log("mixed decode: 4 ALPH and 4 VP8L images == Pillow's; 32 hybrid "
+        "images == phase 6's")
+    t0 = time.perf_counter()
+    cpu_alpha = decode_rgba_batch(alpha_files[:2], device="cpu")
+    log(f"mixed cpu parity run: 2 ALPH images in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not all(np.array_equal(a, got[i])
+               for a, i in zip(cpu_alpha, sorted(extra)[:2])):
+        raise AssertionError("GPU and CPU decoded ALPH images differ")
+    log("mixed parity: GPU RGBA == CPU RGBA on 2 ALPH images")
+    log(f"mixed decode timed run: {mp_mixed / mixed_s:.3f} MP/s e2e "
+        f"({mixed_s:.2f} s for {mp_mixed:.1f} MP) {tag}")
+    log(f"mixed decode host thread s: symbols {timings['symbols_s']:.3f}, "
+        f"alpha {timings['alpha_s']:.3f} (4 planes), vp8l "
+        f"{timings['vp8l_s']:.3f} (4 files) {tag}")
+    for k, ms in timings["stage_ms"].items():
+        log(f"mixed decode stage {k}: {ms:.1f} ms {tag}")
+    # recon_backend="host": the whole decode on the host, no kernel
+    host_mps = {}
+    for label, files, want in (("hybrid", out, rgba), ("mixed", mixed, got)):
+        reset_counts()
+        timings = {}
+        t0 = time.perf_counter()
+        host = decode_rgba_batch(files, device="cuda", recon_backend="host",
+                                 timings=timings)
+        host_s = time.perf_counter() - t0
+        if any(read_counts(f"decode_host_{label}").values()):
+            raise AssertionError("recon_backend=\"host\" launched a kernel")
+        if not all(np.array_equal(a, b) for a, b in zip(host, want)):
+            raise AssertionError(f"recon_backend=\"host\" pixels differ from "
+                                 f"the device path's ({label} files)")
+        mp_h = len(files) * 1024 * 1024 / 1e6
+        host_mps[label] = mp_h / host_s
+        log(f"decode recon_backend=\"host\", {label} files: "
+            f"{host_mps[label]:.3f} MP/s e2e ({host_s:.2f} s for {mp_h:.1f} "
+            f"MP), pixels == the device path's; host thread s: symbols "
+            f"{timings['symbols_s']:.3f}, recon and conversion "
+            f"{timings['recon_host_s']:.3f} {tag}")
+    log(f"decode backends on the 32 hybrid files: device "
+        f"{mp / decode_s:.3f} MP/s (phase 6 timed run), host "
+        f"{host_mps['hybrid']:.3f} MP/s; mixed batch: device "
+        f"{mp_mixed / mixed_s:.3f}, host {host_mps['mixed']:.3f} MP/s {tag}")
 
     # ---- phase 7: decode parity ----
     for a in rgba:

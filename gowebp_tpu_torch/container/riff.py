@@ -2,8 +2,9 @@
 
 The writer emits a RIFF wrapper holding one bare "VP8 " chunk, which is
 all the batch lossy encode emits.  The reader splits a WebP file (simple
-or VP8X extended) into its chunks, which the batch decode routes by, and
-probes a VP8 key frame's dimensions.  Written from the WebP container
+or VP8X extended) into its chunks, which the batch decode routes by,
+checks and reads the VP8X header, and probes a VP8 key frame's
+dimensions.  Written from the WebP container
 spec.
 """
 
@@ -12,8 +13,9 @@ from __future__ import annotations
 import struct
 from dataclasses import dataclass, field
 
-from ..constants import (CHUNK_HEADER_SIZE, RIFF_HEADER_SIZE, RIFF_MAGIC,
-                         VP8_SIGNATURE, WEBP_MAGIC)
+from ..constants import (CHUNK_HEADER_SIZE, CHUNK_VP8X, RIFF_HEADER_SIZE,
+                         RIFF_MAGIC, VP8_SIGNATURE, VP8X_CHUNK_SIZE,
+                         WEBP_MAGIC)
 from ..errors import BitstreamError, NotEnoughData
 
 
@@ -37,8 +39,13 @@ class Chunk:
 
 @dataclass
 class ParsedWebP:
-    """Split-up container: every chunk in order."""
+    """Split-up container: the VP8X header's fields, if the file has one,
+    and every chunk in order."""
 
+    canvas_width: int = 0
+    canvas_height: int = 0
+    vp8x_flags: int = 0
+    has_vp8x: bool = False
     chunks: list[Chunk] = field(default_factory=list)
 
     def find(self, tag: bytes) -> Chunk | None:
@@ -50,7 +57,8 @@ class ParsedWebP:
 
 
 def parse_riff(data: bytes) -> ParsedWebP:
-    """Split a .webp byte string into its chunks; a truncated file raises."""
+    """Split a .webp byte string into its chunks; a truncated file or a
+    VP8X chunk shorter than its 10 bytes raises."""
     if len(data) < RIFF_HEADER_SIZE:
         raise NotEnoughData("file shorter than RIFF header")
     if data[0:4] != RIFF_MAGIC or data[8:12] != WEBP_MAGIC:
@@ -72,7 +80,20 @@ def parse_riff(data: bytes) -> ParsedWebP:
             raise NotEnoughData(f"chunk {tag!r} truncated")
         parsed.chunks.append(Chunk(tag, data[payload_start : payload_start + size]))
         pos = payload_start + size + (size & 1)
+
+    vp8x = parsed.find(CHUNK_VP8X)
+    if vp8x is not None:
+        if len(vp8x.payload) < VP8X_CHUNK_SIZE:
+            raise BitstreamError("VP8X chunk too small")
+        parsed.has_vp8x = True
+        parsed.vp8x_flags = struct.unpack_from("<I", vp8x.payload, 0)[0]
+        parsed.canvas_width = 1 + _u24le(vp8x.payload, 4)
+        parsed.canvas_height = 1 + _u24le(vp8x.payload, 7)
     return parsed
+
+
+def _u24le(b: bytes, off: int) -> int:
+    return b[off] | (b[off + 1] << 8) | (b[off + 2] << 16)
 
 
 def vp8_dimensions(payload: bytes) -> tuple[int, int]:

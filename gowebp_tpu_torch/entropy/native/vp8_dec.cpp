@@ -1,16 +1,25 @@
-// VP8 lossy decode, host half: the single-stream symbol decoder.
+// VP8 lossy decode, host half: the single-stream symbol decoder and the
+// host reconstruction.
 //
 // Python parses the frame headers and hands over the boolean-decoder
 // state plus the finalized probability and quantizer tables; this file
 // runs the per-MB hot loop (intra-mode parsing and coefficient token
 // decode) and writes dense per-MB arrays: dequantized coefficients and
-// modes.  Reconstruction, the loop filter and the colour conversion run
-// on the device (ops/vp8_recon.py, ops/yuv.py and the yuv420_to_rgba
-// kernel).  vp8_dec_batch.cpp is the interleaved multi-stream twin of
-// wtpu_vp8_decode_symbols; both give identical arrays.
+// modes.  On the default path reconstruction, the loop filter and the
+// colour conversion run on the device (ops/vp8_recon.py, ops/yuv.py and
+// the yuv420_to_rgba kernel); vp8_dec_batch.cpp is the interleaved
+// multi-stream twin of wtpu_vp8_decode_symbols, and both give identical
+// arrays.  decode_rgba_batch(recon_backend="host") instead reconstructs
+// from those arrays here (wtpu_vp8_recon_frame_arrays: intra prediction,
+// iDCT and the in-loop deblocking filter) and converts with the fused
+// fancy upsampler (wtpu_yuv_to_rgba_fancy), bit-identical to the device
+// path.
 //
 // Written from RFC 6386.
 
+#if defined(__SSE2__)
+#include <immintrin.h>
+#endif
 #include <cstdint>
 #include <cstring>
 #include <vector>
@@ -387,6 +396,709 @@ static int parse_frame_mbs(
   return 0;
 }
 
+inline int clip255i(int v) { return v < 0 ? 0 : (v > 255 ? 255 : v); }
+
+// ----------------------------------------------------------------------
+// iDCT (adds into dst with stride)
+// ----------------------------------------------------------------------
+static inline int mul1(int a) { return a + ((a * 20091) >> 16); }
+static inline int mul2(int a) { return (a * 35468) >> 16; }
+
+#ifdef __SSE4_1__
+// 4 int32 lanes carry one column (pass 1) / one row (pass 2) each;
+// bit-identical to the scalar butterflies below (same >>16 fixed-point
+// products, same +4 >>3 rounding, saturating pack for the clip).
+static inline __m128i mul1_v(__m128i a) {
+  return _mm_add_epi32(a,
+      _mm_srai_epi32(_mm_mullo_epi32(a, _mm_set1_epi32(20091)), 16));
+}
+static inline __m128i mul2_v(__m128i a) {
+  return _mm_srai_epi32(_mm_mullo_epi32(a, _mm_set1_epi32(35468)), 16);
+}
+
+static void idct_add(const int16_t* in, uint8_t* dst, int stride) {
+  // Rows of `in` are the four frequency lines; lanes are columns i.
+  __m128i r0 = _mm_cvtepi16_epi32(_mm_loadl_epi64((const __m128i*)(in + 0)));
+  __m128i r1 = _mm_cvtepi16_epi32(_mm_loadl_epi64((const __m128i*)(in + 4)));
+  __m128i r2 = _mm_cvtepi16_epi32(_mm_loadl_epi64((const __m128i*)(in + 8)));
+  __m128i r3 = _mm_cvtepi16_epi32(_mm_loadl_epi64((const __m128i*)(in + 12)));
+  __m128i a = _mm_add_epi32(r0, r2);
+  __m128i b = _mm_sub_epi32(r0, r2);
+  __m128i c = _mm_sub_epi32(mul2_v(r1), mul1_v(r3));
+  __m128i d = _mm_add_epi32(mul1_v(r1), mul2_v(r3));
+  __m128i C0 = _mm_add_epi32(a, d);            // C[0*4+i]
+  __m128i C1 = _mm_add_epi32(b, c);
+  __m128i C2 = _mm_sub_epi32(b, c);
+  __m128i C3 = _mm_sub_epi32(a, d);
+  // Transpose so lanes become rows: Vk[r] = C[r*4+k].
+  __m128i t0 = _mm_unpacklo_epi32(C0, C1), t1 = _mm_unpackhi_epi32(C0, C1);
+  __m128i t2 = _mm_unpacklo_epi32(C2, C3), t3 = _mm_unpackhi_epi32(C2, C3);
+  __m128i V0 = _mm_unpacklo_epi64(t0, t2);
+  __m128i V1 = _mm_unpackhi_epi64(t0, t2);
+  __m128i V2 = _mm_unpacklo_epi64(t1, t3);
+  __m128i V3 = _mm_unpackhi_epi64(t1, t3);
+  __m128i dc = _mm_add_epi32(V0, _mm_set1_epi32(4));
+  a = _mm_add_epi32(dc, V2);
+  b = _mm_sub_epi32(dc, V2);
+  c = _mm_sub_epi32(mul2_v(V1), mul1_v(V3));
+  d = _mm_add_epi32(mul1_v(V1), mul2_v(V3));
+  __m128i o0 = _mm_srai_epi32(_mm_add_epi32(a, d), 3);   // col 0, rows 0..3
+  __m128i o1 = _mm_srai_epi32(_mm_add_epi32(b, c), 3);
+  __m128i o2 = _mm_srai_epi32(_mm_sub_epi32(b, c), 3);
+  __m128i o3 = _mm_srai_epi32(_mm_sub_epi32(a, d), 3);
+  // Transpose back: lanes become columns within each output row.
+  t0 = _mm_unpacklo_epi32(o0, o1); t1 = _mm_unpackhi_epi32(o0, o1);
+  t2 = _mm_unpacklo_epi32(o2, o3); t3 = _mm_unpackhi_epi32(o2, o3);
+  __m128i row0 = _mm_unpacklo_epi64(t0, t2);
+  __m128i row1 = _mm_unpackhi_epi64(t0, t2);
+  __m128i row2 = _mm_unpacklo_epi64(t1, t3);
+  __m128i row3 = _mm_unpackhi_epi64(t1, t3);
+  const __m128i rows[4] = {row0, row1, row2, row3};
+  for (int r = 0; r < 4; r++) {
+    uint8_t* o = dst + r * stride;
+    int32_t w;
+    std::memcpy(&w, o, 4);
+    __m128i px = _mm_cvtepu8_epi32(_mm_cvtsi32_si128(w));
+    __m128i s = _mm_add_epi32(px, rows[r]);
+    __m128i p16 = _mm_packs_epi32(s, s);
+    __m128i p8 = _mm_packus_epi16(p16, p16);
+    w = _mm_cvtsi128_si32(p8);
+    std::memcpy(o, &w, 4);
+  }
+}
+#else
+static void idct_add(const int16_t* in, uint8_t* dst, int stride) {
+  int32_t C[16];
+  for (int i = 0; i < 4; i++) {
+    int32_t a = in[i] + in[8 + i];
+    int32_t b = in[i] - in[8 + i];
+    int32_t c = mul2(in[4 + i]) - mul1(in[12 + i]);
+    int32_t d = mul1(in[4 + i]) + mul2(in[12 + i]);
+    C[0 * 4 + i] = a + d;
+    C[1 * 4 + i] = b + c;
+    C[2 * 4 + i] = b - c;
+    C[3 * 4 + i] = a - d;
+  }
+  for (int r = 0; r < 4; r++) {
+    int32_t dc = C[r * 4 + 0] + 4;
+    int32_t a = dc + C[r * 4 + 2];
+    int32_t b = dc - C[r * 4 + 2];
+    int32_t c = mul2(C[r * 4 + 1]) - mul1(C[r * 4 + 3]);
+    int32_t d = mul1(C[r * 4 + 1]) + mul2(C[r * 4 + 3]);
+    uint8_t* o = dst + r * stride;
+    o[0] = (uint8_t)clip255i(o[0] + ((a + d) >> 3));
+    o[1] = (uint8_t)clip255i(o[1] + ((b + c) >> 3));
+    o[2] = (uint8_t)clip255i(o[2] + ((b - c) >> 3));
+    o[3] = (uint8_t)clip255i(o[3] + ((a - d) >> 3));
+  }
+}
+#endif  // __SSE4_1__
+
+// ----------------------------------------------------------------------
+// Intra predictors on a bordered working buffer.
+// buf stride BUFS; (0,0) = top-left corner; data block at (1,1).
+// ----------------------------------------------------------------------
+constexpr int BUFS = 24;
+
+static inline uint8_t* at(uint8_t* buf, int r, int c) { return buf + r * BUFS + c; }
+
+static void pred_dc(uint8_t* buf, int x, int y, int size, bool ht, bool hl) {
+  int v;
+  if (ht && hl) {
+    int s = 0;
+    for (int i = 0; i < size; i++) s += buf[y * BUFS + x + 1 + i] + buf[(y + 1 + i) * BUFS + x];
+    v = (s + size) >> (size == 16 ? 5 : 4);
+  } else if (hl) {
+    int s = 0;
+    for (int i = 0; i < size; i++) s += buf[(y + 1 + i) * BUFS + x];
+    v = (s + size / 2) >> (size == 16 ? 4 : 3);
+  } else if (ht) {
+    int s = 0;
+    for (int i = 0; i < size; i++) s += buf[y * BUFS + x + 1 + i];
+    v = (s + size / 2) >> (size == 16 ? 4 : 3);
+  } else {
+    v = 0x80;
+  }
+  for (int r = 0; r < size; r++)
+    std::memset(buf + (y + 1 + r) * BUFS + x + 1, v, size);
+}
+
+static void pred_tm(uint8_t* buf, int x, int y, int size) {
+  int tl = buf[y * BUFS + x];
+  for (int r = 0; r < size; r++) {
+    int l = buf[(y + 1 + r) * BUFS + x];
+    uint8_t* o = buf + (y + 1 + r) * BUFS + x + 1;
+    const uint8_t* t = buf + y * BUFS + x + 1;
+    for (int c = 0; c < size; c++) o[c] = (uint8_t)clip255i(l + t[c] - tl);
+  }
+}
+
+static void pred_ve(uint8_t* buf, int x, int y, int size) {
+  for (int r = 0; r < size; r++)
+    std::memcpy(buf + (y + 1 + r) * BUFS + x + 1, buf + y * BUFS + x + 1, size);
+}
+
+static void pred_he(uint8_t* buf, int x, int y, int size) {
+  for (int r = 0; r < size; r++)
+    std::memset(buf + (y + 1 + r) * BUFS + x + 1,
+                buf[(y + 1 + r) * BUFS + x], size);
+}
+
+static void predict_block(uint8_t* buf, int x, int y, int size, int mode,
+                          bool ht, bool hl) {
+  switch (mode) {
+    case 0: pred_dc(buf, x, y, size, ht, hl); break;
+    case 1: pred_tm(buf, x, y, size); break;
+    case 2: pred_ve(buf, x, y, size); break;
+    case 3: pred_he(buf, x, y, size); break;
+  }
+}
+
+#define AVG3(a, b, c) (((a) + 2 * (b) + (c) + 2) >> 2)
+#define AVG2(a, b) (((a) + (b) + 1) >> 1)
+
+static void predict_luma4(uint8_t* buf, int x, int y, int mode) {
+  // Context: top at row y, cols x+1..x+8 (incl. TR), left col x, TL at (y,x).
+  const int A = buf[y * BUFS + x + 1], B = buf[y * BUFS + x + 2],
+            C = buf[y * BUFS + x + 3], D = buf[y * BUFS + x + 4];
+  const int E = buf[y * BUFS + x + 5], F = buf[y * BUFS + x + 6],
+            G = buf[y * BUFS + x + 7], H = buf[y * BUFS + x + 8];
+  const int I = buf[(y + 1) * BUFS + x], J = buf[(y + 2) * BUFS + x],
+            K = buf[(y + 3) * BUFS + x], L = buf[(y + 4) * BUFS + x];
+  const int X = buf[y * BUFS + x];
+  uint8_t o[4][4];
+  switch (mode) {
+    case 0: {  // DC4
+      int v = (A + B + C + D + I + J + K + L + 4) >> 3;
+      std::memset(o, v, 16);
+      break;
+    }
+    case 1: {  // TM4
+      for (int r = 0; r < 4; r++) {
+        int l = buf[(y + 1 + r) * BUFS + x];
+        for (int c = 0; c < 4; c++)
+          o[r][c] = (uint8_t)clip255i(l + buf[y * BUFS + x + 1 + c] - X);
+      }
+      break;
+    }
+    case 2: {  // VE4
+      uint8_t v[4] = {(uint8_t)AVG3(X, A, B), (uint8_t)AVG3(A, B, C),
+                      (uint8_t)AVG3(B, C, D), (uint8_t)AVG3(C, D, E)};
+      for (int r = 0; r < 4; r++) std::memcpy(o[r], v, 4);
+      break;
+    }
+    case 3: {  // HE4
+      uint8_t v[4] = {(uint8_t)AVG3(X, I, J), (uint8_t)AVG3(I, J, K),
+                      (uint8_t)AVG3(J, K, L), (uint8_t)AVG3(K, L, L)};
+      for (int r = 0; r < 4; r++) std::memset(o[r], v[r], 4);
+      break;
+    }
+    case 4: {  // RD4
+      o[3][0] = (uint8_t)AVG3(J, K, L);
+      o[2][0] = o[3][1] = (uint8_t)AVG3(I, J, K);
+      o[1][0] = o[2][1] = o[3][2] = (uint8_t)AVG3(X, I, J);
+      o[0][0] = o[1][1] = o[2][2] = o[3][3] = (uint8_t)AVG3(A, X, I);
+      o[0][1] = o[1][2] = o[2][3] = (uint8_t)AVG3(B, A, X);
+      o[0][2] = o[1][3] = (uint8_t)AVG3(C, B, A);
+      o[0][3] = (uint8_t)AVG3(D, C, B);
+      break;
+    }
+    case 5: {  // VR4
+      o[0][0] = o[2][1] = (uint8_t)AVG2(X, A);
+      o[0][1] = o[2][2] = (uint8_t)AVG2(A, B);
+      o[0][2] = o[2][3] = (uint8_t)AVG2(B, C);
+      o[0][3] = (uint8_t)AVG2(C, D);
+      o[3][0] = (uint8_t)AVG3(K, J, I);
+      o[2][0] = (uint8_t)AVG3(J, I, X);
+      o[1][0] = o[3][1] = (uint8_t)AVG3(I, X, A);
+      o[1][1] = o[3][2] = (uint8_t)AVG3(X, A, B);
+      o[1][2] = o[3][3] = (uint8_t)AVG3(A, B, C);
+      o[1][3] = (uint8_t)AVG3(B, C, D);
+      break;
+    }
+    case 6: {  // LD4
+      o[0][0] = (uint8_t)AVG3(A, B, C);
+      o[0][1] = o[1][0] = (uint8_t)AVG3(B, C, D);
+      o[0][2] = o[1][1] = o[2][0] = (uint8_t)AVG3(C, D, E);
+      o[0][3] = o[1][2] = o[2][1] = o[3][0] = (uint8_t)AVG3(D, E, F);
+      o[1][3] = o[2][2] = o[3][1] = (uint8_t)AVG3(E, F, G);
+      o[2][3] = o[3][2] = (uint8_t)AVG3(F, G, H);
+      o[3][3] = (uint8_t)AVG3(G, H, H);
+      break;
+    }
+    case 7: {  // VL4
+      o[0][0] = (uint8_t)AVG2(A, B);
+      o[0][1] = o[2][0] = (uint8_t)AVG2(B, C);
+      o[0][2] = o[2][1] = (uint8_t)AVG2(C, D);
+      o[0][3] = o[2][2] = (uint8_t)AVG2(D, E);
+      o[1][0] = (uint8_t)AVG3(A, B, C);
+      o[1][1] = o[3][0] = (uint8_t)AVG3(B, C, D);
+      o[1][2] = o[3][1] = (uint8_t)AVG3(C, D, E);
+      o[1][3] = o[3][2] = (uint8_t)AVG3(D, E, F);
+      o[2][3] = (uint8_t)AVG3(E, F, G);
+      o[3][3] = (uint8_t)AVG3(F, G, H);
+      break;
+    }
+    case 8: {  // HD4
+      o[0][0] = o[1][2] = (uint8_t)AVG2(I, X);
+      o[1][0] = o[2][2] = (uint8_t)AVG2(J, I);
+      o[2][0] = o[3][2] = (uint8_t)AVG2(K, J);
+      o[3][0] = (uint8_t)AVG2(L, K);
+      o[0][3] = (uint8_t)AVG3(A, B, C);
+      o[0][2] = (uint8_t)AVG3(X, A, B);
+      o[0][1] = o[1][3] = (uint8_t)AVG3(I, X, A);
+      o[1][1] = o[2][3] = (uint8_t)AVG3(X, I, J);
+      o[2][1] = o[3][3] = (uint8_t)AVG3(I, J, K);
+      o[3][1] = (uint8_t)AVG3(J, K, L);
+      break;
+    }
+    case 9: {  // HU4
+      o[0][0] = (uint8_t)AVG2(I, J);
+      o[0][2] = o[1][0] = (uint8_t)AVG2(J, K);
+      o[1][2] = o[2][0] = (uint8_t)AVG2(K, L);
+      o[0][1] = (uint8_t)AVG3(I, J, K);
+      o[0][3] = o[1][1] = (uint8_t)AVG3(J, K, L);
+      o[1][3] = o[2][1] = (uint8_t)AVG3(K, L, L);
+      o[2][2] = o[2][3] = o[3][0] = o[3][1] = o[3][2] = o[3][3] = (uint8_t)L;
+      break;
+    }
+  }
+  for (int r = 0; r < 4; r++)
+    std::memcpy(buf + (y + 1 + r) * BUFS + x + 1, o[r], 4);
+}
+
+// ----------------------------------------------------------------------
+// Loop filter
+// ----------------------------------------------------------------------
+static inline int sclip1(int v) { return v < -128 ? -128 : (v > 127 ? 127 : v); }
+static inline int sclip2(int v) { return v < -16 ? -16 : (v > 15 ? 15 : v); }
+static inline int iabs(int v) { return v < 0 ? -v : v; }
+
+static inline bool needs_filter(const uint8_t* p, int step, int thresh2) {
+  int p1 = p[-2 * step], p0 = p[-step], q0 = p[0], q1 = p[step];
+  return 4 * iabs(p0 - q0) + iabs(p1 - q1) <= thresh2;
+}
+static inline bool needs_filter2(const uint8_t* p, int step, int t, int it) {
+  int p3 = p[-4 * step], p2 = p[-3 * step], p1 = p[-2 * step], p0 = p[-step];
+  int q0 = p[0], q1 = p[step], q2 = p[2 * step], q3 = p[3 * step];
+  if (4 * iabs(p0 - q0) + iabs(p1 - q1) > t) return false;
+  return iabs(p3 - p2) <= it && iabs(p2 - p1) <= it && iabs(p1 - p0) <= it &&
+         iabs(q3 - q2) <= it && iabs(q2 - q1) <= it && iabs(q1 - q0) <= it;
+}
+static inline bool hev(const uint8_t* p, int step, int thresh) {
+  return iabs(p[-2 * step] - p[-step]) > thresh || iabs(p[step] - p[0]) > thresh;
+}
+static inline void do_filter2(uint8_t* p, int step) {
+  int p1 = p[-2 * step], p0 = p[-step], q0 = p[0], q1 = p[step];
+  int a = 3 * (q0 - p0) + sclip1(p1 - q1);
+  int a1 = sclip2((a + 4) >> 3);
+  int a2 = sclip2((a + 3) >> 3);
+  p[-step] = (uint8_t)clip255i(p0 + a2);
+  p[0] = (uint8_t)clip255i(q0 - a1);
+}
+static inline void do_filter4(uint8_t* p, int step) {
+  int p1 = p[-2 * step], p0 = p[-step], q0 = p[0], q1 = p[step];
+  int a = 3 * (q0 - p0);
+  int a1 = sclip2((a + 4) >> 3);
+  int a2 = sclip2((a + 3) >> 3);
+  int a3 = (a1 + 1) >> 1;
+  p[-2 * step] = (uint8_t)clip255i(p1 + a3);
+  p[-step] = (uint8_t)clip255i(p0 + a2);
+  p[0] = (uint8_t)clip255i(q0 - a1);
+  p[step] = (uint8_t)clip255i(q1 - a3);
+}
+static inline void do_filter6(uint8_t* p, int step) {
+  int p2 = p[-3 * step], p1 = p[-2 * step], p0 = p[-step];
+  int q0 = p[0], q1 = p[step], q2 = p[2 * step];
+  int a = sclip1(3 * (q0 - p0) + sclip1(p1 - q1));
+  int a1 = (27 * a + 63) >> 7;
+  int a2 = (18 * a + 63) >> 7;
+  int a3 = (9 * a + 63) >> 7;
+  p[-3 * step] = (uint8_t)clip255i(p2 + a3);
+  p[-2 * step] = (uint8_t)clip255i(p1 + a2);
+  p[-step] = (uint8_t)clip255i(p0 + a1);
+  p[0] = (uint8_t)clip255i(q0 - a1);
+  p[step] = (uint8_t)clip255i(q1 - a2);
+  p[2 * step] = (uint8_t)clip255i(q2 - a3);
+}
+
+// Edge filtering runs lane-parallel: the 8 pixels across the edge
+// (p3..q3) for all 16 lanes along it are gathered into a contiguous
+// local buffer, a fixed-trip branchless core processes the 16 lanes
+// (int16 arithmetic, mask-blended stores — the scalar-host analog of
+// the SIMD deblocking paths in the reference's dsp layer), and the
+// touched rows are scattered back.  Chroma edges (8 lanes each) are
+// paired: U in lanes 0-7, V in lanes 8-15, one core call for both.
+typedef uint8_t EdgeBuf[8][16];
+
+static inline void edge_gather(const uint8_t* p, int hstride, int vstride,
+                               int n, int lane0, EdgeBuf b) {
+  if (vstride == 1) {  // lanes contiguous (horizontal edges)
+    for (int r = 0; r < 8; r++)
+      std::memcpy(&b[r][lane0], p + (std::ptrdiff_t)(r - 4) * hstride, n);
+    return;
+  }
+  for (int r = 0; r < 8; r++) {
+    const uint8_t* src = p + (std::ptrdiff_t)(r - 4) * hstride;
+    for (int j = 0; j < n; j++) b[r][lane0 + j] = src[(std::ptrdiff_t)j * vstride];
+  }
+}
+static inline void edge_scatter(uint8_t* p, int hstride, int vstride, int n,
+                                int lane0, const EdgeBuf b, int r0, int r1) {
+  if (vstride == 1) {
+    for (int r = r0; r <= r1; r++)
+      std::memcpy(p + (std::ptrdiff_t)(r - 4) * hstride, &b[r][lane0], n);
+    return;
+  }
+  for (int r = r0; r <= r1; r++) {
+    uint8_t* dst = p + (std::ptrdiff_t)(r - 4) * hstride;
+    for (int j = 0; j < n; j++) dst[(std::ptrdiff_t)j * vstride] = b[r][lane0 + j];
+  }
+}
+
+#if defined(__SSE2__)
+// Vertical edges: each lane's 8 pixels across the edge are contiguous.
+// Load 16 rows x 8 bytes and byte-transpose into the 8x16 lane buffer
+// (and back).  rows[j] points at pixel p3 of lane j.
+static inline void tr_gather(const uint8_t* const rows[16], EdgeBuf b) {
+  __m128i t[8];
+  for (int k = 0; k < 8; k++) {
+    __m128i a = _mm_loadl_epi64((const __m128i*)rows[2 * k]);
+    __m128i c = _mm_loadl_epi64((const __m128i*)rows[2 * k + 1]);
+    t[k] = _mm_unpacklo_epi8(a, c);  // col c of rows (2k,2k+1) at u16 slot c
+  }
+  __m128i w[4][2];  // [row group of 4][cols 0-3 | 4-7]
+  for (int m = 0; m < 4; m++) {
+    w[m][0] = _mm_unpacklo_epi16(t[2 * m], t[2 * m + 1]);
+    w[m][1] = _mm_unpackhi_epi16(t[2 * m], t[2 * m + 1]);
+  }
+  for (int h = 0; h < 2; h++) {
+    __m128i a01 = _mm_unpacklo_epi32(w[0][h], w[1][h]);  // cols 4h+0,4h+1 rows0-7
+    __m128i b01 = _mm_unpackhi_epi32(w[0][h], w[1][h]);  // cols 4h+2,4h+3 rows0-7
+    __m128i a23 = _mm_unpacklo_epi32(w[2][h], w[3][h]);  // rows8-15
+    __m128i b23 = _mm_unpackhi_epi32(w[2][h], w[3][h]);
+    _mm_storeu_si128((__m128i*)b[4 * h + 0], _mm_unpacklo_epi64(a01, a23));
+    _mm_storeu_si128((__m128i*)b[4 * h + 1], _mm_unpackhi_epi64(a01, a23));
+    _mm_storeu_si128((__m128i*)b[4 * h + 2], _mm_unpacklo_epi64(b01, b23));
+    _mm_storeu_si128((__m128i*)b[4 * h + 3], _mm_unpackhi_epi64(b01, b23));
+  }
+}
+static inline void tr_scatter(const EdgeBuf b, uint8_t* const rows[16]) {
+  __m128i y[8];
+  for (int r = 0; r < 8; r++) y[r] = _mm_loadu_si128((const __m128i*)b[r]);
+  for (int half = 0; half < 2; half++) {
+    __m128i t[4];  // rows (2k,2k+1) interleaved, lanes 8*half..8*half+7
+    for (int k = 0; k < 4; k++)
+      t[k] = half ? _mm_unpackhi_epi8(y[2 * k], y[2 * k + 1])
+                  : _mm_unpacklo_epi8(y[2 * k], y[2 * k + 1]);
+    __m128i ua = _mm_unpacklo_epi16(t[0], t[1]);  // lanes +0..3, rows0-3
+    __m128i ub = _mm_unpackhi_epi16(t[0], t[1]);  // lanes +4..7, rows0-3
+    __m128i uc = _mm_unpacklo_epi16(t[2], t[3]);  // lanes +0..3, rows4-7
+    __m128i ud = _mm_unpackhi_epi16(t[2], t[3]);  // lanes +4..7, rows4-7
+    __m128i v0 = _mm_unpacklo_epi32(ua, uc);      // lanes +0,+1 full
+    __m128i v1 = _mm_unpackhi_epi32(ua, uc);      // lanes +2,+3
+    __m128i v2 = _mm_unpacklo_epi32(ub, ud);      // lanes +4,+5
+    __m128i v3 = _mm_unpackhi_epi32(ub, ud);      // lanes +6,+7
+    uint8_t* const* rr = rows + 8 * half;
+    _mm_storel_epi64((__m128i*)rr[0], v0);
+    _mm_storel_epi64((__m128i*)rr[1], _mm_srli_si128(v0, 8));
+    _mm_storel_epi64((__m128i*)rr[2], v1);
+    _mm_storel_epi64((__m128i*)rr[3], _mm_srli_si128(v1, 8));
+    _mm_storel_epi64((__m128i*)rr[4], v2);
+    _mm_storel_epi64((__m128i*)rr[5], _mm_srli_si128(v2, 8));
+    _mm_storel_epi64((__m128i*)rr[6], v3);
+    _mm_storel_epi64((__m128i*)rr[7], _mm_srli_si128(v3, 8));
+  }
+}
+#endif  // __SSE2__
+
+#if defined(__AVX2__)
+// 16 filter lanes as one 16x int16 vector (exact same arithmetic as the
+// portable loop below; all intermediates fit in int16).
+static inline __m256i lf_load(const uint8_t* p) {
+  return _mm256_cvtepu8_epi16(_mm_loadu_si128((const __m128i*)p));
+}
+static inline void lf_store(uint8_t* p, __m256i x) {
+  __m128i lo = _mm256_castsi256_si128(x);
+  __m128i hi = _mm256_extracti128_si256(x, 1);
+  _mm_storeu_si128((__m128i*)p, _mm_packus_epi16(lo, hi));
+}
+static inline __m256i lf_sclip1(__m256i x) {
+  return _mm256_max_epi16(_mm256_min_epi16(x, _mm256_set1_epi16(127)),
+                          _mm256_set1_epi16(-128));
+}
+static inline __m256i lf_sclip2(__m256i x) {
+  return _mm256_max_epi16(_mm256_min_epi16(x, _mm256_set1_epi16(15)),
+                          _mm256_set1_epi16(-16));
+}
+static inline __m256i lf_clip255(__m256i x) {
+  return _mm256_max_epi16(_mm256_min_epi16(x, _mm256_set1_epi16(255)),
+                          _mm256_setzero_si256());
+}
+static inline __m256i lf_ad(__m256i a, __m256i b) {  // |a-b| (epi16)
+  return _mm256_abs_epi16(_mm256_sub_epi16(a, b));
+}
+static inline __m256i lf_le(__m256i a, __m256i b) {  // a <= b (epi16 mask)
+  return _mm256_cmpeq_epi16(_mm256_cmpgt_epi16(a, b),
+                            _mm256_setzero_si256());
+}
+// Shared mask + f2 computation: nf (needs_filter2), hv (high edge
+// variance), and the 2-tap filter outputs applied to p0/q0 under hev.
+struct LfCommon {
+  __m256i nf, hv, a2c, f2p0, f2q0;
+};
+static inline LfCommon lf_common(__m256i p3, __m256i p2, __m256i p1,
+                                 __m256i p0, __m256i q0, __m256i q1,
+                                 __m256i q2, __m256i q3, int thresh2,
+                                 int it, int hev_t) {
+  LfCommon c;
+  const __m256i vit = _mm256_set1_epi16((short)it);
+  __m256i sum = _mm256_add_epi16(
+      _mm256_slli_epi16(lf_ad(p0, q0), 2), lf_ad(p1, q1));
+  c.nf = lf_le(sum, _mm256_set1_epi16((short)thresh2));
+  c.nf = _mm256_and_si256(c.nf, lf_le(lf_ad(p3, p2), vit));
+  c.nf = _mm256_and_si256(c.nf, lf_le(lf_ad(p2, p1), vit));
+  c.nf = _mm256_and_si256(c.nf, lf_le(lf_ad(p1, p0), vit));
+  c.nf = _mm256_and_si256(c.nf, lf_le(lf_ad(q3, q2), vit));
+  c.nf = _mm256_and_si256(c.nf, lf_le(lf_ad(q2, q1), vit));
+  c.nf = _mm256_and_si256(c.nf, lf_le(lf_ad(q1, q0), vit));
+  const __m256i vhev = _mm256_set1_epi16((short)hev_t);
+  c.hv = _mm256_or_si256(_mm256_cmpgt_epi16(lf_ad(p1, p0), vhev),
+                         _mm256_cmpgt_epi16(lf_ad(q1, q0), vhev));
+  __m256i d = _mm256_sub_epi16(q0, p0);
+  c.a2c = _mm256_add_epi16(
+      _mm256_add_epi16(d, _mm256_add_epi16(d, d)),
+      lf_sclip1(_mm256_sub_epi16(p1, q1)));
+  __m256i f2a1 = lf_sclip2(_mm256_srai_epi16(
+      _mm256_add_epi16(c.a2c, _mm256_set1_epi16(4)), 3));
+  __m256i f2a2 = lf_sclip2(_mm256_srai_epi16(
+      _mm256_add_epi16(c.a2c, _mm256_set1_epi16(3)), 3));
+  c.f2p0 = lf_clip255(_mm256_add_epi16(p0, f2a2));
+  c.f2q0 = lf_clip255(_mm256_sub_epi16(q0, f2a1));
+  return c;
+}
+static inline __m256i lf_sel(__m256i nf, __m256i hv, __m256i orig,
+                             __m256i on_hev, __m256i on_nohev) {
+  __m256i inner = _mm256_blendv_epi8(on_nohev, on_hev, hv);
+  return _mm256_blendv_epi8(orig, inner, nf);
+}
+#endif  // __AVX2__
+
+static void lane_core26(EdgeBuf b, int thresh2, int it, int hev_t) {
+#if defined(__AVX2__)
+  __m256i p3 = lf_load(b[0]), p2 = lf_load(b[1]), p1 = lf_load(b[2]),
+          p0 = lf_load(b[3]), q0 = lf_load(b[4]), q1 = lf_load(b[5]),
+          q2 = lf_load(b[6]), q3 = lf_load(b[7]);
+  LfCommon c = lf_common(p3, p2, p1, p0, q0, q1, q2, q3, thresh2, it, hev_t);
+  __m256i a6 = lf_sclip1(c.a2c);
+  const __m256i v63 = _mm256_set1_epi16(63);
+  __m256i b1 = _mm256_srai_epi16(
+      _mm256_add_epi16(_mm256_mullo_epi16(a6, _mm256_set1_epi16(27)), v63), 7);
+  __m256i b2 = _mm256_srai_epi16(
+      _mm256_add_epi16(_mm256_mullo_epi16(a6, _mm256_set1_epi16(18)), v63), 7);
+  __m256i b3 = _mm256_srai_epi16(
+      _mm256_add_epi16(_mm256_mullo_epi16(a6, _mm256_set1_epi16(9)), v63), 7);
+  lf_store(b[1], lf_sel(c.nf, c.hv, p2, p2,
+                        lf_clip255(_mm256_add_epi16(p2, b3))));
+  lf_store(b[2], lf_sel(c.nf, c.hv, p1, p1,
+                        lf_clip255(_mm256_add_epi16(p1, b2))));
+  lf_store(b[3], lf_sel(c.nf, c.hv, p0, c.f2p0,
+                        lf_clip255(_mm256_add_epi16(p0, b1))));
+  lf_store(b[4], lf_sel(c.nf, c.hv, q0, c.f2q0,
+                        lf_clip255(_mm256_sub_epi16(q0, b1))));
+  lf_store(b[5], lf_sel(c.nf, c.hv, q1, q1,
+                        lf_clip255(_mm256_sub_epi16(q1, b2))));
+  lf_store(b[6], lf_sel(c.nf, c.hv, q2, q2,
+                        lf_clip255(_mm256_sub_epi16(q2, b3))));
+#else
+  for (int j = 0; j < 16; j++) {
+    int p3 = b[0][j], p2 = b[1][j], p1 = b[2][j], p0 = b[3][j];
+    int q0 = b[4][j], q1 = b[5][j], q2 = b[6][j], q3 = b[7][j];
+    int nf = (4 * iabs(p0 - q0) + iabs(p1 - q1) <= thresh2) &
+             (iabs(p3 - p2) <= it) & (iabs(p2 - p1) <= it) &
+             (iabs(p1 - p0) <= it) & (iabs(q3 - q2) <= it) &
+             (iabs(q2 - q1) <= it) & (iabs(q1 - q0) <= it);
+    int hv = (iabs(p1 - p0) > hev_t) | (iabs(q1 - q0) > hev_t);
+    int a2c = 3 * (q0 - p0) + sclip1(p1 - q1);
+    int f2a1 = sclip2((a2c + 4) >> 3);
+    int f2a2 = sclip2((a2c + 3) >> 3);
+    int f2p0 = clip255i(p0 + f2a2), f2q0 = clip255i(q0 - f2a1);
+    int a6 = sclip1(a2c);
+    int b1 = (27 * a6 + 63) >> 7;
+    int b2 = (18 * a6 + 63) >> 7;
+    int b3 = (9 * a6 + 63) >> 7;
+    int f6p2 = clip255i(p2 + b3), f6p1 = clip255i(p1 + b2);
+    int f6p0 = clip255i(p0 + b1), f6q0 = clip255i(q0 - b1);
+    int f6q1 = clip255i(q1 - b2), f6q2 = clip255i(q2 - b3);
+    b[1][j] = (uint8_t)(nf ? (hv ? p2 : f6p2) : p2);
+    b[2][j] = (uint8_t)(nf ? (hv ? p1 : f6p1) : p1);
+    b[3][j] = (uint8_t)(nf ? (hv ? f2p0 : f6p0) : p0);
+    b[4][j] = (uint8_t)(nf ? (hv ? f2q0 : f6q0) : q0);
+    b[5][j] = (uint8_t)(nf ? (hv ? q1 : f6q1) : q1);
+    b[6][j] = (uint8_t)(nf ? (hv ? q2 : f6q2) : q2);
+  }
+#endif
+}
+static void lane_core24(EdgeBuf b, int thresh2, int it, int hev_t) {
+#if defined(__AVX2__)
+  __m256i p3 = lf_load(b[0]), p2 = lf_load(b[1]), p1 = lf_load(b[2]),
+          p0 = lf_load(b[3]), q0 = lf_load(b[4]), q1 = lf_load(b[5]),
+          q2 = lf_load(b[6]), q3 = lf_load(b[7]);
+  LfCommon c = lf_common(p3, p2, p1, p0, q0, q1, q2, q3, thresh2, it, hev_t);
+  __m256i d = _mm256_sub_epi16(q0, p0);
+  __m256i a4 = _mm256_add_epi16(d, _mm256_add_epi16(d, d));
+  __m256i f4a1 = lf_sclip2(_mm256_srai_epi16(
+      _mm256_add_epi16(a4, _mm256_set1_epi16(4)), 3));
+  __m256i f4a2 = lf_sclip2(_mm256_srai_epi16(
+      _mm256_add_epi16(a4, _mm256_set1_epi16(3)), 3));
+  __m256i f4a3 = _mm256_srai_epi16(
+      _mm256_add_epi16(f4a1, _mm256_set1_epi16(1)), 1);
+  lf_store(b[2], lf_sel(c.nf, c.hv, p1, p1,
+                        lf_clip255(_mm256_add_epi16(p1, f4a3))));
+  lf_store(b[3], lf_sel(c.nf, c.hv, p0, c.f2p0,
+                        lf_clip255(_mm256_add_epi16(p0, f4a2))));
+  lf_store(b[4], lf_sel(c.nf, c.hv, q0, c.f2q0,
+                        lf_clip255(_mm256_sub_epi16(q0, f4a1))));
+  lf_store(b[5], lf_sel(c.nf, c.hv, q1, q1,
+                        lf_clip255(_mm256_sub_epi16(q1, f4a3))));
+#else
+  for (int j = 0; j < 16; j++) {
+    int p3 = b[0][j], p2 = b[1][j], p1 = b[2][j], p0 = b[3][j];
+    int q0 = b[4][j], q1 = b[5][j], q2 = b[6][j], q3 = b[7][j];
+    int nf = (4 * iabs(p0 - q0) + iabs(p1 - q1) <= thresh2) &
+             (iabs(p3 - p2) <= it) & (iabs(p2 - p1) <= it) &
+             (iabs(p1 - p0) <= it) & (iabs(q3 - q2) <= it) &
+             (iabs(q2 - q1) <= it) & (iabs(q1 - q0) <= it);
+    int hv = (iabs(p1 - p0) > hev_t) | (iabs(q1 - q0) > hev_t);
+    int a2c = 3 * (q0 - p0) + sclip1(p1 - q1);
+    int f2a1 = sclip2((a2c + 4) >> 3);
+    int f2a2 = sclip2((a2c + 3) >> 3);
+    int f2p0 = clip255i(p0 + f2a2), f2q0 = clip255i(q0 - f2a1);
+    int a4 = 3 * (q0 - p0);
+    int f4a1 = sclip2((a4 + 4) >> 3);
+    int f4a2 = sclip2((a4 + 3) >> 3);
+    int f4a3 = (f4a1 + 1) >> 1;
+    int f4p1 = clip255i(p1 + f4a3), f4p0 = clip255i(p0 + f4a2);
+    int f4q0 = clip255i(q0 - f4a1), f4q1 = clip255i(q1 - f4a3);
+    b[2][j] = (uint8_t)(nf ? (hv ? p1 : f4p1) : p1);
+    b[3][j] = (uint8_t)(nf ? (hv ? f2p0 : f4p0) : p0);
+    b[4][j] = (uint8_t)(nf ? (hv ? f2q0 : f4q0) : q0);
+    b[5][j] = (uint8_t)(nf ? (hv ? q1 : f4q1) : q1);
+  }
+#endif
+}
+
+// Luma edge (16 lanes).  For vertical edges (hstride == 1) the lanes'
+// across-edge pixels are contiguous: SIMD-transpose in and out.
+static void filter_loop26(uint8_t* p, int hstride, int vstride, int n,
+                          int thresh, int it, int hev_t) {
+  EdgeBuf b;
+#if defined(__SSE2__)
+  if (hstride == 1 && n == 16) {
+    uint8_t* rows[16];
+    for (int j = 0; j < 16; j++)
+      rows[j] = p + (std::ptrdiff_t)j * vstride - 4;
+    tr_gather(rows, b);
+    lane_core26(b, 2 * thresh + 1, it, hev_t);
+    tr_scatter(b, rows);
+    return;
+  }
+#endif
+  edge_gather(p, hstride, vstride, n, 0, b);
+  if (n < 16)  // lone chroma edge (fallback callers): mirror into top lanes
+    edge_gather(p, hstride, vstride, n, 16 - n, b);
+  lane_core26(b, 2 * thresh + 1, it, hev_t);
+  edge_scatter(p, hstride, vstride, n, 0, b, 1, 6);
+}
+static void filter_loop24(uint8_t* p, int hstride, int vstride, int n,
+                          int thresh, int it, int hev_t) {
+  EdgeBuf b;
+#if defined(__SSE2__)
+  if (hstride == 1 && n == 16) {
+    uint8_t* rows[16];
+    for (int j = 0; j < 16; j++)
+      rows[j] = p + (std::ptrdiff_t)j * vstride - 4;
+    tr_gather(rows, b);
+    lane_core24(b, 2 * thresh + 1, it, hev_t);
+    tr_scatter(b, rows);
+    return;
+  }
+#endif
+  edge_gather(p, hstride, vstride, n, 0, b);
+  if (n < 16)
+    edge_gather(p, hstride, vstride, n, 16 - n, b);
+  lane_core24(b, 2 * thresh + 1, it, hev_t);
+  edge_scatter(p, hstride, vstride, n, 0, b, 2, 5);
+}
+// Paired chroma edge: U lanes 0-7, V lanes 8-15, one core call.
+static void filter_loop26_uv(uint8_t* up, uint8_t* vp, int hstride,
+                             int vstride, int thresh, int it, int hev_t) {
+  EdgeBuf b;
+#if defined(__SSE2__)
+  if (hstride == 1) {
+    uint8_t* rows[16];
+    for (int j = 0; j < 8; j++) {
+      rows[j] = up + (std::ptrdiff_t)j * vstride - 4;
+      rows[8 + j] = vp + (std::ptrdiff_t)j * vstride - 4;
+    }
+    tr_gather(rows, b);
+    lane_core26(b, 2 * thresh + 1, it, hev_t);
+    tr_scatter(b, rows);
+    return;
+  }
+#endif
+  edge_gather(up, hstride, vstride, 8, 0, b);
+  edge_gather(vp, hstride, vstride, 8, 8, b);
+  lane_core26(b, 2 * thresh + 1, it, hev_t);
+  edge_scatter(up, hstride, vstride, 8, 0, b, 1, 6);
+  edge_scatter(vp, hstride, vstride, 8, 8, b, 1, 6);
+}
+static void filter_loop24_uv(uint8_t* up, uint8_t* vp, int hstride,
+                             int vstride, int thresh, int it, int hev_t) {
+  EdgeBuf b;
+#if defined(__SSE2__)
+  if (hstride == 1) {
+    uint8_t* rows[16];
+    for (int j = 0; j < 8; j++) {
+      rows[j] = up + (std::ptrdiff_t)j * vstride - 4;
+      rows[8 + j] = vp + (std::ptrdiff_t)j * vstride - 4;
+    }
+    tr_gather(rows, b);
+    lane_core24(b, 2 * thresh + 1, it, hev_t);
+    tr_scatter(b, rows);
+    return;
+  }
+#endif
+  edge_gather(up, hstride, vstride, 8, 0, b);
+  edge_gather(vp, hstride, vstride, 8, 8, b);
+  lane_core24(b, 2 * thresh + 1, it, hev_t);
+  edge_scatter(up, hstride, vstride, 8, 0, b, 2, 5);
+  edge_scatter(vp, hstride, vstride, 8, 8, b, 2, 5);
+}
+static void filter_simple(uint8_t* p, int hstride, int vstride, int n,
+                          int thresh) {
+  int thresh2 = 2 * thresh + 1;
+  uint8_t lanes[4][16];
+  for (int r = 0; r < 4; r++) {
+    const uint8_t* src = p + (std::ptrdiff_t)(r - 2) * hstride;
+    for (int j = 0; j < n; j++) lanes[r][j] = src[(std::ptrdiff_t)j * vstride];
+  }
+  for (int j = 0; j < 16; j++) {
+    int p1 = lanes[0][j], p0 = lanes[1][j], q0 = lanes[2][j], q1 = lanes[3][j];
+    int nf = 4 * iabs(p0 - q0) + iabs(p1 - q1) <= thresh2;
+    int a = 3 * (q0 - p0) + sclip1(p1 - q1);
+    int a1 = sclip2((a + 4) >> 3);
+    int a2 = sclip2((a + 3) >> 3);
+    int fp0 = clip255i(p0 + a2), fq0 = clip255i(q0 - a1);
+    lanes[1][j] = (uint8_t)(nf ? fp0 : p0);
+    lanes[2][j] = (uint8_t)(nf ? fq0 : q0);
+  }
+  for (int r = 1; r < 3; r++) {
+    uint8_t* dst = p + (std::ptrdiff_t)(r - 2) * hstride;
+    for (int j = 0; j < n; j++) dst[(std::ptrdiff_t)j * vstride] = lanes[r][j];
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -458,6 +1170,358 @@ int wtpu_vp8_decode_symbols(
     std::memcpy(m + 5, mb.imodes, 16);
   }
   return 0;
+}
+
+// Reconstruction of MB rows [row0, row1) from a parsed MB list.
+// Context comes straight from the output planes: the row above is
+// reconstructed and still unfiltered (the filter runs after the
+// whole frame).
+static void recon_rows(
+    std::vector<MB>& mbs, int mb_w, int row0, int row1,
+    uint8_t* y_out, uint8_t* u_out, uint8_t* v_out) {
+  const int ys = mb_w * 16;          // luma stride
+  const int cs = mb_w * 8;           // chroma stride
+  std::vector<uint8_t> ybuf(17 * BUFS), ubuf(9 * BUFS), vbuf(9 * BUFS);
+  for (int mb_y = row0; mb_y < row1; mb_y++) {
+    for (int mb_x = 0; mb_x < mb_w; mb_x++) {
+      MB& mb = mbs[(size_t)mb_y * mb_w + mb_x];
+      bool ht = mb_y > 0, hl = mb_x > 0;
+      // Fill borders.
+      if (ht) {
+        const uint8_t* yt = y_out + (size_t)(mb_y * 16 - 1) * ys + mb_x * 16;
+        std::memcpy(&ybuf[1], yt, 16);
+        if (mb_x < mb_w - 1) std::memcpy(&ybuf[17], yt + 16, 4);
+        else std::memset(&ybuf[17], yt[15], 4);
+        const uint8_t* ut = u_out + (size_t)(mb_y * 8 - 1) * cs + mb_x * 8;
+        const uint8_t* vt = v_out + (size_t)(mb_y * 8 - 1) * cs + mb_x * 8;
+        std::memcpy(&ubuf[1], ut, 8);
+        std::memcpy(&vbuf[1], vt, 8);
+        ybuf[0] = hl ? yt[-1] : 129;
+        ubuf[0] = hl ? ut[-1] : 129;
+        vbuf[0] = hl ? vt[-1] : 129;
+      } else {
+        std::memset(&ybuf[0], 127, 21);
+        std::memset(&ubuf[0], 127, 9);
+        std::memset(&vbuf[0], 127, 9);
+      }
+      for (int r = 0; r < 16; r++)
+        ybuf[(1 + r) * BUFS] = hl
+            ? y_out[(size_t)(mb_y * 16 + r) * ys + mb_x * 16 - 1] : 129;
+      for (int r = 0; r < 8; r++) {
+        ubuf[(1 + r) * BUFS] = hl
+            ? u_out[(size_t)(mb_y * 8 + r) * cs + mb_x * 8 - 1] : 129;
+        vbuf[(1 + r) * BUFS] = hl
+            ? v_out[(size_t)(mb_y * 8 + r) * cs + mb_x * 8 - 1] : 129;
+      }
+      if (mb.is_i4) {
+        // Replicate TR below row 0 for right-column blocks.
+        for (int rr = 4; rr <= 12; rr += 4)
+          std::memcpy(&ybuf[rr * BUFS + 17], &ybuf[17], 4);
+        for (int n = 0; n < 16; n++) {
+          int r = 4 * (n >> 2), c = 4 * (n & 3);
+          predict_luma4(ybuf.data(), c, r, mb.imodes[n]);
+          if (mb.has_nz[n])
+            idct_add(mb.coeffs[n], &ybuf[(r + 1) * BUFS + c + 1], BUFS);
+        }
+      } else {
+        predict_block(ybuf.data(), 0, 0, 16, mb.ymode, ht, hl);
+        for (int n = 0; n < 16; n++) {
+          int r = 4 * (n >> 2), c = 4 * (n & 3);
+          if (mb.has_nz[n])
+            idct_add(mb.coeffs[n], &ybuf[(r + 1) * BUFS + c + 1], BUFS);
+        }
+      }
+      predict_block(ubuf.data(), 0, 0, 8, mb.uvmode, ht, hl);
+      predict_block(vbuf.data(), 0, 0, 8, mb.uvmode, ht, hl);
+      for (int n = 0; n < 4; n++) {
+        int r = 4 * (n >> 1), c = 4 * (n & 1);
+        if (mb.has_nz[16 + n])
+          idct_add(mb.coeffs[16 + n], &ubuf[(r + 1) * BUFS + c + 1], BUFS);
+        if (mb.has_nz[20 + n])
+          idct_add(mb.coeffs[20 + n], &vbuf[(r + 1) * BUFS + c + 1], BUFS);
+      }
+      // Store.
+      for (int r = 0; r < 16; r++)
+        std::memcpy(y_out + (size_t)(mb_y * 16 + r) * ys + mb_x * 16,
+                    &ybuf[(1 + r) * BUFS + 1], 16);
+      for (int r = 0; r < 8; r++) {
+        std::memcpy(u_out + (size_t)(mb_y * 8 + r) * cs + mb_x * 8,
+                    &ubuf[(1 + r) * BUFS + 1], 8);
+        std::memcpy(v_out + (size_t)(mb_y * 8 + r) * cs + mb_x * 8,
+                    &vbuf[(1 + r) * BUFS + 1], 8);
+      }
+    }
+  }
+}
+
+// Loop filter for MB rows [row0, row1), once they and the row below are
+// reconstructed: a row's column edges modify its bottom row, which the
+// next row's intra prediction reads unfiltered.
+static void filter_rows(
+    std::vector<MB>& mbs, int mb_w, int row0, int row1,
+    int filter_type, const int32_t* finfo,
+    uint8_t* y_out, uint8_t* u_out, uint8_t* v_out) {
+  const int ys = mb_w * 16;
+  const int cs = mb_w * 8;
+  if (filter_type > 0) {
+    for (int mb_y = row0; mb_y < row1; mb_y++) {
+      for (int mb_x = 0; mb_x < mb_w; mb_x++) {
+        MB& mb = mbs[(size_t)mb_y * mb_w + mb_x];
+        const int32_t* fi = finfo + (mb.segment * 2 + (mb.is_i4 ? 1 : 0)) * 3;
+        int limit = fi[0], il = fi[1], hv = fi[2];
+        if (limit < 0) continue;
+        bool inner = mb.is_i4 || !mb.skip;
+        uint8_t* yp = y_out + (size_t)mb_y * 16 * ys + mb_x * 16;
+        if (filter_type == 1) {
+          if (mb_x > 0) filter_simple(yp, 1, ys, 16, limit + 4);
+          if (inner)
+            for (int dx = 4; dx <= 12; dx += 4)
+              filter_simple(yp + dx, 1, ys, 16, limit);
+          if (mb_y > 0) filter_simple(yp, ys, 1, 16, limit + 4);
+          if (inner)
+            for (int dy = 4; dy <= 12; dy += 4)
+              filter_simple(yp + (size_t)dy * ys, ys, 1, 16, limit);
+        } else {
+          uint8_t* up = u_out + (size_t)mb_y * 8 * cs + mb_x * 8;
+          uint8_t* vp = v_out + (size_t)mb_y * 8 * cs + mb_x * 8;
+          if (mb_x > 0) {
+            filter_loop26(yp, 1, ys, 16, limit + 4, il, hv);
+            filter_loop26_uv(up, vp, 1, cs, limit + 4, il, hv);
+          }
+          if (inner) {
+            for (int dx = 4; dx <= 12; dx += 4)
+              filter_loop24(yp + dx, 1, ys, 16, limit, il, hv);
+            filter_loop24_uv(up + 4, vp + 4, 1, cs, limit, il, hv);
+          }
+          if (mb_y > 0) {
+            filter_loop26(yp, ys, 1, 16, limit + 4, il, hv);
+            filter_loop26_uv(up, vp, cs, 1, limit + 4, il, hv);
+          }
+          if (inner) {
+            for (int dy = 4; dy <= 12; dy += 4)
+              filter_loop24(yp + (size_t)dy * ys, ys, 1, 16, limit, il, hv);
+            filter_loop24_uv(up + (size_t)4 * cs, vp + (size_t)4 * cs,
+                             cs, 1, limit, il, hv);
+          }
+        }
+      }
+    }
+  }
+
+}
+
+
+// Reconstruct host planes from the symbol engines' output arrays
+// (decoder.py decode_vp8_symbols_batch): coeffs (N,24,16) dequantized
+// int16, modes (N,21) = [is_i4, uvmode, segment, skip, dither,
+// imodes[16]]; finfo [4][2][3] limit/ilevel/hev per (segment, is_i4),
+// limit < 0 = off.  Writes the MB-padded planes.
+void wtpu_vp8_recon_frame_arrays(
+    const int16_t* coeffs, const uint8_t* modes,
+    int mb_w, int mb_h, int filter_type, const int32_t* finfo,
+    uint8_t* y_out, uint8_t* u_out, uint8_t* v_out) {
+  const size_t n = (size_t)mb_w * mb_h;
+  std::vector<MB> mbs(n);
+  for (size_t i = 0; i < n; i++) {
+    MB& mb = mbs[i];
+    const uint8_t* m = modes + i * 21;
+    mb.is_i4 = m[0]; mb.uvmode = m[1]; mb.segment = m[2];
+    mb.skip = m[3]; mb.dither = m[4];
+    std::memcpy(mb.imodes, m + 5, 16);
+    mb.ymode = mb.imodes[0];
+    const int16_t* c = coeffs + i * 24 * 16;
+    std::memcpy(mb.coeffs, c, 24 * 16 * sizeof(int16_t));
+    for (int b = 0; b < 24; b++) {
+      const int16_t* q = c + b * 16;
+      int16_t any = 0;
+      for (int k = 0; k < 16; k++) any |= q[k];
+      mb.has_nz[b] = (uint8_t)(any != 0);
+    }
+  }
+  recon_rows(mbs, mb_w, 0, mb_h, y_out, u_out, v_out);
+  filter_rows(mbs, mb_w, 0, mb_h, filter_type, finfo, y_out, u_out, v_out);
+}
+
+// ----------------------------------------------------------------------
+// Fused fancy upsample + BT.601 YUV→RGBA (libwebp's EmitFancyRGB math).
+// ----------------------------------------------------------------------
+static inline void yuv2rgba_px(int y, int u, int v, uint8_t* o) {
+  const int yy = (y * 19077) >> 8;
+  int r = yy + ((v * 26149) >> 8) - 14234;
+  int g = yy - ((u * 6419) >> 8) - ((v * 13320) >> 8) + 8708;
+  int b = yy + ((u * 33050) >> 8) - 17685;
+  const int M = (256 << 6) - 1;
+  r = r < 0 ? 0 : (r > M ? M : r);
+  g = g < 0 ? 0 : (g > M ? M : g);
+  b = b < 0 ? 0 : (b > M ? M : b);
+  o[0] = (uint8_t)(r >> 6);
+  o[1] = (uint8_t)(g >> 6);
+  o[2] = (uint8_t)(b >> 6);
+  o[3] = 255;
+}
+
+// One interpolated chroma row pair: T = chroma row k, B = row k+1.
+// Note 2*i < width always holds for 1 <= i < w2 (w2 = ceil(width/2)),
+// so the pairwise writes are unconditional and the loop is
+// lane-parallel over i; an AVX2 path computes 16 i's per step.
+static void fancy_row(const uint8_t* T, const uint8_t* B, int w2, int width,
+                      uint8_t* out_top /* len width */, bool is_top) {
+  // is_top: produce the "top" output row of the pair, else the bottom.
+  if (is_top) out_top[0] = (uint8_t)((3 * T[0] + B[0] + 2) >> 2);
+  else out_top[0] = (uint8_t)((3 * B[0] + T[0] + 2) >> 2);
+  int i = 1;
+#if defined(__AVX2__)
+  for (; i + 16 <= w2; i += 16) {
+    const __m256i tl = lf_load(T + i - 1), t = lf_load(T + i);
+    const __m256i l = lf_load(B + i - 1), c = lf_load(B + i);
+    const __m256i avg = _mm256_add_epi16(
+        _mm256_add_epi16(_mm256_add_epi16(tl, t), _mm256_add_epi16(l, c)),
+        _mm256_set1_epi16(8));
+    const __m256i d12 = _mm256_srai_epi16(
+        _mm256_add_epi16(avg, _mm256_slli_epi16(_mm256_add_epi16(t, l), 1)),
+        3);
+    const __m256i d03 = _mm256_srai_epi16(
+        _mm256_add_epi16(avg, _mm256_slli_epi16(_mm256_add_epi16(tl, c), 1)),
+        3);
+    __m256i odd, evn;  // out[2i-1], out[2i]
+    if (is_top) {
+      odd = _mm256_srai_epi16(_mm256_add_epi16(d12, tl), 1);
+      evn = _mm256_srai_epi16(_mm256_add_epi16(d03, t), 1);
+    } else {
+      odd = _mm256_srai_epi16(_mm256_add_epi16(d03, l), 1);
+      evn = _mm256_srai_epi16(_mm256_add_epi16(d12, c), 1);
+    }
+    const __m128i o8 = _mm_packus_epi16(_mm256_castsi256_si128(odd),
+                                        _mm256_extracti128_si256(odd, 1));
+    const __m128i e8 = _mm_packus_epi16(_mm256_castsi256_si128(evn),
+                                        _mm256_extracti128_si256(evn, 1));
+    _mm_storeu_si128((__m128i*)(out_top + 2 * i - 1),
+                     _mm_unpacklo_epi8(o8, e8));
+    _mm_storeu_si128((__m128i*)(out_top + 2 * i + 15),
+                     _mm_unpackhi_epi8(o8, e8));
+  }
+#endif
+  for (; i < w2; i++) {
+    const int tl = T[i - 1], t = T[i], l = B[i - 1], c = B[i];
+    const int avg = tl + t + l + c + 8;
+    const int d12 = (avg + 2 * (t + l)) >> 3;
+    const int d03 = (avg + 2 * (tl + c)) >> 3;
+    if (is_top) {
+      out_top[2 * i - 1] = (uint8_t)((d12 + tl) >> 1);
+      if (2 * i < width) out_top[2 * i] = (uint8_t)((d03 + t) >> 1);
+    } else {
+      out_top[2 * i - 1] = (uint8_t)((d03 + l) >> 1);
+      if (2 * i < width) out_top[2 * i] = (uint8_t)((d12 + c) >> 1);
+    }
+  }
+  if (width % 2 == 0 && width > 1) {
+    if (is_top)
+      out_top[width - 1] = (uint8_t)((3 * T[w2 - 1] + B[w2 - 1] + 2) >> 2);
+    else
+      out_top[width - 1] = (uint8_t)((3 * B[w2 - 1] + T[w2 - 1] + 2) >> 2);
+  }
+}
+
+#if defined(__AVX2__)
+// 16 pixels of BT.601 YUV→RGBA per step, exact same fixed-point math as
+// yuv2rgba_px: (x*k)>>8 == mulhi_epu16(x<<8, k); the one sum that can
+// exceed int16 (yy + ub) saturates at 32767 which the >>6 clamp to
+// 16383 makes exact.
+static void yuv2rgba_row_avx2(const uint8_t* y, const uint8_t* u,
+                              const uint8_t* v, int width, uint8_t* o) {
+  const __m256i k19077 = _mm256_set1_epi16(19077);
+  const __m256i k26149 = _mm256_set1_epi16((short)26149);
+  const __m256i k6419 = _mm256_set1_epi16(6419);
+  const __m256i k13320 = _mm256_set1_epi16(13320);
+  const __m256i k33050 = _mm256_set1_epi16((short)33050);
+  const __m256i c14234 = _mm256_set1_epi16(14234);
+  const __m256i c8708 = _mm256_set1_epi16(8708);
+  const __m256i c17685 = _mm256_set1_epi16(17685);
+  const __m256i vmax = _mm256_set1_epi16((256 << 6) - 1);
+  const __m256i zero = _mm256_setzero_si256();
+  const __m128i a8 = _mm_set1_epi8((char)255);
+  int x = 0;
+  for (; x + 16 <= width; x += 16) {
+    const __m256i y8 = _mm256_slli_epi16(lf_load(y + x), 8);
+    const __m256i u8v = _mm256_slli_epi16(lf_load(u + x), 8);
+    const __m256i v8v = _mm256_slli_epi16(lf_load(v + x), 8);
+    const __m256i yy = _mm256_mulhi_epu16(y8, k19077);
+    __m256i rr = _mm256_adds_epi16(
+        yy, _mm256_sub_epi16(_mm256_mulhi_epu16(v8v, k26149), c14234));
+    __m256i gg = _mm256_sub_epi16(
+        _mm256_sub_epi16(_mm256_add_epi16(yy, c8708),
+                         _mm256_mulhi_epu16(u8v, k6419)),
+        _mm256_mulhi_epu16(v8v, k13320));
+    __m256i bb = _mm256_adds_epi16(
+        yy, _mm256_sub_epi16(_mm256_mulhi_epu16(u8v, k33050), c17685));
+    rr = _mm256_srai_epi16(_mm256_max_epi16(_mm256_min_epi16(rr, vmax), zero), 6);
+    gg = _mm256_srai_epi16(_mm256_max_epi16(_mm256_min_epi16(gg, vmax), zero), 6);
+    bb = _mm256_srai_epi16(_mm256_max_epi16(_mm256_min_epi16(bb, vmax), zero), 6);
+    const __m128i r8 = _mm_packus_epi16(_mm256_castsi256_si128(rr),
+                                        _mm256_extracti128_si256(rr, 1));
+    const __m128i g8 = _mm_packus_epi16(_mm256_castsi256_si128(gg),
+                                        _mm256_extracti128_si256(gg, 1));
+    const __m128i b8 = _mm_packus_epi16(_mm256_castsi256_si128(bb),
+                                        _mm256_extracti128_si256(bb, 1));
+    const __m128i rg0 = _mm_unpacklo_epi8(r8, g8);
+    const __m128i rg1 = _mm_unpackhi_epi8(r8, g8);
+    const __m128i ba0 = _mm_unpacklo_epi8(b8, a8);
+    const __m128i ba1 = _mm_unpackhi_epi8(b8, a8);
+    uint8_t* op = o + 4 * (size_t)x;
+    _mm_storeu_si128((__m128i*)(op + 0), _mm_unpacklo_epi16(rg0, ba0));
+    _mm_storeu_si128((__m128i*)(op + 16), _mm_unpackhi_epi16(rg0, ba0));
+    _mm_storeu_si128((__m128i*)(op + 32), _mm_unpacklo_epi16(rg1, ba1));
+    _mm_storeu_si128((__m128i*)(op + 48), _mm_unpackhi_epi16(rg1, ba1));
+  }
+  for (; x < width; x++) yuv2rgba_px(y[x], u[x], v[x], o + 4 * (size_t)x);
+}
+#endif  // __AVX2__
+
+void wtpu_yuv_to_rgba_fancy(const uint8_t* yp, const uint8_t* up,
+                            const uint8_t* vp, int width, int height,
+                            int y_stride, int uv_stride, uint8_t* out) {
+  const int w2 = (width + 1) >> 1;
+  const int h2 = (height + 1) >> 1;
+  std::vector<uint8_t> urow(width), vrow(width);
+
+  auto emit_row = [&](int r) {
+    const uint8_t* y = yp + (int64_t)r * y_stride;
+    uint8_t* o = out + (int64_t)r * width * 4;
+#if defined(__AVX2__)
+    yuv2rgba_row_avx2(y, urow.data(), vrow.data(), width, o);
+#else
+    for (int x = 0; x < width; x++)
+      yuv2rgba_px(y[x], urow[x], vrow[x], o + 4 * x);
+#endif
+  };
+
+  // Row 0: self-pair of chroma row 0.
+  fancy_row(up, up, w2, width, urow.data(), true);
+  fancy_row(vp, vp, w2, width, vrow.data(), true);
+  emit_row(0);
+  for (int k = 0; k + 1 < h2; k++) {
+    const uint8_t* uT = up + (int64_t)k * uv_stride;
+    const uint8_t* uB = uT + uv_stride;
+    const uint8_t* vT = vp + (int64_t)k * uv_stride;
+    const uint8_t* vB = vT + uv_stride;
+    if (2 * k + 1 < height) {
+      fancy_row(uT, uB, w2, width, urow.data(), true);
+      fancy_row(vT, vB, w2, width, vrow.data(), true);
+      emit_row(2 * k + 1);
+    }
+    if (2 * k + 2 < height) {
+      fancy_row(uT, uB, w2, width, urow.data(), false);
+      fancy_row(vT, vB, w2, width, vrow.data(), false);
+      emit_row(2 * k + 2);
+    }
+  }
+  if (height % 2 == 0 && height > 1) {
+    const uint8_t* uL = up + (int64_t)(h2 - 1) * uv_stride;
+    const uint8_t* vL = vp + (int64_t)(h2 - 1) * uv_stride;
+    fancy_row(uL, uL, w2, width, urow.data(), true);
+    fancy_row(vL, vL, w2, width, vrow.data(), true);
+    emit_row(height - 1);
+  }
 }
 
 }  // extern "C"

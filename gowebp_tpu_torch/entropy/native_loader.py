@@ -4,14 +4,16 @@ Compiles gowebp_tpu_torch/entropy/native/*.cpp with g++ into one shared
 library under gowebp_tpu_torch/_build/ on first use (cached by source
 hash), for the build host's own instruction set (``-march=native``): the
 interleaved symbol decoder (vp8_dec_batch.cpp) vectorises only where
-AVX-512 is there.  The batch encoder and decoder have no pure-Python
-fallback for these functions: a failed build raises.
+AVX-512 is there.  The batch encoder and decoder, the VP8L and ALPH
+decoders and the host reconstruction have no pure-Python fallback for
+these functions: a failed build raises.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import os
 import subprocess
 import threading
 from pathlib import Path
@@ -42,7 +44,7 @@ def _build() -> Path:
     so_path = _BUILD_DIR / f"libwtpu_host_{tag}.so"
     if so_path.exists():
         return so_path
-    tmp = so_path.with_suffix(f".{threading.get_ident()}.tmp")
+    tmp = so_path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = ["g++", *_FLAGS, "-o", str(tmp)] + [str(s) for s in srcs]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=300)
@@ -132,6 +134,48 @@ def _configure(lib) -> None:
         u8p, u64p,                            # modes_all, modes_off
         i32p,                                 # rc_out
     ]
+
+    # host reconstruction (recon_backend="host")
+    lib.wtpu_vp8_recon_frame_arrays.restype = None
+    lib.wtpu_vp8_recon_frame_arrays.argtypes = [
+        i16p, u8p,                            # coeffs, modes
+        c.c_int, c.c_int, c.c_int, i32p,      # mb_w, mb_h, filter_type, finfo
+        u8p, u8p, u8p,                        # y, u, v out
+    ]
+    lib.wtpu_yuv_to_rgba_fancy.restype = None
+    lib.wtpu_yuv_to_rgba_fancy.argtypes = [
+        u8p, u8p, u8p, c.c_int, c.c_int, c.c_int, c.c_int, u8p,
+    ]
+
+    # VP8L decode and the ALPH unfilter
+    lib.wtpu_vp8l_read_groups.restype = c.c_int
+    lib.wtpu_vp8l_read_groups.argtypes = [
+        u8p, c.c_uint64, c.c_uint64,          # data, size, bit_pos
+        c.c_int, i32p, i32p, u64p,            # groups, alphabets, out, pos
+    ]
+    lib.wtpu_vp8l_decode_pixels.restype = c.c_int
+    lib.wtpu_vp8l_decode_pixels.argtypes = [
+        u8p, c.c_uint64, c.c_uint64,          # data, size, bit_pos
+        c.c_int, c.c_int, c.c_int,            # width, height, num_groups
+        i32p, i32p, i32p,                     # alphabet_sizes, lengths, offsets
+        i32p, c.c_int, c.c_int,               # huffman_image, bits, meta_w
+        c.c_int,                              # cache_bits
+        u32p, u64p,                           # out, bit_pos_out
+    ]
+    lib.wtpu_vp8l_add_green.restype = None
+    lib.wtpu_vp8l_add_green.argtypes = [u32p, c.c_int64]
+    lib.wtpu_vp8l_color_inverse.restype = None
+    lib.wtpu_vp8l_color_inverse.argtypes = [
+        u32p, c.c_int, c.c_int, u32p, c.c_int, c.c_int,
+    ]
+    lib.wtpu_vp8l_predictor_inverse.restype = None
+    lib.wtpu_vp8l_predictor_inverse.argtypes = [
+        u32p, c.c_int, c.c_int, u32p, c.c_int, c.c_int,
+    ]
+    lib.wtpu_argb_to_rgba.restype = None
+    lib.wtpu_argb_to_rgba.argtypes = [u32p, u8p, c.c_int64]
+    lib.wtpu_alpha_unfilter.restype = None
+    lib.wtpu_alpha_unfilter.argtypes = [u8p, c.c_int, c.c_int, c.c_int]
 
 
 __all__ = ["get_lib"]

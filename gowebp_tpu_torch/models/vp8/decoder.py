@@ -1,12 +1,16 @@
-"""VP8 (WebP lossy) decoder, host half: headers and the symbol engines.
+"""VP8 (WebP lossy) decoder, host half: headers, the symbol engines and
+the host reconstruction.
 
 The decode is split in two.  This module runs the sequential entropy
 decode on the host: the frame header in Python, then the per-MB modes
 and coefficient tokens in the native C++ layer (ctypes, GIL released).
 It produces dense per-MB arrays: dequantized coefficients, modes and
-loop-filter parameters.  Everything pixel-shaped (iDCT, intra
+loop-filter parameters.  By default everything pixel-shaped (iDCT, intra
 prediction, the loop filter, upsampling and colour conversion) runs on
 the device in ops/vp8_recon.py, ops/yuv.py and the yuv420_to_rgba kernel.
+``recon_vp8_yuv_host`` and ``yuv_planes_to_rgba`` do the same work in the
+native layer instead (the batch decode's ``recon_backend="host"``), with
+the same pixels.
 
 Written from RFC 6386.
 """
@@ -445,11 +449,65 @@ def decode_vp8_symbols_batch(payloads: list):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Host reconstruction
+# ---------------------------------------------------------------------------
+
+
+def recon_vp8_yuv_host(st: FrameState, coeffs: np.ndarray,
+                       modes: np.ndarray):
+    """Native reconstruction and loop filter from the symbol engines'
+    arrays → the cropped (Y, U, V) uint8 planes, on the host."""
+    mb_w, mb_h = st.mb_w, st.mb_h
+    finfo = np.full((4, 2, 3), -1, np.int32)
+    for s, row in enumerate(_precompute_filter_info(st)):
+        for i4, fi in enumerate(row):
+            if fi is not None:
+                finfo[s, i4] = fi
+    Y = np.zeros((mb_h * 16, mb_w * 16), np.uint8)
+    U = np.zeros((mb_h * 8, mb_w * 8), np.uint8)
+    V = np.zeros((mb_h * 8, mb_w * 8), np.uint8)
+    cf = np.ascontiguousarray(coeffs.reshape(-1), np.int16)
+    md = np.ascontiguousarray(modes.reshape(-1), np.uint8)
+
+    def p(arr, t):
+        return arr.ctypes.data_as(ctypes.POINTER(t))
+
+    get_lib().wtpu_vp8_recon_frame_arrays(
+        p(cf, ctypes.c_int16), p(md, ctypes.c_uint8),
+        mb_w, mb_h, st.filter_type, p(finfo, ctypes.c_int32),
+        p(Y, ctypes.c_uint8), p(U, ctypes.c_uint8), p(V, ctypes.c_uint8))
+    W, H = st.width, st.height
+    return (Y[:H, :W], U[: (H + 1) // 2, : (W + 1) // 2],
+            V[: (H + 1) // 2, : (W + 1) // 2])
+
+
+def yuv_planes_to_rgba(y: np.ndarray, u: np.ndarray,
+                       v: np.ndarray) -> np.ndarray:
+    """Host YUV 4:2:0 planes → (H, W, 4) RGBA (alpha 255): the native
+    fused fancy upsample and BT.601 conversion, the same arithmetic as
+    the yuv420_to_rgba kernel."""
+    H, W = y.shape
+    yc = np.ascontiguousarray(y, np.uint8)
+    uc = np.ascontiguousarray(u, np.uint8)
+    vc = np.ascontiguousarray(v, np.uint8)
+    out = np.empty((H, W, 4), np.uint8)
+
+    def u8(a):
+        return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+    get_lib().wtpu_yuv_to_rgba_fancy(u8(yc), u8(uc), u8(vc), W, H,
+                                     yc.shape[1], uc.shape[1], u8(out))
+    return out
+
+
 __all__ = [
     "FrameState",
     "decode_vp8_symbols",
     "decode_vp8_symbols_batch",
     "parse_frame_header",
+    "recon_vp8_yuv_host",
     "symbol_engine",
     "vp8_filter_params",
+    "yuv_planes_to_rgba",
 ]

@@ -62,7 +62,8 @@ def yuv420_to_rgba(y, u, v, height: int, width: int, alpha=None):
     """Kernel on a CUDA tensor, plain version on a CPU tensor.
 
     ``yuv420_to_rgba.launches`` counts kernel launches (one per call on
-    CUDA).
+    CUDA); ``yuv420_to_rgba.alpha_launches`` those of them that read an
+    alpha plane.
     """
     dev = y.device
     if dev.type == "cpu":
@@ -90,9 +91,12 @@ def yuv420_to_rgba(y, u, v, height: int, width: int, alpha=None):
         raise RuntimeError(
             f"yuv420_to_rgba kernel launch failed: CUDA error {err}")
     yuv420_to_rgba.launches += 1
+    if alpha is not None:
+        yuv420_to_rgba.alpha_launches += 1
     return out
 
 
 yuv420_to_rgba.launches = 0
+yuv420_to_rgba.alpha_launches = 0
 
 __all__ = ["LIBRARY", "yuv420_to_rgba", "yuv420_to_rgba_plain"]

@@ -1,7 +1,8 @@
 """PyTorch port on the card: each CUDA kernel vs its plain torch version,
 the batch encode's GPU bytes vs its CPU bytes (hybrid, exact wavefront and
-open-loop engines), and the batch decode's GPU pixels vs its CPU pixels,
-at small sizes.
+open-loop engines), and the batch decode's GPU pixels vs its CPU pixels
+(lossy, lossy + ALPH and VP8L files, both reconstruction backends), at
+small sizes.
 
 Marked ``cuda``; every test skips on a host without a CUDA GPU.  This
 file imports nothing of JAX, so it runs on a GPU machine without JAX:
@@ -333,6 +334,114 @@ def test_batch_decode_gpu_pixels_equal_cpu_pixels(cuda):
     dev = decode_rgba_batch(datas, device="cuda", device_out=True)
     for a, b in zip(dev, want):
         assert a.is_cuda and np.array_equal(a.cpu().numpy(), b)
+
+
+def _pillow(img, **kw):
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "WEBP", **kw)
+    return buf.getvalue()
+
+
+def _alpha_plane(h, w):
+    yy, xx = np.mgrid[0:h, 0:w]
+    a = (255 * xx / max(w - 1, 1) + 30 * np.sin(yy / 4)).clip(0, 255)
+    a[: h // 3, : w // 3] = 0
+    return a.astype(np.uint8)
+
+
+def _mixed_files():
+    """Lossy files of the port's encoder at two sizes, lossy + ALPH and
+    VP8L files of Pillow."""
+    from gowebp_tpu_torch import encode_rgba_batch
+    from gowebp_tpu_torch.utils.corpus import natural_image
+
+    datas = []
+    for h, w in ((45, 61), (64, 64)):
+        imgs = [natural_image(h, w, seed=s) for s in (1, 2)]
+        datas += encode_rgba_batch(imgs, quality=75.0, device="cuda")
+    for s, (h, w) in enumerate(((45, 61), (64, 64), (64, 64))):
+        rgba = np.dstack([natural_image(h, w, seed=10 + s),
+                          _alpha_plane(h, w)])
+        datas.insert(2 * s + 1, _pillow(rgba, quality=80))
+    datas.insert(3, _pillow(natural_image(40, 24, seed=20), lossless=True))
+    datas.append(_pillow(np.dstack([natural_image(64, 64, seed=21),
+                                    _alpha_plane(64, 64)]), lossless=True,
+                         exact=True))
+    return datas
+
+
+def test_mixed_batch_decode_gpu_equals_cpu(cuda):
+    from gowebp_tpu_torch import decode_rgba_batch
+
+    datas = _mixed_files()
+    want = decode_rgba_batch(datas, device="cpu")
+    for backend in ("device", "host"):
+        got = decode_rgba_batch(datas, device="cuda", threads=2,
+                                recon_backend=backend)
+        for a, b in zip(got, want):
+            assert a.shape == b.shape and np.array_equal(a, b)
+        dev = decode_rgba_batch(datas, device="cuda", device_out=True,
+                                recon_backend=backend)
+        for a, b in zip(dev, want):
+            assert a.is_cuda and np.array_equal(a.cpu().numpy(), b)
+
+
+def test_alph_group_launches_the_kernel_with_alpha(cuda, monkeypatch):
+    import gowebp_tpu_torch.decode as dec
+    from gowebp_tpu_torch.ops.kernels.yuv420_to_rgba import yuv420_to_rgba
+
+    seen = []
+    real = dec.yuv420_to_rgba
+
+    def spy(y, u, v, height, width, alpha=None):
+        seen.append(alpha is not None and alpha.is_cuda)
+        return real(y, u, v, height, width, alpha)
+
+    monkeypatch.setattr(dec, "yuv420_to_rgba", spy)
+    datas = _mixed_files()
+    before = yuv420_to_rgba.launches
+    before_alpha = yuv420_to_rgba.alpha_launches
+    got = dec.decode_rgba_batch(datas, device="cuda")
+    torch.cuda.synchronize()
+    # groups (45x61, with and without ALPH) and (64x64, with and without)
+    assert sorted(seen) == [False, False, True, True]
+    assert yuv420_to_rgba.launches == before + 4
+    assert yuv420_to_rgba.alpha_launches == before_alpha + 2
+    np.testing.assert_array_equal(got[1][..., 3], _alpha_plane(45, 61))
+
+
+def test_host_backend_device_out_gives_cuda_tensors(cuda):
+    from gowebp_tpu_torch import decode_rgba_batch
+    from gowebp_tpu_torch.ops.kernels.yuv420_to_rgba import yuv420_to_rgba
+
+    datas = _mixed_files()
+    before = yuv420_to_rgba.launches
+    got = decode_rgba_batch(datas, device="cuda", device_out=True,
+                            recon_backend="host")
+    assert yuv420_to_rgba.launches == before      # all on the host
+    want = decode_rgba_batch(datas, device="cpu", recon_backend="host")
+    for a, b in zip(got, want):
+        assert a.is_cuda and a.dtype == torch.uint8
+        assert np.array_equal(a.cpu().numpy(), b)
+
+
+@pytest.mark.parametrize("h,w", [(1, 64), (17, 1), (33, 49)])
+def test_alph_odd_sizes_gpu_equals_cpu(cuda, h, w):
+    from gowebp_tpu_torch import decode_rgba_batch
+    from gowebp_tpu_torch.utils.corpus import natural_image
+
+    datas = [_pillow(np.dstack([natural_image(h, w, seed=s),
+                                _alpha_plane(h, w)]), quality=70)
+             for s in (1, 2)]
+    got = decode_rgba_batch(datas, device="cuda")
+    want = decode_rgba_batch(datas, device="cpu")
+    for a, b in zip(got, want):
+        assert a.shape == (h, w, 4) and np.array_equal(a, b)
+        assert np.array_equal(a[..., 3], _alpha_plane(h, w))
 
 
 @pytest.mark.parametrize("b,h,w,quality", [

@@ -22,7 +22,7 @@ from gowebp_tpu.ops import yuv_jax
 from gowebp_tpu.ops.pallas.decode_post import yuv420_to_rgba_pallas
 from gowebp_tpu_torch import decode_rgba_batch
 from gowebp_tpu_torch.container import riff as priff
-from gowebp_tpu_torch.errors import BitstreamError, UnsupportedFeature
+from gowebp_tpu_torch.errors import BitstreamError
 from gowebp_tpu_torch.models.vp8 import decoder as pdec
 from gowebp_tpu_torch.ops import vp8_recon as precon
 from gowebp_tpu_torch.ops import yuv as pyuv
@@ -270,6 +270,13 @@ def test_other_files_raise(kind):
         Image.fromarray(rgba).save(buf, "WEBP", quality=80)
     else:
         buf.write(b"RIFF\x0c\x00\x00\x00WEBPJUNK\x00\x00\x00\x00")
-    err = BitstreamError if kind == "no_image" else UnsupportedFeature
-    with pytest.raises(err):
-        decode_rgba_batch([_pillow((16, 16)), buf.getvalue()], device="cpu")
+    datas = [_pillow((16, 16)), buf.getvalue()]
+    if kind == "no_image":
+        with pytest.raises(BitstreamError):
+            decode_rgba_batch(datas, device="cpu")
+        return
+    # VP8L and lossy + ALPH files decode to the JAX package's pixels
+    want = gowebp_tpu.decode_rgba_batch(datas, recon_backend="jax")
+    got = decode_rgba_batch(datas, device="cpu")
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, np.asarray(w))

@@ -74,6 +74,42 @@ def test_decode_default_device_is_cuda_and_raises_without_it(monkeypatch):
     assert not ran
 
 
+def test_decode_host_backend_needs_cuda_too(monkeypatch):
+    """recon_backend="host" without device= needs CUDA as the device
+    backend does: without it, it raises before any host work."""
+    import io
+
+    from PIL import Image
+
+    import gowebp_tpu_torch.decode as dec
+    from gowebp_tpu_torch import decode_rgba_batch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ran = []
+    for name in ("decode_vp8_symbols_batch", "decode_vp8l",
+                 "recon_vp8_yuv_host"):
+        monkeypatch.setattr(dec, name, lambda *a, **k: ran.append(1))
+    datas = []
+    for kw in ({}, {"lossless": True}):
+        buf = io.BytesIO()
+        Image.fromarray(np.zeros((16, 16, 3), np.uint8)).save(buf, "WEBP",
+                                                             **kw)
+        datas.append(buf.getvalue())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        decode_rgba_batch(datas, recon_backend="host")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        decode_rgba_batch(datas, recon_backend="host", device_out=True)
+    assert not ran
+
+
+def test_boundary_scan_covers_the_decode_modules():
+    names = {str(f.relative_to(ROOT)) for f in _port_files()}
+    for mod in ("entropy/bitio.py", "models/vp8/alpha.py",
+                "models/vp8l/decoder.py", "models/vp8l/transforms_np.py",
+                "decode.py"):
+        assert f"gowebp_tpu_torch/{mod}" in names
+
+
 def test_mixed_shapes_raise():
     from gowebp_tpu_torch import encode_rgba_batch
     from gowebp_tpu_torch.errors import EncodeError
