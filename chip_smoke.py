@@ -7,42 +7,52 @@ Phases (any failure raises and exits non-zero; no result is printed):
   1. the card's name and power limit (nvidia-smi), the int32 ceiling the
      bounds use (SMs x 64 int32 operations a clock x the max SM clock),
      torch and CUDA versions;
-  2. build the nine CUDA kernels from the five ops/kernels/*.cu sources
+  2. build the eleven CUDA kernels from the six ops/kernels/*.cu sources
      (one nvcc each, in parallel; encode_plane.cu gives the two plane
-     kernels and their two modes-only forms) and print the build time and
-     ptxas register report;
+     kernels and their two modes-only forms, vp8_recon.cu the decode's
+     recon_mb and loop_filter_mb) and print the build time and ptxas
+     register report;
   3. hold each kernel against its plain torch version on the card, bit for
      bit, at the main paths' full shapes, and time each with CUDA events,
      two ways: one call alone (ms, the wrapper's host time included) and
-     the device time of a launch (device_ms: calls queued behind a
-     sleeping stream, so the host's part of each call leaves the card no
-     idle gap); a device time under the kernel's bound fails (that bound
-     counts more work than the function needs):
-     i4_search on the cold="dense" round's inputs for 16 of the corpus
-     images (S = 16*65536 sub-blocks, context from the source planes),
-     with topk None and 4; i4_walk at B=16 on the same images' refine
-     inputs (q75, 4 segments, context from one wavefront_fixed pass over
-     the cold modes), with topk None and 4, timed beside the same walk as
-     16 flat i4_search launches with their glue; wavefront_fixed at B=16
-     1024x1024 with random i4/i16 mixes and 4 segments, error diffusion on
-     and off, recon on and off, 3 repeated runs, odd MB grids (1x5, 5x1,
-     1x1, 3x5, 5x3) and B=256 at 512x64 (8,192 MB rows, more than the card
-     holds blocks), and timed alone on one image (the dependency chain);
-     yuv420_to_rgba at B=16 1024x1024 with and without an alpha plane, B=2
-     at 1021x1023 in MB-padded planes, and B=32 at 1024x1024, the decode
-     path's shape; encode_luma and encode_chroma and their modes-only
-     forms at B=16 1024x1024 random planes in one wire buffer, as the
-     open-loop path lays them out, with two quantizer sets, at odd MB
-     counts, and on views 1-3 bytes past an aligned address with batch
+     the device time of a launch (device_ms: calls queued behind a sleeping
+     stream, so the host's part of each call leaves the card no idle gap);
+     a device time under the kernel's bound fails (that bound counts more
+     work than the function needs): i4_search on the cold="dense" round's
+     inputs for 16 of the corpus images (S = 16*65536 sub-blocks, context
+     from the source planes), with topk None and 4; i4_walk at B=16 on the
+     same images' refine inputs (q75, 4 segments, context from one
+     wavefront_fixed pass over the cold modes), with topk None and 4, timed
+     beside the same walk as 16 flat i4_search launches with their glue;
+     wavefront_fixed at B=16 1024x1024 with random i4/i16 mixes and 4
+     segments, error diffusion on and off, recon on and off, 3 repeated
+     runs, odd MB grids (1x5, 5x1, 1x1, 3x5, 5x3) and B=256 at 512x64
+     (8,192 MB rows, more than the card holds blocks), and timed alone on
+     one image (the dependency chain); yuv420_to_rgba at B=16 1024x1024
+     with and without an alpha plane, B=2 at 1021x1023 in MB-padded planes,
+     and B=32 at 1024x1024, the decode path's shape, each fancy and, at
+     B=32 and B=2, with nearest upsampling (fancy=False:
+     no_fancy_upsampling); encode_luma and encode_chroma and their
+     modes-only forms at B=16 1024x1024 random planes in one wire buffer,
+     as the open-loop path lays them out, with two quantizer sets, at odd
+     MB counts, and on views 1-3 bytes past an aligned address with batch
      strides that are no multiple of 4, with their ptxas registers, stack
      and spills (none allowed) and resident warps; wavefront_search (the
      exact engine) at B=16 1024x1024 on the phase-4 chunk's real planes,
-     segments and penalties with diffusion and the i4 search on and off,
-     3 repeated runs, on mixed planes (i16 and i4 MBs) at B=16
-     1024x1024 and odd MB grids (1x5, 5x1), and on tie-heavy planes
-     (flat and gradient MBs, penalties 0 and 1); its ptxas registers,
-     stack and spills (none allowed) and resident blocks printed; timed
-     alone on one image;
+     segments and penalties with diffusion and the i4 search on and off, 3
+     repeated runs, on mixed planes (i16 and i4 MBs) at B=16 1024x1024 and
+     odd MB grids (1x5, 5x1), and on tie-heavy planes (flat and gradient
+     MBs, penalties 0 and 1); its ptxas registers, stack and spills (none
+     allowed) and resident blocks printed; timed alone on one image; and
+     (3g, run once phase 4 has written the 32 files) recon_mb and
+     loop_filter_mb against ops/vp8_recon.py's recon_wavefront and
+     loop_filter_wavefront at B=32 1024x1024 on the decode path's inputs
+     for those files, with filter types 0, 1 and 2 and 3 repeated runs, and
+     on random i4/i16 mixes with skip MBs and four segments of distinct
+     filter levels at B=4 256x256, on odd MB grids (1x5, 5x1, 1x1, 3x5) and
+     at B=256 512x64 (8,192 MB rows, more than the card holds blocks), with
+     their ptxas report (no stack or spills allowed), each timed at B=32
+     and alone on one image (the chain);
   4. the encode path: 32 natural images of 1024x1024 through
      encode_rgba_batch(device="cuda") in two chunks of 16, with the
      kernels' launch counters reset just before and read just after
@@ -64,14 +74,17 @@ Phases (any failure raises and exits non-zero; no result is printed):
      images in 4 chunks of 8, alternated twice, with MP/s and the host
      timings, and the synchronizing CUDA calls of one depth=3 run;
   6. the decode path: phase 4's 32 files through
-     decode_rgba_batch(device="cuda"), with the yuv420_to_rgba launch
-     counter reset just before and read just after; a second, timed run
+     decode_rgba_batch(device="cuda"), with the launch counters reset just
+     before and read just after (recon_mb, loop_filter_mb and
+     yuv420_to_rgba must launch, no other kernel); a second, timed run
      with the per-stage split (host symbols, then CUDA-event spans); a
      device_out=True run whose CUDA tensors must equal the host results;
   6b. the mixed decode: those 32 files with 4 lossy + ALPH and 4 VP8L
      files of 1024x1024 written by Pillow, in one device_out=True call,
-     counters reset just before and read just after (yuv420_to_rgba must
-     launch, at least once with an alpha plane, and no other kernel);
+     counters reset just before and read just after (recon_mb,
+     loop_filter_mb and yuv420_to_rgba must launch for the plain and the
+     ALPH groups, yuv420_to_rgba at least once with an alpha plane, and no
+     other kernel);
      a timed run to host memory with the host thread seconds (symbols,
      alpha, VP8L) and the stage split, whose images must equal the
      device_out tensors, Pillow's decode (ALPH and VP8L), phase 6's
@@ -79,6 +92,18 @@ Phases (any failure raises and exits non-zero; no result is printed):
      recon_backend="host" on the 32 hybrid files and on the mixed batch
      (no kernel may launch; pixels equal the device path's), its MP/s
      beside the device path's;
+  6c. the single-file API: every file of phase 6b through
+     decode(device="cuda"), one call each, counters reset just before and
+     read just after (each lossy file launches recon_mb, loop_filter_mb
+     where its filter type is not 0, and yuv420_to_rgba; no other kernel),
+     each file's pixels == decode_rgba_batch's; the ms of one 1 MP lossy
+     file (median of 5) beside its host symbol phase and
+     recon_backend="host"; then on two lossy files (one a smooth q95
+     gradient that the chroma dither reaches), one ALPH and one VP8L file
+     of 255x193 from Pillow, decode() with crop, scale, flip,
+     bypass_filtering, no_fancy_upsampling, dithering_strength=50 and
+     alpha_dithering_strength=50, in modes bgrA, RGB_565 and ARGB, and
+     decode_yuva with crop, each == device="cpu";
   7. decode parity: 2 files through device="cpu" must give identical
      RGBA, and every decoded image must come within 20 dB PSNR of its
      source image (an error shared by both paths would not);
@@ -159,6 +184,14 @@ OPS_SEARCH_PX = 16
 # its 32 multiplies) and OPS_QUANT;
 # per luma MB the Y2 path: 16 coefficients of 16 signed adds each, and
 # one 16-coefficient quantization.
+# The decode's recon kernel (ops/kernels/vp8_recon.cu), per MB: the iDCT
+# and the add-and-clip of its 24 blocks, the luma prediction (16 B-mode
+# blocks of an i4 MB, or 16 whole-block ones of an i16 MB) and 8 chroma
+# blocks.  Its loop filter, per pixel line across an edge that this data
+# filters (its MB's limit >= 0; MB edges inside the frame, inner edges
+# where the MB has them): the complex filter's eight threshold tests, the
+# hev test and its widest branch, or the simple filter's test and update.
+OPS_FILTER_LINE_COMPLEX, OPS_FILTER_LINE_SIMPLE = 48, 20
 OPS_PLANE_SEARCH_BLOCK = 4 * (8 + 5 + 2) + 6 + 4 + 3 + 11 + 4
 OPS_PLANE_SEARCH_MB = 12
 OPS_PLANE_CODE_BLOCK = 16 * 3 + (OPS_FDCT - 32) + OPS_QUANT
@@ -170,6 +203,10 @@ OPS_Y2 = 16 * 16 + OPS_QUANT
 # and holds this constant to it).
 OPENLOOP_PSNR_FLOOR_DB = 20.5
 
+# The lossy decode's kernels, in the order a group launches them (the
+# filter only where the frame's filter type is not 0).
+DECODE_KERNELS = ("recon_mb", "loop_filter_mb", "yuv420_to_rgba")
+
 SOURCES = {
     "i4_search": "gowebp_tpu_torch/ops/kernels/i4_search.cu",
     "i4_walk": "gowebp_tpu_torch/ops/kernels/i4_search.cu",
@@ -180,6 +217,8 @@ SOURCES = {
     "encode_luma_modes": "gowebp_tpu_torch/ops/kernels/encode_plane.cu",
     "encode_chroma_modes": "gowebp_tpu_torch/ops/kernels/encode_plane.cu",
     "wavefront_search": "gowebp_tpu_torch/ops/kernels/wavefront_search.cu",
+    "recon_mb": "gowebp_tpu_torch/ops/kernels/vp8_recon.cu",
+    "loop_filter_mb": "gowebp_tpu_torch/ops/kernels/vp8_recon.cu",
 }
 REPLACES = {
     "i4_search": "gowebp_tpu/ops/pallas/i4_search.py:286",
@@ -197,6 +236,10 @@ REPLACES = {
                             "gowebp_tpu/ops/encode_wavefront_jax.py:385)"),
     "wavefront_search": ("gowebp_tpu/ops/encode_wavefront_jax.py:616 "
                          "_wavefront_impl (XLA, no pallas_call)"),
+    "recon_mb": ("gowebp_tpu/ops/vp8_recon_jax.py:512 recon_wavefront "
+                 "(XLA, no pallas_call)"),
+    "loop_filter_mb": ("gowebp_tpu/ops/vp8_recon_jax.py:814 "
+                       "loop_filter_wavefront (XLA, no pallas_call)"),
 }
 
 
@@ -808,7 +851,8 @@ def check_wavefront_search(dev, inputs):
 
 
 def check_yuv420(dev, gen):
-    """Phase 3c: yuv420_to_rgba kernel vs plain on MB-padded planes."""
+    """Phase 3c: yuv420_to_rgba kernel vs plain on MB-padded planes, fancy
+    and nearest (fancy=False) upsampling."""
     import torch
 
     from gowebp_tpu_torch.ops.kernels.yuv420_to_rgba import (
@@ -826,18 +870,22 @@ def check_yuv420(dev, gen):
         return ps + [H, W, a]
 
     err = 0
-    for B, H, W, alpha in ((16, 1024, 1024, False), (16, 1024, 1024, True),
-                           (2, 1021, 1023, False), (32, 1024, 1024, False)):
+    for B, H, W, alpha, fancy in (
+            (16, 1024, 1024, False, True), (16, 1024, 1024, True, True),
+            (2, 1021, 1023, False, True), (32, 1024, 1024, False, False),
+            (2, 1021, 1023, True, False), (32, 1024, 1024, False, True)):
         args = planes(B, H, W, alpha)
-        got = yuv420_to_rgba(*args)
-        want = yuv420_to_rgba_plain(*args)
+        got = yuv420_to_rgba(*args, fancy=fancy)
+        want = yuv420_to_rgba_plain(*args, fancy=fancy)
         torch.cuda.synchronize()
         e = max_abs_err({"rgba": got}, {"rgba": want}, ["rgba"])
         err = max(err, e)
         if not torch.equal(got, want):
             raise AssertionError(f"yuv420_to_rgba kernel != plain at B={B} "
-                                 f"{H}x{W} alpha={alpha} (max |err| {e})")
-        log(f"yuv420_to_rgba B={B} {H}x{W} alpha={alpha}: bit-exact")
+                                 f"{H}x{W} alpha={alpha} fancy={fancy} "
+                                 f"(max |err| {e})")
+        log(f"yuv420_to_rgba B={B} {H}x{W} alpha={alpha} fancy={fancy}: "
+            f"bit-exact")
     # timed at the decode path's shape, the last one checked
     ms = time_ms(lambda: yuv420_to_rgba(*args), reps=20, warmup=3)
     plain_ms = time_ms(lambda: yuv420_to_rgba_plain(*args), reps=3)
@@ -848,6 +896,195 @@ def check_yuv420(dev, gen):
     return {"name": "yuv420_to_rgba", "max_abs_err": err, "ms": ms,
             "fn": lambda: yuv420_to_rgba(*args),
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def recon_symbols(dev, files):
+    """The decode path's recon inputs for same-shaped lossy files, as
+    decode_rgba_batch makes them: the symbol engine's dequantized int16
+    coefficients, the kernel's packed modes and the filter parameters in
+    one upload → (coeffs, modes, fparams, filter type, mb_w, mb_h)."""
+    from gowebp_tpu_torch.container.riff import parse_riff
+    from gowebp_tpu_torch.decode import _upload
+    from gowebp_tpu_torch.models.vp8.decoder import (decode_vp8_symbols_batch,
+                                                     vp8_filter_params)
+    from gowebp_tpu_torch.ops.kernels.vp8_recon import pack_modes
+
+    syms = decode_vp8_symbols_batch(
+        [parse_riff(d).find(b"VP8 ").payload for d in files])
+    st = syms[0][0]
+    coeffs, modes, fp, _ = _upload(
+        [(i, s, c, m, vp8_filter_params(s, m), None)
+         for i, (s, c, m) in enumerate(syms)], dev)
+    return (coeffs, pack_modes(modes[..., 0], modes[..., 5:21],
+                               modes[..., 1]),
+            fp.reshape(len(files), st.mb_h, st.mb_w, 4), st.filter_type,
+            st.mb_w, st.mb_h)
+
+
+def random_symbols(dev, seed, B, mb_h, mb_w):
+    """Random recon inputs: i4/i16 mixes (an i4 MB's first B-mode may
+    exceed 3), skip MBs, four segments with distinct filter levels (one
+    off), inner edges on and off → (coeffs, modes, fparams) on ``dev``."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    N = mb_h * mb_w
+    coeffs = rng.integers(-300, 301, (B, N, 24, 16)) * (
+        rng.random((B, N, 24, 16)) < 0.2)
+    coeffs[rng.random((B, N)) < 0.25] = 0
+    is_i4 = rng.random((B, N)) < 0.5
+    imodes = np.where(is_i4[..., None], rng.integers(0, 10, (B, N, 16)),
+                      rng.integers(0, 4, (B, N, 1)))
+    modes = np.concatenate([is_i4[..., None], rng.integers(0, 4, (B, N, 1)),
+                            imodes], -1).astype(np.uint8)
+    seg = rng.integers(0, 4, (B, N))
+    table = np.array([[-1, 0, 0], [2 * 10 + 5, 5, 0], [2 * 30 + 3, 3, 1],
+                      [2 * 50 + 9, 9, 2]])
+    fp = np.concatenate([table[seg], rng.integers(0, 2, (B, N, 1))], -1)
+    return (torch.from_numpy(coeffs.astype(np.int16)).to(dev),
+            torch.from_numpy(modes).to(dev),
+            torch.from_numpy(fp.astype(np.int16)).reshape(
+                B, mb_h, mb_w, 4).to(dev))
+
+
+def filter_lines(fparams, filter_type: int) -> int:
+    """Pixel lines across an edge that this data filters: per MB with
+    limit >= 0, its left and top MB edges inside the frame and, where it
+    has them, its inner edges (3 + 3 luma; 1 + 1 a chroma plane)."""
+    B, mb_h, mb_w = fparams.shape[:3]
+    fp = fparams.to("cpu").long()
+    on = fp[..., 0] >= 0
+    inner = on & (fp[..., 3] > 0)
+    left = on.clone()
+    left[:, :, 0] = False
+    top = on.clone()
+    top[:, 0, :] = False
+    mb_edges = int(left.sum() + top.sum())
+    inner_n = int(inner.sum())
+    lines = 16 * (mb_edges + 6 * inner_n)
+    if filter_type == 2:
+        lines += 2 * 8 * (mb_edges + 2 * inner_n)
+    return lines
+
+
+def check_vp8_recon(dev, files):
+    """Phase 3g: recon_mb and loop_filter_mb vs their plain versions
+    (ops/vp8_recon.py's recon_wavefront and loop_filter_wavefront), bit
+    for bit: B=32 1024x1024 on the decode path's inputs for 32 real files,
+    filter types 0, 1 and 2, 3 repeated runs; random i4/i16 mixes with skip
+    MBs and four segments of distinct levels on odd MB grids (1x5, 5x1,
+    1x1, 3x5) and B=256 at 512x64 (8,192 MB rows); the ptxas report; each
+    timed at B=32 and alone on one image (the chain)."""
+    import torch
+
+    from gowebp_tpu_torch.ops.kernels import vp8_recon as kvr
+
+    err = {"recon_mb": 0, "loop_filter_mb": 0}
+
+    def compare(name, got, want, what):
+        e = max_abs_err(dict(zip("yuv", got)), dict(zip("yuv", want)), "yuv")
+        err[name] = max(err[name], e)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"{name} kernel != plain ({what}, max |err| "
+                                 f"{e})")
+
+    def check(coeffs, modes, fp, mb_w, mb_h, filter_types, what):
+        got = kvr.recon_mb(coeffs, modes, mb_w, mb_h)
+        want = kvr.recon_mb_plain(coeffs, modes, mb_w, mb_h)
+        compare("recon_mb", got, want, what)
+        for ft in filter_types:
+            before = kvr.loop_filter_mb.launches
+            fgot = kvr.loop_filter_mb(*(p.clone() for p in got), fp, mb_w,
+                                      mb_h, ft)
+            torch.cuda.synchronize()
+            if kvr.loop_filter_mb.launches != before + (ft != 0):
+                raise AssertionError(f"loop_filter_mb filter type {ft}: "
+                                     f"{kvr.loop_filter_mb.launches - before}"
+                                     f" launches")
+            fwant = kvr.loop_filter_mb_plain(*(p.clone() for p in want), fp,
+                                             mb_w, mb_h, ft)
+            compare("loop_filter_mb", fgot, fwant, f"{what}, filter {ft}")
+        log(f"recon_mb and loop_filter_mb {what}, filter types "
+            f"{list(filter_types)}: bit-exact")
+        return got
+
+    coeffs, modes, fp, ftype, mw, mh = recon_symbols(dev, files)
+    B = coeffs.shape[0]
+    rargs = (coeffs, modes, mw, mh)
+    planes = check(coeffs, modes, fp, mw, mh, (0, 1, 2),
+                   f"B={B} {16 * mh}x{16 * mw} (the decode's files, filter "
+                   f"type {ftype})")
+    filtered = kvr.loop_filter_mb(*(p.clone() for p in planes), fp, mw, mh,
+                                  ftype)
+    for i in range(3):
+        again = kvr.recon_mb(*rargs)
+        compare("recon_mb", again, planes, f"repeat {i + 1}")
+        compare("loop_filter_mb",
+                kvr.loop_filter_mb(*again, fp, mw, mh, ftype), filtered,
+                f"repeat {i + 1}")
+    log("recon_mb and loop_filter_mb: 3 repeated runs identical")
+    for seed, (b_, h_, w_) in enumerate(((4, 16, 16), (2, 1, 5), (2, 5, 1),
+                                        (2, 1, 1), (2, 3, 5),
+                                        (256, 32, 4))):
+        check(*random_symbols(dev, seed, b_, h_, w_), w_, h_, (1, 2),
+              f"random B={b_} {16 * h_}x{16 * w_} ({b_ * h_} MB rows)")
+
+    for kernel in ("recon_mb", "loop_filter_mb"):
+        for fn, regs, stack, st_, ld_ in ptxas_report(kvr.LIBRARY.ptxas_log,
+                                                      kernel):
+            log(f"ptxas {kernel}: {regs} registers, {stack} bytes stack, "
+                f"{st_}/{ld_} bytes spill stores/loads")
+            if stack or st_ or ld_:
+                raise AssertionError(f"{kernel}: a stack frame or spills")
+
+    # time at the decode path's shape; the filter runs in place on a
+    # working copy (each launch filters the planes the last one left)
+    work = [p.clone() for p in planes]
+    rows = []
+    n_mb = B * mh * mw
+    n_i4 = int((modes[..., 0] > 0).sum())
+    plane_bytes = sum(p.numel() for p in planes)
+    recon_ops = (n_mb * (24 * (OPS_IDCT + OPS_RES_RECON) + 8 * OPS_PRED_I16)
+                 + n_i4 * 16 * OPS_PRED_B4 + (n_mb - n_i4) * 16 * OPS_PRED_I16)
+    filter_ops = filter_lines(fp, ftype) * (
+        OPS_FILTER_LINE_COMPLEX if ftype == 2 else OPS_FILTER_LINE_SIMPLE)
+    for name, fn, nbytes, ops in (
+            ("recon_mb", lambda: kvr.recon_mb(*rargs),
+             coeffs.numel() * 2 + modes.numel() + plane_bytes, recon_ops),
+            ("loop_filter_mb",
+             lambda: kvr.loop_filter_mb(*work, fp, mw, mh, ftype),
+             2 * plane_bytes + fp.numel() * 2, filter_ops)):
+        ms = time_ms(fn, reps=10, warmup=2)
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        if name == "recon_mb":
+            kvr.recon_mb_plain(*rargs)
+        else:
+            kvr.loop_filter_mb_plain(*(p.clone() for p in planes), fp, mw,
+                                     mh, ftype)
+        t1.record()
+        t1.synchronize()
+        bound_ms, bound_by = bound(nbytes, ops)
+        log(f"{name} bound at B={B}: {nbytes / PEAK_BYTES_PER_S * 1e3:.4f} "
+            f"ms by bytes ({nbytes} bytes), {ops / int32_peak()[0] * 1e3:.4f}"
+            f" ms by operations ({ops} int32 operations)")
+        rows.append({"name": name, "max_abs_err": err[name], "ms": ms,
+                     "fn": fn, "plain_ms": t0.elapsed_time(t1),
+                     "bound_ms": bound_ms, "bound_by": bound_by})
+    one = (coeffs[:1], modes[:1], fp[:1])
+    one_planes = kvr.recon_mb(one[0], one[1], mw, mh)
+    steps = (mw - 1) + 2 * (mh - 1) + 1
+    for name, fn in (("recon_mb", lambda: kvr.recon_mb(one[0], one[1], mw,
+                                                       mh)),
+                     ("loop_filter_mb", lambda: kvr.loop_filter_mb(
+                         *one_planes, one[2], mw, mh, ftype))):
+        one_ms = time_ms(fn, reps=5, warmup=2)
+        log(f"{name} B=1 {16 * mh}x{16 * mw}: {one_ms:.3f} ms = "
+            f"{one_ms / steps * 1e3:.2f} us per chained MB step ({steps} "
+            f"steps)")
+    return rows
 
 
 def plane_quants(quality: float):
@@ -960,6 +1197,9 @@ def check_encode_plane(dev, gen):
                                 + code * OPS_PLANE_CODE_BLOCK)
                       + OPS_PLANE_SEARCH_MB + y2 * OPS_Y2)
         bound_ms, bound_by = bound(nbytes, ops)
+        log(f"{name} bound at B={B}: {nbytes / PEAK_BYTES_PER_S * 1e3:.4f} "
+            f"ms by bytes ({nbytes} bytes), {ops / int32_peak()[0] * 1e3:.4f}"
+            f" ms by operations ({ops} int32 operations)")
         rows.append({"name": name, "max_abs_err": err[name], "ms": ms,
                      "fn": fn, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by})
@@ -1091,6 +1331,57 @@ def mixed_decode_files(images):
     return files[:4], files[4:]
 
 
+def single_file_parity_files(images):
+    """Phase 6c's files for the CPU parity of the options, 255x193,
+    written by Pillow: a photo at q75, a smooth gradient at q95 (uv_quant
+    under 12 and flat-chroma MBs: the chroma dither reaches it), a photo
+    with a smooth alpha at q75 (ALPH) and one lossless with that alpha."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    h, w = 193, 255
+    yy, xx = np.mgrid[0:h, 0:w]
+    alpha = (255 * xx / (w - 1)).astype(np.uint8)
+    alpha[:h // 3, :w // 3] = 0
+    smooth = np.stack([xx, 2 * yy % 256, (xx + yy) // 2], -1).astype(np.uint8)
+
+    def save(img, **kw):
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, "WEBP", **kw)
+        return buf.getvalue()
+
+    return {
+        "lossy_q75": save(images[8][:h, :w], quality=75),
+        "lossy_smooth_q95": save(smooth, quality=95),
+        "alph_q75": save(np.dstack([images[10][:h, :w], alpha]), quality=75),
+        "vp8l": save(np.dstack([images[11][:h, :w], alpha]), lossless=True,
+                     exact=True),
+    }
+
+
+def time_rows(rows, tag: str) -> None:
+    """Each kernel row's device time of a launch (``device_ms``), beside
+    ``ms`` (one call timed alone, the wrapper's host time included); a
+    device time under the kernel's bound fails."""
+    for r in rows:
+        reps = max(5, min(50, int(20 / r["ms"])))
+        r["device_ms"], host_ms = queued_ms(r.pop("fn"), reps=reps)
+        log(f"kernel {r['name']}: {r['ms']:.4f} ms a call, "
+            f"{r['device_ms']:.4f} ms a launch on the device, the host "
+            f"makes a call in {host_ms:.4f} ms {tag}")
+        log(f"kernel {r['name']}: bit-exact vs plain; {r['ms']:.3f} ms "
+            f"(plain {r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
+            f"by {r['bound_by']}, {r['bound_ms'] / r['device_ms']:.0%} of "
+            f"the device time) {tag}")
+        if r["device_ms"] < r["bound_ms"]:
+            raise AssertionError(
+                f"{r['name']}: {r['device_ms']:.4f} ms on the device, under "
+                f"its bound of {r['bound_ms']:.4f} ms by {r['bound_by']}: "
+                f"the bound counts more than the function needs")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import numpy as np
@@ -1101,13 +1392,18 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     import gowebp_tpu_torch  # noqa: F401  (fails outside a checkout)
-    from gowebp_tpu_torch import decode_rgba_batch, encode_rgba_batch
+    from gowebp_tpu_torch import (DecoderConfig, decode, decode_rgba_batch,
+                                  decode_yuva, encode_rgba_batch)
     from gowebp_tpu_torch.config import EncoderConfig
-    from gowebp_tpu_torch.models.vp8.decoder import symbol_engine
+    from gowebp_tpu_torch.container.riff import parse_riff
+    from gowebp_tpu_torch.models.vp8.decoder import (decode_vp8_symbols,
+                                                     parse_frame_header,
+                                                     symbol_engine)
     from gowebp_tpu_torch.ops.encode_pipeline import (
         encode_rgba_batch_pipelined)
     from gowebp_tpu_torch.ops.kernels import encode_plane as epm
     from gowebp_tpu_torch.ops.kernels import i4_search as i4m
+    from gowebp_tpu_torch.ops.kernels import vp8_recon as kvr
     from gowebp_tpu_torch.ops.kernels import wavefront_fixed as wfm
     from gowebp_tpu_torch.ops.kernels import wavefront_search as wsm
     from gowebp_tpu_torch.ops.kernels import yuv420_to_rgba as yuvm
@@ -1118,7 +1414,8 @@ def main() -> int:
                 "wavefront_fixed": wfm.wavefront_fixed,
                 "yuv420_to_rgba": yuvm.yuv420_to_rgba,
                 **{name: getattr(epm, name) for name in epm.KERNELS},
-                "wavefront_search": wsm.wavefront_search}
+                "wavefront_search": wsm.wavefront_search,
+                "recon_mb": kvr.recon_mb, "loop_filter_mb": kvr.loop_filter_mb}
     by_path = {}
 
     def reset_counts():
@@ -1146,7 +1443,7 @@ def main() -> int:
     # ---- phase 2: build ----
     t0 = time.perf_counter()
     libraries = [i4m.LIBRARY, wfm.LIBRARY, yuvm.LIBRARY, epm.LIBRARY,
-                 wsm.LIBRARY]
+                 wsm.LIBRARY, kvr.LIBRARY]
     build_all(libraries)
     log(f"build: {len(SOURCES)} kernels from {len(libraries)} sources in "
         f"{time.perf_counter() - t0:.1f} s (nvcc, parallel)")
@@ -1165,24 +1462,7 @@ def main() -> int:
             check_wavefront(dev, gen), check_yuv420(dev, gen)]
     rows += check_encode_plane(dev, gen)
     rows.append(check_wavefront_search(dev, chunk))
-    for r in rows:
-        # ms: one call timed alone (time_ms: the wrapper's host time
-        # included); device_ms: the device time of a launch, calls queued
-        # so that the host's part of each does not idle the card
-        reps = max(5, min(50, int(20 / r["ms"])))
-        r["device_ms"], host_ms = queued_ms(r.pop("fn"), reps=reps)
-        log(f"kernel {r['name']}: {r['ms']:.4f} ms a call, "
-            f"{r['device_ms']:.4f} ms a launch on the device, the host "
-            f"makes a call in {host_ms:.4f} ms {tag}")
-        log(f"kernel {r['name']}: bit-exact vs plain; {r['ms']:.3f} ms "
-            f"(plain {r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
-            f"by {r['bound_by']}, {r['bound_ms'] / r['device_ms']:.0%} of "
-            f"the device time) {tag}")
-        if r["device_ms"] < r["bound_ms"]:
-            raise AssertionError(
-                f"{r['name']}: {r['device_ms']:.4f} ms on the device, under "
-                f"its bound of {r['bound_ms']:.4f} ms by {r['bound_by']}: "
-                f"the bound counts more than the function needs")
+    time_rows(rows, tag)
 
     # ---- phase 4: the encode path ----
     mp = 32 * 1024 * 1024 / 1e6
@@ -1210,6 +1490,10 @@ def main() -> int:
         raise AssertionError("the hybrid launched a full plane kernel")
     log(f"encode path first run: {mp / first_s:.3f} MP/s e2e "
         f"({first_s:.2f} s for 32 MP) {tag}")
+    # phase 3g, on the decode path's inputs for these 32 files
+    recon_rows = check_vp8_recon(dev, out)
+    time_rows(recon_rows, tag)
+    rows += recon_rows
     timings = {}
     t0 = time.perf_counter()
     again = encode_rgba_batch_pipelined(images, quality=75.0, threads=8,
@@ -1328,11 +1612,16 @@ def main() -> int:
     rgba = decode_rgba_batch(out, device="cuda")
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches["yuv420_to_rgba"] = read_counts("decode")["yuv420_to_rgba"]
-    log(f"decode path launches: yuv420_to_rgba "
-        f"{launches['yuv420_to_rgba']}")
-    if launches["yuv420_to_rgba"] == 0:
-        raise AssertionError("decode path never launched yuv420_to_rgba")
+    counts = read_counts("decode")
+    for name in DECODE_KERNELS:
+        launches[name] = counts[name]
+    log("decode path launches: " + ", ".join(
+        f"{name} {counts[name]}" for name in DECODE_KERNELS))
+    for name in DECODE_KERNELS:
+        if counts[name] == 0:
+            raise AssertionError(f"decode path never launched {name}")
+    if any(counts[k] for k in counters if k not in DECODE_KERNELS):
+        raise AssertionError("the decode path launched an encode kernel")
     log(f"decode first run: {mp / first_s:.3f} MP/s e2e "
         f"({first_s:.2f} s for 32 MP) {tag}")
     timings = {}
@@ -1376,12 +1665,17 @@ def main() -> int:
     torch.cuda.synchronize()
     counts = read_counts("decode_mixed")
     with_alpha = yuvm.yuv420_to_rgba.alpha_launches
-    log(f"mixed decode launches: yuv420_to_rgba {counts['yuv420_to_rgba']}, "
-        f"{with_alpha} of them with an alpha plane")
-    if counts["yuv420_to_rgba"] < 2 or with_alpha < 1:
-        raise AssertionError("the mixed decode did not launch yuv420_to_rgba "
-                             "for the lossy and the ALPH groups")
-    if any(counts[k] for k in counters if k != "yuv420_to_rgba"):
+    log("mixed decode launches: " + ", ".join(
+        f"{name} {counts[name]}" for name in DECODE_KERNELS)
+        + f"; yuv420_to_rgba {with_alpha} times with an alpha plane")
+    for name in DECODE_KERNELS:
+        if counts[name] < 2:
+            raise AssertionError(f"the mixed decode did not launch {name} "
+                                 f"for the lossy and the ALPH groups")
+    if with_alpha < 1:
+        raise AssertionError("the mixed decode never gave yuv420_to_rgba an "
+                             "alpha plane")
+    if any(counts[k] for k in counters if k not in DECODE_KERNELS):
         raise AssertionError("the mixed decode launched an encode kernel")
     timings = {}
     t0 = time.perf_counter()
@@ -1445,6 +1739,98 @@ def main() -> int:
         f"{mp / decode_s:.3f} MP/s (phase 6 timed run), host "
         f"{host_mps['hybrid']:.3f} MP/s; mixed batch: device "
         f"{mp_mixed / mixed_s:.3f}, host {host_mps['mixed']:.3f} MP/s {tag}")
+
+    # ---- phase 6c: the single-file API on the card ----
+    lossy_at = [i for i, d in enumerate(mixed)
+                if parse_riff(d).find(b"VP8 ") is not None]
+    n_filtered = sum(parse_frame_header(parse_riff(mixed[i]).find(
+        b"VP8 ").payload)[0].filter_type != 0 for i in lossy_at)
+    reset_counts()
+    t0 = time.perf_counter()
+    single = [decode(d, device="cuda") for d in mixed]
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    counts = read_counts("decode_single")
+    want_counts = {"recon_mb": len(lossy_at), "loop_filter_mb": n_filtered,
+                   "yuv420_to_rgba": len(lossy_at)}
+    log(f"single-file decode of the {len(mixed)} files, one decode() call "
+        f"each: " + ", ".join(f"{k} {counts[k]}" for k in DECODE_KERNELS)
+        + f" launches ({len(lossy_at)} lossy files, {n_filtered} filtered) "
+        f"in {single_s:.2f} s")
+    if any(counts[k] != n for k, n in want_counts.items()):
+        raise AssertionError(f"single-file decode launches {counts}, want "
+                             f"{want_counts}")
+    if any(counts[k] for k in counters if k not in DECODE_KERNELS):
+        raise AssertionError("the single-file decode launched an encode "
+                             "kernel")
+    for i, (a, b) in enumerate(zip(single, got)):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"decode() of file {i} != decode_rgba_batch")
+    log(f"single-file decode: {len(mixed)} files == decode_rgba_batch's "
+        f"pixels")
+    one = out[0]
+    payload = parse_riff(one).find(b"VP8 ").payload
+    dev_ms, host_ms, sym_ms = [], [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decode(one, device="cuda")
+        dev_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        decode_rgba_batch([one], device="cuda", recon_backend="host")
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        decode_vp8_symbols(payload)
+        sym_ms.append((time.perf_counter() - t0) * 1e3)
+    log(f"single-file decode of one 1 MP lossy file, median of 5: "
+        f"decode(device=\"cuda\") {statistics.median(dev_ms):.3f} ms "
+        f"(its host symbol phase alone {statistics.median(sym_ms):.3f} ms), "
+        f"recon_backend=\"host\" {statistics.median(host_ms):.3f} ms {tag}")
+    # options and modes against the CPU path (the kernels' plain versions)
+    # on two lossy files, one ALPH and one VP8L file of 255x193: the CPU's
+    # plain loops take seconds a 1 MP file
+    small = single_file_parity_files(images)
+    configs = {
+        "crop": dict(use_cropping=True, crop_left=37, crop_top=21,
+                     crop_width=150, crop_height=111),
+        "scale": dict(use_scaling=True, scaled_width=301, scaled_height=97),
+        "flip": dict(flip=True),
+        "bypass_filtering": dict(bypass_filtering=True),
+        "no_fancy_upsampling": dict(no_fancy_upsampling=True),
+        "dithering_strength=50": dict(dithering_strength=50),
+        "alpha_dithering_strength=50": dict(alpha_dithering_strength=50),
+    }
+    t0 = time.perf_counter()
+    n_checks = 0
+    for fname, data in small.items():
+        cases = [(c, DecoderConfig(**kw), "RGBA") for c, kw in configs.items()]
+        cases += [(m, None, m) for m in ("bgrA", "RGB_565", "ARGB")]
+        for what, cfg, mode in cases:
+            a = decode(data, cfg, mode, device="cuda")
+            b = decode(data, cfg, mode, device="cpu")
+            n_checks += 1
+            if a.shape != b.shape or not np.array_equal(a, b):
+                raise AssertionError(f"decode({fname}, {what}) on the card "
+                                     f"!= on the CPU")
+        if fname == "lossy_smooth_q95":
+            plain_px = decode(data, device="cuda")
+            dithered = decode(data, DecoderConfig(dithering_strength=50),
+                              device="cuda")
+            if np.array_equal(plain_px, dithered):
+                raise AssertionError("dithering_strength=50 changed no pixel "
+                                     "of the smooth q95 file")
+        if not fname.startswith("vp8l"):
+            cfg = DecoderConfig(**configs["crop"])
+            for a, b in zip(decode_yuva(data, cfg, device="cuda"),
+                            decode_yuva(data, cfg, device="cpu")):
+                if (a is None) != (b is None) or (
+                        a is not None and not np.array_equal(a, b)):
+                    raise AssertionError(f"decode_yuva({fname}, crop) on the "
+                                         f"card != on the CPU")
+            n_checks += 1
+    log(f"single-file parity: {n_checks} calls on {len(small)} files "
+        f"({', '.join(small)}) == device=\"cpu\" in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # ---- phase 7: decode parity ----
     for a in rgba:

@@ -1,19 +1,43 @@
-"""gowebp_tpu_torch — the WebP codec's batch lossy encode and batch decode
+"""gowebp_tpu_torch — the WebP codec's batch lossy encode and its decode
 on PyTorch + CUDA.
 
 A port of the gowebp_tpu package's batch encode (hybrid, exact
-wavefront and open-loop engines) and batch decode to PyTorch with
-hand-written Hopper (sm_90a) CUDA kernels.  Entry points:
+wavefront and open-loop engines), batch decode and single-file decode to
+PyTorch with hand-written Hopper (sm_90a) CUDA kernels.  Entry points:
 ``encode_rgba_batch(images, quality=75.0, device=None,
-engine="hybrid"|"wavefront"|"openloop")`` and
+engine="hybrid"|"wavefront"|"openloop")``;
 ``decode_rgba_batch(datas, device=None, device_out=False,
 recon_backend="device"|"host")``, which decodes every still .webp kind
-(lossy, lossy with an ALPH chunk, lossless VP8L) in any mix; ``device``
-None means CUDA, ``device="cpu"`` runs the kernels' plain torch versions
-and gives identical bytes and pixels.
+(lossy, lossy with an ALPH chunk, lossless VP8L) in any mix; and the
+single-file ``decode(data, config=None, mode="RGBA", device=None)`` with
+``decode_rgba``, ``decode_rgb``, ``decode_into``, ``decode_yuv``,
+``decode_yuva``, ``features`` and ``DecoderConfig``.  ``device`` None
+means CUDA and raises without it; ``device="cpu"`` runs the kernels'
+plain torch versions and gives identical bytes and pixels.
 """
 
-from .decode import decode_rgba_batch
+from .decode import (decode, decode_into, decode_rgb, decode_rgba,
+                     decode_rgba_batch, decode_yuv, decode_yuva, features)
+from .decode_options import DecoderConfig
 from .encode import encode_rgba_batch
+from .errors import (BitstreamError, EncodeError, InvalidConfig,
+                     NotEnoughData, UnsupportedFeature, WebPError)
 
-__all__ = ["decode_rgba_batch", "encode_rgba_batch"]
+__all__ = [
+    "BitstreamError",
+    "DecoderConfig",
+    "EncodeError",
+    "InvalidConfig",
+    "NotEnoughData",
+    "UnsupportedFeature",
+    "WebPError",
+    "decode",
+    "decode_into",
+    "decode_rgb",
+    "decode_rgba",
+    "decode_rgba_batch",
+    "decode_yuv",
+    "decode_yuva",
+    "encode_rgba_batch",
+    "features",
+]

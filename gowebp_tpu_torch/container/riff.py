@@ -2,10 +2,10 @@
 
 The writer emits a RIFF wrapper holding one bare "VP8 " chunk, which is
 all the batch lossy encode emits.  The reader splits a WebP file (simple
-or VP8X extended) into its chunks, which the batch decode routes by,
-checks and reads the VP8X header, and probes a VP8 key frame's
-dimensions.  Written from the WebP container
-spec.
+or VP8X extended) into its chunks, which the decode routes by, checks
+and reads the VP8X header, probes a VP8 key frame's or a VP8L header's
+dimensions, and reports a file's features without decoding it.  Written
+from the WebP container spec.
 """
 
 from __future__ import annotations
@@ -13,9 +13,11 @@ from __future__ import annotations
 import struct
 from dataclasses import dataclass, field
 
-from ..constants import (CHUNK_HEADER_SIZE, CHUNK_VP8X, RIFF_HEADER_SIZE,
-                         RIFF_MAGIC, VP8_SIGNATURE, VP8X_CHUNK_SIZE,
-                         WEBP_MAGIC)
+from ..constants import (CHUNK_ALPHA, CHUNK_ANMF, CHUNK_HEADER_SIZE,
+                         CHUNK_VP8, CHUNK_VP8L, CHUNK_VP8X, RIFF_HEADER_SIZE,
+                         RIFF_MAGIC, VP8_SIGNATURE, VP8L_SIGNATURE,
+                         VP8X_CHUNK_SIZE, VP8X_FLAG_ALPHA,
+                         VP8X_FLAG_ANIMATION, WEBP_MAGIC)
 from ..errors import BitstreamError, NotEnoughData
 
 
@@ -110,6 +112,60 @@ def vp8_dimensions(payload: bytes) -> tuple[int, int]:
     return w, h
 
 
+def vp8l_dimensions(payload: bytes) -> tuple[int, int, bool]:
+    """Width, height and alpha hint from a VP8L header (5 bytes)."""
+    if len(payload) < 5:
+        raise NotEnoughData("VP8L payload too small")
+    if payload[0] != VP8L_SIGNATURE:
+        raise BitstreamError("bad VP8L signature byte")
+    bits = struct.unpack_from("<I", payload, 1)[0]
+    w = (bits & 0x3FFF) + 1
+    h = ((bits >> 14) & 0x3FFF) + 1
+    alpha = bool((bits >> 28) & 1)
+    version = (bits >> 29) & 0x7
+    if version != 0:
+        raise BitstreamError(f"unsupported VP8L version {version}")
+    return w, h, alpha
+
+
+@dataclass
+class WebPFeatures:
+    """Probe result: what is in this file (WebPGetFeatures)."""
+
+    width: int
+    height: int
+    has_alpha: bool
+    has_animation: bool
+    format: str  # "lossy" | "lossless" | "mixed" | "undefined"
+
+
+def get_features(data: bytes) -> WebPFeatures:
+    """WebPGetFeatures: probe a file without decoding it."""
+    parsed = parse_riff(data)
+    vp8 = parsed.find(CHUNK_VP8)
+    vp8l = parsed.find(CHUNK_VP8L)
+    has_anim = bool(parsed.vp8x_flags & VP8X_FLAG_ANIMATION)
+    if parsed.has_vp8x:
+        width, height = parsed.canvas_width, parsed.canvas_height
+        has_alpha = bool(parsed.vp8x_flags & VP8X_FLAG_ALPHA)
+    elif vp8l is not None:
+        width, height, has_alpha = vp8l_dimensions(vp8l.payload)
+    elif vp8 is not None:
+        width, height = vp8_dimensions(vp8.payload)
+        has_alpha = parsed.find(CHUNK_ALPHA) is not None
+    else:
+        raise BitstreamError("no image chunk (VP8/VP8L/VP8X) found")
+    if vp8l is not None:
+        fmt = "lossless"
+    elif vp8 is not None:
+        fmt = "lossy"
+    elif has_anim or parsed.find(CHUNK_ANMF) is not None:
+        fmt = "mixed"
+    else:
+        fmt = "undefined"
+    return WebPFeatures(width, height, has_alpha, has_anim, fmt)
+
+
 def assemble(chunks: list[Chunk]) -> bytes:
     """Wrap chunks in a RIFF/WEBP container."""
     body = b"".join(c.serialize() for c in chunks)
@@ -121,5 +177,6 @@ def assemble_simple(image_chunk: Chunk) -> bytes:
     return assemble([image_chunk])
 
 
-__all__ = ["Chunk", "ParsedWebP", "assemble", "assemble_simple",
-           "parse_riff", "vp8_dimensions"]
+__all__ = ["Chunk", "ParsedWebP", "WebPFeatures", "assemble",
+           "assemble_simple", "get_features", "parse_riff", "vp8_dimensions",
+           "vp8l_dimensions"]

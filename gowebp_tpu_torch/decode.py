@@ -1,7 +1,19 @@
-"""Top-level batch decode API of the PyTorch port: .webp files → RGBA.
+"""Top-level decode API of the PyTorch port: .webp files → pixels.
 
-Every still WebP kind is taken: lossy (VP8), lossy with an ALPH chunk,
-and lossless (VP8L), in any mix.  Per call:
+The single-file calls (``decode`` with every output mode, ``decode_rgba``,
+``decode_rgb``, ``decode_into``, ``decode_yuv``, ``decode_yuva``,
+``features``) take a ``DecoderConfig`` as libwebp's WebPDecode does.  A
+lossy file goes: host container parse, the single-stream symbol engine
+and the ALPH plane, one h2d copy (``_upload``), the recon and loop-filter
+kernels (ops/vp8_recon.py), the chroma dither (drawn on the host, added
+on the device), ``yuv420_to_rgba`` (fancy or nearest upsampling, with
+alpha), the output options and mode conversion as torch ops on the
+device, and one d2h copy of the final array.  A lossless file decodes on
+the host (models/vp8l) and its options run on that CPU tensor.
+
+The batch call ``decode_rgba_batch`` takes every still WebP kind: lossy
+(VP8), lossy with an ALPH chunk, and lossless (VP8L), in any mix.  Per
+call:
 
   1. host: the container parse routes each file, before any other work
      (a file with neither a VP8 nor a VP8L chunk raises);
@@ -16,8 +28,9 @@ and lossless (VP8L), in any mix.  Per call:
   4. one h2d copy per group of one host buffer holding its dense
      coefficients, modes and filter parameters and, for an ALPH group,
      its (B, H, W) alpha planes;
-  5. device: residual iDCT, the intra-reconstruction wavefront and the
-     loop-filter wavefront (ops/vp8_recon.py), then the fused fancy
+  5. device: the recon kernel (residual iDCT and intra prediction over
+     the MB wavefront) and the loop-filter kernel (ops/vp8_recon.py,
+     ops/kernels/vp8_recon), then the fused fancy
      upsample + YUV→RGBA kernel (ops/kernels/yuv420_to_rgba), which
      reads the MB-padded planes and, for an ALPH group, the alpha
      planes, and writes the cropped RGBA;
@@ -43,11 +56,13 @@ import numpy as np
 import torch
 
 from .constants import CHUNK_ALPHA, CHUNK_VP8, CHUNK_VP8L
-from .container.riff import parse_riff
+from .container.riff import WebPFeatures, get_features, parse_riff
+from .decode_options import DecoderConfig, _rescale, apply_output_options
 from .device import StageClock, resolve_device
 from .errors import BitstreamError
 from .models.vp8.alpha import decode_alpha
-from .models.vp8.decoder import (decode_vp8_symbols_batch, recon_vp8_yuv_host,
+from .models.vp8.decoder import (decode_vp8_symbols, decode_vp8_symbols_batch,
+                                 dither_deltas, recon_vp8_yuv_host,
                                  vp8_filter_params, yuv_planes_to_rgba)
 from .models.vp8l.decoder import decode_vp8l
 from .ops.kernels.yuv420_to_rgba import yuv420_to_rgba
@@ -72,35 +87,37 @@ def _route(data: bytes):
 
 
 def _upload(recs, dev):
-    """One host buffer per group: per image, its int16 coefficients, its
-    uint8 modes (padded to 4 bytes) and its int16 filter parameters;
-    then, 16-byte aligned, the group's (B, H, W) alpha planes if it has
-    them; one h2d copy; device views of the four (alpha None without)."""
+    """One host buffer per group: the group's int16 coefficients, its
+    uint8 modes, its int16 filter parameters and, for an ALPH group, its
+    (B, H, W) alpha planes, each batch-contiguous and 16-byte aligned; one
+    h2d copy; device views of the four (alpha None without)."""
     B = len(recs)
     st = recs[0][1]
     N = recs[0][2].shape[0]
-    lc, lm, lf = N * 24 * 16 * 2, N * 21, N * 4 * 2
-    lm4 = (lm + 3) // 4 * 4
-    rec = lc + lm4 + lf
-    head = (B * rec + 15) // 16 * 16
     has_alpha = recs[0][5] is not None
-    la = st.height * st.width if has_alpha else 0
-    buf = np.empty(head + B * la, np.uint8)
-    body = buf[:B * rec].reshape(B, rec)
-    planes = buf[head:].reshape(B, la)
-    for k, (_, _, coeffs, modes, fp, alpha) in enumerate(recs):
-        body[k, :lc] = coeffs.reshape(-1).view(np.uint8)
-        body[k, lc:lc + lm] = modes.reshape(-1)
-        body[k, lc + lm4:] = fp.astype(np.int16).reshape(-1).view(np.uint8)
+    sizes = (B * N * 24 * 16 * 2, B * N * 21, B * N * 4 * 2,
+             B * st.height * st.width if has_alpha else 0)
+    offs = [0]
+    for n in sizes:
+        offs.append((offs[-1] + n + 15) // 16 * 16)
+
+    def views(buf, as_i16):
+        part = [buf[o:o + n] for o, n in zip(offs, sizes)]
+        return (as_i16(part[0]).reshape(B, N, 24, 16),
+                part[1].reshape(B, N, 21), as_i16(part[2]).reshape(B, N, 4),
+                part[3].reshape(B, st.height, st.width) if has_alpha
+                else None)
+
+    buf = np.empty(offs[-1], np.uint8)
+    coeffs, modes, fp, alpha = views(buf, lambda a: a.view(np.int16))
+    for k, (_, _, c, m, f, a) in enumerate(recs):
+        coeffs[k] = c
+        modes[k] = m
+        fp[k] = f.reshape(N, 4)
         if has_alpha:
-            planes[k] = alpha.reshape(-1)
-    d = torch.from_numpy(buf).to(dev)
-    dbody = d[:B * rec].view(B, rec)
-    coeffs = dbody[:, :lc].view(torch.int16).reshape(B, N, 24, 16)
-    modes = dbody[:, lc:lc + lm].reshape(B, N, 21)
-    fp = dbody[:, lc + lm4:].view(torch.int16).reshape(B, N, 4)
-    alpha = (d[head:].view(B, st.height, st.width) if has_alpha else None)
-    return coeffs, modes, fp, alpha
+            alpha[k] = a
+    return views(torch.from_numpy(buf).to(dev),
+                 lambda a: a.view(torch.int16))
 
 
 def _decode_group(recs, dev, device_out: bool, timings):
@@ -271,4 +288,249 @@ def decode_rgba_batch(datas: list, *, threads: int = 0, device=None,
     return results
 
 
-__all__ = ["decode_rgba_batch"]
+# ---------------------------------------------------------------------------
+# Single-file decode
+# ---------------------------------------------------------------------------
+
+_MODE_PERMUTE = {
+    "RGBA": (0, 1, 2, 3),
+    "BGRA": (2, 1, 0, 3),
+    "ARGB": (3, 0, 1, 2),
+    "RGB": (0, 1, 2),
+    "BGR": (2, 1, 0),
+}
+# Premultiplied variants share the channel orders; the premultiply runs
+# first.
+_MODE_PREMULT = {"rgbA": "RGBA", "bgrA": "BGRA", "Argb": "ARGB",
+                 "rgbA_4444": "RGBA_4444"}
+_MODE_PACKED = ("RGB_565", "RGBA_4444")
+_MODE_CHANNELS = {"RGBA": 4, "BGRA": 4, "ARGB": 4, "RGB": 3, "BGR": 3,
+                  "rgbA": 4, "bgrA": 4, "Argb": 4,
+                  "RGB_565": 2, "RGBA_4444": 2, "rgbA_4444": 2}
+ALPHA_DITHER_SEED = 0xA1FA
+
+
+def _premultiply(rgba):
+    """8-bit approximate premultiply, libwebp's (c * a * 32897) >> 23."""
+    a = rgba[..., 3:].to(torch.int64)
+    rgb = (rgba[..., :3].to(torch.int64) * a * 32897) >> 23
+    return torch.cat([rgb.to(torch.uint8), rgba[..., 3:]], dim=-1)
+
+
+def _pack_16bit(rgba, mode: str):
+    """(H, W, 4) → (H, W, 2) uint8 packed rows in libwebp's MODE_RGB_565 /
+    MODE_RGBA_4444 byte order."""
+    r, g, b, a = (rgba[..., c].to(torch.int32) for c in range(4))
+    if mode == "RGB_565":
+        hi, lo = (r & 0xF8) | (g >> 5), ((g << 3) & 0xE0) | (b >> 3)
+    else:
+        hi, lo = (r & 0xF0) | (g >> 4), (b & 0xF0) | (a >> 4)
+    return torch.stack([hi, lo], dim=-1).to(torch.uint8)
+
+
+def _alpha_dither(rgba, strength: int):
+    """libwebp's alpha_dithering_strength: a triangular dither of the
+    alpha plane, drawn on the host from numpy's generator seeded with
+    ALPHA_DITHER_SEED and added where the pixels are."""
+    if (strength <= 0 or rgba.shape[2] != 4
+            or not bool((rgba[..., 3] != 255).any())):
+        return rgba
+    amp = 8 * strength // 100
+    if amp <= 0:
+        return rgba
+    rng = np.random.default_rng(ALPHA_DITHER_SEED)
+    sh = tuple(rgba.shape[:2])
+    noise = (rng.integers(0, amp + 1, sh) + rng.integers(0, amp + 1, sh)
+             - amp)
+    half = torch.from_numpy((noise // 2).astype(np.int16)).to(rgba.device)
+    out = rgba.clone()
+    out[..., 3] = (rgba[..., 3].to(torch.int16) + half).clamp(0, 255)
+    return out
+
+
+def _vp8_planes(payload: bytes, alpha_payload, config: DecoderConfig, dev):
+    """One lossy frame on ``dev`` → its MB-padded (1, Hy, Wy) Y and
+    (1, Hc, Wc) U, V planes, filtered and dithered; its (1, H, W) alpha
+    plane or None; and its frame header."""
+    st, coeffs, modes = decode_vp8_symbols(
+        payload, bypass_filtering=config.bypass_filtering)
+    plane = (None if alpha_payload is None
+             else decode_alpha(alpha_payload, st.width, st.height))
+    dc, dm, dfp, alpha = _upload(
+        [(0, st, coeffs, modes, vp8_filter_params(st, modes), plane)], dev)
+    Y, U, V = recon_frame(
+        dc, dm[:, :, 0], dm[:, :, 5:21], dm[:, :, 1],
+        dfp.reshape(1, st.mb_h, st.mb_w, 4), mb_w=st.mb_w, mb_h=st.mb_h,
+        filter_type=st.filter_type)
+    deltas = dither_deltas(st, modes, config.dithering_strength)
+    if deltas is not None:
+        d = torch.from_numpy(np.stack(deltas)).to(dev)
+        U, V = ((p.to(torch.int16) + dp).clamp(0, 255).to(torch.uint8)
+                for p, dp in ((U, d[0]), (V, d[1])))
+    return Y, U, V, alpha, st
+
+
+def _lossy_chunk(parsed):
+    vp8 = parsed.find(CHUNK_VP8)
+    if vp8 is None:
+        raise BitstreamError("YUV output requires a lossy (VP8) file")
+    return vp8.payload
+
+
+def decode(data: bytes, config: DecoderConfig | None = None,
+           mode: str = "RGBA", *, device=None) -> np.ndarray:
+    """Decode a .webp file with options → (H, W, C) uint8 array.
+
+    ``mode`` takes libwebp's colorspaces: RGBA/BGRA/ARGB/RGB/BGR,
+    premultiplied rgbA/bgrA/Argb/rgbA_4444, and the packed
+    RGB_565/RGBA_4444 (returned as (H, W, 2) byte pairs).  ``device`` None
+    means CUDA and raises when CUDA is absent, before any work;
+    ``device="cpu"`` runs the kernels' plain versions (identical pixels).
+    A lossless file decodes on the host whatever ``device`` says.
+    """
+    dev = resolve_device(device)
+    premult = mode in _MODE_PREMULT
+    if premult:
+        mode = _MODE_PREMULT[mode]
+    if mode not in _MODE_PERMUTE and mode not in _MODE_PACKED:
+        known = (sorted(_MODE_PERMUTE) + list(_MODE_PACKED)
+                 + sorted(_MODE_PREMULT))
+        raise ValueError(f"bad mode {mode!r} (use {known})")
+    config = config or DecoderConfig()
+    parsed = parse_riff(data)
+    vp8l = parsed.find(CHUNK_VP8L)
+    if vp8l is not None:
+        rgba = torch.from_numpy(decode_vp8l(vp8l.payload))
+    else:
+        vp8 = parsed.find(CHUNK_VP8)
+        if vp8 is None:
+            raise BitstreamError("no decodable image chunk found")
+        alpha_chunk = parsed.find(CHUNK_ALPHA)
+        Y, U, V, alpha, st = _vp8_planes(
+            vp8.payload, alpha_chunk.payload if alpha_chunk else None, config,
+            dev)
+        rgba = yuv420_to_rgba(Y, U, V, st.height, st.width, alpha,
+                              fancy=not config.no_fancy_upsampling)[0]
+    rgba = _alpha_dither(rgba, config.alpha_dithering_strength)
+    rgba = apply_output_options(rgba, config)
+    if premult:
+        rgba = _premultiply(rgba)
+    if mode in _MODE_PACKED:
+        rgba = _pack_16bit(rgba, mode)
+    elif _MODE_PERMUTE[mode] != tuple(range(rgba.shape[2])):
+        rgba = rgba[..., list(_MODE_PERMUTE[mode])]
+    return rgba.contiguous().cpu().numpy()
+
+
+def decode_rgba(data: bytes, config: DecoderConfig | None = None, *,
+                device=None) -> np.ndarray:
+    """Decode a .webp file (still image) to an (H, W, 4) uint8 RGBA array."""
+    return decode(data, config, "RGBA", device=device)
+
+
+def decode_rgb(data: bytes, config: DecoderConfig | None = None, *,
+               device=None) -> np.ndarray:
+    """Decode a .webp file (still image) to an (H, W, 3) uint8 RGB array."""
+    return decode(data, config, "RGB", device=device)
+
+
+def decode_into(data: bytes, out: np.ndarray,
+                config: DecoderConfig | None = None,
+                mode: str | None = None, *, device=None) -> np.ndarray:
+    """Decode into a caller-owned (possibly strided) (H, W, C) uint8
+    array, such as a window of a larger batch buffer.
+
+    H and W must match the decoded output under ``config`` (after any crop
+    or scale) and C the ``mode`` (default: RGBA for C=4, RGB for C=3);
+    else ValueError.  Returns ``out``.
+    """
+    out = np.asanyarray(out)
+    if out.dtype != np.uint8 or out.ndim != 3:
+        raise ValueError("out must be an (H, W, C) uint8 array")
+    if mode is None:
+        if out.shape[2] == 4:
+            mode = "RGBA"
+        elif out.shape[2] == 3:
+            mode = "RGB"
+        else:
+            raise ValueError("packed modes need an explicit mode=")
+    want_c = _MODE_CHANNELS.get(mode)
+    if want_c is None:
+        raise ValueError(f"bad mode {mode!r}")
+    if out.shape[2] != want_c:
+        raise ValueError(
+            f"out has {out.shape[2]} channels, mode {mode} needs {want_c}")
+    result = decode(data, config, mode, device=device)
+    if result.shape != out.shape:
+        raise ValueError(
+            f"out shape {out.shape} != decoded shape {result.shape}")
+    np.copyto(out, result)
+    return out
+
+
+def decode_yuv(data: bytes, *, device=None):
+    """Decode a lossy file to its (y, u, v) uint8 planes, cropped to the
+    frame (chroma ⌈H/2⌉ x ⌈W/2⌉)."""
+    dev = resolve_device(device)
+    payload = _lossy_chunk(parse_riff(data))
+    Y, U, V, _, st = _vp8_planes(payload, None, DecoderConfig(), dev)
+    H, W = st.height, st.width
+    h2, w2 = (H + 1) // 2, (W + 1) // 2
+    return tuple(p.contiguous().cpu().numpy()
+                 for p in (Y[0, :H, :W], U[0, :h2, :w2], V[0, :h2, :w2]))
+
+
+def decode_yuva(data: bytes, config: DecoderConfig | None = None, *,
+                device=None):
+    """Decode a lossy file to (y, u, v, a) uint8 planes with the output
+    options: crop (offsets snap down to even for chroma alignment), then a
+    rescale of each plane, then flip.  ``a`` is None for a file without an
+    ALPH chunk.
+    """
+    dev = resolve_device(device)
+    config = config or DecoderConfig()
+    parsed = parse_riff(data)
+    payload = _lossy_chunk(parsed)
+    alpha_chunk = parsed.find(CHUNK_ALPHA)
+    Y, U, V, alpha, st = _vp8_planes(
+        payload, alpha_chunk.payload if alpha_chunk else None, config, dev)
+    H, W = st.height, st.width
+    h2, w2 = (H + 1) // 2, (W + 1) // 2
+    y, u, v = Y[0, :H, :W], U[0, :h2, :w2], V[0, :h2, :w2]
+    a = None if alpha is None else alpha[0]
+    config.validate(W, H)
+    if config.use_cropping:
+        left, top = config.crop_left & ~1, config.crop_top & ~1
+        cw, ch = config.crop_width, config.crop_height
+        y = y[top:top + ch, left:left + cw]
+        u = u[top // 2:(top + ch + 1) // 2, left // 2:(left + cw + 1) // 2]
+        v = v[top // 2:(top + ch + 1) // 2, left // 2:(left + cw + 1) // 2]
+        if a is not None:
+            a = a[top:top + ch, left:left + cw]
+    if config.use_scaling:
+        sw, sh = config.resolve_scale(y.shape[1], y.shape[0])
+
+        def rs(p, w_, h_):
+            return _rescale(p[..., None], w_, h_)[..., 0]
+
+        y, u, v = (rs(y, sw, sh), rs(u, (sw + 1) // 2, (sh + 1) // 2),
+                   rs(v, (sw + 1) // 2, (sh + 1) // 2))
+        if a is not None:
+            a = rs(a, sw, sh)
+    if config.flip:
+        y, u, v = y.flip(0), u.flip(0), v.flip(0)
+        if a is not None:
+            a = a.flip(0)
+    planes = [p.contiguous().cpu().numpy() for p in (y, u, v)]
+    return (*planes, None if a is None else a.contiguous().cpu().numpy())
+
+
+def features(data: bytes) -> WebPFeatures:
+    """Probe a file's size, alpha, animation and format from its headers
+    (no pixel work, so no device)."""
+    return get_features(data)
+
+
+__all__ = ["DecoderConfig", "decode", "decode_into", "decode_rgb",
+           "decode_rgba", "decode_rgba_batch", "decode_yuv", "decode_yuva",
+           "features"]

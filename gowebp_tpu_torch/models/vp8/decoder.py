@@ -60,6 +60,7 @@ class QuantMatrix:
     y2_ac: int = 0
     uv_dc: int = 0
     uv_ac: int = 0
+    uv_quant: int = 0   # unclamped uv AC index, for the dithering strength
 
 
 @dataclass
@@ -182,6 +183,7 @@ def parse_frame_header(payload: bytes) -> tuple[FrameState, BoolDecoder]:
         m.y2_ac = max(8, (int(AC_QUANT[_clip(q + dqy2_ac, 127)]) * 101581) >> 16)
         m.uv_dc = int(DC_QUANT[_clip(q + dquv_dc, 117)])
         m.uv_ac = int(AC_QUANT[_clip(q + dquv_ac, 127)])
+        m.uv_quant = q + dquv_ac
         st.dqm.append(m)
 
     # Probability updates (RFC 9.8-9.11): ~1100 boolean decisions, parsed
@@ -296,15 +298,18 @@ def _partition_bounds(st: FrameState) -> tuple[bytes, np.ndarray]:
     return b"".join(st.partition_bytes), bounds
 
 
-def decode_vp8_symbols(payload: bytes):
+def decode_vp8_symbols(payload: bytes, bypass_filtering: bool = False):
     """Host entropy phase of one image, single-stream engine.
 
     Returns ``(st, coeffs, modes)``: ``coeffs`` int16 (mb_h*mb_w, 24, 16)
     dequantized coefficients in raster order within each block (luma DCs
     already inverse-WHT'd for i16 MBs), ``modes`` uint8 (mb_h*mb_w, 21):
     [is_i4, uvmode, segment, skip, dither, imodes x16].
+    ``bypass_filtering`` turns the loop filter off (``st.filter_type`` 0).
     """
     st, bd = parse_frame_header(payload)
+    if bypass_filtering:
+        st.filter_type = 0
     n = st.mb_w * st.mb_h
     coeffs = np.zeros((n, 24, 16), np.int16)
     modes = np.zeros((n, 21), np.uint8)
@@ -501,8 +506,108 @@ def yuv_planes_to_rgba(y: np.ndarray, u: np.ndarray,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Chroma dithering (libwebp's VP8InitDithering and DitherRow; RFC 6386 has
+# none): after the loop filter, each flat-chroma MB (modes[:, 4], the
+# symbol engine's dither flag) of a segment whose amplitude reaches
+# _MIN_DITHER_AMP gets 64 draws of a serial generator on U, then 64 on V,
+# in MB raster order.  The draws are made here, on the host; the device
+# adds them to the filtered planes (decode.py).
+# ---------------------------------------------------------------------------
+
+# Per-uv-quant dither amplitude ("roughly dqm.uv_mat[1]").
+_QUANT_TO_DITHER_AMP = (8, 7, 6, 4, 4, 2, 2, 2, 1, 1, 1, 1)
+_MIN_DITHER_AMP = 4
+
+# libwebp's published VP8Random seed table (31-bit values); a format-
+# behaviour constant needed for bit-exact dithered output.
+_RANDOM_TABLE = (
+    0x0de15230, 0x03b31886, 0x775faccb, 0x1c88626a, 0x68385c55, 0x14b3b828,
+    0x4a85fef8, 0x49ddb84b, 0x64fcf397, 0x5c550289, 0x4a290000, 0x0d7ec1da,
+    0x5940b7ab, 0x5492577d, 0x4e19ca72, 0x38d38c69, 0x0c01ee65, 0x32a1755f,
+    0x5437f652, 0x5abb2c32, 0x0faa57b1, 0x73f533e7, 0x685feeda, 0x7563cce2,
+    0x6e990e83, 0x4730a7ed, 0x4fc0d9c6, 0x496b153c, 0x4f1403fa, 0x541afb0c,
+    0x73990b32, 0x26d7cb1c, 0x6fcc3706, 0x2cbb77d8, 0x75762f2a, 0x6425ccdd,
+    0x24b35461, 0x0a7d8715, 0x220414a8, 0x141ebf67, 0x56b41583, 0x73e502e3,
+    0x44cab16f, 0x28264d42, 0x73baaefb, 0x0a50ebed, 0x1d6ab6fb, 0x0d3ad40b,
+    0x35db3b68, 0x2b081e83, 0x77ce6b95, 0x5181e5f0, 0x78853bbc, 0x009f9494,
+    0x27e5ed3c,
+)
+
+
+class VP8Random:
+    """Knuth's subtractive lagged-Fibonacci generator: x[t + 55] =
+    x[t] - x[t + 31] mod 2^31 over the 55-entry table."""
+
+    def __init__(self):
+        self.tab = list(_RANDOM_TABLE)
+        self.i1, self.i2 = 0, 31
+
+    def bits2(self, num_bits: int, amp: int) -> int:
+        """One draw, centred on 1 << (num_bits - 1), amplitude amp/256."""
+        return int(_centre(np.array([self.raw(1)[0]]), num_bits, amp)[0])
+
+    def raw(self, n: int) -> np.ndarray:
+        """The next ``n`` 31-bit table values (int64), advancing the state
+        as ``n`` calls of ``bits2`` do; 24 at a time, the generator's
+        shortest lag."""
+        x = np.empty(55 + n, np.int64)
+        x[:55] = np.roll(np.array(self.tab, np.int64), -self.i1)
+        for t in range(0, n, 24):
+            e = min(t + 24, n)
+            x[55 + t:55 + e] = (x[t:e] - x[t + 31:e + 31]) & 0x7FFFFFFF
+        self.tab = list(np.roll(x[n:], self.i1 + n).tolist())
+        self.i1 = (self.i1 + n) % 55
+        self.i2 = (self.i1 + 31) % 55
+        return x[55:]
+
+
+def _centre(raw: np.ndarray, num_bits: int, amp) -> np.ndarray:
+    """bits2's mapping of raw values: sign-extended after << 1, scaled by
+    amp / 256, recentred."""
+    d = (raw << 1) & 0xFFFFFFFF
+    d = np.where(d & 0x80000000, d - (1 << 32), d) >> (32 - num_bits)
+    return ((d * amp) >> 8) + (1 << (num_bits - 1))
+
+
+def _dither_amps(st: FrameState, strength: int) -> list:
+    """Per-segment dither amplitudes (VP8InitDithering)."""
+    f = 0 if strength < 0 else (255 if strength > 100 else
+                                strength * 255 // 100)
+    amps = [0, 0, 0, 0]
+    if f > 0:
+        for s, m in enumerate(st.dqm):
+            if m.uv_quant < len(_QUANT_TO_DITHER_AMP):
+                idx = max(m.uv_quant, 0)
+                amps[s] = (f * _QUANT_TO_DITHER_AMP[idx]) >> 3
+    return amps
+
+
+def dither_deltas(st: FrameState, modes: np.ndarray, strength: int):
+    """The chroma dither of one frame as per-pixel deltas: (dU, dV) int16
+    (8*mb_h, 8*mb_w) planes, ``clip(p + d)`` of the filtered U/V planes
+    giving the dithered ones; None when no MB is dithered."""
+    amps = np.array(_dither_amps(st, strength), np.int64)
+    if not amps.any():
+        return None
+    amp = np.where(modes[:, 4] != 0, amps[modes[:, 2]], 0)
+    mbs = np.flatnonzero(amp >= _MIN_DITHER_AMP)
+    if mbs.size == 0:
+        return None
+    noise = _centre(VP8Random().raw(128 * mbs.size).reshape(-1, 2, 8, 8), 8,
+                    amp[mbs][:, None, None, None])
+    delta = (noise - 128 + 8) >> 4                       # (n, 2, 8, 8)
+    out = np.zeros((2, st.mb_h * st.mb_w, 8, 8), np.int16)
+    out[:, mbs] = delta.transpose(1, 0, 2, 3)
+    planes = out.reshape(2, st.mb_h, st.mb_w, 8, 8).transpose(0, 1, 3, 2, 4)
+    planes = planes.reshape(2, 8 * st.mb_h, 8 * st.mb_w)
+    return planes[0], planes[1]
+
+
 __all__ = [
     "FrameState",
+    "VP8Random",
+    "dither_deltas",
     "decode_vp8_symbols",
     "decode_vp8_symbols_batch",
     "parse_frame_header",

@@ -18,6 +18,8 @@
 // column 0 (and an even width's column W-1) pairs a chroma column with
 // itself, where px reduces to libwebp's 3:1 vertical-only tap
 // (3N + F + 2) >> 2.  Odd H and W simply stop at the last pixel.
+// With `fancy` 0 (the decoder's no_fancy_upsampling) every pixel of the
+// quad takes chroma sample (i, m) itself: nearest upsampling.
 //
 // Bound on the card: bytes.  Per output pixel it reads 1.5 bytes of YUV
 // (plus 1 of alpha when given) and writes 4, against ~60 integer ops;
@@ -68,7 +70,7 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
 yuv420_to_rgba_kernel(const uint8_t* __restrict__ y, const uint8_t* __restrict__ u,
                       const uint8_t* __restrict__ v, const uint8_t* __restrict__ alpha,
                       int H, int W, int y_rows, int y_stride, int c_rows, int c_stride,
-                      uint8_t* __restrict__ out) {
+                      int fancy, uint8_t* __restrict__ out) {
   const int m = blockIdx.x * kBlockX + threadIdx.x;  // column pair
   const int i = blockIdx.y * kBlockY + threadIdx.y;  // row pair
   const int b = blockIdx.z;
@@ -89,8 +91,16 @@ yuv420_to_rgba_kernel(const uint8_t* __restrict__ y, const uint8_t* __restrict__
     }
   }
   int cu[2][2], cv[2][2];
-  upsample_quad(tu, cu);
-  upsample_quad(tv, cv);
+  if (fancy) {
+    upsample_quad(tu, cu);
+    upsample_quad(tv, cv);
+  } else {
+#pragma unroll
+    for (int r = 0; r < 4; r++) {
+      cu[r >> 1][r & 1] = tu[1][1];
+      cv[r >> 1][r & 1] = tv[1][1];
+    }
+  }
 
   const size_t ybase = (size_t)b * y_rows * y_stride;
 #pragma unroll
@@ -113,18 +123,19 @@ yuv420_to_rgba_kernel(const uint8_t* __restrict__ y, const uint8_t* __restrict__
 }  // namespace
 
 // y: (B, y_rows, y_stride) uint8; u, v: (B, c_rows, c_stride) uint8;
-// alpha: (B, H, W) uint8 or null; out: (B, H, W, 4) uint8.  The visible
+// alpha: (B, H, W) uint8 or null; fancy: 1 fancy, 0 nearest chroma
+// upsampling; out: (B, H, W, 4) uint8.  The visible
 // H x W must fit the planes: y_rows >= H, y_stride >= W, c_rows >=
 // (H+1)/2, c_stride >= (W+1)/2 (the wrapper checks).
 extern "C" int yuv420_to_rgba_launch(const uint8_t* y, const uint8_t* u, const uint8_t* v,
                                      const uint8_t* alpha, int B, int H, int W, int y_rows,
-                                     int y_stride, int c_rows, int c_stride, uint8_t* out,
-                                     void* stream) {
+                                     int y_stride, int c_rows, int c_stride, int fancy,
+                                     uint8_t* out, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0) return 0;
   const dim3 block(kBlockX, kBlockY);
   const dim3 grid((((W + 1) >> 1) + kBlockX - 1) / kBlockX,
                   (((H + 1) >> 1) + kBlockY - 1) / kBlockY, B);
   yuv420_to_rgba_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      y, u, v, alpha, H, W, y_rows, y_stride, c_rows, c_stride, out);
+      y, u, v, alpha, H, W, y_rows, y_stride, c_rows, c_stride, fancy, out);
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,5 @@
-"""Fancy upsampling + YUV→RGBA: the Hopper kernel, its binding and its
-plain version.
+"""Chroma upsampling (fancy or nearest) + YUV→RGBA: the Hopper kernel,
+its binding and its plain version.
 
 ``yuv420_to_rgba`` turns the decoder's MB-padded uint8 planes into the
 cropped (B, H, W, 4) uint8 RGBA images.  On a CUDA tensor it launches the
@@ -11,6 +11,8 @@ Layout:
   y       (B, Hy, Wy) uint8, Hy >= H and Wy >= W (padding is ignored)
   u, v    (B, Hc, Wc) uint8, Hc >= ceil(H/2) and Wc >= ceil(W/2)
   alpha   None (alpha 255) or (B, H, W) uint8
+  fancy   True: libwebp's fancy upsampler; False: nearest chroma samples
+          (the decoder's ``no_fancy_upsampling``)
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ def _configure(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.yuv420_to_rgba_launch.restype = ctypes.c_int
     lib.yuv420_to_rgba_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
-                                          p, p]
+                                          i, p, p]
 
 
 LIBRARY = CudaLibrary("yuv420_to_rgba.cu", _configure)
@@ -50,15 +52,17 @@ def _check_shapes(y, u, v, height: int, width: int) -> None:
         raise ValueError("yuv420_to_rgba: u and v planes differ in shape")
 
 
-def yuv420_to_rgba_plain(y, u, v, height: int, width: int, alpha=None):
+def yuv420_to_rgba_plain(y, u, v, height: int, width: int, alpha=None,
+                         fancy: bool = True):
     """Plain torch version of the kernel (any device)."""
     _check_shapes(y, u, v, height, width)
     h2, w2 = (height + 1) // 2, (width + 1) // 2
     return batch_yuv_to_rgba(y[:, :height, :width], u[:, :h2, :w2],
-                             v[:, :h2, :w2], alpha)
+                             v[:, :h2, :w2], alpha, fancy=fancy)
 
 
-def yuv420_to_rgba(y, u, v, height: int, width: int, alpha=None):
+def yuv420_to_rgba(y, u, v, height: int, width: int, alpha=None,
+                   fancy: bool = True):
     """Kernel on a CUDA tensor, plain version on a CPU tensor.
 
     ``yuv420_to_rgba.launches`` counts kernel launches (one per call on
@@ -67,7 +71,7 @@ def yuv420_to_rgba(y, u, v, height: int, width: int, alpha=None):
     """
     dev = y.device
     if dev.type == "cpu":
-        return yuv420_to_rgba_plain(y, u, v, height, width, alpha)
+        return yuv420_to_rgba_plain(y, u, v, height, width, alpha, fancy)
     if dev.type != "cuda":
         raise ValueError(f"yuv420_to_rgba: unsupported device {dev}")
     if y.dim() != 3:
@@ -86,7 +90,7 @@ def yuv420_to_rgba(y, u, v, height: int, width: int, alpha=None):
         y.data_ptr(), u.data_ptr(), v.data_ptr(),
         None if alpha is None else alpha.data_ptr(),
         B, height, width, y.shape[1], y.shape[2], u.shape[1], u.shape[2],
-        out.data_ptr(), stream_handle(dev))
+        int(bool(fancy)), out.data_ptr(), stream_handle(dev))
     if err != 0:
         raise RuntimeError(
             f"yuv420_to_rgba kernel launch failed: CUDA error {err}")

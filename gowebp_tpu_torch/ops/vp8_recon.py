@@ -7,7 +7,10 @@ their per-MB context read from a plane, and the anti-diagonal count of
 the macroblock wavefront.
 
 The decode (``recon_frame``): dense per-MB symbols from the host →
-reconstructed, loop-filtered uint8 planes, as plain torch ops:
+reconstructed, loop-filtered uint8 planes.  On a CUDA tensor it runs the
+``recon_mb`` and ``loop_filter_mb`` kernels (ops/kernels/vp8_recon.py);
+on a CPU tensor, and as those kernels' reference, the plain torch ops
+here:
 
 - the iDCT of every residual block at once;
 - intra prediction as an MB anti-diagonal wavefront (slope 2:
@@ -566,17 +569,41 @@ def loop_filter_wavefront(PY, PC, fparams, dg: Diagonals, filter_type: int):
 # Decode: full frame
 # ---------------------------------------------------------------------------
 
+def crop_planes(PY, PC, mb_w: int):
+    """Bordered int32 planes (PY (B, ...), PC (2B, ...): U then V) →
+    contiguous uint8 planes (B, 16*mb_h, 16*mb_w), (B, 8*mb_h, 8*mb_w) x2."""
+    B, W = PY.shape[0], 16 * mb_w
+    Y = PY[:, PAD:, PAD:PAD + W].to(torch.uint8).contiguous()
+    C = PC[:, PAD:, PAD:PAD + W // 2].to(torch.uint8)
+    return Y, C[:B].contiguous(), C[B:].contiguous()
+
+
 def recon_frame(coeffs, is_i4, imodes, uvmode, fparams, *, mb_w, mb_h,
                 filter_type, marks=None):
     """Dequantized symbols → reconstructed + filtered uint8 planes.
 
-    coeffs (B, N, 24, 16) int16/int32; is_i4/uvmode (B, N) int;
-    imodes (B, N, 16) int; fparams (B, mb_h, mb_w, 4) int.  Returns
-    contiguous uint8 planes (B, 16*mb_h, 16*mb_w), (B, 8*mb_h, 8*mb_w) x2.
-    ``marks(name)``, if given, is called after each stage ("idct",
-    "recon", and "filter", which includes the store to uint8).
+    coeffs (B, N, 24, 16) int16 (int16 or int32 on the CPU); is_i4/uvmode
+    (B, N) int; imodes (B, N, 16) int; fparams (B, mb_h, mb_w, 4) int.
+    Returns contiguous uint8 planes (B, 16*mb_h, 16*mb_w), (B, 8*mb_h,
+    8*mb_w) x2.  On a CUDA tensor the ``recon_mb`` and ``loop_filter_mb``
+    kernels run (ops/kernels/vp8_recon.py); on a CPU tensor the plain torch
+    loops above.  ``marks(name)``, if given, is called after each stage:
+    "idct" (CPU only: the kernel runs the iDCT inside "recon"), "recon",
+    and "filter" (which includes the store to uint8 on the CPU).
     """
-    B = coeffs.shape[0]
+    if coeffs.device.type == "cuda":
+        from .kernels.vp8_recon import loop_filter_mb, pack_modes, recon_mb
+
+        Y, U, V = recon_mb(coeffs, pack_modes(is_i4, imodes, uvmode),
+                           mb_w, mb_h)
+        if marks is not None:
+            marks("recon")
+        loop_filter_mb(Y, U, V, fparams, mb_w, mb_h, filter_type)
+        if marks is not None:
+            marks("filter")
+        return Y, U, V
+    if coeffs.device.type != "cpu":
+        raise ValueError(f"recon_frame: unsupported device {coeffs.device}")
     dg = Diagonals(mb_w, mb_h, coeffs.device)
     Yres, Ures, Vres = residual_blocks(coeffs.to(I32))
     if marks is not None:
@@ -585,15 +612,13 @@ def recon_frame(coeffs, is_i4, imodes, uvmode, fparams, *, mb_w, mb_h,
     if marks is not None:
         marks("recon")
     loop_filter_wavefront(PY, PC, fparams, dg, filter_type)
-    W = 16 * mb_w
-    Y = PY[:, PAD:, PAD:PAD + W].to(torch.uint8).contiguous()
-    C = PC[:, PAD:, PAD:PAD + W // 2].to(torch.uint8).contiguous()
+    planes = crop_planes(PY, PC, mb_w)
     if marks is not None:
         marks("filter")
-    return Y, C[:B], C[B:]
+    return planes
 
 
-__all__ = ["Diagonals", "_pred_luma4_all", "idct4x4_batch",
+__all__ = ["Diagonals", "_pred_luma4_all", "crop_planes", "idct4x4_batch",
            "loop_filter_wavefront", "mb_context", "num_diagonals",
            "predict4_blocks", "recon_frame", "recon_wavefront",
            "residual_blocks"]

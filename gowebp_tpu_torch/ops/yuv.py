@@ -1,8 +1,9 @@
-"""Batched fancy upsampling + YUV→RGBA in PyTorch — exact integer math.
+"""Batched chroma upsampling + YUV→RGBA in PyTorch — exact integer math.
 
 The decode's post-processing: libwebp's "fancy" 2x chroma upsampler
-(each output pixel weighs its four nearest chroma samples 9:3:3:1) and
-the BT.601 fixed-point YUV→RGB conversion.  ``batch_yuv_to_rgba`` is
+(each output pixel weighs its four nearest chroma samples 9:3:3:1), or
+nearest upsampling (``no_fancy_upsampling``), and the BT.601 fixed-point
+YUV→RGB conversion.  ``batch_yuv_to_rgba`` is
 the plain version of the yuv420_to_rgba kernel (ops/kernels/).
 """
 
@@ -78,11 +79,20 @@ def fancy_upsample(chroma, height: int, width: int):
     return out.to(torch.uint8)
 
 
-def batch_yuv_to_rgba(y, u, v, alpha=None):
+def simple_upsample(chroma, height: int, width: int):
+    """(..., H2, W2) chroma → (..., height, width): nearest upsampling,
+    each sample repeated over its 2x2 pixels."""
+    up = chroma.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
+    return up[..., :height, :width].to(torch.uint8)
+
+
+def batch_yuv_to_rgba(y, u, v, alpha=None, fancy: bool = True):
     """(B, H, W) luma + (B, ⌈H/2⌉, ⌈W/2⌉) chroma [+ (B, H, W) alpha] →
-    (B, H, W, 4) uint8 RGBA; alpha 255 when none is given."""
+    (B, H, W, 4) uint8 RGBA; alpha 255 when none is given.  ``fancy``
+    False upsamples the chroma by nearest samples."""
     B, H, W = y.shape
-    rgb = yuv_to_rgb(y, fancy_upsample(u, H, W), fancy_upsample(v, H, W))
+    up = fancy_upsample if fancy else simple_upsample
+    rgb = yuv_to_rgb(y, up(u, H, W), up(v, H, W))
     if alpha is None:
         a = torch.full((B, H, W, 1), 255, dtype=torch.uint8, device=y.device)
     else:
@@ -90,4 +100,5 @@ def batch_yuv_to_rgba(y, u, v, alpha=None):
     return torch.cat([rgb, a], dim=-1)
 
 
-__all__ = ["batch_yuv_to_rgba", "fancy_upsample", "yuv_to_rgb"]
+__all__ = ["batch_yuv_to_rgba", "fancy_upsample", "simple_upsample",
+           "yuv_to_rgb"]

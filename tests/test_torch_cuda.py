@@ -10,6 +10,9 @@ file imports nothing of JAX, so it runs on a GPU machine without JAX:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -391,7 +394,7 @@ def test_mixed_batch_decode_gpu_equals_cpu(cuda):
 
 
 def test_alph_group_launches_the_kernel_with_alpha(cuda, monkeypatch):
-    import gowebp_tpu_torch.decode as dec
+    dec = importlib.import_module("gowebp_tpu_torch.decode")
     from gowebp_tpu_torch.ops.kernels.yuv420_to_rgba import yuv420_to_rgba
 
     seen = []
@@ -770,3 +773,170 @@ def test_wavefront_engine_without_i4_runs_the_lean_kernel(cuda, monkeypatch):
     assert (i4_search.launches, i4_walk.launches) == before
     assert got == encode_rgba_batch_pipelined(imgs, device="cpu", config=cfg,
                                               engine="wavefront")
+
+
+@pytest.mark.parametrize("b,h,w,ph,pw", [
+    (3, 61, 95, 64, 96), (1, 1, 1, 16, 16), (2, 17, 2, 32, 16)])
+def test_yuv420_to_rgba_nearest_matches_plain(cuda, b, h, w, ph, pw):
+    """fancy=False (no_fancy_upsampling): nearest chroma samples."""
+    from gowebp_tpu_torch.ops.kernels.yuv420_to_rgba import (
+        yuv420_to_rgba, yuv420_to_rgba_plain)
+
+    g = torch.Generator().manual_seed(h * 7 + w)
+    planes = [torch.randint(0, 256, s, generator=g, dtype=torch.uint8)
+              .to(cuda) for s in ((b, ph, pw), (b, ph // 2, pw // 2),
+                                  (b, ph // 2, pw // 2))]
+    got = yuv420_to_rgba(*planes, h, w, fancy=False)
+    want = yuv420_to_rgba_plain(*planes, h, w, fancy=False)
+    assert torch.equal(got, want)
+    assert not torch.equal(got, yuv420_to_rgba(*planes, h, w)) or h * w == 1
+
+
+def _recon_case(seed, B, mb_h, mb_w):
+    """chip_smoke.py's random recon inputs (i4/i16 mixes, skip MBs, four
+    segments with distinct filter levels, one off), on the CPU."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.random_symbols("cpu", seed, B, mb_h, mb_w)
+
+
+RECON_GRIDS = [(2, 3, 5), (1, 1, 5), (1, 5, 1), (1, 1, 1), (3, 4, 6)]
+
+
+@pytest.mark.parametrize("B,mb_h,mb_w", RECON_GRIDS)
+def test_recon_mb_kernel_matches_plain(cuda, B, mb_h, mb_w):
+    from gowebp_tpu_torch.ops.kernels.vp8_recon import recon_mb, recon_mb_plain
+
+    coeffs, modes, _ = _recon_case(B * 100 + mb_h * 10 + mb_w, B, mb_h, mb_w)
+    before = recon_mb.launches
+    got = recon_mb(coeffs.to(cuda), modes.to(cuda), mb_w, mb_h)
+    want = recon_mb_plain(coeffs, modes, mb_w, mb_h)
+    torch.cuda.synchronize()
+    assert recon_mb.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("filter_type", [0, 1, 2])
+@pytest.mark.parametrize("B,mb_h,mb_w", RECON_GRIDS)
+def test_loop_filter_mb_kernel_matches_plain(cuda, filter_type, B, mb_h, mb_w):
+    from gowebp_tpu_torch.ops.kernels.vp8_recon import (
+        loop_filter_mb, loop_filter_mb_plain, recon_mb_plain)
+
+    coeffs, modes, fp = _recon_case(B * 31 + mb_h * 7 + mb_w, B, mb_h, mb_w)
+    planes = recon_mb_plain(coeffs, modes, mb_w, mb_h)
+    want = loop_filter_mb_plain(*(p.clone() for p in planes), fp, mb_w, mb_h,
+                                filter_type)
+    before = loop_filter_mb.launches
+    got = loop_filter_mb(*(p.to(cuda) for p in planes), fp.to(cuda), mb_w,
+                         mb_h, filter_type)
+    torch.cuda.synchronize()
+    assert loop_filter_mb.launches == before + (filter_type != 0)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_recon_frame_on_the_card_launches_both_kernels(cuda):
+    """recon_frame sends CUDA tensors to the kernels: the GPU planes equal
+    the CPU loops'."""
+    from gowebp_tpu_torch.ops.kernels.vp8_recon import loop_filter_mb, recon_mb
+    from gowebp_tpu_torch.ops.vp8_recon import recon_frame
+
+    coeffs, modes, fp = _recon_case(5, 2, 3, 4)
+    m = modes.to(torch.int32)
+    args = (coeffs, m[..., 0], m[..., 2:], m[..., 1], fp)
+    before = (recon_mb.launches, loop_filter_mb.launches)
+    got = recon_frame(*(a.to(cuda) for a in args), mb_w=4, mb_h=3,
+                      filter_type=2)
+    want = recon_frame(*args, mb_w=4, mb_h=3, filter_type=2)
+    assert (recon_mb.launches, loop_filter_mb.launches) == (before[0] + 1,
+                                                            before[1] + 1)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_recon_kernels_reject_bad_tensors(cuda):
+    from gowebp_tpu_torch.ops.kernels.vp8_recon import loop_filter_mb, recon_mb
+
+    coeffs, modes, fp = (t.to(cuda) for t in _recon_case(1, 1, 2, 2))
+    with pytest.raises(TypeError):
+        recon_mb(coeffs.to(torch.int32), modes, 2, 2)
+    with pytest.raises(ValueError):
+        recon_mb(coeffs, modes[:, :, :16], 2, 2)
+    with pytest.raises(ValueError):
+        recon_mb(coeffs, modes, 3, 1)
+    y, u, v = recon_mb(coeffs, modes, 2, 2)
+    with pytest.raises(ValueError):
+        loop_filter_mb(y, u, v, fp, 2, 2, 3)
+    with pytest.raises(ValueError):
+        loop_filter_mb(y, u[:, :8], v, fp, 2, 2, 2)
+    with pytest.raises(ValueError):
+        loop_filter_mb(y.transpose(1, 2), u, v, fp, 2, 2, 2)
+
+
+def _single_files():
+    from gowebp_tpu_torch.utils.corpus import natural_image
+
+    h, w = 45, 61
+    yy, xx = np.mgrid[0:h, 0:w]
+    alpha = (255 * xx / (w - 1)).astype(np.uint8)
+    alpha[:h // 3, :w // 3] = 0
+    smooth = np.stack([4 * xx, 5 * yy, xx + yy], -1).astype(np.uint8)
+    return {"lossy": _pillow(natural_image(h, w, seed=1), quality=75),
+            "smooth_q95": _pillow(smooth, quality=95),
+            "alph": _pillow(np.dstack([natural_image(h, w, seed=2), alpha]),
+                            quality=75),
+            "vp8l": _pillow(np.dstack([natural_image(h, w, seed=3), alpha]),
+                            lossless=True, exact=True)}
+
+
+SINGLE_CONFIGS = [
+    {}, {"use_cropping": True, "crop_left": 5, "crop_top": 3,
+         "crop_width": 40, "crop_height": 31},
+    {"use_scaling": True, "scaled_width": 90}, {"flip": True},
+    {"bypass_filtering": True}, {"no_fancy_upsampling": True},
+    {"dithering_strength": 50}, {"alpha_dithering_strength": 50},
+    {"use_cropping": True, "crop_left": 5, "crop_top": 3, "crop_width": 40,
+     "crop_height": 31, "use_scaling": True, "scaled_height": 17,
+     "flip": True}]
+
+
+@pytest.mark.parametrize("name", ["lossy", "smooth_q95", "alph", "vp8l"])
+def test_single_file_decode_gpu_equals_cpu(cuda, name):
+    """decode() on the card (recon_mb, loop_filter_mb, yuv420_to_rgba and
+    torch output options) against device="cpu", every option and mode."""
+    from gowebp_tpu_torch import DecoderConfig, decode, decode_yuva
+    from gowebp_tpu_torch.ops.kernels.vp8_recon import recon_mb
+
+    data = _single_files()[name]
+    before = recon_mb.launches
+    for kw in SINGLE_CONFIGS:
+        cfg = DecoderConfig(**kw)
+        for mode in ("RGBA", "bgrA", "RGB_565", "ARGB", "rgbA_4444"):
+            got = decode(data, cfg, mode, device="cuda")
+            want = decode(data, cfg, mode, device="cpu")
+            assert got.shape == want.shape and np.array_equal(got, want)
+        if name != "vp8l":
+            for a, b in zip(decode_yuva(data, cfg, device="cuda"),
+                            decode_yuva(data, cfg, device="cpu")):
+                assert (a is None) == (b is None)
+                assert a is None or np.array_equal(a, b)
+    assert (recon_mb.launches > before) == (name != "vp8l")
+
+
+def test_single_file_decode_launches_the_decode_kernels(cuda):
+    from gowebp_tpu_torch import decode, decode_rgba_batch
+    from gowebp_tpu_torch.ops.kernels.vp8_recon import loop_filter_mb, recon_mb
+    from gowebp_tpu_torch.ops.kernels.yuv420_to_rgba import yuv420_to_rgba
+
+    files = list(_single_files().values())
+    before = (recon_mb.launches, loop_filter_mb.launches,
+              yuv420_to_rgba.launches)
+    got = [decode(d, device="cuda") for d in files]
+    after = (recon_mb.launches, loop_filter_mb.launches,
+             yuv420_to_rgba.launches)
+    assert [a - b for a, b in zip(after, before)] == [3, 3, 3]
+    for a, b in zip(got, decode_rgba_batch(files, device="cuda")):
+        assert np.array_equal(a, b)

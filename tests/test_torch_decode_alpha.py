@@ -8,6 +8,7 @@ ALPH files from Pillow (libwebp).  Only the wiring test decodes through the
 batch path, on the CPU, with no JAX function compiled.
 """
 
+import importlib
 import io
 import struct
 
@@ -19,12 +20,13 @@ from PIL import Image
 import gowebp_tpu
 from gowebp_tpu.container import riff as jriff
 from gowebp_tpu.models.vp8 import alpha as ja
-from gowebp_tpu_torch import decode as pdecode
 from gowebp_tpu_torch import decode_rgba_batch
 from gowebp_tpu_torch.container import riff as priff
 from gowebp_tpu_torch.errors import BitstreamError
 from gowebp_tpu_torch.models.vp8 import alpha as pa
 from gowebp_tpu_torch.utils.corpus import natural_image
+
+pdecode = importlib.import_module("gowebp_tpu_torch.decode")
 
 
 def _plane(h, w, seed):

@@ -8,6 +8,7 @@ batch keeps to two lossy sizes and the JAX package decodes it in one
 group (``threads=1``; its pixels do not depend on the thread count).
 """
 
+import importlib
 import io
 
 import numpy as np
@@ -131,7 +132,7 @@ def test_device_out_gives_tensors_equal_to_the_arrays(jax_rgba, backend):
 
 def test_file_without_an_image_chunk_raises_in_both(monkeypatch):
     """Before any work in the port: no symbol or VP8L decode runs."""
-    import gowebp_tpu_torch.decode as dec
+    dec = importlib.import_module("gowebp_tpu_torch.decode")
 
     bad = b"RIFF\x0c\x00\x00\x00WEBPJUNK\x00\x00\x00\x00"
     ran = []

@@ -256,7 +256,7 @@ def test_openloop_psnr_floor_of_chip_smoke():
 
 
 def test_engine_argument():
-    from gowebp_tpu_torch.errors import EncodeError
+    import gowebp_tpu
 
     im = np.zeros((32, 32, 3), np.uint8)
     # "wavefront" (the exact full search) is an engine like the others
@@ -264,9 +264,11 @@ def test_engine_argument():
             == jax_pipe([im], quality=75.0, chunk=1, engine="wavefront"))
     with pytest.raises(ValueError, match="unknown engine"):
         encode_rgba_batch([im], device="cpu", engine="fast")
-    with pytest.raises(EncodeError, match="shape"):
-        encode_rgba_batch([im, np.zeros((32, 48, 3), np.uint8)],
-                          device="cpu", engine="openloop")
+    # a batch of mixed shapes, all opaque, gives the reference's bytes (its
+    # per-image host encode), whatever the engine
+    mixed = [im, np.zeros((32, 48, 3), np.uint8)]
+    assert (encode_rgba_batch(mixed, device="cpu", engine="openloop")
+            == gowebp_tpu.encode_rgba_batch(mixed, engine="openloop"))
 
 
 def test_openloop_default_device_is_cuda_and_raises_without_it(monkeypatch):

@@ -1,6 +1,7 @@
 """PyTorch port: import boundary and device policy guards."""
 
 import ast
+import importlib
 from pathlib import Path
 
 import numpy as np
@@ -58,7 +59,7 @@ def test_decode_default_device_is_cuda_and_raises_without_it(monkeypatch):
 
     from PIL import Image
 
-    import gowebp_tpu_torch.decode as dec
+    dec = importlib.import_module("gowebp_tpu_torch.decode")
     from gowebp_tpu_torch import decode_rgba_batch
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -81,7 +82,7 @@ def test_decode_host_backend_needs_cuda_too(monkeypatch):
 
     from PIL import Image
 
-    import gowebp_tpu_torch.decode as dec
+    dec = importlib.import_module("gowebp_tpu_torch.decode")
     from gowebp_tpu_torch import decode_rgba_batch
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -110,14 +111,109 @@ def test_boundary_scan_covers_the_decode_modules():
         assert f"gowebp_tpu_torch/{mod}" in names
 
 
-def test_mixed_shapes_raise():
+def test_boundary_scan_covers_the_single_file_decode_modules():
+    names = {str(f.relative_to(ROOT)) for f in _port_files()}
+    for mod in ("decode_options.py", "ops/kernels/vp8_recon.py",
+                "container/riff.py", "models/vp8/decoder.py"):
+        assert f"gowebp_tpu_torch/{mod}" in names
+
+
+SINGLE_FILE_CALLS = ["decode", "decode_rgba", "decode_rgb", "decode_into",
+                     "decode_yuv", "decode_yuva"]
+
+
+@pytest.mark.parametrize("name", SINGLE_FILE_CALLS)
+def test_single_file_decode_default_device_is_cuda(monkeypatch, name):
+    """Every single-file decode call without device= needs CUDA: without
+    it, it raises before any work, for lossy and lossless files alike."""
+    import io
+
+    from PIL import Image
+
+    import gowebp_tpu_torch
+    dec = importlib.import_module("gowebp_tpu_torch.decode")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ran = []
+    for fn in ("decode_vp8_symbols", "decode_vp8l", "parse_riff"):
+        monkeypatch.setattr(dec, fn, lambda *a, **k: ran.append(1))
+    datas = []
+    for kw in ({}, {"lossless": True}):
+        buf = io.BytesIO()
+        Image.fromarray(np.zeros((16, 16, 3), np.uint8)).save(buf, "WEBP",
+                                                             **kw)
+        datas.append(buf.getvalue())
+    call = getattr(gowebp_tpu_torch, name)
+    for data in datas:
+        args = (data, np.zeros((16, 16, 4), np.uint8)) \
+            if name == "decode_into" else (data,)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call(*args)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call(*args, device="cuda")
+    assert not ran
+
+
+def _opaque_mixed_batch():
+    from gowebp_tpu_torch.utils.corpus import natural_image
+
+    a = natural_image(33, 17, seed=1)
+    return [np.dstack([a, np.full(a.shape[:2], 255, np.uint8)]),
+            natural_image(64, 48, seed=2), natural_image(33, 17, seed=3),
+            natural_image(33, 17, seed=4)]
+
+
+@pytest.mark.parametrize("engine", ["hybrid", "wavefront", "openloop"])
+def test_mixed_opaque_shapes_give_the_reference_bytes(engine):
+    """A batch of mixed shapes and channel counts, all opaque, gives the
+    reference's bytes (its per-image host encode), whatever engine."""
+    import gowebp_tpu
     from gowebp_tpu_torch import encode_rgba_batch
-    from gowebp_tpu_torch.errors import EncodeError
+
+    imgs = _opaque_mixed_batch()
+    want = gowebp_tpu.encode_rgba_batch(imgs, quality=60.0, engine=engine)
+    assert encode_rgba_batch(imgs, quality=60.0, device="cpu",
+                             engine=engine) == want
+
+
+def test_mixed_shapes_raise():
+    """A mixed batch with a non-opaque RGBA image raises UnsupportedFeature
+    (its ALPH chunk needs the single-image encode); the alpha is never
+    dropped."""
+    from gowebp_tpu_torch import encode_rgba_batch
+    from gowebp_tpu_torch.errors import UnsupportedFeature
 
     a = np.zeros((32, 32, 3), np.uint8)
-    b = np.zeros((32, 48, 3), np.uint8)
-    with pytest.raises(EncodeError, match="shape"):
+    b = np.full((32, 48, 4), 255, np.uint8)
+    b[3, 4, 3] = 7
+    with pytest.raises(UnsupportedFeature, match="single-image encode"):
         encode_rgba_batch([a, b], device="cpu")
+
+
+@pytest.mark.parametrize("case", ["quality_150", "quality_neg", "float32"])
+def test_batch_encode_checks_its_inputs_where_the_reference_batch_does_not(
+        case):
+    """The port checks batch-encode inputs as the reference's encode_rgba
+    does (gowebp_tpu/encode.py:36-40), not as its batch path: quality 150
+    and float32 pixels, which the reference's batch path encodes, and
+    quality -1, on which it raises TypeError, raise InvalidConfig or
+    EncodeError here."""
+    import gowebp_tpu
+    from gowebp_tpu_torch import encode_rgba_batch
+    from gowebp_tpu_torch.errors import EncodeError, InvalidConfig
+    from gowebp_tpu_torch.utils.corpus import natural_image
+
+    im = natural_image(17, 21, seed=5)
+    imgs, kw = {"quality_150": ([im, im], {"quality": 150}),
+                "quality_neg": ([im, im], {"quality": -1}),
+                "float32": ([im.astype(np.float32)] * 2, {})}[case]
+    if case == "quality_neg":
+        with pytest.raises(TypeError):
+            gowebp_tpu.encode_rgba_batch(imgs, **kw)
+    else:
+        assert gowebp_tpu.encode_rgba_batch(imgs, **kw)[0][:4] == b"RIFF"
+    with pytest.raises(EncodeError if case == "float32" else InvalidConfig):
+        encode_rgba_batch(imgs, device="cpu", **kw)
 
 
 def test_kernel_wrappers_route_cpu_tensors_to_plain_versions():
