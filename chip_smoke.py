@@ -7,11 +7,10 @@ Phases (any failure raises and exits non-zero; no result is printed):
   1. the card's name and power limit (nvidia-smi), the int32 ceiling the
      bounds use (SMs x 64 int32 operations a clock x the max SM clock),
      torch and CUDA versions;
-  2. build the eleven CUDA kernels from the six ops/kernels/*.cu sources
+  2. build the ten CUDA kernels from the six ops/kernels/*.cu sources
      (one nvcc each, in parallel; encode_plane.cu gives the two plane
      kernels and their two modes-only forms, vp8_recon.cu the decode's
-     recon_mb and loop_filter_mb) and print the build time and ptxas
-     register report;
+     recon_filter_mb) and print the build time and ptxas register report;
   3. hold each kernel against its plain torch version on the card, bit for
      bit, at the main paths' full shapes, and time each with CUDA events,
      two ways: one call alone (ms, the wrapper's host time included) and
@@ -44,15 +43,16 @@ Phases (any failure raises and exits non-zero; no result is printed):
      odd MB grids (1x5, 5x1), and on tie-heavy planes (flat and gradient
      MBs, penalties 0 and 1); its ptxas registers, stack and spills (none
      allowed) and resident blocks printed; timed alone on one image; and
-     (3g, run once phase 4 has written the 32 files) recon_mb and
-     loop_filter_mb against ops/vp8_recon.py's recon_wavefront and
-     loop_filter_wavefront at B=32 1024x1024 on the decode path's inputs
-     for those files, with filter types 0, 1 and 2 and 3 repeated runs, and
-     on random i4/i16 mixes with skip MBs and four segments of distinct
-     filter levels at B=4 256x256, on odd MB grids (1x5, 5x1, 1x1, 3x5) and
-     at B=256 512x64 (8,192 MB rows, more than the card holds blocks), with
-     their ptxas report (no stack or spills allowed), each timed at B=32
-     and alone on one image (the chain);
+     (3g, run once phase 4 has written the 32 files) recon_filter_mb
+     against ops/vp8_recon.py's recon_wavefront followed by
+     loop_filter_wavefront
+     at B=32 1024x1024 on the decode path's inputs for those files, with
+     filter types 0, 1 and 2 and 3 repeated runs, and on random i4/i16
+     mixes with skip MBs and four segments of distinct filter levels at B=4
+     256x256, on odd MB grids (1x5, 5x1, 1x1, 3x5) and at B=256 512x64
+     (8,192 MB rows, more than the card holds blocks), with its ptxas
+     report (no stack or spills allowed), timed at B=32 and alone on one
+     image (the chain);
   4. the encode path: 32 natural images of 1024x1024 through
      encode_rgba_batch(device="cuda") in two chunks of 16, with the
      kernels' launch counters reset just before and read just after
@@ -75,16 +75,17 @@ Phases (any failure raises and exits non-zero; no result is printed):
      timings, and the synchronizing CUDA calls of one depth=3 run;
   6. the decode path: phase 4's 32 files through
      decode_rgba_batch(device="cuda"), with the launch counters reset just
-     before and read just after (recon_mb, loop_filter_mb and
-     yuv420_to_rgba must launch, no other kernel); a second, timed run
-     with the per-stage split (host symbols, then CUDA-event spans); a
-     device_out=True run whose CUDA tensors must equal the host results;
+     before and read just after (recon_filter_mb and yuv420_to_rgba must
+     launch, no other kernel); a second, timed run with the per-stage split
+     (host symbols, then CUDA-event spans; "recon" is the one kernel's
+     iDCT, recon and filter); a device_out=True run whose CUDA tensors must
+     equal the host results;
   6b. the mixed decode: those 32 files with 4 lossy + ALPH and 4 VP8L
      files of 1024x1024 written by Pillow, in one device_out=True call,
-     counters reset just before and read just after (recon_mb,
-     loop_filter_mb and yuv420_to_rgba must launch for the plain and the
-     ALPH groups, yuv420_to_rgba at least once with an alpha plane, and no
-     other kernel);
+     counters reset just before and read just after (recon_filter_mb and
+     yuv420_to_rgba must launch for the plain and the ALPH groups,
+     yuv420_to_rgba at least once with an alpha plane, and no other
+     kernel);
      a timed run to host memory with the host thread seconds (symbols,
      alpha, VP8L) and the stage split, whose images must equal the
      device_out tensors, Pillow's decode (ALPH and VP8L), phase 6's
@@ -94,8 +95,8 @@ Phases (any failure raises and exits non-zero; no result is printed):
      beside the device path's;
   6c. the single-file API: every file of phase 6b through
      decode(device="cuda"), one call each, counters reset just before and
-     read just after (each lossy file launches recon_mb, loop_filter_mb
-     where its filter type is not 0, and yuv420_to_rgba; no other kernel),
+     read just after (each lossy file launches recon_filter_mb and
+     yuv420_to_rgba once; no other kernel),
      each file's pixels == decode_rgba_batch's; the ms of one 1 MP lossy
      file (median of 5) beside its host symbol phase and
      recon_backend="host"; then on two lossy files (one a smooth q95
@@ -184,13 +185,14 @@ OPS_SEARCH_PX = 16
 # its 32 multiplies) and OPS_QUANT;
 # per luma MB the Y2 path: 16 coefficients of 16 signed adds each, and
 # one 16-coefficient quantization.
-# The decode's recon kernel (ops/kernels/vp8_recon.cu), per MB: the iDCT
-# and the add-and-clip of its 24 blocks, the luma prediction (16 B-mode
-# blocks of an i4 MB, or 16 whole-block ones of an i16 MB) and 8 chroma
-# blocks.  Its loop filter, per pixel line across an edge that this data
-# filters (its MB's limit >= 0; MB edges inside the frame, inner edges
-# where the MB has them): the complex filter's eight threshold tests, the
-# hev test and its widest branch, or the simple filter's test and update.
+# The decode's recon and filter kernel (ops/kernels/vp8_recon.cu): the
+# recon, per MB: the iDCT and the add-and-clip of its 24 blocks, the luma
+# prediction (16 B-mode blocks of an i4 MB, or 16 whole-block ones of an
+# i16 MB) and 8 chroma blocks; the loop filter, per pixel line across an
+# edge that this data filters (its MB's limit >= 0; MB edges inside the
+# frame, inner edges where the MB has them): the complex filter's eight
+# threshold tests, the hev test and its widest branch, or the simple
+# filter's test and update.
 OPS_FILTER_LINE_COMPLEX, OPS_FILTER_LINE_SIMPLE = 48, 20
 OPS_PLANE_SEARCH_BLOCK = 4 * (8 + 5 + 2) + 6 + 4 + 3 + 11 + 4
 OPS_PLANE_SEARCH_MB = 12
@@ -203,9 +205,8 @@ OPS_Y2 = 16 * 16 + OPS_QUANT
 # and holds this constant to it).
 OPENLOOP_PSNR_FLOOR_DB = 20.5
 
-# The lossy decode's kernels, in the order a group launches them (the
-# filter only where the frame's filter type is not 0).
-DECODE_KERNELS = ("recon_mb", "loop_filter_mb", "yuv420_to_rgba")
+# The lossy decode's kernels, in the order a group launches them.
+DECODE_KERNELS = ("recon_filter_mb", "yuv420_to_rgba")
 
 SOURCES = {
     "i4_search": "gowebp_tpu_torch/ops/kernels/i4_search.cu",
@@ -217,8 +218,7 @@ SOURCES = {
     "encode_luma_modes": "gowebp_tpu_torch/ops/kernels/encode_plane.cu",
     "encode_chroma_modes": "gowebp_tpu_torch/ops/kernels/encode_plane.cu",
     "wavefront_search": "gowebp_tpu_torch/ops/kernels/wavefront_search.cu",
-    "recon_mb": "gowebp_tpu_torch/ops/kernels/vp8_recon.cu",
-    "loop_filter_mb": "gowebp_tpu_torch/ops/kernels/vp8_recon.cu",
+    "recon_filter_mb": "gowebp_tpu_torch/ops/kernels/vp8_recon.cu",
 }
 REPLACES = {
     "i4_search": "gowebp_tpu/ops/pallas/i4_search.py:286",
@@ -236,10 +236,9 @@ REPLACES = {
                             "gowebp_tpu/ops/encode_wavefront_jax.py:385)"),
     "wavefront_search": ("gowebp_tpu/ops/encode_wavefront_jax.py:616 "
                          "_wavefront_impl (XLA, no pallas_call)"),
-    "recon_mb": ("gowebp_tpu/ops/vp8_recon_jax.py:512 recon_wavefront "
-                 "(XLA, no pallas_call)"),
-    "loop_filter_mb": ("gowebp_tpu/ops/vp8_recon_jax.py:814 "
-                       "loop_filter_wavefront (XLA, no pallas_call)"),
+    "recon_filter_mb": ("gowebp_tpu/ops/vp8_recon_jax.py:512 "
+                        "recon_wavefront and :814 loop_filter_wavefront "
+                        "(XLA, no pallas_call)"),
 }
 
 
@@ -969,122 +968,98 @@ def filter_lines(fparams, filter_type: int) -> int:
 
 
 def check_vp8_recon(dev, files):
-    """Phase 3g: recon_mb and loop_filter_mb vs their plain versions
-    (ops/vp8_recon.py's recon_wavefront and loop_filter_wavefront), bit
-    for bit: B=32 1024x1024 on the decode path's inputs for 32 real files,
-    filter types 0, 1 and 2, 3 repeated runs; random i4/i16 mixes with skip
-    MBs and four segments of distinct levels on odd MB grids (1x5, 5x1,
-    1x1, 3x5) and B=256 at 512x64 (8,192 MB rows); the ptxas report; each
-    timed at B=32 and alone on one image (the chain)."""
+    """Phase 3g: recon_filter_mb vs its plain version (ops/vp8_recon.py's
+    recon_wavefront, then loop_filter_wavefront over the whole frame), bit
+    for bit: B=32 1024x1024 on the decode path's inputs for 32 real files, filter types
+    0, 1 and 2, 3 repeated runs; random i4/i16 mixes with skip MBs and four
+    segments of distinct levels on odd MB grids (1x5, 5x1, 1x1, 3x5) and
+    B=256 at 512x64 (8,192 MB rows); the ptxas report; the kernel timed at
+    B=32 and alone on one image (the chain)."""
     import torch
 
     from gowebp_tpu_torch.ops.kernels import vp8_recon as kvr
 
-    err = {"recon_mb": 0, "loop_filter_mb": 0}
-
-    def compare(name, got, want, what):
-        e = max_abs_err(dict(zip("yuv", got)), dict(zip("yuv", want)), "yuv")
-        err[name] = max(err[name], e)
-        if not all(torch.equal(g, w) for g, w in zip(got, want)):
-            raise AssertionError(f"{name} kernel != plain ({what}, max |err| "
-                                 f"{e})")
+    err = 0
 
     def check(coeffs, modes, fp, mb_w, mb_h, filter_types, what):
-        got = kvr.recon_mb(coeffs, modes, mb_w, mb_h)
-        want = kvr.recon_mb_plain(coeffs, modes, mb_w, mb_h)
-        compare("recon_mb", got, want, what)
+        nonlocal err
+        planes = kvr.recon_mb_plain(coeffs, modes, mb_w, mb_h)
         for ft in filter_types:
-            before = kvr.loop_filter_mb.launches
-            fgot = kvr.loop_filter_mb(*(p.clone() for p in got), fp, mb_w,
-                                      mb_h, ft)
+            want = kvr.loop_filter_mb_plain(*(p.clone() for p in planes), fp,
+                                            mb_w, mb_h, ft)
+            before = kvr.recon_filter_mb.launches
+            got = kvr.recon_filter_mb(coeffs, modes, fp, mb_w, mb_h, ft)
             torch.cuda.synchronize()
-            if kvr.loop_filter_mb.launches != before + (ft != 0):
-                raise AssertionError(f"loop_filter_mb filter type {ft}: "
-                                     f"{kvr.loop_filter_mb.launches - before}"
-                                     f" launches")
-            fwant = kvr.loop_filter_mb_plain(*(p.clone() for p in want), fp,
-                                             mb_w, mb_h, ft)
-            compare("loop_filter_mb", fgot, fwant, f"{what}, filter {ft}")
-        log(f"recon_mb and loop_filter_mb {what}, filter types "
-            f"{list(filter_types)}: bit-exact")
-        return got
+            if kvr.recon_filter_mb.launches != before + 1:
+                raise AssertionError("recon_filter_mb: not one launch")
+            e = max_abs_err(dict(zip("yuv", got)), dict(zip("yuv", want)),
+                            "yuv")
+            err = max(err, e)
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(
+                    f"recon_filter_mb != plain ({what}, filter {ft}, "
+                    f"max |err| {e})")
+        log(f"recon_filter_mb {what}, filter types {list(filter_types)}: "
+            f"bit-exact")
 
     coeffs, modes, fp, ftype, mw, mh = recon_symbols(dev, files)
     B = coeffs.shape[0]
-    rargs = (coeffs, modes, mw, mh)
-    planes = check(coeffs, modes, fp, mw, mh, (0, 1, 2),
-                   f"B={B} {16 * mh}x{16 * mw} (the decode's files, filter "
-                   f"type {ftype})")
-    filtered = kvr.loop_filter_mb(*(p.clone() for p in planes), fp, mw, mh,
-                                  ftype)
+    args = (coeffs, modes, fp, mw, mh, ftype)
+    check(coeffs, modes, fp, mw, mh, (0, 1, 2),
+          f"B={B} {16 * mh}x{16 * mw} (the decode's files, filter type "
+          f"{ftype})")
+    first = kvr.recon_filter_mb(*args)
     for i in range(3):
-        again = kvr.recon_mb(*rargs)
-        compare("recon_mb", again, planes, f"repeat {i + 1}")
-        compare("loop_filter_mb",
-                kvr.loop_filter_mb(*again, fp, mw, mh, ftype), filtered,
-                f"repeat {i + 1}")
-    log("recon_mb and loop_filter_mb: 3 repeated runs identical")
+        again = kvr.recon_filter_mb(*args)
+        if not all(torch.equal(a, b) for a, b in zip(again, first)):
+            raise AssertionError(f"recon_filter_mb repeat {i + 1} differs")
+    log("recon_filter_mb: 3 repeated runs identical")
     for seed, (b_, h_, w_) in enumerate(((4, 16, 16), (2, 1, 5), (2, 5, 1),
                                         (2, 1, 1), (2, 3, 5),
                                         (256, 32, 4))):
-        check(*random_symbols(dev, seed, b_, h_, w_), w_, h_, (1, 2),
+        check(*random_symbols(dev, seed, b_, h_, w_), w_, h_, (0, 1, 2),
               f"random B={b_} {16 * h_}x{16 * w_} ({b_ * h_} MB rows)")
 
-    for kernel in ("recon_mb", "loop_filter_mb"):
-        for fn, regs, stack, st_, ld_ in ptxas_report(kvr.LIBRARY.ptxas_log,
-                                                      kernel):
-            log(f"ptxas {kernel}: {regs} registers, {stack} bytes stack, "
-                f"{st_}/{ld_} bytes spill stores/loads")
-            if stack or st_ or ld_:
-                raise AssertionError(f"{kernel}: a stack frame or spills")
+    for fn, regs, stack, st_, ld_ in ptxas_report(kvr.LIBRARY.ptxas_log,
+                                                  "recon_filter_mb"):
+        log(f"ptxas {fn}: {regs} registers, {stack} bytes stack, "
+            f"{st_}/{ld_} bytes spill stores/loads")
+        if stack or st_ or ld_:
+            raise AssertionError("recon_filter_mb: a stack frame or spills")
 
-    # time at the decode path's shape; the filter runs in place on a
-    # working copy (each launch filters the planes the last one left)
-    work = [p.clone() for p in planes]
-    rows = []
+    # time at the decode path's shape, and alone on one image
     n_mb = B * mh * mw
     n_i4 = int((modes[..., 0] > 0).sum())
-    plane_bytes = sum(p.numel() for p in planes)
+    plane_bytes = n_mb * 384
     recon_ops = (n_mb * (24 * (OPS_IDCT + OPS_RES_RECON) + 8 * OPS_PRED_I16)
                  + n_i4 * 16 * OPS_PRED_B4 + (n_mb - n_i4) * 16 * OPS_PRED_I16)
     filter_ops = filter_lines(fp, ftype) * (
         OPS_FILTER_LINE_COMPLEX if ftype == 2 else OPS_FILTER_LINE_SIMPLE)
-    for name, fn, nbytes, ops in (
-            ("recon_mb", lambda: kvr.recon_mb(*rargs),
-             coeffs.numel() * 2 + modes.numel() + plane_bytes, recon_ops),
-            ("loop_filter_mb",
-             lambda: kvr.loop_filter_mb(*work, fp, mw, mh, ftype),
-             2 * plane_bytes + fp.numel() * 2, filter_ops)):
-        ms = time_ms(fn, reps=10, warmup=2)
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        if name == "recon_mb":
-            kvr.recon_mb_plain(*rargs)
-        else:
-            kvr.loop_filter_mb_plain(*(p.clone() for p in planes), fp, mw,
-                                     mh, ftype)
-        t1.record()
-        t1.synchronize()
-        bound_ms, bound_by = bound(nbytes, ops)
-        log(f"{name} bound at B={B}: {nbytes / PEAK_BYTES_PER_S * 1e3:.4f} "
-            f"ms by bytes ({nbytes} bytes), {ops / int32_peak()[0] * 1e3:.4f}"
-            f" ms by operations ({ops} int32 operations)")
-        rows.append({"name": name, "max_abs_err": err[name], "ms": ms,
-                     "fn": fn, "plain_ms": t0.elapsed_time(t1),
-                     "bound_ms": bound_ms, "bound_by": bound_by})
-    one = (coeffs[:1], modes[:1], fp[:1])
-    one_planes = kvr.recon_mb(one[0], one[1], mw, mh)
+    nbytes = coeffs.numel() * 2 + modes.numel() + fp.numel() * 2 + plane_bytes
+    ms = time_ms(lambda: kvr.recon_filter_mb(*args), reps=10, warmup=2)
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    kvr.recon_filter_mb_plain(*args)
+    t1.record()
+    t1.synchronize()
+    bound_ms, bound_by = bound(nbytes, recon_ops + filter_ops)
+    log(f"recon_filter_mb bound at B={B}: "
+        f"{nbytes / PEAK_BYTES_PER_S * 1e3:.4f} ms by bytes ({nbytes} bytes), "
+        f"{(recon_ops + filter_ops) / int32_peak()[0] * 1e3:.4f} ms by "
+        f"operations ({recon_ops} recon + {filter_ops} filter int32 "
+        f"operations)")
+    one = (coeffs[:1], modes[:1], fp[:1], mw, mh, ftype)
     steps = (mw - 1) + 2 * (mh - 1) + 1
-    for name, fn in (("recon_mb", lambda: kvr.recon_mb(one[0], one[1], mw,
-                                                       mh)),
-                     ("loop_filter_mb", lambda: kvr.loop_filter_mb(
-                         *one_planes, one[2], mw, mh, ftype))):
-        one_ms = time_ms(fn, reps=5, warmup=2)
-        log(f"{name} B=1 {16 * mh}x{16 * mw}: {one_ms:.3f} ms = "
-            f"{one_ms / steps * 1e3:.2f} us per chained MB step ({steps} "
-            f"steps)")
-    return rows
+    b32 = queued_ms(lambda: kvr.recon_filter_mb(*args), reps=20)[0]
+    one_ms = time_ms(lambda: kvr.recon_filter_mb(*one), reps=5, warmup=2)
+    log(f"recon_filter_mb: B={B} {b32:.4f} ms a launch on the device; B=1 "
+        f"{16 * mh}x{16 * mw}: {one_ms:.3f} ms = "
+        f"{one_ms / steps * 1e3:.2f} us per chained MB step ({steps} steps)")
+    return [{"name": "recon_filter_mb", "max_abs_err": err, "ms": ms,
+             "fn": lambda: kvr.recon_filter_mb(*args),
+             "plain_ms": t0.elapsed_time(t1), "bound_ms": bound_ms,
+             "bound_by": bound_by}]
 
 
 def plane_quants(quality: float):
@@ -1397,7 +1372,6 @@ def main() -> int:
     from gowebp_tpu_torch.config import EncoderConfig
     from gowebp_tpu_torch.container.riff import parse_riff
     from gowebp_tpu_torch.models.vp8.decoder import (decode_vp8_symbols,
-                                                     parse_frame_header,
                                                      symbol_engine)
     from gowebp_tpu_torch.ops.encode_pipeline import (
         encode_rgba_batch_pipelined)
@@ -1415,7 +1389,7 @@ def main() -> int:
                 "yuv420_to_rgba": yuvm.yuv420_to_rgba,
                 **{name: getattr(epm, name) for name in epm.KERNELS},
                 "wavefront_search": wsm.wavefront_search,
-                "recon_mb": kvr.recon_mb, "loop_filter_mb": kvr.loop_filter_mb}
+                "recon_filter_mb": kvr.recon_filter_mb}
     by_path = {}
 
     def reset_counts():
@@ -1743,20 +1717,16 @@ def main() -> int:
     # ---- phase 6c: the single-file API on the card ----
     lossy_at = [i for i, d in enumerate(mixed)
                 if parse_riff(d).find(b"VP8 ") is not None]
-    n_filtered = sum(parse_frame_header(parse_riff(mixed[i]).find(
-        b"VP8 ").payload)[0].filter_type != 0 for i in lossy_at)
     reset_counts()
     t0 = time.perf_counter()
     single = [decode(d, device="cuda") for d in mixed]
     torch.cuda.synchronize()
     single_s = time.perf_counter() - t0
     counts = read_counts("decode_single")
-    want_counts = {"recon_mb": len(lossy_at), "loop_filter_mb": n_filtered,
-                   "yuv420_to_rgba": len(lossy_at)}
+    want_counts = {k: len(lossy_at) for k in DECODE_KERNELS}
     log(f"single-file decode of the {len(mixed)} files, one decode() call "
         f"each: " + ", ".join(f"{k} {counts[k]}" for k in DECODE_KERNELS)
-        + f" launches ({len(lossy_at)} lossy files, {n_filtered} filtered) "
-        f"in {single_s:.2f} s")
+        + f" launches ({len(lossy_at)} lossy files) in {single_s:.2f} s")
     if any(counts[k] != n for k, n in want_counts.items()):
         raise AssertionError(f"single-file decode launches {counts}, want "
                              f"{want_counts}")

@@ -1,53 +1,79 @@
-// The lossy decode's reconstruction and in-loop deblocking filter, as two
-// persistent launches over the macroblock wavefront.
+// The lossy decode's reconstruction and in-loop deblocking filter, fused
+// into one persistent launch over the macroblock wavefront: each MB is
+// filtered while its pixels are still in shared memory.
 //
 // Replaces gowebp_tpu/ops/vp8_recon_jax.py recon_wavefront (with the
 // residual iDCT) and loop_filter_wavefront, which the JAX package ran in
-// XLA (no pallas_call); the plain versions are ops/vp8_recon.py's
-// recon_wavefront and loop_filter_wavefront, which step the frame one
-// anti-diagonal at a time with some 1,200 small torch ops each.
+// XLA (no pallas_call), one after the other over the whole frame; the
+// plain versions are ops/vp8_recon.py's recon_wavefront followed by
+// loop_filter_wavefront, which step the frame one anti-diagonal at a time
+// with some 1,200 small torch ops each.
 //
-// Bound on the card: by the roofline, bytes (the int16 coefficients in,
-// the planes out; the filter reads and writes the planes once).
-// Unreachable: MB (my, mx) needs the row above up to MB mx + 1 (the
-// top-right context of the prediction, and the pixels that MB's left-edge
-// filter wrote), so an image is a chain of (mw - 1) + 2 * (mh - 1) + 1
-// dependent MB steps (190 at 64x64 MBs).  The design is wavefront_fixed.cu's:
+// Bound on the card: by the roofline, operations (the iDCT, the
+// predictions and the filtered pixel lines) over bytes (the int16
+// coefficients in, the planes out once).  Unreachable: MB (my, mx) needs
+// the row above up to MB mx + 1, so an image is a chain of (mw - 1) +
+// 2 * (mh - 1) + 1 dependent MB steps (190 at 64x64 MBs), and the time of
+// one step sets the kernel's.  The design shortens the step:
 //
-// - One launch each.  A block owns one MB row of one image at a time and
-//   walks it left to right.  Rows are claimed from an atomic ticket in
-//   row-major order across the batch (ticket = my * B + b), so a block only
-//   waits on a row that an earlier-started, running block holds: no
-//   deadlock, whatever the grid or the residency.  The grid is the number
-//   of blocks the card holds at once; each loops over tickets.
-// - Progress counters.  Before MB (my, mx) thread 0 spins on
-//   ld.acquire.gpu until row my - 1 has published min(mx + 2, mw) MBs, then
-//   the block syncs; the row above's pixels are read with __ldcg (L2, never
-//   a stale L1 line).  After an MB's stores the block syncs and thread 0
-//   publishes mx + 1 with st.release.gpu.
-// - The filter is a second launch on the same stream: prediction reads
-//   unfiltered pixels, so it starts once the whole reconstruction is done.
+// - One launch, as libwebp decodes: prediction reads unfiltered pixels,
+//   so the recon of each MB row stores its unfiltered bottom row in a
+//   top-samples buffer (libwebp's yuv_t_) for the row below, and each MB
+//   is filtered right after its recon.  The one wait rule covers both:
+//   MB (my, mx) starts once row my - 1 has published min(mx + 2, mw) MBs,
+//   which gives the prediction its top-right context and the top edge the
+//   pixels that MB (my - 1, mx + 1)'s left edge wrote.  A row publishes an
+//   MB after filtering it.
+// - wavefront_fixed.cu's persistent rows, two MB rows a block: a
+//   block owns a pair of MB rows of one image at a time, warps 0-1 row my
+//   and warps 2-3 row my + 1, which walks two MBs behind, so the hand-over
+//   inside the pair is the block's barrier and not L2.  Pairs are claimed
+//   from an atomic ticket in row-major order across the batch (ticket =
+//   pair * B + b), so a block only waits on a row that an earlier-started,
+//   running block holds: no deadlock, whatever the grid or the residency.
+//   Before each step thread 0 spins on ld.acquire.gpu until the row above
+//   the pair has published min(mx + 2, mw) MBs (a stuck wait traps and
+//   fails the launch), then the block syncs; after the step's stores the
+//   block syncs and the lower row's first thread publishes mx + 1 with
+//   st.release.gpu.  One row a block (64 threads) was slower at B=32 and
+//   tied on one image (PERF.md).
+// - One round of L2 loads a step (__ldcg, never a stale L1 line): the
+//   unfiltered top context from the top-samples buffer (21 luma bytes, 9
+//   a chroma plane) and the 4 filtered rows above the MB (64 luma bytes,
+//   32 a chroma plane, one 32-bit word a lane).  The left context needs no
+//   load: the unfiltered left column stays in the recon scratch, and the
+//   filtered right 4 columns of MB mx - 1 stay in the filter window.
+// - Writes: the MB's filtered 16x16 (8x8) with 16 (8) byte row stores,
+//   and where the MB's edges changed them, the 3 columns of MB mx - 1 (as
+//   the aligned word of its columns 12-15) and the 3 rows of MB
+//   (my - 1, mx) beside it.  Each is final for its rows of the row above:
+//   later only MB (my, mx + 1)'s left edge and MB (my + 1, mx)'s top edge
+//   change this MB, and each writes what it changed.
 //
-// recon_mb, 64 threads: warp 0 luma, warp 1 chroma (U on lanes 0-15, V on
-// 16-31).  The residual iDCT of the MB's 24 blocks runs before the wait
-// (it reads only the MB's own coefficients), lane-parallel: a 16-lane
-// segment holds one 4x4 block (vp8_dsp.cuh idct_lanes).  Luma context sits
-// in a (17, 21) scratch as in wavefront_mb.cuh: row 0 [corner, top 16,
-// top-right 4], column 0 the left 16, the interior the recon; the left
-// column and corner of the next MB stay on chip.  An i16 MB predicts its
-// 256 pixels in 8 rounds of 2 blocks; an i4 MB walks its 16 sub-blocks on
-// the slope-2 diagonals d = 2 * gy + gx (10 steps of at most 2 sub-blocks,
-// one a segment), each pixel from a per-(mode, pixel) table of three
-// scratch offsets (wavefront_mb.cuh pred_b4_lane).  Chroma predicts its two
-// 8x8 blocks, 4 pixels a lane.
+// 64 threads a row: its first warp luma, its second chroma (U on lanes
+// 0-15, V on 16-31).  The MB's modes, its filter parameters and the
+// residual iDCT of its 24 blocks come before the wait (they read only the
+// MB's own inputs), lane-parallel: a 16-lane segment holds one 4x4 block
+// (vp8_dsp.cuh idct_lanes).  Luma context sits in a (17, 21) scratch as in
+// wavefront_mb.cuh: row 0 [corner, top 16, top-right 4], column 0 the left
+// 16, the interior the recon.  An i16 MB predicts its 256 pixels in 8
+// rounds of 2 blocks; an i4 MB walks its 16 sub-blocks on the slope-2
+// diagonals d = 2 * gy + gx (10 steps of at most 2 sub-blocks, one a
+// segment), each pixel from a per-(mode, pixel) table of three scratch
+// offsets (wavefront_mb.cuh pred_b4_lane), whose entry for each diagonal
+// every lane gathers into registers before the wait.  Chroma predicts its
+// two 8x8 blocks, 4 pixels a lane.
 //
-// loop_filter_mb, 32 threads: an MB's 20x20 luma and 12x12 chroma windows
-// (4 pixels up and left of the MB) are read into shared memory, filtered
-// there in libwebp's order (left MB edge, inner vertical edges, top MB
-// edge, inner horizontal edges) with one lane per pixel line across an
-// edge (16 luma lanes, 8 each for U and V), and written back.  A lane's
-// vertical edges stay in its own row and its horizontal edges in its own
-// column, so one warp sync between the two directions orders them.
+// The filter, in libwebp's order (left MB edge, inner vertical edges, top
+// MB edge, inner horizontal edges), runs on a window of the 4 rows above,
+// the 4 columns left and the MB (20x20 luma, 12x12 a chroma plane), one
+// lane a pixel line held in registers: lane j first holds window row
+// 4 + j (the left strip and its recon row) through the vertical edges,
+// stores it, and after a warp sync holds window column 4 + j through the
+// horizontal edges.  16 luma lanes on the luma warp; 8 U and 8 V lanes on
+// the chroma warp.  Each edge is branch-free (every candidate computed,
+// each pixel selected), so lanes that take different paths do not run
+// them one after another.
 
 #include <cuda_runtime.h>
 
@@ -62,6 +88,7 @@ using vp8::kCW;
 using vp8::kSW;
 using vp8::clip8;
 using vp8::ld_acquire;
+using vp8::pack4;
 using vp8::pred_b4_lane;
 using vp8::pred_entry;
 using vp8::st_release;
@@ -69,6 +96,9 @@ using vp8::store_row16;
 using vp8::store_row8;
 
 constexpr int kModeBytes = 18;  // per MB: is_i4, uvmode, imodes x16
+constexpr int kWY = 21;         // luma window row: left 4, MB 16 (odd: no bank conflicts)
+constexpr int kWC = 13;         // chroma window row: left 4, MB 8
+constexpr int kRows = 2;        // MB rows a block walks at once
 
 // Spin until *p >= need (thread 0 of a block); a wait of seconds means a
 // broken hand-over: fail the launch with an error instead of hanging the card.
@@ -79,126 +109,291 @@ __device__ __forceinline__ void wait_progress(const int* p, int need, int& seen)
   }
 }
 
-// Claim the next MB row: returns the ticket (my * B + b), or -1 when none
-// is left.  Called by every thread of the block.
-__device__ __forceinline__ int claim_row(int* ticket, int rows, int* s_row) {
-  __syncthreads();  // the last row's shared state is no longer read
+// Claim the next group of MB rows: returns the ticket (group * B + b), or
+// -1 when none is left.  Called by every thread of the block.
+__device__ __forceinline__ int claim_rows(int* ticket, int groups, int* s_row) {
+  __syncthreads();  // the last group's shared state is no longer read
   if (threadIdx.x == 0) *s_row = atomicAdd(ticket, 1);
   __syncthreads();
-  return *s_row < rows ? *s_row : -1;
+  return *s_row < groups ? *s_row : -1;
 }
 
-struct ReconArgs {
-  const int16_t* coeffs;  // (B, mh * mw, 24, 16) dequantized raster coefficients
-  const uint8_t* modes;   // (B, mh * mw, 18): is_i4, uvmode, imodes x16
-  uint8_t* y;             // (B, 16 mh, 16 mw) recon planes
-  uint8_t* u;             // (B, 8 mh, 8 mw)
+// ---------------------------------------------------------------------------
+// Loop filter (RFC 6386 section 15), the arithmetic of ops/vp8_recon.py
+// _lanes_complex and _lanes_simple on one pixel line held in registers:
+// L[o + i] for i = -4..3 holds p3..q3.  Every call site passes a literal
+// o, so the line stays in registers.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ int sclip1(int v) { return v < -128 ? -128 : (v > 127 ? 127 : v); }
+__device__ __forceinline__ int sclip2(int v) { return v < -16 ? -16 : (v > 15 ? 15 : v); }
+
+// Complex filter: a macroblock edge (hev ? filter2 : filter6) or an inner
+// edge (hev ? filter2 : filter4).  Branch-free: every candidate is
+// computed and each pixel selected, so lanes that take different paths
+// do not run them one after another.
+template <bool MB_EDGE, int N>
+__device__ __forceinline__ void edge_complex(int (&L)[N], int o, int t2, int it, int hev_t) {
+  const int p3 = L[o - 4], p2 = L[o - 3], p1 = L[o - 2], p0 = L[o - 1];
+  const int q0 = L[o], q1 = L[o + 1], q2 = L[o + 2], q3 = L[o + 3];
+  const int interior = max(max(max(abs(p3 - p2), abs(p2 - p1)), max(abs(q3 - q2), abs(q2 - q1))),
+                           max(abs(p1 - p0), abs(q1 - q0)));
+  const bool on = 4 * abs(p0 - q0) + abs(p1 - q1) <= t2 && interior <= it;
+  const bool hev = max(abs(p1 - p0), abs(q1 - q0)) > hev_t;
+  const bool soft = on && !hev;
+  const int a = 3 * (q0 - p0) + sclip1(p1 - q1);
+  const int hp0 = clip8(p0 + sclip2((a + 3) >> 3)), hq0 = clip8(q0 - sclip2((a + 4) >> 3));
+  if (MB_EDGE) {
+    const int w = sclip1(a);
+    const int b1 = (27 * w + 63) >> 7, b2 = (18 * w + 63) >> 7, b3 = (9 * w + 63) >> 7;
+    L[o - 3] = soft ? clip8(p2 + b3) : p2;
+    L[o - 2] = soft ? clip8(p1 + b2) : p1;
+    L[o - 1] = on ? (hev ? hp0 : clip8(p0 + b1)) : p0;
+    L[o] = on ? (hev ? hq0 : clip8(q0 - b1)) : q0;
+    L[o + 1] = soft ? clip8(q1 - b2) : q1;
+    L[o + 2] = soft ? clip8(q2 - b3) : q2;
+  } else {
+    const int w = 3 * (q0 - p0);
+    const int b1 = sclip2((w + 4) >> 3), b2 = sclip2((w + 3) >> 3), b3 = (b1 + 1) >> 1;
+    L[o - 2] = soft ? clip8(p1 + b3) : p1;
+    L[o - 1] = on ? (hev ? hp0 : clip8(p0 + b2)) : p0;
+    L[o] = on ? (hev ? hq0 : clip8(q0 - b1)) : q0;
+    L[o + 1] = soft ? clip8(q1 - b3) : q1;
+  }
+}
+
+// Simple filter (luma only): p1, p0, q0, q1.
+template <int N>
+__device__ __forceinline__ void edge_simple(int (&L)[N], int o, int t2) {
+  const int p1 = L[o - 2], p0 = L[o - 1], q0 = L[o], q1 = L[o + 1];
+  const bool on = 4 * abs(p0 - q0) + abs(p1 - q1) <= t2;
+  const int a = 3 * (q0 - p0) + sclip1(p1 - q1);
+  L[o - 1] = on ? clip8(p0 + sclip2((a + 3) >> 3)) : p0;
+  L[o] = on ? clip8(q0 - sclip2((a + 4) >> 3)) : q0;
+}
+
+struct EdgeParams {
+  int t_mb, t_in, il, hev_t;  // thresholds of the MB edges and the inner edges
+  bool inner, simple;
+};
+
+// One line across this direction's edges: the MB edge at 4 where `mb_edge`
+// (the MB has a neighbour that side), the inner edges at 8 .. N - 4.
+template <int N>
+__device__ __forceinline__ void filter_line(int (&L)[N], bool mb_edge, const EdgeParams& e) {
+  if (e.simple) {
+    if (mb_edge) edge_simple(L, 4, e.t_mb);
+    if (e.inner) {
+      edge_simple(L, 8, e.t_in);
+      if constexpr (N == 20) {
+        edge_simple(L, 12, e.t_in);
+        edge_simple(L, 16, e.t_in);
+      }
+    }
+  } else {
+    if (mb_edge) edge_complex<true>(L, 4, e.t_mb, e.il, e.hev_t);
+    if (e.inner) {
+      edge_complex<false>(L, 8, e.t_in, e.il, e.hev_t);
+      if constexpr (N == 20) {
+        edge_complex<false>(L, 12, e.t_in, e.il, e.hev_t);
+        edge_complex<false>(L, 16, e.t_in, e.il, e.hev_t);
+      }
+    }
+  }
+}
+
+// Filter one plane's MB in its window `win` (row stride WS, N = 4 + MB
+// size rows and columns; rows 0-3 the filtered rows above, columns 0-3 the
+// filtered right columns of the MB to the left); the lanes with `mine`
+// take line j (j < N - 4), every lane of the warp calls.  The recon of the
+// MB is read from `rec` (row stride RS, the MB's pixel (r, c) at
+// rec[r * RS + c]) into the window on the way, filtered or not (`on`).
+template <int N, int WS, int RS>
+__device__ __forceinline__ void filter_mb(int* win, const int* rec, int j, bool mine, bool on,
+                                          bool hl, bool ht, const EdgeParams& e) {
+  int L[N];
+  if (mine) {
+    int* wrow = win + (4 + j) * WS;
+#pragma unroll
+    for (int c = 0; c < 4; c++) L[c] = wrow[c];
+#pragma unroll
+    for (int c = 4; c < N; c++) L[c] = rec[j * RS + c - 4];
+    if (on) filter_line(L, hl, e);
+#pragma unroll
+    for (int c = 0; c < N; c++) wrow[c] = L[c];
+  }
+  __syncwarp();
+  if (mine && on) {
+#pragma unroll
+    for (int r = 0; r < N; r++) L[r] = win[r * WS + 4 + j];
+    filter_line(L, ht, e);
+#pragma unroll
+    for (int r = 1; r < N; r++) win[r * WS + 4 + j] = L[r];
+  }
+  __syncwarp();
+}
+
+// Unpack one 32-bit word of 4 pixels into the window.
+__device__ __forceinline__ void unpack4(int* dst, unsigned w) {
+#pragma unroll
+  for (int i = 0; i < 4; i++) dst[i] = (w >> (8 * i)) & 255;
+}
+
+struct Args {
+  const int16_t* coeffs;   // (B, mh * mw, 24, 16) dequantized raster coefficients
+  const uint8_t* modes;    // (B, mh * mw, 18): is_i4, uvmode, imodes x16
+  const int16_t* fparams;  // (B, mh * mw, 4): limit, ilevel, hev_t, inner; limit < 0: off
+  uint8_t* y;              // (B, 16 mh, 16 mw) filtered planes
+  uint8_t* u;              // (B, 8 mh, 8 mw)
   uint8_t* v;
+  uint8_t* ts;    // top samples: (B * mh, 16 mw) luma, then (B * mh, 8 mw) U and V
   int* progress;  // (B * mh) MBs published per row, zeroed by the caller
   int* ticket;    // zeroed by the caller
   int B, mh, mw;
+  int ftype;  // 0 no filter, 1 simple (luma only), 2 complex
 };
 
-constexpr int kReconThreads = 64;
+// One MB row's state, kept on chip from MB to MB.
+struct RowState {
+  int sy[17 * kSW];      // luma: row 0 [tl, top16, tr4], col 0 left16, recon
+  int sc[2][9 * kCW];    // U, V: row 0 [tl, top8], col 0 left8, recon
+  int res[256];          // luma residual, sub-block n at 16 n + k
+  int wy[20 * kWY];      // luma filter window: rows above, left columns, MB
+  int wc[2][12 * kWC];   // U, V filter windows
+};
 
-__global__ void __launch_bounds__(kReconThreads) recon_mb_kernel(ReconArgs a) {
-  __shared__ int sy[17 * kSW];     // luma: row 0 [tl, top16, tr4], col 0 left16, recon
-  __shared__ int sc[2][9 * kCW];   // U, V: row 0 [tl, top8], col 0 left8, recon
-  __shared__ int s_res[256];       // luma residual, sub-block n at 16 n + k
+__global__ void __launch_bounds__(64 * kRows) recon_filter_mb_kernel(Args a) {
+  __shared__ RowState rows[kRows];
   __shared__ unsigned s_ptab[160];  // pred_entry(m, k) at 16 * m + k
-  __shared__ int s_im[16], s_is4, s_uvm, s_row;
+  __shared__ int s_row;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int sub = warp >> 1;  // this warp's MB row of the block's pair
+  const bool luma_warp = !(warp & 1);
   const int k = lane & 15, half = lane >> 4;
   const int kr = k >> 2, kc = k & 3;
   const int mh = a.mh, mw = a.mw;
   const int W = 16 * mw, H = 16 * mh, Wc = 8 * mw, Hc = 8 * mh;
-  for (int i = tid; i < 160; i += kReconThreads) s_ptab[i] = pred_entry(i >> 4, i & 15);
+  RowState& R = rows[sub];
+  for (int i = tid; i < 160; i += 64 * kRows) s_ptab[i] = pred_entry(i >> 4, i & 15);
+  uint8_t* tsy = a.ts;
+  uint8_t* tsc = a.ts + (size_t)a.B * mh * (W + half * Wc);  // chroma warp: U or V
 
   int t;
-  while ((t = claim_row(a.ticket, a.B * mh, &s_row)) >= 0) {
-    const int my = t / a.B, b = t - my * a.B;
+  while ((t = claim_rows(a.ticket, a.B * ((mh + kRows - 1) / kRows), &s_row)) >= 0) {
+    const int g = t / a.B, b = t - g * a.B;
+    const int my = g * kRows + sub;
     const int row = b * mh + my;
     const bool ht = my > 0;
-    uint8_t* yrec = a.y + (size_t)b * H * W;
-    uint8_t* crec = (half ? a.v : a.u) + (size_t)b * Hc * Wc;
+    uint8_t* yp = a.y + (size_t)b * H * W;
+    uint8_t* cp = (half ? a.v : a.u) + (size_t)b * Hc * Wc;
     const int y0 = 16 * my, cy0 = 8 * my;
     int seen = 0;  // thread 0: the row above's last published count
 
-    for (int mx = 0; mx < mw; mx++) {
+    // row `sub` takes MB mx = tick - 2 * sub, two MBs behind the row above
+    for (int tick = 0; tick < mw + 2 * (kRows - 1); tick++) {
+      const int mx = tick - 2 * sub;
+      const bool act = my < mh && mx >= 0 && mx < mw;
       const bool hl = mx > 0;
       const size_t mb = (size_t)row * mw + mx;
       const int x0 = 16 * mx, cx0 = 8 * mx;
-      const int16_t* cf = a.coeffs + mb * 384;
 
-      // ---- the MB's own inputs (no other row writes them): modes and the
-      // residual iDCT, before the wait ----
-      int x[8];  // warp 0: luma blocks 2 * rnd + half; warp 1: chroma blocks rnd < 4
-      if (warp == 0) {
+      // ---- the MB's own inputs (no other row writes them): modes, filter
+      // parameters and the residual iDCT, before the wait ----
+      int x[8];  // luma warp: blocks 2 * rnd + half; chroma warp: blocks rnd < 4
+      unsigned ent[10];  // luma warp: this lane's i4 prediction entry at each diagonal
+      int is4 = 0, mode = 0;  // luma warp: i4, else the i16 mode; chroma warp: uvmode
+      EdgeParams e{};
+      bool on = false;  // this warp filters the MB
+      if (act) {
+        const int16_t* cf = a.coeffs + mb * 384;
         const uint8_t* md = a.modes + mb * kModeBytes;
-        if (lane < 16) s_im[lane] = min((int)md[2 + lane], 9);
-        if (lane == 16) s_is4 = md[0];
-        if (lane == 17) s_uvm = md[1];
+        // (an i4 MB's first B-mode may exceed 3; an i16 MB's is its mode)
+        is4 = md[0];
+        mode = luma_warp ? min((int)md[2], 3) : md[1];
+        if (luma_warp) {
+          if (is4) {
 #pragma unroll
-        for (int rnd = 0; rnd < 8; rnd++) x[rnd] = cf[(2 * rnd + half) * 16 + k];
-        vp8::idct_lanes<8>(x, k);
+            for (int d = 0; d < 10; d++) {
+              const int gy = (d < 3 ? 0 : (d - 2) >> 1) + half, gx = d - 2 * gy;
+              ent[d] = gy <= 3 && gx >= 0 ? s_ptab[16 * min((int)md[2 + 4 * gy + gx], 9) + k] : 0;
+            }
+          }
 #pragma unroll
-        for (int rnd = 0; rnd < 8; rnd++) s_res[(2 * rnd + half) * 16 + k] = x[rnd];
-      } else {
+          for (int rnd = 0; rnd < 8; rnd++) x[rnd] = cf[(2 * rnd + half) * 16 + k];
+          vp8::idct_lanes<8>(x, k);
 #pragma unroll
-        for (int blk = 0; blk < 4; blk++) x[blk] = cf[(16 + 4 * half + blk) * 16 + k];
-        vp8::idct_lanes<4>(x, k);
+          for (int rnd = 0; rnd < 8; rnd++) R.res[(2 * rnd + half) * 16 + k] = x[rnd];
+        } else {
+#pragma unroll
+          for (int blk = 0; blk < 4; blk++) x[blk] = cf[(16 + 4 * half + blk) * 16 + k];
+          vp8::idct_lanes<4>(x, k);
+        }
+        if (a.ftype) {
+          const int16_t* fp = a.fparams + mb * 4;
+          const int limit = fp[0];
+          on = limit >= 0 && (luma_warp || a.ftype == 2);
+          e = EdgeParams{2 * (limit + 4) + 1, 2 * limit + 1, fp[1], fp[2], fp[3] > 0,
+                         a.ftype == 1};
+        }
       }
 
-      // ---- wait for the row above ----
-      if (tid == 0 && ht) wait_progress(a.progress + row - 1, min(mx + 2, mw), seen);
+      // ---- wait for the row above: another block's (the lower row of the
+      // pair trails by two MBs, which the block's barriers order) ----
+      if (tid == 0 && act && ht) wait_progress(a.progress + row - 1, min(mx + 2, mw), seen);
       __syncthreads();
 
-      if (warp == 0) {
+      if (act && luma_warp) {
         // ================= luma =================
-        // context: the row above's bottom pixels (127 above the frame; the
-        // last column's top-right repeats its top's end), the left column
-        // and corner from the previous MB of this row (129 left of the frame)
+        // one round of loads: the row above's unfiltered bottom pixels (127
+        // above the frame; the last column's top-right repeats its top's
+        // end) and its 4 filtered bottom rows, one word a lane
         int top = 127;
         if (lane < 20 && ht) {
           const int col = lane < 16 ? x0 + lane : (mx == mw - 1 ? x0 + 15 : x0 + lane);
-          top = __ldcg(yrec + (size_t)(y0 - 1) * W + col);
+          top = __ldcg(tsy + (size_t)(row - 1) * W + col);
         }
-        const int left = hl ? sy[(1 + k) * kSW + 16] : 129;
-        const int tl = hl ? sy[16] : (ht ? 129 : 127);
+        unsigned above = 0;
+        if (on && ht && lane < 16)
+          above = __ldcg(reinterpret_cast<const unsigned*>(yp + (size_t)(y0 - 4 + kr) * W + x0) +
+                         kc);
+        // the unfiltered left column and corner from the previous MB of this
+        // row (129 left of the frame)
+        const int left = hl ? R.sy[(1 + k) * kSW + 16] : 129;
+        const int tl = hl ? R.sy[16] : (ht ? 129 : 127);
         __syncwarp();
-        if (half == 0) sy[(1 + k) * kSW] = left;
-        if (lane == 16) sy[0] = tl;
+        if (half == 0) R.sy[(1 + k) * kSW] = left;
+        if (lane == 16) R.sy[0] = tl;
         if (lane < 20) {
-          sy[1 + lane] = top;
+          R.sy[1 + lane] = top;
           if (lane >= 16)  // the top-right pixels again for gx = 3 below row 0
-            for (int r = 4; r < 16; r += 4) sy[r * kSW + 1 + lane] = top;
+            for (int r = 4; r < 16; r += 4) R.sy[r * kSW + 1 + lane] = top;
         }
+        if (on && ht && lane < 16) unpack4(R.wy + kr * kWY + 4 + 4 * kc, above);
         __syncwarp();
-        if (s_is4) {
+        if (is4) {
           // Step d reconstructs sub-block (gy0 + half, d - 2 * gy) where it
           // exists: its left, top, top-left and top-right neighbours are on
           // earlier diagonals.
+#pragma unroll
           for (int d = 0; d < 10; d++) {
-            const int gy0 = d < 3 ? 0 : (d - 2) >> 1;
-            const int gy = gy0 + half, gx = d - 2 * gy;
+            const int gy = (d < 3 ? 0 : (d - 2) >> 1) + half, gx = d - 2 * gy;
             if (gy <= 3 && gx >= 0) {
               const int n = 4 * gy + gx;
-              const int p = pred_b4_lane(s_ptab[16 * s_im[n] + k], sy, 4 * gy * kSW + 4 * gx);
-              sy[(4 * gy + kr + 1) * kSW + 4 * gx + kc + 1] = clip8(p + s_res[n * 16 + k]);
+              const int p = pred_b4_lane(ent[d], R.sy, 4 * gy * kSW + 4 * gx);
+              R.sy[(4 * gy + kr + 1) * kSW + 4 * gx + kc + 1] = clip8(p + R.res[n * 16 + k]);
             }
             __syncwarp();
           }
         } else {
-          // (an i4 MB's first B-mode may exceed 3; an i16 MB's is its mode)
-          const int m = min(s_im[0], 3);
-          const int dcv = vp8::luma_dc(sy, half, k, ht, hl);
-          const int corner = sy[0];
+          const int m = mode;
+          const int dcv = vp8::luma_dc(R.sy, half, k, ht, hl);
+          const int corner = R.sy[0];
 #pragma unroll
           for (int rnd = 0; rnd < 8; rnd++) {
             const int blk = 2 * rnd + half;
-            const int R = 4 * (blk >> 2) + kr, C = 4 * (blk & 3) + kc;
-            const int tp = sy[1 + C], lf = sy[(1 + R) * kSW];
+            const int pr_r = 4 * (blk >> 2) + kr, pr_c = 4 * (blk & 3) + kc;
+            const int tp = R.sy[1 + pr_c], lf = R.sy[(1 + pr_r) * kSW];
             const int pr = m == 0 ? dcv : m == 1 ? clip8(lf + tp - corner) : m == 2 ? tp : lf;
             x[rnd] = clip8(pr + x[rnd]);
           }
@@ -207,21 +402,47 @@ __global__ void __launch_bounds__(kReconThreads) recon_mb_kernel(ReconArgs a) {
 #pragma unroll
           for (int rnd = 0; rnd < 8; rnd++) {
             const int blk = 2 * rnd + half;
-            sy[(1 + 4 * (blk >> 2) + kr) * kSW + 1 + 4 * (blk & 3) + kc] = x[rnd];
+            R.sy[(1 + 4 * (blk >> 2) + kr) * kSW + 1 + 4 * (blk & 3) + kc] = x[rnd];
           }
           __syncwarp();
         }
-        if (lane < 16) store_row16(yrec + (size_t)(y0 + lane) * W + x0, sy + (1 + lane) * kSW + 1);
-      } else {
-        // ================= chroma: segment `half` reconstructs U or V =================
-        int* S = sc[half];
+        // the unfiltered bottom row: the row below's top context
+        if (lane == 0 && my < mh - 1)
+          store_row16(tsy + (size_t)row * W + x0, R.sy + 16 * kSW + 1);
+
+        filter_mb<20, kWY, kSW>(R.wy, R.sy + kSW + 1, lane, lane < 16, on, hl, ht, e);
+
+        // ---- stores: the MB's rows, and what its edges changed of the MB
+        // to the left (columns 13-15, as the word of columns 12-15) and of
+        // the MB above (rows 13-15) ----
+        if (lane < 16) {
+          int* wr = R.wy + (4 + lane) * kWY;
+          uint8_t* out = yp + (size_t)(y0 + lane) * W + x0;
+          store_row16(out, wr + 4);
+          if (on && hl) *reinterpret_cast<unsigned*>(out - 4) = pack4(wr);
+#pragma unroll
+          for (int c = 0; c < 4; c++) wr[c] = wr[16 + c];  // the next MB's left columns
+        } else if (on && ht && lane < 19) {
+          const int r = lane - 15;  // window rows 1-3
+          store_row16(yp + (size_t)(y0 - 4 + r) * W + x0, R.wy + r * kWY + 4);
+        }
+      } else if (act) {
+        // ================= chroma: segment `half` takes U or V =================
+        int* S = R.sc[half];
+        int* win = R.wc[half];
         int top = 127;
-        if (k < 8 && ht) top = __ldcg(crec + (size_t)(cy0 - 1) * Wc + cx0 + k);
+        if (k < 8 && ht) top = __ldcg(tsc + (size_t)(row - 1) * Wc + cx0 + k);
+        unsigned above = 0;
+        if (on && ht && k < 8)
+          above = __ldcg(reinterpret_cast<const unsigned*>(cp + (size_t)(cy0 - 4 + (k >> 1)) * Wc +
+                                                           cx0) +
+                         (k & 1));
         const int left = hl ? S[(1 + (k & 7)) * kCW + 8] : 129;
         const int tl = hl ? S[8] : (ht ? 129 : 127);
         __syncwarp();
         if (k < 8) {
           S[1 + k] = top;
+          if (on && ht) unpack4(win + (k >> 1) * kWC + 4 + 4 * (k & 1), above);
         } else {
           S[(k - 7) * kCW] = left;
           if (k == 8) S[0] = tl;
@@ -231,11 +452,11 @@ __global__ void __launch_bounds__(kReconThreads) recon_mb_kernel(ReconArgs a) {
 #pragma unroll
         for (int o = 1; o < 8; o <<= 1) sum += __shfl_xor_sync(vp8::kFullMask, sum, o);
         const int dcv = vp8::dc_whole(vp8::seg_get(sum, 0), vp8::seg_get(sum, 8), ht, hl, 8);
-        const int m = s_uvm, corner = S[0];
+        const int m = mode, corner = S[0];
 #pragma unroll
         for (int blk = 0; blk < 4; blk++) {
-          const int R = 4 * (blk >> 1) + kr, C = 4 * (blk & 1) + kc;
-          const int tp = S[1 + C], lf = S[(1 + R) * kCW];
+          const int pr_r = 4 * (blk >> 1) + kr, pr_c = 4 * (blk & 1) + kc;
+          const int tp = S[1 + pr_c], lf = S[(1 + pr_r) * kCW];
           const int pr = m == 0 ? dcv : m == 1 ? clip8(lf + tp - corner) : m == 2 ? tp : lf;
           x[blk] = clip8(pr + x[blk]);
         }
@@ -244,187 +465,27 @@ __global__ void __launch_bounds__(kReconThreads) recon_mb_kernel(ReconArgs a) {
         for (int blk = 0; blk < 4; blk++)
           S[(1 + 4 * (blk >> 1) + kr) * kCW + 1 + 4 * (blk & 1) + kc] = x[blk];
         __syncwarp();
-        if (k < 8) store_row8(crec + (size_t)(cy0 + k) * Wc + cx0, S + (1 + k) * kCW + 1);
+        if (k == 0 && my < mh - 1) store_row8(tsc + (size_t)row * Wc + cx0, S + 8 * kCW + 1);
+
+        filter_mb<12, kWC, kCW>(win, S + kCW + 1, k, k < 8, on, hl, ht, e);
+
+        if (k < 8) {
+          int* wr = win + (4 + k) * kWC;
+          uint8_t* out = cp + (size_t)(cy0 + k) * Wc + cx0;
+          store_row8(out, wr + 4);
+          if (on && hl) *reinterpret_cast<unsigned*>(out - 4) = pack4(wr);
+#pragma unroll
+          for (int c = 0; c < 4; c++) wr[c] = wr[8 + c];
+        } else if (on && ht && k < 11) {
+          const int r = k - 7;
+          store_row8(cp + (size_t)(cy0 - 4 + r) * Wc + cx0, win + r * kWC + 4);
+        }
       }
 
       // ---- hand the MB over to the row below (the release is cumulative
       // over the block's stores, which the barrier ordered before it) ----
       __syncthreads();
-      if (tid == 0) st_release(a.progress + row, mx + 1);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Loop filter (RFC 6386 section 15), the arithmetic of ops/vp8_recon.py
-// _lanes_complex and _lanes_simple on one pixel line: s[o + i * step] for
-// i = -4..3 holds p3..q3.
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ int sclip1(int v) { return v < -128 ? -128 : (v > 127 ? 127 : v); }
-__device__ __forceinline__ int sclip2(int v) { return v < -16 ? -16 : (v > 15 ? 15 : v); }
-
-// Complex filter: a macroblock edge (hev ? filter2 : filter6) or an inner
-// edge (hev ? filter2 : filter4).
-__device__ __forceinline__ void filter_complex(int* s, int o, int step, int t2, int it, int hev_t,
-                                               bool mb_edge) {
-  const int p3 = s[o - 4 * step], p2 = s[o - 3 * step], p1 = s[o - 2 * step], p0 = s[o - step];
-  const int q0 = s[o], q1 = s[o + step], q2 = s[o + 2 * step], q3 = s[o + 3 * step];
-  if (4 * abs(p0 - q0) + abs(p1 - q1) > t2) return;
-  if (abs(p3 - p2) > it || abs(p2 - p1) > it || abs(p1 - p0) > it || abs(q3 - q2) > it ||
-      abs(q2 - q1) > it || abs(q1 - q0) > it)
-    return;
-  if (abs(p1 - p0) > hev_t || abs(q1 - q0) > hev_t) {
-    const int a = 3 * (q0 - p0) + sclip1(p1 - q1);
-    s[o - step] = clip8(p0 + sclip2((a + 3) >> 3));
-    s[o] = clip8(q0 - sclip2((a + 4) >> 3));
-  } else if (mb_edge) {
-    const int w = sclip1(3 * (q0 - p0) + sclip1(p1 - q1));
-    const int b1 = (27 * w + 63) >> 7, b2 = (18 * w + 63) >> 7, b3 = (9 * w + 63) >> 7;
-    s[o - 3 * step] = clip8(p2 + b3);
-    s[o - 2 * step] = clip8(p1 + b2);
-    s[o - step] = clip8(p0 + b1);
-    s[o] = clip8(q0 - b1);
-    s[o + step] = clip8(q1 - b2);
-    s[o + 2 * step] = clip8(q2 - b3);
-  } else {
-    const int w = 3 * (q0 - p0);
-    const int b1 = sclip2((w + 4) >> 3), b2 = sclip2((w + 3) >> 3), b3 = (b1 + 1) >> 1;
-    s[o - 2 * step] = clip8(p1 + b3);
-    s[o - step] = clip8(p0 + b2);
-    s[o] = clip8(q0 - b1);
-    s[o + step] = clip8(q1 - b3);
-  }
-}
-
-// Simple filter (luma only): p1, p0, q0, q1.
-__device__ __forceinline__ void filter_simple(int* s, int o, int step, int t2) {
-  const int p1 = s[o - 2 * step], p0 = s[o - step], q0 = s[o], q1 = s[o + step];
-  if (4 * abs(p0 - q0) + abs(p1 - q1) > t2) return;
-  const int a = 3 * (q0 - p0) + sclip1(p1 - q1);
-  s[o - step] = clip8(p0 + sclip2((a + 3) >> 3));
-  s[o] = clip8(q0 - sclip2((a + 4) >> 3));
-}
-
-struct FilterArgs {
-  uint8_t* y;  // (B, 16 mh, 16 mw), filtered in place
-  uint8_t* u;  // (B, 8 mh, 8 mw)
-  uint8_t* v;
-  const int16_t* fparams;  // (B, mh * mw, 4): limit, ilevel, hev_t, inner; limit < 0: off
-  int* progress;
-  int* ticket;
-  int B, mh, mw, simple;
-};
-
-constexpr int kFilterThreads = 32;
-constexpr int kYWin = 20, kCWin = 12;  // window widths: 4 pixels up and left of the MB
-
-__global__ void __launch_bounds__(kFilterThreads) loop_filter_mb_kernel(FilterArgs a) {
-  __shared__ int wy[kYWin * kYWin];
-  __shared__ int wc[2 * kCWin * kCWin];  // U, then V
-  __shared__ int s_row;
-
-  const int lane = threadIdx.x;
-  const int mh = a.mh, mw = a.mw;
-  const int W = 16 * mw, H = 16 * mh, Wc = 8 * mw, Hc = 8 * mh;
-  // this lane's pixel line across an edge: luma line `lane` (lanes 0-15),
-  // or U (16-23) / V (24-31) line lane & 7 with the complex filter
-  const bool is_luma = lane < 16;
-  const bool active = is_luma || !a.simple;
-  const int j = is_luma ? lane : (lane & 7);
-  int* win = is_luma ? wy : wc + (lane >= 24 ? kCWin * kCWin : 0);
-  const int ww = is_luma ? kYWin : kCWin;
-
-  int t;
-  while ((t = claim_row(a.ticket, a.B * mh, &s_row)) >= 0) {
-    const int my = t / a.B, b = t - my * a.B;
-    const int row = b * mh + my;
-    const bool ht = my > 0;
-    uint8_t* yp = a.y + (size_t)b * H * W;
-    uint8_t* up = a.u + (size_t)b * Hc * Wc;
-    uint8_t* vp = a.v + (size_t)b * Hc * Wc;
-    int seen = 0;
-
-    for (int mx = 0; mx < mw; mx++) {
-      const bool hl = mx > 0;
-      const int16_t* fp = a.fparams + ((size_t)row * mw + mx) * 4;
-      const int limit = fp[0], il = fp[1], hev_t = fp[2];
-      const bool inner = fp[3] > 0;
-
-      if (lane == 0 && ht) wait_progress(a.progress + row - 1, min(mx + 2, mw), seen);
-      __syncthreads();
-
-      if (limit >= 0) {
-        const int y0 = 16 * my - 4, x0 = 16 * mx - 4, cy0 = 8 * my - 4, cx0 = 8 * mx - 4;
-        for (int i = lane; i < kYWin * kYWin; i += kFilterThreads) {
-          const int r = y0 + i / kYWin, c = x0 + i % kYWin;
-          wy[i] = r >= 0 && c >= 0 ? __ldcg(yp + (size_t)r * W + c) : 0;
-        }
-        if (!a.simple) {
-          for (int i = lane; i < 2 * kCWin * kCWin; i += kFilterThreads) {
-            const int q = i % (kCWin * kCWin);
-            const int r = cy0 + q / kCWin, c = cx0 + q % kCWin;
-            wc[i] = r >= 0 && c >= 0
-                        ? __ldcg((i < kCWin * kCWin ? up : vp) + (size_t)r * Wc + c)
-                        : 0;
-          }
-        }
-        __syncwarp();
-
-        const int t_mb = 2 * (limit + 4) + 1, t_in = 2 * limit + 1;
-        const int last = is_luma ? 16 : 8;  // the inner edges run 4 .. last - 4
-        if (active) {
-          // vertical edges: this lane's row 4 + j, columns across the edge
-          const int o = (4 + j) * ww;
-          if (a.simple) {
-            if (hl) filter_simple(win, o + 4, 1, t_mb);
-            if (inner)
-              for (int d = 8; d <= last; d += 4) filter_simple(win, o + d, 1, t_in);
-          } else {
-            if (hl) filter_complex(win, o + 4, 1, t_mb, il, hev_t, true);
-            if (inner)
-              for (int d = 8; d <= last; d += 4) filter_complex(win, o + d, 1, t_in, il, hev_t, false);
-          }
-        }
-        __syncwarp();
-        if (active) {
-          // horizontal edges: this lane's column 4 + j, rows across the edge
-          const int o = 4 + j;
-          if (a.simple) {
-            if (ht) filter_simple(win, o + 4 * ww, ww, t_mb);
-            if (inner)
-              for (int d = 8; d <= last; d += 4) filter_simple(win, o + d * ww, ww, t_in);
-          } else {
-            if (ht) filter_complex(win, o + 4 * ww, ww, t_mb, il, hev_t, true);
-            if (inner)
-              for (int d = 8; d <= last; d += 4)
-                filter_complex(win, o + d * ww, ww, t_in, il, hev_t, false);
-          }
-        }
-        __syncwarp();
-
-        // write back what an edge can change: rows and columns 1.. of the
-        // window, less the corner above-left of the MB (never filtered)
-        for (int i = lane; i < kYWin * kYWin; i += kFilterThreads) {
-          const int wr = i / kYWin, wcl = i % kYWin;
-          const int r = y0 + wr, c = x0 + wcl;
-          if (wr >= 1 && wcl >= 1 && (wr >= 4 || wcl >= 4) && r >= 0 && c >= 0)
-            yp[(size_t)r * W + c] = (uint8_t)wy[i];
-        }
-        if (!a.simple) {
-          for (int i = lane; i < 2 * kCWin * kCWin; i += kFilterThreads) {
-            const int q = i % (kCWin * kCWin);
-            const int wr = q / kCWin, wcl = q % kCWin;
-            const int r = cy0 + wr, c = cx0 + wcl;
-            if (wr >= 1 && wcl >= 1 && (wr >= 4 || wcl >= 4) && r >= 0 && c >= 0)
-              (i < kCWin * kCWin ? up : vp)[(size_t)r * Wc + c] = (uint8_t)wc[i];
-          }
-        }
-      }
-
-      // ---- hand the MB over to the row below ----
-      __syncthreads();
-      if (lane == 0) st_release(a.progress + row, mx + 1);
+      if (act && sub == kRows - 1 && (tid & 63) == 0) st_release(a.progress + row, mx + 1);
     }
   }
 }
@@ -445,35 +506,22 @@ int resident_blocks(K kernel, int threads, int* cache) {
 
 }  // namespace
 
-// Reconstructs the whole batch as one launch on `stream`.  `sync` holds
-// B*mh progress counters and the ticket, all zero.  Returns the CUDA error
+// Reconstructs and filters the whole batch as one launch on `stream`.
+// `ts` holds B*mh*32*mw bytes of top samples; `sync` B*mh progress
+// counters and the ticket, all zero.  `ftype` 0 filters nothing, 1 the
+// simple filter (luma only), 2 the complex one.  Returns the CUDA error
 // of the launch (0 = accepted).
-extern "C" int recon_mb_launch(const int16_t* coeffs, const uint8_t* modes, uint8_t* y,
-                               uint8_t* u, uint8_t* v, int* sync, int B, int mh, int mw,
-                               void* stream) {
-  const int rows = B * mh;
-  if (rows <= 0 || mw <= 0) return 0;
+extern "C" int recon_filter_mb_launch(const int16_t* coeffs, const uint8_t* modes,
+                                      const int16_t* fparams, uint8_t* y, uint8_t* u,
+                                      uint8_t* v, uint8_t* ts, int* sync, int B, int mh, int mw,
+                                      int ftype, void* stream) {
+  if (B <= 0 || mh <= 0 || mw <= 0) return 0;
+  const Args a{coeffs, modes, fparams, y, u, v, ts, sync, sync + B * mh, B, mh, mw, ftype};
   static int cache = 0;
-  const int resident = resident_blocks(recon_mb_kernel, kReconThreads, &cache);
+  const int resident = resident_blocks(recon_filter_mb_kernel, 64 * kRows, &cache);
   if (resident < 0) return -resident;
-  ReconArgs a{coeffs, modes, y, u, v, sync, sync + rows, B, mh, mw};
-  recon_mb_kernel<<<rows < resident ? rows : resident, kReconThreads, 0,
-                    (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-// Filters the planes in place as one launch on `stream`; `simple` selects
-// the simple filter (luma only).  `sync` as for recon_mb_launch.
-extern "C" int loop_filter_mb_launch(uint8_t* y, uint8_t* u, uint8_t* v, const int16_t* fparams,
-                                     int* sync, int B, int mh, int mw, int simple,
-                                     void* stream) {
-  const int rows = B * mh;
-  if (rows <= 0 || mw <= 0) return 0;
-  static int cache = 0;
-  const int resident = resident_blocks(loop_filter_mb_kernel, kFilterThreads, &cache);
-  if (resident < 0) return -resident;
-  FilterArgs a{y, u, v, fparams, sync, sync + rows, B, mh, mw, simple};
-  loop_filter_mb_kernel<<<rows < resident ? rows : resident, kFilterThreads, 0,
-                          (cudaStream_t)stream>>>(a);
+  const int groups = B * ((mh + kRows - 1) / kRows);
+  recon_filter_mb_kernel<<<groups < resident ? groups : resident, 64 * kRows, 0,
+                           (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

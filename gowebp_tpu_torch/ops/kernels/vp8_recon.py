@@ -1,13 +1,14 @@
-"""The lossy decode's reconstruction and loop filter: the Hopper kernels,
-their binding and their plain versions.
+"""The lossy decode's reconstruction and loop filter: the Hopper kernel,
+its binding and its plain version.
 
-``recon_mb`` turns dequantized coefficients and modes into the
-reconstructed, unfiltered uint8 planes (residual iDCT and intra
-prediction over the MB wavefront); ``loop_filter_mb`` deblocks those
-planes in place.  On a CUDA tensor each launches its kernel in
-``vp8_recon.cu`` (replacing the XLA ``recon_wavefront`` and
+``recon_filter_mb`` turns dequantized coefficients, modes and filter
+parameters into the reconstructed, deblocked uint8 planes: residual iDCT,
+intra prediction and the in-loop filter over the MB wavefront, each MB
+filtered right after its recon.  On a CUDA tensor it launches the one
+kernel in ``vp8_recon.cu`` (replacing the XLA ``recon_wavefront`` and
 ``loop_filter_wavefront`` of gowebp_tpu/ops/vp8_recon_jax.py); on a CPU
-tensor each runs its plain version, the torch loops of ops/vp8_recon.py.
+tensor it runs its plain version, ``recon_mb_plain`` followed by
+``loop_filter_mb_plain`` (the torch loops of ops/vp8_recon.py).
 
 Layout:
   coeffs   (B, N, 24, 16) int16 dequantized raster coefficients,
@@ -32,10 +33,9 @@ MODE_BYTES = 18
 
 def _configure(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.recon_mb_launch.restype = ctypes.c_int
-    lib.recon_mb_launch.argtypes = [p, p, p, p, p, p, i, i, i, p]
-    lib.loop_filter_mb_launch.restype = ctypes.c_int
-    lib.loop_filter_mb_launch.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    lib.recon_filter_mb_launch.restype = ctypes.c_int
+    lib.recon_filter_mb_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i,
+                                           p]
 
 
 LIBRARY = CudaLibrary("vp8_recon.cu", _configure)
@@ -50,12 +50,13 @@ def pack_modes(is_i4, imodes, uvmode):
 
 def _check_recon(coeffs, modes, mb_w: int, mb_h: int) -> None:
     if mb_w <= 0 or mb_h <= 0:
-        raise ValueError(f"recon_mb: bad MB grid {mb_w}x{mb_h}")
-    if coeffs.dim() != 4 or coeffs.shape[1:] != (mb_w * mb_h, 24, 16):
-        raise ValueError(f"recon_mb: coeffs must be (B, {mb_w * mb_h}, 24, "
-                         f"16), got {tuple(coeffs.shape)}")
-    if modes.shape != (coeffs.shape[0], mb_w * mb_h, MODE_BYTES):
-        raise ValueError(f"recon_mb: modes must be (B, {mb_w * mb_h}, "
+        raise ValueError(f"recon_filter_mb: bad MB grid {mb_w}x{mb_h}")
+    N = mb_w * mb_h
+    if coeffs.dim() != 4 or coeffs.shape[1:] != (N, 24, 16):
+        raise ValueError(f"recon_filter_mb: coeffs must be (B, {N}, 24, 16), "
+                         f"got {tuple(coeffs.shape)}")
+    if modes.shape != (coeffs.shape[0], N, MODE_BYTES):
+        raise ValueError(f"recon_filter_mb: modes must be (B, {N}, "
                          f"{MODE_BYTES}), got {tuple(modes.shape)}")
 
 
@@ -71,8 +72,8 @@ def _sync(rows: int, dev):
 
 
 def recon_mb_plain(coeffs, modes, mb_w: int, mb_h: int):
-    """Plain torch version of the recon kernel (any device): the residual
-    iDCT and ops/vp8_recon.py's ``recon_wavefront``."""
+    """The plain version's first half (any device): the residual iDCT and
+    ops/vp8_recon.py's ``recon_wavefront`` → the unfiltered (Y, U, V)."""
     _check_recon(coeffs, modes, mb_w, mb_h)
     dg = plain.Diagonals(mb_w, mb_h, coeffs.device)
     m = modes.to(I32)
@@ -81,54 +82,34 @@ def recon_mb_plain(coeffs, modes, mb_w: int, mb_h: int):
     return plain.crop_planes(PY, PC, mb_w)
 
 
-def recon_mb(coeffs, modes, mb_w: int, mb_h: int):
-    """Kernel on a CUDA tensor, plain version on a CPU tensor → the
-    unfiltered (Y, U, V) uint8 planes.  ``recon_mb.launches`` counts kernel
-    launches (one per call on CUDA)."""
-    dev = coeffs.device
-    if dev.type == "cpu":
-        return recon_mb_plain(coeffs, modes, mb_w, mb_h)
-    if dev.type != "cuda":
-        raise ValueError(f"recon_mb: unsupported device {dev}")
-    _check_recon(coeffs, modes, mb_w, mb_h)
-    B = coeffs.shape[0]
-    check_tensor("coeffs", coeffs, I16, coeffs.shape, dev)
-    check_tensor("modes", modes, U8, modes.shape, dev)
-    lib = LIBRARY.load()
-    y, u, v = _planes(B, mb_w, mb_h, dev)
-    sync = _sync(B * mb_h, dev)
-    err = lib.recon_mb_launch(coeffs.data_ptr(), modes.data_ptr(),
-                              y.data_ptr(), u.data_ptr(), v.data_ptr(),
-                              sync.data_ptr(), B, mb_h, mb_w,
-                              stream_handle(dev))
-    if err != 0:
-        raise RuntimeError(f"recon_mb kernel launch failed: CUDA error {err}")
-    recon_mb.launches += 1
-    return y, u, v
+def _check_fparams(fparams, B: int, mb_w: int, mb_h: int,
+                   filter_type: int) -> None:
+    if filter_type not in (0, 1, 2):
+        raise ValueError(f"recon_filter_mb: filter_type must be 0, 1 or 2, "
+                         f"got {filter_type}")
+    if fparams.numel() != B * mb_h * mb_w * 4 or fparams.shape[-1] != 4:
+        raise ValueError(f"recon_filter_mb: fparams {tuple(fparams.shape)} "
+                         f"is not (B, {mb_h}, {mb_w}, 4)")
 
 
 def _check_filter(y, u, v, fparams, mb_w: int, mb_h: int, filter_type: int):
-    if filter_type not in (0, 1, 2):
-        raise ValueError(f"loop_filter_mb: filter_type must be 0, 1 or 2, "
-                         f"got {filter_type}")
     B = y.shape[0]
     if y.shape != (B, 16 * mb_h, 16 * mb_w):
-        raise ValueError(f"loop_filter_mb: y {tuple(y.shape)} is not "
+        raise ValueError(f"loop_filter_mb_plain: y {tuple(y.shape)} is not "
                          f"(B, {16 * mb_h}, {16 * mb_w})")
     for name, c in (("u", u), ("v", v)):
         if c.shape != (B, 8 * mb_h, 8 * mb_w):
-            raise ValueError(f"loop_filter_mb: {name} {tuple(c.shape)} is "
-                             f"not (B, {8 * mb_h}, {8 * mb_w})")
-    if fparams.numel() != B * mb_h * mb_w * 4 or fparams.shape[-1] != 4:
-        raise ValueError(f"loop_filter_mb: fparams {tuple(fparams.shape)} "
-                         f"is not (B, {mb_h}, {mb_w}, 4)")
+            raise ValueError(f"loop_filter_mb_plain: {name} "
+                             f"{tuple(c.shape)} is not (B, {8 * mb_h}, "
+                             f"{8 * mb_w})")
+    _check_fparams(fparams, B, mb_w, mb_h, filter_type)
 
 
 def loop_filter_mb_plain(y, u, v, fparams, mb_w: int, mb_h: int,
                          filter_type: int):
-    """Plain torch version of the filter kernel (any device): ops/
-    vp8_recon.py's ``loop_filter_wavefront`` on bordered copies, written
-    back into the planes.  Returns (y, u, v)."""
+    """The plain version's second half (any device): ops/vp8_recon.py's
+    ``loop_filter_wavefront`` on bordered copies, written back into the
+    planes.  Returns (y, u, v)."""
     _check_filter(y, u, v, fparams, mb_w, mb_h, filter_type)
     if filter_type == 0:
         return y, u, v
@@ -148,38 +129,56 @@ def loop_filter_mb_plain(y, u, v, fparams, mb_w: int, mb_h: int,
     return y, u, v
 
 
-def loop_filter_mb(y, u, v, fparams, mb_w: int, mb_h: int, filter_type: int):
-    """Kernel on a CUDA tensor, plain version on a CPU tensor; filters the
-    planes in place and returns them.  ``filter_type`` 0 launches nothing.
-    ``loop_filter_mb.launches`` counts kernel launches."""
-    dev = y.device
+def _check(coeffs, modes, fparams, mb_w: int, mb_h: int,
+           filter_type: int) -> None:
+    _check_recon(coeffs, modes, mb_w, mb_h)
+    _check_fparams(fparams, coeffs.shape[0], mb_w, mb_h, filter_type)
+
+
+def recon_filter_mb_plain(coeffs, modes, fparams, mb_w: int, mb_h: int,
+                          filter_type: int):
+    """Plain torch version of the kernel (any device): the recon, then the
+    filter over the whole frame → (Y, U, V) uint8 planes."""
+    _check(coeffs, modes, fparams, mb_w, mb_h, filter_type)
+    return loop_filter_mb_plain(*recon_mb_plain(coeffs, modes, mb_w, mb_h),
+                                fparams, mb_w, mb_h, filter_type)
+
+
+def recon_filter_mb(coeffs, modes, fparams, mb_w: int, mb_h: int,
+                    filter_type: int):
+    """Kernel on a CUDA tensor, plain version on a CPU tensor → the
+    filtered (Y, U, V) uint8 planes.  ``filter_type`` 0 filters nothing.
+    ``recon_filter_mb.launches`` counts kernel launches (one per call on
+    CUDA)."""
+    dev = coeffs.device
     if dev.type == "cpu":
-        return loop_filter_mb_plain(y, u, v, fparams, mb_w, mb_h, filter_type)
+        return recon_filter_mb_plain(coeffs, modes, fparams, mb_w, mb_h,
+                                     filter_type)
     if dev.type != "cuda":
-        raise ValueError(f"loop_filter_mb: unsupported device {dev}")
-    _check_filter(y, u, v, fparams, mb_w, mb_h, filter_type)
-    if filter_type == 0:
-        return y, u, v
-    B = y.shape[0]
-    for name, t in (("y", y), ("u", u), ("v", v)):
-        check_tensor(name, t, U8, t.shape, dev)
+        raise ValueError(f"recon_filter_mb: unsupported device {dev}")
+    _check(coeffs, modes, fparams, mb_w, mb_h, filter_type)
+    B = coeffs.shape[0]
+    check_tensor("coeffs", coeffs, I16, coeffs.shape, dev)
+    check_tensor("modes", modes, U8, modes.shape, dev)
     fp = fparams.reshape(B, mb_h * mb_w, 4).to(I16).contiguous()
     check_tensor("fparams", fp, I16, fp.shape, dev)
     lib = LIBRARY.load()
+    y, u, v = _planes(B, mb_w, mb_h, dev)
+    # top samples: each MB row's unfiltered bottom row, Y then U then V
+    ts = torch.empty(B * mb_h * 32 * mb_w, dtype=U8, device=dev)
     sync = _sync(B * mb_h, dev)
-    err = lib.loop_filter_mb_launch(y.data_ptr(), u.data_ptr(), v.data_ptr(),
-                                    fp.data_ptr(), sync.data_ptr(), B, mb_h,
-                                    mb_w, int(filter_type == 1),
-                                    stream_handle(dev))
+    err = lib.recon_filter_mb_launch(
+        coeffs.data_ptr(), modes.data_ptr(), fp.data_ptr(), y.data_ptr(),
+        u.data_ptr(), v.data_ptr(), ts.data_ptr(), sync.data_ptr(), B, mb_h,
+        mb_w, int(filter_type), stream_handle(dev))
     if err != 0:
         raise RuntimeError(
-            f"loop_filter_mb kernel launch failed: CUDA error {err}")
-    loop_filter_mb.launches += 1
+            f"recon_filter_mb kernel launch failed: CUDA error {err}")
+    recon_filter_mb.launches += 1
     return y, u, v
 
 
-recon_mb.launches = 0
-loop_filter_mb.launches = 0
+recon_filter_mb.launches = 0
 
-__all__ = ["LIBRARY", "loop_filter_mb", "loop_filter_mb_plain", "pack_modes",
-           "recon_mb", "recon_mb_plain"]
+__all__ = ["LIBRARY", "loop_filter_mb_plain", "pack_modes", "recon_filter_mb",
+           "recon_filter_mb_plain", "recon_mb_plain"]

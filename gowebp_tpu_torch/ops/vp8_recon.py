@@ -8,9 +8,9 @@ the macroblock wavefront.
 
 The decode (``recon_frame``): dense per-MB symbols from the host →
 reconstructed, loop-filtered uint8 planes.  On a CUDA tensor it runs the
-``recon_mb`` and ``loop_filter_mb`` kernels (ops/kernels/vp8_recon.py);
-on a CPU tensor, and as those kernels' reference, the plain torch ops
-here:
+``recon_filter_mb`` kernel (ops/kernels/vp8_recon.py), which filters each
+MB right after its recon; on a CPU tensor, and as that kernel's
+reference, the plain torch ops here:
 
 - the iDCT of every residual block at once;
 - intra prediction as an MB anti-diagonal wavefront (slope 2:
@@ -585,23 +585,20 @@ def recon_frame(coeffs, is_i4, imodes, uvmode, fparams, *, mb_w, mb_h,
     coeffs (B, N, 24, 16) int16 (int16 or int32 on the CPU); is_i4/uvmode
     (B, N) int; imodes (B, N, 16) int; fparams (B, mb_h, mb_w, 4) int.
     Returns contiguous uint8 planes (B, 16*mb_h, 16*mb_w), (B, 8*mb_h,
-    8*mb_w) x2.  On a CUDA tensor the ``recon_mb`` and ``loop_filter_mb``
-    kernels run (ops/kernels/vp8_recon.py); on a CPU tensor the plain torch
-    loops above.  ``marks(name)``, if given, is called after each stage:
-    "idct" (CPU only: the kernel runs the iDCT inside "recon"), "recon",
-    and "filter" (which includes the store to uint8 on the CPU).
+    8*mb_w) x2.  On a CUDA tensor the one ``recon_filter_mb`` kernel runs
+    (ops/kernels/vp8_recon.py); on a CPU tensor the plain torch loops
+    above.  ``marks(name)``, if given, is called after each stage: on the
+    card "recon" alone (the kernel's iDCT, recon and filter); on the CPU
+    "idct", "recon" and "filter" (which includes the store to uint8).
     """
     if coeffs.device.type == "cuda":
-        from .kernels.vp8_recon import loop_filter_mb, pack_modes, recon_mb
+        from .kernels.vp8_recon import pack_modes, recon_filter_mb
 
-        Y, U, V = recon_mb(coeffs, pack_modes(is_i4, imodes, uvmode),
-                           mb_w, mb_h)
+        planes = recon_filter_mb(coeffs, pack_modes(is_i4, imodes, uvmode),
+                                 fparams, mb_w, mb_h, filter_type)
         if marks is not None:
             marks("recon")
-        loop_filter_mb(Y, U, V, fparams, mb_w, mb_h, filter_type)
-        if marks is not None:
-            marks("filter")
-        return Y, U, V
+        return planes
     if coeffs.device.type != "cpu":
         raise ValueError(f"recon_frame: unsupported device {coeffs.device}")
     dg = Diagonals(mb_w, mb_h, coeffs.device)

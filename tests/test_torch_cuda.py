@@ -805,75 +805,63 @@ def _recon_case(seed, B, mb_h, mb_w):
 RECON_GRIDS = [(2, 3, 5), (1, 1, 5), (1, 5, 1), (1, 1, 1), (3, 4, 6)]
 
 
-@pytest.mark.parametrize("B,mb_h,mb_w", RECON_GRIDS)
-def test_recon_mb_kernel_matches_plain(cuda, B, mb_h, mb_w):
-    from gowebp_tpu_torch.ops.kernels.vp8_recon import recon_mb, recon_mb_plain
-
-    coeffs, modes, _ = _recon_case(B * 100 + mb_h * 10 + mb_w, B, mb_h, mb_w)
-    before = recon_mb.launches
-    got = recon_mb(coeffs.to(cuda), modes.to(cuda), mb_w, mb_h)
-    want = recon_mb_plain(coeffs, modes, mb_w, mb_h)
-    torch.cuda.synchronize()
-    assert recon_mb.launches == before + 1
-    for g, w in zip(got, want):
-        assert torch.equal(g.cpu(), w)
-
-
 @pytest.mark.parametrize("filter_type", [0, 1, 2])
 @pytest.mark.parametrize("B,mb_h,mb_w", RECON_GRIDS)
-def test_loop_filter_mb_kernel_matches_plain(cuda, filter_type, B, mb_h, mb_w):
+def test_recon_filter_mb_kernel_matches_plain(cuda, filter_type, B, mb_h,
+                                              mb_w):
     from gowebp_tpu_torch.ops.kernels.vp8_recon import (
-        loop_filter_mb, loop_filter_mb_plain, recon_mb_plain)
+        recon_filter_mb, recon_filter_mb_plain)
 
     coeffs, modes, fp = _recon_case(B * 31 + mb_h * 7 + mb_w, B, mb_h, mb_w)
-    planes = recon_mb_plain(coeffs, modes, mb_w, mb_h)
-    want = loop_filter_mb_plain(*(p.clone() for p in planes), fp, mb_w, mb_h,
-                                filter_type)
-    before = loop_filter_mb.launches
-    got = loop_filter_mb(*(p.to(cuda) for p in planes), fp.to(cuda), mb_w,
-                         mb_h, filter_type)
+    want = recon_filter_mb_plain(coeffs, modes, fp, mb_w, mb_h, filter_type)
+    before = recon_filter_mb.launches
+    got = recon_filter_mb(coeffs.to(cuda), modes.to(cuda), fp.to(cuda), mb_w,
+                          mb_h, filter_type)
     torch.cuda.synchronize()
-    assert loop_filter_mb.launches == before + (filter_type != 0)
+    assert recon_filter_mb.launches == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
 
 
-def test_recon_frame_on_the_card_launches_both_kernels(cuda):
-    """recon_frame sends CUDA tensors to the kernels: the GPU planes equal
-    the CPU loops'."""
-    from gowebp_tpu_torch.ops.kernels.vp8_recon import loop_filter_mb, recon_mb
+def test_recon_frame_on_the_card_launches_the_kernel(cuda):
+    """recon_frame sends CUDA tensors to the one kernel: the GPU planes
+    equal the CPU loops'."""
+    from gowebp_tpu_torch.ops.kernels.vp8_recon import recon_filter_mb
     from gowebp_tpu_torch.ops.vp8_recon import recon_frame
 
     coeffs, modes, fp = _recon_case(5, 2, 3, 4)
     m = modes.to(torch.int32)
     args = (coeffs, m[..., 0], m[..., 2:], m[..., 1], fp)
-    before = (recon_mb.launches, loop_filter_mb.launches)
+    before = recon_filter_mb.launches
+    marks = []
     got = recon_frame(*(a.to(cuda) for a in args), mb_w=4, mb_h=3,
-                      filter_type=2)
+                      filter_type=2, marks=marks.append)
     want = recon_frame(*args, mb_w=4, mb_h=3, filter_type=2)
-    assert (recon_mb.launches, loop_filter_mb.launches) == (before[0] + 1,
-                                                            before[1] + 1)
+    assert recon_filter_mb.launches == before + 1
+    assert marks == ["recon"]
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
 
 
-def test_recon_kernels_reject_bad_tensors(cuda):
-    from gowebp_tpu_torch.ops.kernels.vp8_recon import loop_filter_mb, recon_mb
+def test_recon_filter_mb_rejects_bad_tensors(cuda):
+    from gowebp_tpu_torch.ops.kernels.vp8_recon import recon_filter_mb
 
     coeffs, modes, fp = (t.to(cuda) for t in _recon_case(1, 1, 2, 2))
     with pytest.raises(TypeError):
-        recon_mb(coeffs.to(torch.int32), modes, 2, 2)
+        recon_filter_mb(coeffs.to(torch.int32), modes, fp, 2, 2, 2)
+    with pytest.raises(TypeError):
+        recon_filter_mb(coeffs, modes.to(torch.int32), fp, 2, 2, 2)
     with pytest.raises(ValueError):
-        recon_mb(coeffs, modes[:, :, :16], 2, 2)
+        recon_filter_mb(coeffs, modes[:, :, :16], fp, 2, 2, 2)
     with pytest.raises(ValueError):
-        recon_mb(coeffs, modes, 3, 1)
-    y, u, v = recon_mb(coeffs, modes, 2, 2)
+        recon_filter_mb(coeffs, modes, fp, 3, 1, 2)
     with pytest.raises(ValueError):
-        loop_filter_mb(y, u, v, fp, 2, 2, 3)
+        recon_filter_mb(coeffs, modes, fp, 2, 2, 3)
     with pytest.raises(ValueError):
-        loop_filter_mb(y, u[:, :8], v, fp, 2, 2, 2)
+        recon_filter_mb(coeffs, modes, fp[:, :1], 2, 2, 2)
     with pytest.raises(ValueError):
-        loop_filter_mb(y.transpose(1, 2), u, v, fp, 2, 2, 2)
+        recon_filter_mb(coeffs.transpose(2, 3).contiguous().transpose(2, 3),
+                        modes, fp, 2, 2, 2)
 
 
 def _single_files():
@@ -905,13 +893,13 @@ SINGLE_CONFIGS = [
 
 @pytest.mark.parametrize("name", ["lossy", "smooth_q95", "alph", "vp8l"])
 def test_single_file_decode_gpu_equals_cpu(cuda, name):
-    """decode() on the card (recon_mb, loop_filter_mb, yuv420_to_rgba and
-    torch output options) against device="cpu", every option and mode."""
+    """decode() on the card (recon_filter_mb, yuv420_to_rgba and torch
+    output options) against device="cpu", every option and mode."""
     from gowebp_tpu_torch import DecoderConfig, decode, decode_yuva
-    from gowebp_tpu_torch.ops.kernels.vp8_recon import recon_mb
+    from gowebp_tpu_torch.ops.kernels.vp8_recon import recon_filter_mb
 
     data = _single_files()[name]
-    before = recon_mb.launches
+    before = recon_filter_mb.launches
     for kw in SINGLE_CONFIGS:
         cfg = DecoderConfig(**kw)
         for mode in ("RGBA", "bgrA", "RGB_565", "ARGB", "rgbA_4444"):
@@ -923,20 +911,18 @@ def test_single_file_decode_gpu_equals_cpu(cuda, name):
                             decode_yuva(data, cfg, device="cpu")):
                 assert (a is None) == (b is None)
                 assert a is None or np.array_equal(a, b)
-    assert (recon_mb.launches > before) == (name != "vp8l")
+    assert (recon_filter_mb.launches > before) == (name != "vp8l")
 
 
 def test_single_file_decode_launches_the_decode_kernels(cuda):
     from gowebp_tpu_torch import decode, decode_rgba_batch
-    from gowebp_tpu_torch.ops.kernels.vp8_recon import loop_filter_mb, recon_mb
+    from gowebp_tpu_torch.ops.kernels.vp8_recon import recon_filter_mb
     from gowebp_tpu_torch.ops.kernels.yuv420_to_rgba import yuv420_to_rgba
 
     files = list(_single_files().values())
-    before = (recon_mb.launches, loop_filter_mb.launches,
-              yuv420_to_rgba.launches)
+    before = (recon_filter_mb.launches, yuv420_to_rgba.launches)
     got = [decode(d, device="cuda") for d in files]
-    after = (recon_mb.launches, loop_filter_mb.launches,
-             yuv420_to_rgba.launches)
-    assert [a - b for a, b in zip(after, before)] == [3, 3, 3]
+    after = (recon_filter_mb.launches, yuv420_to_rgba.launches)
+    assert [a - b for a, b in zip(after, before)] == [3, 3]
     for a, b in zip(got, decode_rgba_batch(files, device="cuda")):
         assert np.array_equal(a, b)

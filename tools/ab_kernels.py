@@ -38,6 +38,18 @@ Needs a CUDA card and nvcc.  KERNEL is one of:
     calls, 4 for the cold round), as ``chip_smoke.py`` reports
     ``device_ms``.  Also the hybrid's stage spans on the chunk with the
     host quiet (``chip_smoke.stage_spans``, median of 10).
+
+``vp8_recon``
+    The decode's recon and loop filter on the decode path's inputs for
+    the 32 hybrid files of ``natural_images(32, 1024, 1024, seed=7)`` at
+    q75 (encoded on the card by this checkout, then
+    ``chip_smoke.recon_symbols``).  A checkout with ``recon_filter_mb``
+    runs that one launch; an older one runs ``recon_mb`` then
+    ``loop_filter_mb``.  Times B=32 at 1024x1024 as one call (``b32_ms``,
+    median of 20 after a warm-up) and as the device time of a call
+    (``b32_device_ms``), and B=1 (one image: the chain of 190 MB steps,
+    ``b1_ms`` and ``us_per_chained_mb_step``); an older checkout also
+    gives each of its two kernels' device times.
 """
 
 from __future__ import annotations
@@ -165,6 +177,36 @@ spans = chip_smoke.stage_spans(dev, chunk, reps=10)
 row.update({f"span_{k}_ms": ms for k, ms in spans.items()})
 print(json.dumps(row))
 """,
+    "vp8_recon": r"""
+from gowebp_tpu_torch.ops.kernels import vp8_recon as kvr
+
+kvr.LIBRARY.load()
+coeffs, modes, fp = (t.to(dev) for t in saved["args"])
+mw, mh, ftype = saved["grid"]
+one = (coeffs[:1], modes[:1], fp[:1])
+steps = (mw - 1) + 2 * (mh - 1) + 1
+if hasattr(kvr, "recon_filter_mb"):
+    run = lambda c, m, f: kvr.recon_filter_mb(c, m, f, mw, mh, ftype)
+    parts = {}
+else:
+    def run(c, m, f):
+        return kvr.loop_filter_mb(*kvr.recon_mb(c, m, mw, mh), f, mw, mh,
+                                  ftype)
+    planes = kvr.recon_mb(coeffs, modes, mw, mh)
+    parts = {"recon_mb": lambda: kvr.recon_mb(coeffs, modes, mw, mh),
+             "loop_filter_mb": lambda: kvr.loop_filter_mb(
+                 *planes, fp, mw, mh, ftype)}
+out = run(coeffs, modes, fp)
+torch.cuda.synchronize()
+torch.save({k: t.cpu() for k, t in zip("yuv", out)}, sys.argv[2])
+b1 = time_ms(lambda: run(*one), 20)
+row = {"b32_ms": time_ms(lambda: run(coeffs, modes, fp), 20),
+       "b32_device_ms": queued_ms(lambda: run(coeffs, modes, fp), reps=20),
+       "b1_ms": b1, "us_per_chained_mb_step": b1 / steps * 1e3}
+for name, fn in parts.items():
+    row[name + "_b32_device_ms"] = queued_ms(fn, reps=20)
+print(json.dumps(row))
+""",
 }
 
 
@@ -176,17 +218,19 @@ def _cpu(t):
     return tuple(x.cpu() for x in t) if isinstance(t, tuple) else t
 
 
-def wavefront_search_inputs(chip_smoke, dev, chunk) -> dict:
+def wavefront_search_inputs(chip_smoke, dev, images) -> dict:
     from gowebp_tpu_torch.ops.kernels.wavefront_search import search_tables
 
+    chunk = chip_smoke.chunk_inputs(dev, images[:16])
     return {"args": [_cpu(chunk[k]) for k in
                      ("y", "u", "v", "seg", "qsteps", "pens")],
             "rate": [t.cpu() for t in search_tables(chunk["tables"])]}
 
 
-def encode_plane_inputs(chip_smoke, dev, chunk) -> dict:
+def encode_plane_inputs(chip_smoke, dev, images) -> dict:
     import torch
 
+    chunk = chip_smoke.chunk_inputs(dev, images[:16])
     B, H, W = 16, 1024, 1024
     gen = torch.Generator().manual_seed(20261017)
     buf = torch.randint(0, 256, (B, H * W * 3 // 2), generator=gen,
@@ -196,8 +240,18 @@ def encode_plane_inputs(chip_smoke, dev, chunk) -> dict:
             "chunk": {k: _cpu(t) for k, t in chunk.items()}}
 
 
+def vp8_recon_inputs(chip_smoke, dev, images) -> dict:
+    from gowebp_tpu_torch import encode_rgba_batch
+
+    files = encode_rgba_batch(images, quality=75.0, device="cuda")
+    coeffs, modes, fp, ftype, mw, mh = chip_smoke.recon_symbols(dev, files)
+    return {"args": [_cpu(t) for t in (coeffs, modes, fp)],
+            "grid": (mw, mh, ftype)}
+
+
 INPUTS = {"wavefront_search": wavefront_search_inputs,
-          "encode_plane": encode_plane_inputs}
+          "encode_plane": encode_plane_inputs,
+          "vp8_recon": vp8_recon_inputs}
 
 
 def main(argv) -> int:
@@ -217,11 +271,10 @@ def main(argv) -> int:
     from gowebp_tpu_torch.utils.corpus import natural_images
 
     dev = torch.device("cuda:0")
-    images = list(natural_images(32, 1024, 1024, seed=7))[:16]
-    chunk = chip_smoke.chunk_inputs(dev, images)
+    images = list(natural_images(32, 1024, 1024, seed=7))
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     inputs = BUILD_DIR / f"ab_{opts.kernel}_inputs.pt"
-    torch.save(INPUTS[opts.kernel](chip_smoke, dev, chunk), inputs)
+    torch.save(INPUTS[opts.kernel](chip_smoke, dev, images), inputs)
     card = chip_smoke.card_line()
     first = None
     ok = True

@@ -99,13 +99,35 @@ print(json.dumps({"ms": a.elapsed_time(b), "clk": list(buf)}))
 """
 
 
-def patched(source: str) -> str:
-    for anchor, text in PATCHES:
+def patched(source: str, patches=PATCHES, reader=READER) -> str:
+    for anchor, text in patches:
         if source.count(anchor) != 1:
-            raise SystemExit(f"clock_wavefront_search: anchor not found once: {anchor!r}")
+            raise SystemExit(f"clock tool: anchor not found once: {anchor!r}")
         at = source.index(anchor) + len(anchor)
         source = source[:at] + text + source[at:]
-    return source + READER
+    return source + reader
+
+
+def clock_run(source: str, patches, reader, run: str):
+    """Copy the package into _build/clock, add the timers to the copy's
+    kernel ``source``, run ``run`` there (it prints one JSON line) →
+    (that line as a dict, the card's name, power limit and SM clock), or
+    None on a failure (printed)."""
+    work = ROOT / "gowebp_tpu_torch" / "_build" / "clock"
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.copytree(ROOT / "gowebp_tpu_torch", work / "gowebp_tpu_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    cu = work / "gowebp_tpu_torch" / "ops" / "kernels" / source
+    cu.write_text(patched(cu.read_text(), patches, reader))
+    out = subprocess.run([sys.executable, "-c", run, str(work), str(ROOT)],
+                         capture_output=True, text=True)
+    if out.returncode != 0:
+        print(out.stdout[-3000:], out.stderr[-6000:], file=sys.stderr)
+        return None
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    return json.loads(out.stdout.strip().splitlines()[-1]), card
 
 
 def main() -> int:
@@ -114,22 +136,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("clock_wavefront_search: CUDA is not available", file=sys.stderr)
         return 2
-    work = ROOT / "gowebp_tpu_torch" / "_build" / "clock"
-    shutil.rmtree(work, ignore_errors=True)
-    shutil.copytree(ROOT / "gowebp_tpu_torch", work / "gowebp_tpu_torch",
-                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
-    cu = work / "gowebp_tpu_torch" / "ops" / "kernels" / "wavefront_search.cu"
-    cu.write_text(patched(cu.read_text()))
-    out = subprocess.run([sys.executable, "-c", RUN, str(work), str(ROOT)],
-                         capture_output=True, text=True)
-    if out.returncode != 0:
-        print(out.stdout[-3000:], out.stderr[-6000:], file=sys.stderr)
+    got = clock_run("wavefront_search.cu", PATCHES, READER, RUN)
+    if got is None:
         return 1
-    res = json.loads(out.stdout.strip().splitlines()[-1])
+    res, card = got
     clk, n = res["clk"], res["clk"][0]
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True).stdout.strip()
     print(f"B=1, one 1024x1024 image: {res['ms']:.3f} ms; {n} MBs timed ({card})")
     walk = 0.0
     for i in (1, 3):
