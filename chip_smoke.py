@@ -7,9 +7,10 @@ Phases (any failure raises and exits non-zero; no result is printed):
   1. the card's name and power limit (nvidia-smi), the int32 ceiling the
      bounds use (SMs x 64 int32 operations a clock x the max SM clock),
      torch and CUDA versions;
-  2. build the ten CUDA kernels from the six ops/kernels/*.cu sources
+  2. build the eleven CUDA kernels from the six ops/kernels/*.cu sources
      (one nvcc each, in parallel; encode_plane.cu gives the two plane
-     kernels and their two modes-only forms, vp8_recon.cu the decode's
+     kernels and their two modes-only forms, wavefront_search.cu the
+     exact engine and its trellis form, vp8_recon.cu the decode's
      recon_filter_mb) and print the build time and ptxas register report;
   3. hold each kernel against its plain torch version on the card, bit for
      bit, at the main paths' full shapes, and time each with CUDA events,
@@ -42,7 +43,12 @@ Phases (any failure raises and exits non-zero; no result is printed):
      repeated runs, on mixed planes (i16 and i4 MBs) at B=16 1024x1024 and
      odd MB grids (1x5, 5x1), and on tie-heavy planes (flat and gradient
      MBs, penalties 0 and 1); its ptxas registers, stack and spills (none
-     allowed) and resident blocks printed; timed alone on one image; and
+     allowed, in any of its four forms) and resident blocks printed;
+     timed alone on one image; its trellis form (method 6's second pass)
+     at B=16 1024x1024 on the same chunk with the rate tables of image
+     0's first-pass probabilities and the segments' lambdas, 3 repeated
+     runs, odd MB grids (1x5, 5x1) and a grid with the i4 search off,
+     timed at B=16 and on one image; and
      (3g, run once phase 4 has written the 32 files) recon_filter_mb
      against ops/vp8_recon.py's recon_wavefront followed by
      loop_filter_wavefront
@@ -121,6 +127,18 @@ Phases (any failure raises and exits non-zero; no result is printed):
      run with the stage split (wavefront, pack); GPU bytes == CPU bytes on
      2 images, 32 headers checked; all 32 files decoded on the card and by
      Pillow to the same pixels; PSNR and size against the hybrid's files;
+  8c. the single-image encode: a 1024x1024 RGBA image with a soft alpha
+     mask and a fully transparent corner through encode_rgba(device=
+     "cuda"), counters reset just before and read just after: the defaults
+     launch wavefront_search once and no other kernel, method 6 it and its
+     trellis form once each; GPU bytes == CPU bytes (defaults); the
+     latency, median of 5, of the defaults, method 6 and the image as RGB,
+     with the host split (yuv, dense, emit, alph); then on a 255x193 crop
+     autofilter (recon_filter_mb once a trial level), plane_backend
+     "jax-openloop" (encode_luma and encode_chroma once each), "jax",
+     method 6 and target_psnr, each == device="cpu"; every file decoded by
+     the port and by Pillow to the same pixels, alpha == the source's;
+     encode_yuv with alpha and a mixed non-opaque batch, GPU == CPU;
   9. the kernels' JSON line (each kernel's launches on its own path, and
      on every path driven in ``launches_by_path``; ``ms`` one call alone
      and ``device_ms`` the device time of a launch, both from phase 3),
@@ -157,6 +175,12 @@ OPS_FDCT, OPS_IDCT, OPS_QUANT, OPS_DEQUANT = 160, 164, 96, 16
 OPS_PRED_I16, OPS_PRED_B4 = 32, 80
 OPS_RES_RECON = 16 + 48
 OPS_RATE_POS, OPS_RATE_EOB, OPS_DIST_COST = 10, 5, 60
+# The trellis form's DP (i4_lanes.cuh trellis_refine), per block position
+# walked (its level load, the state's table row and run rate, the
+# backtrack step) and per non-zero position (two candidates from two
+# states: their distortions, rates and int64 sums, counted as two
+# operations each, the compares and selects).
+OPS_TRELLIS_POS, OPS_TRELLIS_NZ = 18, 60
 # top-k ranking, per candidate: the prediction's SSE (a subtract, a
 # multiply and an add per pixel) and 10 compare-and-count steps
 OPS_PRED_SSE, OPS_RANK = 48, 40
@@ -218,6 +242,8 @@ SOURCES = {
     "encode_luma_modes": "gowebp_tpu_torch/ops/kernels/encode_plane.cu",
     "encode_chroma_modes": "gowebp_tpu_torch/ops/kernels/encode_plane.cu",
     "wavefront_search": "gowebp_tpu_torch/ops/kernels/wavefront_search.cu",
+    "wavefront_search_trellis":
+        "gowebp_tpu_torch/ops/kernels/wavefront_search.cu",
     "recon_filter_mb": "gowebp_tpu_torch/ops/kernels/vp8_recon.cu",
 }
 REPLACES = {
@@ -236,6 +262,10 @@ REPLACES = {
                             "gowebp_tpu/ops/encode_wavefront_jax.py:385)"),
     "wavefront_search": ("gowebp_tpu/ops/encode_wavefront_jax.py:616 "
                          "_wavefront_impl (XLA, no pallas_call)"),
+    "wavefront_search_trellis": (
+        "gowebp_tpu/ops/encode_wavefront_jax.py:616 _wavefront_impl (XLA, "
+        "no pallas_call) with the host encoder's method-6 trellis, "
+        "gowebp_tpu/entropy/native/vp8_dec.cpp:1899 trellis_refine"),
     "recon_filter_mb": ("gowebp_tpu/ops/vp8_recon_jax.py:512 "
                         "recon_wavefront and :814 loop_filter_wavefront "
                         "(XLA, no pallas_call)"),
@@ -734,7 +764,7 @@ def check_wavefront_search(dev, inputs):
         log("wavefront_search ptxas: no report (the library was not built "
             "by this process)")
     for name, regs, stack, st, ld in report:
-        form = "try_i4" if "ILb1E" in name else "try_i4=False"
+        form = search_form(name)
         log(f"wavefront_search ptxas ({form}): {regs} registers, {stack} "
             f"bytes stack frame, {st} bytes spill stores, {ld} bytes spill "
             f"loads")
@@ -742,9 +772,11 @@ def check_wavefront_search(dev, inputs):
             raise AssertionError(f"wavefront_search ({form}) uses a stack "
                                  f"frame or spills")
     for try_i4 in (True, False):
-        sms, per_sm = occupancy(try_i4)
-        log(f"wavefront_search resident blocks (try_i4={try_i4}): {sms} SMs "
-            f"x {per_sm} = {sms * per_sm} blocks of 96 threads")
+        for trellis in (False, True):
+            sms, per_sm = occupancy(try_i4, trellis)
+            log(f"wavefront_search resident blocks (try_i4={try_i4}, "
+                f"trellis={trellis}): {sms} SMs x {per_sm} = "
+                f"{sms * per_sm} blocks of 96 threads")
 
     rate = search_tables(inputs["tables"])
     args = tuple(inputs[k].contiguous()
@@ -768,13 +800,12 @@ def check_wavefront_search(dev, inputs):
 
     B, H, W = args[0].shape
     err = 0
-    main_want = None
+    main_want, ops, plain_ms = search_plain_counted(args, rate)
     for try_i4 in (True, False):
         for derr in (True, False):
-            e, want = compare(args, try_i4, derr, f"B={B} {H}x{W} (chunk)")
+            e, _ = compare(args, try_i4, derr, f"B={B} {H}x{W} (chunk)",
+                           main_want if try_i4 and derr else None)
             err = max(err, e)
-            if try_i4 and derr:
-                main_want = want
     for i in range(3):
         err = max(err, compare(args, True, True, f"repeat {i + 1}",
                                main_want)[0])
@@ -799,24 +830,55 @@ def check_wavefront_search(dev, inputs):
     one_ms = time_ms(lambda: wavefront_search(*one, rate, try_i4=True,
                                               use_derr=True,
                                               want_recon=True), reps=5)
-    plain_ms = time_ms(lambda: wavefront_search_plain(
-        *args, rate, try_i4=True, use_derr=True, want_recon=True), reps=1,
-        warmup=0)
     mh, mw = H // 16, W // 16
     steps = (mw - 1) + 2 * (mh - 1) + 1
     log(f"wavefront_search B={B} {H}x{W}: {ms:.3f} ms; try_i4=False "
         f"{lean_ms:.3f} ms; B=1 {one_ms:.3f} ms = "
         f"{one_ms / steps * 1e3:.2f} us per chained MB step")
+    nbytes = sum(t.numel() * t.element_size() for t in args + rate)
+    nbytes += sum(t.numel() * t.element_size() for t in main_want.values())
+    bound_ms, bound_by = bound(nbytes, ops)
+    return {"name": "wavefront_search", "max_abs_err": err, "ms": ms,
+            "fn": lambda: wavefront_search(*args, rate, try_i4=True,
+                                           use_derr=True, want_recon=True),
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
-    # bound: the operations this data needs, counted on a plain run: every
-    # walk substep's candidates (search_ops, rate walks as long as their
-    # levels), the i16 rate walks, the i16 and uv mode SSEs, the i16 and
-    # chroma code of every MB and the i4 levels of the adopted ones
-    count = {"search": 0, "rate": 0}
 
-    def counted(ctx13, src16, quants5, t3_, topk):
+def search_form(name: str) -> str:
+    """The form of a wavefront_search_kernel instance, from its mangled
+    name's two template flags (kI4, kTrellis)."""
+    import re
+
+    m = re.search(r"ILb([01])ELb([01])E", name)
+    if not m:
+        return name
+    return (f"try_i4={'True' if m[1] == '1' else 'False'}, "
+            f"trellis={'True' if m[2] == '1' else 'False'}")
+
+
+def search_plain_counted(args, rate, lams=None):
+    """A plain run of wavefront_search on ``args`` (try_i4, diffusion on,
+    recon; the trellis form with ``lams``), and the integer operations
+    this data needs of the kernel, counted on it: every walk substep's
+    candidates (search_ops, rate walks as long as their levels), the i16
+    rate walks, the i16 and uv mode SSEs, the i16 and chroma code of every
+    MB, the i4 levels of the adopted ones, and the trellis DPs (every
+    block position walked, every non-zero position's transitions).
+    Returns (the plain outputs, the operations, the run's ms on CUDA
+    events: the plain version's time, counting included; the counters
+    read small device sums, a sync each walk substep)."""
+    import torch
+
+    from gowebp_tpu_torch.ops.kernels import i4_search as i4m
+    from gowebp_tpu_torch.ops.kernels import wavefront_fixed as wfm
+    from gowebp_tpu_torch.ops.kernels.wavefront_search import (
+        MODE_KEYS, SearchModes, search_trellis)
+
+    count = {"search": 0, "rate": 0, "trellis": 0}
+
+    def counted(ctx13, src16, quants5, t3_, topk, *lam):
         count["search"] += search_ops(ctx13, src16, quants5, topk)
-        return i4_search_plain(ctx13, src16, quants5, t3_, topk)
+        return i4m.i4_search_plain(ctx13, src16, quants5, t3_, topk, *lam)
 
     class Counting(SearchModes):
         def scores(self, mb, sg, src, ctx, q, iq, y_lv, y2_lv, recon16):
@@ -828,25 +890,154 @@ def check_wavefront_search(dev, inputs):
             return super().scores(mb, sg, src, ctx, q, iq, y_lv, y2_lv,
                                   recon16)
 
-    wavefront_plain(*args[:5], Counting(args[5], rate, True, search=counted),
-                    use_derr=True, want_recon=False)
-    n_mb = B * mh * mw
-    n_i4 = int(main_want["is_i4"].sum())
+    refine = wfm.trellis_refine
+
+    def counted_refine(lv, cf, *tabs, first, **kw):
+        count["trellis"] += (lv.shape[0] * (16 - first) * OPS_TRELLIS_POS
+                             + int((lv[:, first:] != 0).sum())
+                             * OPS_TRELLIS_NZ)
+        return refine(lv, cf, *tabs, first=first, **kw)
+
+    wfm.trellis_refine = i4m.trellis_refine = counted_refine
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    try:
+        want = wfm.wavefront_plain(
+            *args[:5], Counting(args[5], rate, True, search=counted,
+                                lams=lams),
+            use_derr=True, want_recon=True,
+            trellis=search_trellis(rate, lams))
+    finally:
+        wfm.trellis_refine = i4m.trellis_refine = refine
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    for k in MODE_KEYS:
+        want[k] = want[k].to(torch.uint8)
+    B, H, W = args[0].shape
+    n_mb = B * (H // 16) * (W // 16)
+    n_i4 = int(want["is_i4"].sum())
     i16_mb = 16 * (OPS_PRED_I16 + OPS_FDCT + OPS_QUANT + OPS_DEQUANT
                    + OPS_IDCT + OPS_RES_RECON) + 64 + OPS_QUANT + 16 + 72
     uv_mb = 8 * (OPS_PRED_I16 + OPS_FDCT + OPS_QUANT + OPS_DEQUANT
                  + OPS_IDCT + OPS_RES_RECON) + 80
     i4_levels_mb = 16 * (OPS_PRED_B4 + OPS_FDCT + OPS_QUANT)
     modes_mb = (256 + 128) * OPS_SEARCH_PX + 256 * 3 + 17 * OPS_RATE_EOB
-    ops = (count["search"] + count["rate"] * OPS_RATE_POS
+    ops = (count["search"] + count["rate"] * OPS_RATE_POS + count["trellis"]
            + n_mb * (i16_mb + uv_mb + modes_mb) + n_i4 * i4_levels_mb)
+    return want, ops, plain_ms
+
+
+def trellis_lambdas(qsteps):
+    """The trellis pass's per-segment lambdas, (q_y1ac^2) >> 10 at least
+    1 (the host encoder's TRELLIS_LAMBDA_*), of (B, 4, 6) quantizer
+    rows."""
+    from gowebp_tpu_torch.models.vp8.encoder import (TRELLIS_LAMBDA_NUM,
+                                                     TRELLIS_LAMBDA_SHIFT)
+
+    q = qsteps[..., 1]
+    return ((TRELLIS_LAMBDA_NUM * q * q) >> TRELLIS_LAMBDA_SHIFT).clamp_min(
+        1).to(qsteps.dtype).contiguous()
+
+
+def first_pass_tables(first, dev):
+    """The trellis pass's cost tables: trellis_cost_tables of the
+    probabilities finalize_probas adapts to image 0's levels of a first
+    (method <= 5) pass, as encode_vp8_frame builds them."""
+    import numpy as np
+    import torch
+
+    from gowebp_tpu_torch.models.vp8.cost import trellis_cost_tables
+    from gowebp_tpu_torch.models.vp8.encoder import (_native_tokenizer_arrays,
+                                                     finalize_probas)
+
+    _, mh, mw = first["ymode"].shape
+    lv = {k: first[k][0].cpu().numpy() for k in ("y2_levels", "y_levels",
+                                                  "uv_levels", "is_i4")}
+    st = _native_tokenizer_arrays(lv["y2_levels"], lv["y_levels"],
+                                  lv["uv_levels"], lv["is_i4"], mw, mh)
+    probs, _ = finalize_probas(st["stats"])
+    return tuple(torch.from_numpy(t.astype(np.int32)).to(dev)
+                 for t in trellis_cost_tables(probs))
+
+
+def check_wavefront_search_trellis(dev, inputs):
+    """Phase 3d': wavefront_search's trellis form (method 6's second pass)
+    vs its plain version, bit for bit on every output and the recon: B=16
+    at 1024x1024 on one chunk's real planes, segments, penalties and
+    lambdas, the rate tables of image 0's first-pass probabilities; 3
+    repeated runs; odd MB grids (1x5, 5x1) and a mixed grid with the i4
+    search off.  Timed beside the plain version (its ptxas report is
+    phase 3d's)."""
+    import numpy as np
+    import torch
+
+    from gowebp_tpu_torch.ops.kernels.wavefront_search import (
+        search_tables, wavefront_search, wavefront_search_plain)
+
+    args = tuple(inputs[k].contiguous()
+                 for k in ("y", "u", "v", "seg", "qsteps", "pens"))
+    first = wavefront_search(*args, search_tables(inputs["tables"]),
+                             try_i4=True, use_derr=True, want_recon=False)
+    tables = first_pass_tables(first, dev)
+    rate = search_tables(tables, trellis=True)
+    lams = trellis_lambdas(args[4])
+
+    def compare(a, lam, try_i4, what, want=None):
+        if want is None:
+            want = wavefront_search_plain(*a, rate, try_i4=try_i4,
+                                          use_derr=True, want_recon=True,
+                                          lams=lam)
+        got = wavefront_search(*a, rate, try_i4=try_i4, use_derr=True,
+                               want_recon=True, lams=lam)
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want, list(want))
+        if not all(torch.equal(got[k], want[k]) for k in want):
+            raise AssertionError(f"wavefront_search trellis form != plain "
+                                 f"({what}, try_i4={try_i4}, max |err| {e})")
+        log(f"wavefront_search_trellis {what} try_i4={try_i4}: bit-exact; "
+            f"i4 MBs {want['is_i4'].float().mean().item():.3f}")
+        return e
+
+    B, H, W = args[0].shape
+    main_want, ops, plain_ms = search_plain_counted(args, rate, lams)
+    moved = sum(int((main_want[k] != first[k]).sum())
+                for k in ("y_levels", "uv_levels"))
+    log(f"wavefront_search_trellis: {moved} levels differ from the first "
+        f"pass's")
+    err = 0
+    for i in range(3):
+        err = max(err, compare(args, lams, True, f"B={B} {H}x{W} (chunk), "
+                               f"run {i + 1}", main_want))
+    rng = np.random.default_rng(20261018)
+    for b_, h_, w_, try_i4 in ((2, 16, 80, True), (2, 80, 16, True),
+                               (3, 48, 64, False)):
+        margs = mixed_search_args(dev, rng, b_, h_, w_)
+        err = max(err, compare(margs, trellis_lambdas(margs[4]), try_i4,
+                               f"mixed B={b_} {h_}x{w_}"))
+
+    def run():
+        return wavefront_search(*args, rate, try_i4=True, use_derr=True,
+                                want_recon=True, lams=lams)
+
+    ms = time_ms(run, reps=5)
+    one = tuple(t[:1].contiguous() for t in args)
+    one_ms = time_ms(lambda: wavefront_search(
+        *one, rate, try_i4=True, use_derr=True, want_recon=True,
+        lams=lams[:1].contiguous()), reps=5)
+    mh, mw = H // 16, W // 16
+    steps = (mw - 1) + 2 * (mh - 1) + 1
+    log(f"wavefront_search_trellis B={B} {H}x{W}: {ms:.3f} ms; B=1 "
+        f"{one_ms:.3f} ms = {one_ms / steps * 1e3:.2f} us per chained MB "
+        f"step")
     nbytes = sum(t.numel() * t.element_size() for t in args + rate)
+    nbytes += lams.numel() * lams.element_size()
     nbytes += sum(t.numel() * t.element_size() for t in main_want.values())
     bound_ms, bound_by = bound(nbytes, ops)
-    return {"name": "wavefront_search", "max_abs_err": err, "ms": ms,
-            "fn": lambda: wavefront_search(*args, rate, try_i4=True,
-                                           use_derr=True, want_recon=True),
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+    return {"name": "wavefront_search_trellis", "max_abs_err": err, "ms": ms,
+            "fn": run, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
 
 
 def check_yuv420(dev, gen):
@@ -1357,6 +1548,183 @@ def time_rows(rows, tag: str) -> None:
                 f"the bound counts more than the function needs")
 
 
+def soft_alpha_image(img):
+    """An RGBA image of ``img``'s pixels with a soft radial alpha mask and
+    a fully transparent top-left corner (a fifth of each side)."""
+    import numpy as np
+
+    h, w = img.shape[:2]
+    yy, xx = np.mgrid[0:h, 0:w]
+    alpha = (255 * (1 - np.hypot(yy - h / 2, xx - w / 2) / np.hypot(h, w)
+                    * 2)).clip(0, 255).astype(np.uint8)
+    alpha[: h // 5, : w // 5] = 0
+    return np.dstack([img, alpha])
+
+
+class StageTimer:
+    """Host-clock seconds of the single-image encode's stages, summed over
+    the calls made inside ``with`` (wrappers around the encoder module's
+    functions): "yuv" (RGB → YUV420), "dense" (the dense phase: upload,
+    the kernel, the levels' download), "emit" (token statistics,
+    probabilities, headers, emission) and "alph" (the ALPH chunk)."""
+
+    def __init__(self):
+        from gowebp_tpu_torch.models.vp8 import alpha as alpha_mod
+        from gowebp_tpu_torch.models.vp8 import encoder as enc_mod
+
+        self.targets = [(enc_mod, "rgb_to_yuv420", "yuv"),
+                        (enc_mod, "_dense_wavefront", "dense"),
+                        (enc_mod, "emit_frame_arrays", "emit"),
+                        (alpha_mod, "encode_alpha", "alph")]
+        self.s = {name: 0.0 for _, _, name in self.targets}
+
+    def __enter__(self):
+        self.saved = []
+        for mod, attr, name in self.targets:
+            fn = getattr(mod, attr)
+            self.saved.append((mod, attr, fn))
+
+            def timed(*a, _fn=fn, _name=name, **k):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a, **k)
+                finally:
+                    self.s[_name] += time.perf_counter() - t0
+
+            setattr(mod, attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self.saved:
+            setattr(mod, attr, fn)
+
+
+def single_image_encode(dev, images, reset_counts, read_counts, tag):
+    """Phase 8c: the single-image encode.  A 1024x1024 RGBA image with a
+    soft alpha mask and a fully transparent corner through
+    encode_rgba(device="cuda"): the defaults launch wavefront_search once
+    and no other kernel, method 6 its method <= 5 form once and its
+    trellis form once; GPU bytes == CPU bytes (defaults); latency, median
+    of 5, defaults and method 6, with the host stage split; then the
+    options on a 255x193 crop (autofilter: recon_filter_mb once a trial
+    level; plane_backend "jax-openloop": the two plane kernels;
+    "jax"; method 6; target_psnr; encode_yuv with alpha), each against
+    device="cpu"; every file decoded by the port and by Pillow to the same
+    pixels, alpha equal to the source's; a mixed batch with a non-opaque
+    image on the card against the CPU.  Returns the trellis form's
+    launches of the method-6 run."""
+    import numpy as np
+    import torch
+
+    import gowebp_tpu_torch as T
+    from gowebp_tpu_torch.models.vp8.encoder import (filter_level_from_q,
+                                                     quality_to_q)
+
+    def only(counts, want, what):
+        got = {k: n for k, n in counts.items() if n}
+        if got != want:
+            raise AssertionError(f"{what}: launches {got}, expected {want}")
+
+    def decodes_right(data, src):
+        port = T.decode_rgba(data, device="cuda")
+        if not np.array_equal(port, pillow_rgba(data)):
+            raise AssertionError("a single-image file decodes to other "
+                                 "pixels through Pillow than the port")
+        if src.shape[2] == 4 and not np.array_equal(port[..., 3],
+                                                    src[..., 3]):
+            raise AssertionError("the decoded alpha is not the source's")
+        return port
+
+    img = soft_alpha_image(images[12])
+    reset_counts()
+    t0 = time.perf_counter()
+    data = T.encode_rgba(img, device="cuda")
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    only(read_counts("single"), {"wavefront_search": 1}, "encode_rgba")
+    log(f"single-image encode: 1024x1024 RGBA, first call {first_s * 1e3:.1f}"
+        f" ms, {len(data)} bytes {tag}")
+    t0 = time.perf_counter()
+    if T.encode_rgba(img, device="cpu") != data:
+        raise AssertionError("encode_rgba GPU and CPU bytes differ")
+    log(f"single-image parity: GPU bytes == CPU bytes (1 MP, defaults; "
+        f"the CPU run {time.perf_counter() - t0:.1f} s)")
+    reset_counts()
+    m6 = T.encode_rgba(img, method=6, device="cuda")
+    torch.cuda.synchronize()
+    counts = read_counts("single_method6")
+    only(counts, {"wavefront_search": 1, "wavefront_search_trellis": 1},
+         "encode_rgba(method=6)")
+    trellis_launches = counts["wavefront_search_trellis"]
+    for d in (data, m6):
+        decodes_right(d, img)
+    log(f"single-image method 6: {len(m6)} bytes ({len(data)} at method 4); "
+        f"both decode by the port == Pillow, alpha == the source's")
+
+    for name, im, kw in (("RGBA", img, {}), ("RGBA", img, {"method": 6}),
+                         ("RGB", img[..., :3], {})):
+        total, stages = [], []
+        for _ in range(5):
+            with StageTimer() as st:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                T.encode_rgba(im, device="cuda", **kw)
+                torch.cuda.synchronize()
+                total.append((time.perf_counter() - t0) * 1e3)
+            stages.append(st.s)
+        med = {k: statistics.median(s[k] for s in stages) * 1e3
+               for k in stages[0]}
+        log(f"single-image latency {name} {kw or 'defaults'}: median of 5 "
+            f"{statistics.median(total):.3f} ms (min {min(total):.3f}, max "
+            f"{max(total):.3f}); host split (medians): "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in med.items())
+            + f" {tag}")
+
+    small = img[:193, :255]
+    base = filter_level_from_q(quality_to_q(75.0), 60, 0)
+    levels = {0, base // 2, base, min(63, base + base // 2 + 1),
+              min(63, 2 * base + 1)}
+    for kw, want in (
+            ({"autofilter": True}, {"wavefront_search": 1,
+                                    "recon_filter_mb": len(levels)}),
+            ({"plane_backend": "jax-openloop"},
+             {"encode_luma": 1, "encode_chroma": 1}),
+            ({"plane_backend": "jax", "segments": 2}, {"wavefront_search": 1}),
+            ({"method": 6, "quality": 90},
+             {"wavefront_search": 1, "wavefront_search_trellis": 1}),
+            ({"target_psnr": 34.0, "passes": 3}, None)):
+        cfg = T.EncoderConfig(**kw)
+        reset_counts()
+        got = T.encode_rgba(small, config=cfg, device="cuda")
+        torch.cuda.synchronize()
+        counts = {k: n for k, n in read_counts("single_options").items() if n}
+        if want is not None:
+            only(counts, want, f"encode_rgba({kw})")
+        if got != T.encode_rgba(small, config=cfg, device="cpu"):
+            raise AssertionError(f"encode_rgba({kw}) GPU and CPU bytes "
+                                 f"differ")
+        decodes_right(got, small)
+        log(f"single-image 255x193 {kw}: GPU bytes == CPU bytes, decodes "
+            f"right; launches {counts}")
+    rng = np.random.default_rng(5)
+    y = rng.integers(0, 256, (193, 255), dtype=np.uint8)
+    u, v = (rng.integers(0, 256, (97, 128), dtype=np.uint8) for _ in "uv")
+    if (T.encode_yuv(y, u, v, alpha=small[..., 3], device="cuda")
+            != T.encode_yuv(y, u, v, alpha=small[..., 3], device="cpu")):
+        raise AssertionError("encode_yuv GPU and CPU bytes differ")
+    mixed = [small, images[13][:150, :200], soft_alpha_image(
+        images[14][:64, :96])]
+    got = T.encode_rgba_batch(mixed, device="cuda")
+    if got != T.encode_rgba_batch(mixed, device="cpu"):
+        raise AssertionError("a mixed non-opaque batch: GPU and CPU bytes "
+                             "differ")
+    for d, src in zip(got, mixed):
+        decodes_right(d, src)
+    log("single-image encode_yuv with alpha and a mixed non-opaque batch of "
+        "3: GPU bytes == CPU bytes")
+    return trellis_launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import numpy as np
@@ -1384,22 +1752,28 @@ def main() -> int:
     from gowebp_tpu_torch.ops.kernels.cuda_build import build_all
     from gowebp_tpu_torch.utils.corpus import natural_images
 
-    counters = {"i4_search": i4m.i4_search, "i4_walk": i4m.i4_walk,
-                "wavefront_fixed": wfm.wavefront_fixed,
-                "yuv420_to_rgba": yuvm.yuv420_to_rgba,
-                **{name: getattr(epm, name) for name in epm.KERNELS},
-                "wavefront_search": wsm.wavefront_search,
-                "recon_filter_mb": kvr.recon_filter_mb}
+    # kernel name -> (wrapper, the wrapper's attribute that counts it);
+    # wavefront_search counts its trellis form apart
+    counters = {name: (fn, "launches") for name, fn in (
+        ("i4_search", i4m.i4_search), ("i4_walk", i4m.i4_walk),
+        ("wavefront_fixed", wfm.wavefront_fixed),
+        ("yuv420_to_rgba", yuvm.yuv420_to_rgba),
+        *((name, getattr(epm, name)) for name in epm.KERNELS),
+        ("wavefront_search", wsm.wavefront_search))}
+    counters["wavefront_search_trellis"] = (wsm.wavefront_search,
+                                            "trellis_launches")
+    counters["recon_filter_mb"] = (kvr.recon_filter_mb, "launches")
     by_path = {}
 
     def reset_counts():
-        for k in counters.values():
-            k.launches = 0
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
         torch.cuda.synchronize()
 
     def read_counts(path):
         """Every kernel's launches since reset_counts, kept as ``path``'s."""
-        by_path[path] = {n: k.launches for n, k in counters.items()}
+        by_path[path] = {n: getattr(fn, attr)
+                         for n, (fn, attr) in counters.items()}
         return by_path[path]
 
     dev = torch.device("cuda:0")
@@ -1436,6 +1810,7 @@ def main() -> int:
             check_wavefront(dev, gen), check_yuv420(dev, gen)]
     rows += check_encode_plane(dev, gen)
     rows.append(check_wavefront_search(dev, chunk))
+    rows.append(check_wavefront_search_trellis(dev, chunk))
     time_rows(rows, tag)
 
     # ---- phase 4: the encode path ----
@@ -1935,6 +2310,10 @@ def main() -> int:
     if min(e_scores) < 20.0:
         raise AssertionError(f"exact-engine decode below 20 dB "
                              f"({min(e_scores):.3f})")
+
+    # ---- phase 8c: the single-image encode ----
+    launches["wavefront_search_trellis"] = single_image_encode(
+        dev, images, reset_counts, read_counts, tag)
 
     # ---- phase 9: result lines ----
     kernels = []

@@ -1,9 +1,13 @@
-"""gowebp_tpu_torch — the WebP codec's batch lossy encode and its decode
-on PyTorch + CUDA.
+"""gowebp_tpu_torch — the WebP codec's lossy encode and its decode on
+PyTorch + CUDA.
 
-A port of the gowebp_tpu package's batch encode (hybrid, exact
-wavefront and open-loop engines), batch decode and single-file decode to
-PyTorch with hand-written Hopper (sm_90a) CUDA kernels.  Entry points:
+A port of the gowebp_tpu package's single-image lossy encode, batch
+encode (hybrid, exact wavefront and open-loop engines), batch decode and
+single-file decode to PyTorch with hand-written Hopper (sm_90a) CUDA
+kernels.  Entry points: ``encode_rgba(rgba, quality=75.0, method=4,
+config=None, stats=None, device=None)`` and ``encode_yuv(y, u, v,
+alpha=None, ...)`` with ``EncoderConfig`` and ``EncodeStats`` (lossy
+only: ``lossless=True`` raises UnsupportedFeature);
 ``encode_rgba_batch(images, quality=75.0, device=None,
 engine="hybrid"|"wavefront"|"openloop")``;
 ``decode_rgba_batch(datas, device=None, device_out=False,
@@ -18,15 +22,19 @@ plain torch versions and gives identical bytes and pixels.
 
 from .decode import (decode, decode_into, decode_rgb, decode_rgba,
                      decode_rgba_batch, decode_yuv, decode_yuva, features)
+from .config import EncoderConfig
 from .decode_options import DecoderConfig
-from .encode import encode_rgba_batch
+from .encode import encode_rgba, encode_rgba_batch, encode_yuv
 from .errors import (BitstreamError, EncodeError, InvalidConfig,
                      NotEnoughData, UnsupportedFeature, WebPError)
+from .stats import EncodeStats
 
 __all__ = [
     "BitstreamError",
     "DecoderConfig",
     "EncodeError",
+    "EncodeStats",
+    "EncoderConfig",
     "InvalidConfig",
     "NotEnoughData",
     "UnsupportedFeature",
@@ -38,6 +46,8 @@ __all__ = [
     "decode_rgba_batch",
     "decode_yuv",
     "decode_yuva",
+    "encode_rgba",
     "encode_rgba_batch",
+    "encode_yuv",
     "features",
 ]

@@ -60,6 +60,15 @@ class EncoderConfig:
     use_sharp_yuv: bool = False
     qmin: int = 0
     qmax: int = 100
+    # Which of the reference package's dense-phase backends' decisions
+    # (and bytes) the single-image encode gives; the names are the
+    # reference's, and every value runs on the card here.  "numpy" = the
+    # host encoder's (trellis at method 6, segment smoothing, rate
+    # control, emulate_jpeg_size, low_memory, statistics; the exact
+    # full-search engine as its dense phase); "jax" = the exact engine
+    # with the plain quantizer mapping; "jax-openloop" = the open-loop
+    # plane engine (one quantizer, i16 only, prediction drift).
+    plane_backend: str = "numpy"
     # Optional progress callback: hook(percent:int)->bool; returning False
     # aborts the encode (reference: Picture.progress_hook + USER_ABORT,
     # picture.go:253-265).

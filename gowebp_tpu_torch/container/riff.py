@@ -1,7 +1,8 @@
 """RIFF container parsing and assembly for WebP files.
 
-The writer emits a RIFF wrapper holding one bare "VP8 " chunk, which is
-all the batch lossy encode emits.  The reader splits a WebP file (simple
+The writer emits a RIFF wrapper holding one bare "VP8 " chunk (a simple
+file), or a VP8X header, an ALPH chunk and the "VP8 " chunk (a lossy
+file with alpha).  The reader splits a WebP file (simple
 or VP8X extended) into its chunks, which the decode routes by, checks
 and reads the VP8X header, probes a VP8 key frame's or a VP8L header's
 dimensions, and reports a file's features without decoding it.  Written
@@ -166,6 +167,18 @@ def get_features(data: bytes) -> WebPFeatures:
     return WebPFeatures(width, height, has_alpha, has_anim, fmt)
 
 
+def build_vp8x(width: int, height: int, *, has_alpha: bool = False) -> Chunk:
+    """The VP8X extended-header chunk (only the alpha flag is used)."""
+    flags = VP8X_FLAG_ALPHA if has_alpha else 0
+    payload = (struct.pack("<I", flags) + _pack_u24le(width - 1)
+               + _pack_u24le(height - 1))
+    return Chunk(CHUNK_VP8X, payload)
+
+
+def _pack_u24le(v: int) -> bytes:
+    return bytes((v & 0xFF, (v >> 8) & 0xFF, (v >> 16) & 0xFF))
+
+
 def assemble(chunks: list[Chunk]) -> bytes:
     """Wrap chunks in a RIFF/WEBP container."""
     body = b"".join(c.serialize() for c in chunks)
@@ -178,5 +191,5 @@ def assemble_simple(image_chunk: Chunk) -> bytes:
 
 
 __all__ = ["Chunk", "ParsedWebP", "WebPFeatures", "assemble",
-           "assemble_simple", "get_features", "parse_riff", "vp8_dimensions",
+           "assemble_simple", "build_vp8x", "get_features", "parse_riff", "vp8_dimensions",
            "vp8l_dimensions"]

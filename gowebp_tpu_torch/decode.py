@@ -348,12 +348,15 @@ def _alpha_dither(rgba, strength: int):
     return out
 
 
-def _vp8_planes(payload: bytes, alpha_payload, config: DecoderConfig, dev):
+def _vp8_planes(payload: bytes, alpha_payload, config: DecoderConfig, dev,
+                filter_level_override: int | None = None):
     """One lossy frame on ``dev`` → its MB-padded (1, Hy, Wy) Y and
     (1, Hc, Wc) U, V planes, filtered and dithered; its (1, H, W) alpha
-    plane or None; and its frame header."""
+    plane or None; and its frame header.  ``filter_level_override``
+    replaces the frame's loop-filter level."""
     st, coeffs, modes = decode_vp8_symbols(
-        payload, bypass_filtering=config.bypass_filtering)
+        payload, bypass_filtering=config.bypass_filtering,
+        filter_level_override=filter_level_override)
     plane = (None if alpha_payload is None
              else decode_alpha(alpha_payload, st.width, st.height))
     dc, dm, dfp, alpha = _upload(
@@ -472,8 +475,15 @@ def decode_yuv(data: bytes, *, device=None):
     """Decode a lossy file to its (y, u, v) uint8 planes, cropped to the
     frame (chroma ⌈H/2⌉ x ⌈W/2⌉)."""
     dev = resolve_device(device)
-    payload = _lossy_chunk(parse_riff(data))
-    Y, U, V, _, st = _vp8_planes(payload, None, DecoderConfig(), dev)
+    return decode_vp8_yuv(_lossy_chunk(parse_riff(data)), device=dev)
+
+
+def decode_vp8_yuv(payload: bytes, *, filter_level_override=None, device):
+    """A VP8 chunk payload → its (y, u, v) uint8 numpy planes, cropped:
+    the encoder's own decode (filter-level trials, rate control, PSNR),
+    through the recon and loop-filter kernel on ``device``."""
+    Y, U, V, _, st = _vp8_planes(payload, None, DecoderConfig(), device,
+                                 filter_level_override)
     H, W = st.height, st.width
     h2, w2 = (H + 1) // 2, (W + 1) // 2
     return tuple(p.contiguous().cpu().numpy()

@@ -1,9 +1,11 @@
-"""LSB-first bit reader for the VP8L lossless bitstream.
+"""LSB-first bit I/O for the VP8L lossless bitstream.
 
 Bits are packed into bytes starting at the least-significant bit.  The
-VP8L decoder reads its headers with this class; the pixel loop and the
+VP8L decoder reads its headers with ``BitReader``; the pixel loop and the
 prefix-code section run in the native layer (entropy/native/vp8l_dec.cpp),
 which takes the reader's ``bit_pos`` and hands back where it stopped.
+The VP8L encoder (the ALPH chunk's stream) writes with ``BitWriter``; its
+symbol emission runs natively too and continues the writer's state.
 """
 
 from __future__ import annotations
@@ -46,4 +48,31 @@ class BitReader:
         return self.read_bits(1)
 
 
-__all__ = ["BitReader"]
+class BitWriter:
+    """LSB-first bit writer with a Python-int accumulator."""
+
+    __slots__ = ("_buf", "_acc", "_used")
+
+    def __init__(self):
+        self._buf = bytearray()
+        self._acc = 0
+        self._used = 0
+
+    def put_bits(self, value: int, n: int) -> None:
+        """Append the low n bits of value (lowest bit written first)."""
+        self._acc |= (value & ((1 << n) - 1)) << self._used
+        self._used += n
+        while self._used >= 8:
+            self._buf.append(self._acc & 0xFF)
+            self._acc >>= 8
+            self._used -= 8
+
+    def getvalue(self) -> bytes:
+        """Final byte string (zero-pads the trailing partial byte)."""
+        out = bytes(self._buf)
+        if self._used:
+            out += bytes([self._acc & 0xFF])
+        return out
+
+
+__all__ = ["BitReader", "BitWriter"]

@@ -4,9 +4,9 @@ Compiles gowebp_tpu_torch/entropy/native/*.cpp with g++ into one shared
 library under gowebp_tpu_torch/_build/ on first use (cached by source
 hash), for the build host's own instruction set (``-march=native``): the
 interleaved symbol decoder (vp8_dec_batch.cpp) vectorises only where
-AVX-512 is there.  The batch encoder and decoder, the VP8L and ALPH
-decoders and the host reconstruction have no pure-Python fallback for
-these functions: a failed build raises.
+AVX-512 is there.  The encoders' emission, the VP8L (ALPH) stream
+writer's parsers, the decoders and the host reconstruction have no
+pure-Python fallback for these functions: a failed build raises.
 """
 
 from __future__ import annotations
@@ -176,6 +176,53 @@ def _configure(lib) -> None:
     lib.wtpu_argb_to_rgba.argtypes = [u32p, u8p, c.c_int64]
     lib.wtpu_alpha_unfilter.restype = None
     lib.wtpu_alpha_unfilter.argtypes = [u8p, c.c_int, c.c_int, c.c_int]
+
+    # VP8L encode (the ALPH chunk's spatial stream): backward references,
+    # the colour cache and the symbol emission
+    f32p = c.POINTER(c.c_float)
+    lib.wtpu_vp8l_hashchain_refs.restype = c.c_int64
+    lib.wtpu_vp8l_hashchain_refs.argtypes = [
+        u32p, c.c_int64, c.c_int, c.c_int, c.c_int,   # flat, n, width, depth, cache
+        u8p, u32p, i32p, i32p,                        # ops, argbs, lens, dists
+    ]
+    lib.wtpu_vp8l_greedy_refs.restype = c.c_int64
+    lib.wtpu_vp8l_greedy_refs.argtypes = [
+        u32p, c.c_int64, c.c_int, c.c_int, c.c_int,   # flat, n, width, min, max
+        u8p, u32p, i32p, i32p,
+    ]
+    lib.wtpu_vp8l_optimal_refs.restype = c.c_int64
+    lib.wtpu_vp8l_optimal_refs.argtypes = [
+        u32p, c.c_int64, c.c_int, c.c_int, c.c_int,   # flat, n, width, depth, cache
+        f32p, f32p, f32p, f32p, f32p,                 # symbol costs of the 5 trees
+        i32p, c.c_int,                                # dist lut, its size
+        u8p, u32p, i32p, i32p,
+    ]
+    lib.wtpu_vp8l_cache_score.restype = None
+    lib.wtpu_vp8l_cache_score.argtypes = [
+        u8p, u32p, i32p, c.c_int64, u32p, c.c_int, c.POINTER(c.c_double),
+    ]
+    lib.wtpu_vp8l_cache_apply.restype = None
+    lib.wtpu_vp8l_cache_apply.argtypes = [
+        u8p, u32p, i32p, c.c_int64, u32p, c.c_int,
+    ]
+    lib.wtpu_vp8l_emit.restype = c.c_int
+    lib.wtpu_vp8l_emit.argtypes = [
+        u8p, u32p, i32p, i32p, c.c_int64, c.c_int,    # refs, n_ops, width
+        c.POINTER(c.c_uint16), u8p, i32p,             # code bits, lengths, offsets
+        i32p, c.c_int,                                # dist lut, its size
+        c.c_uint32, c.c_int,                          # writer acc, used bits
+        c.POINTER(c.POINTER(c.c_uint8)), u64p,        # out bytes, their count
+        u32p, i32p,                                   # writer acc, used after
+    ]
+    lib.wtpu_vp8l_emit_grouped.restype = c.c_int
+    lib.wtpu_vp8l_emit_grouped.argtypes = [
+        u8p, u32p, i32p, i32p, i32p, c.c_int64, c.c_int,  # refs, groups, n, w
+        c.POINTER(c.c_uint16), u8p, i32p, c.c_int,        # codes, offsets, groups
+        i32p, c.c_int,
+        c.c_uint32, c.c_int,
+        c.POINTER(c.POINTER(c.c_uint8)), u64p,
+        u32p, i32p,
+    ]
 
 
 __all__ = ["get_lib"]

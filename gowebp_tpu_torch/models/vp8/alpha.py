@@ -1,11 +1,13 @@
-"""ALPH chunk decoding (the alpha plane of a lossy WebP file).
+"""ALPH chunk decoding and encoding (the alpha plane of a lossy WebP file).
 
 Header byte: bits 0-1 compression method (0=raw, 1=VP8L 8-bit stream),
 bits 2-3 spatial filter (none/horizontal/vertical/gradient), bits 4-5
 pre-processing (0=none, 1=quantized levels), bits 6-7 reserved.  The
 filter's inverse runs in the native layer (entropy/native/alpha_dec.cpp:
 the gradient filter is a per-pixel recurrence); the level smoothing in
-numpy float64.  Written from the WebP container spec.
+numpy float64.  The encoder filters the plane (numpy), then stores it
+raw or as a VP8L stream (models/vp8l/encoder.py).  Written from the WebP
+container spec.
 """
 
 from __future__ import annotations
@@ -17,7 +19,10 @@ import numpy as np
 from ...entropy.native_loader import get_lib
 from ...errors import BitstreamError
 
-FILTER_NONE = 0          # then 1 horizontal, 2 vertical, 3 gradient
+FILTER_NONE = 0
+FILTER_HORIZONTAL = 1
+FILTER_VERTICAL = 2
+FILTER_GRADIENT = 3
 
 
 def _unfilter(method: int, data: np.ndarray) -> np.ndarray:
@@ -81,4 +86,58 @@ def dequantize_levels(plane: np.ndarray) -> np.ndarray:
     return np.clip(np.rint(sm), lo, hi).clip(0, 255).astype(np.uint8)
 
 
-__all__ = ["decode_alpha", "dequantize_levels"]
+def encode_alpha(plane: np.ndarray, *, method: int = 1, quality: int = 100,
+                 filtering_level: int = 1) -> bytes:
+    """(H, W) uint8 alpha plane → ALPH chunk payload.
+
+    method: 0 = raw, 1 = VP8L stream.  filtering_level: 0 = none, 1 =
+    the smaller of none and gradient, 2 = the smallest of all four
+    spatial filters.  quality < 100 first
+    reduces the plane's levels.
+    """
+    if quality < 100:
+        from ..vp8l.near_lossless import quantize_alpha_levels
+
+        plane = quantize_alpha_levels(plane, quality)
+
+    def encode_with(fm: int) -> bytes:
+        filtered = _filter(fm, plane)
+        hdr = (method & 3) | ((fm & 3) << 2)
+        if method == 0:
+            return bytes([hdr]) + filtered.tobytes()
+        from ..vp8l.encoder import encode_vp8l_alpha
+
+        return bytes([hdr]) + encode_vp8l_alpha(filtered)
+
+    if filtering_level == 0:
+        return encode_with(FILTER_NONE)
+    if filtering_level == 1:
+        return min(
+            (encode_with(FILTER_NONE), encode_with(FILTER_GRADIENT)), key=len
+        )
+    return min((encode_with(f) for f in range(4)), key=len)
+
+
+def _filter(method: int, data: np.ndarray) -> np.ndarray:
+    """Forward alpha spatial filter (encoder side)."""
+    if method == FILTER_NONE:
+        return data
+    d = data.astype(np.int64)
+    out = np.zeros_like(d)
+    out[0, 0] = d[0, 0]
+    out[0, 1:] = d[0, 1:] - d[0, :-1]
+    if method == FILTER_HORIZONTAL:
+        out[1:, 0] = d[1:, 0] - d[:-1, 0]
+        out[1:, 1:] = d[1:, 1:] - d[1:, :-1]
+    elif method == FILTER_VERTICAL:
+        out[1:] = d[1:] - d[:-1]
+    elif method == FILTER_GRADIENT:
+        out[1:, 0] = d[1:, 0] - d[:-1, 0]
+        grad = d[1:, :-1] + d[:-1, 1:] - d[:-1, :-1]
+        out[1:, 1:] = d[1:, 1:] - np.clip(grad, 0, 255)
+    else:
+        raise ValueError("bad filter")
+    return (out & 0xFF).astype(np.uint8)
+
+
+__all__ = ["decode_alpha", "dequantize_levels", "encode_alpha"]

@@ -298,16 +298,24 @@ def _partition_bounds(st: FrameState) -> tuple[bytes, np.ndarray]:
     return b"".join(st.partition_bytes), bounds
 
 
-def decode_vp8_symbols(payload: bytes, bypass_filtering: bool = False):
+def decode_vp8_symbols(payload: bytes, bypass_filtering: bool = False,
+                       filter_level_override: int | None = None):
     """Host entropy phase of one image, single-stream engine.
 
     Returns ``(st, coeffs, modes)``: ``coeffs`` int16 (mb_h*mb_w, 24, 16)
     dequantized coefficients in raster order within each block (luma DCs
     already inverse-WHT'd for i16 MBs), ``modes`` uint8 (mb_h*mb_w, 21):
     [is_i4, uvmode, segment, skip, dither, imodes x16].
-    ``bypass_filtering`` turns the loop filter off (``st.filter_type`` 0).
+    ``bypass_filtering`` turns the loop filter off (``st.filter_type`` 0);
+    ``filter_level_override`` replaces the header's filter level (the
+    encoder's filter-level trials; 0 turns the filter off).
     """
     st, bd = parse_frame_header(payload)
+    if filter_level_override is not None:
+        st.filter_hdr.level = filter_level_override
+        st.filter_type = 0 if filter_level_override == 0 else (
+            1 if st.filter_hdr.simple else 2
+        )
     if bypass_filtering:
         st.filter_type = 0
     n = st.mb_w * st.mb_h

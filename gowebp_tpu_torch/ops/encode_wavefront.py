@@ -244,7 +244,8 @@ def _i4_search_parallel(y, cy, qlane, iqlane, pen_n, t3, topk=None):
 
 def encode_wavefront_core(y, u, v, seg_map, qsteps, tables=None, *,
                           modes=None, try_i4: bool = False, i4_penalty=None,
-                          want_recon: bool = False, use_derr: bool = False):
+                          want_recon: bool = False, use_derr: bool = False,
+                          trellis=None):
     """Exact closed-loop encode of every MB, in anti-diagonal order.
 
     y (B, H, W) and u/v (B, H/2, W/2) planes (uint8, or int32 holding
@@ -256,6 +257,12 @@ def encode_wavefront_core(y, u, v, seg_map, qsteps, tables=None, *,
     every MB's modes inside the loop (the full-search kernel), with the
     i4 search when ``try_i4`` (``tables`` the (p0, p1, val) cost tables,
     ``i4_penalty`` a (B, 4) int32 tensor of per-segment RD lambdas).
+    ``trellis`` (with ``modes`` None), a (B, 4) int32 tensor of
+    per-segment trellis lambdas, runs the search's trellis form (the host
+    encoder's second pass at method 6): every block's levels are
+    trellis-refined, and ``tables`` (then needed even without ``try_i4``)
+    are the first pass's adapted cost tables, the rate model of both the
+    search and the trellis.
     Runs the kernel on CUDA tensors and its plain version on CPU tensors.
 
     Returns uint8 ymode/uvmode/is_i4/imodes (imodes = ymode repeated
@@ -267,13 +274,16 @@ def encode_wavefront_core(y, u, v, seg_map, qsteps, tables=None, *,
     planes = tuple(p.to(U8).contiguous() for p in (y, u, v))
     seg_map, qsteps = (t.to(I32).contiguous() for t in (seg_map, qsteps))
     if modes is None:
-        pens = rate = None
+        pens = rate = lams = None
         if try_i4:
             pens = i4_penalty.to(I32).contiguous()
-            rate = search_tables(tables)
+        if trellis is not None:
+            lams = trellis.to(I32).contiguous()
+        if try_i4 or trellis is not None:
+            rate = search_tables(tables, trellis=trellis is not None)
         return wavefront_search(*planes, seg_map, qsteps, pens, rate,
                                 try_i4=try_i4, use_derr=use_derr,
-                                want_recon=want_recon)
+                                want_recon=want_recon, lams=lams)
     ymode, uvmode, is_i4, imodes = (m.to(I32).contiguous() for m in modes)
     out = wavefront_fixed(*planes, seg_map, qsteps, ymode, uvmode, is_i4,
                           imodes, use_derr=use_derr, want_recon=want_recon)

@@ -226,10 +226,14 @@ __device__ __forceinline__ int pred_lane(int4 e, const unsigned char* s, int dc)
 // 2^18, SSE < 2^20), so key[j] = cost << 4 | mode orders the candidates
 // by (cost, mode): the least key is the first minimum.  All 32 lanes call
 // it.
-template <int N>
+//
+// refine(x, lv), called with the coefficients in x and the levels in lv,
+// may change the levels before the rate and the dequantization
+// (wavefront_search.cu's trellis form).
+template <int N, typename Refine>
 __device__ __forceinline__ void score_lanes(const int4* ptab, int m0, int k, const int* sy,
                                             int base, int src, const Quant& q, const Tables& t,
-                                            int* key, int* rec, int* lv) {
+                                            int* key, int* rec, int* lv, Refine refine) {
   int dc = 4;  // the DC prediction: (top 4 + left 4 + 4) >> 3
 #pragma unroll
   for (int i = 0; i < 4; i++) dc += sy[base + 1 + i] + sy[base + (1 + i) * kSW];
@@ -243,10 +247,11 @@ __device__ __forceinline__ void score_lanes(const int4* ptab, int m0, int k, con
   }
   fdct_lean<N>(x, k);
 #pragma unroll
-  for (int j = 0; j < N; j++) {
+  for (int j = 0; j < N; j++)
     lv[j] = quant_lane(x[j], k, q.iq_dc, q.iq_ac, kBiasY1Dc, kBiasY1Ac, false);
-    x[j] = lv[j] * (k == 0 ? q.q_dc : q.q_ac);
-  }
+  refine(x, lv);
+#pragma unroll
+  for (int j = 0; j < N; j++) x[j] = lv[j] * (k == 0 ? q.q_dc : q.q_ac);
   rate_lanes<N, 0>(lv, k, t, rate);
   idct_lean<N>(x, k);
 #pragma unroll
@@ -260,6 +265,79 @@ __device__ __forceinline__ void score_lanes(const int4* ptab, int m0, int k, con
   for (int j = 0; j < N; j++) {
     const int cost = key[j] + mul_shr16(q.pen, rate[j] + mode4_bits(m0 + j));
     key[j] = cost << 4 | (m0 + j);
+  }
+}
+
+// Trellis quantization of one block by one lane (the host encoder's
+// trellis_refine, wavefront_search.cu's trellis form): each non-zero
+// zigzag level l0 of lv (in place, positions kFirst..15) is kept or
+// lowered to l0 - 1 (never to 0) by the least distortion (|c| - v q)^2 +
+// lam * token rate over the whole block, c its raster coefficient in cf, q
+// dc_q at position 0 and ac_q elsewhere, the rate the exact token
+// grammar's (rate_walk's rules, ctx0 = 1) on the position tables t.
+// A DP over positions with 2 states, the candidate taken at the last
+// non-zero so far (its score, the context it leaves, the rate since it:
+// the continue bit and the zero run), all in registers: the loops are
+// unrolled and the choices a bit per position and candidate.  Scores are
+// int64; ties keep the unlowered level and the lower predecessor.
+template <int kFirst>
+__device__ __forceinline__ void trellis_refine(int16_t* lv, const int* cf, int dc_q, int ac_q,
+                                               int lam, const Tables& t) {
+  constexpr long long kInf = 1ll << 60;
+  long long s0 = 0, s1 = kInf;    // the scores of the two states
+  int c0 = 1, c1 = 1, a0 = 0, a1 = 0, nxt = kFirst;  // contexts, run rates, last nz + 1
+  unsigned m0 = 0, m1 = 0;        // bit n: candidate 0 / 1 at n came from state 1
+  const long long L = lam;
+#pragma unroll
+  for (int n = kFirst; n < 16; n++) {
+    const int l = lv[n], v = l < 0 ? -l : l;
+    const bool after = nxt == n;
+    const int r0 = 3 * n + (after ? c0 : 0), r1 = 3 * n + (after ? c1 : 0);
+    const int4 P0 = t.pp[r0], P1 = t.pp[r1];
+    if (after) {
+      a0 = P0.y;
+      a1 = P1.y;
+    }
+    if (v == 0) {
+      a0 += P0.z;
+      a1 += P1.z;
+      continue;
+    }
+    const int raw = cf[zigzag_lane(n)], araw = raw < 0 ? -raw : raw;
+    const int qs = n == 0 ? dc_q : ac_q;
+    const long long b0 = s0 + (long long)(a0 + P0.w + 256) * L;
+    const long long b1 = s1 + (long long)(a1 + P1.w + 256) * L;
+    long long ns[2];
+    unsigned pick[2];
+#pragma unroll
+    for (int c = 0; c < 2; c++) {
+      const int w = v - c, wv = w > 67 ? 67 : w;
+      const long long e = araw - w * qs;
+      const long long t0 = b0 + t.val[r0 * 68 + wv] * L + e * e;
+      const long long t1 = s1 >= kInf ? kInf : b1 + t.val[r1 * 68 + wv] * L + e * e;
+      pick[c] = t1 < t0;
+      ns[c] = (c == 1 && w < 1) ? kInf : (pick[c] ? t1 : t0);
+    }
+    m0 |= pick[0] << n;
+    m1 |= pick[1] << n;
+    s0 = ns[0];
+    s1 = ns[1];
+    c0 = v == 1 ? 1 : 2;
+    c1 = v - 1 == 1 ? 1 : 2;
+    nxt = n + 1;
+  }
+  if (nxt <= 15) {  // the end-of-block bit after the last non-zero
+    s0 += t.pp[3 * nxt + c0].x * L;
+    if (s1 < kInf) s1 += t.pp[3 * nxt + c1].x * L;
+  }
+  unsigned cur = s1 < s0;
+#pragma unroll
+  for (int n = 15; n >= kFirst; n--) {
+    const int l = lv[n];
+    if (l == 0) continue;
+    const int w = (l < 0 ? -l : l) - (int)cur;
+    lv[n] = (int16_t)(l < 0 ? -w : w);
+    cur = ((cur ? m1 : m0) >> n) & 1;
   }
 }
 

@@ -34,7 +34,8 @@ import ctypes
 import torch
 
 from ..dct import BIAS, dequantize, fdct4x4, idct_add_clip, quantize
-from ..rate import mul_shr16, position_tables, rate_by_position
+from ..rate import (mul_shr16, position_tables, rate_by_position,
+                    trellis_refine)
 from ..vp8_recon import _pred_luma4_all
 from .cuda_build import CudaLibrary, check_tensor, stream_handle
 
@@ -80,10 +81,13 @@ def rank_modes(preds, src, topk: int):
     return torch.sort(key, dim=-1).indices[:, :topk]
 
 
-def i4_search_plain(ctx13, src16, quants5, t3, topk=None):
+def i4_search_plain(ctx13, src16, quants5, t3, topk=None, lam=None):
     """Vectorised torch version of the kernel (any device).
 
-    Returns (bmode (S,) int32, cost (S,) int32, rec (S, 16) uint8).
+    ``lam`` (S,) int, if given, trellis-refines each candidate's levels
+    (``trellis_refine`` on ``t3``, lambda ``lam``) before it is scored:
+    the exact engine's trellis pass.  Returns (bmode (S,) int32, cost (S,)
+    int32, rec (S, 16) uint8).
     """
     S = ctx13.shape[0]
     ctx13 = ctx13.to(I32)
@@ -99,6 +103,15 @@ def i4_search_plain(ctx13, src16, quants5, t3, topk=None):
     cf = fdct4x4(src - preds)
     lv = quantize(cf, q[:, 0:1], BIAS["y1_dc"], q[:, 1:2],
                   BIAS["y1_ac"])                              # (S,k,16)
+    if lam is not None:
+        k = lv.shape[1]
+
+        def rep(t):
+            return t[:, None].expand(S, k).reshape(-1)
+
+        lv = trellis_refine(lv.reshape(-1, 16), cf.reshape(-1, 16), *t3,
+                            first=0, ctx0=1, dc_q=rep(q[:, 2]),
+                            ac_q=rep(q[:, 3]), lam=rep(lam)).reshape(lv.shape)
     rec = idct_add_clip(dequantize(lv, q[:, 2:3], q[:, 3:4]), preds)
     d = src - rec
     dist = (d * d).sum(dim=(-1, -2), dtype=I32)
@@ -146,7 +159,8 @@ i4_search.launches = 0
 
 
 def i4_walk_plain(src, top16, tr4, left16, tl, qlane, iqlane, pen, t3, *,
-                  want_recon: bool = False, topk=None, search=i4_search_plain):
+                  want_recon: bool = False, topk=None, search=i4_search_plain,
+                  lam=None):
     """The 16-substep within-MB i4 walk over every MB at once (any device).
 
     src (B, N, 16, 16) int32 source MBs; top16 (B, N, 16), tr4 (B, N, 4),
@@ -160,6 +174,7 @@ def i4_walk_plain(src, top16, tr4, left16, tl, qlane, iqlane, pen, t3, *,
     s4 (B, N)) int32, and with ``want_recon`` the winners' recon (B, N,
     16, 16) uint8.  ``search`` scores each substep's B*N sub-blocks
     (``i4_search`` makes the walk 16 launches of the flat kernel).
+    ``lam`` (B, N), if given, is ``i4_search_plain``'s trellis lambda.
     """
     B, N = src.shape[:2]
     dev = src.device
@@ -179,8 +194,9 @@ def i4_walk_plain(src, top16, tr4, left16, tl, qlane, iqlane, pen, t3, *,
         ctx13 = torch.cat([scr[:, :, r, c:c + 5], tr,
                            scr[:, :, r + 1:r + 5, c]], dim=-1)
         src16 = src[:, :, r:r + 4, c:c + 4].reshape(B * N, 16)
+        extra = () if lam is None else (lam.reshape(B * N),)
         bmode, bcost, brec = search(ctx13.reshape(B * N, 13), src16,
-                                    quants5, t3, topk)
+                                    quants5, t3, topk, *extra)
         scr[:, :, r + 1:r + 5, c + 1:c + 5] = brec.reshape(B, N, 4, 4)
         bmodes[:, :, n] = bmode.reshape(B, N)
         s4 += bcost.reshape(B, N)

@@ -30,6 +30,7 @@ import torch
 
 from ..dct import (BIAS, dequantize, fdct4x4, fwht4x4, idct_add_clip,
                    iwht4x4, quantize)
+from ..rate import trellis_refine
 from ..vp8_recon import _pred_luma4_all, num_diagonals, predict4_blocks
 from .cuda_build import CudaLibrary, check_tensor, stream_handle
 
@@ -66,15 +67,49 @@ def _plane(tiles):
     return tiles.permute(0, 1, 3, 2, 4).reshape(B, mh * s, mw * s)
 
 
-def _quant_rows(cf, iq, q, k_dc, k_ac, bias_dc, bias_ac, first_ac=False):
+def _quant_rows(cf, iq, q, k_dc, k_ac, bias_dc, bias_ac, first_ac=False,
+                refine=None):
     """Per-MB quantize + dequantize of (M, ..., 4, 4) raster blocks with
-    the MB's (M, 6) quantizer rows; returns (levels, dequantized)."""
+    the MB's (M, 6) quantizer rows; returns (levels, dequantized).
+    ``refine(levels, cf)``, if given, refines the levels before the
+    dequantization (``Trellis.refine``)."""
     extra = (None,) * (cf.dim() - 3)
     iq_dc, iq_ac = iq[(slice(None), k_dc) + extra], iq[(slice(None), k_ac) + extra]
     lv = quantize(cf, iq_dc, bias_dc, iq_ac, bias_ac, first_ac=first_ac)
+    if refine is not None:
+        lv = refine(lv, cf)
     deq = dequantize(lv, q[(slice(None), k_dc) + extra],
                      q[(slice(None), k_ac) + extra])
     return lv, deq
+
+
+class Trellis:
+    """The trellis pass of ``wavefront_plain`` (method 6): every block's
+    levels refined by ``trellis_refine`` right after its quantization,
+    with ``rate`` {token type: its per-position (p0, p1, val) tables} and
+    ``lams`` (B, 4) int32 per-segment lambdas."""
+
+    def __init__(self, rate, lams):
+        self.rate, self.lams = rate, lams
+
+    def refine(self, type: int, first: int, lam, dc_q, ac_q):
+        """A ``_quant_rows`` refine of (M, ..., 16) levels of M MBs with
+        their (M,) lambdas and steps."""
+        tabs = self.rate[type]
+
+        def run(lv, cf):
+            M = lv.shape[0]
+            n = lv[..., 0].numel() // max(M, 1)
+
+            def rep(t):
+                return t[:, None].expand(M, n).reshape(-1)
+
+            return trellis_refine(
+                lv.reshape(-1, 16), cf.reshape(-1, 16), *tabs, first=first,
+                ctx0=1, dc_q=rep(dc_q), ac_q=rep(ac_q),
+                lam=rep(lam)).reshape(lv.shape)
+
+        return run
 
 
 class GivenModes:
@@ -113,10 +148,11 @@ def wavefront_fixed_plain(y, u, v, seg, qsteps, ymode, uvmode, is_i4, imodes,
 
 
 def wavefront_plain(y, u, v, seg, qsteps, decide, *, use_derr: bool,
-                    want_recon: bool):
+                    want_recon: bool, trellis=None):
     """The closed-loop MB encode as a per-diagonal torch loop (any device),
     each MB's modes picked by ``decide`` (``GivenModes``, or the in-loop
-    search of ops/kernels/wavefront_search.py).
+    search of ops/kernels/wavefront_search.py), every block's levels
+    trellis-refined when ``trellis`` (a ``Trellis``) is given.
 
     Returns the kernel's outputs plus the modes coded: int32 ymode,
     uvmode, is_i4 (B, mh, mw) and imodes (B, mh, mw, 16), where an i16
@@ -156,6 +192,13 @@ def wavefront_plain(y, u, v, seg, qsteps, decide, *, use_derr: bool,
         sg = seg[mb].long()
         q = qs[bb, sg]                                  # (M, 6)
         iq = iqs[bb, sg]
+        refine = {}
+        if trellis is not None:
+            lam = trellis.lams[bb, sg]
+            refine = {"y1": trellis.refine(0, 1, lam, q[:, 0], q[:, 1]),
+                      "y2": trellis.refine(1, 0, lam, q[:, 2], q[:, 3]),
+                      "i4": trellis.refine(3, 0, lam, q[:, 0], q[:, 1]),
+                      "uv": trellis.refine(2, 0, lam, q[:, 4], q[:, 5])}
 
         # ---- luma context (edge rules) ----
         top16 = torch.where(ht1, Ry[bb, myu, mx, 15, :], 127)
@@ -174,10 +217,12 @@ def wavefront_plain(y, u, v, seg, qsteps, decide, *, use_derr: bool,
         blk = (src - pred).reshape(M, 4, 4, 4, 4).permute(0, 1, 3, 2, 4)
         coeffs = fdct4x4(blk)                           # (M, gy, gx, 4, 4)
         y2_lv, y2_deq = _quant_rows(fwht4x4(coeffs[..., 0, 0])[:, None], iq,
-                                    q, 2, 3, BIAS["y2_dc"], BIAS["y2_ac"])
+                                    q, 2, 3, BIAS["y2_dc"], BIAS["y2_ac"],
+                                    refine=refine.get("y2"))
         y2_lv, y2_deq = y2_lv[:, 0], y2_deq[:, 0]
         y_lv, deq = _quant_rows(coeffs.reshape(M, 16, 4, 4), iq, q, 0, 1,
-                                BIAS["y1_dc"], BIAS["y1_ac"], first_ac=True)
+                                BIAS["y1_dc"], BIAS["y1_ac"], first_ac=True,
+                                refine=refine.get("y1"))
         any_ac = (y2_lv[:, 1:] != 0).any(dim=-1)
         dc_only = ((y2_deq[:, 0, 0] + 3) >> 3)[:, None, None]
         rdcs = torch.where(any_ac[:, None, None], iwht4x4(y2_deq), dc_only)
@@ -210,7 +255,8 @@ def wavefront_plain(y, u, v, seg, qsteps, decide, *, use_derr: bool,
                 pred1 = preds[lanes, given4[:, n]]
                 cf = fdct4x4(src[:, r:r + 4, c:c + 4] - pred1)
                 blv, dq = _quant_rows(cf[:, None], iq, q, 0, 1,
-                                      BIAS["y1_dc"], BIAS["y1_ac"])
+                                      BIAS["y1_dc"], BIAS["y1_ac"],
+                                      refine=refine.get("i4"))
                 yl4[:, n] = blv[:, 0]
                 scr[:, r + 1:r + 5, c + 1:c + 5] = idct_add_clip(dq[:, 0],
                                                                  pred1)
@@ -266,7 +312,8 @@ def wavefront_plain(y, u, v, seg, qsteps, decide, *, use_derr: bool,
             Dl[bb, my, mx] = as16(torch.stack(nl, 1))
             Dt[bb, my, mx] = as16(torch.stack(nt, 1))
         clv, cdq = _quant_rows(ccf.permute(1, 0, 2, 3, 4, 5).reshape(
-            M, 8, 4, 4), iq, q, 4, 5, BIAS["uv_dc"], BIAS["uv_ac"])
+            M, 8, 4, 4), iq, q, 4, 5, BIAS["uv_dc"], BIAS["uv_ac"],
+            refine=refine.get("uv"))
         cpred_blk = cpred.reshape(2, M, 2, 4, 2, 4).permute(1, 0, 2, 4, 3, 5)
         crec = idct_add_clip(cdq.reshape(M, 2, 2, 2, 4, 4), cpred_blk)
         crec = crec.permute(1, 0, 2, 4, 3, 5).reshape(2, M, 8, 8)
@@ -350,5 +397,6 @@ def wavefront_fixed(y, u, v, seg, qsteps, ymode, uvmode, is_i4, imodes,
 
 wavefront_fixed.launches = 0
 
-__all__ = ["GivenModes", "LIBRARY", "active_rows", "wavefront_fixed",
+__all__ = ["GivenModes", "LIBRARY", "Trellis", "active_rows",
+           "wavefront_fixed",
            "wavefront_fixed_plain", "wavefront_plain"]

@@ -129,10 +129,15 @@ __device__ __forceinline__ int luma_dc(const int* sy, int half, int k, bool ht, 
 // WHT, quantization (warp 0's segment 0 stores the Y2 levels), IWHT,
 // dequantization and IDCT; x ends as each pixel's residual before the
 // clip.  q1, iq0, iq1 are q[1], iq[0], iq[1], already in registers.
+// refine(cf, y2c, x, l2), called by both warps once the levels are in
+// s_lv, may change the levels before the dequantization (this lane's AC
+// levels x[4] and Y2 level l2, from its coefficients cf[4] and Y2
+// coefficient y2c): wavefront_search.cu's trellis form.
+template <typename Refine>
 __device__ __forceinline__ void code_i16(int warp, int half, int k, int m, int dcv, int tl,
                                          const int* sy, const uint8_t* ss, const int* q,
                                          const int* iq, int q1, int iq0, int iq1, int* s_dc,
-                                         int16_t* s_lv, int* x, int* pr) {
+                                         int16_t* s_lv, int* x, int* pr, Refine refine) {
   const int kr = k >> 2, kc = k & 3;
   const int blk0 = warp == 0 ? 0 : 8;
 #pragma unroll
@@ -144,17 +149,21 @@ __device__ __forceinline__ void code_i16(int warp, int half, int k, int m, int d
     x[rnd] = ss[R * 16 + C] - pr[rnd];
   }
   fdct_lanes<4>(x, k);
+  int cf[4];
 #pragma unroll
   for (int rnd = 0; rnd < 4; rnd++) {
     const int blk = blk0 + 2 * rnd + half;
     if (k == 0) s_dc[blk] = x[rnd];
+    cf[rnd] = x[rnd];
     x[rnd] = quant_lane(x[rnd], k, iq0, iq1, kBiasY1Dc, kBiasY1Ac, true);
     s_lv[blk * 16 + inv_zigzag(k)] = (int16_t)x[rnd];
   }
   named_barrier_luma();  // all 16 DCs are in s_dc
   // Y2: every segment computes it, warp 0's segment 0 stores
-  const int l2 = quant_lane(fwht_lane(s_dc[k], k), k, iq[2], iq[3], kBiasY2Dc, kBiasY2Ac, false);
+  const int y2c = fwht_lane(s_dc[k], k);
+  int l2 = quant_lane(y2c, k, iq[2], iq[3], kBiasY2Dc, kBiasY2Ac, false);
   if (warp == 0 && half == 0) s_lv[384 + inv_zigzag(k)] = (int16_t)l2;
+  refine(cf, y2c, x, l2);
   const bool any_ac = seg_ballot(k != 0 && l2 != 0) != 0;
   const int dq2 = l2 * (k == 0 ? q[2] : q[3]);
   const int iw = iwht_lane(dq2, k);
@@ -165,6 +174,15 @@ __device__ __forceinline__ void code_i16(int warp, int half, int k, int m, int d
     x[rnd] = k == 0 ? rb : x[rnd] * q1;
   }
   idct_lanes<4>(x, k);
+}
+
+// code_i16 with the quantizer's levels as they are.
+__device__ __forceinline__ void code_i16(int warp, int half, int k, int m, int dcv, int tl,
+                                         const int* sy, const uint8_t* ss, const int* q,
+                                         const int* iq, int q1, int iq0, int iq1, int* s_dc,
+                                         int16_t* s_lv, int* x, int* pr) {
+  code_i16(warp, half, k, m, dcv, tl, sy, ss, q, iq, q1, iq0, iq1, s_dc, s_lv, x, pr,
+           [](const int*, int, int*, int&) {});
 }
 
 }  // namespace vp8

@@ -71,6 +71,23 @@
 // - uv mode (warp 1, in parallel with the luma work): the joint U+V SSE of
 //   the 4 modes, 4 pixels a lane, first minimum; then the chroma code with
 //   the UV DC error-diffusion chain, as in wavefront_fixed.cu.
+// - The trellis form (kTrellis, a template parameter; the host encoder's
+//   second pass at method 6, gowebp_tpu/entropy/native/vp8_dec.cpp
+//   trellis_refine with block_rate256's rules): every block's levels are
+//   refined right after its quantization by i4_lanes.cuh trellis_refine,
+//   a serial DP on one lane a block, from the levels and coefficients in
+//   shared memory: the 16 i16 AC blocks (lanes 0-7 of each luma warp) and
+//   the Y2 block (warp 0, lane 8) before the dequantization, so the i16
+//   recon, d16 and rate16 see the refined levels; each of the 10
+//   candidates of every walk sub-block before it is scored (lanes 0-9 of
+//   the sub-block's warp, so the trellis moves the mode decisions too);
+//   the 8 chroma blocks after the DC error diffusion (lanes 0-3 of each
+//   segment of warp 1).  The rate tables are those of the first pass's
+//   adapted probabilities and add type 2 (chroma) as a fourth table
+//   (55,296 bytes of dynamic shared memory), the lambdas come per segment
+//   (lams).  Its cost: up to 10 serial DPs of up to 16 positions on the
+//   walk's chain at each of its 10 steps, in place of none; the lanes'
+//   layout is not redesigned for it (one DP a lane, the other lanes idle).
 
 #include <cuda_runtime.h>
 
@@ -93,7 +110,11 @@ using vp8::store_row8;
 // mode, warp 2: the other i16 blocks, the i16 rate, its share of the walk
 // and the hand-over
 constexpr int kThreads = 96;
-constexpr int kTableBytes = 3 * (int)sizeof(vp8::Tables);  // types 0, 1, 3
+// the rate tables' dynamic shared memory: types 0, 1, 3, and 2 in the
+// trellis form
+constexpr int table_bytes(bool i4, bool trellis) {
+  return trellis ? 4 * (int)sizeof(vp8::Tables) : i4 ? 3 * (int)sizeof(vp8::Tables) : 0;
+}
 
 struct Args {
   const uint8_t* y;  // (B, H, W) source planes
@@ -102,9 +123,10 @@ struct Args {
   const int* seg;     // (B, mh, mw)
   const int* qsteps;  // (B, 4, 6) y1dc y1ac y2dc y2ac uvdc uvac
   const int* pens;    // (B, 4) per-segment RD lambdas (try_i4 only)
-  const int* p0;      // (3, 16, 3, 2) rate tables of types 0, 1, 3 by position
-  const int* p1;      // (3, 16, 3, 2)
-  const int* val;     // (3, 16, 3, 68)
+  const int* p0;      // (T, 16, 3, 2) rate tables of types 0, 1, 3 (and 2) by position
+  const int* p1;      // (T, 16, 3, 2)
+  const int* val;     // (T, 16, 3, 68)
+  const int* lams;    // (B, 4) per-segment trellis lambdas (the trellis form only)
   uint8_t* ry;        // (B, H, W) recon planes (the row below reads them)
   uint8_t* ru;
   uint8_t* rv;
@@ -142,10 +164,11 @@ __device__ __forceinline__ int argmin4(const int* c) {
 }
 
 // 4 blocks an SM: the dynamic tables (41,472 bytes) and the static state
-// fit 4 times in an SM's shared memory.
-template <bool kI4>
+// fit 4 times in an SM's shared memory (3 times in the trellis form).
+template <bool kI4, bool kTrellis>
 __global__ void __launch_bounds__(kThreads, 4) wavefront_search_kernel(Args a) {
-  extern __shared__ __align__(16) unsigned char s_tables[];  // kI4: Tables[3]
+  constexpr bool kTables = kI4 || kTrellis;
+  extern __shared__ __align__(16) unsigned char s_tables[];  // Tables[3], or [4] (kTrellis)
   __shared__ int sy[17 * kSW];     // luma: row 0 [tl, top16, tr4], col 0 left16, recon
   __shared__ int sc[2][9 * kCW];   // U, V: row 0 [tl, top8], col 0 left8, recon
   __shared__ __align__(16) uint8_t ss[256], scs[2][64];  // the MB's source pixels
@@ -159,16 +182,24 @@ __global__ void __launch_bounds__(kThreads, 4) wavefront_search_kernel(Args a) {
   // keeps i16 writes out the luma levels of s_lv)
   __shared__ __align__(16) int16_t s_lv[400];
   __shared__ __align__(16) int16_t s_l4[256];
+  // the trellis form's inputs: the coefficients of the i16 blocks (Y2 at
+  // 256) and of the chroma blocks, and each luma warp's walk candidates'
+  // coefficients and zigzag levels (candidate c of warp w at 16 * (10 w + c))
+  constexpr int kT = kTrellis ? 1 : 0;
+  __shared__ int s_tcf[kT ? 272 : 1], s_tcc[kT ? 128 : 1], s_t4cf[kT ? 320 : 1];
+  __shared__ int16_t s_t4lv[kT ? 320 : 1];
+  __shared__ int s_lam[4];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int k = lane & 15, half = lane >> 4;
   const int kr = k >> 2, kc = k & 3;
   const int mh = a.mh, mw = a.mw;
   const int W = 16 * mw, H = 16 * mh, Wc = 8 * mw, Hc = 8 * mh;
-  if constexpr (kI4) {
+  if constexpr (kI4)
     for (int i = tid; i < 160; i += kThreads) s_pent[i] = vp8::pred_lane_entry(i >> 4, i & 15);
+  if constexpr (kTables) {
     vp8::Tables* tw = reinterpret_cast<vp8::Tables*>(s_tables);
-    for (int i = 0; i < 3; i++)
+    for (int i = 0; i < 3 + kT; i++)
       vp8::stage_tables(tw[i], a.p0 + 96 * i, a.p1 + 96 * i, a.val + vp8::kVal * i);
   }
 
@@ -190,6 +221,8 @@ __global__ void __launch_bounds__(kThreads, 4) wavefront_search_kernel(Args a) {
       s_iq[tid] = (1 << 17) / (q > 1 ? q : 1);
     } else if (kI4 && tid < 28) {
       s_pen[tid - 24] = a.pens[(size_t)b * 4 + tid - 24];
+    } else if (kTrellis && tid >= 32 && tid < 36) {
+      s_lam[tid - 32] = a.lams[(size_t)b * 4 + tid - 32];
     }
     int seen = 0;             // thread 0: row above's last published count
     int dl0 = 0, dl1 = 0;     // warp 1, lane 0 of each segment: carries to the right
@@ -323,7 +356,31 @@ __global__ void __launch_bounds__(kThreads, 4) wavefront_search_kernel(Args a) {
 
         // ---- i16 code with mode m; the recon stays in registers ----
         int x[4], pr[4], rec[4];  // this warp's 4 rounds of 2 sub-blocks, together
-        vp8::code_i16(warp, half, k, m, dcv, tl, sy, ss, q, iq, q1, iq0, iq1, s_dc, s_lv, x, pr);
+        const vp8::Tables* T = reinterpret_cast<const vp8::Tables*>(s_tables);
+        const int lam = kTrellis ? s_lam[sg] : 0;
+        // the trellis form: lanes 0-7 refine this warp's AC blocks, warp 0's
+        // lane 8 the Y2 block, from the levels in s_lv and the coefficients
+        // put in s_tcf; then every lane takes its refined levels back
+        auto refine16 = [&](const int* cf, int y2c, int* lvx, int& l2) {
+          if constexpr (kTrellis) {
+#pragma unroll
+            for (int rnd = 0; rnd < 4; rnd++) s_tcf[16 * (blk0 + 2 * rnd + half) + k] = cf[rnd];
+            if (warp == 0 && half == 0) s_tcf[256 + k] = y2c;
+            __syncwarp();
+            if (lane < 8)
+              vp8::trellis_refine<1>(s_lv + 16 * (blk0 + lane), s_tcf + 16 * (blk0 + lane), q0,
+                                     q1, lam, T[0]);
+            else if (warp == 0 && lane == 8)
+              vp8::trellis_refine<0>(s_lv + 384, s_tcf + 256, q[2], q[3], lam, T[1]);
+            vp8::named_barrier_luma();  // the refined Y2 levels are in s_lv for both warps
+            l2 = s_lv[384 + vp8::inv_zigzag(k)];
+#pragma unroll
+            for (int rnd = 0; rnd < 4; rnd++)
+              lvx[rnd] = s_lv[16 * (blk0 + 2 * rnd + half) + vp8::inv_zigzag(k)];
+          }
+        };
+        vp8::code_i16(warp, half, k, m, dcv, tl, sy, ss, q, iq, q1, iq0, iq1, s_dc, s_lv, x, pr,
+                      refine16);
 #pragma unroll
         for (int rnd = 0; rnd < 4; rnd++) rec[rnd] = vp8::clip8(pr[rnd] + x[rnd]);
 
@@ -340,7 +397,6 @@ __global__ void __launch_bounds__(kThreads, 4) wavefront_search_kernel(Args a) {
           d = warp_sum(d);
           if (lane == 0) s_d16[warp >> 1] = d;
           const int pen = s_pen[sg];
-          const vp8::Tables* T = reinterpret_cast<const vp8::Tables*>(s_tables);
           vp8::named_barrier_luma();  // the i16 and Y2 levels and both d16 halves are in shared
           if (warp == 2) {
             // ---- the i16 rate by position: segment h charges AC blocks
@@ -361,6 +417,25 @@ __global__ void __launch_bounds__(kThreads, 4) wavefront_search_kernel(Args a) {
           // the diagonals that hold two; segment `half` scores B-modes
           // 5*half .. 5*half + 4 together ----
           const vp8::Quant qv{iq0, iq1, q0, q1, pen};
+          // the trellis form: lanes 0-9 refine the sub-block's 10 candidates
+          // from this warp's scratch, then every lane takes its levels back
+          int* const tcf = s_t4cf + 160 * (warp >> 1);
+          int16_t* const tlv = s_t4lv + 160 * (warp >> 1);
+          auto refine4 = [&](const int* cf, int* lv) {
+            if constexpr (kTrellis) {
+#pragma unroll
+              for (int j = 0; j < 5; j++) {
+                tcf[16 * (5 * half + j) + k] = cf[j];
+                tlv[16 * (5 * half + j) + vp8::inv_zigzag(k)] = (int16_t)lv[j];
+              }
+              __syncwarp();
+              if (lane < 10)
+                vp8::trellis_refine<0>(tlv + 16 * lane, tcf + 16 * lane, q0, q1, lam, T[2]);
+              __syncwarp();
+#pragma unroll
+              for (int j = 0; j < 5; j++) lv[j] = tlv[16 * (5 * half + j) + vp8::inv_zigzag(k)];
+            }
+          };
           int s4 = 0;
           for (int dg = 0; dg < 10; dg++) {
             const bool two = dg >= 2 && dg <= 7;  // diagonals holding 2 sub-blocks
@@ -375,7 +450,7 @@ __global__ void __launch_bounds__(kThreads, 4) wavefront_search_kernel(Args a) {
             const int r = 4 * gy, c = 4 * gx, n = 4 * gy + gx;
             int key[5], crec[5], clv[5];
             vp8::score_lanes<5>(s_pent, 5 * half, k, sy, r * kSW + c, ss[(r + kr) * 16 + c + kc],
-                                qv, T[2], key, crec, clv);
+                                qv, T[2], key, crec, clv, refine4);
             // the first minimum of (cost, mode) is the least key: the
             // segment's, then the sub-block's over both segments
             const int ks = min(min(min(key[0], key[1]), min(key[2], key[3])), key[4]);
@@ -457,13 +532,27 @@ __global__ void __launch_bounds__(kThreads, 4) wavefront_search_kernel(Args a) {
           dl1 = (int16_t)nl[1];
         }
         int16_t* uv = s_lv + 256 + ch * 64;
+        int lv[4];
 #pragma unroll
         for (int blk = 0; blk < 4; blk++) {
-          const int lv = vp8::quant_lane(cfr[blk], k, iq[4], iq[5], vp8::kBiasUvDc,
-                                         vp8::kBiasUvAc, false);
-          uv[blk * 16 + vp8::inv_zigzag(k)] = (int16_t)lv;
-          cfr[blk] = lv * (k == 0 ? q[4] : q[5]);
+          lv[blk] = vp8::quant_lane(cfr[blk], k, iq[4], iq[5], vp8::kBiasUvDc, vp8::kBiasUvAc,
+                                    false);
+          uv[blk * 16 + vp8::inv_zigzag(k)] = (int16_t)lv[blk];
         }
+        if constexpr (kTrellis) {
+          // lanes 0-3 of the segment refine its channel's 4 blocks
+#pragma unroll
+          for (int blk = 0; blk < 4; blk++) s_tcc[64 * ch + 16 * blk + k] = cfr[blk];
+          __syncwarp();
+          if (k < 4)
+            vp8::trellis_refine<0>(uv + 16 * k, s_tcc + 64 * ch + 16 * k, q[4], q[5],
+                                   s_lam[s_seg], reinterpret_cast<const vp8::Tables*>(s_tables)[3]);
+          __syncwarp();
+#pragma unroll
+          for (int blk = 0; blk < 4; blk++) lv[blk] = uv[blk * 16 + vp8::inv_zigzag(k)];
+        }
+#pragma unroll
+        for (int blk = 0; blk < 4; blk++) cfr[blk] = lv[blk] * (k == 0 ? q[4] : q[5]);
         vp8::idct_lanes<4>(cfr, k);
 #pragma unroll
         for (int blk = 0; blk < 4; blk++) {
@@ -521,20 +610,20 @@ __global__ void __launch_bounds__(kThreads, 4) wavefront_search_kernel(Args a) {
 // The card's SMs and the blocks an SM holds at once at the launch's
 // shared memory and thread count (cached): every block of the ticket grid
 // must be resident, or a row could wait on a block that never runs.
-template <bool kI4>
+template <bool kI4, bool kTrellis>
 cudaError_t occupancy(int* sms_out, int* per_sm_out) {
   static int sms = 0, per_sm = 0;
   if (sms == 0) {
-    const int smem = kI4 ? kTableBytes : 0;
+    const int smem = table_bytes(kI4, kTrellis);
     int dev = 0, n = 0, p = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
     // raise the dynamic limit first: the occupancy, and so the ticket
     // grid, must be that of the launch's shared memory
-    cudaFuncSetAttribute(wavefront_search_kernel<kI4>,
+    cudaFuncSetAttribute(wavefront_search_kernel<kI4, kTrellis>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&p, wavefront_search_kernel<kI4>, kThreads,
-                                                  smem);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&p, wavefront_search_kernel<kI4, kTrellis>,
+                                                  kThreads, smem);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     sms = n;
@@ -545,42 +634,54 @@ cudaError_t occupancy(int* sms_out, int* per_sm_out) {
   return cudaSuccess;
 }
 
-template <bool kI4>
+template <bool kI4, bool kTrellis>
 int launch(const Args& a, cudaStream_t stream) {
   int sms = 0, per_sm = 0;
-  const cudaError_t err = occupancy<kI4>(&sms, &per_sm);
+  const cudaError_t err = occupancy<kI4, kTrellis>(&sms, &per_sm);
   if (err != cudaSuccess) return (int)err;
   const int resident = sms * per_sm > 0 ? sms * per_sm : 1;
   const int rows = a.B * a.mh;
   const int grid = rows < resident ? rows : resident;
-  wavefront_search_kernel<kI4><<<grid, kThreads, kI4 ? kTableBytes : 0, stream>>>(a);
+  wavefront_search_kernel<kI4, kTrellis>
+      <<<grid, kThreads, table_bytes(kI4, kTrellis), stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Runs the exact engine's whole wavefront as one launch on `stream`.
-// `sync` holds B*mh progress counters and the ticket, all zero.  pens and
-// the rate tables p0/p1/val are read only with try_i4 (else may be null).
-// Returns the CUDA error of the launch (0 = accepted).
+// `sync` holds B*mh progress counters and the ticket, all zero.  `form`:
+// bit 0 try_i4, bit 1 the trellis form.  pens are read only with try_i4,
+// lams only in the trellis form, the rate tables p0/p1/val (3 types, 4 in
+// the trellis form) only in either (else they may be null).  Returns the
+// CUDA error of the launch (0 = accepted).
 extern "C" int wavefront_search_launch(
     const uint8_t* y, const uint8_t* u, const uint8_t* v, const int* seg, const int* qsteps,
-    const int* pens, const int* p0, const int* p1, const int* val, uint8_t* ry, uint8_t* ru,
-    uint8_t* rv, int16_t* dtop, int16_t* ylv, int16_t* y2lv, int16_t* uvlv, uint8_t* ymode,
-    uint8_t* uvmode, uint8_t* is_i4, uint8_t* imodes, int* sync, int B, int mh, int mw,
-    int use_derr, int try_i4, void* stream) {
+    const int* pens, const int* p0, const int* p1, const int* val, const int* lams, uint8_t* ry,
+    uint8_t* ru, uint8_t* rv, int16_t* dtop, int16_t* ylv, int16_t* y2lv, int16_t* uvlv,
+    uint8_t* ymode, uint8_t* uvmode, uint8_t* is_i4, uint8_t* imodes, int* sync, int B, int mh,
+    int mw, int use_derr, int form, void* stream) {
   const int rows = B * mh;
   if (rows <= 0 || mw <= 0) return 0;
-  const Args a{y,    u,    v,    seg,    qsteps, pens,  p0,     p1,   val,
+  const Args a{y,    u,    v,    seg,    qsteps, pens,  p0,     p1,   val,  lams,
                ry,   ru,   rv,   dtop,   ylv,    y2lv,  uvlv,   ymode, uvmode,
                is_i4, imodes, sync, sync + rows, B, mh, mw, use_derr};
   const cudaStream_t st = (cudaStream_t)stream;
-  return try_i4 ? launch<true>(a, st) : launch<false>(a, st);
+  switch (form & 3) {
+    case 0: return launch<false, false>(a, st);
+    case 1: return launch<true, false>(a, st);
+    case 2: return launch<false, true>(a, st);
+    default: return launch<true, true>(a, st);
+  }
 }
 
 // The launch's residency: the card's SMs and the blocks an SM holds at
 // once (the ticket grid is their product, or the rows if fewer).  Returns
 // the CUDA error (0 = ok).
-extern "C" int wavefront_search_occupancy(int try_i4, int* sms, int* per_sm) {
-  return (int)(try_i4 ? occupancy<true>(sms, per_sm) : occupancy<false>(sms, per_sm));
+extern "C" int wavefront_search_occupancy(int try_i4, int trellis, int* sms, int* per_sm) {
+  const int form = (try_i4 ? 1 : 0) | (trellis ? 2 : 0);
+  return (int)(form == 0   ? occupancy<false, false>(sms, per_sm)
+               : form == 1 ? occupancy<true, false>(sms, per_sm)
+               : form == 2 ? occupancy<false, true>(sms, per_sm)
+                           : occupancy<true, true>(sms, per_sm));
 }

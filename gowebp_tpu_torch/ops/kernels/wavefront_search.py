@@ -18,6 +18,15 @@ MB:
 - uv: the argmin of the U SSE + V SSE over DC/TM/VE/HE, then the chroma
   code with the UV DC error-diffusion chain when ``use_derr`` is set.
 
+The trellis form (``lams`` given: the host encoder's second pass at
+method 6) refines every block's levels right after its quantization with
+``trellis_refine`` (each non-zero level kept or lowered by one, by the
+least distortion + lambda * exact token rate): the 16 i16 AC blocks and
+the Y2 block before the i16 recon and rate, each of the 10 candidates of
+every i4 sub-block before it is scored, and the 8 chroma blocks after
+the DC error diffusion.  Its rate tables are those of the first pass's
+adapted probabilities, for the search's rate model as for the trellis.
+
 On CUDA tensors it runs the kernel in ``wavefront_search.cu``, one
 persistent launch (it replaces gowebp_tpu/ops/encode_wavefront_jax.py
 ``_wavefront_impl`` with ``modes=None``, which the JAX package ran in
@@ -28,7 +37,8 @@ decider.
 Inputs: y (B, H, W) uint8 and u, v (B, H/2, W/2) uint8 with H, W
 multiples of 16; seg (B, mh, mw) int32; qsteps (B, 4, 6) int32; pens
 (B, 4) int32 per-segment RD lambdas (below 2**19); ``rate`` the
-per-position rate tables of ``search_tables``.  Returns uint8 ymode,
+per-position rate tables of ``search_tables``; ``lams`` (B, 4) int32 the
+trellis form's per-segment lambdas, or None.  Returns uint8 ymode,
 uvmode, is_i4 (B, mh, mw) and imodes (B, mh, mw, 16) (an i16 MB's imodes
 repeat its ymode); int16 zigzag y_levels (B, mh, mw, 16, 16), y2_levels
 (B, mh, mw, 16), uv_levels (B, mh, mw, 8, 16); and with ``want_recon``
@@ -44,13 +54,13 @@ import torch
 from ..rate import mul_shr16, position_tables, rate_by_position
 from .cuda_build import CudaLibrary, check_tensor, stream_handle
 from .i4_search import i4_search_plain, i4_walk_plain
-from .wavefront_fixed import wavefront_plain
+from .wavefront_fixed import Trellis, wavefront_plain
 
 I32 = torch.int32
 U8 = torch.uint8
 # token types of the rate tables, in their order in ``search_tables``:
-# luma AC after a Y2 block, Y2, and i4 luma
-RATE_TYPES = (0, 1, 3)
+# luma AC after a Y2 block, Y2, i4 luma, and (the trellis form) chroma
+RATE_TYPES = (0, 1, 3, 2)
 MODE_KEYS = ("ymode", "uvmode", "is_i4", "imodes")
 
 
@@ -58,31 +68,42 @@ def _configure(lib) -> None:
     p = ctypes.c_void_p
     i = ctypes.c_int
     lib.wavefront_search_launch.restype = i
-    lib.wavefront_search_launch.argtypes = [p] * 21 + [i] * 5 + [p]
+    lib.wavefront_search_launch.argtypes = [p] * 22 + [i] * 5 + [p]
     lib.wavefront_search_occupancy.restype = i
-    lib.wavefront_search_occupancy.argtypes = [i] + [
+    lib.wavefront_search_occupancy.argtypes = [i, i] + [
         ctypes.POINTER(ctypes.c_int)] * 2
 
 
 LIBRARY = CudaLibrary("wavefront_search.cu", _configure)
 
 
-def search_tables(tables):
+def search_tables(tables, trellis: bool = False):
     """(p0, p1, val) cost tables → the rate tables by position of types 0,
-    1 and 3, stacked: p0 (3, 16, 3, 2), p1 (3, 16, 3, 2), val (3, 16, 3,
-    68) int32."""
-    rows = [position_tables(tables, t) for t in RATE_TYPES]
+    1 and 3 (and 2 for the trellis form), stacked: p0 (T, 16, 3, 2), p1
+    (T, 16, 3, 2), val (T, 16, 3, 68) int32, T = 3 (4)."""
+    rows = [position_tables(tables, t) for t in RATE_TYPES[:3 + trellis]]
     return tuple(torch.stack([r[i] for r in rows]).contiguous()
                  for i in range(3))
 
 
-def occupancy(try_i4: bool = True):
+def search_trellis(rate, lams):
+    """``wavefront_plain``'s ``Trellis`` of the trellis form's inputs
+    (``search_tables(..., trellis=True)`` and (B, 4) lambdas); None
+    without ``lams``."""
+    if lams is None:
+        return None
+    return Trellis({t: tuple(tab[k] for tab in rate)
+                    for k, t in enumerate(RATE_TYPES)}, lams)
+
+
+def occupancy(try_i4: bool = True, trellis: bool = False):
     """(SMs, blocks an SM holds at once) of the kernel's launch on the
     current card: the ticket grid is their product, or the MB rows if
     fewer.  Needs the card."""
     lib = LIBRARY.load()
     sms, per_sm = ctypes.c_int(0), ctypes.c_int(0)
-    err = lib.wavefront_search_occupancy(int(bool(try_i4)), ctypes.byref(sms),
+    err = lib.wavefront_search_occupancy(int(bool(try_i4)), int(bool(trellis)),
+                                         ctypes.byref(sms),
                                          ctypes.byref(per_sm))
     if err != 0:
         raise RuntimeError(f"wavefront_search occupancy: CUDA error {err}")
@@ -98,11 +119,14 @@ class SearchModes:
     """The exact engine's in-loop decisions, for ``wavefront_plain``.
 
     ``search`` scores each walk substep's sub-blocks (``i4_walk_plain``'s
-    argument of that name).
+    argument of that name); ``lams`` (B, 4), the trellis form's lambdas,
+    trellis-refine every walk candidate.
     """
 
-    def __init__(self, pens, rate, try_i4: bool, search=i4_search_plain):
+    def __init__(self, pens, rate, try_i4: bool, search=i4_search_plain,
+                 lams=None):
         self.pens, self.try_i4, self.search = pens, try_i4, search
+        self.lams = lams
         if try_i4:
             self.t0, self.t1, self.t3 = (tuple(t[k] for t in rate)
                                          for k in range(3))
@@ -126,9 +150,10 @@ class SearchModes:
                                            ctx0=1).sum(dim=-1, dtype=I32)
         pen = self.pens[mb[0], sg]
         s16 = d16 + mul_shr16(pen, rate16)
+        lam = None if self.lams is None else self.lams[mb[0], sg][None]
         bmodes, s4 = i4_walk_plain(
             src[None], *(c[None] for c in ctx), q[None], iq[None], pen[None],
-            self.t3, search=self.search)
+            self.t3, search=self.search, lam=lam)
         return s16, s4[0], bmodes[0].long()
 
     def uvmode(self, mb, csrc, cpred4):
@@ -137,34 +162,39 @@ class SearchModes:
 
 
 def wavefront_search_plain(y, u, v, seg, qsteps, pens, rate, *,
-                           try_i4: bool, use_derr: bool, want_recon: bool):
+                           try_i4: bool, use_derr: bool, want_recon: bool,
+                           lams=None):
     """Per-diagonal torch loop (any device); same contract as the kernel.
 
     It calls only plain pieces (``i4_walk_plain``, never the i4 kernels),
     so on CUDA tensors it is the kernel's independent yardstick.
     """
     out = wavefront_plain(y, u, v, seg, qsteps,
-                          SearchModes(pens, rate, try_i4),
-                          use_derr=use_derr, want_recon=want_recon)
+                          SearchModes(pens, rate, try_i4, lams=lams),
+                          use_derr=use_derr, want_recon=want_recon,
+                          trellis=search_trellis(rate, lams))
     for k in MODE_KEYS:
         out[k] = out[k].to(U8)
     return out
 
 
 def wavefront_search(y, u, v, seg, qsteps, pens, rate, *, try_i4: bool,
-                     use_derr: bool, want_recon: bool):
+                     use_derr: bool, want_recon: bool, lams=None):
     """Kernel on CUDA tensors, plain version on CPU tensors.
 
     ``wavefront_search.launches`` counts kernel launches (one per call on
     CUDA: the whole wavefront, search included, is one persistent
-    launch).  With ``try_i4`` False, ``pens`` and ``rate`` are not read
-    and may be None.
+    launch) of the method <= 5 form, ``wavefront_search.trellis_launches``
+    those of the trellis form (``lams`` given).  With ``try_i4`` False,
+    ``pens`` is not read
+    and may be None, and so may ``rate`` unless ``lams`` is given (the
+    trellis form reads all 4 of its types).
     """
     dev = y.device
     if dev.type == "cpu":
         return wavefront_search_plain(y, u, v, seg, qsteps, pens, rate,
                                       try_i4=try_i4, use_derr=use_derr,
-                                      want_recon=want_recon)
+                                      want_recon=want_recon, lams=lams)
     if dev.type != "cuda":
         raise ValueError(f"wavefront_search: unsupported device {dev}")
     B, H, W = y.shape
@@ -177,14 +207,21 @@ def wavefront_search(y, u, v, seg, qsteps, pens, rate, *, try_i4: bool,
     check_tensor("v", v, U8, (B, H // 2, W // 2), dev)
     check_tensor("seg", seg, I32, (B, mh, mw), dev)
     check_tensor("qsteps", qsteps, I32, (B, 4, 6), dev)
-    ptrs = [None] * 4
+    trellis = lams is not None
+    ptrs = [None] * 5
     if try_i4:
         check_tensor("pens", pens, I32, (B, 4), dev)
+        ptrs[0] = pens.data_ptr()
+    if try_i4 or trellis:
+        T = 3 + trellis
         for name, tab, shape in zip(("p0", "p1", "val"), rate,
-                                    ((3, 16, 3, 2), (3, 16, 3, 2),
-                                     (3, 16, 3, 68))):
+                                    ((T, 16, 3, 2), (T, 16, 3, 2),
+                                     (T, 16, 3, 68))):
             check_tensor(name, tab, I32, shape, dev)
-        ptrs = [pens.data_ptr()] + [t.data_ptr() for t in rate]
+        ptrs[1:4] = [t.data_ptr() for t in rate]
+    if trellis:
+        check_tensor("lams", lams, I32, (B, 4), dev)
+        ptrs[4] = lams.data_ptr()
     lib = LIBRARY.load()
     I16 = torch.int16
     ry = torch.empty((B, H, W), dtype=U8, device=dev)
@@ -203,12 +240,15 @@ def wavefront_search(y, u, v, seg, qsteps, pens, rate, *, try_i4: bool,
         *(t.data_ptr() for t in (y, u, v, seg, qsteps)), *ptrs,
         *(t.data_ptr() for t in (ry, ru, rv, dtop, ylv, y2lv, uvlv)),
         *(modes[k].data_ptr() for k in MODE_KEYS), sync.data_ptr(),
-        B, mh, mw, int(bool(use_derr)), int(bool(try_i4)),
+        B, mh, mw, int(bool(use_derr)), int(bool(try_i4)) | trellis << 1,
         stream_handle(dev))
     if err != 0:
         raise RuntimeError(
             f"wavefront_search kernel launch failed: CUDA error {err}")
-    wavefront_search.launches += 1
+    if trellis:
+        wavefront_search.trellis_launches += 1
+    else:
+        wavefront_search.launches += 1
     out = dict(modes, y_levels=ylv, y2_levels=y2lv, uv_levels=uvlv)
     if want_recon:
         out.update(recon_y=ry, recon_u=ru, recon_v=rv)
@@ -216,6 +256,8 @@ def wavefront_search(y, u, v, seg, qsteps, pens, rate, *, try_i4: bool,
 
 
 wavefront_search.launches = 0
+wavefront_search.trellis_launches = 0
 
 __all__ = ["LIBRARY", "RATE_TYPES", "SearchModes", "occupancy",
-           "search_tables", "wavefront_search", "wavefront_search_plain"]
+           "search_tables", "search_trellis", "wavefront_search",
+           "wavefront_search_plain"]

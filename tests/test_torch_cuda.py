@@ -1,8 +1,9 @@
-"""PyTorch port on the card: each CUDA kernel vs its plain torch version,
-the batch encode's GPU bytes vs its CPU bytes (hybrid, exact wavefront and
-open-loop engines), and the batch decode's GPU pixels vs its CPU pixels
-(lossy, lossy + ALPH and VP8L files, both reconstruction backends), at
-small sizes.
+"""PyTorch port on the card: each CUDA kernel vs its plain torch version
+(the full-search kernel's trellis form too), the batch encode's GPU bytes
+vs its CPU bytes (hybrid, exact wavefront and open-loop engines), the
+single-image encode's GPU bytes vs its CPU bytes, and the batch decode's
+GPU pixels vs its CPU pixels (lossy, lossy + ALPH and VP8L files, both
+reconstruction backends), at small sizes.
 
 Marked ``cuda``; every test skips on a host without a CUDA GPU.  This
 file imports nothing of JAX, so it runs on a GPU machine without JAX:
@@ -759,7 +760,7 @@ def test_wavefront_engine_without_i4_runs_the_lean_kernel(cuda, monkeypatch):
             self.lib, self.try_i4 = lib, []
 
         def wavefront_search_launch(self, *a):
-            self.try_i4.append(a[25])          # the try_i4 argument
+            self.try_i4.append(a[26])          # the form: bit 0 try_i4
             return self.lib.wavefront_search_launch(*a)
 
     spy = Spy(wsm.LIBRARY.load())
@@ -926,3 +927,152 @@ def test_single_file_decode_launches_the_decode_kernels(cuda):
     assert [a - b for a, b in zip(after, before)] == [3, 3]
     for a, b in zip(got, decode_rgba_batch(files, device="cuda")):
         assert np.array_equal(a, b)
+
+
+def _trellis_inputs(cuda, seed):
+    """The trellis form's rate tables (of perturbed probabilities, as a
+    first pass's adapted ones are) and per-segment lambdas (B=1 row,
+    broadcast by the caller)."""
+    from gowebp_tpu_torch.models.vp8.cost import trellis_cost_tables
+    from gowebp_tpu_torch.models.vp8.tables import COEFF_PROBAS
+
+    rng = np.random.default_rng(seed)
+    probs = np.clip(COEFF_PROBAS.astype(np.int64)
+                    + rng.integers(-60, 61, COEFF_PROBAS.shape), 1, 255)
+    tables = tuple(torch.from_numpy(t.astype(np.int32)).to(cuda)
+                   for t in trellis_cost_tables(probs.astype(np.uint8)))
+    lams = torch.tensor([[1, 3, 7, 24]], dtype=torch.int32, device=cuda)
+    return tables, lams
+
+
+@pytest.mark.parametrize("try_i4", [True, False])
+@pytest.mark.parametrize("derr", [False, True])
+@pytest.mark.parametrize("B,H,W", [
+    (3, 64, 96), (2, 16, 80), (2, 80, 16), (1, 16, 16), (20, 256, 32)])
+def test_wavefront_search_trellis_kernel_matches_plain(cuda, try_i4, derr, B,
+                                                       H, W):
+    """The trellis form (method 6's second pass) against its plain version:
+    every block's levels trellis-refined, tables of adapted
+    probabilities, 4 segments with their own lambdas."""
+    from gowebp_tpu_torch.ops.kernels.wavefront_search import (
+        search_tables, wavefront_search, wavefront_search_plain)
+
+    args = _search_case(cuda, 5 + H + W, B, H, W)
+    tables, lams = _trellis_inputs(cuda, H + W)
+    lams = lams.expand(B, 4).contiguous()
+    rate = search_tables(tables, trellis=True)
+    want = wavefront_search_plain(*args, rate, try_i4=try_i4, use_derr=derr,
+                                  want_recon=True, lams=lams)
+    before = (wavefront_search.launches, wavefront_search.trellis_launches)
+    got = wavefront_search(*args, rate, try_i4=try_i4, use_derr=derr,
+                           want_recon=True, lams=lams)
+    torch.cuda.synchronize()
+    assert (wavefront_search.launches,
+            wavefront_search.trellis_launches) == (before[0], before[1] + 1)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_wavefront_search_trellis_rejects_bad_lambdas(cuda):
+    from gowebp_tpu_torch.ops.kernels.wavefront_search import (
+        search_tables, wavefront_search)
+
+    args = _search_case(cuda, 1, 2, 32, 48)
+    tables, lams = _trellis_inputs(cuda, 1)
+    rate = search_tables(tables, trellis=True)
+    before = wavefront_search.trellis_launches
+    for bad_lams, bad_rate in ((lams, rate),                 # (1, 4) for B=2
+                               (lams.expand(2, 4).contiguous(),
+                                search_tables(tables))):     # 3 types only
+        with pytest.raises(ValueError):
+            wavefront_search(*args, bad_rate, try_i4=True, use_derr=True,
+                             want_recon=False, lams=bad_lams)
+    assert wavefront_search.trellis_launches == before
+
+
+def _alpha_image(h, w, seed):
+    from gowebp_tpu_torch.utils.corpus import natural_image
+
+    yy, xx = np.mgrid[0:h, 0:w]
+    alpha = np.clip(255 * (xx + yy) / max(1, h + w - 2) + 20, 0, 255)
+    alpha[: h // 3, : w // 3] = 0
+    return np.dstack([natural_image(h, w, seed=seed),
+                      alpha.astype(np.uint8)])
+
+
+@pytest.mark.parametrize("kw", [
+    {}, {"method": 6}, {"method": 6, "segments": 2, "quality": 99},
+    {"autofilter": True}, {"target_psnr": 30.0, "passes": 2},
+    {"plane_backend": "jax"}, {"plane_backend": "jax-openloop"},
+    {"method": 6, "partition_limit": 100}])
+def test_encode_rgba_gpu_bytes_equal_cpu_bytes(cuda, kw):
+    """The single-image encode on the card gives the CPU path's bytes and
+    statistics (an RGBA image with a soft alpha and a transparent
+    corner)."""
+    import gowebp_tpu_torch as T
+
+    im = _alpha_image(45, 61, seed=4)
+    cfg = T.EncoderConfig(**kw)
+    s_gpu, s_cpu = T.EncodeStats(), T.EncodeStats()
+    got = T.encode_rgba(im, config=cfg, stats=s_gpu, device="cuda")
+    assert got == T.encode_rgba(im, config=cfg, stats=s_cpu, device="cpu")
+    assert vars(s_gpu) == vars(s_cpu)
+
+
+def test_encode_rgba_launches(cuda):
+    """Launch counts of the single-image encode: the defaults launch
+    wavefront_search once and no other kernel; method 6 the method <= 5
+    form once and the trellis form once; autofilter recon_filter_mb once
+    a trial level; plane_backend="jax-openloop" the two plane kernels."""
+    import gowebp_tpu_torch as T
+    from gowebp_tpu_torch.models.vp8.encoder import (filter_level_from_q,
+                                                     quality_to_q)
+    from gowebp_tpu_torch.ops.kernels import encode_plane as epm
+    from gowebp_tpu_torch.ops.kernels import vp8_recon as kvr
+    from gowebp_tpu_torch.ops.kernels import wavefront_search as wsm
+
+    kernels = {"search": (wsm.wavefront_search, "launches"),
+               "trellis": (wsm.wavefront_search, "trellis_launches"),
+               "recon": (kvr.recon_filter_mb, "launches"),
+               "luma": (epm.encode_luma, "launches"),
+               "chroma": (epm.encode_chroma, "launches")}
+    im = _alpha_image(40, 50, seed=2)
+
+    def counts():
+        return {k: getattr(f, a) for k, (f, a) in kernels.items()}
+
+    def launched(**kw):
+        before = counts()
+        T.encode_rgba(im, config=T.EncoderConfig(**kw), device="cuda")
+        return {k: n - before[k] for k, n in counts().items()
+                if n != before[k]}
+
+    assert launched() == {"search": 1}
+    assert launched(method=6) == {"search": 1, "trellis": 1}
+    assert launched(method=6, low_memory=True) == {"search": 1}
+    base = filter_level_from_q(quality_to_q(75.0), 60, 0)
+    levels = {0, base // 2, base, min(63, base + base // 2 + 1),
+              min(63, 2 * base + 1)}
+    assert launched(autofilter=True) == {"search": 1, "recon": len(levels)}
+    assert launched(plane_backend="jax-openloop") == {"luma": 1, "chroma": 1}
+
+
+def test_encode_yuv_gpu_bytes_equal_cpu_bytes(cuda):
+    import gowebp_tpu_torch as T
+
+    rng = np.random.default_rng(3)
+    y = rng.integers(0, 256, (33, 47), dtype=np.uint8)
+    u = rng.integers(0, 256, (17, 24), dtype=np.uint8)
+    v = rng.integers(0, 256, (17, 24), dtype=np.uint8)
+    a = rng.integers(0, 256, (33, 47), dtype=np.uint8)
+    for kw in ({}, {"alpha": a, "method": 6}):
+        assert (T.encode_yuv(y, u, v, device="cuda", **kw)
+                == T.encode_yuv(y, u, v, device="cpu", **kw))
+
+
+def test_mixed_non_opaque_batch_gpu_equals_cpu(cuda):
+    from gowebp_tpu_torch import encode_rgba_batch
+
+    imgs = [_alpha_image(33, 17, seed=1), _alpha_image(40, 48, seed=2)[..., :3]]
+    assert (encode_rgba_batch(imgs, device="cuda")
+            == encode_rgba_batch(imgs, device="cpu"))

@@ -118,6 +118,36 @@ def test_boundary_scan_covers_the_single_file_decode_modules():
         assert f"gowebp_tpu_torch/{mod}" in names
 
 
+def test_boundary_scan_covers_the_single_image_encode_modules():
+    names = {str(f.relative_to(ROOT)) for f in _port_files()}
+    for mod in ("encode.py", "stats.py", "utils/metrics.py",
+                "entropy/huffman.py", "models/vp8l/encoder.py",
+                "models/vp8l/near_lossless.py", "models/vp8/encoder.py"):
+        assert f"gowebp_tpu_torch/{mod}" in names
+
+
+@pytest.mark.parametrize("name", ["encode_rgba", "encode_yuv"])
+def test_single_image_encode_default_device_is_cuda(monkeypatch, name):
+    """encode_rgba and encode_yuv without device= need CUDA: without it,
+    they raise before any work (no YUV conversion, no dense phase)."""
+    import gowebp_tpu_torch
+    from gowebp_tpu_torch.models.vp8 import encoder as enc
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ran = []
+    for fn in ("rgb_to_yuv420", "encode_vp8_frame", "encode_vp8_webp",
+               "_pad_to_mb"):
+        monkeypatch.setattr(enc, fn, lambda *a, **k: ran.append(1))
+    call = getattr(gowebp_tpu_torch, name)
+    args = ((np.zeros((16, 16, 4), np.uint8),) if name == "encode_rgba"
+            else (np.zeros((16, 16), np.uint8), np.zeros((8, 8), np.uint8),
+                  np.zeros((8, 8), np.uint8)))
+    for kw in ({}, {"device": "cuda"}):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call(*args, **kw)
+    assert not ran
+
+
 SINGLE_FILE_CALLS = ["decode", "decode_rgba", "decode_rgb", "decode_into",
                      "decode_yuv", "decode_yuva"]
 
@@ -176,18 +206,22 @@ def test_mixed_opaque_shapes_give_the_reference_bytes(engine):
                              engine=engine) == want
 
 
-def test_mixed_shapes_raise():
-    """A mixed batch with a non-opaque RGBA image raises UnsupportedFeature
-    (its ALPH chunk needs the single-image encode); the alpha is never
-    dropped."""
-    from gowebp_tpu_torch import encode_rgba_batch
-    from gowebp_tpu_torch.errors import UnsupportedFeature
+@pytest.mark.parametrize("engine", ["hybrid", "wavefront", "openloop"])
+def test_mixed_shapes_raise(engine):
+    """A mixed batch with a non-opaque RGBA image (which raised
+    UnsupportedFeature before the port had the single-image encode) gives
+    the reference's bytes, its per-image encode_rgba with an ALPH chunk,
+    whatever engine; the alpha is never dropped."""
+    import gowebp_tpu
+    from gowebp_tpu_torch import decode_rgba, encode_rgba_batch
 
     a = np.zeros((32, 32, 3), np.uint8)
     b = np.full((32, 48, 4), 255, np.uint8)
     b[3, 4, 3] = 7
-    with pytest.raises(UnsupportedFeature, match="single-image encode"):
-        encode_rgba_batch([a, b], device="cpu")
+    want = gowebp_tpu.encode_rgba_batch([a, b], quality=60.0, engine=engine)
+    got = encode_rgba_batch([a, b], quality=60.0, device="cpu", engine=engine)
+    assert got == want
+    assert decode_rgba(got[1], device="cpu")[3, 4, 3] == 7
 
 
 @pytest.mark.parametrize("case", ["quality_150", "quality_neg", "float32"])
