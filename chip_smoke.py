@@ -131,9 +131,10 @@ Phases (any failure raises and exits non-zero; no result is printed):
      mask and a fully transparent corner through encode_rgba(device=
      "cuda"), counters reset just before and read just after: the defaults
      launch wavefront_search once and no other kernel, method 6 it and its
-     trellis form once each; GPU bytes == CPU bytes (defaults); the
-     latency, median of 5, of the defaults, method 6 and the image as RGB,
-     with the host split (yuv, dense, emit, alph); then on a 255x193 crop
+     trellis form once each, and so does the image as RGB at method 6;
+     GPU bytes == CPU bytes (defaults, RGB at method 6); the latency,
+     median of 5, of the defaults and method 6, as RGBA and as RGB, with
+     the host split (yuv, dense, emit, alph); then on a 255x193 crop
      autofilter (recon_filter_mb once a trial level), plane_backend
      "jax-openloop" (encode_luma and encode_chroma once each), "jax",
      method 6 and target_psnr, each == device="cpu"; every file decoded by
@@ -175,11 +176,13 @@ OPS_FDCT, OPS_IDCT, OPS_QUANT, OPS_DEQUANT = 160, 164, 96, 16
 OPS_PRED_I16, OPS_PRED_B4 = 32, 80
 OPS_RES_RECON = 16 + 48
 OPS_RATE_POS, OPS_RATE_EOB, OPS_DIST_COST = 10, 5, 60
-# The trellis form's DP (i4_lanes.cuh trellis_refine), per block position
-# walked (its level load, the state's table row and run rate, the
-# backtrack step) and per non-zero position (two candidates from two
-# states: their distortions, rates and int64 sums, counted as two
-# operations each, the compares and selects).
+# The trellis form's DP, counted as the serial DP's work (ops/rate.py
+# trellis_refine; the same whatever implements it, so i4_lanes.cuh
+# trellis_lanes' scan adds nothing), per block position walked (its level
+# load, the state's table row and run rate, the backtrack step) and per
+# non-zero position (two candidates from two states: their distortions,
+# rates and int64 sums, counted as two operations each, the compares and
+# selects).
 OPS_TRELLIS_POS, OPS_TRELLIS_NZ = 18, 60
 # top-k ranking, per candidate: the prediction's SSE (a subtract, a
 # multiply and an add per pixel) and 10 compare-and-count steps
@@ -1604,8 +1607,10 @@ def single_image_encode(dev, images, reset_counts, read_counts, tag):
     soft alpha mask and a fully transparent corner through
     encode_rgba(device="cuda"): the defaults launch wavefront_search once
     and no other kernel, method 6 its method <= 5 form once and its
-    trellis form once; GPU bytes == CPU bytes (defaults); latency, median
-    of 5, defaults and method 6, with the host stage split; then the
+    trellis form once; GPU bytes == CPU bytes (defaults, and the image as
+    RGB at method 6, which launches the same two); latency, median of 5,
+    defaults and method 6, as RGBA and as RGB, with the host stage split;
+    then the
     options on a 255x193 crop (autofilter: recon_filter_mb once a trial
     level; plane_backend "jax-openloop": the two plane kernels;
     "jax"; method 6; target_psnr; encode_yuv with alpha), each against
@@ -1660,9 +1665,24 @@ def single_image_encode(dev, images, reset_counts, read_counts, tag):
         decodes_right(d, img)
     log(f"single-image method 6: {len(m6)} bytes ({len(data)} at method 4); "
         f"both decode by the port == Pillow, alpha == the source's")
+    rgb = np.ascontiguousarray(img[..., :3])
+    reset_counts()
+    rgb6 = T.encode_rgba(rgb, method=6, device="cuda")
+    torch.cuda.synchronize()
+    only(read_counts("single_rgb_method6"),
+         {"wavefront_search": 1, "wavefront_search_trellis": 1},
+         "encode_rgba(RGB, method=6)")
+    t0 = time.perf_counter()
+    if T.encode_rgba(rgb, method=6, device="cpu") != rgb6:
+        raise AssertionError("encode_rgba(RGB, method=6) GPU and CPU bytes "
+                             "differ")
+    decodes_right(rgb6, rgb)
+    log(f"single-image parity: GPU bytes == CPU bytes (1 MP RGB, method 6; "
+        f"the CPU run {time.perf_counter() - t0:.1f} s); {len(rgb6)} bytes, "
+        f"decodes by the port == Pillow")
 
     for name, im, kw in (("RGBA", img, {}), ("RGBA", img, {"method": 6}),
-                         ("RGB", img[..., :3], {})):
+                         ("RGB", rgb, {}), ("RGB", rgb, {"method": 6})):
         total, stages = [], []
         for _ in range(5):
             with StageTimer() as st:

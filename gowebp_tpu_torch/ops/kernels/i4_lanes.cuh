@@ -268,76 +268,261 @@ __device__ __forceinline__ void score_lanes(const int4* ptab, int m0, int k, con
   }
 }
 
-// Trellis quantization of one block by one lane (the host encoder's
-// trellis_refine, wavefront_search.cu's trellis form): each non-zero
-// zigzag level l0 of lv (in place, positions kFirst..15) is kept or
-// lowered to l0 - 1 (never to 0) by the least distortion (|c| - v q)^2 +
-// lam * token rate over the whole block, c its raster coefficient in cf, q
-// dc_q at position 0 and ac_q elsewhere, the rate the exact token
-// grammar's (rate_walk's rules, ctx0 = 1) on the position tables t.
-// A DP over positions with 2 states, the candidate taken at the last
-// non-zero so far (its score, the context it leaves, the rate since it:
-// the continue bit and the zero run), all in registers: the loops are
-// unrolled and the choices a bit per position and candidate.  Scores are
-// int64; ties keep the unlowered level and the lower predecessor.
-template <int kFirst>
-__device__ __forceinline__ void trellis_refine(int16_t* lv, const int* cf, int dc_q, int ac_q,
-                                               int lam, const Tables& t) {
-  constexpr long long kInf = 1ll << 60;
-  long long s0 = 0, s1 = kInf;    // the scores of the two states
-  int c0 = 1, c1 = 1, a0 = 0, a1 = 0, nxt = kFirst;  // contexts, run rates, last nz + 1
-  unsigned m0 = 0, m1 = 0;        // bit n: candidate 0 / 1 at n came from state 1
-  const long long L = lam;
+// The trellis's infinite score, of a state no path reaches (the lowered
+// level of |l| = 1; state 1 before the first non-zero).  A finite score
+// stays below 2^55 (16 positions of distortion (|c| - w q)^2 < 2^47 and
+// lam * rate < 2^53 for int32 lambdas, 16-bit table entries, |c| < 2^16,
+// w < 2^11 and q < 2^12), so with INF = 2^58 a sum of 16 scores, each
+// finite or infinite, stays below 2^63: the min-plus products below need
+// no saturation, and every infinite sum stays at INF or above.
+constexpr long long kTrellisInf = 1ll << 58;
+
+// A 2x2 min-plus matrix: x[s][c] the cost of going from state s (the
+// level kept, or lowered by one) at one non-zero position to candidate c
+// at a later one.
+struct MinPlus {
+  long long x00, x01, x10, x11;
+};
+
+// a then b: the product in the (min, +) semiring.
+__device__ __forceinline__ MinPlus minplus(const MinPlus& a, const MinPlus& b) {
+  return {min(a.x00 + b.x00, a.x01 + b.x10), min(a.x00 + b.x01, a.x01 + b.x11),
+          min(a.x10 + b.x00, a.x11 + b.x10), min(a.x10 + b.x01, a.x11 + b.x11)};
+}
+
+// The matrix of the lane d below in this lane's segment (its own below d).
+__device__ __forceinline__ MinPlus shfl_up16(const MinPlus& a, int d) {
+  return {__shfl_up_sync(kFullMask, a.x00, d, 16), __shfl_up_sync(kFullMask, a.x01, d, 16),
+          __shfl_up_sync(kFullMask, a.x10, d, 16), __shfl_up_sync(kFullMask, a.x11, d, 16)};
+}
+
+// One block's parameters in trellis_lanes: its rate table (an index into
+// the kernel's tables and their zero-run sums), its first position, and
+// the steps of position 0 and of the rest.
+struct TrellisType {
+  int table, first, dc_q, ac_q;
+};
+
+// a * b as int64, one 32 x 32 -> 64-bit multiply.
+__device__ __forceinline__ long long mul_wide(int a, int b) {
+  long long r;
+  asm("mul.wide.s32 %0, %1, %2;" : "=l"(r) : "r"(a), "r"(b));
+  return r;
+}
+
+// What a lane holds of one packing round of trellis_lanes: its non-zero
+// (rank i of a block whose kb non-zeros sit on lanes o ..), that
+// non-zero's matrix m, (M[1][c] - M[0][c]) / lam as g0, g1, and the
+// end-of-block bit's costs after it under either state.
+struct TrellisSlot {
+  MinPlus m;
+  int i, kb, o, g0, g1, eob0, eob1;
+  bool on;
+};
+
+// Trellis quantization of N blocks on each 16-lane segment (the host
+// encoder's trellis_refine, wavefront_search.cu's trellis form): each
+// non-zero zigzag level l0 of block b at positions ty[b].first..15 is
+// kept or lowered to l0 - 1 (never to 0) by the least distortion (|c| - v
+// q)^2 + lam * token rate over the whole block, c its coefficient, q the
+// block's dc_q at position 0 and ac_q elsewhere, the rate the exact token
+// grammar's (rate_walk's rules, ctx0 = 1) on the position tables
+// T[ty[b].table]; zrun[16 i + n] sums the zero-token costs T[i].pp[3 m].z
+// of positions m < n.  Lane k of a segment holds raster coefficient k and
+// raster level k of block b in cf[b] and lv[b]; lv is refined in place.
+//
+// The serial DP (one pass over the positions, two states) as a scan.
+// Between consecutive non-zeros p < n of a block the DP's step is a 2x2
+// min-plus matrix M_n, M_n[s][c] = (run(p -> n | ctx_s) + pp[r_s].w + 256
+// + val[r_s][min(|l_n| - c, 67)]) * lam + (|c_n| - (|l_n| - c) q_n)^2,
+// ctx_s the context state s leaves at p (1 after a level 1, else 2), run
+// the continue bit at p + 1 under ctx_s plus the zero tokens up to n - 1
+// (context 0 after the first), r_s = 3 n + (n == p + 1 ? ctx_s : 0);
+// M_n[s][1] = INF when |l_n| = 1; zero positions change nothing; the
+// first non-zero's predecessor is a virtual one at first - 1 with context
+// 1 and scores (0, INF).  The blocks' non-zeros are packed onto the
+// segment's lanes, block after block in zigzag order (a block that does
+// not fit starts another round), so one lane builds one non-zero's
+// matrix, from the level and coefficient it fetches by shuffle; two
+// rounds run side by side, as independent chains.  A segmented
+// Kogge-Stone scan (ceil(log2) of the most non-zeros a block has, at most
+// 4 shuffle steps) gives each lane the serial loop's scores
+// at its non-zero and, by one more shuffle, at its predecessor; the
+// choice bits are the serial form's strict t1 < t0 (ties keep the
+// unlowered level and the lower predecessor), by the state difference:
+// (M[1][c] - M[0][c]) is an int times lam.  The last non-zero adds the
+// end-of-block bit for the final state, and each lane backtracks to its
+// own state in bit-parallel form (the lowest constant choice above it,
+// then the parity of the negating ones between), from the ballots.  Then
+// each lane lowers its own raster levels.  Bit for bit the serial DP's
+// levels, ties included: min-plus products of these int64 scores are
+// exact and associative.
+template <int N>
+__device__ __forceinline__ void trellis_lanes(const int* cf, int* lv, int k, int lam,
+                                              const TrellisType* ty, const Tables* T,
+                                              const int* zrun) {
+  constexpr long long kInf = kTrellisInf;
+  // each block's non-zero positions, and their count
+  unsigned nz[N];
+  int cnt[N];
 #pragma unroll
-  for (int n = kFirst; n < 16; n++) {
-    const int l = lv[n], v = l < 0 ? -l : l;
-    const bool after = nxt == n;
-    const int r0 = 3 * n + (after ? c0 : 0), r1 = 3 * n + (after ? c1 : 0);
-    const int4 P0 = t.pp[r0], P1 = t.pp[r1];
-    if (after) {
-      a0 = P0.y;
-      a1 = P1.y;
+  for (int b = 0; b < N; b++) {
+    const int l = seg_get(lv[b], zigzag_lane(k));
+    nz[b] = seg_ballot(l != 0 && k >= ty[b].first);
+    cnt[b] = __popc(nz[b]);
+  }
+  // rounds of up to 16 non-zeros, block b's on lanes off[b] ..
+  int rnd[N], off[N], rounds = 1;
+  {
+    int used = 0;
+#pragma unroll
+    for (int b = 0; b < N; b++) {
+      if (used + cnt[b] > 16) {
+        rounds++;
+        used = 0;
+      }
+      rnd[b] = rounds - 1;
+      off[b] = used;
+      used += cnt[b];
     }
-    if (v == 0) {
-      a0 += P0.z;
-      a1 += P1.z;
-      continue;
+  }
+
+  // round r's non-zero on this lane, its matrix and costs; kmax gets the
+  // round's most non-zeros in a block
+  auto setup = [&](int r, TrellisSlot& s, int& kmax) {
+    bool hit[N];
+    unsigned mask = 0;
+    int o = 0, kb = 0, table = 0, first = 0, dc_q = 0, ac_q = 0;
+#pragma unroll
+    for (int b = 0; b < N; b++) {  // the block whose lanes hold k, if any
+      hit[b] = rnd[b] == r && (unsigned)(k - off[b]) < (unsigned)cnt[b];
+      kmax = max(kmax, rnd[b] == r ? cnt[b] : 0);
+      mask |= hit[b] ? nz[b] : 0u;
+      o |= hit[b] ? off[b] : 0;
+      kb |= hit[b] ? cnt[b] : 0;
+      table |= hit[b] ? ty[b].table : 0;
+      first |= hit[b] ? ty[b].first : 0;
+      dc_q |= hit[b] ? ty[b].dc_q : 0;
+      ac_q |= hit[b] ? ty[b].ac_q : 0;
     }
-    const int raw = cf[zigzag_lane(n)], araw = raw < 0 ? -raw : raw;
+    s.on = kb > 0;
+    s.kb = kb;
+    s.o = o;
+    s.i = s.on ? k - o : 0;
+    int n = 0;  // its position: the i-th set bit of the mask
+    {
+      unsigned mm = mask;
+      int rr = s.i;
+#pragma unroll
+      for (int w = 8; w >= 1; w >>= 1) {
+        const int c = __popc(mm & ((1u << w) - 1));
+        if (rr >= c) {
+          rr -= c;
+          n += w;
+          mm >>= w;
+        }
+      }
+    }
+    n &= 15;
+    int l = 0, c = 0;
+    const int src = zigzag_lane(n);
+#pragma unroll
+    for (int b = 0; b < N; b++) {
+      const int lb = seg_get(lv[b], src), cb = seg_get(cf[b], src);
+      l |= hit[b] ? lb : 0;
+      c |= hit[b] ? cb : 0;
+    }
+    const int w = l < 0 ? -l : l, ac = c < 0 ? -c : c;
+    const Tables& t = T[table];
+    const int e = 3 * (n < 15 ? n + 1 : 15);  // the end-of-block bit after n
+    s.eob0 = n < 15 ? t.pp[e + (w == 1 ? 1 : 2)].x : 0;
+    s.eob1 = n < 15 ? t.pp[e + (w == 2 ? 1 : 2)].x : 0;
+    // the predecessor: the lane below in the same block, or the virtual one
+    const int pn = __shfl_up_sync(kFullMask, n, 1, 16), pw = __shfl_up_sync(kFullMask, w, 1, 16);
+    const int p = s.i == 0 ? first - 1 : pn;
+    const int ctx0 = s.i == 0 || pw == 1 ? 1 : 2, ctx1 = s.i == 0 || pw == 2 ? 1 : 2;
+    const int* z = zrun + 16 * table;
+    const bool adj = n == p + 1;
+    const int4 Q0 = t.pp[3 * (p + 1) + ctx0], Q1 = t.pp[3 * (p + 1) + ctx1], Rn = t.pp[3 * n];
+    const int run = z[n] - z[min(p + 2, 15)];  // zero tokens p + 2 .. n - 1
+    const int base0 = Q0.y + (adj ? Q0.w : Q0.z + run + Rn.w) + 256;
+    const int base1 = Q1.y + (adj ? Q1.w : Q1.z + run + Rn.w) + 256;
+    const int r0 = 68 * (3 * n + (adj ? ctx0 : 0)), r1 = 68 * (3 * n + (adj ? ctx1 : 0));
+    const int h0 = w > 67 ? 67 : w, h1 = w - 1 > 67 ? 67 : (w < 1 ? 0 : w - 1);
     const int qs = n == 0 ? dc_q : ac_q;
-    const long long b0 = s0 + (long long)(a0 + P0.w + 256) * L;
-    const long long b1 = s1 + (long long)(a1 + P1.w + 256) * L;
-    long long ns[2];
-    unsigned pick[2];
-#pragma unroll
-    for (int c = 0; c < 2; c++) {
-      const int w = v - c, wv = w > 67 ? 67 : w;
-      const long long e = araw - w * qs;
-      const long long t0 = b0 + t.val[r0 * 68 + wv] * L + e * e;
-      const long long t1 = s1 >= kInf ? kInf : b1 + t.val[r1 * 68 + wv] * L + e * e;
-      pick[c] = t1 < t0;
-      ns[c] = (c == 1 && w < 1) ? kInf : (pick[c] ? t1 : t0);
+    const int e0 = ac - w * qs, e1 = ac - (w - 1) * qs;
+    const long long d0 = mul_wide(e0, e0), d1 = mul_wide(e1, e1);
+    const int u00 = base0 + t.val[r0 + h0], u01 = base0 + t.val[r0 + h1];
+    const int u10 = base1 + t.val[r1 + h0], u11 = base1 + t.val[r1 + h1];
+    // M_n (the identity off the non-zeros), and (M[1][c] - M[0][c]) / lam
+    s.m.x00 = s.on ? mul_wide(u00, lam) + d0 : 0;
+    s.m.x01 = s.on && w > 1 ? mul_wide(u01, lam) + d1 : kInf;
+    s.m.x10 = s.on ? mul_wide(u10, lam) + d0 : kInf;
+    s.m.x11 = !s.on ? 0 : w > 1 ? mul_wide(u11, lam) + d1 : kInf;
+    s.g0 = u10 - u00;
+    s.g1 = u11 - u01;
+  };
+
+  // after the scan: the segment's ballot of the lowered non-zeros
+  auto finish = [&](const TrellisSlot& s) {
+    // the scores at the predecessor, and the choices: candidate c came
+    // from state 1 when s1 + M[1][c] < s0 + M[0][c] (never for an infinite
+    // s1, as the serial form's t1 = INF is never below t0)
+    long long s0 = __shfl_up_sync(kFullMask, s.m.x00, 1, 16);
+    long long s1 = __shfl_up_sync(kFullMask, s.m.x01, 1, 16);
+    if (s.i == 0) {
+      s0 = 0;
+      s1 = kInf;
     }
-    m0 |= pick[0] << n;
-    m1 |= pick[1] << n;
-    s0 = ns[0];
-    s1 = ns[1];
-    c0 = v == 1 ? 1 : 2;
-    c1 = v - 1 == 1 ? 1 : 2;
-    nxt = n + 1;
-  }
-  if (nxt <= 15) {  // the end-of-block bit after the last non-zero
-    s0 += t.pp[3 * nxt + c0].x * L;
-    if (s1 < kInf) s1 += t.pp[3 * nxt + c1].x * L;
-  }
-  unsigned cur = s1 < s0;
+    const unsigned kmask = (1u << s.kb) - 1;
+    const unsigned P0 = (seg_ballot(s.on && mul_wide(s.g0, lam) < s0 - s1) >> s.o) & kmask;
+    const unsigned P1 = (seg_ballot(s.on && mul_wide(s.g1, lam) < s0 - s1) >> s.o) & kmask;
+    // the final state: the last non-zero's scores with the end-of-block
+    // bit after it (none at 15)
+    const long long f0 = s.m.x00 + mul_wide(s.eob0, lam), f1 = s.m.x01 + mul_wide(s.eob1, lam);
+    const unsigned fin = seg_ballot(s.on && s.i == s.kb - 1 && f1 < f0);
+    // this non-zero's state: non-zero j's choices map the state at j to
+    // the state at j - 1, so the state at i is those of i + 1 .. kb - 1
+    // applied to the final one: the lowest constant choice above i (or
+    // the final state) flipped by each negating choice between
+    const unsigned above = kmask & ~((2u << s.i) - 1);
+    const unsigned cst = ~(P0 ^ P1) & above, neg = P0 & ~P1 & above;
+    const int cp = cst ? __ffs(cst) - 1 : s.kb;
+    const unsigned from = cst ? (P0 >> cp) & 1 : s.kb ? (fin >> (s.o + s.kb - 1)) & 1 : 0;
+    return seg_ballot(s.on && ((from ^ __popc(neg & ((1u << cp) - 1))) & 1));
+  };
+
+  unsigned st[N];  // block b's lowered non-zeros, bit i for its i-th
 #pragma unroll
-  for (int n = 15; n >= kFirst; n--) {
-    const int l = lv[n];
-    if (l == 0) continue;
-    const int w = (l < 0 ? -l : l) - (int)cur;
-    lv[n] = (int16_t)(l < 0 ? -w : w);
-    cur = ((cur ? m1 : m0) >> n) & 1;
+  for (int b = 0; b < N; b++) st[b] = 0;
+  const int R = max(rounds, __shfl_xor_sync(kFullMask, rounds, 16));
+  for (int r = 0; r < R; r += 2) {
+    TrellisSlot a, b2;
+    int kmax = 1;
+    setup(r, a, kmax);
+    setup(r + 1, b2, kmax);
+    // inclusive prefix products over each block's non-zeros
+    kmax = max(kmax, __shfl_xor_sync(kFullMask, kmax, 16));
+    for (int d = 1; d < kmax; d <<= 1) {
+      const MinPlus oa = minplus(shfl_up16(a.m, d), a.m);
+      const MinPlus ob = minplus(shfl_up16(b2.m, d), b2.m);
+      if (a.i >= d) a.m = oa;
+      if (b2.i >= d) b2.m = ob;
+    }
+    const unsigned low0 = finish(a), low1 = finish(b2);
+#pragma unroll
+    for (int b = 0; b < N; b++) {
+      const unsigned km = (1u << cnt[b]) - 1;
+      if (rnd[b] == r) st[b] = (low0 >> off[b]) & km;
+      if (rnd[b] == r + 1) st[b] = (low1 >> off[b]) & km;
+    }
+  }
+  // each lane lowers its raster levels by their positions' states
+  const int pos = inv_zigzag(k);
+#pragma unroll
+  for (int b = 0; b < N; b++) {
+    const int down = (int)((nz[b] >> pos) & (st[b] >> __popc(nz[b] & ((1u << pos) - 1)))) & 1;
+    lv[b] += lv[b] < 0 ? down : -down;
   }
 }
 

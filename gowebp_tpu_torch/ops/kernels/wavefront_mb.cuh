@@ -132,7 +132,8 @@ __device__ __forceinline__ int luma_dc(const int* sy, int half, int k, bool ht, 
 // refine(cf, y2c, x, l2), called by both warps once the levels are in
 // s_lv, may change the levels before the dequantization (this lane's AC
 // levels x[4] and Y2 level l2, from its coefficients cf[4] and Y2
-// coefficient y2c): wavefront_search.cu's trellis form.
+// coefficient y2c; it stores what it changes in s_lv itself):
+// wavefront_search.cu's trellis form.
 template <typename Refine>
 __device__ __forceinline__ void code_i16(int warp, int half, int k, int m, int dcv, int tl,
                                          const int* sy, const uint8_t* ss, const int* q,

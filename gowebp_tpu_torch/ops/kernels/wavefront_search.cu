@@ -74,20 +74,27 @@
 // - The trellis form (kTrellis, a template parameter; the host encoder's
 //   second pass at method 6, gowebp_tpu/entropy/native/vp8_dec.cpp
 //   trellis_refine with block_rate256's rules): every block's levels are
-//   refined right after its quantization by i4_lanes.cuh trellis_refine,
-//   a serial DP on one lane a block, from the levels and coefficients in
-//   shared memory: the 16 i16 AC blocks (lanes 0-7 of each luma warp) and
-//   the Y2 block (warp 0, lane 8) before the dequantization, so the i16
-//   recon, d16 and rate16 see the refined levels; each of the 10
-//   candidates of every walk sub-block before it is scored (lanes 0-9 of
-//   the sub-block's warp, so the trellis moves the mode decisions too);
-//   the 8 chroma blocks after the DC error diffusion (lanes 0-3 of each
-//   segment of warp 1).  The rate tables are those of the first pass's
-//   adapted probabilities and add type 2 (chroma) as a fourth table
-//   (55,296 bytes of dynamic shared memory), the lambdas come per segment
-//   (lams).  Its cost: up to 10 serial DPs of up to 16 positions on the
-//   walk's chain at each of its 10 steps, in place of none; the lanes'
-//   layout is not redesigned for it (one DP a lane, the other lanes idle).
+//   refined right after its quantization by i4_lanes.cuh trellis_lanes,
+//   on the segment that already holds the blocks (lane k raster
+//   coefficient and level k of each): the DP's step between two non-zero
+//   positions is a 2x2 min-plus matrix; the non-zeros of the segment's
+//   blocks are packed onto its 16 lanes, one a lane, and a segmented scan
+//   of their matrices (at most 4 shuffle steps) gives every non-zero the
+//   serial DP's two scores; ballots of the choice bits and a bit-parallel
+//   backtrack then lower each lane's own levels.  Each segment refines its
+//   4 AC blocks and the Y2 block (every segment holds Y2's coefficients)
+//   in one call, before the dequantization, so the i16 recon, d16 and
+//   rate16 see the refined levels; its 5 walk candidates before they are
+//   scored (so the trellis moves the mode decisions too); its chroma
+//   channel's 4 blocks after the DC error diffusion.  No shared memory and
+//   no barrier.  Its cost: each call is a chain of some 13 dependent
+//   shuffle, ballot or table-load stages (a packing round when the
+//   blocks' non-zeros fit 16 lanes, two rounds side by side otherwise),
+//   11 calls on each MB step's chain.  The rate tables are those of the
+//   first pass's adapted probabilities and add type 2 (chroma) as a fourth
+//   table (55,296 bytes of dynamic shared memory, 3 blocks an SM), with
+//   each table's zero-run sums (256 bytes, made at the launch's start);
+//   the lambdas come per segment (lams).
 
 #include <cuda_runtime.h>
 
@@ -182,13 +189,10 @@ __global__ void __launch_bounds__(kThreads, 4) wavefront_search_kernel(Args a) {
   // keeps i16 writes out the luma levels of s_lv)
   __shared__ __align__(16) int16_t s_lv[400];
   __shared__ __align__(16) int16_t s_l4[256];
-  // the trellis form's inputs: the coefficients of the i16 blocks (Y2 at
-  // 256) and of the chroma blocks, and each luma warp's walk candidates'
-  // coefficients and zigzag levels (candidate c of warp w at 16 * (10 w + c))
+  // the trellis form: each table's zero-run sums (i4_lanes.cuh
+  // trellis_lanes' zrun, table i at 16 * i) and the per-segment lambdas
   constexpr int kT = kTrellis ? 1 : 0;
-  __shared__ int s_tcf[kT ? 272 : 1], s_tcc[kT ? 128 : 1], s_t4cf[kT ? 320 : 1];
-  __shared__ int16_t s_t4lv[kT ? 320 : 1];
-  __shared__ int s_lam[4];
+  __shared__ int s_zrun[kT ? 64 : 1], s_lam[4];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int k = lane & 15, half = lane >> 4;
@@ -202,6 +206,12 @@ __global__ void __launch_bounds__(kThreads, 4) wavefront_search_kernel(Args a) {
     for (int i = 0; i < 3 + kT; i++)
       vp8::stage_tables(tw[i], a.p0 + 96 * i, a.p1 + 96 * i, a.val + vp8::kVal * i);
   }
+  if constexpr (kTrellis)
+    for (int i = tid; i < 64; i += kThreads) {  // sums of p1[3 m][0] (pp.z), m < n
+      int z = 0;
+      for (int m = 0; m < (i & 15); m++) z += a.p1[96 * (i >> 4) + 6 * m];
+      s_zrun[i] = z;
+    }
 
   for (;;) {
     __syncthreads();  // the last row's shared state is no longer read
@@ -358,25 +368,23 @@ __global__ void __launch_bounds__(kThreads, 4) wavefront_search_kernel(Args a) {
         int x[4], pr[4], rec[4];  // this warp's 4 rounds of 2 sub-blocks, together
         const vp8::Tables* T = reinterpret_cast<const vp8::Tables*>(s_tables);
         const int lam = kTrellis ? s_lam[sg] : 0;
-        // the trellis form: lanes 0-7 refine this warp's AC blocks, warp 0's
-        // lane 8 the Y2 block, from the levels in s_lv and the coefficients
-        // put in s_tcf; then every lane takes its refined levels back
+        // the trellis form: each segment refines its 4 AC blocks and, as
+        // every segment holds the Y2 block, the Y2 block too, together, in
+        // registers; the refined levels replace the quantizer's in s_lv
+        // (warp 0's segment 0 stores Y2's)
         auto refine16 = [&](const int* cf, int y2c, int* lvx, int& l2) {
           if constexpr (kTrellis) {
+            const vp8::TrellisType ac{0, 1, q0, q1}, ty[5] = {ac, ac, ac, ac, {1, 0, q[2], q[3]}};
+            const int c5[5] = {cf[0], cf[1], cf[2], cf[3], y2c};
+            int l5[5] = {lvx[0], lvx[1], lvx[2], lvx[3], l2};
+            vp8::trellis_lanes<5>(c5, l5, k, lam, ty, T, s_zrun);
 #pragma unroll
-            for (int rnd = 0; rnd < 4; rnd++) s_tcf[16 * (blk0 + 2 * rnd + half) + k] = cf[rnd];
-            if (warp == 0 && half == 0) s_tcf[256 + k] = y2c;
-            __syncwarp();
-            if (lane < 8)
-              vp8::trellis_refine<1>(s_lv + 16 * (blk0 + lane), s_tcf + 16 * (blk0 + lane), q0,
-                                     q1, lam, T[0]);
-            else if (warp == 0 && lane == 8)
-              vp8::trellis_refine<0>(s_lv + 384, s_tcf + 256, q[2], q[3], lam, T[1]);
-            vp8::named_barrier_luma();  // the refined Y2 levels are in s_lv for both warps
-            l2 = s_lv[384 + vp8::inv_zigzag(k)];
-#pragma unroll
-            for (int rnd = 0; rnd < 4; rnd++)
-              lvx[rnd] = s_lv[16 * (blk0 + 2 * rnd + half) + vp8::inv_zigzag(k)];
+            for (int rnd = 0; rnd < 4; rnd++) {
+              lvx[rnd] = l5[rnd];
+              s_lv[16 * (blk0 + 2 * rnd + half) + vp8::inv_zigzag(k)] = (int16_t)l5[rnd];
+            }
+            l2 = l5[4];
+            if (warp == 0 && half == 0) s_lv[384 + vp8::inv_zigzag(k)] = (int16_t)l2;
           }
         };
         vp8::code_i16(warp, half, k, m, dcv, tl, sy, ss, q, iq, q1, iq0, iq1, s_dc, s_lv, x, pr,
@@ -417,23 +425,12 @@ __global__ void __launch_bounds__(kThreads, 4) wavefront_search_kernel(Args a) {
           // the diagonals that hold two; segment `half` scores B-modes
           // 5*half .. 5*half + 4 together ----
           const vp8::Quant qv{iq0, iq1, q0, q1, pen};
-          // the trellis form: lanes 0-9 refine the sub-block's 10 candidates
-          // from this warp's scratch, then every lane takes its levels back
-          int* const tcf = s_t4cf + 160 * (warp >> 1);
-          int16_t* const tlv = s_t4lv + 160 * (warp >> 1);
+          // the trellis form: each segment refines its 5 candidates in
+          // registers
           auto refine4 = [&](const int* cf, int* lv) {
             if constexpr (kTrellis) {
-#pragma unroll
-              for (int j = 0; j < 5; j++) {
-                tcf[16 * (5 * half + j) + k] = cf[j];
-                tlv[16 * (5 * half + j) + vp8::inv_zigzag(k)] = (int16_t)lv[j];
-              }
-              __syncwarp();
-              if (lane < 10)
-                vp8::trellis_refine<0>(tlv + 16 * lane, tcf + 16 * lane, q0, q1, lam, T[2]);
-              __syncwarp();
-#pragma unroll
-              for (int j = 0; j < 5; j++) lv[j] = tlv[16 * (5 * half + j) + vp8::inv_zigzag(k)];
+              const vp8::TrellisType i4{2, 0, q0, q1}, ty[5] = {i4, i4, i4, i4, i4};
+              vp8::trellis_lanes<5>(cf, lv, k, lam, ty, T, s_zrun);
             }
           };
           int s4 = 0;
@@ -534,23 +531,16 @@ __global__ void __launch_bounds__(kThreads, 4) wavefront_search_kernel(Args a) {
         int16_t* uv = s_lv + 256 + ch * 64;
         int lv[4];
 #pragma unroll
-        for (int blk = 0; blk < 4; blk++) {
+        for (int blk = 0; blk < 4; blk++)
           lv[blk] = vp8::quant_lane(cfr[blk], k, iq[4], iq[5], vp8::kBiasUvDc, vp8::kBiasUvAc,
                                     false);
-          uv[blk * 16 + vp8::inv_zigzag(k)] = (int16_t)lv[blk];
+        if constexpr (kTrellis) {  // the segment refines its channel's 4 blocks
+          const vp8::TrellisType uvt{3, 0, q[4], q[5]}, ty[4] = {uvt, uvt, uvt, uvt};
+          vp8::trellis_lanes<4>(cfr, lv, k, s_lam[s_seg], ty,
+                                reinterpret_cast<const vp8::Tables*>(s_tables), s_zrun);
         }
-        if constexpr (kTrellis) {
-          // lanes 0-3 of the segment refine its channel's 4 blocks
 #pragma unroll
-          for (int blk = 0; blk < 4; blk++) s_tcc[64 * ch + 16 * blk + k] = cfr[blk];
-          __syncwarp();
-          if (k < 4)
-            vp8::trellis_refine<0>(uv + 16 * k, s_tcc + 64 * ch + 16 * k, q[4], q[5],
-                                   s_lam[s_seg], reinterpret_cast<const vp8::Tables*>(s_tables)[3]);
-          __syncwarp();
-#pragma unroll
-          for (int blk = 0; blk < 4; blk++) lv[blk] = uv[blk * 16 + vp8::inv_zigzag(k)];
-        }
+        for (int blk = 0; blk < 4; blk++) uv[blk * 16 + vp8::inv_zigzag(k)] = (int16_t)lv[blk];
 #pragma unroll
         for (int blk = 0; blk < 4; blk++) cfr[blk] = lv[blk] * (k == 0 ? q[4] : q[5]);
         vp8::idct_lanes<4>(cfr, k);

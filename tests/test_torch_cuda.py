@@ -793,14 +793,19 @@ def test_yuv420_to_rgba_nearest_matches_plain(cuda, b, h, w, ph, pw):
     assert not torch.equal(got, yuv420_to_rgba(*planes, h, w)) or h * w == 1
 
 
-def _recon_case(seed, B, mb_h, mb_w):
-    """chip_smoke.py's random recon inputs (i4/i16 mixes, skip MBs, four
-    segments with distinct filter levels, one off), on the CPU."""
+def _chip_smoke():
+    """chip_smoke.py, loaded as a module."""
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.random_symbols("cpu", seed, B, mb_h, mb_w)
+    return mod
+
+
+def _recon_case(seed, B, mb_h, mb_w):
+    """chip_smoke.py's random recon inputs (i4/i16 mixes, skip MBs, four
+    segments with distinct filter levels, one off), on the CPU."""
+    return _chip_smoke().random_symbols("cpu", seed, B, mb_h, mb_w)
 
 
 RECON_GRIDS = [(2, 3, 5), (1, 1, 5), (1, 5, 1), (1, 1, 1), (3, 4, 6)]
@@ -971,6 +976,68 @@ def test_wavefront_search_trellis_kernel_matches_plain(cuda, try_i4, derr, B,
             wavefront_search.trellis_launches) == (before[0], before[1] + 1)
     for k in want:
         assert torch.equal(got[k], want[k]), k
+
+
+def _trellis_tie_case(cuda, seed, B, H, W):
+    """Inputs that force equal trellis costs: steps of 4 (Y2 8) in every
+    segment, free bits and value costs of 8 v under every context, and
+    lambda 1, so that a level v >= 2 of a coefficient 4 v - 1 costs 8 v +
+    1 kept and lowered alike, and the two states that tie stay tied;
+    noisy, flat and gradient MBs.  The search's tables are the same, its
+    penalties 0 and 1 (i4 and i16 MBs, ties between B-modes)."""
+    args = list(_search_case(cuda, seed, B, H, W))
+    args[4] = torch.tensor([4, 4, 8, 8, 4, 4], dtype=torch.int32,
+                           device=cuda).expand(B, 4, 6).contiguous()
+    args[5] = torch.tensor([0, 1, 0, 1], dtype=torch.int32,
+                           device=cuda).expand(B, 4).contiguous()
+    p0 = torch.zeros((4, 8, 3, 2), dtype=torch.int32, device=cuda)
+    val = (8 * torch.arange(68, dtype=torch.int32, device=cuda)).expand(
+        4, 8, 3, 68).contiguous()
+    lams = torch.ones((B, 4), dtype=torch.int32, device=cuda)
+    return tuple(args), (p0, p0.clone(), val), lams
+
+
+@pytest.mark.parametrize("derr", [False, True])
+@pytest.mark.parametrize("B,H,W", [(2, 48, 80), (3, 64, 96), (1, 16, 16)])
+def test_wavefront_search_trellis_kernel_matches_plain_on_ties(cuda, derr, B,
+                                                               H, W):
+    """The trellis form against its plain version where trellis costs tie
+    (``_trellis_tie_case``): the strict comparison keeps the unlowered
+    level and the lower predecessor in the kernel's scan as in the serial
+    DP."""
+    from gowebp_tpu_torch.ops.kernels.wavefront_search import (
+        search_tables, wavefront_search, wavefront_search_plain)
+
+    args, tables, lams = _trellis_tie_case(cuda, 13 + H + W, B, H, W)
+    rate = search_tables(tables, trellis=True)
+    want = wavefront_search_plain(*args, rate, try_i4=True, use_derr=derr,
+                                  want_recon=True, lams=lams)
+    got = wavefront_search(*args, rate, try_i4=True, use_derr=derr,
+                           want_recon=True, lams=lams)
+    torch.cuda.synchronize()
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_wavefront_search_ptxas_has_no_stack_or_spills(cuda, tmp_path):
+    """All four forms of wavefront_search.cu (try_i4 x trellis) compile to
+    no stack frame and no spills (nvcc -Xptxas -v, built here anew)."""
+    import subprocess
+
+    from gowebp_tpu_torch.ops.kernels.cuda_build import NVCC_FLAGS, nvcc
+    from gowebp_tpu_torch.ops.kernels.wavefront_search import LIBRARY
+
+    out = subprocess.run(
+        [nvcc(), *NVCC_FLAGS, "-o", str(tmp_path / "lib.so"),
+         str(LIBRARY.source)], capture_output=True, text=True)
+    assert out.returncode == 0, out.stdout + out.stderr
+    smoke = _chip_smoke()
+    report = smoke.ptxas_report(out.stdout + out.stderr,
+                                "wavefront_search_kernel")
+    forms = {smoke.search_form(name): (stack, st, ld)
+             for name, _, stack, st, ld in report}
+    assert len(forms) == 4, report
+    assert all(v == (0, 0, 0) for v in forms.values()), forms
 
 
 def test_wavefront_search_trellis_rejects_bad_lambdas(cuda):

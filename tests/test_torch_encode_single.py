@@ -19,8 +19,9 @@ class for exception class.
   lengths, and the exact engine's trellis form (``trellis_refine``, and
   ``encode_wavefront_core(trellis=...)`` against the host encoder's
   trellis pass arrays, ``_encode_frame_dense_native(trellis_probs=...)``);
-  a numpy model of the kernel's register DP (i4_lanes.cuh
-  ``trellis_refine``) against the plain one.
+  Python models of the serial register DP and of the kernel's lane scan
+  (i4_lanes.cuh ``trellis_lanes``) against each other and the plain one,
+  on random blocks, forced ties and edge blocks.
 """
 
 import numpy as np
@@ -463,11 +464,13 @@ def test_trellis_form_matches_the_host_trellis_pass(mh, mw):
     assert not np.array_equal(first["yl"], want["yl"])   # the trellis acted
 
 
-def kernel_dp_model(lv, cf, first, dc_q, ac_q, lam, p0, p1, val):
-    """i4_lanes.cuh ``trellis_refine<kFirst>`` transliterated to Python
+def kernel_dp_model(lv, cf, first, dc_q, ac_q, lam, p0, p1, val, ties=None):
+    """The serial one-lane trellis DP (the host encoder's form, which
+    ``trellis_lanes``' model below is held to) transliterated to Python
     ints: two states in registers, a choice bit per position and
     candidate, the backtrack from the bits; zigzag levels ``lv`` (16,),
-    raster coefficients ``cf`` (16,), per-position tables."""
+    raster coefficients ``cf`` (16,), per-position tables.  ``ties``, a
+    list, gets (n, c) for each choice between two equal finite costs."""
     from gowebp_tpu_torch.ops.dct import _ZIGZAG
 
     inf = 1 << 60
@@ -496,6 +499,8 @@ def kernel_dp_model(lv, cf, first, dc_q, ac_q, lam, p0, p1, val):
             t1 = inf if s1 >= inf else b1 + val[r1][min(w, 67)] * lam + e * e
             pick[c] = int(t1 < t0)
             ns[c] = inf if (c == 1 and w < 1) else (t1 if pick[c] else t0)
+            if ties is not None and t1 == t0 < inf and w >= 1:
+                ties.append((n, c))
         m0 |= pick[0] << n
         m1 |= pick[1] << n
         s0, s1 = ns
@@ -505,6 +510,8 @@ def kernel_dp_model(lv, cf, first, dc_q, ac_q, lam, p0, p1, val):
         s0 += p0[3 * nxt + c0][0] * lam
         if s1 < inf:
             s1 += p0[3 * nxt + c1][0] * lam
+    if ties is not None and s1 == s0 < inf:
+        ties.append((16, 0))
     cur = int(s1 < s0)
     for n in range(15, first - 1, -1):
         if lv[n] == 0:
@@ -515,25 +522,197 @@ def kernel_dp_model(lv, cf, first, dc_q, ac_q, lam, p0, p1, val):
     return lv
 
 
-@pytest.mark.parametrize("type_,first", [(0, 1), (1, 0), (2, 0), (3, 0)])
-def test_kernel_trellis_dp_model_equals_the_plain_trellis(type_, first):
-    """The kernel's register DP (modelled in Python) refines levels as the
-    plain ``trellis_refine`` does, on random blocks: sparse and dense,
-    levels from 1 to past the 67 clamp, both signs, lambdas 1-60."""
-    from gowebp_tpu_torch.models.vp8.encoder import _default_cost_tables
-    from gowebp_tpu_torch.ops.dct import BIAS, quantize
-    from gowebp_tpu_torch.ops.rate import position_tables, trellis_refine
+LANES_INF = 1 << 58          # i4_lanes.cuh kTrellisInf
+FINITE_BOUND = 1 << 55       # the bound on finite scores its comment argues
 
-    rng = np.random.default_rng(type_ * 7 + first)
+
+def nth_bit(mask, i):
+    """The position of the i-th set bit of a 16-bit mask, by halves, as
+    i4_lanes.cuh ``trellis_lanes`` finds it (15 past the mask)."""
+    n = 0
+    for w in (8, 4, 2, 1):
+        c = bin(mask & ((1 << w) - 1)).count("1")
+        if i >= c:
+            i, n, mask = i - c, n + w, mask >> w
+    return 0 if i < 0 else n & 15
+
+
+def trellis_state(p0, p1, fin, i, kb):
+    """The state (1: lowered) at rank i of a block of kb non-zeros from its
+    choice masks and final state, as i4_lanes.cuh ``trellis_lanes`` finds
+    it: the lowest constant choice above i (or the final state), flipped by
+    each negating choice between."""
+    above = ((1 << kb) - 1) & ~((2 << i) - 1)
+    cst, neg = ~(p0 ^ p1) & above, p0 & ~p1 & above
+    cp = (cst & -cst).bit_length() - 1 if cst else kb
+    frm = (p0 >> cp) & 1 if cst else fin
+    return (frm ^ bin(neg & ((1 << cp) - 1)).count("1")) & 1
+
+
+def lanes_dp_model(lv, cf, types, lam, tables, seen=None):
+    """i4_lanes.cuh ``trellis_lanes`` on one 16-lane segment holding N
+    blocks, its lanes as lists: ``lv``/``cf`` (N, 16) raster levels and
+    coefficients (lane k holds raster entry k of each block); ``types``
+    N (table, first, dc_q, ac_q); ``tables`` per table index the
+    per-position (p0, p1, val) as 48-row lists.  Mirrors the kernel step by
+    step: each block's non-zero mask (a ballot of position k's level,
+    fetched by shuffle), the greedy packing into rounds of 16 lanes, and in
+    each round each lane's non-zero (rank i of block bj: the i-th set bit
+    of its mask, found by halves), its level and coefficient by shuffle,
+    its predecessor's position and level by a shuffle up, its 2x2 min-plus
+    matrix, the
+    segmented Kogge-Stone scan (shuffle-up steps while d < the round's
+    largest count), the predecessor's scores (s0, s1) by a shuffle up, the
+    choice ballots ((M[1][c] - M[0][c]) < s0 - s1, the difference an int
+    times lambda), the end-of-block ballot on each block's last non-zero,
+    each lane's state in bit-parallel form (``trellis_state``) and its
+    ballot; then raster lane k lowers its levels.  (The kernel runs two
+    rounds side by side and scans both while d is below the larger count;
+    a lane's result does not change.)  Every int64 value is checked to stay in
+    [0, 2^63) and every finite one below FINITE_BOUND (the kernel needs no
+    saturation).  Returns (the refined (N, 16) raster levels, the rounds).
+    ``seen``, a list, gets the largest finite score."""
+    from gowebp_tpu_torch.ops.dct import _INV_ZIGZAG, _ZIGZAG
+
+    INF, LIM = LANES_INF, 1 << 63
+    N, lanes = len(lv), range(16)
+    finite = [0]
+
+    def checked(x):
+        assert 0 <= x < LIM, x
+        if x < INF:
+            assert x < FINITE_BOUND, x
+            finite[0] = max(finite[0], x)
+        return x
+
+    def minplus(a, b):                                      # a then b
+        return tuple(checked(min(a[2 * r] + b[c], a[2 * r + 1] + b[2 + c]))
+                     for r in range(2) for c in range(2))
+
+    def ballot(bits):
+        return sum(1 << n for n in lanes if bits[n])
+
+    def shfl_up(vals, d):                                   # width 16
+        return [vals[n - d] if n >= d else vals[n] for n in lanes]
+
+    lam = int(lam)
+    lv = [[int(x) for x in row] for row in lv]
+    cf = [[int(x) for x in row] for row in cf]
+    nz = [ballot([lv[b][_ZIGZAG[k]] != 0 and k >= types[b][1] for k in lanes])
+          for b in range(N)]
+    cnt = [bin(m).count("1") for m in nz]
+    rnd, off, rounds, used = [], [], 1, 0
+    for b in range(N):
+        if used + cnt[b] > 16:
+            rounds, used = rounds + 1, 0
+        rnd.append(rounds - 1)
+        off.append(used)
+        used += cnt[b]
+    st = [0] * N
+    for r in range(rounds):
+        bj, i = [-1] * 16, [0] * 16
+        for k in lanes:
+            for b in range(N):
+                if rnd[b] == r and off[b] <= k < off[b] + cnt[b]:
+                    bj[k], i[k] = b, k - off[b]
+        kmax = max([1] + [cnt[b] for b in range(N) if rnd[b] == r])
+        on = [b >= 0 for b in bj]
+        n = [nth_bit(nz[bj[k]] if on[k] else 0, i[k]) for k in lanes]
+        w, ac = ([abs(t[bj[k]][_ZIGZAG[n[k]]]) if on[k] else 0
+                  for k in lanes] for t in (lv, cf))
+        pn, pw = shfl_up(n, 1), shfl_up(w, 1)
+        mat, g = [], []
+        for k in lanes:
+            tab, first, dc_q, ac_q = types[bj[k] if on[k] else 0]
+            p0, p1, val = tables[tab]
+            pp = lambda row: (p0[row][0], p0[row][1], p1[row][0], p1[row][1])
+            z = [sum(p1[3 * m][0] for m in range(x)) for x in lanes]
+            nk = n[k]
+            p = first - 1 if i[k] == 0 else pn[k]
+            ctx0 = 1 if i[k] == 0 or pw[k] == 1 else 2
+            ctx1 = 1 if i[k] == 0 or pw[k] == 2 else 2
+            adj = nk == p + 1
+            q0, q1, rn = pp(3 * (p + 1) + ctx0), pp(3 * (p + 1) + ctx1), pp(3 * nk)
+            run = z[nk] - z[min(p + 2, 15)]
+            base0 = q0[1] + (q0[3] if adj else q0[2] + run + rn[3]) + 256
+            base1 = q1[1] + (q1[3] if adj else q1[2] + run + rn[3]) + 256
+            r0, r1 = 3 * nk + (ctx0 if adj else 0), 3 * nk + (ctx1 if adj else 0)
+            h0, h1 = min(w[k], 67), min(max(w[k] - 1, 0), 67)
+            qs = dc_q if nk == 0 else ac_q
+            d0 = (ac[k] - w[k] * qs) ** 2
+            d1 = (ac[k] - (w[k] - 1) * qs) ** 2
+            u = (base0 + val[r0][h0], base0 + val[r0][h1],
+                 base1 + val[r1][h0], base1 + val[r1][h1])
+            if on[k]:
+                m = (u[0] * lam + d0, u[1] * lam + d1 if w[k] > 1 else INF,
+                     u[2] * lam + d0, u[3] * lam + d1 if w[k] > 1 else INF)
+            else:
+                m = (0, INF, INF, 0)
+            mat.append(tuple(checked(x) for x in m))
+            g.append((u[2] - u[0], u[3] - u[1]))
+        d = 1
+        while d < kmax:
+            up = shfl_up(mat, d)
+            mat = [minplus(up[k], mat[k]) if i[k] >= d else mat[k]
+                   for k in lanes]
+            d *= 2
+        prev = shfl_up([m[:2] for m in mat], 1)
+        prev = [(0, INF) if i[k] == 0 else prev[k] for k in lanes]
+        pick = [ballot([on[k] and g[k][c] * lam < prev[k][0] - prev[k][1]
+                        for k in lanes]) for c in (0, 1)]
+        fin = []
+        for k in lanes:
+            p0 = tables[types[bj[k] if on[k] else 0][0]][0]
+            e = 3 * min(n[k] + 1, 15)
+            f0 = mat[k][0] + (p0[e + (1 if w[k] == 1 else 2)][0] * lam
+                              if n[k] < 15 else 0)
+            f1 = mat[k][1] + (p0[e + (1 if w[k] == 2 else 2)][0] * lam
+                              if n[k] < 15 else 0)
+            fin.append(on[k] and i[k] == cnt[bj[k]] - 1
+                       and checked(f1) < checked(f0))
+        fin = ballot(fin)
+        low = []
+        for k in lanes:
+            kb = cnt[bj[k]] if on[k] else 0
+            oj = off[bj[k]] if on[k] else 0
+            p0, p1 = ((x >> oj) & ((1 << kb) - 1) for x in pick)
+            last = (fin >> (oj + kb - 1)) & 1 if kb else 0
+            low.append(on[k] and trellis_state(p0, p1, last, i[k], kb))
+        low = ballot(low)
+        for b in range(N):
+            if rnd[b] == r:
+                st[b] = (low >> off[b]) & ((1 << cnt[b]) - 1)
+    out = [row[:] for row in lv]
+    for k in lanes:
+        pos = _INV_ZIGZAG[k]
+        for b in range(N):
+            rank = bin(nz[b] & ((1 << pos) - 1)).count("1")
+            down = (nz[b] >> pos) & (st[b] >> rank) & 1
+            out[b][k] += down if out[b][k] < 0 else -down
+    if seen is not None:
+        seen.append(finite[0])
+    return out, rounds
+
+
+def _perturbed_tables(rng, type_):
+    """Per-position tables of one token type of perturbed probabilities
+    (as a first pass's adapted ones are): torch (p0, p1, val)."""
+    from gowebp_tpu_torch.models.vp8.cost import trellis_cost_tables
+    from gowebp_tpu_torch.ops.rate import position_tables
+
     probs = np.clip(jenc.COEFF_PROBAS.astype(np.int64)
                     + rng.integers(-50, 51, jenc.COEFF_PROBAS.shape), 1, 255)
-    from gowebp_tpu_torch.models.vp8.cost import trellis_cost_tables
-
-    tabs = position_tables(tuple(torch.from_numpy(t.astype(np.int32)) for t in
+    return position_tables(tuple(torch.from_numpy(t.astype(np.int32)) for t in
                                  trellis_cost_tables(probs.astype(np.uint8))),
                            type_)
-    assert _default_cost_tables() is not None
-    R = 300
+
+
+def _random_trellis_blocks(rng, first, R):
+    """R random blocks: raster coefficients, sparse and dense, of scales
+    8 to 3000 (levels 1 to past the 67 clamp, both signs), their quantized
+    zigzag levels, steps 4-159 and lambdas 1-60."""
+    from gowebp_tpu_torch.ops.dct import BIAS, quantize
+
     scale = rng.choice([8, 60, 400, 3000], R)[:, None]
     cf = (rng.normal(0, 1, (R, 16)) * scale).astype(np.int64)
     cf[rng.random((R, 16)) < 0.5] = 0
@@ -545,6 +724,22 @@ def test_kernel_trellis_dp_model_equals_the_plain_trellis(type_, first):
                   BIAS["y1_dc"],
                   torch.from_numpy(((1 << 17) // ac_q).astype(np.int32)),
                   BIAS["y1_ac"], first_ac=first == 1)
+    return lv, cf, dc_q, ac_q, lam
+
+
+@pytest.mark.parametrize("type_,first", [(0, 1), (1, 0), (2, 0), (3, 0)])
+def test_kernel_trellis_dp_model_equals_the_plain_trellis(type_, first):
+    """The serial register DP (modelled in Python) refines levels as the
+    plain ``trellis_refine`` does, on random blocks: sparse and dense,
+    levels from 1 to past the 67 clamp, both signs, lambdas 1-60."""
+    from gowebp_tpu_torch.models.vp8.encoder import _default_cost_tables
+    from gowebp_tpu_torch.ops.rate import trellis_refine
+
+    rng = np.random.default_rng(type_ * 7 + first)
+    tabs = _perturbed_tables(rng, type_)
+    assert _default_cost_tables() is not None
+    R = 300
+    lv, cf, dc_q, ac_q, lam = _random_trellis_blocks(rng, first, R)
     got = trellis_refine(lv, torch.from_numpy(cf), *tabs, first=first,
                          ctx0=1, dc_q=torch.from_numpy(dc_q),
                          ac_q=torch.from_numpy(ac_q), lam=torch.from_numpy(lam))
@@ -556,3 +751,211 @@ def test_kernel_trellis_dp_model_equals_the_plain_trellis(type_, first):
         assert got[r].tolist() == want, r
         changed += want != lv[r].tolist()
     assert changed > 10                              # the trellis acted
+
+
+def _hold_lanes_model(tabs, lv, cf, dc_q, ac_q, lam, first, group=5):
+    """Blocks of one token type, ``group`` at a time on one segment (each
+    group sharing its first block's steps and lambda, as the kernel's
+    calls do), through ``lanes_dp_model``, ``kernel_dp_model`` and the
+    plain ``trellis_refine``: all equal.  ``lv`` (R, 16) zigzag levels,
+    ``cf`` (R, 16) raster coefficients.  Returns (blocks changed, ties met
+    by the serial DP, the largest finite score, the most rounds a group
+    took)."""
+    from gowebp_tpu_torch.ops.dct import _INV_ZIGZAG, _ZIGZAG
+    from gowebp_tpu_torch.ops.rate import trellis_refine
+
+    R = len(lv)
+    lv = np.asarray(lv, np.int64).reshape(R, 16)
+    cf = np.asarray(cf, np.int64).reshape(R, 16)
+    lead = np.arange(R) // group * group
+    dc_q, ac_q, lam = (np.broadcast_to(np.asarray(x, np.int64), (R,))[lead]
+                       for x in (dc_q, ac_q, lam))
+    plain = trellis_refine(torch.from_numpy(lv.astype(np.int32)),
+                           torch.from_numpy(cf), *tabs, first=first,
+                           ctx0=1, dc_q=torch.from_numpy(dc_q),
+                           ac_q=torch.from_numpy(ac_q),
+                           lam=torch.from_numpy(lam))
+    table = [t.reshape(48, -1).tolist() for t in tabs]
+    changed, ties, seen, rounds = 0, [], [], 1
+    for g0 in range(0, R, group):
+        rows = range(g0, min(R, g0 + group))
+        raster = [[lv[r][_INV_ZIGZAG[k]] for k in range(16)] for r in rows]
+        types = [(0, first, int(dc_q[g0]), int(ac_q[g0]))] * len(rows)
+        got, nr = lanes_dp_model(raster, [cf[r] for r in rows], types,
+                                 lam[g0], [table], seen=seen)
+        rounds = max(rounds, nr)
+        for r, out in zip(rows, got):
+            serial = kernel_dp_model(lv[r], cf[r], first, int(dc_q[g0]),
+                                     int(ac_q[g0]), int(lam[g0]), *table,
+                                     ties=ties)
+            assert [out[_ZIGZAG[n]] for n in range(16)] == serial, r
+            assert plain[r].tolist() == serial, r
+            changed += serial != lv[r].tolist()
+    return changed, len(ties), max(seen), rounds
+
+
+@pytest.mark.parametrize("type_,first", [(0, 1), (1, 0), (2, 0), (3, 0)])
+def test_lanes_trellis_model_equals_the_serial_and_plain(type_, first):
+    """``trellis_lanes``' scan (modelled lane by lane) refines random
+    blocks as the serial DP and the plain ``trellis_refine`` do."""
+    rng = np.random.default_rng(type_ * 11 + first + 100)
+    tabs = _perturbed_tables(rng, type_)
+    lv, cf, dc_q, ac_q, lam = _random_trellis_blocks(rng, first, 200)
+    changed, _, _, _ = _hold_lanes_model(tabs, lv, cf, dc_q, ac_q, lam, first)
+    assert changed > 10
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_lanes_trellis_model_on_the_i16_hook_mix(seed):
+    """The i16 hook's call: 4 AC blocks (type 0, from position 1, the Y1
+    steps) and the Y2 block (type 1, from 0, its own steps) packed on one
+    segment, one lambda: each block refined as the serial DP and the plain
+    trellis refine it with its own type; chroma's 4 blocks of type 2."""
+    from gowebp_tpu_torch.ops.dct import _INV_ZIGZAG, _ZIGZAG
+    from gowebp_tpu_torch.ops.rate import trellis_refine
+
+    rng = np.random.default_rng(seed + 40)
+    tabs = [_perturbed_tables(rng, t) for t in (0, 1, 2)]
+    table = [[t.reshape(48, -1).tolist() for t in tab] for tab in tabs]
+    rounds, changed = 1, 0
+    for _ in range(40):
+        lam = int(rng.integers(1, 61))
+        y1, y2 = rng.integers(4, 120, 2), rng.integers(8, 200, 2)
+        ac_lv, ac_cf, *_ = _random_trellis_blocks(rng, 1, 4)
+        y2_lv, y2_cf, *_ = _random_trellis_blocks(rng, 0, 1)
+        uv_lv, uv_cf, *_ = _random_trellis_blocks(rng, 0, 4)
+        for lv, cf, types in (
+                (np.concatenate([ac_lv, y2_lv]), np.concatenate([ac_cf, y2_cf]),
+                 [(0, 1, *y1)] * 4 + [(1, 0, *y2)]),
+                (uv_lv.numpy(), uv_cf, [(2, 0, *y1)] * 4)):
+            lv = np.asarray(lv, np.int64)
+            raster = [[row[_INV_ZIGZAG[k]] for k in range(16)] for row in lv]
+            got, nr = lanes_dp_model(raster, cf, [(t, f, int(a), int(b)) for
+                                                  t, f, a, b in types], lam,
+                                     table)
+            rounds = max(rounds, nr)
+            for row, c, out, (t, first, dq, aq) in zip(lv, cf, got, types):
+                serial = kernel_dp_model(row, c, first, int(dq), int(aq), lam,
+                                         *table[t])
+                plain = trellis_refine(
+                    torch.from_numpy(row[None].astype(np.int32)),
+                    torch.from_numpy(np.asarray(c)[None]), *tabs[t],
+                    first=first, ctx0=1, dc_q=torch.tensor([int(dq)]),
+                    ac_q=torch.tensor([int(aq)]), lam=torch.tensor([lam]))
+                assert [out[_ZIGZAG[n]] for n in range(16)] == serial
+                assert plain[0].tolist() == serial
+                changed += serial != row.tolist()
+    assert changed > 10 and rounds > 1
+
+
+def _flat_tables(p, val_of_level):
+    """Per-position tables with every bit costing ``p`` and level v's
+    value cost ``val_of_level(v)`` under every context."""
+    p0 = torch.full((16, 3, 2), p, dtype=torch.int32)
+    val = torch.tensor([val_of_level(v) for v in range(68)],
+                       dtype=torch.int32).expand(16, 3, 68).contiguous()
+    return p0, p0.clone(), val
+
+
+def _edge_case(kind, rng, first):
+    """(tables, zigzag levels, raster coefficients, dc_q, ac_q, lam, what
+    the case must show) of one constructed kind."""
+    from gowebp_tpu_torch.ops.dct import _ZIGZAG
+
+    R = 60
+    pos = np.arange(16)
+    sign = rng.choice([-1, 1], (R, 16))
+    q = rng.integers(4, 40, R)
+    lam = rng.integers(1, 40, R)
+    if kind == "ties_flat":
+        # value costs 8 v and free bits, q 4, lambda 1: a level v >= 2 of
+        # coefficient 4 v - 1 costs 8 v + 1 kept and lowered, so keeping
+        # and lowering tie; with every context alike, so do the states
+        tabs = _flat_tables(0, lambda v: 8 * v)
+        lv = rng.integers(0, 6, (R, 16)) * (rng.random((R, 16)) < 0.6)
+        lv[:, first] = rng.integers(2, 6, R)
+        q, lam = np.full(R, 4), np.ones(R, np.int64)
+        mag = np.where(lv > 0, 4 * lv - 1, 0)
+        return tabs, sign * lv, mag, q, q, lam, "ties"
+    if kind == "ties_mixed":
+        # bit costs 0 or 256 by context and small value costs: equal sums
+        # of different paths, contexts and predecessors
+        p0 = torch.from_numpy(rng.choice([0, 256], (16, 3, 2)).astype(np.int32))
+        p1 = torch.from_numpy(rng.choice([0, 256], (16, 3, 2)).astype(np.int32))
+        val = torch.from_numpy((rng.integers(0, 3, (16, 3, 68)) * 256)
+                               .astype(np.int32))
+        tabs = (p0, p1, val)
+        lv = rng.integers(0, 4, (R, 16)) * (rng.random((R, 16)) < 0.7)
+        q, lam = np.full(R, 16), rng.integers(1, 3, R)
+        mag = np.where(lv > 0, 16 * lv - rng.choice([0, 8], (R, 16)), 0)
+        mag = mag + rng.integers(-1, 2, (R, 16)) * (lv > 0)
+        return tabs, sign * lv, mag, q, q, lam, "ties"
+    tabs = _perturbed_tables(rng, 0 if first else rng.integers(1, 4))
+    if kind == "last15":                 # the only non-zero at 15: no EOB
+        lv = np.zeros((R, 16), np.int64)
+        lv[:, 15] = rng.integers(1, 90, R)
+    elif kind == "single_one":           # one |l| = 1: no lowered state
+        lv = np.zeros((R, 16), np.int64)
+        lv[pos[None] == rng.integers(first, 16, R)[:, None]] = 1
+    elif kind == "all_zero":             # nothing to refine (a DC with first 1)
+        lv = np.zeros((R, 16), np.int64)
+        if first:
+            lv[:, 0] = rng.integers(1, 9, R)
+    elif kind == "past_67":              # value costs clamped at 67
+        lv = rng.integers(60, 2048, (R, 16)) * (rng.random((R, 16)) < 0.5)
+        lv[:, 15] = rng.integers(66, 70, R)
+    else:                                # "dense": every position non-zero
+        lv = rng.integers(1, 6, (R, 16))
+    near = lv * q[:, None] + rng.integers(-1, 2, (R, 16)) * (q[:, None] // 2)
+    mag = np.where(lv > 0, np.abs(near), rng.integers(0, 3, (R, 16)))
+    return tabs, sign * lv, mag, q, q, lam, kind
+
+
+@pytest.mark.parametrize("first", [0, 1])
+@pytest.mark.parametrize("kind", ["ties_flat", "ties_mixed", "last15",
+                                  "single_one", "all_zero", "past_67",
+                                  "dense"])
+def test_lanes_trellis_model_on_edge_blocks(kind, first):
+    """The lane model, the serial DP and the plain trellis agree on
+    constructed blocks: forced ties (two paths of equal int64 cost, where
+    the strict comparison keeps the unlowered level and the lower
+    predecessor), a lone non-zero at 15 (no end-of-block bit), a lone
+    |l| = 1 (no lowered state), all-zero blocks, levels past the 67
+    clamp, every position non-zero."""
+    from gowebp_tpu_torch.ops.dct import _ZIGZAG
+
+    rng = np.random.default_rng(sum(map(ord, kind)) + first)
+    tabs, lv, mag, dc_q, ac_q, lam, what = _edge_case(kind, rng, first)
+    zz = np.asarray(lv)                                    # zigzag levels
+    cf = np.zeros_like(zz)
+    cf[:, list(_ZIGZAG)] = np.sign(zz) * mag + (zz == 0) * mag
+    changed, ties, _, rounds = _hold_lanes_model(tabs, zz, cf, dc_q, ac_q, lam,
+                                                 first)
+    if what == "ties":
+        assert ties > 20
+    if what in ("single_one", "all_zero"):
+        assert changed == 0
+    if what in ("past_67", "dense", "last15"):
+        assert changed > 0
+    if what in ("past_67", "dense"):
+        assert rounds > 1              # 5 blocks' non-zeros past 16 lanes
+
+
+def test_lanes_trellis_scores_stay_in_range():
+    """The largest inputs the kernel's no-saturation bound allows (int32
+    lambda 2^31 - 1, every table entry 65535, steps 4095, levels 2047,
+    coefficients below 2^16): every score stays in int64 and every finite
+    one under 2^55, and the three DPs agree."""
+    from gowebp_tpu_torch.ops.dct import _ZIGZAG
+
+    rng = np.random.default_rng(3)
+    R = 40
+    tabs = _flat_tables(65535, lambda v: 65535)
+    zz = rng.integers(0, 2048, (R, 16)) * (rng.random((R, 16)) < 0.7)
+    zz[:, 3] = 2047
+    cf = np.zeros_like(zz)
+    cf[:, list(_ZIGZAG)] = rng.integers(0, 1 << 16, (R, 16)) * rng.choice(
+        [-1, 1], (R, 16))
+    lam = np.full(R, (1 << 31) - 1)
+    _, _, seen, _ = _hold_lanes_model(tabs, zz, cf, 4095, 4095, lam, 0)
+    assert seen > 1 << 52                      # near the bound, under it

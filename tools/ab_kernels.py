@@ -21,8 +21,14 @@ Needs a CUDA card and nvcc.  KERNEL is one of:
     1024, seed=7)`` through the encode pipeline's own host steps at q75
     (``chip_smoke.chunk_inputs`` of this checkout).  Times (median of 5
     calls after a warm-up) B=16 at 1024x1024 with try_i4 and diffusion on
-    (the exact engine's call), the try_i4=False form, and B=1 (one image:
-    the chain of 190 MB steps).
+    (the exact engine's call; also ``b16_device_ms``, the device time of
+    a launch as ``chip_smoke.py`` reports ``device_ms``), the
+    try_i4=False form, and B=1 (one image: the chain of 190 MB steps).
+    Where the checkout's ``wavefront_search`` takes ``lams=``, its
+    trellis form too (``trellis_*``: B=16 one call and device time, B=1
+    and us a chained step), on the rate tables of image 0's first-pass
+    probabilities and the chunk's lambdas (``chip_smoke.first_pass_tables``
+    and ``trellis_lambdas``, made once by this checkout).
 
 ``encode_plane``
     B=16 random 1024x1024 planes in one wire buffer
@@ -38,6 +44,14 @@ Needs a CUDA card and nvcc.  KERNEL is one of:
     calls, 4 for the cold round), as ``chip_smoke.py`` reports
     ``device_ms``.  Also the hybrid's stage spans on the chunk with the
     host quiet (``chip_smoke.stage_spans``, median of 10).
+
+``encode_rgba``
+    The single-image encode end to end: ``chip_smoke.py`` phase 8c's 1 MP
+    image (corpus image 12 of ``natural_images(32, 1024, 1024, seed=7)``)
+    as RGB through ``encode_rgba(device="cuda")`` at method 6 (the
+    trellis form's path) and at the default method 4, each the median of
+    7 calls after a warm-up on the host clock (``rgb_m6_ms``,
+    ``rgb_m4_ms``); the files must be equal across runs.
 
 ``vp8_recon``
     The decode's recon and loop filter on the decode path's inputs for
@@ -118,6 +132,7 @@ dev = torch.device("cuda:0")
 
 RUNS = {
     "wavefront_search": r"""
+import inspect
 from gowebp_tpu_torch.ops.kernels.wavefront_search import (LIBRARY,
                                                            wavefront_search)
 
@@ -127,16 +142,35 @@ rate = tuple(t.to(dev) for t in saved["rate"])
 run = lambda a, i4: wavefront_search(*a, rate, try_i4=i4, use_derr=True,
                                      want_recon=True)
 out = run(args, True)
+trellis = "lams" in inspect.signature(wavefront_search).parameters
+if trellis:
+    trate = tuple(t.to(dev) for t in saved["trellis_rate"])
+    lams = saved["lams"].to(dev)
+    run_t = lambda a, lam: wavefront_search(*a, trate, try_i4=True,
+                                            use_derr=True, want_recon=True,
+                                            lams=lam)
+    out.update({"trellis_" + k: t for k, t in run_t(args, lams).items()})
 torch.cuda.synchronize()
 torch.save({k: v.cpu() for k, v in out.items()}, sys.argv[2])
 one = tuple(t[:1].contiguous() for t in args)
 B, H, W = args[0].shape
 steps = (W // 16 - 1) + 2 * (H // 16 - 1) + 1
 b1 = time_ms(lambda: run(one, True), 5)
-print(json.dumps({"b16_ms": time_ms(lambda: run(args, True), 5),
-                  "lean_ms": time_ms(lambda: run(args, False), 5),
-                  "b1_ms": b1, "us_per_chained_mb_step": b1 / steps * 1e3,
-                  "i4_share": out["is_i4"].float().mean().item()}))
+row = {"b16_ms": time_ms(lambda: run(args, True), 5),
+       "b16_device_ms": queued_ms(lambda: run(args, True), reps=10),
+       "lean_ms": time_ms(lambda: run(args, False), 5),
+       "b1_ms": b1, "us_per_chained_mb_step": b1 / steps * 1e3,
+       "i4_share": out["is_i4"].float().mean().item()}
+if trellis:
+    one_lams = lams[:1].contiguous()
+    tb1 = time_ms(lambda: run_t(one, one_lams), 5)
+    row.update({
+        "trellis_b16_ms": time_ms(lambda: run_t(args, lams), 5),
+        "trellis_b16_device_ms": queued_ms(lambda: run_t(args, lams),
+                                           reps=10),
+        "trellis_b1_ms": tb1,
+        "trellis_us_per_chained_mb_step": tb1 / steps * 1e3})
+print(json.dumps(row))
 """,
     "encode_plane": r"""
 import chip_smoke
@@ -175,6 +209,26 @@ row["cold_round_ms"] = time_ms(cold, 50)
 row["cold_round_device_ms"] = queued_ms(cold, reps=4)
 spans = chip_smoke.stage_spans(dev, chunk, reps=10)
 row.update({f"span_{k}_ms": ms for k, ms in spans.items()})
+print(json.dumps(row))
+""",
+    "encode_rgba": r"""
+import gowebp_tpu_torch as T
+
+rgb = saved["rgb"].numpy()
+row, out = {}, {}
+for name, method in (("rgb_m6", 6), ("rgb_m4", 4)):
+    data = T.encode_rgba(rgb, method=method, device="cuda")
+    times = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        T.encode_rgba(rgb, method=method, device="cuda")
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    row[name + "_ms"] = statistics.median(times)
+    row[name + "_min_ms"] = min(times)
+    out[name] = torch.frombuffer(bytearray(data), dtype=torch.uint8)
+torch.save(out, sys.argv[2])
 print(json.dumps(row))
 """,
     "vp8_recon": r"""
@@ -219,12 +273,20 @@ def _cpu(t):
 
 
 def wavefront_search_inputs(chip_smoke, dev, images) -> dict:
-    from gowebp_tpu_torch.ops.kernels.wavefront_search import search_tables
+    from gowebp_tpu_torch.ops.kernels.wavefront_search import (
+        search_tables, wavefront_search)
 
     chunk = chip_smoke.chunk_inputs(dev, images[:16])
-    return {"args": [_cpu(chunk[k]) for k in
-                     ("y", "u", "v", "seg", "qsteps", "pens")],
-            "rate": [t.cpu() for t in search_tables(chunk["tables"])]}
+    args = [chunk[k].contiguous() for k in
+            ("y", "u", "v", "seg", "qsteps", "pens")]
+    rate = search_tables(chunk["tables"])
+    first = wavefront_search(*args, rate, try_i4=True, use_derr=True,
+                             want_recon=False)
+    trellis = search_tables(chip_smoke.first_pass_tables(first, dev),
+                            trellis=True)
+    return {"args": [_cpu(t) for t in args], "rate": [t.cpu() for t in rate],
+            "trellis_rate": [t.cpu() for t in trellis],
+            "lams": chip_smoke.trellis_lambdas(args[4]).cpu()}
 
 
 def encode_plane_inputs(chip_smoke, dev, images) -> dict:
@@ -249,8 +311,16 @@ def vp8_recon_inputs(chip_smoke, dev, images) -> dict:
             "grid": (mw, mh, ftype)}
 
 
+def encode_rgba_inputs(chip_smoke, dev, images) -> dict:
+    import numpy as np
+    import torch
+
+    return {"rgb": torch.from_numpy(np.ascontiguousarray(images[12]))}
+
+
 INPUTS = {"wavefront_search": wavefront_search_inputs,
           "encode_plane": encode_plane_inputs,
+          "encode_rgba": encode_rgba_inputs,
           "vp8_recon": vp8_recon_inputs}
 
 

@@ -14,10 +14,16 @@ the dependency chain.  Thread 0 of block 0 sums, over the MBs of its row,
 the cycles from the MB's start to the end of the row-above wait, to the
 i16 code's end, across each of the 10 walk diagonals, to the adoption and
 the recon's barrier, the hand-over and the output stores; thread 64
-sums the i16 rate (which runs beside walk diagonals 0-1).  Prints cycles
-per MB for each span, the launch's time and the card's SM clock.  The
-timers change the kernel's code: its spans say where the time goes, not
-what the kernel without them takes.  Needs a CUDA card and nvcc.
+sums the i16 rate (which runs beside walk diagonals 0-1).  Then the
+trellis form on the same image (``lams=``; rate tables of the image's
+first-pass probabilities and its lambdas, ``chip_smoke.first_pass_tables``
+and ``trellis_lambdas``), with the same spans and three more: the i16
+hook (the AC and Y2 blocks' DP) and the walk candidates' DPs (summed over
+the 10 diagonals), both on thread 0, and the chroma quantization and DP
+(thread 32).  Prints cycles per MB for each span,
+each launch's time and the card's SM clock.  The timers change the kernel's code: its spans say
+where the time goes, not what the kernel without them takes.  Needs a
+CUDA card and nvcc.
 """
 
 from __future__ import annotations
@@ -32,7 +38,10 @@ ROOT = Path(__file__).resolve().parent.parent
 SPANS = {1: "start to the row-above wait's end", 3: "context, i16 mode and code, d16",
          4: "walk end to the s4/s16 barrier", 5: "adoption to the recon barrier",
          6: "hand-over barrier", 9: "output stores and the next MB's inputs",
-         7: "i16 rate (thread 64, beside walk diagonals 0-1)"}
+         7: "i16 rate (thread 64, beside walk diagonals 0-1)",
+         20: "trellis: i16 hook, the AC and Y2 DP (in span 3)",
+         21: "trellis: walk candidates' DPs (in the diagonals)",
+         22: "trellis: chroma quantization and DP (thread 32)"}
 
 T = "if (blockIdx.x == 0 && tid == 0) "
 # (anchor text, what goes right after it)
@@ -63,6 +72,20 @@ PATCHES = [
      "      // are stored; release them (cumulative over the block's stores,\n"
      "      // which the barrier ordered before it) ----\n      __syncthreads();\n",
      "      " + T + "{ const long long t = clock64(); g_clk[6] += t - tF; tG = t; }\n"),
+    # the trellis form's DPs
+    ("        auto refine16 = [&](const int* cf, int y2c, int* lvx, int& l2) {\n",
+     "          const long long tH = clock64();\n"),
+    ("            if (warp == 0 && half == 0) s_lv[384 + vp8::inv_zigzag(k)] = (int16_t)l2;\n"
+     "          }\n",
+     "          " + T + "g_clk[20] += clock64() - tH;\n"),
+    ("          auto refine4 = [&](const int* cf, int* lv) {\n",
+     "            const long long tD = clock64();\n"),
+    ("              vp8::trellis_lanes<5>(cf, lv, k, lam, ty, T, s_zrun);\n            }\n",
+     "            " + T + "g_clk[21] += clock64() - tD;\n"),
+    ("        int16_t* uv = s_lv + 256 + ch * 64;\n", "        const long long tC = clock64();\n"),
+    ("                                reinterpret_cast<const vp8::Tables*>(s_tables), s_zrun);\n"
+     "        }\n",
+     "        if (blockIdx.x == 0 && tid == 32) g_clk[22] += clock64() - tC;\n"),
 ]
 READER = """
 extern "C" int wavefront_search_clocks(unsigned long long* out, int reset) {
@@ -89,13 +112,22 @@ args = tuple(ch[k].contiguous() for k in ("y", "u", "v", "seg", "qsteps", "pens"
 rate = wsm.search_tables(ch["tables"])
 run = lambda: wsm.wavefront_search(*args, rate, try_i4=True, use_derr=True,
                                    want_recon=False)
-run()
+first = run()
+tables = chip_smoke.first_pass_tables(first, dev)
+trellis = wsm.search_tables(tables, trellis=True)
+lams = chip_smoke.trellis_lambdas(args[4])
+run_t = lambda: wsm.wavefront_search(*args, trellis, try_i4=True, use_derr=True,
+                                     want_recon=False, lams=lams)
+run_t()
 buf = (ctypes.c_ulonglong * 32)()
-assert lib.wavefront_search_clocks(buf, 1) == 0
-a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-a.record(); run(); b.record(); b.synchronize()
-assert lib.wavefront_search_clocks(buf, 0) == 0
-print(json.dumps({"ms": a.elapsed_time(b), "clk": list(buf)}))
+out = {}
+for tag, fn in (("", run), ("trellis_", run_t)):
+    assert lib.wavefront_search_clocks(buf, 1) == 0
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record(); fn(); b.record(); b.synchronize()
+    assert lib.wavefront_search_clocks(buf, 0) == 0
+    out.update({tag + "ms": a.elapsed_time(b), tag + "clk": list(buf)})
+print(json.dumps(out))
 """
 
 
@@ -140,17 +172,19 @@ def main() -> int:
     if got is None:
         return 1
     res, card = got
-    clk, n = res["clk"], res["clk"][0]
-    print(f"B=1, one 1024x1024 image: {res['ms']:.3f} ms; {n} MBs timed ({card})")
-    walk = 0.0
-    for i in (1, 3):
-        print(f"{SPANS[i]:45s} {clk[i] / n:9.1f} cycles/MB")
-    for d in range(10):
-        walk += clk[10 + d] / n
-        print(f"{'walk diagonal ' + str(d):45s} {clk[10 + d] / n:9.1f} cycles/MB")
-    for i in (4, 5, 6, 9, 7):
-        print(f"{SPANS[i]:45s} {clk[i] / n:9.1f} cycles/MB")
-    print(f"{'walk, 10 diagonals':45s} {walk:9.1f} cycles/MB")
+    for tag, form in (("", "method <= 5 form"), ("trellis_", "trellis form")):
+        clk, n = res[tag + "clk"], res[tag + "clk"][0]
+        print(f"{form}, B=1, one 1024x1024 image: {res[tag + 'ms']:.3f} ms; {n} MBs "
+              f"timed ({card})")
+        walk = 0.0
+        for i in (1, 3):
+            print(f"{SPANS[i]:50s} {clk[i] / n:9.1f} cycles/MB")
+        for d in range(10):
+            walk += clk[10 + d] / n
+            print(f"{'walk diagonal ' + str(d):50s} {clk[10 + d] / n:9.1f} cycles/MB")
+        for i in (4, 5, 6, 9, 7) + ((20, 21, 22) if tag else ()):
+            print(f"{SPANS[i]:50s} {clk[i] / n:9.1f} cycles/MB")
+        print(f"{'walk, 10 diagonals':50s} {walk:9.1f} cycles/MB")
     return 0
 
 
