@@ -7,11 +7,13 @@ Phases (any failure raises and exits non-zero; no result is printed):
   1. the card's name and power limit (nvidia-smi), the int32 ceiling the
      bounds use (SMs x 64 int32 operations a clock x the max SM clock),
      torch and CUDA versions;
-  2. build the eleven CUDA kernels from the six ops/kernels/*.cu sources
+  2. build the twelve CUDA kernels from the seven ops/kernels/*.cu sources
      (one nvcc each, in parallel; encode_plane.cu gives the two plane
      kernels and their two modes-only forms, wavefront_search.cu the
      exact engine and its trellis form, vp8_recon.cu the decode's
-     recon_filter_mb) and print the build time and ptxas register report;
+     recon_filter_mb, vp8l_predictor.cu the lossless encode's
+     predictor_search_entropy) and print the build time and ptxas
+     register report;
   3. hold each kernel against its plain torch version on the card, bit for
      bit, at the main paths' full shapes, and time each with CUDA events,
      two ways: one call alone (ms, the wrapper's host time included) and
@@ -58,7 +60,15 @@ Phases (any failure raises and exits non-zero; no result is printed):
      256x256, on odd MB grids (1x5, 5x1, 1x1, 3x5) and at B=256 512x64
      (8,192 MB rows, more than the card holds blocks), with its ptxas
      report (no stack or spills allowed), timed at B=32 and alone on one
-     image (the chain);
+     image (the chain); and (3h) predictor_search_entropy against its
+     plain version, mode maps equal: the lossless encode's own inputs for
+     corpus image 12 (1024x1024, with and without subtract-green) at bits
+     3, 4 and 5 with refine_iters 0, 2 and 4, odd sizes with partial edge
+     tiles (1023x769, 1x4096, 4096x1) and tie-heavy flat and gradient
+     images; its ptxas report (no stack or spills allowed); timed at the
+     default encode's shape (bits 4, refine_iters 2) as one call and as
+     the device time of its launches (stage 1 and each round, replayed
+     with the call's own round tables);
   4. the encode path: 32 natural images of 1024x1024 through
      encode_rgba_batch(device="cuda") in two chunks of 16, with the
      kernels' launch counters reset just before and read just after
@@ -140,6 +150,19 @@ Phases (any failure raises and exits non-zero; no result is printed):
      method 6 and target_psnr, each == device="cpu"; every file decoded by
      the port and by Pillow to the same pixels, alpha == the source's;
      encode_yuv with alpha and a mixed non-opaque batch, GPU == CPU;
+  8d. the lossless encode: corpus image 12 as RGB (1024x1024, the
+     smallest size that takes the device chooser) through
+     encode_rgba(lossless=True, device="cuda"), counters reset just before
+     and read just after: predictor_search_entropy launches (2 calls at
+     q75 method 4) and no other kernel; its bytes == the device="cpu"
+     file made with GOWEBP_TPU_VP8L_ANALYSIS=1 (the plain version), and
+     at most 1.005x the host chooser's file (device="cpu", no switch);
+     decoded by the port and by Pillow to the source; the latency, median
+     of 3, split into the choosers (device, wall and summed thread time),
+     the spatial stream, and the rest of the transform trials; then once
+     each: the image as RGBA with phase 8c's soft alpha and exact=True
+     (round trip), method 6 at q95 (6 chooser calls, timed) and
+     near_lossless=60 (the port's decode == Pillow's);
   9. the kernels' JSON line (each kernel's launches on its own path, and
      on every path driven in ``launches_by_path``; ``ms`` one call alone
      and ``device_ms`` the device time of a launch, both from phase 3),
@@ -225,6 +248,14 @@ OPS_PLANE_SEARCH_BLOCK = 4 * (8 + 5 + 2) + 6 + 4 + 3 + 11 + 4
 OPS_PLANE_SEARCH_MB = 12
 OPS_PLANE_CODE_BLOCK = 16 * 3 + (OPS_FDCT - 32) + OPS_QUANT
 OPS_Y2 = 16 * 16 + OPS_QUANT
+# predictor_search_entropy (ops/kernels/vp8l_predictor.cu), per pixel and
+# pass: the 14 predictions (modes 0-4 none; an avg2 5 operations: modes
+# 5-10 take 2, 1, 1, 1, 1 and 3 of them; Select ~30, the two clamped
+# add-subtracts ~36 and ~41), the 14 residuals' byte-wise subtractions (8
+# each) and 56 histogram increments; per tile and pass, 14 x 1024 bins of
+# a table read and a multiply-add (2 each).
+OPS_VP8L_PIXEL = 9 * 5 + 30 + 36 + 41 + 14 * 8 + 56
+OPS_VP8L_TILE = 14 * 1024 * 2
 
 # The open-loop decode's PSNR floor: 3 dB under the JAX package's
 # open-loop minimum (23.512 dB over natural_images(4, 256, 256, seed=7)
@@ -248,6 +279,8 @@ SOURCES = {
     "wavefront_search_trellis":
         "gowebp_tpu_torch/ops/kernels/wavefront_search.cu",
     "recon_filter_mb": "gowebp_tpu_torch/ops/kernels/vp8_recon.cu",
+    "predictor_search_entropy":
+        "gowebp_tpu_torch/ops/kernels/vp8l_predictor.cu",
 }
 REPLACES = {
     "i4_search": "gowebp_tpu/ops/pallas/i4_search.py:286",
@@ -272,6 +305,9 @@ REPLACES = {
     "recon_filter_mb": ("gowebp_tpu/ops/vp8_recon_jax.py:512 "
                         "recon_wavefront and :814 loop_filter_wavefront "
                         "(XLA, no pallas_call)"),
+    "predictor_search_entropy": ("gowebp_tpu/ops/lossless_jax.py:269 "
+                                 "predictor_search_entropy (XLA, no "
+                                 "pallas_call)"),
 }
 
 
@@ -1565,21 +1601,34 @@ def soft_alpha_image(img):
 
 
 class StageTimer:
-    """Host-clock seconds of the single-image encode's stages, summed over
-    the calls made inside ``with`` (wrappers around the encoder module's
-    functions): "yuv" (RGB → YUV420), "dense" (the dense phase: upload,
-    the kernel, the levels' download), "emit" (token statistics,
+    """Host-clock seconds of an encode's stages, summed over the calls made
+    inside ``with`` (wrappers around module functions, ``targets``: (module,
+    function, stage) triples).  By default the lossy single-image
+    encode's: "yuv" (RGB → YUV420), "dense" (the dense phase: upload, the
+    kernel, the levels' download), "emit" (token statistics,
     probabilities, headers, emission) and "alph" (the ALPH chunk)."""
 
-    def __init__(self):
+    def __init__(self, targets=None):
         from gowebp_tpu_torch.models.vp8 import alpha as alpha_mod
         from gowebp_tpu_torch.models.vp8 import encoder as enc_mod
 
-        self.targets = [(enc_mod, "rgb_to_yuv420", "yuv"),
-                        (enc_mod, "_dense_wavefront", "dense"),
-                        (enc_mod, "emit_frame_arrays", "emit"),
-                        (alpha_mod, "encode_alpha", "alph")]
+        self.targets = targets or [(enc_mod, "rgb_to_yuv420", "yuv"),
+                                   (enc_mod, "_dense_wavefront", "dense"),
+                                   (enc_mod, "emit_frame_arrays", "emit"),
+                                   (alpha_mod, "encode_alpha", "alph")]
+        self.fresh()
+
+    def fresh(self):
+        """Zero the sums and the spans; returns the timer."""
         self.s = {name: 0.0 for _, _, name in self.targets}
+        self.spans = {name: [] for _, _, name in self.targets}
+        return self
+
+    def wall(self, name: str) -> float:
+        """Seconds from the first call of ``name`` to the end of its last
+        (its calls may overlap in threads)."""
+        sp = self.spans[name]
+        return max(b for _, b in sp) - min(a for a, _ in sp) if sp else 0.0
 
     def __enter__(self):
         self.saved = []
@@ -1592,7 +1641,9 @@ class StageTimer:
                 try:
                     return _fn(*a, **k)
                 finally:
-                    self.s[_name] += time.perf_counter() - t0
+                    t1 = time.perf_counter()
+                    self.s[_name] += t1 - t0
+                    self.spans[_name].append((t0, t1))
 
             setattr(mod, attr, timed)
         return self
@@ -1745,6 +1796,262 @@ def single_image_encode(dev, images, reset_counts, read_counts, tag):
     return trellis_launches
 
 
+def rgb_words(img):
+    """(H, W, 3) uint8 → (H, W) uint32 opaque ARGB words."""
+    import numpy as np
+
+    return ((255 << 24) | (img[..., 0].astype(np.uint32) << 16)
+            | (img[..., 1].astype(np.uint32) << 8) | img[..., 2]).astype(
+                np.uint32)
+
+
+def chooser_replay(dev, x, bits: int, refine_iters: int):
+    """predictor_search_entropy's launches for ``x`` without its syncs: runs
+    the call's passes once through the raw launcher, keeping each round's
+    table, and returns (modes, a function that enqueues the same passes
+    again, the passes run)."""
+    import torch
+
+    from gowebp_tpu_torch.ops import lossless as L
+    from gowebp_tpu_torch.ops.kernels import vp8l_predictor as vpm
+    from gowebp_tpu_torch.ops.kernels.cuda_build import stream_handle
+
+    lib = vpm.LIBRARY.load()
+    h, w = x.shape
+    th = (h + (1 << bits) - 1) >> bits
+    tw = (w + (1 << bits) - 1) >> bits
+    modes = torch.empty((th, tw), dtype=torch.int32, device=dev)
+    acc = torch.empty(vpm.ACC_WORDS, dtype=torch.int32, device=dev)
+
+    def launch(tab, refine):
+        err = lib.vp8l_predictor_launch(x.data_ptr(), h, w, bits,
+                                        tab.data_ptr(), refine,
+                                        modes.data_ptr(), acc.data_ptr(),
+                                        stream_handle(dev))
+        if err:
+            raise RuntimeError(f"vp8l_predictor_launch: CUDA error {err}")
+
+    tables = [(torch.from_numpy(L.stage1_table()).to(dev), 0)]
+    launch(*tables[0])
+    for r in range(refine_iters):
+        a = acc.cpu().numpy()
+        if r and a[-1] == 0:
+            break
+        tables.append((torch.from_numpy(L.refine_table(
+            a[:L.BINS], a[L.BINS:L.BINS + L.NUM_MODES], th * tw)).to(dev), 1))
+        launch(*tables[-1])
+    out = modes.clone()
+
+    def replay():
+        for tab, refine in tables:
+            launch(tab, refine)
+
+    return out, replay, len(tables)
+
+
+def check_vp8l_predictor(dev, img):
+    """Phase 3h: predictor_search_entropy vs its plain version, mode maps
+    equal: the lossless encode's chooser inputs for ``img`` (its opaque
+    ARGB words, with and without subtract-green) at bits 3, 4 and 5 and
+    refine_iters 0, 2 and 4; odd sizes with partial edge tiles and
+    tie-heavy flat and gradient images; the ptxas report; timed at the
+    default encode's shape (bits 4, refine_iters 2, the subtract-green
+    form: the first of its two calls)."""
+    import numpy as np
+    import torch
+
+    from gowebp_tpu_torch.models.vp8l import transforms_np as tnp
+    from gowebp_tpu_torch.ops.kernels import vp8l_predictor as vpm
+
+    def words(a):
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(
+            dev)
+
+    def check(a, bits, iters, what):
+        x = words(a)
+        got = vpm.predictor_search_entropy(x, bits, iters)
+        want = vpm.predictor_search_entropy_plain(x, bits, iters)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"predictor_search_entropy != plain ({what}, bits {bits}, "
+                f"refine_iters {iters}: {int((got != want).sum())} tiles)")
+
+    argb = rgb_words(img)
+    sg = tnp.subtract_green_forward(argb)
+    for name, a in (("image", argb), ("subtract-green", sg)):
+        for bits in (3, 4, 5):
+            for iters in (0, 2, 4):
+                check(a, bits, iters, f"1024x1024 {name}")
+    log("predictor_search_entropy: bit-exact vs plain on the 1 MP image "
+        "with and without subtract-green, bits 3-5, refine_iters 0/2/4")
+    rng = np.random.default_rng(11)
+    yy, xx = np.mgrid[0:600, 0:700]
+    cases = {
+        "1023x769 crop": argb[:1023, :769],
+        "1x4096": rng.integers(0, 2**32, (1, 4096), dtype=np.uint64),
+        "4096x1": rng.integers(0, 2**32, (4096, 1), dtype=np.uint64),
+        "flat 600x700": np.full((600, 700), 0xFF7F7F7F, np.uint64),
+        "gradient 600x700": (0xFF000000 | ((xx % 256) << 16)
+                             | ((yy % 256) << 8) | ((xx + yy) % 256)),
+    }
+    for what, a in cases.items():
+        for bits in (3, 4, 5):
+            check(a.astype(np.uint32), bits, 2 if bits == 4 else 4, what)
+    log(f"predictor_search_entropy: bit-exact vs plain on {', '.join(cases)}")
+
+    for fn, regs, stack, st_, ld_ in ptxas_report(vpm.LIBRARY.ptxas_log,
+                                                  "vp8l_predictor_kernel"):
+        log(f"ptxas {fn}: {regs} registers, {stack} bytes stack, "
+            f"{st_}/{ld_} bytes spill stores/loads")
+        if stack or st_ or ld_:
+            raise AssertionError("vp8l_predictor_kernel: a stack frame or "
+                                 "spills")
+    for line in vpm.LIBRARY.ptxas_log.splitlines():
+        if "smem" in line:
+            log(f"ptxas vp8l_predictor.cu: {line.strip()}")
+
+    x = words(sg)
+    bits, iters = 4, 2
+    modes, replay, passes = chooser_replay(dev, x, bits, iters)
+    if not torch.equal(modes, vpm.predictor_search_entropy(x, bits, iters)):
+        raise AssertionError("predictor_search_entropy: the replay differs")
+    ms = time_ms(lambda: vpm.predictor_search_entropy(x, bits, iters),
+                 reps=10, warmup=2)
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    vpm.predictor_search_entropy_plain(x, bits, iters)
+    t1.record()
+    t1.synchronize()
+    h, w = x.shape
+    tiles = ((h + 15) >> 4) * ((w + 15) >> 4)
+    nbytes = passes * (4 * h * w + 4 * tiles)
+    ops = passes * (h * w * OPS_VP8L_PIXEL + tiles * OPS_VP8L_TILE)
+    bound_ms, bound_by = bound(nbytes, ops)
+    log(f"predictor_search_entropy at 1024x1024, bits {bits}, refine_iters "
+        f"{iters}: {passes} launches (stage 1 and {passes - 1} rounds); "
+        f"bound {nbytes / PEAK_BYTES_PER_S * 1e3:.4f} ms by bytes, "
+        f"{ops / int32_peak()[0] * 1e3:.4f} ms by operations ({ops} int32 "
+        f"operations)")
+    return {"name": "predictor_search_entropy", "max_abs_err": 0, "ms": ms,
+            "fn": replay, "plain_ms": t0.elapsed_time(t1),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def lossless_encode(dev, images, reset_counts, read_counts, tag):
+    """Phase 8d: the lossless encode of corpus image 12 on the card (see
+    the module docstring).  Returns predictor_search_entropy's launches of
+    the default encode."""
+    import os
+
+    import numpy as np
+    import torch
+
+    import gowebp_tpu_torch as T
+    from gowebp_tpu_torch.models.vp8l import encoder as vp8l_enc
+    from gowebp_tpu_torch.ops.kernels import vp8l_predictor as vpm
+
+    switch = vp8l_enc.ANALYSIS_SWITCH
+    if os.environ.get(switch):
+        raise AssertionError(f"{switch} is set in the environment")
+
+    def run(im, tag_, calls, **kw):
+        reset_counts()
+        before = vpm.predictor_search_entropy.calls
+        t0 = time.perf_counter()
+        data = T.encode_rgba(im, config=T.EncoderConfig(lossless=True, **kw),
+                             device="cuda")
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = {k: n for k, n in read_counts(tag_).items() if n}
+        n_calls = vpm.predictor_search_entropy.calls - before
+        if set(counts) != {"predictor_search_entropy"} or n_calls != calls:
+            raise AssertionError(f"lossless encode {kw}: launches {counts}, "
+                                 f"{n_calls} chooser calls, expected only "
+                                 f"predictor_search_entropy in {calls} calls")
+        return data, ms, counts["predictor_search_entropy"]
+
+    def decodes_to(data, want):
+        port = T.decode_rgba(data, device="cuda")
+        if not np.array_equal(port, pillow_rgba(data)):
+            raise AssertionError("a lossless file decodes to other pixels "
+                                 "through Pillow than the port")
+        if want is not None and not np.array_equal(port, want):
+            raise AssertionError("a lossless file does not decode to its "
+                                 "source")
+        return port
+
+    img = images[12]
+    rgba = np.dstack([img, np.full(img.shape[:2], 255, np.uint8)])
+    data, first_ms, launches = run(img, "lossless", 2)
+    log(f"lossless encode: 1024x1024 RGB q75 method 4, first call "
+        f"{first_ms:.1f} ms, {len(data)} bytes, predictor_search_entropy "
+        f"{launches} launches in 2 calls {tag}")
+    os.environ[switch] = "1"
+    try:
+        t0 = time.perf_counter()
+        forced = T.encode_rgba(img, lossless=True, device="cpu")
+        forced_s = time.perf_counter() - t0
+    finally:
+        del os.environ[switch]
+    if forced != data:
+        raise AssertionError("lossless encode: GPU bytes != the CPU bytes "
+                             f"with {switch}=1")
+    t0 = time.perf_counter()
+    host = T.encode_rgba(img, lossless=True, device="cpu")
+    host_s = time.perf_counter() - t0
+    ratio = len(data) / len(host)
+    log(f"lossless parity: GPU bytes == CPU bytes with the switch (the CPU "
+        f"run {forced_s:.2f} s); {len(data)} bytes against the host "
+        f"chooser's {len(host)} ({ratio:.6f}x; the CPU run {host_s:.2f} s)")
+    if ratio > 1.005:
+        raise AssertionError(f"lossless encode: {ratio:.6f}x the host "
+                             f"chooser's file")
+    decodes_to(data, rgba)
+    log("lossless decode: the port == Pillow == the source")
+
+    timer = StageTimer([(vp8l_enc, "_device_modes", "choosers"),
+                        (vp8l_enc, "_write_spatial_stream", "spatial")])
+    total, split = [], []
+    for _ in range(3):
+        with timer.fresh() as st:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            again = T.encode_rgba(img, lossless=True, device="cuda")
+            torch.cuda.synchronize()
+            total.append((time.perf_counter() - t0) * 1e3)
+        if again != data:
+            raise AssertionError("lossless encode: a repeat gives other "
+                                 "bytes")
+        wall = st.wall("choosers") * 1e3
+        spatial = st.s["spatial"] * 1e3
+        split.append((wall, st.s["choosers"] * 1e3, spatial,
+                      total[-1] - wall - spatial))
+    med = [statistics.median(v) for v in zip(*split)]
+    log(f"lossless latency 1024x1024 RGB defaults: median of 3 "
+        f"{statistics.median(total):.3f} ms (min {min(total):.3f}, max "
+        f"{max(total):.3f}); split (medians): choosers {med[0]:.3f} ms wall "
+        f"({med[1]:.3f} ms summed over their threads), spatial stream "
+        f"{med[2]:.3f} ms, the rest of the transform trials {med[3]:.3f} ms "
+        f"{tag}")
+
+    soft = soft_alpha_image(img)
+    got, ms, n = run(soft, "lossless_rgba", 2, exact=True)
+    decodes_to(got, soft)
+    log(f"lossless RGBA soft alpha, exact: {len(got)} bytes, {ms:.1f} ms, "
+        f"{n} launches; round trip exact")
+    got, ms, n = run(img, "lossless_method6", 6, method=6, quality=95)
+    decodes_to(got, rgba)
+    log(f"lossless method 6 q95: {len(got)} bytes ({len(data)} at method 4), "
+        f"{ms:.1f} ms, {n} launches in 6 calls; round trip exact {tag}")
+    got, ms, n = run(img, "lossless_near60", 2, near_lossless=60)
+    decodes_to(got, None)
+    log(f"lossless near_lossless=60: {len(got)} bytes, {ms:.1f} ms, {n} "
+        f"launches; the port's decode == Pillow's")
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import numpy as np
@@ -1766,6 +2073,7 @@ def main() -> int:
     from gowebp_tpu_torch.ops.kernels import encode_plane as epm
     from gowebp_tpu_torch.ops.kernels import i4_search as i4m
     from gowebp_tpu_torch.ops.kernels import vp8_recon as kvr
+    from gowebp_tpu_torch.ops.kernels import vp8l_predictor as vpm
     from gowebp_tpu_torch.ops.kernels import wavefront_fixed as wfm
     from gowebp_tpu_torch.ops.kernels import wavefront_search as wsm
     from gowebp_tpu_torch.ops.kernels import yuv420_to_rgba as yuvm
@@ -1783,6 +2091,8 @@ def main() -> int:
     counters["wavefront_search_trellis"] = (wsm.wavefront_search,
                                             "trellis_launches")
     counters["recon_filter_mb"] = (kvr.recon_filter_mb, "launches")
+    counters["predictor_search_entropy"] = (vpm.predictor_search_entropy,
+                                            "launches")
     by_path = {}
 
     def reset_counts():
@@ -1811,7 +2121,7 @@ def main() -> int:
     # ---- phase 2: build ----
     t0 = time.perf_counter()
     libraries = [i4m.LIBRARY, wfm.LIBRARY, yuvm.LIBRARY, epm.LIBRARY,
-                 wsm.LIBRARY, kvr.LIBRARY]
+                 wsm.LIBRARY, kvr.LIBRARY, vpm.LIBRARY]
     build_all(libraries)
     log(f"build: {len(SOURCES)} kernels from {len(libraries)} sources in "
         f"{time.perf_counter() - t0:.1f} s (nvcc, parallel)")
@@ -1831,6 +2141,7 @@ def main() -> int:
     rows += check_encode_plane(dev, gen)
     rows.append(check_wavefront_search(dev, chunk))
     rows.append(check_wavefront_search_trellis(dev, chunk))
+    rows.append(check_vp8l_predictor(dev, images[12]))
     time_rows(rows, tag)
 
     # ---- phase 4: the encode path ----
@@ -2333,6 +2644,10 @@ def main() -> int:
 
     # ---- phase 8c: the single-image encode ----
     launches["wavefront_search_trellis"] = single_image_encode(
+        dev, images, reset_counts, read_counts, tag)
+
+    # ---- phase 8d: the lossless encode ----
+    launches["predictor_search_entropy"] = lossless_encode(
         dev, images, reset_counts, read_counts, tag)
 
     # ---- phase 9: result lines ----

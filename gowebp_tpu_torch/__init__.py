@@ -1,13 +1,13 @@
-"""gowebp_tpu_torch — the WebP codec's lossy encode and its decode on
-PyTorch + CUDA.
+"""gowebp_tpu_torch — the WebP codec's encode and decode on PyTorch +
+CUDA.
 
-A port of the gowebp_tpu package's single-image lossy encode, batch
-encode (hybrid, exact wavefront and open-loop engines), batch decode and
-single-file decode to PyTorch with hand-written Hopper (sm_90a) CUDA
-kernels.  Entry points: ``encode_rgba(rgba, quality=75.0, method=4,
-config=None, stats=None, device=None)`` and ``encode_yuv(y, u, v,
-alpha=None, ...)`` with ``EncoderConfig`` and ``EncodeStats`` (lossy
-only: ``lossless=True`` raises UnsupportedFeature);
+A port of the gowebp_tpu package's single-image encode (lossy and
+lossless), batch encode (hybrid, exact wavefront and open-loop engines),
+batch decode and single-file decode to PyTorch with hand-written Hopper
+(sm_90a) CUDA kernels.  Entry points: ``encode_rgba(rgba, lossless=False,
+quality=75.0, method=4, config=None, stats=None, device=None)`` and
+``encode_yuv(y, u, v, alpha=None, ...)`` with ``EncoderConfig`` and
+``EncodeStats``;
 ``encode_rgba_batch(images, quality=75.0, device=None,
 engine="hybrid"|"wavefront"|"openloop")``;
 ``decode_rgba_batch(datas, device=None, device_out=False,

@@ -1,22 +1,19 @@
-"""Top-level encode API of the PyTorch port: the single-image lossy encode
-and the batch encode."""
+"""Top-level encode API of the PyTorch port: the single-image encode
+(lossy and lossless) and the batch encode."""
 
 from __future__ import annotations
 
 import numpy as np
 
 from .config import EncoderConfig
-from .errors import EncodeError, UnsupportedFeature
-
-_LOSSLESS = ("lossless encoding is not ported yet (ROADMAP Queue 1 item 3: "
-             "the VP8L encoder's transforms and predictor_search_entropy)")
+from .errors import EncodeError
 
 
 def encode_rgba(rgba: np.ndarray, *, lossless: bool = False,
                 quality: float = 75.0, method: int = 4,
                 config: EncoderConfig | None = None, stats=None,
                 device=None) -> bytes:
-    """Encode an (H, W, 3|4) uint8 array into a lossy .webp byte string.
+    """Encode an (H, W, 3|4) uint8 array into a .webp byte string.
 
     The reference's ``encode_rgba``: lossy VP8 at quality 75 by default,
     every lossy ``EncoderConfig`` field, an ALPH chunk (VP8L-coded alpha)
@@ -27,8 +24,16 @@ def encode_rgba(rgba: np.ndarray, *, lossless: bool = False,
     raises without it, before any work; ``device="cpu"`` runs the
     kernels' plain versions and gives identical bytes.  YUV conversion,
     segmentation, token emission and the ALPH coder run on the host.
-    ``stats``: an ``EncodeStats`` to fill.  ``lossless=True`` (or
-    ``config.lossless``) raises UnsupportedFeature.
+
+    ``lossless=True`` (or ``config.lossless``): a VP8L file, with
+    ``near_lossless`` < 100 preprocessing and ``image_hint``.  The
+    encoder runs on the host except the predictor chooser of an image of
+    1 MP or more, which runs on ``device`` when it is CUDA (the kernel
+    ``predictor_search_entropy``; with $GOWEBP_TPU_VP8L_ANALYSIS=1 every
+    image takes that chooser, on the card or as its plain version on
+    the CPU).  Elsewhere the bytes are the reference's; the device
+    chooser may pick another mode on a near tie.
+    ``stats``: an ``EncodeStats`` to fill.
     """
     from .device import resolve_device
     from .models.vp8.encoder import encode_vp8_webp
@@ -40,18 +45,42 @@ def encode_rgba(rgba: np.ndarray, *, lossless: bool = False,
     rgba = np.asarray(rgba)
     if rgba.dtype != np.uint8:
         raise EncodeError("expected uint8 pixels")
-    if config.lossless:
-        raise UnsupportedFeature(_LOSSLESS)
     if (not config.exact and rgba.ndim == 3 and rgba.shape[2] == 4
             and bool((rgba[..., 3] == 0).any())):
         rgba = _cleanup_transparent_area(rgba)
 
     _progress(config, 0)
-    out = encode_vp8_webp(rgba, config, stats=stats, device=dev)
+    if config.lossless:
+        out = _encode_lossless(rgba, config, stats, dev)
+    else:
+        out = encode_vp8_webp(rgba, config, stats=stats, device=dev)
     if stats is not None:
         stats.coded_size = len(out)
     _progress(config, 100)
     return out
+
+
+def _encode_lossless(rgba: np.ndarray, config: EncoderConfig, stats,
+                     dev) -> bytes:
+    """The VP8L file of ``rgba`` (near-lossless preprocessing first)."""
+    from .constants import CHUNK_VP8L
+    from .container.riff import Chunk, assemble_simple
+    from .models.vp8l.encoder import encode_vp8l
+
+    if config.near_lossless < 100:
+        from .models.vp8l.near_lossless import apply_near_lossless
+
+        if rgba.shape[2] == 3:
+            rgba = np.concatenate(
+                [rgba, np.full(rgba.shape[:2] + (1,), 255, np.uint8)],
+                axis=-1)
+        rgba = apply_near_lossless(rgba, config.near_lossless)
+    payload = encode_vp8l(rgba, quality=int(config.quality),
+                          method=config.method, stats=stats,
+                          hint=int(config.image_hint), device=dev)
+    if stats is not None:
+        stats.lossless_size = len(payload)
+    return assemble_simple(Chunk(CHUNK_VP8L, payload))
 
 
 def encode_yuv(y: np.ndarray, u: np.ndarray, v: np.ndarray, *,

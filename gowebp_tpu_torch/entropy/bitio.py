@@ -67,12 +67,28 @@ class BitWriter:
             self._acc >>= 8
             self._used -= 8
 
+    @property
+    def bit_count(self) -> int:
+        return 8 * len(self._buf) + self._used
+
     def getvalue(self) -> bytes:
         """Final byte string (zero-pads the trailing partial byte)."""
         out = bytes(self._buf)
         if self._used:
             out += bytes([self._acc & 0xFF])
         return out
+
+    def append_writer(self, other: "BitWriter") -> None:
+        """Splice another writer's bits onto this one (56-bit chunks)."""
+        data = bytes(other._buf)
+        n7 = len(data) - (len(data) % 7)
+        for i in range(0, n7, 7):
+            self.put_bits(int.from_bytes(data[i : i + 7], "little"), 56)
+        if n7 != len(data):
+            rest = data[n7:]
+            self.put_bits(int.from_bytes(rest, "little"), 8 * len(rest))
+        if other._used:
+            self.put_bits(other._acc, other._used)
 
 
 __all__ = ["BitReader", "BitWriter"]

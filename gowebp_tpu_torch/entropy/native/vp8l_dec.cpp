@@ -1,11 +1,14 @@
-// VP8L (WebP lossless) decode hot loops, native host layer.
+// VP8L (WebP lossless) hot loops, native host layer.
 //
 // Sequential bit-level work runs on the host: this file holds the
 // prefix-code section reader (wtpu_vp8l_read_groups), the per-pixel
 // Huffman/LZ77/colour-cache decode loop (wtpu_vp8l_decode_pixels) and
 // the inverse transforms (add-green, cross-colour, predictor) plus the
-// ARGB -> RGBA repack, driven from models/vp8l/ via ctypes with the GIL
-// released.  Written from the lossless bitstream spec.
+// ARGB -> RGBA repack, and the encoder's transform analysis: the
+// per-tile predictor chooser (wtpu_vp8l_choose_predictors), the forward
+// predictor residual and the cross-colour fit; driven from models/vp8l/
+// via ctypes with the GIL released.  Written from the lossless bitstream
+// spec.
 //
 // Build: g++ -O3 -fPIC -shared (see native_loader.py).
 
@@ -13,6 +16,7 @@
 #include <immintrin.h>
 #endif
 #include <algorithm>
+#include <cmath>
 #include <cstdint>
 #include <cstring>
 #include <vector>
@@ -621,4 +625,423 @@ void wtpu_vp8l_predictor_inverse(uint32_t* argb, int width, int height,
     }
   }
 }
+
+// ----------------------------------------------------------------------
+// Encoder-side predictor selection (mirror of models/vp8l/encoder.py
+// _choose_predictors): per-tile residual-histogram entropy with a small
+// magnitude bias, then shared-tree refinement iterations against the
+// global byte distribution under the current picks.
+// Encoder context uses ORIGINAL pixels: L/T/TL/TR with 0 fills, plus the
+// mode-independent edge overrides (row 0 → Left, col 0 → Top, origin →
+// black).
+// ----------------------------------------------------------------------
+
+static inline uint32_t enc_pred_at(const uint32_t* a, int w, int y, int x,
+                                   int mode) {
+  if (y == 0) {
+    if (x == 0) return 0xff000000u;
+    return a[x - 1];                        // row 0 → Left
+  }
+  if (x == 0) return a[(size_t)(y - 1) * w]; // col 0 → Top
+  uint32_t l = a[(size_t)y * w + x - 1];
+  uint32_t t = a[(size_t)(y - 1) * w + x];
+  uint32_t tl = a[(size_t)(y - 1) * w + x - 1];
+  uint32_t tr = x + 1 < w ? a[(size_t)(y - 1) * w + x + 1]
+                          : a[(size_t)y * w];   // wrap: row's first pixel
+  return predict(mode, l, t, tl, tr);
+}
+
+static inline uint32_t sub_px(uint32_t x, uint32_t p) {
+  uint32_t lo = ((x | 0x01000100u) - (p & 0x00ff00ffu)) & 0x00ff00ffu;
+  uint32_t hi = (((x >> 8) | 0x01000100u) - ((p >> 8) & 0x00ff00ffu))
+                & 0x00ff00ffu;
+  return lo | (hi << 8);
+}
+
+// Per-tile cross-color chooser (mirror of encoder.py
+// _choose_cross_color): coarse-to-fine ENTROPY descent on the 3.5-bit
+// fixed-point multipliers g→r, g→b, r→b.  Least squares (the previous
+// fit) minimizes residual variance, but the coder pays Shannon bits.
+// Cost of a
+// candidate = Shannon entropy of the tile's residual-byte histogram
+// minus a small near-zero concentration bonus (cross-tile consistency:
+// shared global trees reward residual mass concentrated around 0).
+// libwebp's GetBestGreenToRed / GetBestGreenRedToBlue re-done as a
+// per-tile descent.  out = th*tw*3 int8 (g2r, g2b, r2b per tile).
+namespace {
+
+struct CCCost {
+  double slog2[1025];        // n -> n*log2(n)
+  double wnear[16];          // near-zero bonus weights
+  CCCost() {
+    slog2[0] = 0.0;
+    for (int n = 1; n <= 1024; n++) slog2[n] = n * std::log2((double)n);
+    double e = 2.4;
+    wnear[0] = 3.0;
+    for (int i = 1; i < 16; i++) { wnear[i] = e; e *= 0.6; }
+  }
+};
+static const CCCost kCC;
+
+// Entropy + concentration bonus of one residual histogram.
+static inline double cc_hist_cost(const uint16_t hist[256], int npx) {
+  double s = 0.0;
+  for (int i = 0; i < 256; i++) s += kCC.slog2[hist[i]];
+  double near = kCC.wnear[0] * hist[0];
+  for (int i = 1; i < 16; i++) near += kCC.wnear[i] * (hist[i] + hist[256 - i]);
+  return kCC.slog2[npx] - s - 0.1 * near;
+}
+
+static inline int cc_clamp(int v) {
+  return v < -128 ? -128 : (v > 127 ? 127 : v);
+}
+
+}  // namespace
+
+// row_step > 1 subsamples the SCORING rows (the transform stays exact;
+// only the cost histograms see fewer pixels) — the low-method speed
+// knob.  gain_out (nullable): total cost saved vs the zero transform,
+// letting the caller skip the cross-color-vs-none trial probe.
+void wtpu_vp8l_cross_color_fit(const uint32_t* argb, int h, int w,
+                               int bits, int row_step, int8_t* out,
+                               double* gain_out) {
+  const int tile = 1 << bits;
+  const int tw = (w + tile - 1) >> bits;
+  const int th = (h + tile - 1) >> bits;
+  if (row_step < 1) row_step = 1;
+  double gain = 0.0;
+  // per-tile scratch: signed channel bytes, gathered once
+  std::vector<int8_t> gs((size_t)tile * tile), rs((size_t)tile * tile),
+      bs((size_t)tile * tile);
+  for (int ty = 0; ty < th; ty++) {
+    const int y0 = ty << bits, y1 = std::min(h, y0 + tile);
+    for (int tx = 0; tx < tw; tx++) {
+      const int x0 = tx << bits, x1 = std::min(w, x0 + tile);
+      int npx = 0;
+      for (int y = y0; y < y1; y += row_step) {
+        const uint32_t* row = argb + (size_t)y * w;
+        for (int x = x0; x < x1; x++) {
+          uint32_t v = row[x];
+          gs[npx] = (int8_t)((v >> 8) & 0xff);
+          rs[npx] = (int8_t)((v >> 16) & 0xff);
+          bs[npx] = (int8_t)(v & 0xff);
+          npx++;
+        }
+      }
+      uint16_t hist[256];
+      auto cost_red = [&](int m) -> double {
+        std::memset(hist, 0, sizeof(hist));
+        for (int i = 0; i < npx; i++)
+          hist[(uint8_t)((int)rs[i] - (((int)(int8_t)m * gs[i]) >> 5))]++;
+        return cc_hist_cost(hist, npx);
+      };
+      auto cost_blue = [&](int mg, int mr) -> double {
+        std::memset(hist, 0, sizeof(hist));
+        for (int i = 0; i < npx; i++)
+          hist[(uint8_t)((int)bs[i] - (((int)(int8_t)mg * gs[i]) >> 5)
+                         - (((int)(int8_t)mr * rs[i]) >> 5))]++;
+        return cc_hist_cost(hist, npx);
+      };
+      // green->red: +/- descent over halving deltas
+      int g2r = 0;
+      const double zero_red = cost_red(0);
+      double best = zero_red;
+      for (int delta = 32; delta >= 1; delta >>= 1) {
+        for (int sgn = -1; sgn <= 1; sgn += 2) {
+          const int cand = cc_clamp(g2r + sgn * delta);
+          const double c = cost_red(cand);
+          if (c < best) { best = c; g2r = cand; }
+        }
+      }
+      gain += zero_red - best;
+      // (green->blue, red->blue): 8-direction joint descent
+      static const int kDir[8][2] = {{0, 1}, {0, -1}, {1, 0}, {-1, 0},
+                                     {1, 1}, {1, -1}, {-1, 1}, {-1, -1}};
+      int g2b = 0, r2b = 0;
+      const double zero_blue = cost_blue(0, 0);
+      best = zero_blue;
+      for (int delta = 32; delta >= 1; delta >>= 1) {
+        for (int d = 0; d < 8; d++) {
+          const int cg = cc_clamp(g2b + kDir[d][0] * delta);
+          const int cr = cc_clamp(r2b + kDir[d][1] * delta);
+          const double c = cost_blue(cg, cr);
+          if (c < best) { best = c; g2b = cg; r2b = cr; }
+        }
+      }
+      gain += zero_blue - best;
+      const int t = ty * tw + tx;
+      out[3 * t + 0] = (int8_t)g2r;
+      out[3 * t + 1] = (int8_t)g2b;
+      out[3 * t + 2] = (int8_t)r2b;
+    }
+  }
+  // Subsampled scoring sees 1/row_step of the pixels; scale the gain
+  // back to full-image bits for the caller's header-vs-savings test.
+  if (gain_out) *gain_out = gain * row_step;
+}
+
+// Forward predictor transform: residual = pixel - pred(tile mode), with
+// the mode-independent edge rules (row 0 → Left, col 0 → Top, origin →
+// black).  Mirror of models/vp8l/encoder.py _apply_predictor_transform.
+void wtpu_vp8l_predictor_residual(const uint32_t* argb, int h, int w,
+                                  int bits, const uint32_t* mode_img,
+                                  int tiles_per_row, uint32_t* out) {
+  for (int y = 0; y < h; y++) {
+    const uint32_t* row = argb + (size_t)y * w;
+    const uint32_t* mrow = mode_img + (size_t)(y >> bits) * tiles_per_row;
+    uint32_t* orow = out + (size_t)y * w;
+    int x = 0;
+    while (x < w) {
+      const int tx = x >> bits;
+      int x1 = (tx + 1) << bits;
+      if (x1 > w) x1 = w;
+      const int mode = (int)((mrow[tx] >> 8) & 0xff);
+      for (; x < x1; x++)
+        orow[x] = sub_px(row[x], enc_pred_at(argb, w, y, x, mode));
+    }
+  }
+}
+
+// Stage-1 histogram scan with the mode specialized at compile time:
+// hoists the predictor switch and the edge branches out of the pixel
+// loop (the generic enc_pred_at per-pixel path costs ~3x).
+extern "C++" {
+template <int MODE>
+static void cp_scan_mode(const uint32_t* argb, int h, int w, int bits,
+                         int row_step, int tw, uint32_t* hbase) {
+  for (int y = 0; y < h; y += row_step) {
+    const uint32_t* row = argb + (size_t)y * w;
+    uint32_t* hrow = hbase + (size_t)(y >> bits) * tw * 1024;
+    auto bump = [&](int xx, uint32_t res) {
+      uint32_t* hh = hrow + (size_t)(xx >> bits) * 1024;
+      hh[(res >> 24) & 0xff]++;
+      hh[256 + ((res >> 16) & 0xff)]++;
+      hh[512 + ((res >> 8) & 0xff)]++;
+      hh[768 + (res & 0xff)]++;
+    };
+    if (y == 0 || w <= 2) {
+      for (int x = 0; x < w; x++)
+        bump(x, sub_px(row[x], enc_pred_at(argb, w, y, x, MODE)));
+      continue;
+    }
+    bump(0, sub_px(row[0], enc_pred_at(argb, w, y, 0, MODE)));
+    const uint32_t* up = row - w;
+    for (int x = 1; x < w - 1; x++)
+      bump(x, sub_px(row[x], predict(MODE, row[x - 1], up[x],
+                                     up[x - 1], up[x + 1])));
+    bump(w - 1, sub_px(row[w - 1],
+                       enc_pred_at(argb, w, y, w - 1, MODE)));
+  }
+}
+
+typedef void (*CpScanFn)(const uint32_t*, int, int, int, int, int,
+                         uint32_t*);
+static const CpScanFn kCpScan[14] = {
+    cp_scan_mode<0>, cp_scan_mode<1>, cp_scan_mode<2>, cp_scan_mode<3>,
+    cp_scan_mode<4>, cp_scan_mode<5>, cp_scan_mode<6>, cp_scan_mode<7>,
+    cp_scan_mode<8>, cp_scan_mode<9>, cp_scan_mode<10>, cp_scan_mode<11>,
+    cp_scan_mode<12>, cp_scan_mode<13>};
+}  // extern "C++"
+
+// row_step > 1 subsamples the SCORING rows only (residuals still use
+// the true neighbours from the full image) — the low-method speed knob.
+void wtpu_vp8l_choose_predictors(const uint32_t* argb, int h, int w,
+                                 int bits, int refine_iters, int row_step,
+                                 uint8_t* modes_out) {
+  const int tw = (w + (1 << bits) - 1) >> bits;
+  const int th = (h + (1 << bits) - 1) >> bits;
+  const int T = tw * th;
+  if (row_step < 1) row_step = 1;
+
+  // Keep every mode's per-tile histograms when they fit: stage 2's
+  // refinement costs are pure histogram algebra (cost_acc[t][m] =
+  // -sum_bins hist[m][t][bin]*logp[bin]; glob = sum_t hist[modes[t]]),
+  // so storing the (14, T, 1024) tensor replaces the 14 full-image
+  // residual re-scans PER refinement iteration with tiny table sums —
+  // identical numbers, ~4x less work overall (the card's chooser,
+  // ops/kernels/vp8l_predictor.cu, scores the same histograms in
+  // fixed point).
+  const size_t kHistCap = (size_t)192 << 20;   // bytes
+  const bool keep_all =
+      (size_t)T * 1024 * 14 * sizeof(uint32_t) <= kHistCap;
+
+  // Stage 1: per-tile entropy (+0.04*folded magnitude bias) per mode.
+  std::vector<double> best_cost((size_t)T, 1e300);
+  std::vector<uint8_t> modes((size_t)T, 0);
+  // The (14, T, 1024) tensor is tens of MB; reusing a thread-local
+  // arena avoids re-faulting those pages on every call (worth ~25% of
+  // the whole chooser).  Safe under the trial thread pool: one arena
+  // per thread.  memset below replaces the vector's zero-fill.
+  static thread_local std::vector<uint32_t> hist_arena;
+  const size_t need = (size_t)(keep_all ? 14 : 1) * T * 1024;
+  if (hist_arena.size() < need) hist_arena.resize(need);
+  uint32_t* hist_all = hist_arena.data();
+  uint32_t* hist = hist_arena.data();
+  if (keep_all)
+    std::memset(hist_all, 0, (size_t)14 * T * 1024 * sizeof(uint32_t));
+  std::vector<double> npx((size_t)T, 0.0);
+  int npx_max = 0;
+  for (int y = 0; y < h; y += row_step)
+    for (int x = 0; x < w; x++)
+      npx[(size_t)(y >> bits) * tw + (x >> bits)] += 1.0;
+  for (int t = 0; t < T; t++)
+    if ((int)npx[t] > npx_max) npx_max = (int)npx[t];
+  // float n*log2(n) LUT sized to the largest per-bin count: the
+  // per-tile cost reduce (14 x T x 1024 bins, plus refine iterations)
+  // dominates the chooser, and float + a branch-free gatherable LUT
+  // lets the compiler vectorize it (~4x; mode picks only flip on
+  // sub-ulp ties, within the suite's 95%-agreement tolerance).
+  std::vector<float> slog2f((size_t)npx_max + 1);
+  slog2f[0] = 0.0f;
+  for (int i = 1; i <= npx_max; i++)
+    slog2f[i] = (float)(i * std::log2((double)i));
+  float magb4[1024];
+  for (int i = 0; i < 1024; i++) {
+    int b = i & 255;
+    int folded = b < 256 - b ? b : 256 - b;
+    if (b == 0) folded = 0;
+    magb4[i] = 0.04f * folded;
+  }
+
+  for (int mode = 0; mode < 14; mode++) {
+    uint32_t* hbase = keep_all ? hist_all + (size_t)mode * T * 1024
+                               : hist;
+    if (!keep_all)
+      std::memset(hbase, 0, (size_t)T * 1024 * sizeof(uint32_t));
+    kCpScan[mode](argb, h, w, bits, row_step, tw, hbase);
+    for (int t = 0; t < T; t++) {
+      const uint32_t* hh = hbase + (size_t)t * 1024;
+      double n_log_n = 4.0 * npx[t] * (npx[t] > 0 ? std::log2(npx[t]) : 0.0);
+      float s = 0.0f, bias = 0.0f;
+#if defined(__AVX2__)
+      // Residual histograms are ~75% empty and the zeros cluster, so an
+      // 8-wide all-zero skip + LUT gather beats both the branchy scalar
+      // loop and a dense vector pass.
+      __m256 vs = _mm256_setzero_ps(), vb = _mm256_setzero_ps();
+      for (int i = 0; i < 1024; i += 8) {
+        __m256i c = _mm256_loadu_si256((const __m256i*)(hh + i));
+        if (_mm256_testz_si256(c, c)) continue;
+        vs = _mm256_add_ps(
+            vs, _mm256_i32gather_ps(slog2f.data(), c, 4));
+        vb = _mm256_fmadd_ps(_mm256_cvtepi32_ps(c),
+                             _mm256_loadu_ps(magb4 + i), vb);
+      }
+      float tmp[8];
+      _mm256_storeu_ps(tmp, vs);
+      for (int k = 0; k < 8; k++) s += tmp[k];
+      _mm256_storeu_ps(tmp, vb);
+      for (int k = 0; k < 8; k++) bias += tmp[k];
+#else
+      for (int i = 0; i < 1024; i++) {
+        uint32_t c = hh[i];
+        if (c) {
+          s += slog2f[c];
+          bias += (float)c * magb4[i];
+        }
+      }
+#endif
+      double cost = n_log_n - (double)s + (double)bias;
+      if (cost < best_cost[t]) {
+        best_cost[t] = cost;
+        modes[t] = (uint8_t)mode;
+      }
+    }
+  }
+
+  // Stage 2: refinement against the global shared-tree distribution.
+  // With the per-mode histograms kept, every quantity is histogram
+  // algebra (identical doubles: per-pixel -logp sums ARE per-bin
+  // count*(-logp) sums); the pixel re-scan path remains the fallback
+  // for tile grids too large to keep.
+  std::vector<double> cost_acc((size_t)T);
+  for (int it = 0; it < refine_iters; it++) {
+    double glob[4][256];
+    std::memset(glob, 0, sizeof(glob));
+    if (keep_all) {
+      for (int t = 0; t < T; t++) {
+        const uint32_t* hh =
+            hist_all + ((size_t)modes[t] * T + t) * 1024;
+        for (int i = 0; i < 1024; i++) glob[i >> 8][i & 255] += hh[i];
+      }
+    } else {
+      for (int y = 0; y < h; y += row_step) {
+        const uint32_t* row = argb + (size_t)y * w;
+        const uint8_t* mrow = modes.data() + (size_t)(y >> bits) * tw;
+        for (int x = 0; x < w; x++) {
+          uint32_t res = sub_px(row[x],
+                                enc_pred_at(argb, w, y, x, mrow[x >> bits]));
+          glob[0][(res >> 24) & 0xff] += 1.0;
+          glob[1][(res >> 16) & 0xff] += 1.0;
+          glob[2][(res >> 8) & 0xff] += 1.0;
+          glob[3][res & 0xff] += 1.0;
+        }
+      }
+    }
+    double logp[4][256];
+    for (int ch = 0; ch < 4; ch++) {
+      double tot = 0.0;
+      for (int b = 0; b < 256; b++) tot += glob[ch][b];
+      for (int b = 0; b < 256; b++)
+        logp[ch][b] = std::log2((glob[ch][b] + 0.1) / (tot + 25.6));
+    }
+    double mcount[14] = {0};
+    for (int t = 0; t < T; t++) mcount[modes[t]] += 1.0;
+    double mode_cost[14];
+    for (int m = 0; m < 14; m++)
+      mode_cost[m] = -std::log2((mcount[m] + 0.1) / ((double)T + 1.4));
+
+    std::vector<uint8_t> new_modes((size_t)T, 0);
+    std::vector<double> best((size_t)T, 1e300);
+    for (int mode = 0; mode < 14; mode++) {
+      if (keep_all) {
+        float nlp_flat[1024];
+        for (int i = 0; i < 1024; i++)
+          nlp_flat[i] = (float)-logp[i >> 8][i & 255];
+        for (int t = 0; t < T; t++) {
+          const uint32_t* hh =
+              hist_all + ((size_t)mode * T + t) * 1024;
+          float acc = 0.0f;
+#if defined(__AVX2__)
+          __m256 va = _mm256_setzero_ps();
+          for (int i = 0; i < 1024; i += 8) {
+            __m256i c = _mm256_loadu_si256((const __m256i*)(hh + i));
+            if (_mm256_testz_si256(c, c)) continue;
+            va = _mm256_fmadd_ps(_mm256_cvtepi32_ps(c),
+                                 _mm256_loadu_ps(nlp_flat + i), va);
+          }
+          float tmp[8];
+          _mm256_storeu_ps(tmp, va);
+          for (int k = 0; k < 8; k++) acc += tmp[k];
+#else
+          for (int i = 0; i < 1024; i++)
+            acc += (float)hh[i] * nlp_flat[i];
+#endif
+          cost_acc[t] = (double)acc;
+        }
+      } else {
+        std::fill(cost_acc.begin(), cost_acc.end(), 0.0);
+        for (int y = 0; y < h; y += row_step) {
+          const uint32_t* row = argb + (size_t)y * w;
+          double* crow = cost_acc.data() + (size_t)(y >> bits) * tw;
+          for (int x = 0; x < w; x++) {
+            uint32_t res = sub_px(row[x], enc_pred_at(argb, w, y, x, mode));
+            crow[x >> bits] -= logp[0][(res >> 24) & 0xff]
+                               + logp[1][(res >> 16) & 0xff]
+                               + logp[2][(res >> 8) & 0xff]
+                               + logp[3][res & 0xff];
+          }
+        }
+      }
+      for (int t = 0; t < T; t++) {
+        double c = cost_acc[t] + mode_cost[mode];
+        if (c < best[t]) { best[t] = c; new_modes[t] = (uint8_t)mode; }
+      }
+    }
+    if (std::memcmp(new_modes.data(), modes.data(), (size_t)T) == 0) break;
+    modes = new_modes;
+  }
+  std::memcpy(modes_out, modes.data(), (size_t)T);
+}
+
+
 }  // extern "C"

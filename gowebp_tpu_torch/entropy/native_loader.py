@@ -4,9 +4,9 @@ Compiles gowebp_tpu_torch/entropy/native/*.cpp with g++ into one shared
 library under gowebp_tpu_torch/_build/ on first use (cached by source
 hash), for the build host's own instruction set (``-march=native``): the
 interleaved symbol decoder (vp8_dec_batch.cpp) vectorises only where
-AVX-512 is there.  The encoders' emission, the VP8L (ALPH) stream
-writer's parsers, the decoders and the host reconstruction have no
-pure-Python fallback for these functions: a failed build raises.
+AVX-512 is there.  The encoders' emission, the VP8L encoder's
+transform analysis and parsers, the decoders and the host
+reconstruction have no pure-Python fallback: a failed build raises.
 """
 
 from __future__ import annotations
@@ -177,8 +177,22 @@ def _configure(lib) -> None:
     lib.wtpu_alpha_unfilter.restype = None
     lib.wtpu_alpha_unfilter.argtypes = [u8p, c.c_int, c.c_int, c.c_int]
 
-    # VP8L encode (the ALPH chunk's spatial stream): backward references,
-    # the colour cache and the symbol emission
+    # VP8L encode: the transforms' analysis (the host predictor chooser,
+    # the forward predictor residual, the cross-colour fit), backward
+    # references, the colour cache and the symbol emission
+    lib.wtpu_vp8l_choose_predictors.restype = None
+    lib.wtpu_vp8l_choose_predictors.argtypes = [
+        u32p, c.c_int, c.c_int, c.c_int, c.c_int, c.c_int, u8p,
+    ]
+    lib.wtpu_vp8l_cross_color_fit.restype = None
+    lib.wtpu_vp8l_cross_color_fit.argtypes = [
+        u32p, c.c_int, c.c_int, c.c_int, c.c_int,
+        c.POINTER(c.c_int8), c.POINTER(c.c_double),
+    ]
+    lib.wtpu_vp8l_predictor_residual.restype = None
+    lib.wtpu_vp8l_predictor_residual.argtypes = [
+        u32p, c.c_int, c.c_int, c.c_int, u32p, c.c_int, u32p,
+    ]
     f32p = c.POINTER(c.c_float)
     lib.wtpu_vp8l_hashchain_refs.restype = c.c_int64
     lib.wtpu_vp8l_hashchain_refs.argtypes = [

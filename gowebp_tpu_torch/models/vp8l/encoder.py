@@ -1,41 +1,52 @@
-"""VP8L (WebP lossless) encoder: the spatially coded image stream.
+"""VP8L (WebP lossless) encoder.
 
-The half of the lossless encoder that the lossy encode's ALPH chunk
-needs (``encode_vp8l_alpha``): an image with no transforms, coded with
-backward references (the native hash-chain, run-length and cost-model
-parses), a colour cache, and either one set
-of five prefix codes or tile histograms clustered into groups (the
-meta-prefix image).  Parsing and symbol emission run in the native layer
-(entropy/native/encode.cpp); a failed build of it raises.  The
-transforms (predictor, cross-colour, subtract-green, palette) and the
-lossless entry point are not here yet.  Written from the lossless
-bitstream spec.  The ALPH coder always runs at quality 75, method 4, on
-a non-palette image, so those are constants here (``STREAM_QUALITY``,
-``STREAM_METHOD``).
+``encode_vp8l`` (the lossless ``encode_rgba``) and ``encode_vp8l_alpha``
+(the lossy encode's ALPH chunk).  The transforms: colour indexing with
+a palette order trial, or the photo path's joint trial over
+subtract-green, the per-tile predictor chooser at the method's tile
+sizes (plus uniform and no-predictor candidates) and the cross-colour
+fit, ranked by LZ77 + histogram entropy probes and, at high effort,
+full scratch emissions.  The spatially coded image: backward references
+(the native hash-chain, run-length, 2-D "box" and cost-model parses), a
+colour cache, and either one set of five prefix codes or tile
+histograms clustered into groups (the meta-prefix image).
+
+Everything runs on the host (numpy and the native layer,
+entropy/native/*.cpp, whose failed build raises) except the predictor
+chooser of large images: ``_choose_predictors_auto`` sends an image of
+1 MP or more on a CUDA device, or any image when
+``GOWEBP_TPU_VP8L_ANALYSIS=1``, to ``ops/lossless.py``
+``predictor_search_entropy`` (the card's kernel, or its plain version on
+the CPU).  Written from the lossless bitstream spec.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 import numpy as np
 
 from ...constants import (CODE_LENGTH_CODE_ORDER, NUM_CODE_LENGTH_CODES,
                           NUM_DISTANCE_CODES, NUM_LENGTH_CODES,
-                          NUM_LITERAL_CODES)
+                          NUM_LITERAL_CODES, VP8L_SIGNATURE)
 from ...entropy.bitio import BitWriter
 from ...entropy.huffman import build_code_lengths, canonical_codes
 from ...entropy.native_loader import get_lib
+from ...errors import EncodeError
 from . import transforms_np as tnp
 
 _INV_LN2 = 1.0 / np.log(2.0)
 
-STREAM_QUALITY = 75
-STREAM_METHOD = 4
-CHAIN_DEPTH = 8 + STREAM_QUALITY // 5     # hash-chain walk budget
+# Images of this many pixels or more take the device predictor chooser
+# on a CUDA device; the switch sends every image there.
+DEVICE_CHOOSER_PIXELS = 1 << 20
+ANALYSIS_SWITCH = "GOWEBP_TPU_VP8L_ANALYSIS"
 
 _u8p = ctypes.POINTER(ctypes.c_uint8)
+_i8p = ctypes.POINTER(ctypes.c_int8)
 _u16p = ctypes.POINTER(ctypes.c_uint16)
 _u32p = ctypes.POINTER(ctypes.c_uint32)
 _i32p = ctypes.POINTER(ctypes.c_int32)
@@ -237,11 +248,90 @@ def build_backward_refs(argb: np.ndarray, width: int) -> RefStream:
                         MIN_COPY_LEN, MAX_COPY_LEN)
 
 
-def build_refs_lz77(argb: np.ndarray, width: int,
+def _chain_depth(quality: int) -> int:
+    """The hash-chain walk budget at ``quality``."""
+    return 8 + quality // 5
+
+
+def build_refs_lz77(argb: np.ndarray, width: int, quality: int,
                     cache_bits: int) -> RefStream:
     """Native hash-chain LZ77 (+ colour cache)."""
     return _native_refs(get_lib().wtpu_vp8l_hashchain_refs, argb, width,
-                        CHAIN_DEPTH, cache_bits)
+                        _chain_depth(quality), cache_bits)
+
+
+def _greedy_refs_from_best(flat: np.ndarray, best_len: np.ndarray,
+                           best_dist: np.ndarray) -> RefStream:
+    """Greedy left-to-right parse given per-position best matches.
+
+    Literal stretches between viable copies are emitted in bulk, so the
+    Python loop runs once per op-run, not per pixel.
+    """
+    n = len(flat)
+    cand = np.flatnonzero(best_len >= MIN_COPY_LEN)
+    ops_l, argb_l, len_l, dist_l = [], [], [], []
+    i = 0
+    while i < n:
+        ci = np.searchsorted(cand, i)
+        j = int(cand[ci]) if ci < len(cand) else n
+        if j > i:
+            seg = flat[i:j]
+            ops_l.append(np.zeros(j - i, np.uint8))
+            argb_l.append(seg.astype(np.uint32))
+            len_l.append(np.ones(j - i, np.int32))
+            dist_l.append(np.zeros(j - i, np.int32))
+            i = j
+            continue
+        length = min(int(best_len[i]), MAX_COPY_LEN)
+        ops_l.append(np.ones(1, np.uint8))
+        argb_l.append(np.zeros(1, np.uint32))
+        len_l.append(np.array([length], np.int32))
+        dist_l.append(np.array([int(best_dist[i])], np.int32))
+        i += length
+    return RefStream(
+        np.concatenate(ops_l) if ops_l else np.zeros(0, np.uint8),
+        np.concatenate(argb_l) if argb_l else np.zeros(0, np.uint32),
+        np.concatenate(len_l) if len_l else np.zeros(0, np.int32),
+        np.concatenate(dist_l) if dist_l else np.zeros(0, np.int32),
+    )
+
+
+def _forward_run_lengths(eq: np.ndarray) -> np.ndarray:
+    """run[i] = number of consecutive True starting at i."""
+    n = len(eq)
+    if n == 0:
+        return np.zeros(0, np.int64)
+    idx = np.arange(n)
+    # For each i, distance to the next False at or after i.
+    false_pos = np.flatnonzero(~eq)
+    next_false = np.full(n, n, np.int64)
+    if len(false_pos):
+        ins = np.searchsorted(false_pos, idx, side="left")
+        valid = ins < len(false_pos)
+        next_false[valid] = false_pos[ins[valid]]
+    return next_false - idx
+
+
+def build_refs_box(argb: np.ndarray, width: int) -> RefStream:
+    """2-D locality ("box") LZ77: matches only at the 120 plane-coded
+    neighbour distances, the variant that wins on hard-edged, palettized
+    graphics, where short 2-D distances get the cheap single-symbol
+    distance codes (libwebp's BackwardReferencesLz77Box)."""
+    flat = np.ascontiguousarray(argb.reshape(-1), np.uint32)
+    n = flat.size
+    best_len = np.zeros(n, np.int32)
+    best_dist = np.zeros(n, np.int32)
+    dists = sorted({max(1, dy * width + dx) for dx, dy in DIST_MAP
+                    if 1 <= dy * width + dx < n})
+    eq = np.empty(n, bool)
+    for d in dists:
+        eq[:d] = False
+        np.equal(flat[d:], flat[:-d], out=eq[d:])
+        rl = _forward_run_lengths(eq).astype(np.int32)
+        better = rl > best_len
+        np.copyto(best_len, rl, where=better)
+        np.copyto(best_dist, np.int32(d), where=better)
+    return _greedy_refs_from_best(flat, best_len, best_dist)
 
 
 def _pick_cache_bits(refs: RefStream, argb: np.ndarray,
@@ -275,8 +365,8 @@ def _symbol_costs(h: np.ndarray) -> np.ndarray:
     return (-_log2f(p + 1e-12)).astype(np.float32)
 
 
-def build_refs_optimal(argb: np.ndarray, width: int, cache_bits: int,
-                       seed: RefStream) -> RefStream:
+def build_refs_optimal(argb: np.ndarray, width: int, quality: int,
+                       cache_bits: int, seed: RefStream) -> RefStream:
     """Cost-model optimal parse (native DP): the greedy parse ``seed``
     supplies the symbol-cost model, the DP finds the cheapest path over
     pixel positions and rewrites literals as colour-cache hits."""
@@ -288,7 +378,7 @@ def build_refs_optimal(argb: np.ndarray, width: int, cache_bits: int,
     lut_arr = _build_dist_lut_array(width)
     f32p = ctypes.POINTER(ctypes.c_float)
     return _native_refs(
-        get_lib().wtpu_vp8l_optimal_refs, argb, width, CHAIN_DEPTH,
+        get_lib().wtpu_vp8l_optimal_refs, argb, width, _chain_depth(quality),
         cache_bits, *(cst.ctypes.data_as(f32p) for cst in costs),
         _ptr(lut_arr, _i32p), len(lut_arr))
 
@@ -676,48 +766,63 @@ def _write_image_stream(bw: BitWriter, argb: np.ndarray, width: int) -> None:
     _emit_native(get_lib().wtpu_vp8l_emit, bw, refs, codes, width)
 
 
-def _write_spatial_stream(bw: BitWriter, argb: np.ndarray,
-                          width: int) -> None:
+def _write_spatial_stream(bw: BitWriter, argb: np.ndarray, width: int,
+                          quality: int = 75, stats=None, method: int = 4,
+                          is_palette: bool = False) -> None:
     """Top-level spatially-coded image body (after transform headers)."""
     height = argb.shape[0]
-    # LZ77 variant trials: the hash-chain parse competes against the
-    # run-length parse (distances 1 and width only, which wins on
-    # vertical and horizontal fills).  Each is scored cache-less by its
-    # total histogram entropy.
-    scored = [(_entropy_bits(_build_histograms(r, width, 0)), r)
-              for r in (build_refs_lz77(argb, width, 0),
-                        build_backward_refs(argb, width))]
-    refs = min(scored, key=lambda sr: sr[0])[1]
-    # All cache sizes 0..10 scored by one native simulation over the
-    # winning refs; the winner applied by an in-place literal→cache
-    # rewrite, no re-parsing.
-    cache_bits = _pick_cache_bits(refs, argb)
-    if cache_bits:
-        _apply_cache_native(refs, argb, cache_bits)
-    hists = _build_histograms(refs, width, cache_bits)
-    # The cost-model DP pays only when copies cover enough pixels to
-    # re-arrange (graphics: a few whole-row copies).
-    covered = int(refs.lengths[refs.ops == 1].sum())
-    if covered * 20 >= argb.size:
-        opt = build_refs_optimal(argb, width, cache_bits, seed=refs)
-        opt_hists = _build_histograms(opt, width, cache_bits)
-        if _entropy_bits(opt_hists) < _entropy_bits(hists):
-            refs, hists = opt, opt_hists
+    if quality >= 20:
+        # LZ77 variant trials: the hash-chain parse competes against the
+        # run-length parse (distances 1 and width only, which wins on
+        # vertical and horizontal fills) from quality 25, and palette
+        # streams also try the 2-D "box" parse.  Each is scored
+        # cache-less by its total histogram entropy.
+        cands = [build_refs_lz77(argb, width, quality, 0)]
+        if quality >= 25:
+            cands.append(build_backward_refs(argb, width))
+        if is_palette and method >= 2:
+            cands.append(build_refs_box(argb, width))
+        scored = [(_entropy_bits(_build_histograms(r, width, 0)), r)
+                  for r in cands]
+        refs = min(scored, key=lambda sr: sr[0])[1]
+        # All cache sizes 0..10 scored by one native simulation over the
+        # winning refs; the winner applied by an in-place literal→cache
+        # rewrite, no re-parsing.
+        cache_bits = _pick_cache_bits(refs, argb)
+        if cache_bits:
+            _apply_cache_native(refs, argb, cache_bits)
+        hists = _build_histograms(refs, width, cache_bits)
+        # The cost-model DP pays only when copies cover enough pixels to
+        # re-arrange (graphics: a few whole-row copies); from quality 90
+        # it always runs.
+        covered = int(refs.lengths[refs.ops == 1].sum())
+        if quality >= 25 and (quality >= 90 or covered * 20 >= argb.size):
+            opt = build_refs_optimal(argb, width, quality, cache_bits,
+                                     seed=refs)
+            opt_hists = _build_histograms(opt, width, cache_bits)
+            if _entropy_bits(opt_hists) < _entropy_bits(hists):
+                refs, hists = opt, opt_hists
+    else:
+        refs = build_backward_refs(argb, width)
+        cache_bits = 0
+        hists = _build_histograms(refs, width, 0)
 
     if cache_bits:
         bw.put_bits(1, 1)
         bw.put_bits(cache_bits, 4)
     else:
         bw.put_bits(0, 1)
+    if stats is not None:
+        stats.cache_bits = cache_bits
 
     # Meta-prefix codes: tile histograms + clustering when the image is
     # big enough for spatial adaptivity to pay.
-    use_meta = width * height >= (1 << 12)
+    use_meta = quality >= 30 and width * height >= (1 << 12)
     if use_meta:
-        # Histogram tile bits scale with method (7 - method for a
-        # non-palette image), then grow while the tile grid stays too
-        # large to cluster (grid cap ~2600).
-        bits = max(2, min(9, 7 - STREAM_METHOD))
+        # Histogram tile bits scale with method and content class
+        # ((palette ? 9 : 7) - method), then grow while the tile grid
+        # stays too large to cluster (grid cap ~2600).
+        bits = max(2, min(9, (9 if is_palette else 7) - method))
         while bits < 9 and tnp.subsample_size(width, bits) * tnp.subsample_size(
             height, bits
         ) > 2600:
@@ -743,6 +848,8 @@ def _write_spatial_stream(bw: BitWriter, argb: np.ndarray,
             if est_meta >= est_single:
                 num_groups = 1
         if num_groups > 1:
+            if stats is not None:
+                stats.num_huffman_groups = num_groups
             bw.put_bits(1, 1)              # meta-prefix codes present
             bw.put_bits(bits - 2, 3)
             himg = (0xFF000000
@@ -762,15 +869,660 @@ def _write_spatial_stream(bw: BitWriter, argb: np.ndarray,
     _emit_native(get_lib().wtpu_vp8l_emit, bw, refs, codes, width)
 
 
-def encode_vp8l_alpha(plane: np.ndarray) -> bytes:
-    """8-bit plane → headerless VP8L stream (values in green channel)."""
-    argb = (0xFF000000 | (plane.astype(np.uint32) << 8)).astype(np.uint32)
+# ---------------------------------------------------------------------------
+# Transforms (encoder side)
+# ---------------------------------------------------------------------------
+
+
+def _sub_pixels_vec(x, p):
+    """Per-byte (x - p) mod 256 of packed ARGB."""
+    lo = ((x | 0x01000100) - (p & 0x00FF00FF)) & 0x00FF00FF
+    hi = (((x >> 8) | 0x01000100) - ((p >> 8) & 0x00FF00FF)) & 0x00FF00FF
+    return (lo | (hi << 8)).astype(np.uint32)
+
+
+def _choose_predictors_auto(argb: np.ndarray, bits: int, refine_iters: int,
+                            row_step: int, device) -> np.ndarray:
+    """The per-tile predictor chooser, on ``device`` for large images.
+
+    An image of DEVICE_CHOOSER_PIXELS or more on a CUDA device, or any
+    image when $GOWEBP_TPU_VP8L_ANALYSIS is "1" (read at each call), goes
+    to ``ops/lossless.py`` ``predictor_search_entropy``: the kernel on
+    the card, its plain version on the CPU.  It scores every row
+    (``row_step`` throttles the host chooser only) and may pick another
+    mode than the host chooser on a near tie.  A kernel that fails to
+    build or launch raises.  Every other call runs the host chooser.
+    Returns the (th, tw) mode image as ARGB pixels (mode in green)."""
+    force = os.environ.get(ANALYSIS_SWITCH) == "1"
+    big = argb.shape[0] * argb.shape[1] >= DEVICE_CHOOSER_PIXELS
+    if force or (big and device.type == "cuda"):
+        modes = _device_modes(argb, bits, refine_iters, device)
+        return (0xFF000000 | (modes.astype(np.uint32) << 8)).astype(np.uint32)
+    return _choose_predictors(argb, bits, refine_iters=refine_iters,
+                              row_step=row_step)
+
+
+def _device_modes(argb: np.ndarray, bits: int, refine_iters: int,
+                  device) -> np.ndarray:
+    """``predictor_search_entropy`` of ``argb`` on ``device`` (upload,
+    the chooser, download) → the (th, tw) int32 mode map."""
+    import torch
+
+    from ...ops.lossless import predictor_search_entropy
+
+    words = np.ascontiguousarray(argb, np.uint32).view(np.int32)
+    modes = predictor_search_entropy(torch.from_numpy(words).to(device),
+                                     bits, refine_iters)
+    return modes.cpu().numpy()
+
+
+def _choose_predictors(argb: np.ndarray, bits: int, refine_iters: int = 4,
+                       row_step: int = 1) -> np.ndarray:
+    """Per-tile best predictor by residual-histogram entropy (the native
+    host chooser, ``wtpu_vp8l_choose_predictors``).
+
+    The cost per tile is the Shannon entropy of the four per-channel
+    residual-byte histograms plus a small magnitude bias (0.04 x the
+    byte's distance from 0 mod 256): entropy prefers a *constant*
+    residual (e.g. TOP on a vertical gradient) over a mostly-zero but
+    ragged one, which also LZ77-compresses far better.  Then
+    ``refine_iters`` rounds re-pick each tile by its cross-entropy under
+    the global residual distribution of the current picks plus the mode
+    symbol's own cost, since all tiles share the prefix codes.
+    """
+    h, w = argb.shape
+    th = tnp.subsample_size(h, bits)
+    tw = tnp.subsample_size(w, bits)
+    flat = np.ascontiguousarray(argb, np.uint32)
+    out = np.empty(th * tw, np.uint8)
+    get_lib().wtpu_vp8l_choose_predictors(_ptr(flat, _u32p), h, w, bits,
+                                          refine_iters, row_step,
+                                          _ptr(out, _u8p))
+    modes = out.reshape(th, tw).astype(np.uint32)
+    return (0xFF000000 | (modes << 8)).astype(np.uint32)
+
+
+def _apply_predictor_transform(argb: np.ndarray, bits: int,
+                               mode_img: np.ndarray) -> np.ndarray:
+    """Residual = pixel - pred(mode of its tile), with the decoder's edge
+    rules (native)."""
+    h, w = argb.shape
+    flat = np.ascontiguousarray(argb, np.uint32)
+    modes = np.ascontiguousarray(mode_img, np.uint32)
+    out = np.empty((h, w), np.uint32)
+    get_lib().wtpu_vp8l_predictor_residual(_ptr(flat, _u32p), h, w, bits,
+                                           _ptr(modes, _u32p),
+                                           modes.shape[1], _ptr(out, _u32p))
+    return out
+
+
+def _probe_rows(argb: np.ndarray) -> np.ndarray:
+    """Row subsample for transform-trial cost probes.
+
+    Trial scoring only needs the *relative* ordering of candidates, so on
+    tall images three 128-row slabs (top/middle/bottom) stand in for the
+    full image; matches within a slab are intact, dist-width matches
+    cross slab seams harmlessly (same estimate noise for every
+    candidate).  ≤400-row images are probed exactly.
+    """
+    h = argb.shape[0]
+    if h <= 400:
+        return argb
+    slabs = [argb[r0:r0 + 128]
+             for r0 in (0, (h - 128) * 2 // 5, (h - 128) * 4 // 5)]
+    return np.ascontiguousarray(np.concatenate(slabs, axis=0))
+
+
+def _refs_cost_bits(argb: np.ndarray, width: int, quality: int) -> float:
+    """Estimated body cost: LZ77 refs + histogram entropy (no emission).
+
+    Unlike raw literal entropy this accounts for LZ77: on highly
+    repetitive residuals the copy stream dominates, and a transform that
+    lowers literal entropy may save nothing in the actual bitstream.
+    """
+    refs = build_refs_lz77(argb, width, quality, 0)
+    return _entropy_bits(_build_histograms(refs, width, 0))
+
+
+def _choose_cross_color_scored(
+        argb: np.ndarray, bits: int, row_step: int = 1
+) -> tuple[np.ndarray | None, float]:
+    """Per-tile g→r / g→b / r→b multipliers by entropy descent (native
+    ``wtpu_vp8l_cross_color_fit``).
+
+    Returns (transform_image | None, gain_bits): the summed cost saved
+    against the zero transform, which lets the caller decide cross-colour
+    on or off without a trial probe; None when every tile stays at 0.
+    Each 3.5-bit fixed-point multiplier is found by a coarse-to-fine
+    descent (deltas 32..1; the blue pair moves along 8 joint
+    directions) on the Shannon bits of the tile's residual histogram
+    minus a near-zero concentration bonus.  ``row_step`` > 1 subsamples
+    the scoring rows (the transform itself stays exact).
+    """
+    h, w = argb.shape
+    th = tnp.subsample_size(h, bits)
+    tw = tnp.subsample_size(w, bits)
+    flat = np.ascontiguousarray(argb, np.uint32)
+    out = np.empty(th * tw * 3, np.int8)
+    gain_c = ctypes.c_double(0.0)
+    get_lib().wtpu_vp8l_cross_color_fit(_ptr(flat, _u32p), h, w, bits,
+                                        row_step, _ptr(out, _i8p),
+                                        ctypes.byref(gain_c))
+    mults = out.reshape(th, tw, 3).astype(np.int64)
+    g2r, g2b, r2b = mults[..., 0], mults[..., 1], mults[..., 2]
+    if not (g2r.any() or g2b.any() or r2b.any()):
+        return None, 0.0
+    return (
+        0xFF000000
+        | ((r2b & 0xFF).astype(np.uint32) << 16)
+        | ((g2b & 0xFF).astype(np.uint32) << 8)
+        | (g2r & 0xFF).astype(np.uint32)
+    ).astype(np.uint32), float(gain_c.value)
+
+
+def _bits_entropy(h: np.ndarray) -> float:
+    tot = float(h.sum())
+    if tot <= 0:
+        return 0.0
+    p = h[h > 0].astype(np.float64) / tot
+    return float(-(p * np.log2(p)).sum() * tot)
+
+
+def analyze_entropy(argb: np.ndarray, row_step: int = 1) -> str:
+    """One-pass entropy-mode analysis (libwebp's AnalyzeEntropy): score
+    direct / spatial / subgreen / spatial-subgreen from per-channel
+    histograms of the raw pixels and their left-neighbour deltas, all
+    gathered in a single sweep.
+
+    Picks the transform set directly at low effort (method ≤ 2) instead
+    of running trial encodes.  ``row_step`` subsamples the scored rows.
+    """
+    if row_step > 1:
+        argb = argb[::row_step]
+    flat = argb.reshape(-1).astype(np.uint32)
+    prev = np.concatenate([flat[:1], flat[:-1]])
+    diff = _sub_pixels_vec(flat, prev)
+
+    def chans(v):
+        return ((v >> 24) & 0xFF, (v >> 16) & 0xFF,
+                (v >> 8) & 0xFF, v & 0xFF)
+
+    def ent4(a, r, g, b):
+        return sum(_bits_entropy(np.bincount(x, minlength=256))
+                   for x in (a, r, g, b))
+
+    a, r, g, b = chans(flat)
+    da, dr, dg, db = chans(diff)
+    direct = ent4(a, r, g, b)
+    spatial = ent4(da, dr, dg, db)
+    subgreen = ent4(a, (r - g) & 0xFF, g, (b - g) & 0xFF)
+    sg_flat = ((flat & 0xFF00FF00)
+               | (((r - g) & 0xFF) << 16) | ((b - g) & 0xFF))
+    sgd = _sub_pixels_vec(sg_flat.astype(np.uint32), np.concatenate(
+        [sg_flat[:1], sg_flat[:-1]]).astype(np.uint32))
+    sa, sr, sgc, sb = chans(sgd)
+    spatial_subgreen = ent4(sa, sr, sgc, sb)
+    # Spatial modes pay for the predictor mode image; sub-green is a
+    # 2-bit signal.
+    n = flat.size
+    overhead = max(64.0, n / 256.0)
+    scores = {
+        "direct": direct,
+        "subgreen": subgreen + 2,
+        "spatial": spatial + overhead,
+        "spatial-subgreen": spatial_subgreen + overhead + 2,
+    }
+    return min(scores, key=scores.get)
+
+
+def _crunch_params(quality: int, method: int, hint: int = 0) -> dict:
+    """Method/quality → trial breadth for the photo path (libwebp's
+    CrunchConfig matrix): one cheap config at low methods, the full set
+    at method 6 / q90+.  ``rescore`` is how many top probe-ranked
+    candidates get a full scratch emission."""
+    if method >= 6 and quality >= 90:
+        bit_cands: tuple = (3, 4, 5)
+    elif method >= 5 and quality >= 50:
+        bit_cands = (4, 5)
+    elif method <= 2:
+        # Low effort: coarse tiles, 4x fewer to score.
+        bit_cands = (5,)
+    else:
+        bit_cands = (4,)
+    # Both subtract-green settings from method 3 up: the single most
+    # valuable trial, for one extra probe.
+    sg_opts = ((True, False) if quality >= 75 and method >= 3
+               else (True,))
+    refine_iters = 4 if method >= 6 and quality >= 90 else 2
+    if quality >= 75 and method >= 5:
+        rescore = 4 if method >= 6 else 2
+    else:
+        rescore = 0
+    if hint == 3:   # ImageHint.GRAPH: full-emission rescoring always
+        rescore = max(rescore, 2)
+        sg_opts = (True, False)
+    return dict(bit_cands=bit_cands, sg_opts=sg_opts,
+                refine_iters=refine_iters, rescore=rescore)
+
+
+def _encode_stream_photo(bw: BitWriter, argb: np.ndarray, quality: int,
+                         method: int, stats, hint: int, device) -> None:
+    w = argb.shape[1]
+    h = argb.shape[0]
+
+    analysis_mode = None
+    use_predictor = None
+    if method <= 2 and quality >= 10:
+        # Low effort: the one-pass analysis picks the transform set
+        # outright, no trial encodes.
+        analysis_mode = analyze_entropy(
+            argb, row_step=2 if h * w >= (1 << 17) else 1)
+        use_predictor = analysis_mode in ("spatial", "spatial-subgreen")
+    if use_predictor is None:
+        use_predictor = quality >= 10
+    emitted = None
+    if use_predictor:
+        # Joint trial over {subtract-green} x {predictor candidates} x
+        # {cross-colour}, scored by LZ77 + histogram entropy plus the
+        # transform images' own streams.  Predictor candidates: the
+        # per-tile entropy chooser at the method's tile sizes, plus
+        # uniform TOP and LEFT and no predictor at all (mod-256 residuals
+        # of one mode are periodic on synthetic gradients, which the
+        # per-tile metric cannot see and LZ77 can).
+        crunch = _crunch_params(quality, method, hint=hint)
+        bit_cands = crunch["bit_cands"]
+        sg_opts = crunch["sg_opts"]
+        if analysis_mode is not None:
+            sg_opts = ((analysis_mode == "spatial-subgreen"),)
+        iters = crunch["refine_iters"]
+        use_cross = quality >= 50
+        cc_bits = 5 if method <= 2 else 4
+        # Low methods score the choosers on every 2nd row (the
+        # transforms stay exact).
+        speed_step = 2 if method <= 2 else 1
+        # The uniform / no-predictor extras run under one subtract-green
+        # setting, the one the one-pass analysis ranks first.
+        sg_extra = True
+        if len(sg_opts) > 1 and quality >= 50 and method >= 3:
+            am = analysis_mode or analyze_entropy(
+                argb, row_step=2 if h * w >= (1 << 17) else 1)
+            sg_extra = am in ("subgreen", "spatial-subgreen")
+        # The per-(sg, bits) choosers are independent, and the native one
+        # releases the GIL: up to 4 run at once.
+        sg_bases = {sg: (tnp.subtract_green_forward(argb) if sg else argb)
+                    for sg in sg_opts}
+        chooser_keys = [(sg, bits) for sg in sg_opts for bits in bit_cands]
+
+        def choose(key):
+            return _choose_predictors_auto(sg_bases[key[0]], key[1], iters,
+                                           speed_step, device)
+
+        if len(chooser_keys) > 1:
+            with ThreadPoolExecutor(min(4, len(chooser_keys))) as ex:
+                chosen = dict(zip(chooser_keys, ex.map(choose, chooser_keys)))
+        else:
+            chosen = {k: choose(k) for k in chooser_keys}
+
+        jobs = []
+        for sg in sg_opts:
+            base = sg_bases[sg]
+            cand_imgs = [(bits, chosen[(sg, bits)]) for bits in bit_cands]
+            if quality >= 50 and method >= 3 and (sg == sg_extra
+                                                  or len(sg_opts) == 1):
+                th5 = tnp.subsample_size(h, 5)
+                tw5 = tnp.subsample_size(w, 5)
+                for um in (2, 1):      # uniform TOP, uniform LEFT
+                    uni = np.full((th5, tw5),
+                                  0xFF000000 | (um << 8), np.uint32)
+                    cand_imgs.append((5, uni))
+                # No predictor (direct / subtract-green only): periodic
+                # content LZ77-compresses better unfiltered.
+                cand_imgs.append((0, None))
+            jobs.extend((sg, base, bits, mode_img)
+                        for bits, mode_img in cand_imgs)
+
+        # With one job and no rescore stage the probes decide nothing.
+        fast_single = len(jobs) == 1 and crunch["rescore"] <= 1
+
+        def _trial(job):
+            sg, base, bits, mode_img = job
+            if mode_img is None:       # direct / subtract-green-only
+                res = base
+                phdr = 0
+            else:
+                res = _apply_predictor_transform(base, bits, mode_img)
+                scratch = BitWriter()
+                _write_image_stream(scratch, mode_img, mode_img.shape[1])
+                phdr = scratch.bit_count + 6   # + transform signal bits
+            cc_img, cc_gain = (
+                _choose_cross_color_scored(res, cc_bits,
+                                           row_step=speed_step)
+                if use_cross else (None, 0.0))
+            chdr = 0
+            if cc_img is not None:
+                s2 = BitWriter()
+                _write_image_stream(s2, cc_img, cc_img.shape[1])
+                chdr = s2.bit_count + 6
+                # Decisive entropy-gain bands skip the cc-vs-none probe
+                # pair; only the ambiguous middle still pays for it.
+                if cc_gain <= chdr:
+                    cc_img = None
+                    chdr = 0
+                elif not (fast_single or cc_gain >= 4 * chdr):
+                    cc_res = tnp.color_transform_forward(
+                        res, cc_img, cc_bits)
+                    out = []
+                    for cimg, cres, ch in ((None, res, 0),
+                                           (cc_img, cc_res, chdr)):
+                        cost = (_refs_cost_bits(_probe_rows(cres), w, 25)
+                                + phdr + ch)
+                        out.append((cost, sg, bits, mode_img, cimg, cres,
+                                    phdr + ch))
+                    return out
+            cres = (tnp.color_transform_forward(res, cc_img, cc_bits)
+                    if cc_img is not None else res)
+            cost = 0.0 if fast_single else (
+                _refs_cost_bits(_probe_rows(cres), w, 25) + phdr + chdr)
+            return [(cost, sg, bits, mode_img, cc_img, cres, phdr + chdr)]
+
+        # The probes are native (GIL released): trials run concurrently.
+        if len(jobs) > 1:
+            with ThreadPoolExecutor(max_workers=min(len(jobs), 6)) as ex:
+                results = list(ex.map(_trial, jobs))
+        else:
+            results = [_trial(job) for job in jobs]
+        entries = [e for out in results for e in out]
+        entries.sort(key=lambda e: e[0])
+        if crunch["rescore"] > 1 and len(entries) > 1:
+            # The probe ignores the colour cache and meta-prefix codes:
+            # rescore the closest candidates with a full scratch emission
+            # of the spatial stream (spliced below, not re-encoded), and
+            # always give the best no-predictor candidates a slot (the
+            # probe over-ranks predictor residuals on self-similar
+            # content).
+            pool = list(entries[: crunch["rescore"]])
+            direct = [e for e in entries if e[3] is None]
+            n_direct = len(direct) if h * w < (1 << 18) else 2
+            ids = {id(e) for e in pool}
+            pool.extend(e for e in direct[:n_direct]
+                        if id(e) not in ids)
+            rescored = []
+            for e in pool:
+                sbw = BitWriter()
+                _write_spatial_stream(sbw, e[5], w, quality, method=method)
+                rescored.append((sbw.bit_count + e[6], sbw, e))
+            rescored.sort(key=lambda t: t[0])
+            best = rescored[0][2]
+            if stats is None:
+                emitted = rescored[0][1]
+        else:
+            best = entries[0]
+        _, use_sg, bits, mode_img, cc_img, work = best[:6]
+        if use_sg:
+            bw.put_bits(1, 1)
+            bw.put_bits(2, 2)          # SUBTRACT_GREEN
+        if mode_img is not None:
+            bw.put_bits(1, 1)
+            bw.put_bits(0, 2)          # PREDICTOR_TRANSFORM
+            bw.put_bits(bits - 2, 3)
+            _write_image_stream(bw, mode_img, mode_img.shape[1])
+        else:
+            use_predictor = False      # no predictor won the trial
+        if cc_img is not None:
+            bw.put_bits(1, 1)
+            bw.put_bits(1, 2)          # COLOR_TRANSFORM
+            bw.put_bits(cc_bits - 2, 3)
+            _write_image_stream(bw, cc_img, cc_img.shape[1])
+            if stats is not None:
+                stats.transforms.append("cross-color")
+    elif quality >= 50 and analysis_mode != "direct":
+        # No predictor: subtract-green (unless the one-pass analysis
+        # picked direct), then gated cross-colour.
+        use_sg = True
+        work = tnp.subtract_green_forward(argb)
+        bw.put_bits(1, 1)
+        bw.put_bits(2, 2)              # SUBTRACT_GREEN
+        cc_bits = 4
+        cc_img, cc_gain = _choose_cross_color_scored(
+            work, cc_bits, row_step=2 if method <= 2 else 1)
+        if cc_img is not None:
+            scratch = BitWriter()
+            _write_image_stream(scratch, cc_img, cc_img.shape[1])
+            # the descent's own gain against the transform image's cost
+            if cc_gain > scratch.bit_count + 6:
+                bw.put_bits(1, 1)
+                bw.put_bits(1, 2)      # COLOR_TRANSFORM
+                bw.put_bits(cc_bits - 2, 3)
+                _write_image_stream(bw, cc_img, cc_img.shape[1])
+                work = tnp.color_transform_forward(work, cc_img, cc_bits)
+                if stats is not None:
+                    stats.transforms.append("cross-color")
+    else:
+        use_sg = True
+        work = tnp.subtract_green_forward(argb)
+        bw.put_bits(1, 1)
+        bw.put_bits(2, 2)              # SUBTRACT_GREEN
+
+    bw.put_bits(0, 1)  # end of transforms
+    if stats is not None:
+        if use_sg:
+            stats.transforms.append("subtract-green")
+        if use_predictor:
+            stats.transforms.append("predictor")
+    if use_predictor and emitted is not None:
+        bw.append_writer(emitted)
+    else:
+        _write_spatial_stream(bw, work, w, quality, stats=stats,
+                              method=method)
+
+
+# ---------------------------------------------------------------------------
+# Colour indexing (palette)
+# ---------------------------------------------------------------------------
+
+
+def rgba_to_argb(rgba: np.ndarray) -> np.ndarray:
+    rgba = rgba.astype(np.uint32)
+    return ((rgba[..., 3] << 24) | (rgba[..., 0] << 16)
+            | (rgba[..., 1] << 8) | rgba[..., 2])
+
+
+def _palette_of(argb: np.ndarray) -> np.ndarray | None:
+    uniq = np.unique(argb)
+    if len(uniq) <= 256:
+        return uniq.astype(np.uint32)
+    return None
+
+
+def _pack_palette_indices(argb: np.ndarray, palette: np.ndarray) -> np.ndarray:
+    """Map pixels → palette indices, bundled into green channel pixels."""
+    h, w = argb.shape
+    n = len(palette)
+    order = np.argsort(palette)
+    idx = order[np.searchsorted(palette, argb.reshape(-1), sorter=order)]
+    idx = idx.reshape(h, w).astype(np.uint32)
+    xbits = 0 if n > 16 else (1 if n > 4 else (2 if n > 2 else 3))
+    if xbits == 0:
+        packed = idx
+    else:
+        per = 1 << xbits
+        bw_ = 8 >> xbits
+        pw = tnp.subsample_size(w, xbits)
+        padded = np.zeros((h, pw * per), np.uint32)
+        padded[:, :w] = idx
+        packed = np.zeros((h, pw), np.uint32)
+        for k in range(per):
+            packed |= padded[:, k::per] << (k * bw_)
+    return (0xFF000000 | (packed << 8)).astype(np.uint32)
+
+
+def _palette_orderings(palette: np.ndarray, argb: np.ndarray,
+                       quality: int) -> list[np.ndarray]:
+    """Candidate palette orders: lexicographic, luminance, and a greedy
+    nearest-neighbour chain in RGB space from the most frequent colour
+    (small index deltas between adjacent pixels compress better)."""
+    cands = [palette]
+    if quality < 40 or len(palette) <= 4:
+        return cands
+    a = (palette >> 24) & 0xFF
+    r = (palette >> 16) & 0xFF
+    g = (palette >> 8) & 0xFF
+    b = palette & 0xFF
+    lum = 299 * r + 587 * g + 114 * b + 1000 * a
+    cands.append(palette[np.argsort(lum, kind="stable")])
+
+    vals, counts = np.unique(argb, return_counts=True)
+    freq = dict(zip(vals.tolist(), counts.tolist()))
+    cols = np.stack([a, r, g, b], axis=1).astype(np.int64)
+    n = len(palette)
+    used = np.zeros(n, bool)
+    cur = int(np.argmax([freq.get(int(p), 0) for p in palette]))
+    order = [cur]
+    used[cur] = True
+    for _ in range(n - 1):
+        d = np.abs(cols - cols[order[-1]]).sum(axis=1)
+        d[used] = 1 << 30
+        cur = int(np.argmin(d))
+        order.append(cur)
+        used[cur] = True
+    cands.append(palette[np.array(order)])
+    return cands
+
+
+def _choose_palette_order(palette: np.ndarray, argb: np.ndarray,
+                          quality: int, method: int) -> np.ndarray:
+    cands = _palette_orderings(palette, argb, quality)
+    if len(cands) == 1:
+        return cands[0]
+    best = None
+    for cand in cands:
+        packed = _pack_palette_indices(argb, cand)
+        if method >= 6 and quality >= 90:
+            # Brute force: every ordering gets a full scratch emission
+            # (the probe cannot see cache, meta-prefix or LZ77-variant
+            # interactions).
+            sbw = BitWriter()
+            _write_spatial_stream(sbw, packed, packed.shape[1], quality,
+                                  method=method, is_palette=True)
+            cost = float(sbw.bit_count)
+        else:
+            cost = _refs_cost_bits(packed, packed.shape[1], 25)
+        if best is None or cost < best[0]:
+            best = (cost, cand)
+    return best[1]
+
+
+def _sub_scalar(pixel: int, pred: int) -> int:
+    out = 0
+    for shift in (24, 16, 8, 0):
+        out |= (((pixel >> shift) - (pred >> shift)) & 0xFF) << shift
+    return out
+
+
+def _encode_stream_palette(bw: BitWriter, argb: np.ndarray, palette,
+                           quality: int, stats, method: int) -> None:
+    palette = _choose_palette_order(palette, argb, quality, method)
+    bw.put_bits(1, 1)
+    bw.put_bits(3, 2)              # COLOR_INDEXING_TRANSFORM
+    bw.put_bits(len(palette) - 1, 8)
+    # Palette stored delta-coded as a (n,1) entropy image.
+    deltas = np.zeros(len(palette), np.uint32)
+    prev = 0
+    for i, c in enumerate(palette):
+        deltas[i] = _sub_scalar(int(c), prev)
+        prev = int(c)
+    _write_image_stream(bw, deltas.reshape(1, -1), len(palette))
+    packed = _pack_palette_indices(argb, palette)
+    bw.put_bits(0, 1)  # end of transforms
+    if stats is not None:
+        stats.palette_size = len(palette)
+        stats.transforms.append("color-indexing")
+    _write_spatial_stream(bw, packed, packed.shape[1], quality, stats=stats,
+                          method=method, is_palette=True)
+
+
+# ---------------------------------------------------------------------------
+# Entry points
+# ---------------------------------------------------------------------------
+
+
+def encode_vp8l_stream(argb: np.ndarray, *, quality: int, method: int,
+                       bw: BitWriter, stats, hint: int, device) -> BitWriter:
+    """Encode the image-stream portion (after the 5-byte header).
+
+    Paletted images take the colour-indexing path, but palettes of more
+    than 64 colours at quality >= 50 also try the photo path and the
+    smaller stream wins (ImageHint.PHOTO skips the palette for them).
+    ``method`` scales the trial effort.
+    """
+    palette = _palette_of(argb)
+    if palette is not None and hint == 2 and len(palette) > 64:
+        palette = None
+    if palette is not None:
+        if len(palette) > 64 and quality >= 50:
+            pal_bw = BitWriter()
+            _encode_stream_palette(pal_bw, argb, palette, quality, None,
+                                   method)
+            photo_bw = BitWriter()
+            _encode_stream_photo(photo_bw, argb, quality, method, None,
+                                 hint, device)
+            if stats is None:
+                bw.append_writer(pal_bw if pal_bw.bit_count
+                                 <= photo_bw.bit_count else photo_bw)
+            elif pal_bw.bit_count <= photo_bw.bit_count:
+                _encode_stream_palette(bw, argb, palette, quality, stats,
+                                       method)
+            else:
+                _encode_stream_photo(bw, argb, quality, method, stats, hint,
+                                     device)
+        else:
+            _encode_stream_palette(bw, argb, palette, quality, stats, method)
+    else:
+        _encode_stream_photo(bw, argb, quality, method, stats, hint, device)
+    return bw
+
+
+def encode_vp8l(rgba: np.ndarray, *, quality: int = 75, method: int = 4,
+                stats=None, hint: int = 0, device=None) -> bytes:
+    """(H, W, 3|4) uint8 RGBA → VP8L chunk payload.  ``device``: where
+    the predictor chooser of a large image runs (None means CUDA and
+    raises without it, before any work)."""
+    from ...device import resolve_device
+
+    dev = resolve_device(device)
+    if rgba.ndim != 3 or rgba.shape[2] not in (3, 4):
+        raise EncodeError("expected (H, W, 3|4) array")
+    if rgba.shape[2] == 3:
+        rgba = np.concatenate(
+            [rgba, np.full(rgba.shape[:2] + (1,), 255, np.uint8)], axis=-1
+        )
+    h, w = rgba.shape[:2]
+    if not (1 <= w <= 1 << 14 and 1 <= h <= 1 << 14):
+        raise EncodeError("dimensions out of range")
+    argb = rgba_to_argb(rgba)
+    has_alpha = bool((rgba[..., 3] != 255).any())
+
     bw = BitWriter()
-    bw.put_bits(0, 1)  # no transforms
-    _write_spatial_stream(bw, argb, argb.shape[1])
+    bw.put_bits(VP8L_SIGNATURE, 8)
+    bw.put_bits(w - 1, 14)
+    bw.put_bits(h - 1, 14)
+    bw.put_bits(1 if has_alpha else 0, 1)
+    bw.put_bits(0, 3)  # version
+    encode_vp8l_stream(argb, quality=quality, method=method, bw=bw,
+                       stats=stats, hint=hint, device=dev)
     return bw.getvalue()
 
 
-__all__ = ["build_backward_refs", "build_refs_lz77",
-           "build_refs_optimal", "encode_vp8l_alpha", "prefix_encode",
-           "store_huffman_code"]
+def encode_vp8l_alpha(plane: np.ndarray) -> bytes:
+    """8-bit plane → headerless VP8L stream (values in green channel),
+    at quality 75, method 4, with no transforms."""
+    argb = (0xFF000000 | (plane.astype(np.uint32) << 8)).astype(np.uint32)
+    bw = BitWriter()
+    bw.put_bits(0, 1)  # no transforms
+    _write_spatial_stream(bw, argb, argb.shape[1], 75)
+    return bw.getvalue()
+
+
+__all__ = ["build_backward_refs", "build_refs_box", "build_refs_lz77",
+           "build_refs_optimal", "encode_vp8l", "encode_vp8l_alpha",
+           "encode_vp8l_stream", "prefix_encode", "store_huffman_code"]

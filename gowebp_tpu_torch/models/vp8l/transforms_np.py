@@ -1,12 +1,14 @@
-"""VP8L inverse transforms on packed ARGB planes (host).
+"""VP8L transforms on packed ARGB planes (host).
 
 The four transforms of the lossless format, decode side: subtract-green
 (add_green_inverse), cross-colour (color_transform_inverse), colour
 indexing (color_index_inverse) and the 14 spatial predictors
 (predictor_inverse).  The predictor inverse is a per-pixel raster
 recurrence and runs in the native layer, as do add-green and
-cross-colour; colour indexing is a numpy table lookup.  Written from the
-lossless bitstream spec.
+cross-colour; colour indexing is a numpy table lookup.  The encoder's
+forward subtract-green and cross-colour are numpy (the forward
+predictor is the native ``wtpu_vp8l_predictor_residual``).  Written from
+the lossless bitstream spec.
 
 Pixels are ARGB packed into uint32: (a<<24)|(r<<16)|(g<<8)|b.
 """
@@ -33,6 +35,51 @@ def add_green_inverse(argb: np.ndarray) -> np.ndarray:
     buf = np.ascontiguousarray(argb, np.uint32).copy()
     get_lib().wtpu_vp8l_add_green(_u32(buf), buf.size)
     return buf
+
+
+def subtract_green_forward(argb: np.ndarray) -> np.ndarray:
+    """r -= g; b -= g (mod 256)."""
+    g = (argb >> 8) & 0xFF
+    r = ((argb >> 16) & 0xFF) - g
+    b = (argb & 0xFF) - g
+    return (
+        (argb & 0xFF00FF00)
+        | ((r & 0xFF) << 16)
+        | (b & 0xFF)
+    ).astype(np.uint32)
+
+
+def _delta(t_u8: np.ndarray, c_u8: np.ndarray) -> np.ndarray:
+    """ColorTransformDelta: (int8(t) * int8(c)) >> 5 (arithmetic shift)."""
+    t = t_u8.astype(np.int8).astype(np.int32)
+    c = c_u8.astype(np.int8).astype(np.int32)
+    return (t * c) >> 5
+
+
+def color_transform_forward(
+    argb: np.ndarray, transform_img: np.ndarray, bits: int
+) -> np.ndarray:
+    """The encoder's cross-colour transform with the tile multipliers of
+    ``transform_img`` (the inverse's layout)."""
+    h, w = argb.shape
+    ty = np.arange(h) >> bits
+    tx = np.arange(w) >> bits
+    tiles = transform_img[np.ix_(ty, tx)]
+    g2r = tiles & 0xFF
+    g2b = (tiles >> 8) & 0xFF
+    r2b = (tiles >> 16) & 0xFF
+
+    g = (argb >> 8) & 0xFF
+    r = (argb >> 16) & 0xFF
+    b = argb & 0xFF
+    new_r = (r - _delta(g2r, g)) & 0xFF
+    # red_to_blue applies to the ORIGINAL red (the decoder restores red
+    # before using it in the blue inverse).
+    new_b = (b - _delta(g2b, g) - _delta(r2b, r)) & 0xFF
+    return (
+        (argb & 0xFF00FF00) | (new_r.astype(np.uint32) << 16)
+        | new_b.astype(np.uint32)
+    ).astype(np.uint32)
 
 
 def color_transform_inverse(
@@ -96,7 +143,9 @@ def predictor_inverse(
 __all__ = [
     "add_green_inverse",
     "color_index_inverse",
+    "color_transform_forward",
     "color_transform_inverse",
     "predictor_inverse",
     "subsample_size",
+    "subtract_green_forward",
 ]

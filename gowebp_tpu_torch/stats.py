@@ -2,8 +2,8 @@
 
 Pass an ``EncodeStats`` as ``stats=`` to ``encode_rgba``/``encode_yuv``;
 the lossy encode fills the size, PSNR, block counts, byte breakdown and
-per-segment arrays.  The lossless fields stay at their defaults until the
-port has the lossless encode.
+per-segment arrays; the lossless encode the sizes, palette size, colour
+cache bits, transforms and prefix-code groups.
 """
 
 from __future__ import annotations

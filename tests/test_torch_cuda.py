@@ -1143,3 +1143,129 @@ def test_mixed_non_opaque_batch_gpu_equals_cpu(cuda):
     imgs = [_alpha_image(33, 17, seed=1), _alpha_image(40, 48, seed=2)[..., :3]]
     assert (encode_rgba_batch(imgs, device="cuda")
             == encode_rgba_batch(imgs, device="cpu"))
+
+
+def _argb_words(img):
+    """(H, W, 3) uint8 → int32 tensor of the opaque ARGB words' bits."""
+    argb = ((255 << 24) | (img[..., 0].astype(np.uint32) << 16)
+            | (img[..., 1].astype(np.uint32) << 8) | img[..., 2])
+    return torch.from_numpy(argb.astype(np.uint32).view(np.int32))
+
+
+def _tie_images():
+    """Flat, gradient and 2x2-periodic planes: every mode ties on some
+    tiles, so the lowest mode must win in both versions."""
+    yy, xx = np.mgrid[0:200, 0:328]
+    flat = np.full((200, 328, 3), 77, np.uint8)
+    grad = np.stack([xx % 256, yy % 256, (xx + yy) % 256], -1).astype(np.uint8)
+    checker = np.where(((yy + xx) % 2)[..., None] == 0, 10, 240)
+    return {"flat": flat, "gradient": grad,
+            "checker": np.broadcast_to(checker, (200, 328, 3)).astype(
+                np.uint8)}
+
+
+@pytest.mark.parametrize("iters", [0, 2, 4])
+@pytest.mark.parametrize("bits", [3, 4, 5])
+def test_vp8l_predictor_kernel_matches_plain(cuda, bits, iters):
+    """The chooser kernel's mode map == its plain version's, bit for bit:
+    a 1 MP corpus image, its subtract-green form, and forced ties."""
+    from gowebp_tpu_torch.ops.kernels.vp8l_predictor import (
+        predictor_search_entropy, predictor_search_entropy_plain)
+    from gowebp_tpu_torch.utils.corpus import natural_image
+
+    imgs = dict(_tie_images(), photo=natural_image(1024, 1024, seed=12))
+    for name, img in imgs.items():
+        x = _argb_words(img).to(cuda)
+        before = predictor_search_entropy.launches
+        got = predictor_search_entropy(x, bits, iters)
+        want = predictor_search_entropy_plain(x, bits, iters)
+        torch.cuda.synchronize()
+        assert 1 <= predictor_search_entropy.launches - before <= 1 + iters
+        assert torch.equal(got, want), name
+
+
+def test_vp8l_predictor_rejects_bad_tensors(cuda):
+    from gowebp_tpu_torch.ops.kernels.vp8l_predictor import (
+        predictor_search_entropy)
+
+    x = torch.zeros((64, 64), dtype=torch.int32, device=cuda)
+    before = predictor_search_entropy.launches
+    for args in ((x.to(torch.int64), 4, 2), (x[:, ::2], 4, 2), (x, 6, 2),
+                 (x[None], 4, 2)):
+        with pytest.raises((TypeError, ValueError)):
+            predictor_search_entropy(*args)
+    assert predictor_search_entropy.launches == before
+
+
+def test_vp8l_predictor_ptxas_has_no_stack_or_spills(cuda, tmp_path):
+    """vp8l_predictor.cu compiles to no stack frame and no spills (nvcc
+    -Xptxas -v, built here anew)."""
+    import subprocess
+
+    from gowebp_tpu_torch.ops.kernels.cuda_build import NVCC_FLAGS, nvcc
+    from gowebp_tpu_torch.ops.kernels.vp8l_predictor import LIBRARY
+
+    out = subprocess.run(
+        [nvcc(), *NVCC_FLAGS, "-o", str(tmp_path / "lib.so"),
+         str(LIBRARY.source)], capture_output=True, text=True)
+    assert out.returncode == 0, out.stdout + out.stderr
+    report = _chip_smoke().ptxas_report(out.stdout + out.stderr,
+                                        "vp8l_predictor_kernel")
+    assert len(report) == 1, report
+    assert report[0][2:] == (0, 0, 0), report
+
+
+@pytest.mark.parametrize("kw", [{}, {"method": 6, "quality": 95},
+                                {"near_lossless": 60}])
+def test_lossless_encode_gpu_bytes_equal_forced_cpu_bytes(cuda, monkeypatch,
+                                                          kw):
+    """With $GOWEBP_TPU_VP8L_ANALYSIS=1 the chooser runs on the card
+    (launching the kernel) and on the CPU as its plain version: the same
+    bytes, which decode to the source."""
+    import gowebp_tpu_torch as T
+    from gowebp_tpu_torch.ops.kernels.vp8l_predictor import (
+        predictor_search_entropy)
+
+    im = _alpha_image(45, 61, seed=4)
+    monkeypatch.setenv("GOWEBP_TPU_VP8L_ANALYSIS", "1")
+    cfg = T.EncoderConfig(lossless=True, exact=True, **kw)
+    before = predictor_search_entropy.calls
+    got = T.encode_rgba(im, config=cfg, device="cuda")
+    assert predictor_search_entropy.calls > before
+    assert got == T.encode_rgba(im, config=cfg, device="cpu")
+    if not kw:
+        assert np.array_equal(T.decode_rgba(got, device="cuda"), im)
+
+
+def test_vp8l_predictor_from_many_threads(cuda):
+    """The photo path calls the chooser from a thread pool: 8 threads x 4
+    calls on the card give the plain version's modes, and the counters
+    lose no update (a short switch interval)."""
+    import sys
+    from concurrent.futures import ThreadPoolExecutor
+
+    from gowebp_tpu_torch.ops.kernels.vp8l_predictor import (
+        predictor_search_entropy, predictor_search_entropy_plain)
+    from gowebp_tpu_torch.utils.corpus import natural_image
+
+    xs = [_argb_words(natural_image(160, 224, seed=s)).to(cuda)
+          for s in range(4)]
+    wants = [predictor_search_entropy_plain(x, 3, 2) for x in xs]
+    before = (predictor_search_entropy.launches,
+              predictor_search_entropy.calls)
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with ThreadPoolExecutor(8) as ex:
+            got = list(ex.map(lambda i: predictor_search_entropy(
+                xs[i % 4], 3, 2), range(32)))
+    finally:
+        sys.setswitchinterval(old)
+    for i, g in enumerate(got):
+        assert torch.equal(g, wants[i % 4]), i
+    solo = predictor_search_entropy.launches
+    for x in xs:
+        predictor_search_entropy(x, 3, 2)
+    per_round = predictor_search_entropy.launches - solo
+    assert predictor_search_entropy.calls - before[1] == 36
+    assert solo - before[0] == 8 * per_round

@@ -12,9 +12,9 @@ class for exception class.
   ``exact``; ``plane_backend`` "jax" and "jax-openloop" against the
   reference's same backend (JAX on the CPU; few shapes, to bound its
   compiles); ``encode_yuv`` with and without alpha;
-- the progress hook, every ``validate()`` check and bad input, and
-  ``lossless=True`` (UnsupportedFeature until the port has the lossless
-  encoder);
+- the progress hook, every ``validate()`` check and bad input, and both
+  spellings of ``lossless=True`` (the reference's bytes; the lossless
+  encode's own cases are in tests/test_torch_lossless.py);
 - the modules: the ALPH encoder and its VP8L stream, the Huffman code
   lengths, and the exact engine's trellis form (``trellis_refine``, and
   ``encode_wavefront_core(trellis=...)`` against the host encoder's
@@ -36,7 +36,6 @@ from gowebp_tpu.models.vp8 import encoder as jenc
 from gowebp_tpu.stats import EncodeStats as JStats
 from gowebp_tpu_torch import EncoderConfig, EncodeStats
 from gowebp_tpu_torch.config import Preset
-from gowebp_tpu_torch.errors import UnsupportedFeature
 
 
 def _image(h, w, seed, alpha=None):
@@ -305,11 +304,19 @@ def test_bad_yuv_raises_the_same_class(name):
 
 @pytest.mark.parametrize("how", ["argument", "config"])
 def test_lossless_raises_unsupported(how):
+    """Neither spelling of a lossless encode raises UnsupportedFeature:
+    ``lossless=True`` and ``config=EncoderConfig(lossless=True)`` both
+    give the reference's VP8L bytes and statistics."""
     img = _image(8, 8, seed=3)
     kw = ({"lossless": True} if how == "argument"
           else {"config": EncoderConfig(lossless=True)})
-    with pytest.raises(UnsupportedFeature, match="Queue 1 item 3"):
-        gowebp_tpu_torch.encode_rgba(img, device="cpu", **kw)
+    jkw = ({"lossless": True} if how == "argument"
+           else {"config": JConfig(lossless=True)})
+    js, ps = JStats(), EncodeStats()
+    want = gowebp_tpu.encode_rgba(img, stats=js, **jkw)
+    got = gowebp_tpu_torch.encode_rgba(img, device="cpu", stats=ps, **kw)
+    assert got == want and got[12:16] == b"VP8L"
+    assert vars(ps) == vars(js)
 
 
 # ---------------------------------------------------------------------------

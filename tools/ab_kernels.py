@@ -49,9 +49,10 @@ Needs a CUDA card and nvcc.  KERNEL is one of:
     The single-image encode end to end: ``chip_smoke.py`` phase 8c's 1 MP
     image (corpus image 12 of ``natural_images(32, 1024, 1024, seed=7)``)
     as RGB through ``encode_rgba(device="cuda")`` at method 6 (the
-    trellis form's path) and at the default method 4, each the median of
-    7 calls after a warm-up on the host clock (``rgb_m6_ms``,
-    ``rgb_m4_ms``); the files must be equal across runs.
+    trellis form's path) and at the default method 4, and as RGBA with
+    phase 8c's soft alpha at method 4 (the ALPH coder's path), each the
+    median of 7 calls after a warm-up on the host clock (``rgb_m6_ms``,
+    ``rgb_m4_ms``, ``rgba_m4_ms``); the files must be equal across runs.
 
 ``vp8_recon``
     The decode's recon and loop filter on the decode path's inputs for
@@ -215,14 +216,16 @@ print(json.dumps(row))
 import gowebp_tpu_torch as T
 
 rgb = saved["rgb"].numpy()
+rgba = saved["rgba"].numpy()
 row, out = {}, {}
-for name, method in (("rgb_m6", 6), ("rgb_m4", 4)):
-    data = T.encode_rgba(rgb, method=method, device="cuda")
+for name, im, method in (("rgb_m6", rgb, 6), ("rgb_m4", rgb, 4),
+                         ("rgba_m4", rgba, 4)):
+    data = T.encode_rgba(im, method=method, device="cuda")
     times = []
     for _ in range(7):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        T.encode_rgba(rgb, method=method, device="cuda")
+        T.encode_rgba(im, method=method, device="cuda")
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     row[name + "_ms"] = statistics.median(times)
@@ -315,7 +318,8 @@ def encode_rgba_inputs(chip_smoke, dev, images) -> dict:
     import numpy as np
     import torch
 
-    return {"rgb": torch.from_numpy(np.ascontiguousarray(images[12]))}
+    return {"rgb": torch.from_numpy(np.ascontiguousarray(images[12])),
+            "rgba": torch.from_numpy(chip_smoke.soft_alpha_image(images[12]))}
 
 
 INPUTS = {"wavefront_search": wavefront_search_inputs,
