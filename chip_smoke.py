@@ -64,11 +64,14 @@ Phases (any failure raises and exits non-zero; no result is printed):
      plain version, mode maps equal: the lossless encode's own inputs for
      corpus image 12 (1024x1024, with and without subtract-green) at bits
      3, 4 and 5 with refine_iters 0, 2 and 4, odd sizes with partial edge
-     tiles (1023x769, 1x4096, 4096x1) and tie-heavy flat and gradient
-     images; its ptxas report (no stack or spills allowed); timed at the
-     default encode's shape (bits 4, refine_iters 2) as one call and as
-     the device time of its launches (stage 1 and each round, replayed
-     with the call's own round tables);
+     tiles (1023x769, 1x4096, 4096x1), tie-heavy flat and gradient images
+     and the image with a soft alpha; its ptxas report (no stack or
+     spills allowed); timed at the default encode's shape (bits 4,
+     refine_iters 2), at bits 3 and 5, and at bits 4 on the soft alpha
+     and the flat and gradient planes, as one call and as the device time
+     of its launches (replayed with the call's own round tables), stage 1
+     apart from a round, beside the bound by this design's operation
+     count and by the per-tile sweep's;
   4. the encode path: 32 natural images of 1024x1024 through
      encode_rgba_batch(device="cuda") in two chunks of 16, with the
      kernels' launch counters reset just before and read just after
@@ -251,11 +254,18 @@ OPS_Y2 = 16 * 16 + OPS_QUANT
 # predictor_search_entropy (ops/kernels/vp8l_predictor.cu), per pixel and
 # pass: the 14 predictions (modes 0-4 none; an avg2 5 operations: modes
 # 5-10 take 2, 1, 1, 1, 1 and 3 of them; Select ~30, the two clamped
-# add-subtracts ~36 and ~41), the 14 residuals' byte-wise subtractions (8
-# each) and 56 histogram increments; per tile and pass, 14 x 1024 bins of
-# a table read and a multiply-add (2 each).
-OPS_VP8L_PIXEL = 9 * 5 + 30 + 36 + 41 + 14 * 8 + 56
-OPS_VP8L_TILE = 14 * 1024 * 2
+# add-subtracts ~36 and ~41) and the 14 residuals' byte-wise subtractions
+# (8 each); then stage 1's 56 increments, each with its delta (a table
+# read and an add: 2), and a round's 56 lookups (a table read and an add).
+# The kernel shows that work enough: no per-tile sweep.  The sweep design
+# (one block a tile, scoring its histograms after counting) needs 56
+# increments a pixel and, a tile, 14 x 1024 bins of a table read and a
+# multiply-add (2 each) in every pass (OPS_VP8L_SWEEP_*, printed beside).
+OPS_VP8L_PREDICT = 9 * 5 + 30 + 36 + 41 + 14 * 8
+OPS_VP8L_STAGE1_PIXEL = OPS_VP8L_PREDICT + 56 + 56 * 2
+OPS_VP8L_ROUND_PIXEL = OPS_VP8L_PREDICT + 56 * 2
+OPS_VP8L_SWEEP_PIXEL = OPS_VP8L_PREDICT + 56
+OPS_VP8L_SWEEP_TILE = 14 * 1024 * 2
 
 # The open-loop decode's PSNR floor: 3 dB under the JAX package's
 # open-loop minimum (23.512 dB over natural_images(4, 256, 256, seed=7)
@@ -1805,11 +1815,19 @@ def rgb_words(img):
                 np.uint32)
 
 
+def rgba_words(img):
+    """(H, W, 4) uint8 → (H, W) uint32 ARGB words."""
+    import numpy as np
+
+    return (rgb_words(img[..., :3]) & 0xFFFFFF
+            | (img[..., 3].astype(np.uint32) << 24)).astype(np.uint32)
+
+
 def chooser_replay(dev, x, bits: int, refine_iters: int):
     """predictor_search_entropy's launches for ``x`` without its syncs: runs
     the call's passes once through the raw launcher, keeping each round's
     table, and returns (modes, a function that enqueues the same passes
-    again, the passes run)."""
+    again, the passes run).  ``replay(first, last)`` enqueues passes first..last-1 only."""
     import torch
 
     from gowebp_tpu_torch.ops import lossless as L
@@ -1831,7 +1849,7 @@ def chooser_replay(dev, x, bits: int, refine_iters: int):
         if err:
             raise RuntimeError(f"vp8l_predictor_launch: CUDA error {err}")
 
-    tables = [(torch.from_numpy(L.stage1_table()).to(dev), 0)]
+    tables = [(vpm.stage1_device_table(dev), 0)]
     launch(*tables[0])
     for r in range(refine_iters):
         a = acc.cpu().numpy()
@@ -1842,8 +1860,8 @@ def chooser_replay(dev, x, bits: int, refine_iters: int):
         launch(*tables[-1])
     out = modes.clone()
 
-    def replay():
-        for tab, refine in tables:
+    def replay(first=0, last=None):
+        for tab, refine in tables[first:last]:
             launch(tab, refine)
 
     return out, replay, len(tables)
@@ -1854,9 +1872,12 @@ def check_vp8l_predictor(dev, img):
     equal: the lossless encode's chooser inputs for ``img`` (its opaque
     ARGB words, with and without subtract-green) at bits 3, 4 and 5 and
     refine_iters 0, 2 and 4; odd sizes with partial edge tiles and
-    tie-heavy flat and gradient images; the ptxas report; timed at the
-    default encode's shape (bits 4, refine_iters 2, the subtract-green
-    form: the first of its two calls)."""
+    tie-heavy flat and gradient images, a soft alpha; the ptxas report
+    (no stack or spills allowed); timed at the default encode's shape
+    (bits 4, refine_iters 2, the subtract-green form: the first of its two
+    calls), at bits 3 and 5, and at bits 4 on the soft alpha and the flat
+    and gradient planes, each as one call and as device time, stage 1
+    apart from a round."""
     import numpy as np
     import torch
 
@@ -1894,6 +1915,7 @@ def check_vp8l_predictor(dev, img):
         "flat 600x700": np.full((600, 700), 0xFF7F7F7F, np.uint64),
         "gradient 600x700": (0xFF000000 | ((xx % 256) << 16)
                              | ((yy % 256) << 8) | ((xx + yy) % 256)),
+        "1024x1024 soft alpha": rgba_words(soft_alpha_image(img)),
     }
     for what, a in cases.items():
         for bits in (3, 4, 5):
@@ -1910,33 +1932,63 @@ def check_vp8l_predictor(dev, img):
     for line in vpm.LIBRARY.ptxas_log.splitlines():
         if "smem" in line:
             log(f"ptxas vp8l_predictor.cu: {line.strip()}")
+    log("predictor_search_entropy stage 1: byte 0 counted apart, tables in "
+        "shared memory")
 
-    x = words(sg)
-    bits, iters = 4, 2
-    modes, replay, passes = chooser_replay(dev, x, bits, iters)
-    if not torch.equal(modes, vpm.predictor_search_entropy(x, bits, iters)):
-        raise AssertionError("predictor_search_entropy: the replay differs")
-    ms = time_ms(lambda: vpm.predictor_search_entropy(x, bits, iters),
-                 reps=10, warmup=2)
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    vpm.predictor_search_entropy_plain(x, bits, iters)
-    t1.record()
-    t1.synchronize()
-    h, w = x.shape
-    tiles = ((h + 15) >> 4) * ((w + 15) >> 4)
-    nbytes = passes * (4 * h * w + 4 * tiles)
-    ops = passes * (h * w * OPS_VP8L_PIXEL + tiles * OPS_VP8L_TILE)
-    bound_ms, bound_by = bound(nbytes, ops)
-    log(f"predictor_search_entropy at 1024x1024, bits {bits}, refine_iters "
-        f"{iters}: {passes} launches (stage 1 and {passes - 1} rounds); "
-        f"bound {nbytes / PEAK_BYTES_PER_S * 1e3:.4f} ms by bytes, "
-        f"{ops / int32_peak()[0] * 1e3:.4f} ms by operations ({ops} int32 "
-        f"operations)")
-    return {"name": "predictor_search_entropy", "max_abs_err": 0, "ms": ms,
-            "fn": replay, "plain_ms": t0.elapsed_time(t1),
-            "bound_ms": bound_ms, "bound_by": bound_by}
+    # timed: the default encode's call (bits 4, refine_iters 2) on the
+    # photo, then bits 3 and 5, the soft alpha (no opaque skip) and the
+    # tie-heavy planes at bits 4
+    iters = 2
+    timed = [("1024x1024 subtract-green", sg, 4),
+             ("1024x1024 subtract-green", sg, 3),
+             ("1024x1024 subtract-green", sg, 5),
+             ("1024x1024 soft alpha", cases["1024x1024 soft alpha"], 4),
+             ("flat 600x700", cases["flat 600x700"], 4),
+             ("gradient 600x700", cases["gradient 600x700"], 4)]
+    result = None
+    for what, a, bits in timed:
+        x = words(a.astype(np.uint32))
+        h, w = x.shape
+        modes, replay, passes = chooser_replay(dev, x, bits, iters)
+        if not torch.equal(modes, vpm.predictor_search_entropy(x, bits,
+                                                               iters)):
+            raise AssertionError("predictor_search_entropy: the replay "
+                                 "differs")
+        ms = time_ms(lambda b=bits: vpm.predictor_search_entropy(x, b, iters),
+                     reps=10, warmup=2)
+        call_ms = queued_ms(replay, reps=20)[0]
+        stage1_ms = queued_ms(lambda r=replay: r(0, 1), reps=20)[0]
+        round_ms = (queued_ms(lambda r=replay: r(1), reps=20)[0]
+                    / max(passes - 1, 1))
+        tiles = ((h + (1 << bits) - 1) >> bits) * ((w + (1 << bits) - 1)
+                                                   >> bits)
+        nbytes = passes * (4 * h * w + 4 * tiles)
+        ops = h * w * (OPS_VP8L_STAGE1_PIXEL
+                       + (passes - 1) * OPS_VP8L_ROUND_PIXEL)
+        ops_sweep = passes * (h * w * OPS_VP8L_SWEEP_PIXEL
+                              + tiles * OPS_VP8L_SWEEP_TILE)
+        # the bound: the smaller of the two counts (the sweep is the cheaper
+        # at bits 5, where a tile's 14 x 1024 bins serve 1,024 pixels)
+        bound_ms, bound_by = bound(nbytes, min(ops, ops_sweep))
+        log(f"predictor_search_entropy on the {what}, bits {bits}, "
+            f"refine_iters {iters}: {passes} launches; one call {ms:.4f} ms, "
+            f"device {call_ms:.4f} ms (stage 1 {stage1_ms:.4f}, a round "
+            f"{round_ms:.4f}); bound {nbytes / PEAK_BYTES_PER_S * 1e3:.4f} "
+            f"ms by bytes, {ops / int32_peak()[0] * 1e3:.4f} ms by "
+            f"operations ({ops} int32 operations; the sweep's count "
+            f"{ops_sweep}, {ops_sweep / int32_peak()[0] * 1e3:.4f} ms); "
+            f"{bound_ms / call_ms:.0%} of the smaller bound")
+        if result is None:
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            vpm.predictor_search_entropy_plain(x, bits, iters)
+            t1.record()
+            t1.synchronize()
+            result = {"name": "predictor_search_entropy", "max_abs_err": 0,
+                      "ms": ms, "fn": replay, "plain_ms": t0.elapsed_time(t1),
+                      "bound_ms": bound_ms, "bound_by": bound_by}
+    return result
 
 
 def lossless_encode(dev, images, reset_counts, read_counts, tag):

@@ -9,9 +9,10 @@ launch scores stage 1, then each refinement round downloads the picks'
 residual histogram and mode counts (4 KB), builds the round's table on
 the host in float64 (ops/lossless.py ``refine_table``), uploads it and
 launches again; a round in which no tile changed ends the rounds early
-(a fixed point: every later round would pick the same modes).  On a CPU
-tensor it runs ``predictor_search_entropy_plain``, the same integer
-scores in torch.
+(a fixed point: every later round would pick the same modes).  Stage 1's
+constant table is uploaded once a device (``stage1_device_table``).  On
+a CPU tensor it runs ``predictor_search_entropy_plain``, the same
+integer scores in torch.
 
 Layout:
   argb   (H, W) int32, the ARGB words' bits
@@ -25,6 +26,7 @@ from __future__ import annotations
 import ctypes
 import threading
 
+import numpy as np
 import torch
 
 from .cuda_build import CudaLibrary, check_tensor, stream_handle
@@ -41,6 +43,40 @@ def _configure(lib) -> None:
 
 LIBRARY = CudaLibrary("vp8l_predictor.cu", _configure)
 _count_lock = threading.Lock()
+_table_lock = threading.Lock()
+_tables: dict = {}               # device index -> stage 1's table on it
+
+
+def stage1_kernel_table() -> np.ndarray:
+    """Stage 1's int64 table in the kernel's layout: ops/lossless.py
+    ``stage1_table`` (n log2 n for n in 0..1024, the 256 byte biases),
+    then the first differences nlogn(n + 1) - nlogn(n), n in 0..1023, of
+    those same integers (so the kernel's telescoping sums are exact)."""
+    from .. import lossless as L
+
+    tab = L.stage1_table()
+    return np.concatenate([tab, np.diff(tab[:L.MAX_COUNT + 1])])
+
+
+def _index(dev) -> int:
+    dev = torch.device(dev)
+    return torch.cuda.current_device() if dev.index is None else dev.index
+
+
+def stage1_device_table(dev) -> torch.Tensor:
+    """Stage 1's table on CUDA device ``dev``, uploaded at its first use
+    and kept (``predictor_search_entropy.table_uploads`` counts the
+    uploads)."""
+    i = _index(dev)
+    with _table_lock:
+        tab = _tables.get(i)
+        if tab is None:
+            tab = torch.from_numpy(stage1_kernel_table()).to(
+                torch.device("cuda", i))
+            torch.cuda.current_stream(i).synchronize()  # any stream may read
+            _tables[i] = tab
+            _count("table_uploads")
+    return tab
 
 
 def _grid(h: int, w: int, bits: int):
@@ -136,7 +172,7 @@ def predictor_search_entropy(argb: torch.Tensor, bits: int,
                                f"failed: CUDA error {err}")
         _count("launches")
 
-    launch(torch.from_numpy(L.stage1_table()).to(dev), 0)
+    launch(stage1_device_table(dev), 0)
     for r in range(refine_iters):
         a = acc.cpu().numpy()
         if r and a[-1] == 0:         # no tile changed: a fixed point
@@ -150,6 +186,8 @@ def predictor_search_entropy(argb: torch.Tensor, bits: int,
 
 predictor_search_entropy.launches = 0
 predictor_search_entropy.calls = 0
+predictor_search_entropy.table_uploads = 0
 
 __all__ = ["ACC_WORDS", "LIBRARY", "predictor_search_entropy",
-           "predictor_search_entropy_plain"]
+           "predictor_search_entropy_plain", "stage1_device_table",
+           "stage1_kernel_table"]

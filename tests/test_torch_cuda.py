@@ -1146,34 +1146,46 @@ def test_mixed_non_opaque_batch_gpu_equals_cpu(cuda):
 
 
 def _argb_words(img):
-    """(H, W, 3) uint8 → int32 tensor of the opaque ARGB words' bits."""
-    argb = ((255 << 24) | (img[..., 0].astype(np.uint32) << 16)
+    """(H, W, 3) uint8 → int32 tensor of the opaque ARGB words' bits;
+    (H, W, 4) → with its alpha."""
+    alpha = img[..., 3].astype(np.uint32) if img.shape[-1] == 4 else 255
+    argb = ((alpha << 24) | (img[..., 0].astype(np.uint32) << 16)
             | (img[..., 1].astype(np.uint32) << 8) | img[..., 2])
     return torch.from_numpy(argb.astype(np.uint32).view(np.int32))
 
 
 def _tie_images():
     """Flat, gradient and 2x2-periodic planes: every mode ties on some
-    tiles, so the lowest mode must win in both versions."""
+    tiles, so the lowest mode must win in both versions.  The flat plane's
+    tiles are all equal (every residual of modes 1-13 is 0: every lane on
+    the hot bin); the ramp's inner tiles fill one bin: its R residual under
+    L is 1 at every pixel, 1,024 counts in a bits-5 tile (the 16-bit
+    field's most)."""
     yy, xx = np.mgrid[0:200, 0:328]
     flat = np.full((200, 328, 3), 77, np.uint8)
     grad = np.stack([xx % 256, yy % 256, (xx + yy) % 256], -1).astype(np.uint8)
     checker = np.where(((yy + xx) % 2)[..., None] == 0, 10, 240)
+    ry, rx = np.mgrid[0:96, 0:160]
+    ramp = np.stack([rx, ry, np.full_like(rx, 7)], -1).astype(np.uint8)
     return {"flat": flat, "gradient": grad,
             "checker": np.broadcast_to(checker, (200, 328, 3)).astype(
-                np.uint8)}
+                np.uint8),
+            "ramp": ramp}
 
 
 @pytest.mark.parametrize("iters", [0, 2, 4])
-@pytest.mark.parametrize("bits", [3, 4, 5])
+@pytest.mark.parametrize("bits", [2, 3, 4, 5])
 def test_vp8l_predictor_kernel_matches_plain(cuda, bits, iters):
     """The chooser kernel's mode map == its plain version's, bit for bit:
-    a 1 MP corpus image, its subtract-green form, and forced ties."""
+    a 1 MP corpus image (at bits 2, a 512x512 crop), forced ties, all-equal
+    tiles, bins at the full count, and a soft alpha (no opaque skip)."""
     from gowebp_tpu_torch.ops.kernels.vp8l_predictor import (
         predictor_search_entropy, predictor_search_entropy_plain)
     from gowebp_tpu_torch.utils.corpus import natural_image
 
-    imgs = dict(_tie_images(), photo=natural_image(1024, 1024, seed=12))
+    side = 512 if bits == 2 else 1024
+    imgs = dict(_tie_images(), photo=natural_image(side, side, seed=12),
+                alpha=_alpha_image(160, 224, seed=5))
     for name, img in imgs.items():
         x = _argb_words(img).to(cuda)
         before = predictor_search_entropy.launches
@@ -1198,8 +1210,10 @@ def test_vp8l_predictor_rejects_bad_tensors(cuda):
 
 
 def test_vp8l_predictor_ptxas_has_no_stack_or_spills(cuda, tmp_path):
-    """vp8l_predictor.cu compiles to no stack frame and no spills (nvcc
-    -Xptxas -v, built here anew)."""
+    """vp8l_predictor.cu compiles to no stack frame and no spills in any
+    instantiation: stage 1 and a round at each of bits 2-5 (nvcc -Xptxas
+    -v, built here anew)."""
+    import re
     import subprocess
 
     from gowebp_tpu_torch.ops.kernels.cuda_build import NVCC_FLAGS, nvcc
@@ -1211,8 +1225,12 @@ def test_vp8l_predictor_ptxas_has_no_stack_or_spills(cuda, tmp_path):
     assert out.returncode == 0, out.stdout + out.stderr
     report = _chip_smoke().ptxas_report(out.stdout + out.stderr,
                                         "vp8l_predictor_kernel")
-    assert len(report) == 1, report
-    assert report[0][2:] == (0, 0, 0), report
+    kinds = sorted(tuple(int(g) for g in re.search(
+        r"vp8l_predictor_kernelILi(\d)ELb(\d)E", row[0]).groups())
+        for row in report)
+    assert kinds == [(b, r) for b in (2, 3, 4, 5) for r in (0, 1)], report
+    for row in report:
+        assert row[2:] == (0, 0, 0), row
 
 
 @pytest.mark.parametrize("kw", [{}, {"method": 6, "quality": 95},
@@ -1269,3 +1287,20 @@ def test_vp8l_predictor_from_many_threads(cuda):
     per_round = predictor_search_entropy.launches - solo
     assert predictor_search_entropy.calls - before[1] == 36
     assert solo - before[0] == 8 * per_round
+
+
+def test_vp8l_predictor_stage1_table_is_uploaded_once(cuda):
+    """Stage 1's table is uploaded at a device's first call and kept: more
+    calls upload nothing, and it holds the kernel layout's integers."""
+    from gowebp_tpu_torch.ops.kernels import vp8l_predictor as vpm
+
+    x = _argb_words(_tie_images()["gradient"]).to(cuda)
+    vpm.predictor_search_entropy(x, 4, 0)
+    uploads = vpm.predictor_search_entropy.table_uploads
+    assert 1 <= uploads <= torch.cuda.device_count()
+    first = vpm.stage1_device_table(cuda)
+    for bits in (3, 4, 5):
+        vpm.predictor_search_entropy(x, bits, 2)
+    assert vpm.predictor_search_entropy.table_uploads == uploads
+    assert vpm.stage1_device_table(cuda) is first
+    assert np.array_equal(first.cpu().numpy(), vpm.stage1_kernel_table())

@@ -54,6 +54,27 @@ Needs a CUDA card and nvcc.  KERNEL is one of:
     median of 7 calls after a warm-up on the host clock (``rgb_m6_ms``,
     ``rgb_m4_ms``, ``rgba_m4_ms``); the files must be equal across runs.
 
+``vp8l_predictor``
+    The lossless encode's predictor chooser ``predictor_search_entropy``
+    on ``chip_smoke.py`` phase 3h's timed inputs: the 1 MP subtract-green
+    ARGB words of corpus image 12 of ``natural_images(32, 1024, 1024,
+    seed=7)`` at bits 4 (the default encode's, ``b4_*``) and at bits 3
+    and 5, and that image with phase 8c's soft alpha at bits 4
+    (``alpha_b4_*``: no tile is opaque), with ``refine_iters`` 2.  Times
+    each as one call (``*_ms``, median of 20 after a warm-up, the
+    wrapper's host time and its syncs between passes included) and as
+    the device time of the call's launches (``*_device_ms``: the passes
+    replayed without their syncs by the checkout's own
+    ``chip_smoke.chooser_replay``, queued behind a sleeping stream);
+    stage 1 alone (``*_stage1_device_ms``) and a round
+    (``*_round_device_ms``: the rest over the rounds).  Then the photo
+    path's pair of choosers as the 1 MP RGB lossless encode runs them:
+    ``models/vp8l/encoder.py`` ``_device_modes`` on the words with and
+    without subtract-green, at bits 4, in two threads at once
+    (``pair_wall_ms``: the median of 100 on the host clock, upload and
+    download included).  The mode maps of every call, of stage 1 and of
+    the pair must equal the first run's.
+
 ``vp8_recon``
     The decode's recon and loop filter on the decode path's inputs for
     the 32 hybrid files of ``natural_images(32, 1024, 1024, seed=7)`` at
@@ -234,6 +255,54 @@ for name, im, method in (("rgb_m6", rgb, 6), ("rgb_m4", rgb, 4),
 torch.save(out, sys.argv[2])
 print(json.dumps(row))
 """,
+    "vp8l_predictor": r"""
+import statistics
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+
+import chip_smoke
+from gowebp_tpu_torch.models.vp8l import encoder as vp8l_enc
+from gowebp_tpu_torch.ops.kernels import vp8l_predictor as vpm
+
+vpm.LIBRARY.load()
+out, row = {}, {}
+for name, key, bits in (("b4", "sg", 4), ("b3", "sg", 3), ("b5", "sg", 5),
+                        ("alpha_b4", "alpha", 4)):
+    x = saved[key].to(dev)
+    call = lambda b=bits: vpm.predictor_search_entropy(x, b, 2)
+    out[name] = call()
+    modes, replay, passes = chip_smoke.chooser_replay(dev, x, bits, 2)
+    stage1, replay1, _ = chip_smoke.chooser_replay(dev, x, bits, 0)
+    assert torch.equal(modes, out[name])
+    out[f"{name}_stage1"] = stage1
+    row[f"{name}_ms"] = time_ms(call, 20)
+    row[f"{name}_device_ms"] = queued_ms(replay, reps=20)
+    row[f"{name}_stage1_device_ms"] = queued_ms(replay1, reps=20)
+    row[f"{name}_round_device_ms"] = (
+        (row[f"{name}_device_ms"] - row[f"{name}_stage1_device_ms"])
+        / max(passes - 1, 1))
+    row[f"{name}_launches"] = passes
+
+# the photo path's two choosers at once, as the encoder runs them
+pair = [saved[k].numpy().view(np.uint32) for k in ("sg", "rgb")]
+with ThreadPoolExecutor(2) as ex:
+    def both():
+        return list(ex.map(
+            lambda a: vp8l_enc._device_modes(a, 4, 2, dev), pair))
+    got = both()
+    walls = []
+    for _ in range(100):
+        t0 = time.perf_counter()
+        both()
+        walls.append((time.perf_counter() - t0) * 1e3)
+out["pair_sg"], out["pair_rgb"] = (torch.from_numpy(g) for g in got)
+row["pair_wall_ms"] = statistics.median(walls)
+row["pair_wall_ms_min_max"] = [min(walls), max(walls)]
+torch.cuda.synchronize()
+torch.save({k: t.cpu() for k, t in out.items()}, sys.argv[2])
+print(json.dumps(row))
+""",
     "vp8_recon": r"""
 from gowebp_tpu_torch.ops.kernels import vp8_recon as kvr
 
@@ -322,10 +391,27 @@ def encode_rgba_inputs(chip_smoke, dev, images) -> dict:
             "rgba": torch.from_numpy(chip_smoke.soft_alpha_image(images[12]))}
 
 
+def vp8l_predictor_inputs(chip_smoke, dev, images) -> dict:
+    import numpy as np
+    import torch
+
+    from gowebp_tpu_torch.models.vp8l import transforms_np as tnp
+
+    def words(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.uint32).view(
+            np.int32))
+
+    rgb = chip_smoke.rgb_words(images[12])
+    return {"sg": words(tnp.subtract_green_forward(rgb)), "rgb": words(rgb),
+            "alpha": words(chip_smoke.rgba_words(
+                chip_smoke.soft_alpha_image(images[12])))}
+
+
 INPUTS = {"wavefront_search": wavefront_search_inputs,
           "encode_plane": encode_plane_inputs,
           "encode_rgba": encode_rgba_inputs,
-          "vp8_recon": vp8_recon_inputs}
+          "vp8_recon": vp8_recon_inputs,
+          "vp8l_predictor": vp8l_predictor_inputs}
 
 
 def main(argv) -> int:
