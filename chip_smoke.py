@@ -7,13 +7,13 @@ Phases (any failure raises and exits non-zero; no result is printed):
   1. the card's name and power limit (nvidia-smi), the int32 ceiling the
      bounds use (SMs x 64 int32 operations a clock x the max SM clock),
      torch and CUDA versions;
-  2. build the twelve CUDA kernels from the seven ops/kernels/*.cu sources
-     (one nvcc each, in parallel; encode_plane.cu gives the two plane
-     kernels and their two modes-only forms, wavefront_search.cu the
+  2. build the thirteen CUDA kernels from the eight ops/kernels/*.cu
+     sources (one nvcc each, in parallel; encode_plane.cu gives the two
+     plane kernels and their two modes-only forms, wavefront_search.cu the
      exact engine and its trellis form, vp8_recon.cu the decode's
-     recon_filter_mb, vp8l_predictor.cu the lossless encode's
-     predictor_search_entropy) and print the build time and ptxas
-     register report;
+     recon_filter_mb, coeff_unpack.cu the batch decode's unpack_coeffs,
+     vp8l_predictor.cu the lossless encode's predictor_search_entropy)
+     and print the build time and ptxas register report;
   3. hold each kernel against its plain torch version on the card, bit for
      bit, at the main paths' full shapes, and time each with CUDA events,
      two ways: one call alone (ms, the wrapper's host time included) and
@@ -60,7 +60,17 @@ Phases (any failure raises and exits non-zero; no result is printed):
      256x256, on odd MB grids (1x5, 5x1, 1x1, 3x5) and at B=256 512x64
      (8,192 MB rows, more than the card holds blocks), with its ptxas
      report (no stack or spills allowed), timed at B=32 and alone on one
-     image (the chain); and (3h) predictor_search_entropy against its
+     image (the chain); (3i, after 3g) unpack_coeffs against
+     unpack_coeffs_plain and the dense coefficients, bit for bit, on the
+     symbols of those 32 files packed at K = 4, 8 and 16 and at the K the
+     pack chooses, of 4 files at q100 (levels past int8: exception rows),
+     of 16 smooth files at q95, of synthetic coefficients with non-exact
+     divisions at B=4 1024x1024, and on odd MB grids (1x5, 5x1, 1x1); its
+     ptxas report (no stack or spills allowed); timed (ms, device_ms) on
+     the 32 files at the chosen K; and, for the K choice, the group's h2d
+     bytes and ms (host clock: the buffer's fill and its copy) and the
+     unpack's device time at each K on the 32 files and the q95 set,
+     beside the dense upload's; and (3h) predictor_search_entropy against its
      plain version, mode maps equal: the lossless encode's own inputs for
      corpus image 12 (1024x1024, with and without subtract-green) at bits
      3, 4 and 5 with refine_iters 0, 2 and 4, odd sizes with partial edge
@@ -94,15 +104,19 @@ Phases (any failure raises and exits non-zero; no result is printed):
      timings, and the synchronizing CUDA calls of one depth=3 run;
   6. the decode path: phase 4's 32 files through
      decode_rgba_batch(device="cuda"), with the launch counters reset just
-     before and read just after (recon_filter_mb and yuv420_to_rgba must
-     launch, no other kernel); a second, timed run with the per-stage split
-     (host symbols, then CUDA-event spans; "recon" is the one kernel's
-     iDCT, recon and filter); a device_out=True run whose CUDA tensors must
-     equal the host results;
+     before and read just after (unpack_coeffs, recon_filter_mb and
+     yuv420_to_rgba must launch, once a lossy group each, and no other
+     kernel); a second, timed run with the per-stage split (host symbols
+     and pack, then CUDA-event spans; "unpack" is the sparse upload's
+     unpack, "recon" the one kernel's iDCT, recon and filter) and the h2d
+     bytes and ms of the packed upload beside the dense upload's of the
+     same group (``_upload``, timed once the same way); a device_out=True
+     run whose CUDA tensors must equal the host results;
   6b. the mixed decode: those 32 files with 4 lossy + ALPH and 4 VP8L
      files of 1024x1024 written by Pillow, in one device_out=True call,
-     counters reset just before and read just after (recon_filter_mb and
-     yuv420_to_rgba must launch for the plain and the ALPH groups,
+     counters reset just before and read just after (unpack_coeffs,
+     recon_filter_mb and yuv420_to_rgba must launch for the plain and the
+     ALPH groups,
      yuv420_to_rgba at least once with an alpha plane, and no other
      kernel);
      a timed run to host memory with the host thread seconds (symbols,
@@ -115,7 +129,8 @@ Phases (any failure raises and exits non-zero; no result is printed):
   6c. the single-file API: every file of phase 6b through
      decode(device="cuda"), one call each, counters reset just before and
      read just after (each lossy file launches recon_filter_mb and
-     yuv420_to_rgba once; no other kernel),
+     yuv420_to_rgba once: the single-file decode uploads dense and
+     launches no unpack_coeffs; no other kernel),
      each file's pixels == decode_rgba_batch's; the ms of one 1 MP lossy
      file (median of 5) beside its host symbol phase and
      recon_backend="host"; then on two lossy files (one a smooth q95
@@ -124,6 +139,15 @@ Phases (any failure raises and exits non-zero; no result is printed):
      bypass_filtering, no_fancy_upsampling, dithering_strength=50 and
      alpha_dithering_strength=50, in modes bgrA, RGB_565 and ARGB, and
      decode_yuva with crop, each == device="cpu";
+  6d. the incremental decoder: IncrementalDecoder(device="cuda") on a
+     1 MP lossy file of phase 4 fed in 17 chunks (each partial call
+     launches recon_filter_mb and yuv420_to_rgba once; partial rows ==
+     the final rows), on its first two thirds (partial rows == the final
+     rows and == IncrementalDecoder(device="cpu")'s), on a 255x193 lossy
+     file in 37-byte appends and a VP8L file in 50-byte appends (state,
+     rows and partial output == the CPU decoder's after every append;
+     final output == decode()); then picture_rescale(device="cuda") ==
+     device="cpu" on an RGB and an RGBA 1 MP image;
   7. decode parity: 2 files through device="cpu" must give identical
      RGBA, and every decoded image must come within 20 dB PSNR of its
      source image (an error shared by both paths would not);
@@ -177,6 +201,7 @@ Imports nothing of JAX or of the gowebp_tpu package.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import statistics
@@ -273,8 +298,16 @@ OPS_VP8L_SWEEP_TILE = 14 * 1024 * 2
 # and holds this constant to it).
 OPENLOOP_PSNR_FLOOR_DB = 20.5
 
-# The lossy decode's kernels, in the order a group launches them.
-DECODE_KERNELS = ("recon_filter_mb", "yuv420_to_rgba")
+# The batch decode's kernels, in the order a lossy group launches them;
+# the single-file decode uploads dense coefficients and skips the unpack.
+DECODE_KERNELS = ("unpack_coeffs", "recon_filter_mb", "yuv420_to_rgba")
+SINGLE_DECODE_KERNELS = DECODE_KERNELS[1:]
+# unpack_coeffs (ops/kernels/coeff_unpack.cu), per 4x4 block: the level
+# loads and sign extensions (16), the 16 multiplies by the quantizer, the
+# DC select, the zigzag packing into 8 words (16) and the index math
+# (~10); per tail or exception row: its index, up to 16 products or
+# copies and scattered stores (~40).
+OPS_UNPACK_BLOCK, OPS_UNPACK_ROW = 60, 40
 
 SOURCES = {
     "i4_search": "gowebp_tpu_torch/ops/kernels/i4_search.cu",
@@ -289,6 +322,7 @@ SOURCES = {
     "wavefront_search_trellis":
         "gowebp_tpu_torch/ops/kernels/wavefront_search.cu",
     "recon_filter_mb": "gowebp_tpu_torch/ops/kernels/vp8_recon.cu",
+    "unpack_coeffs": "gowebp_tpu_torch/ops/kernels/coeff_unpack.cu",
     "predictor_search_entropy":
         "gowebp_tpu_torch/ops/kernels/vp8l_predictor.cu",
 }
@@ -318,6 +352,8 @@ REPLACES = {
     "predictor_search_entropy": ("gowebp_tpu/ops/lossless_jax.py:269 "
                                  "predictor_search_entropy (XLA, no "
                                  "pallas_call)"),
+    "unpack_coeffs": ("gowebp_tpu/ops/coeff_pack.py:260 unpack_coeffs (XLA, "
+                      "no pallas_call)"),
 }
 
 
@@ -1137,23 +1173,31 @@ def check_yuv420(dev, gen):
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def recon_symbols(dev, files):
-    """The decode path's recon inputs for same-shaped lossy files, as
-    decode_rgba_batch makes them: the symbol engine's dequantized int16
-    coefficients, the kernel's packed modes and the filter parameters in
-    one upload → (coeffs, modes, fparams, filter type, mb_w, mb_h)."""
+def decode_recs(files):
+    """The batch decode's records of same-shaped lossy files, as its
+    symbol thread makes them: (index, frame header, coefficients, modes,
+    filter parameters, None)."""
     from gowebp_tpu_torch.container.riff import parse_riff
-    from gowebp_tpu_torch.decode import _upload
     from gowebp_tpu_torch.models.vp8.decoder import (decode_vp8_symbols_batch,
                                                      vp8_filter_params)
-    from gowebp_tpu_torch.ops.kernels.vp8_recon import pack_modes
 
     syms = decode_vp8_symbols_batch(
         [parse_riff(d).find(b"VP8 ").payload for d in files])
-    st = syms[0][0]
-    coeffs, modes, fp, _ = _upload(
-        [(i, s, c, m, vp8_filter_params(s, m), None)
-         for i, (s, c, m) in enumerate(syms)], dev)
+    return [(i, s, c, m, vp8_filter_params(s, m), None)
+            for i, (s, c, m) in enumerate(syms)]
+
+
+def recon_symbols(dev, files):
+    """The single-file decode's recon inputs for same-shaped lossy files:
+    the symbol engine's dequantized int16 coefficients, the kernel's
+    packed modes and the filter parameters in one dense upload →
+    (coeffs, modes, fparams, filter type, mb_w, mb_h)."""
+    from gowebp_tpu_torch.decode import _upload
+    from gowebp_tpu_torch.ops.kernels.vp8_recon import pack_modes
+
+    recs = decode_recs(files)
+    st = recs[0][1]
+    coeffs, modes, fp, _ = _upload(recs, dev)
     return (coeffs, pack_modes(modes[..., 0], modes[..., 5:21],
                                modes[..., 1]),
             fp.reshape(len(files), st.mb_h, st.mb_w, 4), st.filter_type,
@@ -1185,6 +1229,39 @@ def random_symbols(dev, seed, B, mb_h, mb_w):
             torch.from_numpy(modes).to(dev),
             torch.from_numpy(fp.astype(np.int16)).reshape(
                 B, mb_h, mb_w, 4).to(dev))
+
+
+def coeff_case(seed, B, mb_h, mb_w, exceptions: bool = True):
+    """Synthetic decode coefficients for the pack: level times quantizer
+    in zigzag order, ~15% of positions non-zero, levels up to 140 in
+    magnitude (past int8), per-image quantizers of 4-200 (the products
+    fit int16, as the symbol engine stores them), random segments and i4
+    flags (the i16 MBs' luma DC lanes arbitrary, as inverse-WHT outputs
+    are) and, with ``exceptions``, 1% of coefficients off by one (a
+    non-exact division) → (coeffs (B, N, 24, 16) int16, seg, is_i4 (B,
+    N), qmat (B, 4, 6) int32) as numpy arrays."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    N = mb_h * mb_w
+    qmat = rng.integers(4, 201, (B, 4, 6)).astype(np.int32)
+    seg = rng.integers(0, 4, (B, N)).astype(np.uint8)
+    is_i4 = rng.integers(0, 2, (B, N)).astype(np.uint8)
+    lv = rng.integers(-140, 141, (B, N, 24, 16)) * (
+        rng.random((B, N, 24, 16)) < 0.15)
+    luma = np.arange(24)[:, None] < 16
+    col = np.where(luma, np.where(np.arange(16) == 0, 0, 1),
+                   np.where(np.arange(16) == 0, 4, 5))
+    zz = lv * qmat[np.arange(B)[:, None, None, None],
+                   seg[:, :, None, None].astype(np.int64), col[None, None]]
+    coeffs = np.zeros_like(zz)
+    coeffs[..., [0, 1, 4, 8, 5, 2, 3, 6, 9, 12, 13, 10, 7, 11, 14, 15]] = zz
+    i16 = (is_i4 == 0)[:, :, None]
+    coeffs[:, :, :16, 0] = np.where(
+        i16, rng.integers(-2000, 2001, (B, N, 16)), coeffs[:, :, :16, 0])
+    if exceptions:
+        coeffs += rng.random(coeffs.shape) < 0.01
+    return (coeffs.astype(np.int16), seg, is_i4, qmat)
 
 
 def filter_lines(fparams, filter_type: int) -> int:
@@ -1300,6 +1377,199 @@ def check_vp8_recon(dev, files):
              "fn": lambda: kvr.recon_filter_mb(*args),
              "plain_ms": t0.elapsed_time(t1), "bound_ms": bound_ms,
              "bound_by": bound_by}]
+
+
+@contextlib.contextmanager
+def forced_k(K):
+    """The pack's K choice forced to ``K`` (None: its own)."""
+    from gowebp_tpu_torch.ops import coeff_pack
+
+    real = coeff_pack._choose_k
+    if K is not None:
+        coeff_pack._choose_k = lambda *a: K
+    try:
+        yield
+    finally:
+        coeff_pack._choose_k = real
+
+
+def smooth_images(n, h, w, seed):
+    """Smooth RGB images (low-order surfaces, a soft noise): at q95 most
+    blocks end before their 4th zigzag level, the K choice's other end."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w] / max(h, w)
+    out = []
+    for _ in range(n):
+        a = rng.uniform(-1, 1, (3, 6))
+        rgb = [128 + 80 * (c[0] * xx + c[1] * yy + c[2] * xx * yy
+                           + c[3] * np.sin(3 * xx + c[4]) * np.cos(2 * yy
+                                                                  + c[5]))
+               for c in a]
+        img = np.stack(rgb, -1) + rng.normal(0, 1.5, (h, w, 3))
+        out.append(img.clip(0, 255).astype(np.uint8))
+    return out
+
+
+def upload_ms(dev, fn, reps: int = 5) -> float:
+    """Median host ms of ``fn()`` (a group's upload: its host buffer's
+    fill and the h2d copy), the stream synchronized around it."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def k_costs(dev, recs, label: str, tag: str) -> dict:
+    """For the K choice: at K = 4, 8 and 16 (and the pack's own), the
+    group's h2d bytes and ms (``_upload_packed``: fill and copy), its
+    table rows, the pack's host ms and the unpack's device ms; the dense
+    upload (``_upload``) beside them."""
+    from gowebp_tpu_torch.decode import _pack_group, _upload, _upload_packed
+    from gowebp_tpu_torch.ops.kernels import coeff_unpack as cum
+
+    B = len(recs)
+    out = {}
+    for K in (4, 8, 16, None):
+        with forced_k(K):
+            t0 = time.perf_counter()
+            packed, k = _pack_group(recs)
+            pack_ms = (time.perf_counter() - t0) * 1e3
+        wire, *_, nbytes = _upload_packed(recs, packed, dev)
+        rows = len(packed["tail_idx"]) + len(packed["exc_idx"])
+        h2d = upload_ms(dev, lambda p=packed: _upload_packed(recs, p, dev))
+        dms = queued_ms(lambda w=wire: cum.unpack_coeffs(w), reps=20)[0]
+        name = "auto" if K is None else K
+        out[name] = {"K": k, "h2d_bytes": nbytes, "h2d_ms": h2d,
+                     "unpack_device_ms": dms, "rows": rows,
+                     "tail_rows": len(packed["tail_idx"]),
+                     "exc_rows": len(packed["exc_idx"]), "pack_ms": pack_ms}
+        log(f"K choice, {label} (B={B}): K={name} (packed at K={k}): h2d "
+            f"{nbytes} bytes in {h2d:.3f} ms, {rows} table rows "
+            f"({len(packed['tail_idx'])} tail, {len(packed['exc_idx'])} "
+            f"exception), unpack {dms:.4f} ms on the device, pack "
+            f"{pack_ms:.1f} ms host (one thread) {tag}")
+    views = [v for v in _upload(recs, dev) if v is not None]
+    dense_bytes = sum((v.numel() * v.element_size() + 15) // 16 * 16
+                      for v in views)
+    dense = upload_ms(dev, lambda: _upload(recs, dev))
+    out["dense"] = {"h2d_bytes": dense_bytes, "h2d_ms": dense}
+    log(f"K choice, {label}: dense upload {dense_bytes} bytes in "
+        f"{dense:.3f} ms {tag}")
+    return out
+
+
+def check_unpack(dev, files, tag):
+    """Phase 3i: unpack_coeffs vs unpack_coeffs_plain and the dense
+    coefficients, bit for bit: the 32 files' symbols at K = 4, 8, 16 and
+    the chosen K; 4 files at q100 (exception rows: levels past int8) and
+    16 smooth files at q95; synthetic coefficients with non-exact
+    divisions at B=4 1024x1024 and on odd grids; the ptxas report; timed
+    on the 32 files at the chosen K; the K choice's costs on the 32 files
+    and the q95 set.  → (kernel rows, the 32 files' records, their pack
+    at the chosen K, the costs)."""
+    import numpy as np
+    import torch
+
+    from gowebp_tpu_torch import encode_rgba_batch
+    from gowebp_tpu_torch.decode import _pack_group
+    from gowebp_tpu_torch.ops import coeff_pack
+    from gowebp_tpu_torch.ops.kernels import coeff_unpack as cum
+    from gowebp_tpu_torch.utils.corpus import natural_images
+
+    err = 0
+
+    def check(packed, dense, what):
+        nonlocal err
+        wire = {k: torch.from_numpy(v).to(dev) for k, v in packed.items()}
+        before = cum.unpack_coeffs.launches
+        got = cum.unpack_coeffs(wire)
+        torch.cuda.synchronize()
+        if cum.unpack_coeffs.launches != before + 1:
+            raise AssertionError("unpack_coeffs: not one call")
+        want = torch.from_numpy(np.ascontiguousarray(dense)).to(dev)
+        plain = cum.unpack_coeffs_plain(wire)
+        e = max_abs_err({"c": got}, {"c": plain}, "c")
+        err = max(err, e)
+        if not (torch.equal(got, plain) and torch.equal(got, want)):
+            raise AssertionError(f"unpack_coeffs != plain or dense ({what}, "
+                                 f"max |err| {e})")
+        log(f"unpack_coeffs {what}: bit-exact ({len(packed['tail_idx'])} "
+            f"tail, {len(packed['exc_idx'])} exception rows)")
+        return wire
+
+    recs = decode_recs(files)
+    dense = np.stack([r[2] for r in recs])
+    for K in (4, 8, 16):
+        with forced_k(K):
+            check(_pack_group(recs)[0], dense,
+                  f"B={len(recs)} 1024x1024 hybrid files, K={K}")
+    packed, K = _pack_group(recs)
+    wire = check(packed, dense, f"B={len(recs)} hybrid files, chosen K={K}")
+
+    t0 = time.perf_counter()
+    q100 = encode_rgba_batch(list(natural_images(4, 1024, 1024, seed=11)),
+                             quality=100.0, device="cuda")
+    smooth = encode_rgba_batch(smooth_images(16, 1024, 1024, 5),
+                               quality=95.0, device="cuda")
+    log(f"unpack sets: 4 q100 and 16 smooth q95 files of 1024x1024 encoded "
+        f"on the card in {time.perf_counter() - t0:.1f} s")
+    for label, group in (("q100", decode_recs(q100)),
+                         ("smooth q95", decode_recs(smooth))):
+        d = np.stack([r[2] for r in group])
+        for K in (4, 8, 16, None):
+            with forced_k(K):
+                p, k = _pack_group(group)
+            check(p, d, f"B={len(group)} {label} files, K={k}"
+                  + (" (chosen)" if K is None else ""))
+            if label == "q100" and len(p["exc_idx"]) == 0:
+                raise AssertionError("the q100 files gave no exception row")
+    for seed, (b_, h_, w_) in enumerate(((4, 64, 64), (2, 1, 5), (2, 5, 1),
+                                        (2, 1, 1))):
+        case = coeff_case(40 + seed, b_, h_, w_)
+        for K in (4, 8, 16):
+            with forced_k(K):
+                p, _ = coeff_pack.pack_coeffs(*case)
+            check(p, case[0], f"synthetic B={b_} {16 * h_}x{16 * w_}, K={K}")
+
+    for fn, regs, stack, st_, ld_ in ptxas_report(cum.LIBRARY.ptxas_log,
+                                                  "unpack_"):
+        log(f"ptxas {fn}: {regs} registers, {stack} bytes stack, "
+            f"{st_}/{ld_} bytes spill stores/loads")
+        if stack or st_ or ld_:
+            raise AssertionError("unpack_coeffs: a stack frame or spills")
+
+    costs = {"hybrid": k_costs(dev, recs, "32 hybrid files", tag),
+             "smooth_q95": k_costs(dev, decode_recs(smooth),
+                                   "16 smooth q95 files", tag)}
+    B, N = dense.shape[:2]
+    rows = len(packed["tail_idx"]) + len(packed["exc_idx"])
+    nbytes = sum(t.numel() * t.element_size() for t in wire.values()) \
+        + B * N * 768
+    ops = B * N * 24 * OPS_UNPACK_BLOCK + rows * OPS_UNPACK_ROW
+    bound_ms, bound_by = bound(nbytes, ops)
+    ms = time_ms(lambda: cum.unpack_coeffs(wire), reps=20, warmup=2)
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    cum.unpack_coeffs_plain(wire)
+    t1.record()
+    t1.synchronize()
+    log(f"unpack_coeffs bound at B={B}, K={K}: "
+        f"{nbytes / PEAK_BYTES_PER_S * 1e3:.4f} ms by bytes ({nbytes} bytes: "
+        f"the packed buffers read once, 768 a MB written), "
+        f"{ops / int32_peak()[0] * 1e3:.4f} ms by operations ({ops})")
+    return [{"name": "unpack_coeffs", "max_abs_err": err, "ms": ms,
+             "fn": lambda: cum.unpack_coeffs(wire),
+             "plain_ms": t0.elapsed_time(t1), "bound_ms": bound_ms,
+             "bound_by": bound_by}], recs, packed, costs
 
 
 def plane_quants(quality: float):
@@ -2104,6 +2374,112 @@ def lossless_encode(dev, images, reset_counts, read_counts, tag):
     return launches
 
 
+def incremental_decode(dev, data, full, small, reset_counts, read_counts,
+                       tag) -> None:
+    """Phase 6d: IncrementalDecoder(device="cuda") on a 1 MP lossy file in
+    17 chunks and on its first two thirds, on a 255x193 lossy file in
+    37-byte appends and a VP8L file in 50-byte appends, each against the
+    final rows and the device="cpu" decoder; picture_rescale on the card
+    against the CPU."""
+    import numpy as np
+    import torch
+
+    from gowebp_tpu_torch import IncrementalDecoder, decode, picture_rescale
+    from gowebp_tpu_torch.ops.kernels import vp8_recon as kvr
+    from gowebp_tpu_torch.ops.kernels import yuv420_to_rgba as yuvm
+
+    def partial(dec, lossy: bool):
+        """The partial output; a lossy call must launch recon_filter_mb and
+        yuv420_to_rgba once each."""
+        before = (kvr.recon_filter_mb.launches, yuvm.yuv420_to_rgba.launches)
+        out = dec.get_partial_output()
+        torch.cuda.synchronize()
+        after = (kvr.recon_filter_mb.launches, yuvm.yuv420_to_rgba.launches)
+        want = (1, 1) if lossy and dec.rows_decoded else (0, 0)
+        if tuple(a - b for a, b in zip(after, before)) != want:
+            raise AssertionError(f"incremental partial output launched "
+                                 f"{after} - {before}, want {want}")
+        return out
+
+    t0 = time.perf_counter()
+    reset_counts()
+    dec = IncrementalDecoder(device="cuda")
+    step = -(-len(data) // 17)
+    calls = 0
+    for i in range(0, len(data), step):
+        dec.append(data[i:i + step])
+        n = dec.rows_decoded
+        if dec.state != "done" and n:
+            if not np.array_equal(partial(dec, True), full[:n]):
+                raise AssertionError(f"incremental partial rows ({n}) != "
+                                     f"the final rows")
+            calls += 1
+    counts = read_counts("decode_incremental")
+    if dec.state != "done" or not np.array_equal(dec.get_output(), full):
+        raise AssertionError("incremental decode of the 1 MP file != "
+                             "decode_rgba_batch's")
+    if calls == 0 or counts["recon_filter_mb"] != calls + 1:
+        raise AssertionError(f"incremental decode: {calls} partial calls, "
+                             f"launches {counts}")
+    log(f"incremental decode of a 1 MP lossy file ({len(data)} bytes) in 17 "
+        f"chunks: {calls} partial outputs == the final rows, each one "
+        f"recon_filter_mb and one yuv420_to_rgba launch; final == the batch "
+        f"decode's; {time.perf_counter() - t0:.1f} s {tag}")
+    t0 = time.perf_counter()
+    cut = len(data) * 2 // 3
+    a, b = IncrementalDecoder(device="cuda"), IncrementalDecoder(device="cpu")
+    a.append(data[:cut])
+    b.append(data[:cut])
+    n = a.rows_decoded
+    pa, pb = partial(a, True), b.get_partial_output()
+    if not (n == b.rows_decoded > 0 and np.array_equal(pa, pb)
+            and np.array_equal(pa, full[:n])):
+        raise AssertionError("incremental partial rows of the first two "
+                             "thirds != the CPU decoder's or the final rows")
+    log(f"incremental decode, first two thirds of the 1 MP file: {n} rows == "
+        f"device=\"cpu\" and the final rows "
+        f"({time.perf_counter() - t0:.1f} s with the CPU decoder)")
+    for fname, chunk in (("lossy_q75", 37), ("vp8l", 50)):
+        t0 = time.perf_counter()
+        d = small[fname]
+        a, b = IncrementalDecoder(device="cuda"), IncrementalDecoder(
+            device="cpu")
+        seen, partials = None, 0
+        for i in range(0, len(d), chunk):
+            state = a.append(d[i:i + chunk])
+            if state != b.append(d[i:i + chunk]) or \
+                    a.rows_decoded != b.rows_decoded:
+                raise AssertionError(f"incremental {fname}: the card's and "
+                                     f"the CPU's decoders part at byte {i}")
+            if (state, a.rows_decoded) != seen:
+                seen = (state, a.rows_decoded)
+                pa = partial(a, fname != "vp8l" and state != "done")
+                pb = b.get_partial_output()
+                if (pa is None) != (pb is None) or (
+                        pa is not None and not np.array_equal(pa, pb)):
+                    raise AssertionError(f"incremental {fname}: partial "
+                                         f"output != the CPU's at byte {i}")
+                partials += pa is not None and state != "done"
+        if a.state != "done" or not np.array_equal(
+                a.get_output(), decode(d, device="cuda")):
+            raise AssertionError(f"incremental {fname}: final != decode()")
+        log(f"incremental decode of {fname} (255x193, {len(d)} bytes) in "
+            f"{chunk}-byte appends: states, rows and {partials} distinct "
+            f"partial outputs == device=\"cpu\"; final == decode() "
+            f"({time.perf_counter() - t0:.1f} s)")
+    rgb = full[..., :3]
+    yy, xx = np.mgrid[0:full.shape[0], 0:full.shape[1]]
+    rgba = np.dstack([rgb, (255 * xx // (full.shape[1] - 1)).astype(np.uint8)])
+    for img in (rgb, rgba):
+        for w, h in ((301, 0), (0, 1536), (640, 480)):
+            if not np.array_equal(picture_rescale(img, w, h, device="cuda"),
+                                  picture_rescale(img, w, h, device="cpu")):
+                raise AssertionError(f"picture_rescale({w}, {h}) on the card "
+                                     f"!= on the CPU")
+    log("picture_rescale on the card == device=\"cpu\" (RGB and RGBA 1 MP, "
+        "three target sizes)")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import numpy as np
@@ -2116,12 +2492,15 @@ def main() -> int:
     import gowebp_tpu_torch  # noqa: F401  (fails outside a checkout)
     from gowebp_tpu_torch import (DecoderConfig, decode, decode_rgba_batch,
                                   decode_yuva, encode_rgba_batch)
+    from gowebp_tpu_torch.decode import _upload, _upload_packed
+    from gowebp_tpu_torch.device import StageClock
     from gowebp_tpu_torch.config import EncoderConfig
     from gowebp_tpu_torch.container.riff import parse_riff
     from gowebp_tpu_torch.models.vp8.decoder import (decode_vp8_symbols,
                                                      symbol_engine)
     from gowebp_tpu_torch.ops.encode_pipeline import (
         encode_rgba_batch_pipelined)
+    from gowebp_tpu_torch.ops.kernels import coeff_unpack as cum
     from gowebp_tpu_torch.ops.kernels import encode_plane as epm
     from gowebp_tpu_torch.ops.kernels import i4_search as i4m
     from gowebp_tpu_torch.ops.kernels import vp8_recon as kvr
@@ -2143,6 +2522,7 @@ def main() -> int:
     counters["wavefront_search_trellis"] = (wsm.wavefront_search,
                                             "trellis_launches")
     counters["recon_filter_mb"] = (kvr.recon_filter_mb, "launches")
+    counters["unpack_coeffs"] = (cum.unpack_coeffs, "launches")
     counters["predictor_search_entropy"] = (vpm.predictor_search_entropy,
                                             "launches")
     by_path = {}
@@ -2173,7 +2553,7 @@ def main() -> int:
     # ---- phase 2: build ----
     t0 = time.perf_counter()
     libraries = [i4m.LIBRARY, wfm.LIBRARY, yuvm.LIBRARY, epm.LIBRARY,
-                 wsm.LIBRARY, kvr.LIBRARY, vpm.LIBRARY]
+                 wsm.LIBRARY, kvr.LIBRARY, vpm.LIBRARY, cum.LIBRARY]
     build_all(libraries)
     log(f"build: {len(SOURCES)} kernels from {len(libraries)} sources in "
         f"{time.perf_counter() - t0:.1f} s (nvcc, parallel)")
@@ -2224,6 +2604,10 @@ def main() -> int:
         f"({first_s:.2f} s for 32 MP) {tag}")
     # phase 3g, on the decode path's inputs for these 32 files
     recon_rows = check_vp8_recon(dev, out)
+    # phase 3i, on the same files' symbols
+    unpack_rows, decode_group, decode_packed, k_cost = check_unpack(
+        dev, out, tag)
+    recon_rows += unpack_rows
     time_rows(recon_rows, tag)
     rows += recon_rows
     timings = {}
@@ -2352,6 +2736,8 @@ def main() -> int:
     for name in DECODE_KERNELS:
         if counts[name] == 0:
             raise AssertionError(f"decode path never launched {name}")
+    if counts["unpack_coeffs"] != counts["recon_filter_mb"]:
+        raise AssertionError("decode path: unpack_coeffs not once a group")
     if any(counts[k] for k in counters if k not in DECODE_KERNELS):
         raise AssertionError("the decode path launched an encode kernel")
     log(f"decode first run: {mp / first_s:.3f} MP/s e2e "
@@ -2367,8 +2753,25 @@ def main() -> int:
         f"({second_s:.2f} s for 32 MP) {tag}")
     log(f"decode stage host symbols: {timings['symbols_s'] * 1e3:.1f} ms "
         f"(thread time, 32 images) {tag}")
+    log(f"decode stage host pack: {timings['pack_s'] * 1e3:.1f} ms "
+        f"(thread time, 32 images) {tag}")
     for k, ms in timings["stage_ms"].items():
         log(f"decode stage {k}: {ms:.1f} ms {tag}")
+    # the dense upload of the parent's path, on the same group, timed the
+    # same way (a stage clock around the buffer's fill and copy)
+    spans = {}
+    for label, up in (("packed", lambda: _upload_packed(
+            decode_group, decode_packed, dev)),
+                      ("dense", lambda: _upload(decode_group, dev))):
+        clock = StageClock(dev)
+        up()
+        clock("h2d")
+        spans[label] = clock.spans_ms()["h2d"]
+    log(f"decode h2d: packed {timings['h2d_bytes']} bytes in "
+        f"{timings['stage_ms']['h2d']:.3f} ms (timed run), "
+        f"{spans['packed']:.3f} ms alone; dense (parent's path) "
+        f"{k_cost['hybrid']['dense']['h2d_bytes']} bytes in "
+        f"{spans['dense']:.3f} ms alone, the same group {tag}")
     dev_out = decode_rgba_batch(out, device="cuda", device_out=True)
     for a, b in zip(dev_out, rgba):
         if not (a.is_cuda and a.dtype == torch.uint8
@@ -2481,7 +2884,8 @@ def main() -> int:
     torch.cuda.synchronize()
     single_s = time.perf_counter() - t0
     counts = read_counts("decode_single")
-    want_counts = {k: len(lossy_at) for k in DECODE_KERNELS}
+    want_counts = {k: len(lossy_at) if k in SINGLE_DECODE_KERNELS else 0
+                   for k in DECODE_KERNELS}
     log(f"single-file decode of the {len(mixed)} files, one decode() call "
         f"each: " + ", ".join(f"{k} {counts[k]}" for k in DECODE_KERNELS)
         + f" launches ({len(lossy_at)} lossy files) in {single_s:.2f} s")
@@ -2559,6 +2963,10 @@ def main() -> int:
     log(f"single-file parity: {n_checks} calls on {len(small)} files "
         f"({', '.join(small)}) == device=\"cpu\" in "
         f"{time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 6d: the incremental decoder on the card ----
+    incremental_decode(dev, out[0], rgba[0], small, reset_counts,
+                       read_counts, tag)
 
     # ---- phase 7: decode parity ----
     for a in rgba:

@@ -15,9 +15,13 @@ recon_backend="device"|"host")``, which decodes every still .webp kind
 (lossy, lossy with an ALPH chunk, lossless VP8L) in any mix; and the
 single-file ``decode(data, config=None, mode="RGBA", device=None)`` with
 ``decode_rgba``, ``decode_rgb``, ``decode_into``, ``decode_yuv``,
-``decode_yuva``, ``features`` and ``DecoderConfig``.  ``device`` None
-means CUDA and raises without it; ``device="cpu"`` runs the kernels'
-plain torch versions and gives identical bytes and pixels.
+``decode_yuva``, ``features`` and ``DecoderConfig``; the push decoder
+``IncrementalDecoder(device=None)`` (``append`` bytes, read the finished
+rows with ``get_partial_output``); and the picture helpers
+``picture_view``, ``picture_crop`` and ``picture_rescale(rgba, width,
+height, device=None)``.  ``device`` None means CUDA and raises without
+it; ``device="cpu"`` runs the kernels' plain torch versions and gives
+identical bytes and pixels.
 """
 
 from .decode import (decode, decode_into, decode_rgb, decode_rgba,
@@ -27,6 +31,8 @@ from .decode_options import DecoderConfig
 from .encode import encode_rgba, encode_rgba_batch, encode_yuv
 from .errors import (BitstreamError, EncodeError, InvalidConfig,
                      NotEnoughData, UnsupportedFeature, WebPError)
+from .idec import IncrementalDecoder
+from .picture import picture_crop, picture_rescale, picture_view
 from .stats import EncodeStats
 
 __all__ = [
@@ -35,6 +41,7 @@ __all__ = [
     "EncodeError",
     "EncodeStats",
     "EncoderConfig",
+    "IncrementalDecoder",
     "InvalidConfig",
     "NotEnoughData",
     "UnsupportedFeature",
@@ -50,4 +57,7 @@ __all__ = [
     "encode_rgba_batch",
     "encode_yuv",
     "features",
+    "picture_crop",
+    "picture_rescale",
+    "picture_view",
 ]

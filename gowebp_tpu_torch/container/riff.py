@@ -28,6 +28,7 @@ class Chunk:
 
     tag: bytes
     payload: bytes
+    truncated: bool = False  # tolerant parse: payload shorter than declared
 
     @property
     def padded_size(self) -> int:
@@ -49,6 +50,7 @@ class ParsedWebP:
     canvas_height: int = 0
     vp8x_flags: int = 0
     has_vp8x: bool = False
+    truncated: bool = False  # tolerant parse: data ends before the RIFF size
     chunks: list[Chunk] = field(default_factory=list)
 
     def find(self, tag: bytes) -> Chunk | None:
@@ -59,9 +61,14 @@ class ParsedWebP:
         return None
 
 
-def parse_riff(data: bytes) -> ParsedWebP:
+def parse_riff(data: bytes, tolerant: bool = False) -> ParsedWebP:
     """Split a .webp byte string into its chunks; a truncated file or a
-    VP8X chunk shorter than its 10 bytes raises."""
+    VP8X chunk shorter than its 10 bytes raises.
+
+    With ``tolerant=True`` (the incremental decoder) a file shorter than
+    its RIFF size parses: the last chunk keeps the bytes that arrived and
+    is marked ``truncated``, and so is the result.
+    """
     if len(data) < RIFF_HEADER_SIZE:
         raise NotEnoughData("file shorter than RIFF header")
     if data[0:4] != RIFF_MAGIC or data[8:12] != WEBP_MAGIC:
@@ -69,18 +76,22 @@ def parse_riff(data: bytes) -> ParsedWebP:
     riff_size = struct.unpack_from("<I", data, 4)[0]
     if riff_size < 4:
         raise BitstreamError("RIFF size too small")
-    if len(data) < 8 + riff_size:
+    if not tolerant and len(data) < 8 + riff_size:
         raise NotEnoughData("file shorter than RIFF size field declares")
-    end = 8 + riff_size
+    end = min(len(data), 8 + riff_size)
 
-    parsed = ParsedWebP()
+    parsed = ParsedWebP(truncated=len(data) < 8 + riff_size)
     pos = RIFF_HEADER_SIZE
     while pos + CHUNK_HEADER_SIZE <= end:
         tag = data[pos : pos + 4]
         size = struct.unpack_from("<I", data, pos + 4)[0]
         payload_start = pos + CHUNK_HEADER_SIZE
         if payload_start + size > end:
-            raise NotEnoughData(f"chunk {tag!r} truncated")
+            if not tolerant:
+                raise NotEnoughData(f"chunk {tag!r} truncated")
+            parsed.chunks.append(Chunk(tag, data[payload_start:end],
+                                       truncated=True))
+            break
         parsed.chunks.append(Chunk(tag, data[payload_start : payload_start + size]))
         pos = payload_start + size + (size & 1)
 
@@ -140,9 +151,10 @@ class WebPFeatures:
     format: str  # "lossy" | "lossless" | "mixed" | "undefined"
 
 
-def get_features(data: bytes) -> WebPFeatures:
-    """WebPGetFeatures: probe a file without decoding it."""
-    parsed = parse_riff(data)
+def get_features(data: bytes, tolerant: bool = False) -> WebPFeatures:
+    """WebPGetFeatures: probe a file without decoding it; ``tolerant``
+    probes the headers of a file that has not all arrived."""
+    parsed = parse_riff(data, tolerant=tolerant)
     vp8 = parsed.find(CHUNK_VP8)
     vp8l = parsed.find(CHUNK_VP8L)
     has_anim = bool(parsed.vp8x_flags & VP8X_FLAG_ANIMATION)

@@ -23,22 +23,27 @@ call:
      per-MB filter parameters, and the same thread decodes each image's
      ALPH plane; each VP8L file is decoded whole on the host
      (models/vp8l), as a task of the same pool;
-  3. the lossy images of each thread are grouped by (width, height,
-     filter_type, has_alpha);
-  4. one h2d copy per group of one host buffer holding its dense
+  3. the same thread groups its lossy images by (width, height,
+     filter_type, has_alpha) and packs each group's coefficients into
+     the sparse wire layout (ops/coeff_pack.py: int8 levels, the i16 DC
+     plane, tail and exception rows, the quantizers);
+  4. one h2d copy per group of one host buffer holding its packed
      coefficients, modes and filter parameters and, for an ALPH group,
      its (B, H, W) alpha planes;
-  5. device: the recon kernel (residual iDCT and intra prediction over
-     the MB wavefront) and the loop-filter kernel (ops/vp8_recon.py,
-     ops/kernels/vp8_recon), then the fused fancy
-     upsample + YUV→RGBA kernel (ops/kernels/yuv420_to_rgba), which
-     reads the MB-padded planes and, for an ALPH group, the alpha
-     planes, and writes the cropped RGBA;
+  5. device: the ``unpack_coeffs`` kernel (ops/kernels/coeff_unpack)
+     turns the packed layout back into the dense int16 coefficients, the
+     ``recon_filter_mb`` kernel (ops/vp8_recon.py, ops/kernels/vp8_recon)
+     runs the residual iDCT, intra prediction and loop filter over the
+     MB wavefront, then the fused fancy upsample + YUV→RGBA kernel
+     (ops/kernels/yuv420_to_rgba) reads the MB-padded planes and, for an
+     ALPH group, the alpha planes, and writes the cropped RGBA;
   6. one d2h copy per group, unless ``device_out=True``; then the
      host-decoded images (VP8L, and every image with
      ``recon_backend="host"``) go up in one h2d copy per shape instead.
 
-``recon_backend="host"`` runs steps 4-5 on the host too: the native
+The single-file calls upload the dense coefficients (``_upload``) and
+skip the pack and the unpack.
+``recon_backend="host"`` runs steps 3-5 on the host instead: the native
 recon and loop filter, the native fancy upsampler and the alpha plane
 (models/vp8/decoder.py ``recon_vp8_yuv_host``, ``yuv_planes_to_rgba``).
 
@@ -65,6 +70,8 @@ from .models.vp8.decoder import (decode_vp8_symbols, decode_vp8_symbols_batch,
                                  dither_deltas, recon_vp8_yuv_host,
                                  vp8_filter_params, yuv_planes_to_rgba)
 from .models.vp8l.decoder import decode_vp8l
+from .ops.coeff_pack import pack_images
+from .ops.kernels.coeff_unpack import unpack_coeffs
 from .ops.kernels.yuv420_to_rgba import yuv420_to_rgba
 from .ops.vp8_recon import recon_frame
 
@@ -86,43 +93,87 @@ def _route(data: bytes):
     raise BitstreamError("no decodable image chunk found")
 
 
-def _upload(recs, dev):
-    """One host buffer per group: the group's int16 coefficients, its
-    uint8 modes, its int16 filter parameters and, for an ALPH group, its
-    (B, H, W) alpha planes, each batch-contiguous and 16-byte aligned; one
-    h2d copy; device views of the four (alpha None without)."""
-    B = len(recs)
-    st = recs[0][1]
-    N = recs[0][2].shape[0]
-    has_alpha = recs[0][5] is not None
-    sizes = (B * N * 24 * 16 * 2, B * N * 21, B * N * 4 * 2,
-             B * st.height * st.width if has_alpha else 0)
+_TORCH_DTYPES = {np.dtype(np.int8): torch.int8, np.dtype(np.uint8): torch.uint8,
+                 np.dtype(np.int16): torch.int16,
+                 np.dtype(np.int32): torch.int32}
+
+
+def _one_copy(parts, dev):
+    """Parts given as (dtype, shape, fill): one host buffer holding each
+    part 16-byte aligned, ``fill(view)`` writing each into its place; one
+    h2d copy → (device views of the parts, the buffer's bytes)."""
+    sizes = [np.dtype(dt).itemsize * int(np.prod(shape))
+             for dt, shape, _ in parts]
     offs = [0]
     for n in sizes:
         offs.append((offs[-1] + n + 15) // 16 * 16)
-
-    def views(buf, as_i16):
-        part = [buf[o:o + n] for o, n in zip(offs, sizes)]
-        return (as_i16(part[0]).reshape(B, N, 24, 16),
-                part[1].reshape(B, N, 21), as_i16(part[2]).reshape(B, N, 4),
-                part[3].reshape(B, st.height, st.width) if has_alpha
-                else None)
-
     buf = np.empty(offs[-1], np.uint8)
-    coeffs, modes, fp, alpha = views(buf, lambda a: a.view(np.int16))
-    for k, (_, _, c, m, f, a) in enumerate(recs):
-        coeffs[k] = c
-        modes[k] = m
-        fp[k] = f.reshape(N, 4)
-        if has_alpha:
-            alpha[k] = a
-    return views(torch.from_numpy(buf).to(dev),
-                 lambda a: a.view(torch.int16))
+    for (dt, shape, fill), o, n in zip(parts, offs, sizes):
+        fill(buf[o:o + n].view(dt).reshape(shape))
+    dbuf = torch.from_numpy(buf).to(dev)
+    return [dbuf[o:o + n].view(_TORCH_DTYPES[np.dtype(dt)]).reshape(shape)
+            for (dt, shape, _), o, n in zip(parts, offs, sizes)], buf.nbytes
 
 
-def _decode_group(recs, dev, device_out: bool, timings):
+def _stacked(arrays):
+    """A fill that writes ``arrays`` one per batch index."""
+    def fill(view):
+        for k, a in enumerate(arrays):
+            view[k] = a
+    return fill
+
+
+def _group_parts(recs):
+    """The modes, filter parameters and (ALPH group) alpha planes of a
+    group, as ``_one_copy`` parts."""
+    B, st, N = len(recs), recs[0][1], recs[0][2].shape[0]
+    parts = [(np.uint8, (B, N, 21), _stacked([r[3] for r in recs])),
+             (np.int16, (B, N, 4),
+              _stacked([r[4].reshape(N, 4) for r in recs]))]
+    if recs[0][5] is not None:
+        parts.append((np.uint8, (B, st.height, st.width),
+                      _stacked([r[5] for r in recs])))
+    return parts
+
+
+def _upload(recs, dev):
+    """The dense upload (the single-file calls): one host buffer per group
+    with the group's int16 coefficients, its uint8 modes, its int16
+    filter parameters and, for an ALPH group, its (B, H, W) alpha planes,
+    each batch-contiguous and 16-byte aligned; one h2d copy; device views
+    of the four (alpha None without)."""
+    B, N = len(recs), recs[0][2].shape[0]
+    views, _ = _one_copy(
+        [(np.int16, (B, N, 24, 16), _stacked([r[2] for r in recs]))]
+        + _group_parts(recs), dev)
+    return (*views[:3], views[3] if len(views) > 3 else None)
+
+
+def _pack_group(recs):
+    """The sparse wire layout of one group's coefficients (on the symbol
+    thread): (dict of numpy arrays, K)."""
+    return pack_images([r[2] for r in recs], [r[3][:, 2] for r in recs],
+                       [r[3][:, 0] for r in recs],
+                       [r[1].quant_rows() for r in recs])
+
+
+def _upload_packed(recs, packed, dev):
+    """One host buffer per group with its packed coefficients, modes,
+    filter parameters and alpha planes; one h2d copy → (the packed dict
+    on ``dev``, modes, fparams, alpha or None, the bytes copied)."""
+    keys = list(packed)
+    parts = [(packed[k].dtype, packed[k].shape,
+              lambda v, a=packed[k]: np.copyto(v, a)) for k in keys]
+    views, nbytes = _one_copy(parts + _group_parts(recs), dev)
+    rest = views[len(keys):]
+    return (dict(zip(keys, views)), rest[0], rest[1],
+            rest[2] if len(rest) > 2 else None, nbytes)
+
+
+def _decode_group(recs, packed, dev, device_out: bool, timings):
     """Device phases of one (width, height, filter_type, has_alpha) group
-    → (B, H, W, 4) uint8 RGBA, on the device or as a NumPy array."""
+    from its packed coefficients → (B, H, W, 4) uint8 RGBA, on the device
+    or as a NumPy array."""
     st = recs[0][1]
     clock = StageClock(dev) if timings is not None else None
 
@@ -130,8 +181,10 @@ def _decode_group(recs, dev, device_out: bool, timings):
         if clock is not None:
             clock(name)
 
-    coeffs, modes, fp, alpha = _upload(recs, dev)
+    wire, modes, fp, alpha, nbytes = _upload_packed(recs, packed, dev)
     mark("h2d")
+    coeffs = unpack_coeffs(wire)
+    mark("unpack")
     Y, U, V = recon_frame(
         coeffs, modes[:, :, 0], modes[:, :, 5:21], modes[:, :, 1],
         fp.reshape(len(recs), st.mb_h, st.mb_w, 4), mb_w=st.mb_w,
@@ -143,6 +196,7 @@ def _decode_group(recs, dev, device_out: bool, timings):
         mark("d2h")
     if clock is not None:
         _add_spans(timings, clock)
+        timings["h2d_bytes"] = timings.get("h2d_bytes", 0) + nbytes
     return rgba
 
 
@@ -182,9 +236,11 @@ def decode_rgba_batch(datas: list, *, threads: int = 0, device=None,
     or with ``device_out=True`` uint8 tensors on ``device``.  A file with
     no VP8 or VP8L chunk raises BitstreamError before any work.
     ``timings``, if given, gathers per-stage milliseconds under
-    "stage_ms" (CUDA-event spans on the card) and host thread seconds:
-    "symbols_s" (the symbol engine), "alpha_s" (ALPH planes), "vp8l_s"
-    (VP8L files) and, with the host backend, "recon_host_s".
+    "stage_ms" (CUDA-event spans on the card: h2d, unpack, recon,
+    yuv420_to_rgba, d2h), the bytes of the groups' h2d copies under
+    "h2d_bytes", and host thread seconds: "symbols_s" (the symbol
+    engine), "alpha_s" (ALPH planes), "pack_s" (the coefficient pack),
+    "vp8l_s" (VP8L files) and, with the host backend, "recon_host_s".
     """
     dev = resolve_device(device)
     if recon_backend not in RECON_BACKENDS:
@@ -199,19 +255,19 @@ def decode_rgba_batch(datas: list, *, threads: int = 0, device=None,
                 if kind == "vp8l"]
     on_host = recon_backend == "host"
     secs = {"symbols_s": 0.0, "alpha_s": 0.0, "vp8l_s": 0.0}
-    if on_host:
-        secs["recon_host_s"] = 0.0
+    secs["recon_host_s" if on_host else "pack_s"] = 0.0
     workers = threads if threads > 0 else min(8, len(datas))
     ng = min(workers, -(-len(lossy) // STREAMS_PER_ENGINE))
     groups = [lossy[g::ng] for g in range(ng)]
 
     def symbols(items):
-        """Symbol phase of one group, with its ALPH planes; on the host
-        backend also recon, conversion and the alpha merge."""
+        """Symbol phase of one engine call, with its ALPH planes; on the
+        device backend then the pack of each shape group, on the host
+        backend recon, conversion and the alpha merge."""
         t0 = time.perf_counter()
         syms = decode_vp8_symbols_batch([p for _, p, _ in items])
         took = {"symbols_s": time.perf_counter() - t0, "alpha_s": 0.0,
-                "recon_host_s": 0.0}
+                "recon_host_s": 0.0, "pack_s": 0.0}
         out = []
         for (i, _, ap), (st, coeffs, modes) in zip(items, syms):
             t0 = time.perf_counter()
@@ -230,7 +286,17 @@ def decode_rgba_batch(datas: list, *, threads: int = 0, device=None,
                 out.append((i, st, coeffs, modes,
                             vp8_filter_params(st, modes), plane))
                 took["symbols_s"] += time.perf_counter() - t1
-        return out, took
+        if on_host:
+            return out, took
+        t0 = time.perf_counter()
+        by_shape = {}
+        for rec in out:
+            st = rec[1]
+            key = (st.width, st.height, st.filter_type, rec[5] is not None)
+            by_shape.setdefault(key, []).append(rec)
+        packed = [(grp, _pack_group(grp)[0]) for grp in by_shape.values()]
+        took["pack_s"] = time.perf_counter() - t0
+        return packed, took
 
     def lossless_one(item):
         i, payload = item
@@ -241,14 +307,9 @@ def decode_rgba_batch(datas: list, *, threads: int = 0, device=None,
     results = [None] * len(datas)
     host_images = []
 
-    def device_phase(recs):
-        by_shape = {}
-        for rec in recs:
-            st = rec[1]
-            key = (st.width, st.height, st.filter_type, rec[5] is not None)
-            by_shape.setdefault(key, []).append(rec)
-        for grp in by_shape.values():
-            rgba = _decode_group(grp, dev, device_out, timings)
+    def device_phase(groups):
+        for grp, packed in groups:
+            rgba = _decode_group(grp, packed, dev, device_out, timings)
             for k, rec in enumerate(grp):
                 results[rec[0]] = rgba[k]
 

@@ -1,9 +1,11 @@
-"""Canonical, depth-limited Huffman codes for the VP8L encoder.
+"""Canonical Huffman codes: depth-limited code lengths for the VP8L
+encoder, and a table decoder for the incremental VP8L decoder.
 
 ``build_code_lengths`` makes a Huffman tree from symbol counts and, when
 it is deeper than the format allows, rebuilds it from counts shifted
 right until it fits (the classic libwebp strategy); ``canonical_codes``
-assigns the canonical codes for the lengths.  Written from the
+assigns the canonical codes for the lengths; ``HuffmanDecodeTable``
+reads symbols of a code back from a ``BitReader``.  Written from the
 canonical-code definition of the lossless bitstream spec.
 """
 
@@ -14,6 +16,7 @@ import heapq
 import numpy as np
 
 from ..constants import MAX_ALLOWED_CODE_LENGTH
+from ..errors import BitstreamError
 
 
 def canonical_codes(code_lengths) -> np.ndarray:
@@ -39,6 +42,62 @@ def canonical_codes(code_lengths) -> np.ndarray:
             codes[sym] = next_code[ln]
             next_code[ln] += 1
     return codes
+
+
+def _reverse_bits(v: int, n: int) -> int:
+    r = 0
+    for _ in range(n):
+        r = (r << 1) | (v & 1)
+        v >>= 1
+    return r
+
+
+class HuffmanDecodeTable:
+    """Flat LUT decoder: peek ``max_len`` LSB-first bits, look up, consume."""
+
+    __slots__ = ("max_len", "sym", "lens", "single_symbol")
+
+    def __init__(self, code_lengths):
+        lengths = np.asarray(code_lengths, dtype=np.int32)
+        used = np.flatnonzero(lengths > 0)
+        if len(used) == 0:
+            raise BitstreamError("huffman code with no symbols")
+        if len(used) == 1:
+            # Single-symbol code: zero bits per symbol.
+            self.max_len = 0
+            self.single_symbol = int(used[0])
+            self.sym = None
+            self.lens = None
+            return
+        self.single_symbol = -1
+        max_len = int(lengths.max())
+        if max_len > MAX_ALLOWED_CODE_LENGTH:
+            raise BitstreamError("code length exceeds 15")
+        # Kraft sum must be exactly 1 for a complete code.
+        kraft = int(np.sum((1 << (max_len - lengths[used])).astype(np.int64)))
+        if kraft != (1 << max_len):
+            raise BitstreamError("invalid (incomplete/oversubscribed) huffman code")
+        self.max_len = max_len
+        codes = canonical_codes(lengths)
+        size = 1 << max_len
+        self.sym = np.zeros(size, dtype=np.int32)
+        self.lens = np.zeros(size, dtype=np.int32)
+        for s in used:
+            ln = int(lengths[s])
+            rc = _reverse_bits(int(codes[s]), ln)
+            step = 1 << ln
+            idx = np.arange(rc, size, step)
+            self.sym[idx] = s
+            self.lens[idx] = ln
+
+    def decode(self, br) -> int:
+        """Read one symbol from a BitReader."""
+        if self.max_len == 0:
+            return self.single_symbol
+        key = br.peek_bits(self.max_len)
+        ln = self.lens[key]
+        br.skip_bits(int(ln))
+        return int(self.sym[key])
 
 
 def build_code_lengths(histogram,
@@ -102,4 +161,4 @@ def _huffman_depths(counts: np.ndarray) -> np.ndarray:
     return depths
 
 
-__all__ = ["build_code_lengths", "canonical_codes"]
+__all__ = ["HuffmanDecodeTable", "build_code_lengths", "canonical_codes"]

@@ -1525,3 +1525,149 @@ void wtpu_yuv_to_rgba_fancy(const uint8_t* yp, const uint8_t* up,
 }
 
 }  // extern "C"
+
+// ----------------------------------------------------------------------
+// Sparse coefficient-upload pack (ops/coeff_pack.py).  Re-compresses the
+// symbol engines' dequantized (N, 24, 16) int16 coefficients into int8
+// zigzag levels (the first K a block), the i16 MBs' luma DC side plane,
+// a tail table (the levels past K of the blocks that have them) and a
+// raw exception table (blocks whose levels do not fit int8 or do not
+// divide by their quantizer), for the batch decode's upload.  Equal to
+// ops/coeff_pack.py's numpy pack_coeffs_plain (tests).
+// ----------------------------------------------------------------------
+
+namespace {
+static const int kPackZZ[16] = {0, 1, 4, 8, 5, 2, 3, 6,
+                                9, 12, 13, 10, 7, 11, 14, 15};
+
+struct PackBlockInfo {
+  int16_t lv[16];   // zigzag-order levels (valid when ok)
+  int raw_eob;      // last non-zero raw zigzag position + 1, the dropped
+                    // i16 DC included (the truncation's rank)
+  bool ok;          // divisible and |level| <= 127
+};
+
+static inline bool block_is_zero(const int16_t* c) {
+  uint64_t w[4];
+  std::memcpy(w, c, sizeof(w));
+  return (w[0] | w[1] | w[2] | w[3]) == 0;
+}
+
+// An all-zero block (most of them) is ok with raw_eob 0 and zero levels;
+// callers test block_is_zero first and skip this.
+static inline void pack_block(const int16_t* c, int q_dc, int q_ac,
+                              bool drop_dc, PackBlockInfo& out) {
+  out.raw_eob = 0;
+  out.ok = true;
+  for (int n = 0; n < 16; n++) {
+    int32_t v = c[kPackZZ[n]];
+    if (v != 0) out.raw_eob = n + 1;
+    if (n == 0 && drop_dc) v = 0;
+    if (v == 0) {
+      out.lv[n] = 0;
+      continue;
+    }
+    const int32_t q = n == 0 ? q_dc : q_ac;
+    const int32_t lvl = v / q;
+    if (lvl * q != v || lvl > 127 || lvl < -127) out.ok = false;
+    out.lv[n] = (int16_t)lvl;
+  }
+}
+}  // namespace
+
+// First pass: exception/tail counts for the K chooser.
+// out_counts = [n_base, n_tail4, n_tail8] (tails exclude base blocks).
+extern "C" void wtpu_vp8_pack_stats(
+    const int16_t* coeffs, const uint8_t* seg, const uint8_t* is_i4,
+    const int32_t* qmat /* [B][4][6] */, int B, int N,
+    int32_t* out_counts) {
+  int64_t n_base = 0, n_t4 = 0, n_t8 = 0;
+  for (int b = 0; b < B; b++) {
+    const int32_t* qm = qmat + (size_t)b * 24;
+    for (int i = 0; i < N; i++) {
+      const size_t mb = (size_t)b * N + i;
+      const int32_t* q = qm + seg[mb] * 6;
+      const bool i16 = is_i4[mb] == 0;
+      const int16_t* c = coeffs + mb * 24 * 16;
+      for (int blk = 0; blk < 24; blk++, c += 16) {
+        if (block_is_zero(c)) continue;
+        const bool luma = blk < 16;
+        PackBlockInfo bi;
+        pack_block(c, luma ? q[0] : q[4], luma ? q[1] : q[5],
+                   luma && i16, bi);
+        if (!bi.ok) {
+          n_base++;
+        } else {
+          if (bi.raw_eob > 8) n_t8++;
+          if (bi.raw_eob > 4) n_t4++;
+        }
+      }
+    }
+  }
+  out_counts[0] = (int32_t)n_base;
+  out_counts[1] = (int32_t)n_t4;
+  out_counts[2] = (int32_t)n_t8;
+}
+
+// Second pass: emit the wire layout for a chosen K.  Returns 0 on
+// success; 1 when a table overflowed its capacity (counts_out then
+// holds the sizes it needed).
+extern "C" int wtpu_vp8_pack_emit(
+    const int16_t* coeffs, const uint8_t* seg, const uint8_t* is_i4,
+    const int32_t* qmat, int B, int N, int K,
+    int8_t* lv8 /* [B*N][24][K] */, int16_t* dc16 /* [B*N][16] */,
+    int32_t* tail_idx, int8_t* tail_val /* [tail_cap][16-K] */,
+    int64_t tail_cap,
+    int32_t* exc_idx, int16_t* exc_val /* [exc_cap][16] */,
+    int64_t exc_cap, int64_t* counts_out /* [ntail, nexc] */) {
+  const int tw = 16 - K;
+  int64_t ntail = 0, nexc = 0;
+  for (int b = 0; b < B; b++) {
+    const int32_t* qm = qmat + (size_t)b * 24;
+    for (int i = 0; i < N; i++) {
+      const size_t mb = (size_t)b * N + i;
+      const int32_t* q = qm + seg[mb] * 6;
+      const bool i16 = is_i4[mb] == 0;
+      const int16_t* c = coeffs + mb * 24 * 16;
+      int16_t* dcrow = dc16 + mb * 16;
+      for (int blk = 0; blk < 24; blk++, c += 16) {
+        const bool luma = blk < 16;
+        if (luma) dcrow[blk] = (i16 ? c[0] : 0);
+        int8_t* out = lv8 + (mb * 24 + blk) * K;
+        if (block_is_zero(c)) {
+          std::memset(out, 0, K);
+          continue;
+        }
+        PackBlockInfo bi;
+        pack_block(c, luma ? q[0] : q[4], luma ? q[1] : q[5],
+                   luma && i16, bi);
+        const int raw_eob = bi.raw_eob;
+        if (!bi.ok) {
+          std::memset(out, 0, K);
+          if (nexc < exc_cap) {
+            exc_idx[nexc] = (int32_t)(mb * 24 + blk);
+            int16_t* ev = exc_val + nexc * 16;
+            for (int n = 0; n < 16; n++) {
+              int32_t v = c[kPackZZ[n]];
+              ev[n] = (int16_t)v;
+            }
+          }
+          nexc++;
+          continue;
+        }
+        for (int n = 0; n < K; n++) out[n] = (int8_t)bi.lv[n];
+        if (K < 16 && raw_eob > K) {
+          if (ntail < tail_cap) {
+            tail_idx[ntail] = (int32_t)(mb * 24 + blk);
+            int8_t* tv = tail_val + ntail * tw;
+            for (int n = K; n < 16; n++) tv[n - K] = (int8_t)bi.lv[n];
+          }
+          ntail++;
+        }
+      }
+    }
+  }
+  counts_out[0] = ntail;
+  counts_out[1] = nexc;
+  return (ntail > tail_cap || nexc > exc_cap) ? 1 : 0;
+}

@@ -147,6 +147,23 @@ def _configure(lib) -> None:
         u8p, u8p, u8p, c.c_int, c.c_int, c.c_int, c.c_int, u8p,
     ]
 
+    # the batch decode's sparse coefficient pack (ops/coeff_pack.py)
+    i8p = c.POINTER(c.c_int8)
+    i64p = c.POINTER(c.c_int64)
+    lib.wtpu_vp8_pack_stats.restype = None
+    lib.wtpu_vp8_pack_stats.argtypes = [
+        i16p, u8p, u8p, i32p,                 # coeffs, seg, is_i4, qmat
+        c.c_int, c.c_int, i32p,               # B, N, counts out
+    ]
+    lib.wtpu_vp8_pack_emit.restype = c.c_int
+    lib.wtpu_vp8_pack_emit.argtypes = [
+        i16p, u8p, u8p, i32p, c.c_int, c.c_int, c.c_int,  # ..., B, N, K
+        i8p, i16p,                            # lv8, dc16
+        i32p, i8p, c.c_int64,                 # tail_idx, tail_val, cap
+        i32p, i16p, c.c_int64,                # exc_idx, exc_val, cap
+        i64p,                                 # counts out
+    ]
+
     # VP8L decode and the ALPH unfilter
     lib.wtpu_vp8l_read_groups.restype = c.c_int
     lib.wtpu_vp8l_read_groups.argtypes = [

@@ -8,6 +8,10 @@ It produces dense per-MB arrays: dequantized coefficients, modes and
 loop-filter parameters.  By default everything pixel-shaped (iDCT, intra
 prediction, the loop filter, upsampling and colour conversion) runs on
 the device in ops/vp8_recon.py, ops/yuv.py and the yuv420_to_rgba kernel.
+The incremental decoder (idec.py) parses MB by MB in Python instead
+(``_parse_intra_mode``, ``_parse_residuals``), so that it can stop and
+resume anywhere in a stream that has not all arrived; ``mb_symbols``
+turns its parsed MBs into the native engine's arrays.
 ``recon_vp8_yuv_host`` and ``yuv_planes_to_rgba`` do the same work in the
 native layer instead (the batch decode's ``recon_backend="host"``), with
 the same pixels.
@@ -26,7 +30,9 @@ from ...constants import VP8_SIGNATURE
 from ...entropy.bool_coder import BoolDecoder
 from ...entropy.native_loader import get_lib
 from ...errors import BitstreamError, UnsupportedFeature
-from .tables import AC_QUANT, COEFF_PROBAS, COEFF_UPDATE_PROBAS, DC_QUANT
+from .tables import (AC_QUANT, B_DC, B_HE, B_TM, B_VE, BANDS, BMODE_TREE,
+                     CAT_PROBAS, COEFF_PROBAS, COEFF_UPDATE_PROBAS, DC_QUANT,
+                     KF_BMODE_PROBAS, ZIGZAG)
 
 # ---------------------------------------------------------------------------
 # Headers
@@ -284,6 +290,233 @@ def vp8_filter_params(st: FrameState, modes: np.ndarray) -> np.ndarray:
     inner = ((is_i4 != 0) | (skip == 0)).astype(np.int32)
     out[:, 3] = inner
     return out.reshape(st.mb_h, st.mb_w, 4)
+
+
+# ---------------------------------------------------------------------------
+# Per-MB Python parse (the incremental decoder)
+# ---------------------------------------------------------------------------
+
+
+def _iwht4x4(coeffs: np.ndarray) -> np.ndarray:
+    """Inverse Walsh-Hadamard of the Y2 block → the 16 luma DC values."""
+    c = coeffs.astype(np.int64).reshape(4, 4)
+    a0 = c[0] + c[3]
+    a1 = c[1] + c[2]
+    a2 = c[1] - c[2]
+    a3 = c[0] - c[3]
+    t = np.stack([a0 + a1, a3 + a2, a0 - a1, a3 - a2]).T
+    dc = t[0] + 3
+    a0 = dc + t[3]
+    a1 = t[1] + t[2]
+    a2 = t[1] - t[2]
+    a3 = dc - t[3]
+    out = np.stack([(a0 + a1) >> 3, (a3 + a2) >> 3, (a0 - a1) >> 3,
+                    (a3 - a2) >> 3]).T
+    return out.reshape(16)
+
+
+def _parse_intra_mode(bd: BoolDecoder, st: FrameState, top4: np.ndarray,
+                      left4: np.ndarray):
+    """One MB's segment/skip/modes. Returns (segment, skip, is_i4, imodes, uv)."""
+    segment = 0
+    if st.segment_hdr.update_map:
+        if not bd.get_bit(st.segment_probs[0]):
+            segment = bd.get_bit(st.segment_probs[1])
+        else:
+            segment = 2 + bd.get_bit(st.segment_probs[2])
+    skip = bd.get_bit(st.skip_p) if st.use_skip_proba else 0
+
+    imodes = np.zeros(16, np.int32)
+    is_i4 = not bd.get_bit(145)
+    if not is_i4:
+        # Hardcoded 16x16 mode tree (libwebp enum DC/TM/VE/HE).
+        if bd.get_bit(156):
+            ymode = B_TM if bd.get_bit(128) else B_HE
+        else:
+            ymode = B_VE if bd.get_bit(163) else B_DC
+        imodes[:] = ymode
+        top4[:] = ymode
+        left4[:] = ymode
+    else:
+        for y in range(4):
+            ymode = left4[y]
+            for x in range(4):
+                prob = KF_BMODE_PROBAS[top4[x]][ymode]
+                i = BMODE_TREE[bd.get_bit(int(prob[0]))]
+                while i > 0:
+                    i = BMODE_TREE[2 * i + bd.get_bit(int(prob[i]))]
+                ymode = -i
+                top4[x] = ymode
+                imodes[4 * y + x] = ymode
+            left4[y] = ymode
+
+    # UV mode tree.
+    if not bd.get_bit(142):
+        uvmode = B_DC
+    elif not bd.get_bit(114):
+        uvmode = B_VE
+    elif bd.get_bit(183):
+        uvmode = B_TM
+    else:
+        uvmode = B_HE
+    return segment, skip, is_i4, imodes, uvmode
+
+
+def _get_large_value(bd: BoolDecoder, p) -> int:
+    if not bd.get_bit(int(p[3])):
+        if not bd.get_bit(int(p[4])):
+            return 2
+        return 3 + bd.get_bit(int(p[5]))
+    if not bd.get_bit(int(p[6])):
+        if not bd.get_bit(int(p[7])):
+            return 5 + bd.get_bit(159)
+        return 7 + 2 * bd.get_bit(165) + bd.get_bit(145)
+    bit1 = bd.get_bit(int(p[8]))
+    bit0 = bd.get_bit(int(p[9 + bit1]))
+    cat = 2 * bit1 + bit0
+    v = 0
+    for tab_p in CAT_PROBAS[cat]:
+        v += v + bd.get_bit(tab_p)
+    return v + 3 + (8 << cat)
+
+
+def _get_coeffs(bd: BoolDecoder, probs_t, ctx: int, dq: tuple, first: int,
+                out: np.ndarray) -> int:
+    """Token-decode one 4x4 block; returns last-nonzero position + 1."""
+    p = probs_t[BANDS[first]][ctx]
+    n = first
+    while n < 16:
+        if not bd.get_bit(int(p[0])):
+            return n
+        while not bd.get_bit(int(p[1])):
+            n += 1
+            if n == 16:
+                return 16
+            p = probs_t[BANDS[n]][0]
+        if not bd.get_bit(int(p[2])):
+            v = 1
+            next_ctx = 1
+        else:
+            v = _get_large_value(bd, p)
+            next_ctx = 2
+        out[ZIGZAG[n]] = bd.get_signed(v) * dq[n > 0]
+        p = probs_t[BANDS[n + 1]][next_ctx]
+        n += 1
+    return 16
+
+
+def _nz_code_bits(nz_coeffs: int, nz: int, dc_nz: int) -> int:
+    nz_coeffs <<= 2
+    nz_coeffs |= 3 if nz > 3 else (2 if nz > 1 else dc_nz)
+    return nz_coeffs
+
+
+@dataclass
+class MBData:
+    segment: int = 0
+    skip: int = 0
+    is_i4: bool = False
+    imodes: np.ndarray | None = None
+    uvmode: int = 0
+    coeffs: np.ndarray | None = None     # (25, 16) int32, dequantized
+    non_zero_y: int = 0
+    non_zero_uv: int = 0
+    dither: int = 0                      # 1 = flat chroma, dither-eligible
+
+
+def _parse_residuals(bd: BoolDecoder, st: FrameState, mb: MBData,
+                     ctx_mb, ctx_left) -> bool:
+    """Decode all coefficients of one MB; updates nz contexts.
+
+    ctx_mb/ctx_left are 2-element lists [nz, nz_dc] for above/left context.
+    Returns True if the whole MB is empty (skippable).
+    """
+    probs = st.coeff_probs
+    q = st.dqm[mb.segment]
+    coeffs = np.zeros((25, 16), np.int32)
+    first = 0
+    if not mb.is_i4:
+        dc = np.zeros(16, np.int32)
+        ctx = ctx_mb[1] + ctx_left[1]
+        nz = _get_coeffs(bd, probs[1], ctx, (q.y2_dc, q.y2_ac), 0, dc)
+        ctx_mb[1] = ctx_left[1] = int(nz > 0)
+        if nz > 1:
+            coeffs[24] = dc
+            dcs = _iwht4x4(dc)
+        else:
+            dc0 = (int(dc[0]) + 3) >> 3
+            dcs = np.full(16, dc0, np.int32)
+        for i in range(16):
+            coeffs[i, 0] = dcs[i]
+        first = 1
+        ac_probs = probs[0]
+    else:
+        ac_probs = probs[3]
+
+    non_zero_y = 0
+    tnz = ctx_mb[0] & 0x0F
+    lnz = ctx_left[0] & 0x0F
+    for y in range(4):
+        l = lnz & 1
+        nz_coeffs = 0
+        for x in range(4):
+            ctx = l + (tnz & 1)
+            blk = coeffs[4 * y + x]
+            nz = _get_coeffs(bd, ac_probs, ctx, (q.y1_dc, q.y1_ac), first, blk)
+            l = int(nz > first)
+            tnz = (tnz >> 1) | (l << 7)
+            nz_coeffs = _nz_code_bits(nz_coeffs, nz, int(blk[0] != 0))
+        tnz >>= 4
+        lnz = (lnz >> 1) | (l << 7)
+        non_zero_y = (non_zero_y << 8) | nz_coeffs
+    out_t_nz = tnz
+    out_l_nz = lnz >> 4
+
+    non_zero_uv = 0
+    for ch in range(0, 4, 2):
+        nz_coeffs = 0
+        tnz = (ctx_mb[0] >> (4 + ch)) & 0xFF
+        lnz = (ctx_left[0] >> (4 + ch)) & 0xFF
+        for y in range(2):
+            l = lnz & 1
+            for x in range(2):
+                ctx = l + (tnz & 1)
+                blk = coeffs[16 + 2 * ch + 2 * y + x]
+                nz = _get_coeffs(bd, probs[2], ctx, (q.uv_dc, q.uv_ac), 0, blk)
+                l = int(nz > 0)
+                tnz = (tnz >> 1) | (l << 3)
+                nz_coeffs = _nz_code_bits(nz_coeffs, nz, int(blk[0] != 0))
+            tnz >>= 2
+            lnz = (lnz >> 1) | (l << 5)
+        non_zero_uv |= nz_coeffs << (4 * ch)
+        out_t_nz |= ((tnz << 4) << ch) & 0xFFFFFFFF
+        out_l_nz |= (lnz & 0xF0) << ch
+    ctx_mb[0] = out_t_nz
+    ctx_left[0] = out_l_nz
+
+    mb.coeffs = coeffs
+    mb.non_zero_y = non_zero_y
+    mb.non_zero_uv = non_zero_uv
+    # Dither only flat-chroma MBs: no uv block with coeffs beyond the
+    # first (mask 0xAAAA = code >= 2 bits).
+    mb.dither = 0 if (non_zero_uv & 0xAAAA) else 1
+    return (non_zero_y | non_zero_uv) == 0
+
+
+def mb_symbols(mbs) -> tuple[np.ndarray, np.ndarray]:
+    """Parsed MBs (raster order) → the native engine's arrays: int16
+    (N, 24, 16) dequantized raster coefficients (i16 luma DCs already
+    the inverse WHT's) and uint8 (N, 21) modes [is_i4, uvmode, segment,
+    skip, dither, imodes x16], as :func:`decode_vp8_symbols` gives them."""
+    n = len(mbs)
+    coeffs = np.zeros((n, 24, 16), np.int16)
+    modes = np.zeros((n, 21), np.uint8)
+    for i, mb in enumerate(mbs):
+        coeffs[i] = mb.coeffs[:24]
+        modes[i, :5] = (int(mb.is_i4), mb.uvmode, mb.segment, mb.skip,
+                        mb.dither)
+        modes[i, 5:] = mb.imodes
+    return coeffs, modes
 
 
 # ---------------------------------------------------------------------------
@@ -619,6 +852,7 @@ __all__ = [
     "decode_vp8_symbols",
     "decode_vp8_symbols_batch",
     "parse_frame_header",
+    "mb_symbols",
     "recon_vp8_yuv_host",
     "symbol_engine",
     "vp8_filter_params",

@@ -5,8 +5,10 @@ the native layer (entropy/native/vp8l_dec.cpp, GIL released) reads the
 prefix-code section, runs the per-pixel Huffman/LZ77/colour-cache loop
 and the inverse transforms, and repacks ARGB as RGBA.  The batch decode
 runs ``decode_vp8l`` in its host thread pool; ``decode_vp8l_alpha``
-decodes the 8-bit stream of an ALPH chunk.  Written from the lossless
-bitstream spec.
+decodes the 8-bit stream of an ALPH chunk.  ``VP8LIncrementalPixels`` is
+the incremental decoder's pixel loop, in Python: it stops where the bytes
+that have arrived end and resumes from a checkpoint when more come.
+Written from the lossless bitstream spec.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import numpy as np
 from ...constants import (
     COLOR_INDEXING_TRANSFORM,
     COLOR_TRANSFORM,
+    HASH_MUL,
     NUM_DISTANCE_CODES,
     NUM_LENGTH_CODES,
     NUM_LITERAL_CODES,
@@ -27,9 +30,11 @@ from ...constants import (
     VP8L_SIGNATURE,
 )
 from ...entropy.bitio import BitReader
+from ...entropy.huffman import HuffmanDecodeTable
 from ...entropy.native_loader import get_lib
 from ...errors import BitstreamError
 from . import transforms_np as tnp
+from .encoder import DIST_MAP
 
 
 def _ptr(a: np.ndarray, t):
@@ -96,6 +101,48 @@ def _decode_pixels(br: BitReader, width: int, height: int,
         raise BitstreamError(f"native vp8l decode failed (code {rc})")
     br.bit_pos = bit_out.value
     return out.reshape(height, width)
+
+
+def plane_code_to_distance(xsize: int, code: int) -> int:
+    if code > 120:
+        return code - 120
+    dx, dy = DIST_MAP[code - 1]
+    dist = dy * xsize + dx
+    return dist if dist >= 1 else 1
+
+
+def _read_prefix_coded_value(br: BitReader, code: int) -> int:
+    """Length/distance prefix decode: code → value (1-based)."""
+    if code < 4:
+        return code + 1
+    extra = (code - 2) >> 1
+    offset = (2 + (code & 1)) << extra
+    return offset + br.read_bits(extra) + 1
+
+
+class _PrefixTables:
+    """One meta group's five decode tables (green, red, blue, alpha,
+    distance), each built from its row of the native reader's code
+    lengths when first read."""
+
+    __slots__ = ("_tables", "_lengths")
+
+    def __init__(self, lengths: np.ndarray, alphabets: np.ndarray):
+        ends = np.cumsum(alphabets)
+        self._lengths = np.split(lengths, ends[:-1])
+        self._tables = [None] * 5
+
+    def _tab(self, i: int) -> HuffmanDecodeTable:
+        t = self._tables[i]
+        if t is None:
+            t = self._tables[i] = HuffmanDecodeTable(self._lengths[i])
+        return t
+
+    green = property(lambda self: self._tab(0))
+    red = property(lambda self: self._tab(1))
+    blue = property(lambda self: self._tab(2))
+    alpha = property(lambda self: self._tab(3))
+    dist = property(lambda self: self._tab(4))
 
 
 @dataclass
@@ -219,6 +266,148 @@ def _decode_image_stream(
     return _apply_inverse_transforms(argb, hdr.transforms)
 
 
+class VP8LIncrementalPixels:
+    """Resumable VP8L pixel loop for incremental decode.
+
+    Suspend and resume: a checkpoint (bit position, pixel position,
+    colour cache) is taken at every SYNC_ROWS-th row boundary; when the
+    reader runs off the end of the bytes that have arrived, the state
+    rolls back to the last checkpoint and decoding resumes from there
+    once more data arrives.  The prefix codes come from the header's
+    native code lengths (``hdr.lengths``), one lazily built set of tables
+    per meta group.
+    """
+
+    SYNC_ROWS = 8
+
+    def __init__(self, width: int, height: int, hdr: _StreamHeader,
+                 bit_pos: int):
+        self.width = hdr.cur_xsize
+        self.height = height
+        alphabets = _alphabets(hdr.cache_bits)
+        self.groups = [_PrefixTables(row, alphabets) for row in hdr.lengths]
+        self.huffman_image = hdr.huffman_image
+        self.huffman_bits = hdr.huffman_bits
+        self.cache_bits = hdr.cache_bits
+        self.transforms = hdr.transforms
+        self.npix = self.width * height
+        self.pixels = [0] * self.npix
+        self.cache = [0] * (1 << hdr.cache_bits) if hdr.cache_bits else None
+        self.pos = 0
+        self.x = 0
+        self.done = False
+        # (bit_pos, pos, x, cache snapshot)
+        self._ck = (bit_pos, 0, 0, list(self.cache) if self.cache else None)
+
+    def rows_ready(self) -> int:
+        return self._ck[1] // self.width if not self.done else self.height
+
+    def resume(self, data: bytes) -> bool:
+        """Continue from the last checkpoint over (possibly longer) data.
+
+        Returns True when the whole image has been decoded.
+        """
+        if self.done:
+            return True
+        br = BitReader(data)
+        br.bit_pos, self.pos, self.x, ck_cache = self._ck
+        if self.cache is not None:
+            self.cache = list(ck_cache)
+        width = self.width
+        npix = self.npix
+        pixels = self.pixels
+        cache = self.cache
+        cache_shift = 32 - self.cache_bits if self.cache_bits else 0
+        cache_limit = NUM_LITERAL_CODES + NUM_LENGTH_CODES
+        hufi = self.huffman_image
+        hbits = self.huffman_bits
+        meta_w = hufi.shape[1] if hufi is not None else 0
+        meta_idx = hufi.tolist() if hufi is not None else None
+        group = self.groups[0]
+        last_group_key = -1
+        next_sync = ((self.pos // width) // self.SYNC_ROWS + 1) * self.SYNC_ROWS
+
+        pos = self.pos
+        x = self.x
+        while pos < npix:
+            if hufi is not None:
+                key = (pos // width >> hbits) * meta_w + (x >> hbits)
+                if key != last_group_key:
+                    y = pos // width
+                    group = self.groups[meta_idx[y >> hbits][x >> hbits]]
+                    last_group_key = key
+            sym = group.green.decode(br)
+            if br.eos:
+                break
+            if sym < NUM_LITERAL_CODES:
+                red = group.red.decode(br)
+                blue = group.blue.decode(br)
+                alpha = group.alpha.decode(br)
+                if br.eos:
+                    break
+                argb = (alpha << 24) | (red << 16) | (sym << 8) | blue
+                pixels[pos] = argb
+                if cache is not None:
+                    cache[(HASH_MUL * argb & 0xFFFFFFFF) >> cache_shift] = argb
+                pos += 1
+                x += 1
+                if x >= width:
+                    x = 0
+            elif sym < cache_limit:
+                length = _read_prefix_coded_value(br, sym - NUM_LITERAL_CODES)
+                dist_code = group.dist.decode(br)
+                dist = plane_code_to_distance(
+                    width, _read_prefix_coded_value(br, dist_code)
+                )
+                if br.eos:
+                    break
+                if dist > pos:
+                    raise BitstreamError("backward reference before image start")
+                if pos + length > npix:
+                    raise BitstreamError("backward reference overflows image")
+                if cache is None:
+                    for _ in range(length):
+                        pixels[pos] = pixels[pos - dist]
+                        pos += 1
+                else:
+                    for _ in range(length):
+                        argb = pixels[pos - dist]
+                        pixels[pos] = argb
+                        cache[(HASH_MUL * argb & 0xFFFFFFFF)
+                              >> cache_shift] = argb
+                        pos += 1
+                x = pos % width
+                last_group_key = -1
+            else:
+                idx = sym - cache_limit
+                if cache is None or idx >= len(cache):
+                    raise BitstreamError("color cache symbol without cache")
+                pixels[pos] = cache[idx]
+                pos += 1
+                x += 1
+                if x >= width:
+                    x = 0
+            if x == 0 and pos // width >= next_sync:
+                self._ck = (br.bit_pos, pos, 0,
+                            list(cache) if cache is not None else None)
+                next_sync = (pos // width // self.SYNC_ROWS + 1) * self.SYNC_ROWS
+        self.pos = pos
+        self.x = x
+        if pos >= npix:
+            self.done = True
+            self._ck = (br.bit_pos, pos, x, None)
+            return True
+        # Starved mid-symbol: progress past the checkpoint is discarded
+        # (the next resume() rolls back to the checkpoint and redoes it).
+        return False
+
+    def partial_argb(self) -> np.ndarray:
+        """(rows_ready, cur_xsize) ARGB decoded so far (pre-inverse)."""
+        rows = self.rows_ready()
+        return np.array(self.pixels[: rows * self.width],
+                        np.uint32).reshape(rows, self.width)
+
+
 def decode_vp8l_header(payload: bytes) -> tuple[int, int, bool]:
     if len(payload) < 5 or payload[0] != VP8L_SIGNATURE:
         raise BitstreamError("bad VP8L header")
@@ -252,4 +441,5 @@ def decode_vp8l_alpha(payload: bytes, width: int, height: int) -> np.ndarray:
     return ((argb >> 8) & 0xFF).astype(np.uint8)   # alpha lives in green
 
 
-__all__ = ["decode_vp8l", "decode_vp8l_alpha", "decode_vp8l_header"]
+__all__ = ["VP8LIncrementalPixels", "decode_vp8l", "decode_vp8l_alpha",
+           "decode_vp8l_header", "plane_code_to_distance"]

@@ -1304,3 +1304,143 @@ def test_vp8l_predictor_stage1_table_is_uploaded_once(cuda):
     assert vpm.predictor_search_entropy.table_uploads == uploads
     assert vpm.stage1_device_table(cuda) is first
     assert np.array_equal(first.cpu().numpy(), vpm.stage1_kernel_table())
+
+
+def _packed(case, K, monkeypatch, dev):
+    """``case`` packed by the port's native pack at a forced K, as device
+    tensors."""
+    from gowebp_tpu_torch.ops import coeff_pack
+
+    monkeypatch.setattr(coeff_pack, "_choose_k", lambda *a: K)
+    packed, k = coeff_pack.pack_coeffs(*case)
+    assert k == K
+    return {key: torch.from_numpy(a).to(dev) for key, a in packed.items()}
+
+
+@pytest.mark.parametrize("K", [4, 8, 16])
+@pytest.mark.parametrize("B,mb_h,mb_w", [(2, 3, 5), (1, 1, 5), (1, 5, 1),
+                                         (1, 1, 1), (3, 7, 9)])
+def test_unpack_coeffs_kernel_matches_plain(cuda, monkeypatch, K, B, mb_h,
+                                            mb_w):
+    """Tails, exceptions (levels past int8, non-exact divisions) and i16
+    DC lanes: the kernel == the plain version == the dense input."""
+    from gowebp_tpu_torch.ops.kernels.coeff_unpack import (
+        unpack_coeffs, unpack_coeffs_plain)
+
+    case = _chip_smoke().coeff_case(B * 100 + mb_h * 10 + mb_w, B, mb_h,
+                                    mb_w)
+    packed = _packed(case, K, monkeypatch, cuda)
+    assert packed["exc_idx"].numel() > 0
+    before = unpack_coeffs.launches
+    got = unpack_coeffs(packed)
+    torch.cuda.synchronize()
+    assert unpack_coeffs.launches == before + 1
+    want = unpack_coeffs_plain({k: t.cpu() for k, t in packed.items()})
+    assert torch.equal(got.cpu(), want)
+    assert np.array_equal(want.numpy(), case[0])
+
+
+def test_unpack_coeffs_kernel_drops_padding_and_reads_unaligned_levels(
+        cuda, monkeypatch):
+    """Table rows padded with index nblocks (and -nblocks - 1) are
+    skipped, as the reference's mode="drop"; a level buffer off its K
+    alignment takes the kernel's byte loads."""
+    from gowebp_tpu_torch.ops.kernels.coeff_unpack import (
+        unpack_coeffs, unpack_coeffs_plain)
+
+    case = _chip_smoke().coeff_case(7, 2, 4, 3)
+    for K in (4, 8, 16):
+        packed = _packed(case, K, monkeypatch, cuda)
+        nblocks = 2 * 12 * 24
+        for key, fill in (("tail", nblocks), ("exc", -nblocks - 1)):
+            idx, val = packed[key + "_idx"], packed[key + "_val"]
+            packed[key + "_idx"] = torch.cat(
+                [idx, torch.full((5,), fill, dtype=idx.dtype, device=cuda)])
+            packed[key + "_val"] = torch.cat(
+                [val, torch.full((5,) + val.shape[1:], 9, dtype=val.dtype,
+                                 device=cuda)])
+        lv8 = packed["lv8"]
+        raw = torch.empty(lv8.numel() + 1, dtype=torch.int8, device=cuda)
+        raw[1:] = lv8.reshape(-1)
+        packed["lv8"] = raw[1:].view(lv8.shape)
+        got = unpack_coeffs(packed)
+        want = unpack_coeffs_plain({k: t.cpu() for k, t in packed.items()})
+        assert torch.equal(got.cpu(), want)
+        assert np.array_equal(want.numpy(), case[0])
+
+
+def test_unpack_coeffs_rejects_bad_tensors(cuda, monkeypatch):
+    from gowebp_tpu_torch.ops.kernels.coeff_unpack import unpack_coeffs
+
+    packed = _packed(_chip_smoke().coeff_case(3, 1, 2, 2), 8, monkeypatch,
+                     cuda)
+    for key, bad in (("lv8", packed["lv8"].to(torch.int16)),
+                     ("dc16", packed["dc16"][:, :1]),
+                     ("tail_val", packed["tail_val"][:, :4]),
+                     ("qmat", packed["qmat"].to(torch.int64)),
+                     ("seg", packed["seg"].cpu())):
+        with pytest.raises((TypeError, ValueError)):
+            unpack_coeffs({**packed, key: bad})
+    with pytest.raises(ValueError):
+        unpack_coeffs({k: v for k, v in packed.items() if k != "exc_val"})
+
+
+def test_batch_decode_launches_unpack_once_a_group(cuda):
+    """The batch decode's device groups go through unpack_coeffs (one a
+    group); the single-file decode uploads dense and launches none."""
+    from gowebp_tpu_torch import decode, decode_rgba_batch
+    from gowebp_tpu_torch.ops.kernels.coeff_unpack import unpack_coeffs
+
+    datas = _mixed_files()
+    before = unpack_coeffs.launches
+    timings = {}
+    got = decode_rgba_batch(datas, device="cuda", timings=timings)
+    assert unpack_coeffs.launches == before + 4     # 2 sizes x ALPH or not
+    assert timings["h2d_bytes"] > 0 and "unpack" in timings["stage_ms"]
+    before = unpack_coeffs.launches
+    for d, g in zip(datas, got):
+        assert np.array_equal(decode(d, device="cuda"), g)
+    assert unpack_coeffs.launches == before
+
+
+def test_incremental_decoder_gpu_equals_cpu(cuda):
+    """IncrementalDecoder(device="cuda"): the same states, rows and
+    partial outputs as device="cpu", chunk by chunk; each partial lossy
+    call launches recon_filter_mb and yuv420_to_rgba once."""
+    from gowebp_tpu_torch import IncrementalDecoder
+    from gowebp_tpu_torch.ops.kernels.vp8_recon import recon_filter_mb
+    from gowebp_tpu_torch.ops.kernels.yuv420_to_rgba import yuv420_to_rgba
+
+    files = _single_files()
+    for name in ("lossy", "alph", "vp8l"):
+        data = files[name]
+        a, b = IncrementalDecoder(device="cuda"), IncrementalDecoder(
+            device="cpu")
+        for i in range(0, len(data), 97):
+            assert a.append(data[i:i + 97]) == b.append(data[i:i + 97])
+            assert a.rows_decoded == b.rows_decoded
+            if a.state != "done" and a.rows_decoded and name != "vp8l":
+                before = (recon_filter_mb.launches, yuv420_to_rgba.launches)
+                pa = a.get_partial_output()
+                after = (recon_filter_mb.launches, yuv420_to_rgba.launches)
+                assert [y - x for x, y in zip(before, after)] == [1, 1]
+            else:
+                pa = a.get_partial_output()
+            pb = b.get_partial_output()
+            assert (pa is None) == (pb is None)
+            assert pa is None or np.array_equal(pa, pb)
+        assert a.state == "done"
+        assert np.array_equal(a.get_output(), b.get_output())
+
+
+def test_picture_rescale_gpu_equals_cpu(cuda):
+    from gowebp_tpu_torch import picture_rescale
+    from gowebp_tpu_torch.utils.corpus import natural_image
+
+    rgb = natural_image(45, 61, seed=4)
+    rgba = np.dstack([rgb, _alpha_plane(45, 61)])
+    for img in (rgb, rgba):
+        for w, h in ((30, 0), (0, 90), (17, 13), (128, 96)):
+            got = picture_rescale(img, w, h, device="cuda")
+            want = picture_rescale(img, w, h, device="cpu")
+            assert got.shape == want.shape and np.array_equal(got, want)

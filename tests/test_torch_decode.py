@@ -245,8 +245,8 @@ def test_decode_batch_matches_jax():
     assert all(isinstance(d, torch.Tensor) for d in dev)
     for d, w in zip(dev, want):
         np.testing.assert_array_equal(d.numpy(), np.asarray(w))
-    assert set(timings["stage_ms"]) == {"h2d", "idct", "recon", "filter",
-                                        "yuv420_to_rgba"}
+    assert set(timings["stage_ms"]) == {"h2d", "unpack", "idct", "recon",
+                                        "filter", "yuv420_to_rgba"}
 
 
 def test_decode_batch_spreads_over_engine_calls():

@@ -92,11 +92,12 @@ def test_mixed_batch_matches_jax(jax_rgba):
     for g, w in zip(got, jax_rgba):
         assert isinstance(g, np.ndarray) and g.dtype == np.uint8
         np.testing.assert_array_equal(g, w)
-    for k in ("symbols_s", "alpha_s", "vp8l_s"):
+    for k in ("symbols_s", "alpha_s", "vp8l_s", "pack_s"):
         assert timings[k] > 0
     assert "recon_host_s" not in timings
-    assert set(timings["stage_ms"]) == {"h2d", "idct", "recon", "filter",
-                                        "yuv420_to_rgba", "d2h"}
+    assert set(timings["stage_ms"]) == {"h2d", "unpack", "idct", "recon",
+                                        "filter", "yuv420_to_rgba", "d2h"}
+    assert timings["h2d_bytes"] > 0
 
 
 @pytest.mark.parametrize("threads", [1, 2])

@@ -126,6 +126,15 @@ def test_image_hints(hint, kind):
     _assert_same(img, image_hint=hint)
 
 
+def test_out_of_range_image_hint_is_not_validated():
+    """Neither package range-checks ``image_hint`` (the reference's
+    ``validate`` has no such check): hint 9 encodes, with the same
+    bytes."""
+    JConfig(lossless=True, image_hint=9).validate()
+    EncoderConfig(lossless=True, image_hint=9).validate()
+    assert _assert_same(_image(40, 52, seed=5), image_hint=9)
+
+
 @pytest.mark.parametrize("quality,method", [(75, 4), (95, 6), (30, 4)])
 @pytest.mark.parametrize("n", [2, 4, 16, 64, 65, 256])
 def test_palettes(n, quality, method):

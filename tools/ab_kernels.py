@@ -75,6 +75,17 @@ Needs a CUDA card and nvcc.  KERNEL is one of:
     download included).  The mode maps of every call, of stage 1 and of
     the pair must equal the first run's.
 
+``decode``
+    The batch decode end to end, as ``chip_smoke.py`` phases 6 and 6b
+    run it: the 32 hybrid files of ``natural_images(32, 1024, 1024,
+    seed=7)`` at q75 (encoded on the card by this checkout), and those
+    files with phase 6b's 4 lossy + ALPH and 4 VP8L files from Pillow,
+    through ``decode_rgba_batch(device="cuda")``: MP/s of the median of 5
+    calls after a warm-up (host clock, pixels back in host memory;
+    ``hybrid_mps``, ``mixed_mps``), and the stage split and h2d bytes of
+    one more call (``*_timings``: the checkout's own ``timings``).  Every
+    run's pixels must equal the first run's (SHA-256 of each image).
+
 ``vp8_recon``
     The decode's recon and loop filter on the decode path's inputs for
     the 32 hybrid files of ``natural_images(32, 1024, 1024, seed=7)`` at
@@ -303,6 +314,33 @@ torch.cuda.synchronize()
 torch.save({k: t.cpu() for k, t in out.items()}, sys.argv[2])
 print(json.dumps(row))
 """,
+    "decode": r"""
+import hashlib
+
+from gowebp_tpu_torch import decode_rgba_batch
+
+out, row = {}, {}
+for name in ("hybrid", "mixed"):
+    files = [bytes(t.numpy()) for t in saved[name]]
+    got = decode_rgba_batch(files, device="cuda")
+    out[name] = torch.tensor([list(hashlib.sha256(g.tobytes()).digest())
+                              for g in got], dtype=torch.uint8)
+    mp = sum(g.shape[0] * g.shape[1] for g in got) / 1e6
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decode_rgba_batch(files, device="cuda")
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    row[name + "_mps"] = mp / statistics.median(times)
+    row[name + "_mps_min_max"] = [mp / max(times), mp / min(times)]
+    timings = {}
+    decode_rgba_batch(files, device="cuda", timings=timings)
+    row[name + "_timings"] = timings
+torch.save(out, sys.argv[2])
+print(json.dumps(row))
+""",
     "vp8_recon": r"""
 from gowebp_tpu_torch.ops.kernels import vp8_recon as kvr
 
@@ -407,7 +445,25 @@ def vp8l_predictor_inputs(chip_smoke, dev, images) -> dict:
                 chip_smoke.soft_alpha_image(images[12])))}
 
 
+def decode_inputs(chip_smoke, dev, images) -> dict:
+    import torch
+
+    from gowebp_tpu_torch import encode_rgba_batch
+
+    files = encode_rgba_batch(images, quality=75.0, device="cuda")
+    alpha, lossless = chip_smoke.mixed_decode_files(images)
+    mixed = list(files)
+    for k, data in enumerate(alpha + lossless):
+        mixed.insert(5 * k + 2, data)
+
+    def t(d):
+        return torch.frombuffer(bytearray(d), dtype=torch.uint8)
+
+    return {"hybrid": [t(d) for d in files], "mixed": [t(d) for d in mixed]}
+
+
 INPUTS = {"wavefront_search": wavefront_search_inputs,
+          "decode": decode_inputs,
           "encode_plane": encode_plane_inputs,
           "encode_rgba": encode_rgba_inputs,
           "vp8_recon": vp8_recon_inputs,
