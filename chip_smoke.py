@@ -65,12 +65,16 @@ Phases (any failure raises and exits non-zero; no result is printed):
      symbols of those 32 files packed at K = 4, 8 and 16 and at the K the
      pack chooses, of 4 files at q100 (levels past int8: exception rows),
      of 16 smooth files at q95, of synthetic coefficients with non-exact
-     divisions at B=4 1024x1024, and on odd MB grids (1x5, 5x1, 1x1); its
-     ptxas report (no stack or spills allowed); timed (ms, device_ms) on
-     the 32 files at the chosen K; and, for the K choice, the group's h2d
-     bytes and ms (host clock: the buffer's fill and its copy) and the
-     unpack's device time at each K on the 32 files and the q95 set,
-     beside the dense upload's; and (3h) predictor_search_entropy against its
+     divisions at B=4 1024x1024, and on odd MB grids (1x5, 5x1, 1x1);
+     against unpack_coeffs_plain on tables whose rows sit at the one
+     kernel's CTA edges (unpack_case); each call one kernel launch (the
+     wrapper's count and the library's); its ptxas report with shared
+     memory (no stack or spills allowed); timed (ms, device_ms) on the
+     32 files at the chosen K; for the K choice, the group's h2d bytes
+     and ms (host clock: the buffer's fill and its copy) and the unpack's
+     device time at each K on the 32 files and the q95 set, beside the
+     dense upload's; and a tail row's device ns (K=4 with and without
+     its tail rows); and (3h) predictor_search_entropy against its
      plain version, mode maps equal: the lossless encode's own inputs for
      corpus image 12 (1024x1024, with and without subtract-green) at bits
      3, 4 and 5 with refine_iters 0, 2 and 4, odd sizes with partial edge
@@ -1264,6 +1268,62 @@ def coeff_case(seed, B, mb_h, mb_w, exceptions: bool = True):
     return (coeffs.astype(np.int16), seg, is_i4, qmat)
 
 
+# (kind, B, N) of unpack_case: B * N * 24 a multiple of the kernel's 768
+# blocks a CTA (3 x 64) or not (2 x 37), one MB (1 x 1), a large batch.
+UNPACK_CASES = (("none", 2, 37), ("all", 2, 37), ("edges", 2, 37),
+                ("edges", 3, 64), ("ends", 1, 1), ("ends", 2, 37),
+                ("random", 4, 4096))
+
+
+def unpack_case(kind, K, B, N, seed):
+    """A packed dict for ``unpack_coeffs`` made directly, not by a pack,
+    whose tables put rows where the kernel's CTA ranges (``BLOCKS_PER_CTA``
+    blocks) meet, as numpy arrays.  ``kind``: "none" (no table rows),
+    "all" (a tail row for every block, exceptions at the range edges),
+    "edges" (tails and exceptions on the first and last block of every
+    range), "ends" (rows only on the batch's first and last blocks, the
+    last by index -1; the first block takes both), "random" (30% tailed,
+    2% exceptions).  Levels, tail levels, DC lanes and exception rows are
+    random, segment ids run to 5 (above 3 takes segment 0's row) and
+    quantizers to 2047, so products pass int16 (the cut).  At K=16 the
+    tail rows are there and ignored, as the reference ignores them."""
+    import numpy as np
+
+    from gowebp_tpu_torch.ops.kernels.coeff_unpack import BLOCKS_PER_CTA
+
+    rng = np.random.default_rng(seed)
+    nb = B * N * 24
+    starts = np.arange(0, nb, BLOCKS_PER_CTA)
+    edges = np.unique(np.concatenate([starts, starts - 1, [nb - 1]]))
+    edges = edges[(edges >= 0) & (edges < nb)]
+    ends = np.array(sorted({0, nb - 1}))
+    blocks = np.arange(nb)
+    tails, excs = {
+        "none": (blocks[:0], blocks[:0]),
+        "all": (blocks, edges),
+        "edges": (edges, edges),
+        "ends": (ends, ends[:1]),
+        "random": (blocks[rng.random(nb) < 0.3],
+                   blocks[rng.random(nb) < 0.02]),
+    }[kind]
+    tail_idx = tails.astype(np.int32)
+    if kind == "ends":
+        tail_idx[-1] -= nb                     # the last block as -1
+    tw = max(1, 16 - K)
+    return {
+        "lv8": rng.integers(-128, 128, (B, N, 24, K)).astype(np.int8),
+        "dc16": rng.integers(-2 ** 15, 2 ** 15, (B, N, 16)).astype(np.int16),
+        "tail_idx": tail_idx,
+        "tail_val": rng.integers(-128, 128, (len(tails), tw)).astype(np.int8),
+        "exc_idx": excs.astype(np.int32),
+        "exc_val": rng.integers(-2 ** 15, 2 ** 15,
+                                (len(excs), 16)).astype(np.int16),
+        "seg": rng.integers(0, 6, (B, N)).astype(np.uint8),
+        "is_i4": rng.integers(0, 2, (B, N)).astype(np.uint8),
+        "qmat": rng.integers(1, 2048, (B, 4, 6)).astype(np.int32),
+    }
+
+
 def filter_lines(fparams, filter_type: int) -> int:
     """Pixel lines across an edge that this data filters: per MB with
     limit >= 0, its left and top MB edges inside the frame and, where it
@@ -1471,10 +1531,15 @@ def check_unpack(dev, files, tag):
     coefficients, bit for bit: the 32 files' symbols at K = 4, 8, 16 and
     the chosen K; 4 files at q100 (exception rows: levels past int8) and
     16 smooth files at q95; synthetic coefficients with non-exact
-    divisions at B=4 1024x1024 and on odd grids; the ptxas report; timed
-    on the 32 files at the chosen K; the K choice's costs on the 32 files
-    and the q95 set.  → (kernel rows, the 32 files' records, their pack
-    at the chosen K, the costs)."""
+    divisions at B=4 1024x1024 and on odd grids; ``unpack_case``'s tables
+    at the kernel's CTA edges against the plain version; each call one
+    kernel launch (the wrapper's count and the library's); the ptxas
+    report; timed on the 32 files at the chosen K; the K choice's costs
+    on the 32 files and the q95 set, and a tail row's cost (K=4 with and
+    without its tail rows).  → (kernel rows, the 32 files' records, their
+    pack at the chosen K, the costs)."""
+    import re
+
     import numpy as np
     import torch
 
@@ -1486,19 +1551,25 @@ def check_unpack(dev, files, tag):
 
     err = 0
 
+    lib = cum.LIBRARY.load()
+
     def check(packed, dense, what):
+        """``dense`` None: against the plain version alone."""
         nonlocal err
         wire = {k: torch.from_numpy(v).to(dev) for k, v in packed.items()}
-        before = cum.unpack_coeffs.launches
+        before = (cum.unpack_coeffs.launches,
+                  lib.unpack_coeffs_kernel_launches())
         got = cum.unpack_coeffs(wire)
         torch.cuda.synchronize()
-        if cum.unpack_coeffs.launches != before + 1:
-            raise AssertionError("unpack_coeffs: not one call")
-        want = torch.from_numpy(np.ascontiguousarray(dense)).to(dev)
+        if (cum.unpack_coeffs.launches - before[0],
+                lib.unpack_coeffs_kernel_launches() - before[1]) != (1, 1):
+            raise AssertionError("unpack_coeffs: not one kernel launch")
         plain = cum.unpack_coeffs_plain(wire)
         e = max_abs_err({"c": got}, {"c": plain}, "c")
         err = max(err, e)
-        if not (torch.equal(got, plain) and torch.equal(got, want)):
+        same = torch.equal(got, plain) and (dense is None or torch.equal(
+            got, torch.from_numpy(np.ascontiguousarray(dense)).to(dev)))
+        if not same:
             raise AssertionError(f"unpack_coeffs != plain or dense ({what}, "
                                  f"max |err| {e})")
         log(f"unpack_coeffs {what}: bit-exact ({len(packed['tail_idx'])} "
@@ -1511,8 +1582,9 @@ def check_unpack(dev, files, tag):
         with forced_k(K):
             check(_pack_group(recs)[0], dense,
                   f"B={len(recs)} 1024x1024 hybrid files, K={K}")
-    packed, K = _pack_group(recs)
-    wire = check(packed, dense, f"B={len(recs)} hybrid files, chosen K={K}")
+    packed, chosen_k = _pack_group(recs)
+    wire = check(packed, dense,
+                 f"B={len(recs)} hybrid files, chosen K={chosen_k}")
 
     t0 = time.perf_counter()
     q100 = encode_rgba_batch(list(natural_images(4, 1024, 1024, seed=11)),
@@ -1538,17 +1610,38 @@ def check_unpack(dev, files, tag):
             with forced_k(K):
                 p, _ = coeff_pack.pack_coeffs(*case)
             check(p, case[0], f"synthetic B={b_} {16 * h_}x{16 * w_}, K={K}")
+    for seed, (kind, b_, n_) in enumerate(UNPACK_CASES):
+        for K in (4, 8, 16):
+            check(unpack_case(kind, K, b_, n_, seed), None,
+                  f"table case {kind!r} B={b_} N={n_} ({b_ * n_ * 24} "
+                  f"blocks), K={K}")
 
+    smem = re.findall(r"Compiling entry function '(\S*unpack_\S*)'.*?"
+                      r"Used \d+ registers.*?(\d+) bytes smem",
+                      cum.LIBRARY.ptxas_log, re.S)
     for fn, regs, stack, st_, ld_ in ptxas_report(cum.LIBRARY.ptxas_log,
                                                   "unpack_"):
-        log(f"ptxas {fn}: {regs} registers, {stack} bytes stack, "
-            f"{st_}/{ld_} bytes spill stores/loads")
+        shared = dict(smem).get(fn, "?")
+        log(f"ptxas {fn}: {regs} registers, {shared} bytes shared, {stack} "
+            f"bytes stack, {st_}/{ld_} bytes spill stores/loads")
         if stack or st_ or ld_:
             raise AssertionError("unpack_coeffs: a stack frame or spills")
 
     costs = {"hybrid": k_costs(dev, recs, "32 hybrid files", tag),
              "smooth_q95": k_costs(dev, decode_recs(smooth),
                                    "16 smooth q95 files", tag)}
+    # a tail row's cost: the K=4 pack against itself with no tail rows
+    with forced_k(4):
+        p4 = {k: torch.from_numpy(v).to(dev)
+              for k, v in _pack_group(recs)[0].items()}
+    bare = dict(p4, tail_idx=p4["tail_idx"][:0], tail_val=p4["tail_val"][:0])
+    full_ms = queued_ms(lambda: cum.unpack_coeffs(p4), reps=20)[0]
+    bare_ms = queued_ms(lambda: cum.unpack_coeffs(bare), reps=20)[0]
+    ntail = len(p4["tail_idx"])
+    costs["hybrid"]["tail_row_ns"] = (full_ms - bare_ms) * 1e6 / ntail
+    log(f"unpack_coeffs, 32 hybrid files at K=4: {full_ms:.4f} ms on the "
+        f"device with its {ntail} tail rows, {bare_ms:.4f} ms without them: "
+        f"{costs['hybrid']['tail_row_ns']:.4f} ns a tail row {tag}")
     B, N = dense.shape[:2]
     rows = len(packed["tail_idx"]) + len(packed["exc_idx"])
     nbytes = sum(t.numel() * t.element_size() for t in wire.values()) \
@@ -1562,7 +1655,7 @@ def check_unpack(dev, files, tag):
     cum.unpack_coeffs_plain(wire)
     t1.record()
     t1.synchronize()
-    log(f"unpack_coeffs bound at B={B}, K={K}: "
+    log(f"unpack_coeffs bound at B={B}, K={chosen_k}: "
         f"{nbytes / PEAK_BYTES_PER_S * 1e3:.4f} ms by bytes ({nbytes} bytes: "
         f"the packed buffers read once, 768 a MB written), "
         f"{ops / int32_peak()[0] * 1e3:.4f} ms by operations ({ops})")

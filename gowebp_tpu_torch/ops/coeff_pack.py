@@ -39,11 +39,12 @@ from ..entropy.native_loader import get_lib
 _ZZ = np.array([0, 1, 4, 8, 5, 2, 3, 6, 9, 12, 13, 10, 7, 11, 14, 15],
                np.int32)
 
-# Wire-byte equivalents charged per table row for the unpack's scattered
-# writes.  On an H100 80GB HBM3 (700 W) a tail row costs the unpack
-# kernel ~0.2 ns of device time, a wire byte the group's upload (the
+# Wire-byte equivalents charged per table row for the unpack's work on
+# it.  On an H100 80GB HBM3 (700 W) a tail row costs the unpack kernel
+# ~0.01 ns of device time (the kernel with and without the 32 hybrid
+# files' 926,381 tail rows at K=4), a wire byte the group's upload (the
 # host buffer's fill and the pageable h2d copy) 0.5-0.65 ns: a row is
-# worth under a third of a byte, so K goes by wire bytes alone
+# worth under a fiftieth of a byte, so K goes by wire bytes alone
 # (chip_smoke.py phase 3i, PERF.md).
 _ROW_COST = 0
 

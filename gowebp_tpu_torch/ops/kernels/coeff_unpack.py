@@ -4,7 +4,7 @@ binding and its plain version.
 ``unpack_coeffs`` turns the packed wire layout of ops/coeff_pack.py
 (``pack_coeffs``), as device tensors, into the dense (B, N, 24, 16) int16
 raster coefficients that ``recon_filter_mb`` reads.  On CUDA tensors it
-launches the kernels in ``coeff_unpack.cu`` (replacing the XLA
+launches the one kernel of ``coeff_unpack.cu`` (replacing the XLA
 ``unpack_coeffs`` of gowebp_tpu/ops/coeff_pack.py); on CPU tensors it
 runs ``unpack_coeffs_plain``.
 
@@ -20,6 +20,15 @@ Layout (the dict's keys; T tail rows, E exception rows):
 A table index is read as the reference's scatter reads it: a negative
 one counts from the end, and one outside the B * N * 24 blocks then is
 skipped (``mode="drop"``); a segment id above 3 takes segment 0's row.
+
+The kernel takes its tables in block order (``in_block_order``): each
+CTA of ``BLOCKS_PER_CTA`` blocks finds its rows by searching the tables.
+The packs emit them so (one pass in block order, images in order), and
+so are the reference's padded tables.  The kernel checks the order as it
+reads the rows and traps on a table out of order: the error shows at the
+caller's next synchronizing call (``torch.cuda.synchronize()``, a copy
+to the host), as a CUDA launch failure.  ``unpack_coeffs_plain`` takes
+the rows in any order, as the reference's scatter does.
 """
 
 from __future__ import annotations
@@ -36,11 +45,17 @@ KEYS = ("lv8", "dc16", "tail_idx", "tail_val", "exc_idx", "exc_val", "seg",
         "is_i4", "qmat")
 
 
+# Blocks a CTA of the kernel owns (kThreads x kPer in coeff_unpack.cu).
+BLOCKS_PER_CTA = 768
+
+
 def _configure(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.unpack_coeffs_launch.restype = ctypes.c_int
     lib.unpack_coeffs_launch.argtypes = [p, p, p, p, i, p, p, i, p, p, p, i,
                                          i, i, p, p]
+    lib.unpack_coeffs_kernel_launches.restype = ctypes.c_ulonglong
+    lib.unpack_coeffs_kernel_launches.argtypes = []
 
 
 LIBRARY = CudaLibrary("coeff_unpack.cu", _configure)
@@ -85,6 +100,16 @@ def _wrapped(idx, nblocks: int):
     return torch.where((idx >= 0) & (idx < nblocks), idx, -1)
 
 
+def in_block_order(idx, nblocks: int) -> bool:
+    """The kernel's contract for a table's indices: keys (the block an
+    index names as ``_wrapped`` reads it, ``nblocks`` for a dropped row)
+    strictly increasing, so dropped rows come after every valid one."""
+    key = _wrapped(idx, nblocks)
+    key = torch.where(key < 0, nblocks, key)
+    step = key[1:] - key[:-1]
+    return bool(((step > 0) | (key[1:] == nblocks)).all())
+
+
 def unpack_coeffs_plain(packed):
     """Plain torch version of the kernel (any device), in the reference's
     order: tails into the levels, the multiply, the i16 DC lanes, the
@@ -122,8 +147,9 @@ def unpack_coeffs_plain(packed):
 def unpack_coeffs(packed):
     """Kernel on CUDA tensors, plain version on CPU tensors → (B, N, 24,
     16) int16 raster coefficients.  ``unpack_coeffs.launches`` counts the
-    calls on CUDA: each runs the dense kernel, then the tail and
-    exception kernels where their tables have rows."""
+    kernel's launches, one a call on CUDA (none for no blocks).  On CUDA
+    the tables must be in block order (``in_block_order``; the kernel
+    traps otherwise, see the module's note)."""
     dev = packed["lv8"].device
     if dev.type == "cpu":
         return unpack_coeffs_plain(packed)
@@ -134,6 +160,8 @@ def unpack_coeffs(packed):
         check_tensor(k, packed[k], packed[k].dtype, packed[k].shape, dev)
     lib = LIBRARY.load()
     out = torch.empty((B, N, 24, 16), dtype=I16, device=dev)
+    if out.numel() == 0:
+        return out
     ptr = {k: packed[k].data_ptr() for k in KEYS}
     err = lib.unpack_coeffs_launch(
         ptr["lv8"], ptr["dc16"], ptr["tail_idx"], ptr["tail_val"],
@@ -149,4 +177,5 @@ def unpack_coeffs(packed):
 
 unpack_coeffs.launches = 0
 
-__all__ = ["LIBRARY", "unpack_coeffs", "unpack_coeffs_plain"]
+__all__ = ["BLOCKS_PER_CTA", "LIBRARY", "in_block_order", "unpack_coeffs",
+           "unpack_coeffs_plain"]

@@ -211,3 +211,237 @@ def test_decode_batch_matches_reference_on_a_mixed_batch():
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, np.asarray(w))
     assert timings["h2d_bytes"] > 0 and timings["pack_s"] > 0
+
+
+# --- the kernel's contract: tables in block order, and its CTA spans ---
+
+from gowebp_tpu_torch.ops.kernels import coeff_unpack as cum  # noqa: E402
+
+_CU = (Path(cum.__file__).parent / "coeff_unpack.cu").read_text()
+
+
+def _cu_int(name):
+    import re
+
+    return int(re.search(rf"constexpr int {name} = (\d+);", _CU).group(1))
+
+
+def _in_order(idx, nblocks):
+    return cum.in_block_order(torch.from_numpy(np.asarray(idx, np.int32)),
+                              nblocks)
+
+
+@pytest.mark.parametrize("K", [4, 8, 16])
+@pytest.mark.parametrize("name", list(CASES))
+def test_packs_emit_tables_in_block_order(monkeypatch, name, K):
+    """The native pack (image by image, ``pack_images``), its numpy
+    version and the reference's padded tables, across image boundaries:
+    every table in block order under the wrapped key."""
+    _force_k(monkeypatch, K)
+    c = _case(name)
+    nblocks = c[0].shape[0] * c[0].shape[1] * 24
+    ours, _ = ppack.pack_coeffs(*c)
+    images, _ = ppack.pack_images(*(list(a) for a in c))
+    plain, _ = ppack.pack_coeffs_plain(*c)
+    ref, _, _ = jpack.pack_coeffs(*c)
+    for packed in (ours, images, plain, ref):
+        for key in ("tail_idx", "exc_idx"):
+            assert _in_order(packed[key], nblocks), key
+    assert len(ref["tail_idx"]) > len(ours["tail_idx"])   # padded
+    np.testing.assert_array_equal(images["tail_idx"], ours["tail_idx"])
+
+
+@pytest.mark.parametrize("quality", [5, 75, 100])
+def test_pack_of_real_symbols_in_block_order(quality):
+    """The decode's pack of a group (``_pack_group``: one image at a time)
+    on files of the JAX encoder keeps both tables in block order."""
+    from gowebp_tpu_torch.decode import _pack_group
+
+    rng = np.random.default_rng(quality + 1)
+    datas = [gowebp_tpu.encode_rgba(
+        rng.integers(0, 256, (33, 47, 3)).astype(np.uint8), quality=quality)
+        for _ in range(3)]
+    recs = _chip_smoke().decode_recs(datas)
+    packed, _ = _pack_group(recs)
+    nblocks = 3 * recs[0][2].shape[0] * 24
+    assert _in_order(packed["tail_idx"], nblocks)
+    assert _in_order(packed["exc_idx"], nblocks)
+
+
+@pytest.mark.parametrize("idx,ok", [
+    ([], True), ([5], True), ([0, 1, 2, 23], True), ([0, 23, 24, 24], True),
+    ([0, -1], True), ([3, -20, 24, -25, 99], True), ([0, 0], False),
+    ([2, 1], False), ([0, 24, 5], False), ([-1, 5], False),
+    ([3, -25, 4], False)])
+def test_in_block_order_accepts_and_rejects(idx, ok):
+    """24 blocks: keys strictly increasing (negative indices from the
+    end), dropped rows (24, -25, 99) only after every valid one."""
+    assert _in_order(idx, 24) is ok
+
+
+def _lower_bound(keys, x):
+    """coeff_unpack.cu lower_bound: 32 probes cut [lo, hi) into 33."""
+    lo, hi = 0, len(keys)
+    while lo < hi:
+        n = hi - lo
+        ge = keys[lo + n * np.arange(1, 33) // 33] >= x
+        f = int(np.argmax(ge)) if ge.any() else 32
+        lo, hi = (lo + n * f // 33 + 1 if f > 0 else lo,
+                  lo + n * (f + 1) // 33 if f < 32 else hi)
+    return lo
+
+
+def _keys(idx, nblocks):
+    k = cum._wrapped(torch.from_numpy(np.asarray(idx, np.int32)), nblocks)
+    return np.where(k.numpy() < 0, nblocks, k.numpy())
+
+
+def _kernel_model(packed, base=0):
+    """The kernel's rows as coeff_unpack.cu finds them, in numpy: each CTA
+    of kThreads x kPer blocks searches its spans, checks them, and stages
+    its tail levels from the 16-byte boundary below the span (``base``:
+    the tail table's address mod 16) → the coefficients, or None where
+    the kernel traps."""
+    lv8 = np.asarray(packed["lv8"])
+    B, N, _, K = lv8.shape
+    nb, R, tw = B * N * 24, _cu_int("kThreads") * _cu_int("kPer"), 16 - K
+    tk = _keys(packed["tail_idx"], nb) if K < 16 else np.zeros(0, np.int64)
+    ek = _keys(packed["exc_idx"], nb)
+    if (tk[_lower_bound(tk, nb):] != nb).any() or \
+            (ek[_lower_bound(ek, nb):] != nb).any():
+        return None
+    lv = np.zeros((nb, 16), np.int64)
+    lv[:, :K] = lv8.reshape(nb, K)
+    mem = np.zeros(base + max(1, tk.size * tw) + 32, np.int8)
+    if K < 16:
+        mem[base:base + tk.size * tw] = np.asarray(
+            packed["tail_val"]).reshape(-1)
+    exc = np.full(nb, -1)
+    for g0 in range(0, nb, R):
+        g1 = min(g0 + R, nb)
+        spans = []
+        for keys in (tk, ek):
+            s0, s1 = _lower_bound(keys, g0), _lower_bound(keys, g1)
+            if s1 < s0 or s1 - s0 > g1 - g0:
+                return None
+            k = keys[s0:s1]
+            if ((k < g0) | (k >= g1)).any() or (np.diff(k) <= 0).any():
+                return None
+            spans.append((s0, s1, k))
+        (t0, t1, k), (e0, _, ke) = spans
+        if t1 > t0:
+            a = base + t0 * tw
+            off = a % 16
+            n16 = -(-(off + (t1 - t0) * tw) // 16)
+            assert n16 * 16 <= R * tw + 16              # s_tv's size
+            stage = mem[a - off:a - off + n16 * 16]
+            for s, g in enumerate(k):
+                lv[g, K:] = stage[off + s * tw:off + (s + 1) * tw]
+        exc[ke] = e0 + np.arange(len(ke))
+    seg = np.asarray(packed["seg"]).astype(np.int64)
+    seg = np.where(seg < 4, seg, 0)
+    rows = np.asarray(packed["qmat"]).astype(np.int64)[
+        np.arange(B)[:, None], seg].reshape(B * N, 6)
+    luma = np.tile(np.arange(24) < 16, B * N)
+    mb = np.arange(nb) // 24
+    q_dc = np.where(luma, rows[mb, 0], rows[mb, 4])
+    q_ac = np.where(luma, rows[mb, 1], rows[mb, 5])
+    zz = lv * np.where(np.arange(16) == 0, q_dc[:, None], q_ac[:, None])
+    i16 = luma & (np.asarray(packed["is_i4"]).reshape(-1)[mb] == 0)
+    dc = np.asarray(packed["dc16"]).reshape(B * N, 16)
+    zz[i16, 0] = dc[mb[i16], np.arange(nb)[i16] % 24]
+    has = exc >= 0
+    zz[has] = np.asarray(packed["exc_val"])[exc[has]]
+    out = np.empty_like(zz)
+    out[:, list(cum.ZIGZAG)] = zz
+    return out.astype(np.int16).reshape(B, N, 24, 16)
+
+
+def _plain(packed):
+    return unpack_coeffs_plain({k: torch.from_numpy(np.asarray(v))
+                                for k, v in packed.items()}).numpy()
+
+
+def test_kernel_model_constants_match_the_source():
+    assert cum.BLOCKS_PER_CTA == _cu_int("kThreads") * _cu_int("kPer")
+    assert "s_tv[K < 16 ? kRange * TW + 16 : 16]" in _CU
+    assert len(_chip_smoke().UNPACK_CASES) == 7     # test_torch_cuda.py's
+
+
+@pytest.mark.parametrize("base", [0, 4, 13])
+@pytest.mark.parametrize("K", [4, 8, 16])
+@pytest.mark.parametrize("case", range(7))
+def test_kernel_model_table_cases(case, K, base):
+    """chip_smoke.UNPACK_CASES (the card tests' and phase 3i's tables at
+    the CTA edges) through the kernel's spans, staged from a table 0, 4
+    or 13 bytes past a 16-byte boundary: == the plain version."""
+    cs = _chip_smoke()
+    kind, B, N = cs.UNPACK_CASES[case]
+    packed = cs.unpack_case(kind, K, B, N, case)
+    assert _in_order(packed["tail_idx"], B * N * 24)
+    np.testing.assert_array_equal(_kernel_model(packed, base), _plain(packed))
+
+
+@pytest.mark.parametrize("K", [4, 8, 16])
+@pytest.mark.parametrize("name", list(CASES))
+def test_kernel_model_packs(monkeypatch, name, K):
+    """The port's pack and the reference's padded one through the kernel's
+    spans: the dense coefficients."""
+    _force_k(monkeypatch, K)
+    c = _case(name)
+    for packed in (ppack.pack_coeffs(*c)[0], jpack.pack_coeffs(*c)[0]):
+        np.testing.assert_array_equal(_kernel_model(packed, 12), c[0])
+
+
+def _disorder(packed, how, nblocks):
+    p = {k: np.array(v) for k, v in packed.items()}
+    t, e = p["tail_idx"], p["exc_idx"]
+    if how == "swap_adjacent":
+        t[[3, 4]] = t[[4, 3]]
+    elif how == "swap_far":
+        t[[0, -1]] = t[[-1, 0]]
+    elif how == "duplicate":
+        t[5] = t[4]
+    elif how == "dropped_then_valid":
+        t[-2] = nblocks
+    elif how == "negative_early":
+        t[0] = -1
+    elif how == "shuffled":
+        np.random.default_rng(0).shuffle(t)
+    elif how == "exc_swapped":
+        e[[1, 2]] = e[[2, 1]]
+    elif how == "exc_duplicate":
+        e[-1] = e[-2]
+    return p
+
+
+@pytest.mark.parametrize("how", ["swap_adjacent", "swap_far", "duplicate",
+                                 "dropped_then_valid", "negative_early",
+                                 "shuffled", "exc_swapped",
+                                 "exc_duplicate"])
+def test_kernel_model_traps_on_tables_out_of_order(how):
+    """Any table out of block order makes some CTA trap (the kernel's
+    checks), never a silent result; the same tables in order do not."""
+    cs = _chip_smoke()
+    B, N = 3, 64
+    packed = cs.unpack_case("random", 4, B, N, 1)
+    bad = _disorder(packed, how, B * N * 24)
+    key = "exc_idx" if how.startswith("exc") else "tail_idx"
+    assert not _in_order(bad[key], B * N * 24)
+    assert _kernel_model(bad) is None
+    assert _kernel_model(packed) is not None
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_lower_bound_finds_the_first_key_at_or_above(seed):
+    """On sorted keys it is numpy's searchsorted; on any keys it keeps
+    key[t - 1] < x <= key[t], the invariant the kernel's checks rest on."""
+    rng = np.random.default_rng(seed)
+    for n in (0, 1, 2, 32, 33, 34, 1000, 40000):
+        keys = np.sort(rng.integers(0, 50000, n))
+        mixed = rng.integers(0, 50000, n)
+        for x in (0, 1, 25000, 49999, 50000, *rng.integers(0, 50000, 8)):
+            assert _lower_bound(keys, x) == np.searchsorted(keys, x)
+            t = _lower_bound(mixed, x)
+            assert t == 0 or mixed[t - 1] < x
+            assert t == n or mixed[t] >= x

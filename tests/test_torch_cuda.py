@@ -1369,6 +1369,73 @@ def test_unpack_coeffs_kernel_drops_padding_and_reads_unaligned_levels(
         assert np.array_equal(want.numpy(), case[0])
 
 
+@pytest.mark.parametrize("K", [4, 8, 16])
+@pytest.mark.parametrize("case", range(7))
+def test_unpack_coeffs_kernel_table_cases(cuda, case, K):
+    """Tables at the kernel's CTA edges (chip_smoke.UNPACK_CASES: no rows,
+    every block tailed, rows on every range's first and last block, rows
+    only on the batch's first and last blocks, a block with both, blocks
+    not a multiple of a CTA's, one MB): the kernel == the plain version,
+    one launch by the wrapper's count and by the library's."""
+    from gowebp_tpu_torch.ops.kernels.coeff_unpack import (
+        LIBRARY, unpack_coeffs, unpack_coeffs_plain)
+
+    cs = _chip_smoke()
+    kind, B, N = cs.UNPACK_CASES[case]
+    packed = {k: torch.from_numpy(a).to(cuda)
+              for k, a in cs.unpack_case(kind, K, B, N, case).items()}
+    lib = LIBRARY.load()
+    before = (unpack_coeffs.launches, lib.unpack_coeffs_kernel_launches())
+    got = unpack_coeffs(packed)
+    torch.cuda.synchronize()
+    assert unpack_coeffs.launches == before[0] + 1
+    assert lib.unpack_coeffs_kernel_launches() == before[1] + 1
+    want = unpack_coeffs_plain({k: t.cpu() for k, t in packed.items()})
+    assert torch.equal(got.cpu(), want)
+
+
+_DISORDERED = r"""
+import sys
+import torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+from gowebp_tpu_torch.ops.kernels.coeff_unpack import (in_block_order,
+                                                       unpack_coeffs)
+p = {k: torch.from_numpy(a) for k, a in
+     chip_smoke.unpack_case("random", 4, 2, 37, 0).items()}
+how, nb = sys.argv[2], 2 * 37 * 24
+if how == "swapped":
+    p["tail_idx"][[3, 4]] = p["tail_idx"][[4, 3]].clone()
+elif how == "duplicate":
+    p["exc_idx"][1] = p["exc_idx"][0]
+else:                               # a valid row after a dropped one
+    p["tail_idx"][-2] = nb
+assert not in_block_order(p["exc_idx" if how == "duplicate" else "tail_idx"],
+                          nb)
+unpack_coeffs({k: t.cuda() for k, t in p.items()})
+try:
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("trapped:", e)
+else:
+    print("silent")
+"""
+
+
+@pytest.mark.parametrize("how", ["swapped", "duplicate", "dropped_first"])
+def test_unpack_coeffs_kernel_traps_on_tables_out_of_order(cuda, how):
+    """A table out of block order stops the kernel: the next synchronize
+    raises (in a process of its own: the trap ends its CUDA context)."""
+    import subprocess
+    import sys
+
+    root = Path(__file__).resolve().parent.parent
+    proc = subprocess.run([sys.executable, "-c", _DISORDERED, str(root), how],
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.startswith("trapped:"), proc.stdout
+
+
 def test_unpack_coeffs_rejects_bad_tensors(cuda, monkeypatch):
     from gowebp_tpu_torch.ops.kernels.coeff_unpack import unpack_coeffs
 

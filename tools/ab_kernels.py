@@ -86,6 +86,18 @@ Needs a CUDA card and nvcc.  KERNEL is one of:
     one more call (``*_timings``: the checkout's own ``timings``).  Every
     run's pixels must equal the first run's (SHA-256 of each image).
 
+``unpack_coeffs``
+    The batch decode's sparse coefficient unpack on ``chip_smoke.py``
+    phase 3i's packed inputs, made once by this checkout's pack: the 32
+    hybrid files of ``natural_images(32, 1024, 1024, seed=7)`` at q75
+    (encoded on the card) packed at K = 4, 8 and 16 (``k4``, ``k8``,
+    ``k16``), the K=4 pack without its tail rows (``k4_bare``: a tail
+    row's cost is ``(k4 - k4_bare)`` over the rows), and 16 smooth q95
+    files (``chip_smoke.smooth_images``) at their chosen K=4 (``q95``).
+    Times each as one call (``*_ms``, median of 20 after a warm-up) and
+    as the device time of a launch (``*_device_ms``, median of 5 means of
+    50 queued calls); every run's coefficients must equal the first's.
+
 ``vp8_recon``
     The decode's recon and loop filter on the decode path's inputs for
     the 32 hybrid files of ``natural_images(32, 1024, 1024, seed=7)`` at
@@ -341,6 +353,22 @@ for name in ("hybrid", "mixed"):
 torch.save(out, sys.argv[2])
 print(json.dumps(row))
 """,
+    "unpack_coeffs": r"""
+from gowebp_tpu_torch.ops.kernels import coeff_unpack as cum
+
+cum.LIBRARY.load()
+out, row = {}, {}
+for name, packed in saved.items():
+    wire = {k: t.to(dev) for k, t in packed.items()}
+    call = lambda w=wire: cum.unpack_coeffs(w)
+    out[name] = call()
+    row[name + "_ms"] = time_ms(call, 20)
+    row[name + "_device_ms"] = queued_ms(call)
+    row[name + "_tail_rows"] = len(packed["tail_idx"])
+torch.cuda.synchronize()
+torch.save({k: t.cpu() for k, t in out.items()}, sys.argv[2])
+print(json.dumps(row))
+""",
     "vp8_recon": r"""
 from gowebp_tpu_torch.ops.kernels import vp8_recon as kvr
 
@@ -462,10 +490,34 @@ def decode_inputs(chip_smoke, dev, images) -> dict:
     return {"hybrid": [t(d) for d in files], "mixed": [t(d) for d in mixed]}
 
 
+def unpack_coeffs_inputs(chip_smoke, dev, images) -> dict:
+    import torch
+
+    from gowebp_tpu_torch import encode_rgba_batch
+    from gowebp_tpu_torch.decode import _pack_group
+
+    def packed(recs, K):
+        with chip_smoke.forced_k(K):
+            p, k = _pack_group(recs)
+        assert K is None or k == K
+        return {name: torch.from_numpy(a) for name, a in p.items()}
+
+    recs = chip_smoke.decode_recs(
+        encode_rgba_batch(images, quality=75.0, device="cuda"))
+    out = {f"k{K}": packed(recs, K) for K in (4, 8, 16)}
+    out["k4_bare"] = dict(out["k4"], tail_idx=out["k4"]["tail_idx"][:0],
+                          tail_val=out["k4"]["tail_val"][:0])
+    smooth = encode_rgba_batch(chip_smoke.smooth_images(16, 1024, 1024, 5),
+                               quality=95.0, device="cuda")
+    out["q95"] = packed(chip_smoke.decode_recs(smooth), None)
+    return out
+
+
 INPUTS = {"wavefront_search": wavefront_search_inputs,
           "decode": decode_inputs,
           "encode_plane": encode_plane_inputs,
           "encode_rgba": encode_rgba_inputs,
+          "unpack_coeffs": unpack_coeffs_inputs,
           "vp8_recon": vp8_recon_inputs,
           "vp8l_predictor": vp8l_predictor_inputs}
 
