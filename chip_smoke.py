@@ -7,13 +7,15 @@ Phases (any failure raises and exits non-zero; no result is printed):
   1. the card's name and power limit (nvidia-smi), the int32 ceiling the
      bounds use (SMs x 64 int32 operations a clock x the max SM clock),
      torch and CUDA versions;
-  2. build the thirteen CUDA kernels from the eight ops/kernels/*.cu
+  2. build the fourteen CUDA kernels from the nine ops/kernels/*.cu
      sources (one nvcc each, in parallel; encode_plane.cu gives the two
-     plane kernels and their two modes-only forms, wavefront_search.cu the
-     exact engine and its trellis form, vp8_recon.cu the decode's
-     recon_filter_mb, coeff_unpack.cu the batch decode's unpack_coeffs,
-     vp8l_predictor.cu the lossless encode's predictor_search_entropy)
-     and print the build time and ptxas register report;
+     plane kernels, their two modes-only forms and their halo forms,
+     wavefront_search.cu the exact engine, its trellis form and its stripe
+     form, vp8_recon.cu the decode's recon_filter_mb and its stripe form,
+     coeff_unpack.cu the batch decode's unpack_coeffs, vp8l_predictor.cu
+     the lossless encode's predictor_search_entropy, vp8l_inverse.cu the
+     sharded lossless inverse's predictor_inverse) and print the build
+     time and ptxas register report;
   3. hold each kernel against its plain torch version on the card, bit for
      bit, at the main paths' full shapes, and time each with CUDA events,
      two ways: one call alone (ms, the wrapper's host time included) and
@@ -194,6 +196,19 @@ Phases (any failure raises and exits non-zero; no result is printed):
      each: the image as RGBA with phase 8c's soft alpha and exact=True
      (round trip), method 6 at q95 (6 chooser calls, timed) and
      near_lossless=60 (the port's decode == Pillow's);
+  10. (run after 8d) parallel/: the sharded steps' inputs at full size
+     (B=32 1024x1024 planes and decode symbols, one 4096x4096 image and
+     its hybrid file, 8 lossless images at bits 4); each halo or stripe
+     form against its plain version run on the same card tensors and the
+     joined shards against its kernel's unsharded form (the plain
+     versions' seconds and each form's device ms beside the no-halo
+     form's on the same shard printed), predictor_inverse
+     against its plain version and the source words (timed: ms,
+     device_ms, bound); the five sharded steps in a one-rank NCCL job
+     (counts reset just before and read just after, as the "parallel"
+     path: every kernel of the path must launch) and in a two-rank gloo
+     job on cuda:0 (halos staged through host memory, the bytes
+     printed), whose full tensors must equal the unsharded calls';
   9. the kernels' JSON line (each kernel's launches on its own path, and
      on every path driven in ``launches_by_path``; ``ms`` one call alone
      and ``device_ms`` the device time of a launch, both from phase 3),
@@ -329,6 +344,7 @@ SOURCES = {
     "unpack_coeffs": "gowebp_tpu_torch/ops/kernels/coeff_unpack.cu",
     "predictor_search_entropy":
         "gowebp_tpu_torch/ops/kernels/vp8l_predictor.cu",
+    "predictor_inverse": "gowebp_tpu_torch/ops/kernels/vp8l_inverse.cu",
 }
 REPLACES = {
     "i4_search": "gowebp_tpu/ops/pallas/i4_search.py:286",
@@ -358,6 +374,9 @@ REPLACES = {
                                  "pallas_call)"),
     "unpack_coeffs": ("gowebp_tpu/ops/coeff_pack.py:260 unpack_coeffs (XLA, "
                       "no pallas_call)"),
+    "predictor_inverse": ("gowebp_tpu/ops/lossless_jax.py:363 "
+                          "predictor_inverse (XLA, no pallas_call), with :39 "
+                          "add_green_inverse"),
 }
 
 
@@ -935,14 +954,15 @@ def check_wavefront_search(dev, inputs):
 
 def search_form(name: str) -> str:
     """The form of a wavefront_search_kernel instance, from its mangled
-    name's two template flags (kI4, kTrellis)."""
+    name's template flags (kI4, kTrellis, and kStripe where it is set)."""
     import re
 
-    m = re.search(r"ILb([01])ELb([01])E", name)
+    m = re.search(r"ILb([01])ELb([01])E(?:Lb([01])E)?", name)
     if not m:
         return name
-    return (f"try_i4={'True' if m[1] == '1' else 'False'}, "
+    form = (f"try_i4={'True' if m[1] == '1' else 'False'}, "
             f"trellis={'True' if m[2] == '1' else 'False'}")
+    return form + (", stripe=True" if m[3] == "1" else "")
 
 
 def search_plain_counted(args, rate, lams=None):
@@ -2573,6 +2593,544 @@ def incremental_decode(dev, data, full, small, reset_counts, read_counts,
         "three target sizes)")
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: parallel/ (the sharded steps)
+# ---------------------------------------------------------------------------
+
+# The sharded steps' kernels: each must launch in the one-rank job.
+PARALLEL_KERNELS = ("encode_luma", "encode_chroma", "wavefront_search",
+                    "recon_filter_mb", "predictor_inverse")
+# predictor_inverse (ops/kernels/vp8l_inverse.cu), per pixel: the mode's
+# load and decode (3), the chosen predictor (the 14 average some 15
+# operations: modes 0-4 none, an avg2 5, Select ~30, the clamped ones
+# ~36-41), the byte-wise add (7), the add-green epilogue (8) and the
+# address and ring bookkeeping (~7).
+OPS_VP8L_INVERSE_PIXEL = 40
+
+
+def mosaic(images, n: int):
+    """An n x n mosaic of same-shaped images."""
+    import numpy as np
+
+    return np.concatenate([np.concatenate(images[r * n:(r + 1) * n], 1)
+                           for r in range(n)], 0)
+
+
+def lossless_case(dev, images, bits: int, seed: int):
+    """The lossless inverse's inputs for RGB images: each image's
+    subtract-green words as residuals of a random per-tile predictor map
+    (the encoder's forward transforms, ops/lossless.py) → (residuals
+    (B, h, w) int32, the (th, tw) mode image, the source words)."""
+    import numpy as np
+    import torch
+
+    from gowebp_tpu_torch.ops import lossless as L
+    from gowebp_tpu_torch.ops.kernels.vp8l_inverse import to_bits
+
+    words = torch.from_numpy(np.stack([rgb_words(im) for im in images]).astype(
+        np.int64)).to(dev)
+    B, h, w = words.shape
+    g = (words >> 8) & 255
+    sg = ((words & 0xFF00FF00) | ((((words >> 16) - g) & 255) << 16)
+          | ((words - g) & 255))
+    th, tw = -(-h // (1 << bits)), -(-w // (1 << bits))
+    modes = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, 14, (th, tw))).to(dev)
+    per_px = modes[torch.arange(h, device=dev) >> bits][
+        :, torch.arange(w, device=dev) >> bits]
+    res = torch.empty_like(sg)
+    for b in range(B):
+        pred = torch.zeros_like(sg[b])
+        for m in range(14):
+            pred = torch.where(per_px == m, L.predict_plane(sg[b], m), pred)
+        res[b] = L._sub_pixels(sg[b], pred)
+    mode_img = to_bits((modes << 8) | 0xFF000000)
+    return to_bits(res), mode_img, to_bits(words)
+
+
+def parallel_inputs(dev, images=None, files=None, small: bool = False):
+    """The sharded steps' inputs, at the sizes their users give them, or
+    (``small``) at a few MBs for the card tests:
+      plane: the 32 corpus images' MB-padded planes (B=32 1024x1024), q75;
+      wavefront: one 4096x4096 image, a 4x4 mosaic of corpus images (its
+        planes, segments, quantizers, penalties and cost tables, q75);
+      recon_frame: that image's q75 file from the port's hybrid batch
+        encode: its symbols (the complex filter; one token partition of
+        some 1.6 MB, which the batch symbol decoder reads with one lane);
+      recon_step: the 32 hybrid files' symbols (B=32 1024x1024);
+      lossless: 8 corpus images' words as residuals of a bits-4 map.
+    Every tensor on ``dev``."""
+    import torch
+
+    from gowebp_tpu_torch import encode_rgba_batch
+    from gowebp_tpu_torch.models.vp8.encoder import make_quants, quality_to_q
+    from gowebp_tpu_torch.utils.corpus import natural_images
+
+    n = 2 if small else 4
+    if small:
+        images = list(natural_images(4, 64, 96, seed=3))
+        files = encode_rgba_batch(images, quality=75.0, device=dev)
+    q = make_quants(quality_to_q(75.0))
+    plane = chunk_inputs(dev, images)
+    out = {"plane": {k: plane[k].contiguous() for k in "yuv"},
+           "quants": {k: getattr(q, k).q for k in (
+               "y1_dc", "y1_ac", "y2_dc", "y2_ac", "uv_dc", "uv_ac")}}
+    big = mosaic(images[:n * n], n)
+    wf = chunk_inputs(dev, [big])
+    out["wavefront"] = {k: wf[k].contiguous() for k in (
+        "y", "u", "v", "seg", "qsteps", "pens")}
+    out["tables"] = tuple(wf["tables"])
+    out["use_derr"] = bool(wf["use_derr"])
+    for name, fs in (("recon_frame", encode_rgba_batch(
+            [big], quality=75.0, device=dev)), ("recon_step", files)):
+        coeffs, modes, fp, ftype, mw, mh = recon_symbols(dev, fs)
+        out[name] = {"coeffs": coeffs, "is_i4": modes[..., 0].contiguous(),
+                     "imodes": modes[..., 2:].contiguous(),
+                     "uvmode": modes[..., 1].contiguous(), "fparams": fp}
+        out[name + "_grid"] = (mw, mh, ftype)
+    res, mode_img, words = lossless_case(dev, images[:4 if small else 8], 4,
+                                         seed=19)
+    out["lossless"] = {"residuals": res, "mode_img": mode_img}
+    out["words"] = words
+    return out
+
+
+def unsharded_results(inputs):
+    """Each step's outputs from the unsharded entry points."""
+    from gowebp_tpu_torch.ops.encode_plane import encode_plane_core_v2
+    from gowebp_tpu_torch.ops.kernels.vp8_recon import (pack_modes,
+                                                        recon_filter_mb)
+    from gowebp_tpu_torch.ops.kernels.wavefront_search import (
+        search_tables, wavefront_search)
+    from gowebp_tpu_torch.ops.lossless import predictor_inverse
+
+    p, wf = inputs["plane"], inputs["wavefront"]
+    out = {"plane": encode_plane_core_v2(p["y"], p["u"], p["v"],
+                                         **inputs["quants"])}
+    out["wavefront"] = wavefront_search(
+        *(wf[k] for k in ("y", "u", "v", "seg", "qsteps", "pens")),
+        search_tables(inputs["tables"]), try_i4=True,
+        use_derr=inputs["use_derr"], want_recon=False)
+    for name in ("recon_frame", "recon_step"):
+        a = inputs[name]
+        mw, mh, ftype = inputs[name + "_grid"]
+        out[name] = dict(zip("YUV", recon_filter_mb(
+            a["coeffs"], pack_modes(a["is_i4"], a["imodes"], a["uvmode"]),
+            a["fparams"], mw, mh, ftype)))
+    a = inputs["lossless"]
+    out["lossless"] = {"out": predictor_inverse(a["residuals"], a["mode_img"],
+                                                4, add_green=True)}
+    return out
+
+
+def sharded_results(mesh, inputs):
+    """Each step through its gowebp_tpu_torch.parallel.shard function on
+    ``mesh``; the full tensors (every rank calls: collectives)."""
+    from gowebp_tpu_torch.parallel import shard
+
+    p, wf = inputs["plane"], inputs["wavefront"]
+    out = {"plane": shard.sharded_encode_plane_step(
+        mesh, p["y"], p["u"], p["v"], quants=inputs["quants"])}
+    out["wavefront"] = shard.sharded_wavefront_encode(
+        mesh, *(wf[k] for k in ("y", "u", "v", "seg", "qsteps")),
+        inputs["tables"], try_i4=True, i4_penalty=wf["pens"],
+        use_derr=inputs["use_derr"])
+    for name, fn in (("recon_frame", shard.sharded_recon_frame),
+                     ("recon_step", shard.sharded_recon_step)):
+        a = inputs[name]
+        mw, mh, ftype = inputs[name + "_grid"]
+        out[name] = dict(zip("YUV", fn(
+            mesh, *(a[k] for k in ("coeffs", "is_i4", "imodes", "uvmode",
+                                   "fparams")),
+            mb_w=mw, mb_h=mh, filter_type=ftype)))
+    a = inputs["lossless"]
+    out["lossless"] = {"out": shard.sharded_lossless_inverse(
+        mesh, a["residuals"], a["mode_img"], bits=4)}
+    return {step: {k: shard.full_tensor(t) for k, t in d.items()}
+            for step, d in out.items()}
+
+
+def parallel_digests(results):
+    """{step: {output: sha256 of its bytes}}."""
+    import hashlib
+
+    return {step: {k: hashlib.sha256(
+        t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
+        for k, t in sorted(d.items())} for step, d in results.items()}
+
+
+def run_parallel_job(inputs, n: int, workdir) -> dict:
+    """The sharded steps in an ``n``-rank gloo job of worker processes,
+    every rank on cuda:0 (gloo takes no device tensors point to point, so
+    the halos are staged through host memory); each worker is this script
+    with ``--parallel-worker``.  Returns rank 0's digests, the bytes the
+    ranks staged and each rank's launches of the halo and stripe forms."""
+    import os
+    import socket
+
+    import torch
+
+    workdir = Path(workdir)
+    workdir.mkdir(parents=True, exist_ok=True)
+    torch.save(_to(inputs, "cpu"), workdir / "in.pt")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--parallel-worker",
+         str(r), str(n), str(port), str(workdir)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, OMP_NUM_THREADS="1")) for r in range(n)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"parallel worker {r} rc={p.returncode}:\n"
+                                 f"{o[-4000:]}")
+    ranks = [json.loads((workdir / f"rank{r}.json").read_text())
+             for r in range(n)]
+    return {"digests": ranks[0]["digests"],
+            "staged_bytes": sum(r["staged_bytes"] for r in ranks),
+            "launches": [r["launches"] for r in ranks],
+            "seconds": max(r["seconds"] for r in ranks)}
+
+
+def _to(tree, dev):
+    """``tree`` (dicts, tuples, tensors, plain values) with every tensor
+    on ``dev``."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_to(v, dev) for v in tree)
+    return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
+
+
+def parallel_worker(rank: int, n: int, port: int, workdir) -> int:
+    """One rank of run_parallel_job: a gloo process group on cuda:0, the
+    (1, n) mesh, the five sharded steps; writes rank{rank}.json."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from gowebp_tpu_torch.ops.kernels import encode_plane as epm
+    from gowebp_tpu_torch.ops.kernels import vp8_recon as kvr
+    from gowebp_tpu_torch.ops.kernels import wavefront_search as wsm
+    from gowebp_tpu_torch.parallel import shard
+    from gowebp_tpu_torch.parallel.mesh import make_mesh
+
+    workdir = Path(workdir)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=n, rank=rank)
+    try:
+        mesh = make_mesh(n, data=1, tile=n, device="cuda")
+        inputs = _to(torch.load(workdir / "in.pt"), dev)
+        t0 = time.perf_counter()
+        results = sharded_results(mesh, inputs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        info = {"staged_bytes": shard.send_halo.staged_bytes
+                + shard.recv_halo.staged_bytes, "seconds": seconds,
+                "launches": {
+                    "encode_luma_halo": epm.encode_luma.halo_launches,
+                    "encode_chroma_halo": epm.encode_chroma.halo_launches,
+                    "wavefront_search_stripe": wsm.wavefront_search
+                    .stripe_launches,
+                    "recon_filter_mb_stripe": kvr.recon_filter_mb
+                    .stripe_launches},
+                "digests": parallel_digests(results) if rank == 0 else None}
+        (workdir / f"rank{rank}.json").write_text(json.dumps(info))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def plain_timed(fn):
+    """(``fn()``, its seconds on the card, synchronized)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def halo_device_ms(name: str, halo, no_halo, tag: str) -> None:
+    """Logs the device ms of a launch of a halo or stripe form beside the
+    no-halo form's on the same shard (queued_ms, a few launches)."""
+    h = queued_ms(halo, reps=5, rounds=3)[0]
+    n = queued_ms(no_halo, reps=5, rounds=3)[0]
+    log(f"{name}: {h:.4f} ms a launch on the device, the no-halo form on "
+        f"the same shard {n:.4f} ms ({h / n - 1:+.1%}) {tag}")
+
+
+def check_halo_forms(inputs, want, tag: str) -> None:
+    """Holds each halo or stripe form's wrapper output against its plain
+    version run on the same CUDA tensors (bit-exact), and the shards
+    joined against the unsharded kernels' outputs ``want``: the plane
+    kernels on the 32 planes in 2 width tiles, wavefront_search and
+    recon_filter_mb on the 4096x4096 image in 2 MB-row stripes (the
+    recon's rows written back).  Since the joined shards equal the
+    unsharded calls, those calls are held against the plain versions on
+    these inputs too.  Logs the plain versions' seconds and each form's
+    device ms beside the no-halo form's on the same shard."""
+    import torch
+
+    from gowebp_tpu_torch.ops.kernels import encode_plane as epm
+    from gowebp_tpu_torch.ops.kernels import vp8_recon as kvr
+    from gowebp_tpu_torch.ops.kernels import wavefront_search as wsm
+
+    def same(name, got, plain):
+        keys = list(plain)
+        if set(got) != set(keys):
+            raise AssertionError(f"{name}: outputs {sorted(got)} against "
+                                 f"the plain version's {sorted(keys)}")
+        err = max_abs_err(got, plain, keys)
+        if err or not all(torch.equal(got[k], plain[k]) for k in keys):
+            raise AssertionError(f"{name} != its plain version (max |err| "
+                                 f"{err})")
+
+    # the plane kernels: 2 width tiles, the right one with the left's
+    # last columns as its halo
+    p = inputs["plane"]
+    B, H, W = p["y"].shape
+    c = W // 2
+    lq, y2q, cq = plane_quants(75.0)
+    tiles = [{k: t[:, :, a:b].contiguous() for k, t, a, b in (
+        ("y", p["y"], lo, hi), ("u", p["u"], lo // 2, hi // 2),
+        ("v", p["v"], lo // 2, hi // 2))} for lo, hi in ((0, c), (c, W))]
+    halos = [None, {k: p[k][:, :, (c if k == "y" else c // 2) - 1]
+                    .contiguous() for k in "yuv"}]
+    luma_keys, chroma_keys = ("ymode", "y_levels", "y2_levels"), (
+        "uvmode", "uv_levels")
+    parts, plain_s = [], 0.0
+    for t, hl in zip(tiles, halos):
+        yh = None if hl is None else hl["y"]
+        uvh = None if hl is None else (hl["u"], hl["v"])
+        got = dict(zip(luma_keys, epm.encode_luma(t["y"], lq, y2q, halo=yh)))
+        got.update(zip(chroma_keys, epm.encode_chroma(t["u"], t["v"], cq,
+                                                      halo=uvh)))
+        (pl, pc), s = plain_timed(lambda: (
+            epm.encode_luma_plain(t["y"], lq, y2q, halo=yh),
+            epm.encode_chroma_plain(t["u"], t["v"], cq, halo=uvh)))
+        plain_s += s
+        same("encode_luma/encode_chroma" + (" halo form" if hl else ""),
+             got, {**dict(zip(luma_keys, pl)), **dict(zip(chroma_keys, pc))})
+        parts.append(got)
+    err = max_abs_err({k: torch.cat([q[k] for q in parts], 2)
+                       for k in want["plane"]}, want["plane"],
+                      list(want["plane"]))
+    if err:
+        raise AssertionError(f"plane halo forms != unsharded (max |err| "
+                             f"{err})")
+    log(f"encode_luma/encode_chroma halo forms: B={B} {H}x{W} in 2 width "
+        f"tiles == their plain versions on the card (plain {plain_s:.1f} s) "
+        f"and == the unsharded kernels")
+    t, hl = tiles[1], halos[1]
+    halo_device_ms("encode_luma halo form",
+                   lambda: epm.encode_luma(t["y"], lq, y2q, halo=hl["y"]),
+                   lambda: epm.encode_luma(t["y"], lq, y2q), tag)
+    halo_device_ms("encode_chroma halo form",
+                   lambda: epm.encode_chroma(t["u"], t["v"], cq,
+                                             halo=(hl["u"], hl["v"])),
+                   lambda: epm.encode_chroma(t["u"], t["v"], cq), tag)
+
+    # the exact wavefront: 2 MB-row stripes, the lower with the upper's
+    # edge as its halo
+    wf = inputs["wavefront"]
+    rate = wsm.search_tables(inputs["tables"])
+    H, W = wf["y"].shape[1:]
+    kw = dict(try_i4=True, use_derr=inputs["use_derr"])
+    stripes = [[wf[k][:, a * s // 16:b * s // 16].contiguous()
+                for k, s in (("y", 16), ("u", 8), ("v", 8), ("seg", 1))]
+               + [wf["qsteps"], wf["pens"], rate]
+               for a, b in ((0, H // 2), (H // 2, H))]
+    parts, above, plain_s = [], None, 0.0
+    for args in stripes:
+        out, edge = wsm.wavefront_search_stripe(*args, **kw, above=above)
+        (pout, pedge), s = plain_timed(
+            lambda: wsm.wavefront_search_stripe_plain(*args, **kw,
+                                                      above=above))
+        plain_s += s
+        same("wavefront_search" + (" stripe form" if above else ""),
+             {**out, **dict(zip("yuvd", edge))},
+             {**pout, **dict(zip("yuvd", pedge))})
+        parts.append(out)
+        halo, above = above, edge
+    err = max_abs_err({k: torch.cat([o[k] for o in parts], 1)
+                       for k in want["wavefront"]}, want["wavefront"],
+                      list(want["wavefront"]))
+    if err:
+        raise AssertionError(f"wavefront_search stripe form != unsharded "
+                             f"(max |err| {err})")
+    log(f"wavefront_search stripe form: one {H}x{W} image in 2 MB-row "
+        f"stripes == its plain version on the card (plain {plain_s:.1f} s) "
+        f"and == one unsharded launch")
+    halo_device_ms("wavefront_search stripe form",
+                   lambda: wsm.wavefront_search_stripe(*stripes[1], **kw,
+                                                       above=halo),
+                   lambda: wsm.wavefront_search_stripe(*stripes[1], **kw),
+                   tag)
+
+    # the decode recon + loop filter: 2 MB-row stripes, the lower with the
+    # upper's edge, sending the upper's last 3 rows back
+    a = inputs["recon_frame"]
+    mw, mh, ftype = inputs["recon_frame_grid"]
+    modes = kvr.pack_modes(a["is_i4"], a["imodes"], a["uvmode"])
+    h = mh // 2
+    stripes = [(a["coeffs"][:, lo * mw:hi * mw].contiguous(),
+                modes[:, lo * mw:hi * mw].contiguous(),
+                a["fparams"][:, lo:hi].contiguous(), mw, hi - lo, ftype)
+               for lo, hi in ((0, h), (h, mh))]
+    parts, above, plain_s = [], None, 0.0
+    for args in stripes:
+        got, edge, back = kvr.recon_filter_mb_stripe(*args, above)
+        (pgot, pedge, pback), s = plain_timed(
+            lambda: kvr.recon_filter_mb_stripe_plain(*args, above))
+        plain_s += s
+        same("recon_filter_mb stripe form" + (" with a halo" if above else ""),
+             dict(enumerate([*got, *edge, *(back or ())])),
+             dict(enumerate([*pgot, *pedge, *(pback or ())])))
+        if back is not None:
+            for plane, rows in zip(parts[-1], back):
+                plane[:, -3:] = rows
+        parts.append(list(got))
+        halo, above = above, edge
+    got = {k: torch.cat([t, b], 1) for k, t, b in zip("YUV", *parts)}
+    err = max_abs_err(got, want["recon_frame"], "YUV")
+    if err:
+        raise AssertionError(f"recon_filter_mb stripe form != unsharded "
+                             f"(max |err| {err})")
+    log(f"recon_filter_mb stripe form: the {16 * mh}x{16 * mw} file in 2 "
+        f"MB-row stripes (filter type {ftype}, rows written back) == its "
+        f"plain version on the card (plain {plain_s:.1f} s) and == one "
+        f"unsharded launch")
+    halo_device_ms("recon_filter_mb stripe form",
+                   lambda: kvr.recon_filter_mb_stripe(*stripes[1], halo),
+                   lambda: kvr.recon_filter_mb(*stripes[1]), tag)
+
+
+def check_parallel(dev, images, files, reset_counts, read_counts, tag):
+    """Phase 10: parallel/.  Builds the sharded steps' inputs at full size;
+    holds each halo form against its plain version and the joined shards
+    against its kernel's unsharded form (check_halo_forms) and
+    predictor_inverse against its plain version (B=8 1024x1024, bits 4,
+    with the add-green epilogue; its pixels are the source words), times
+    predictor_inverse; runs the five sharded steps in a one-rank NCCL job
+    in this process (counts reset just before and read just after: every
+    kernel of the path must launch) and in a two-rank gloo job on cuda:0,
+    whose full tensors must equal the unsharded calls'.  Returns
+    predictor_inverse's kernel row and the parallel path's counts."""
+    import torch
+    import torch.distributed as dist
+
+    from gowebp_tpu_torch.ops.kernels import vp8l_inverse as vim
+    from gowebp_tpu_torch.parallel import distributed, shard
+    from gowebp_tpu_torch.parallel.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    inputs = parallel_inputs(dev, images, files)
+    want = unsharded_results(inputs)
+    torch.cuda.synchronize()
+    log(f"parallel inputs and unsharded calls: "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if inputs["recon_frame_grid"][2] != 2:
+        raise AssertionError("the 4096x4096 file does not use the complex "
+                             "filter")
+
+    # ---- the halo forms against their plain versions and the unsharded
+    # kernels, on the same inputs ----
+    check_halo_forms(inputs, want, tag)
+
+    # ---- predictor_inverse against its plain version; timed ----
+    li = inputs["lossless"]
+    args = (li["residuals"], li["mode_img"], 4, True)
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    plain = vim.predictor_inverse_plain(*args)
+    t1.record()
+    t1.synchronize()
+    got = vim.predictor_inverse(*args)
+    inv_err = max_abs_err({"o": got}, {"o": plain}, "o")
+    if inv_err or not torch.equal(got, inputs["words"]):
+        raise AssertionError(f"predictor_inverse != plain or the source "
+                             f"(max |err| {inv_err})")
+    B, hh, ww = li["residuals"].shape
+    log(f"predictor_inverse B={B} {hh}x{ww} bits 4 with add-green: bit-exact "
+        f"vs plain, and == the source words")
+    for fn, regs, stack, st_, ld_ in ptxas_report(vim.LIBRARY.ptxas_log,
+                                                  "vp8l_inverse"):
+        log(f"ptxas {fn}: {regs} registers, {stack} bytes stack, "
+            f"{st_}/{ld_} bytes spill stores/loads")
+        if stack or st_ or ld_:
+            raise AssertionError("vp8l_inverse: a stack frame or spills")
+    nbytes = 2 * li["residuals"].numel() * 4 + li["mode_img"].numel() * 4
+    bound_ms, bound_by = bound(nbytes, B * hh * ww * OPS_VP8L_INVERSE_PIXEL)
+    steps = ww + 2 * (hh - 1)
+    ms = time_ms(lambda: vim.predictor_inverse(*args), reps=10, warmup=2)
+    log(f"predictor_inverse: {ms:.3f} ms a call ({steps} dependent steps, "
+        f"{ms / steps * 1e3:.2f} us a step; bound {bound_ms:.4f} ms by "
+        f"{bound_by}) {tag}")
+    row = {"name": "predictor_inverse", "max_abs_err": inv_err, "ms": ms,
+           "fn": lambda: vim.predictor_inverse(*args),
+           "plain_ms": t0.elapsed_time(t1), "bound_ms": bound_ms,
+           "bound_by": bound_by}
+
+    # ---- the one-rank NCCL job, counted as the parallel path ----
+    want_digests = parallel_digests(want)
+    distributed.initialize(device="cuda")
+    try:
+        mesh = make_mesh(device="cuda")
+        reset_counts()
+        t0 = time.perf_counter()
+        got = sharded_results(mesh, inputs)
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t0
+        counts = read_counts("parallel")
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    if parallel_digests(got) != want_digests:
+        raise AssertionError("the one-rank job's full tensors differ from "
+                             "the unsharded calls'")
+    log(f"parallel one-rank {backend} job: the five sharded steps == the "
+        f"unsharded calls in {one_s:.2f} s; launches "
+        f"{ {k: counts[k] for k in PARALLEL_KERNELS} }")
+    missing = [k for k in PARALLEL_KERNELS if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"the parallel path never launched {missing}")
+
+    # ---- the two-rank gloo job on cuda:0 ----
+    t0 = time.perf_counter()
+    job = run_parallel_job(inputs, 2, ROOT / "gowebp_tpu_torch" / "_build"
+                           / "parallel")
+    if job["digests"] != want_digests:
+        raise AssertionError("the two-rank job's full tensors differ from "
+                             "the unsharded calls'")
+    lower = job["launches"][1]
+    log(f"parallel two-rank gloo job on cuda:0: == the unsharded calls and "
+        f"the one-rank job; {job['staged_bytes']} halo bytes staged through "
+        f"host memory; rank 1's halo and stripe launches {lower}; steps "
+        f"{job['seconds']:.2f} s, job {time.perf_counter() - t0:.1f} s")
+    if not all(lower.values()):
+        raise AssertionError("rank 1 did not launch every halo or stripe "
+                             "form")
+    log(f"phase 10 (parallel): {time.perf_counter() - t_phase:.1f} s")
+    return row, counts
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import numpy as np
@@ -2597,6 +3155,7 @@ def main() -> int:
     from gowebp_tpu_torch.ops.kernels import encode_plane as epm
     from gowebp_tpu_torch.ops.kernels import i4_search as i4m
     from gowebp_tpu_torch.ops.kernels import vp8_recon as kvr
+    from gowebp_tpu_torch.ops.kernels import vp8l_inverse as vim
     from gowebp_tpu_torch.ops.kernels import vp8l_predictor as vpm
     from gowebp_tpu_torch.ops.kernels import wavefront_fixed as wfm
     from gowebp_tpu_torch.ops.kernels import wavefront_search as wsm
@@ -2618,6 +3177,7 @@ def main() -> int:
     counters["unpack_coeffs"] = (cum.unpack_coeffs, "launches")
     counters["predictor_search_entropy"] = (vpm.predictor_search_entropy,
                                             "launches")
+    counters["predictor_inverse"] = (vim.predictor_inverse, "launches")
     by_path = {}
 
     def reset_counts():
@@ -2646,7 +3206,8 @@ def main() -> int:
     # ---- phase 2: build ----
     t0 = time.perf_counter()
     libraries = [i4m.LIBRARY, wfm.LIBRARY, yuvm.LIBRARY, epm.LIBRARY,
-                 wsm.LIBRARY, kvr.LIBRARY, vpm.LIBRARY, cum.LIBRARY]
+                 wsm.LIBRARY, kvr.LIBRARY, vpm.LIBRARY, cum.LIBRARY,
+                 vim.LIBRARY]
     build_all(libraries)
     log(f"build: {len(SOURCES)} kernels from {len(libraries)} sources in "
         f"{time.perf_counter() - t0:.1f} s (nvcc, parallel)")
@@ -3203,6 +3764,13 @@ def main() -> int:
     launches["predictor_search_entropy"] = lossless_encode(
         dev, images, reset_counts, read_counts, tag)
 
+    # ---- phase 10: parallel/, the sharded steps ----
+    inverse_row, counts = check_parallel(dev, images, out, reset_counts,
+                                         read_counts, tag)
+    time_rows([inverse_row], tag)
+    rows.append(inverse_row)
+    launches["predictor_inverse"] = counts["predictor_inverse"]
+
     # ---- phase 9: result lines ----
     kernels = []
     for r in rows:
@@ -3226,4 +3794,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-worker"]:
+        sys.exit(parallel_worker(int(sys.argv[2]), int(sys.argv[3]),
+                                 int(sys.argv[4]), sys.argv[5]))
     sys.exit(main())

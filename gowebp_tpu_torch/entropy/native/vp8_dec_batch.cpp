@@ -522,8 +522,9 @@ static bool start_mb(Engine& eng, int k) {
 }
 
 // Park lane k: PARK state never advances, stores, or signals done, and
-// its refill is suppressed by a huge bits value, so the vector step
-// can keep running it without side effects or out-of-bounds indices.
+// its refill is suppressed (the vector step gathers only for active
+// lanes; the huge bits value keeps the scalar semantics), so the vector
+// step can keep running it without side effects or out-of-bounds indices.
 // The boolean-decoder state is stashed in the Lane first (the parked
 // lane's arithmetic keeps churning value/range/bits harmlessly).
 static inline void park_lane(Engine& eng, int k) {
@@ -702,8 +703,12 @@ static inline uint16_t step_avx512(Engine& eng, int32_t* staging_base,
   const __m512i zero = _mm512_setzero_si512();
   const __m512i one = _mm512_set1_epi32(1);
   const __m512i c255 = _mm512_set1_epi32(0xff);
-  // refill: pull one byte where bits < 0 (masked gather)
-  const __mmask16 need = _mm512_cmplt_epi32_mask(bits, zero);
+  // refill: pull one byte where an active lane's bits < 0 (masked
+  // gather).  A parked lane's bits start at 2^20 but keep falling as it
+  // churns, so without the active mask a lane parked for more than ~2^20
+  // steps (one long partition decoded alone) would walk its stale
+  // buf_off past the end of the arena.
+  const __mmask16 need = _mm512_mask_cmplt_epi32_mask(active, bits, zero);
   const __m512i byt = _mm512_and_epi32(
       _mm512_mask_i32gather_epi32(zero, need, buf_off,
                                   (const int*)eng.arena, 1),

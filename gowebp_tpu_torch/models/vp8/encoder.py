@@ -521,7 +521,25 @@ def _write_p0_headers(p0, base_q, config, probs, updates, use_skip, skip_p,
         p0.put_literal(skip_p, 8)
 
 
+# The frame tag holds the first partition's length in 19 bits, and each
+# token partition's length but the last is 3 bytes (RFC 6386 9.1, 9.5).
+MAX_PARTITION0_SIZE = (1 << 19) - 1
+MAX_PARTITION_SIZE = (1 << 24) - 1
+
+
 def _frame_bytes(part0, parts, width, height):
+    """The VP8 frame: tag, start code, dimensions, the first partition,
+    the token partitions' sizes and the token partitions.  Raises
+    EncodeError where a length does not fit its field, as libwebp does
+    (VP8_ENC_ERROR_PARTITION0_OVERFLOW, VP8_ENC_ERROR_PARTITION_OVERFLOW);
+    the JAX package writes the truncated length instead."""
+    if len(part0) > MAX_PARTITION0_SIZE:
+        raise EncodeError(
+            f"partition #0 is too big to fit 512k ({len(part0)} bytes); "
+            f"partition_limit=100 codes no i4 modes")
+    if any(len(p) > MAX_PARTITION_SIZE for p in parts[:-1]):
+        raise EncodeError("a token partition is bigger than 16M; a larger "
+                          "`partitions` splits it")
     tag = (0) | (0 << 1) | (1 << 4) | (len(part0) << 5)
     sizes = b"".join(
         bytes((len(p) & 0xFF, (len(p) >> 8) & 0xFF, (len(p) >> 16) & 0xFF))

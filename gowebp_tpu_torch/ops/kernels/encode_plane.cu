@@ -9,6 +9,14 @@
 // and the mode stores, no transform and no levels (the hybrid engine's
 // cold round, ops/encode_wavefront.py openloop_mode_search).
 //
+// The halo form (kHalo, a template parameter of the kernels with the
+// code; gowebp_tpu/ops/encode_plane_jax.py:242 _plane_context with
+// left_halo) encodes one width tile of a plane split over devices
+// (gowebp_tpu_torch/parallel/shard.py sharded_encode_plane_step): the MB
+// column 0 of a tile that is not the leftmost reads its left column and
+// corner from a (B, H) halo, the left neighbour's last source column, and
+// has a left neighbour (no 129 fill).  The other forms do not read it.
+//
 // The engine is open-loop: prediction context comes from the source
 // plane, so macroblocks do not depend on one another.  One thread owns
 // one 4x4 block: 16 lanes make a luma MB (bx in lane bits 0-1, by in
@@ -100,15 +108,19 @@ struct Block {
 };
 
 // Block (by, bx) of MB (my, mx) of the image plane at `img` (W pixels a
-// row, W a multiple of 4).
+// row, W a multiple of 4).  kHalo: `halo` holds the image's column left of
+// the plane (one byte a row), which MB column 0 reads as its left.
+template <bool kHalo>
 __device__ __forceinline__ void load_block(const uint8_t* img, int W, int my, int mx,
-                                           int size, int by, int bx, Block& k) {
+                                           int size, int by, int bx, const uint8_t* halo,
+                                           Block& k) {
   const unsigned a = (unsigned)(reinterpret_cast<uintptr_t>(img) & 3u);
   const uint8_t* base = img - a;  // 4-byte aligned, as every row's words
   const unsigned shift = 8u * a;
   const int r0 = my * size + by * 4, c0 = mx * size + bx * 4;
+  const bool from_halo = kHalo && mx == 0;
   k.ht = my > 0;
-  k.hl = mx > 0;
+  k.hl = mx > 0 || kHalo;
   const uint8_t* w = base + (size_t)r0 * W + c0;
 #pragma unroll
   for (int r = 0; r < 4; r++) k.row[r] = load4(w + (size_t)r * W, shift);
@@ -116,8 +128,9 @@ __device__ __forceinline__ void load_block(const uint8_t* img, int W, int my, in
   const int c_left = mx * size - 1;                  // only read when hl
   k.top = k.ht ? load4(base + above + c0, shift) : 0x7F7F7F7Fu;
 #pragma unroll
-  for (int i = 0; i < 4; i++) k.left[i] = k.hl ? img[(size_t)(r0 + i) * W + c_left] : 129;
-  k.tl = !k.ht ? 127 : (!k.hl ? 129 : img[above + c_left]);
+  for (int i = 0; i < 4; i++)
+    k.left[i] = from_halo ? halo[r0 + i] : (k.hl ? img[(size_t)(r0 + i) * W + c_left] : 129);
+  k.tl = !k.ht ? 127 : from_halo ? halo[my * size - 1] : (!k.hl ? 129 : img[above + c_left]);
 }
 
 // The MB's DC prediction; lane-index bits top_lo..top_hi hold the MB's
@@ -203,11 +216,11 @@ struct Quants {
 
 constexpr int kLumaMbs = kThreads / 16, kChromaMbs = kThreads / 8;
 
-template <bool kCode>
+template <bool kCode, bool kHalo = false>
 __global__ void __launch_bounds__(kThreads)
 encode_luma_kernel(const uint8_t* __restrict__ y, long long stride_b, int mh, int mw, Quants q1,
                    Quants q2, int16_t* __restrict__ levels, int16_t* __restrict__ y2_levels,
-                   uint8_t* __restrict__ modes) {
+                   uint8_t* __restrict__ modes, const uint8_t* __restrict__ halo) {
   // A lane past the last MB of the row computes on the last MB, so that
   // every shuffle has its full warp, and stores nothing.
   const int mx_raw = blockIdx.x * kLumaMbs + (threadIdx.x >> 4);
@@ -215,7 +228,8 @@ encode_luma_kernel(const uint8_t* __restrict__ y, long long stride_b, int mh, in
   const int mx = valid ? mx_raw : mw - 1, my = blockIdx.y, b = blockIdx.z;
   const int blk = threadIdx.x & 15, by = blk >> 2, bx = blk & 3;
   Block k;
-  load_block(y + (size_t)b * stride_b, mw * 16, my, mx, 16, by, bx, k);
+  load_block<kHalo>(y + (size_t)b * stride_b, mw * 16, my, mx, 16, by, bx,
+                    kHalo ? halo + (size_t)b * mh * 16 : nullptr, k);
   const int dc = dc_value(k, 16, 1, 2, 4, 8);
   unsigned tm[4];
   int sse[4];
@@ -241,19 +255,20 @@ encode_luma_kernel(const uint8_t* __restrict__ y, long long stride_b, int mh, in
   if (blk == 0) modes[mb] = (uint8_t)mode;
 }
 
-template <bool kCode>
+template <bool kCode, bool kHalo = false>
 __global__ void __launch_bounds__(kThreads)
 encode_chroma_kernel(const uint8_t* __restrict__ u, long long stride_u,
                      const uint8_t* __restrict__ v, long long stride_v, int mh, int mw, Quants q,
-                     int16_t* __restrict__ levels, uint8_t* __restrict__ modes) {
+                     int16_t* __restrict__ levels, uint8_t* __restrict__ modes,
+                     const uint8_t* __restrict__ hu, const uint8_t* __restrict__ hv) {
   const int mx_raw = blockIdx.x * kChromaMbs + (threadIdx.x >> 3);
   const bool valid = mx_raw < mw;
   const int mx = valid ? mx_raw : mw - 1, my = blockIdx.y, b = blockIdx.z;
   // lanes of one MB: bx in bit 0, by in bit 1, the plane (U, V) in bit 2
   const int blk = threadIdx.x & 7, pl = blk >> 2, by = (blk >> 1) & 1, bx = blk & 1;
   Block k;
-  load_block(pl ? v + (size_t)b * stride_v : u + (size_t)b * stride_u, mw * 8, my, mx, 8, by,
-             bx, k);
+  load_block<kHalo>(pl ? v + (size_t)b * stride_v : u + (size_t)b * stride_u, mw * 8, my, mx, 8,
+                    by, bx, kHalo ? (pl ? hv : hu) + (size_t)b * mh * 8 : nullptr, k);
   const int dc = dc_value(k, 8, 1, 1, 2, 2);
   unsigned tm[4];
   int sse[4];
@@ -279,37 +294,49 @@ int strips(int mw, int per_block) { return (mw + per_block - 1) / per_block; }
 
 }  // namespace
 
-// levels / y2_levels null: the modes-only form.
+// levels / y2_levels null: the modes-only form.  halo non-null (with the
+// levels): the halo form, halo (B, 16 mh) contiguous, the column left of
+// each image's plane.
 extern "C" int encode_luma_launch(const uint8_t* y, long long stride_b, int B, int mh, int mw,
                                   int iq_dc, int bias_dc, int iq_ac, int bias_ac, int iq2_dc,
                                   int bias2_dc, int iq2_ac, int bias2_ac, int16_t* levels,
-                                  int16_t* y2_levels, uint8_t* modes, void* stream) {
+                                  int16_t* y2_levels, uint8_t* modes, const uint8_t* halo,
+                                  void* stream) {
   if (B <= 0 || mh <= 0 || mw <= 0) return 0;
   const dim3 grid(strips(mw, kLumaMbs), mh, B);
   const Quants q1{iq_dc, bias_dc, iq_ac, bias_ac}, q2{iq2_dc, bias2_dc, iq2_ac, bias2_ac};
-  if (levels)
+  if (halo)
+    encode_luma_kernel<true, true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        y, stride_b, mh, mw, q1, q2, levels, y2_levels, modes, halo);
+  else if (levels)
     encode_luma_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        y, stride_b, mh, mw, q1, q2, levels, y2_levels, modes);
+        y, stride_b, mh, mw, q1, q2, levels, y2_levels, modes, nullptr);
   else
     encode_luma_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        y, stride_b, mh, mw, q1, q2, levels, y2_levels, modes);
+        y, stride_b, mh, mw, q1, q2, levels, y2_levels, modes, nullptr);
   return (int)cudaGetLastError();
 }
 
-// levels null: the modes-only form.
+// levels null: the modes-only form.  hu, hv non-null (with the levels):
+// the halo form, each (B, 8 mh) contiguous, the columns left of each
+// image's planes.
 extern "C" int encode_chroma_launch(const uint8_t* u, long long stride_u, const uint8_t* v,
                                     long long stride_v, int B, int mh, int mw, int iq_dc,
                                     int bias_dc, int iq_ac, int bias_ac, int16_t* levels,
-                                    uint8_t* modes, void* stream) {
+                                    uint8_t* modes, const uint8_t* hu, const uint8_t* hv,
+                                    void* stream) {
   if (B <= 0 || mh <= 0 || mw <= 0) return 0;
   const dim3 grid(strips(mw, kChromaMbs), mh, B);
   const Quants q{iq_dc, bias_dc, iq_ac, bias_ac};
-  if (levels)
+  if (hu)
+    encode_chroma_kernel<true, true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        u, stride_u, v, stride_v, mh, mw, q, levels, modes, hu, hv);
+  else if (levels)
     encode_chroma_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        u, stride_u, v, stride_v, mh, mw, q, levels, modes);
+        u, stride_u, v, stride_v, mh, mw, q, levels, modes, nullptr, nullptr);
   else
     encode_chroma_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        u, stride_u, v, stride_v, mh, mw, q, levels, modes);
+        u, stride_u, v, stride_v, mh, mw, q, levels, modes, nullptr, nullptr);
   return (int)cudaGetLastError();
 }
 

@@ -26,6 +26,13 @@ Outputs, macroblock-major as the emitter reads them:
   encode_chroma → uvmode (B, mh, mw) uint8; uv_levels (B, mh, mw, 8, 16)
                   int16 zigzag, U blocks 0-3 then V blocks 4-7
 
+The halo forms (``halo=``; ``encode_luma`` and ``encode_chroma`` with
+the levels) encode one width tile of a plane split over devices
+(parallel/shard.py ``sharded_encode_plane_step``): the MB column 0 reads
+its left column and corner from ``halo``, (B, H) uint8 (a pair of them
+for U and V), the left neighbour's last source column, instead of the
+129 edge fill.
+
 ``encode_luma_modes`` and ``encode_chroma_modes`` are the modes-only
 forms (the same kernels built without the transform and the levels):
 ymode / uvmode alone, for the hybrid engine's cold round
@@ -40,7 +47,7 @@ import torch
 
 from .. import dct
 from ..vp8_recon import mb_context, predict4_blocks
-from .cuda_build import CudaLibrary, stream_handle
+from .cuda_build import CudaLibrary, check_tensor, stream_handle
 
 I16, I32, U8 = torch.int16, torch.int32, torch.uint8
 
@@ -48,10 +55,9 @@ I16, I32, U8 = torch.int16, torch.int32, torch.uint8
 def _configure(lib) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.encode_luma_launch.restype = ctypes.c_int
-    lib.encode_luma_launch.argtypes = [p, ll] + [i] * 11 + [p, p, p, p]
+    lib.encode_luma_launch.argtypes = [p, ll] + [i] * 11 + [p] * 5
     lib.encode_chroma_launch.restype = ctypes.c_int
-    lib.encode_chroma_launch.argtypes = [p, ll, p, ll, i, i, i, i, i, i, i,
-                                         p, p, p]
+    lib.encode_chroma_launch.argtypes = [p, ll, p, ll] + [i] * 7 + [p] * 5
     lib.encode_plane_occupancy.restype = i
     lib.encode_plane_occupancy.argtypes = [i] + [
         ctypes.POINTER(ctypes.c_int)] * 2
@@ -71,17 +77,19 @@ def _first_min(sse):
     return mode
 
 
-def _search(planes, size: int, residual: bool = True):
+def _search(planes, size: int, residual: bool = True, halos=None):
     """Joint SSE mode search of MB-aligned planes sharing one MB grid →
     (mode (B, N), [residual blocks (B, N, nb*nb, 4, 4) per plane], the
-    list empty when not ``residual``)."""
+    list empty when not ``residual``).  ``halos``: each plane's (B, H)
+    left halo column (``mb_context``'s ``left_halo``)."""
     B, H, W = planes[0].shape
     mh, mw = H // size, W // size
     N, nb = mh * mw, size // 4
     sse, pairs = 0, []
-    for p in planes:
+    for i, p in enumerate(planes):
         p = p.to(I32)
-        top, _, left, tl, ht, hl = mb_context(p, mh, mw, size)
+        top, _, left, tl, ht, hl = mb_context(
+            p, mh, mw, size, None if halos is None else halos[i])
         pred4 = predict4_blocks(top, left, tl, ht, hl, size)  # (4,B,N,s,s)
         src = p.reshape(B, mh, size, mw, size).permute(0, 1, 3, 2, 4)
         src = src.reshape(B, N, size, size)
@@ -101,11 +109,12 @@ def _search(planes, size: int, residual: bool = True):
     return mode, res
 
 
-def encode_luma_plain(y, quants, y2_quants):
-    """Plain torch version of the luma kernel (any device)."""
+def encode_luma_plain(y, quants, y2_quants, halo=None):
+    """Plain torch version of the luma kernel and its halo form (any
+    device)."""
     B, H, W = y.shape
     mh, mw = H // 16, W // 16
-    mode, (res,) = _search([y], 16)
+    mode, (res,) = _search([y], 16, halos=None if halo is None else [halo])
     cf = dct.fdct4x4(res)                                # (B, N, 16, 4, 4)
     lv = dct.quantize(cf, *quants, first_ac=True)
     y2 = dct.fwht4x4(cf[..., 0, 0].reshape(B, mh * mw, 4, 4))
@@ -114,11 +123,12 @@ def encode_luma_plain(y, quants, y2_quants):
             dct.quantize(y2, *y2_quants).reshape(B, mh, mw, 16).to(I16))
 
 
-def encode_chroma_plain(u, v, quants):
-    """Plain torch version of the chroma kernel (any device)."""
+def encode_chroma_plain(u, v, quants, halo=None):
+    """Plain torch version of the chroma kernel and its halo form (any
+    device); ``halo`` the (u, v) pair of left columns."""
     B, H, W = u.shape
     mh, mw = H // 8, W // 8
-    mode, res = _search([u, v], 8)
+    mode, res = _search([u, v], 8, halos=halo)
     lv = dct.quantize(dct.fdct4x4(torch.cat(res, dim=2)), *quants)
     return (mode.reshape(B, mh, mw).to(U8),
             lv.reshape(B, mh, mw, 8, 16).to(I16))
@@ -158,6 +168,11 @@ def _check_plane(name: str, t, size: int, device):
     return t.shape[0], t.shape[1] // size, t.shape[2] // size
 
 
+def _check_halo(name: str, t, B: int, H: int, device):
+    """Raise unless ``t`` is a contiguous (B, H) uint8 halo column."""
+    check_tensor(name, t, U8, (B, H), device)
+
+
 def _quant_args(quants):
     return tuple(int(q) for q in quants)
 
@@ -188,9 +203,9 @@ def _device(name: str, t):
     return t.device
 
 
-def _launch_luma(y, quants, y2_quants, code: bool):
+def _launch_luma(y, quants, y2_quants, code: bool, halo=None):
     """One luma kernel launch: (ymode, y_levels, y2_levels), the levels
-    None in the modes-only form."""
+    None in the modes-only form; ``halo`` (with ``code``) the halo form."""
     dev = y.device
     B, mh, mw = _check_plane("y", y, 16, dev)
     lib = LIBRARY.load()
@@ -199,20 +214,23 @@ def _launch_luma(y, quants, y2_quants, code: bool):
     if code:
         levels = torch.empty((B, mh, mw, 16, 16), dtype=I16, device=dev)
         y2_levels = torch.empty((B, mh, mw, 16), dtype=I16, device=dev)
+    if halo is not None:
+        _check_halo("halo", halo, B, 16 * mh, dev)
     err = lib.encode_luma_launch(
         y.data_ptr(), y.stride(0), B, mh, mw, *_quant_args(quants),
         *_quant_args(y2_quants), levels.data_ptr() if code else None,
         y2_levels.data_ptr() if code else None, ymode.data_ptr(),
-        stream_handle(dev))
+        None if halo is None else halo.data_ptr(), stream_handle(dev))
     if err != 0:
         raise RuntimeError(
             f"encode_luma kernel launch failed: CUDA error {err}")
     return ymode, levels, y2_levels
 
 
-def _launch_chroma(u, v, quants, code: bool):
+def _launch_chroma(u, v, quants, code: bool, halo=None):
     """One chroma kernel launch: (uvmode, uv_levels), the levels None in
-    the modes-only form."""
+    the modes-only form; ``halo`` (with ``code``) the (u, v) halo pair of
+    the halo form."""
     dev = u.device
     B, mh, mw = _check_plane("u", u, 8, dev)
     if _check_plane("v", v, 8, dev) != (B, mh, mw):
@@ -221,39 +239,51 @@ def _launch_chroma(u, v, quants, code: bool):
     uvmode = torch.empty((B, mh, mw), dtype=U8, device=dev)
     levels = (torch.empty((B, mh, mw, 8, 16), dtype=I16, device=dev)
               if code else None)
+    hp = (None, None)
+    if halo is not None:
+        hu, hv = halo
+        _check_halo("u_halo", hu, B, 8 * mh, dev)
+        _check_halo("v_halo", hv, B, 8 * mh, dev)
+        hp = (hu.data_ptr(), hv.data_ptr())
     err = lib.encode_chroma_launch(
         u.data_ptr(), u.stride(0), v.data_ptr(), v.stride(0), B, mh, mw,
         *_quant_args(quants), levels.data_ptr() if code else None,
-        uvmode.data_ptr(), stream_handle(dev))
+        uvmode.data_ptr(), *hp, stream_handle(dev))
     if err != 0:
         raise RuntimeError(
             f"encode_chroma kernel launch failed: CUDA error {err}")
     return uvmode, levels
 
 
-def encode_luma(y, quants, y2_quants):
-    """Kernel on a CUDA tensor, plain version on a CPU tensor.
+def encode_luma(y, quants, y2_quants, halo=None):
+    """Kernel on a CUDA tensor, plain version on a CPU tensor; ``halo``
+    (B, H) uint8 the halo form.
 
     ``encode_luma.launches`` counts kernel launches (one per call on
-    CUDA).
+    CUDA), ``encode_luma.halo_launches`` those of the halo form among
+    them.
     """
     if _device("encode_luma", y).type == "cpu":
-        return encode_luma_plain(y, quants, y2_quants)
-    out = _launch_luma(y, quants, y2_quants, code=True)
+        return encode_luma_plain(y, quants, y2_quants, halo)
+    out = _launch_luma(y, quants, y2_quants, code=True, halo=halo)
     encode_luma.launches += 1
+    encode_luma.halo_launches += halo is not None
     return out
 
 
-def encode_chroma(u, v, quants):
-    """Kernel on a CUDA tensor, plain version on a CPU tensor.
+def encode_chroma(u, v, quants, halo=None):
+    """Kernel on a CUDA tensor, plain version on a CPU tensor; ``halo``
+    the (u, v) pair of (B, H) uint8 columns: the halo form.
 
     ``encode_chroma.launches`` counts kernel launches (one per call on
-    CUDA).
+    CUDA), ``encode_chroma.halo_launches`` those of the halo form among
+    them.
     """
     if _device("encode_chroma", u).type == "cpu":
-        return encode_chroma_plain(u, v, quants)
-    out = _launch_chroma(u, v, quants, code=True)
+        return encode_chroma_plain(u, v, quants, halo)
+    out = _launch_chroma(u, v, quants, code=True, halo=halo)
     encode_chroma.launches += 1
+    encode_chroma.halo_launches += halo is not None
     return out
 
 
@@ -292,6 +322,8 @@ def encode_modes(y, u, v):
 
 encode_luma.launches = 0
 encode_chroma.launches = 0
+encode_luma.halo_launches = 0
+encode_chroma.halo_launches = 0
 encode_luma_modes.launches = 0
 encode_chroma_modes.launches = 0
 encode_luma_modes_plain.calls = 0

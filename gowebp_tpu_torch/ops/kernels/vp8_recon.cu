@@ -64,6 +64,17 @@
 // every lane gathers into registers before the wait.  Chroma predicts its
 // two 8x8 blocks, 4 pixels a lane.
 //
+// The stripe form (kStripe, a template parameter) decodes one stripe of MB
+// rows of a frame split over devices (gowebp_tpu_torch/parallel/shard.py
+// sharded_recon_frame, after gowebp_tpu/ops/vp8_recon_jax.py:340-370 with
+// axis_name): it stores its last MB row's unfiltered bottom row in the
+// top-samples buffer too (the halo of the stripe below), and below another
+// stripe (`hts` given) its MB row 0 has a row above: prediction reads that
+// stripe's unfiltered bottom row from `hts`, the top edge's filter its 4
+// filtered bottom rows from `hf`, and writes the 3 rows it changes back
+// into `hf`, which the caller sends up.  The halo is whole before the
+// launch, so row 0 waits on nothing.
+//
 // The filter, in libwebp's order (left MB edge, inner vertical edges, top
 // MB edge, inner horizontal edges), runs on a window of the 4 rows above,
 // the 4 columns left and the MB (20x20 luma, 12x12 a chroma plane), one
@@ -251,6 +262,12 @@ struct Args {
   int* ticket;    // zeroed by the caller
   int B, mh, mw;
   int ftype;  // 0 no filter, 1 simple (luma only), 2 complex
+  // the stripe form below another stripe: that stripe's unfiltered bottom
+  // rows (B, 16 mw) luma, then (B, 8 mw) U and V; and its 4 filtered
+  // bottom rows (B, 4, 16 mw) luma, then (B, 4, 8 mw) U and V, into which
+  // the top edges' filters write back
+  const uint8_t* hts;
+  uint8_t* hf;
 };
 
 // One MB row's state, kept on chip from MB to MB.
@@ -262,6 +279,7 @@ struct RowState {
   int wc[2][12 * kWC];   // U, V filter windows
 };
 
+template <bool kStripe = false>
 __global__ void __launch_bounds__(64 * kRows) recon_filter_mb_kernel(Args a) {
   __shared__ RowState rows[kRows];
   __shared__ unsigned s_ptab[160];  // pred_entry(m, k) at 16 * m + k
@@ -284,7 +302,8 @@ __global__ void __launch_bounds__(64 * kRows) recon_filter_mb_kernel(Args a) {
     const int g = t / a.B, b = t - g * a.B;
     const int my = g * kRows + sub;
     const int row = b * mh + my;
-    const bool ht = my > 0;
+    const bool from_halo = kStripe && a.hts != nullptr && my == 0;
+    const bool ht = my > 0 || from_halo;
     uint8_t* yp = a.y + (size_t)b * H * W;
     uint8_t* cp = (half ? a.v : a.u) + (size_t)b * Hc * Wc;
     const int y0 = 16 * my, cy0 = 8 * my;
@@ -340,7 +359,7 @@ __global__ void __launch_bounds__(64 * kRows) recon_filter_mb_kernel(Args a) {
 
       // ---- wait for the row above: another block's (the lower row of the
       // pair trails by two MBs, which the block's barriers order) ----
-      if (tid == 0 && act && ht) wait_progress(a.progress + row - 1, min(mx + 2, mw), seen);
+      if (tid == 0 && act && my > 0) wait_progress(a.progress + row - 1, min(mx + 2, mw), seen);
       __syncthreads();
 
       if (act && luma_warp) {
@@ -351,11 +370,14 @@ __global__ void __launch_bounds__(64 * kRows) recon_filter_mb_kernel(Args a) {
         int top = 127;
         if (lane < 20 && ht) {
           const int col = lane < 16 ? x0 + lane : (mx == mw - 1 ? x0 + 15 : x0 + lane);
-          top = __ldcg(tsy + (size_t)(row - 1) * W + col);
+          top = __ldcg((from_halo ? a.hts + (size_t)b * W : tsy + (size_t)(row - 1) * W) + col);
         }
         unsigned above = 0;
         if (on && ht && lane < 16)
-          above = __ldcg(reinterpret_cast<const unsigned*>(yp + (size_t)(y0 - 4 + kr) * W + x0) +
+          above = __ldcg(reinterpret_cast<const unsigned*>(
+                             (from_halo ? a.hf + (size_t)(4 * b + kr) * W
+                                        : yp + (size_t)(y0 - 4 + kr) * W) +
+                             x0) +
                          kc);
         // the unfiltered left column and corner from the previous MB of this
         // row (129 left of the frame)
@@ -407,7 +429,7 @@ __global__ void __launch_bounds__(64 * kRows) recon_filter_mb_kernel(Args a) {
           __syncwarp();
         }
         // the unfiltered bottom row: the row below's top context
-        if (lane == 0 && my < mh - 1)
+        if (lane == 0 && (kStripe || my < mh - 1))
           store_row16(tsy + (size_t)row * W + x0, R.sy + 16 * kSW + 1);
 
         filter_mb<20, kWY, kSW>(R.wy, R.sy + kSW + 1, lane, lane < 16, on, hl, ht, e);
@@ -424,18 +446,28 @@ __global__ void __launch_bounds__(64 * kRows) recon_filter_mb_kernel(Args a) {
           for (int c = 0; c < 4; c++) wr[c] = wr[16 + c];  // the next MB's left columns
         } else if (on && ht && lane < 19) {
           const int r = lane - 15;  // window rows 1-3
-          store_row16(yp + (size_t)(y0 - 4 + r) * W + x0, R.wy + r * kWY + 4);
+          store_row16((from_halo ? a.hf + (size_t)(4 * b + r) * W : yp + (size_t)(y0 - 4 + r) * W) +
+                          x0,
+                      R.wy + r * kWY + 4);
         }
       } else if (act) {
         // ================= chroma: segment `half` takes U or V =================
         int* S = R.sc[half];
         int* win = R.wc[half];
+        // the stripe form's filtered rows above, this warp's plane (U or V)
+        uint8_t* chalo = nullptr;
+        if (from_halo) chalo = a.hf + (size_t)a.B * 4 * (W + half * Wc) + (size_t)b * 4 * Wc;
         int top = 127;
-        if (k < 8 && ht) top = __ldcg(tsc + (size_t)(row - 1) * Wc + cx0 + k);
+        if (k < 8 && ht)
+          top = __ldcg((from_halo ? a.hts + (size_t)a.B * (W + half * Wc) + (size_t)b * Wc
+                                  : tsc + (size_t)(row - 1) * Wc) +
+                       cx0 + k);
         unsigned above = 0;
         if (on && ht && k < 8)
-          above = __ldcg(reinterpret_cast<const unsigned*>(cp + (size_t)(cy0 - 4 + (k >> 1)) * Wc +
-                                                           cx0) +
+          above = __ldcg(reinterpret_cast<const unsigned*>(
+                             (from_halo ? chalo + (size_t)(k >> 1) * Wc
+                                        : cp + (size_t)(cy0 - 4 + (k >> 1)) * Wc) +
+                             cx0) +
                          (k & 1));
         const int left = hl ? S[(1 + (k & 7)) * kCW + 8] : 129;
         const int tl = hl ? S[8] : (ht ? 129 : 127);
@@ -465,7 +497,8 @@ __global__ void __launch_bounds__(64 * kRows) recon_filter_mb_kernel(Args a) {
         for (int blk = 0; blk < 4; blk++)
           S[(1 + 4 * (blk >> 1) + kr) * kCW + 1 + 4 * (blk & 1) + kc] = x[blk];
         __syncwarp();
-        if (k == 0 && my < mh - 1) store_row8(tsc + (size_t)row * Wc + cx0, S + 8 * kCW + 1);
+        if (k == 0 && (kStripe || my < mh - 1))
+          store_row8(tsc + (size_t)row * Wc + cx0, S + 8 * kCW + 1);
 
         filter_mb<12, kWC, kCW>(win, S + kCW + 1, k, k < 8, on, hl, ht, e);
 
@@ -478,7 +511,8 @@ __global__ void __launch_bounds__(64 * kRows) recon_filter_mb_kernel(Args a) {
           for (int c = 0; c < 4; c++) wr[c] = wr[8 + c];
         } else if (on && ht && k < 11) {
           const int r = k - 7;
-          store_row8(cp + (size_t)(cy0 - 4 + r) * Wc + cx0, win + r * kWC + 4);
+          store_row8((from_halo ? chalo + (size_t)r * Wc : cp + (size_t)(cy0 - 4 + r) * Wc) + cx0,
+                     win + r * kWC + 4);
         }
       }
 
@@ -509,19 +543,36 @@ int resident_blocks(K kernel, int threads, int* cache) {
 // Reconstructs and filters the whole batch as one launch on `stream`.
 // `ts` holds B*mh*32*mw bytes of top samples; `sync` B*mh progress
 // counters and the ticket, all zero.  `ftype` 0 filters nothing, 1 the
-// simple filter (luma only), 2 the complex one.  Returns the CUDA error
-// of the launch (0 = accepted).
+// simple filter (luma only), 2 the complex one.  `stripe` nonzero runs
+// the stripe form: `ts` also gets the last MB row's unfiltered bottom row
+// (the stripe below's `hts`).  Below another stripe, `hts` (B * 32 * mw
+// bytes: luma rows, then U, then V) holds its unfiltered bottom rows and
+// `hf` (B * 128 * mw bytes: 4 luma rows an image, then 4 U rows, then 4 V
+// rows) its filtered bottom rows, of which the top edges' filters rewrite
+// rows 1-3; the frame's top stripe, and the frame, pass both null.
+// Returns the CUDA error of the launch (0 = accepted).
 extern "C" int recon_filter_mb_launch(const int16_t* coeffs, const uint8_t* modes,
                                       const int16_t* fparams, uint8_t* y, uint8_t* u,
                                       uint8_t* v, uint8_t* ts, int* sync, int B, int mh, int mw,
-                                      int ftype, void* stream) {
+                                      int ftype, int stripe, const uint8_t* hts, uint8_t* hf,
+                                      void* stream) {
   if (B <= 0 || mh <= 0 || mw <= 0) return 0;
-  const Args a{coeffs, modes, fparams, y, u, v, ts, sync, sync + B * mh, B, mh, mw, ftype};
-  static int cache = 0;
-  const int resident = resident_blocks(recon_filter_mb_kernel, 64 * kRows, &cache);
-  if (resident < 0) return -resident;
+  if ((hts != nullptr) != (hf != nullptr) || (hts && !stripe))
+    return (int)cudaErrorInvalidValue;
+  const Args a{coeffs, modes, fparams, y, u, v, ts, sync, sync + B * mh, B, mh, mw, ftype,
+               hts, hf};
   const int groups = B * ((mh + kRows - 1) / kRows);
-  recon_filter_mb_kernel<<<groups < resident ? groups : resident, 64 * kRows, 0,
-                           (cudaStream_t)stream>>>(a);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (stripe) {
+    static int cache = 0;
+    const int resident = resident_blocks(recon_filter_mb_kernel<true>, 64 * kRows, &cache);
+    if (resident < 0) return -resident;
+    recon_filter_mb_kernel<true><<<groups < resident ? groups : resident, 64 * kRows, 0, st>>>(a);
+  } else {
+    static int cache = 0;
+    const int resident = resident_blocks(recon_filter_mb_kernel<false>, 64 * kRows, &cache);
+    if (resident < 0) return -resident;
+    recon_filter_mb_kernel<false><<<groups < resident ? groups : resident, 64 * kRows, 0, st>>>(a);
+  }
   return (int)cudaGetLastError();
 }

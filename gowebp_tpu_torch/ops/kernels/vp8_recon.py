@@ -10,6 +10,13 @@ kernel in ``vp8_recon.cu`` (replacing the XLA ``recon_wavefront`` and
 tensor it runs its plain version, ``recon_mb_plain`` followed by
 ``loop_filter_mb_plain`` (the torch loops of ops/vp8_recon.py).
 
+``recon_filter_mb_stripe`` decodes one stripe of MB rows of a frame split
+over devices (parallel/shard.py ``sharded_recon_frame``): below another
+stripe, its MB row 0 predicts from that stripe's unfiltered bottom row
+and filters its top edge against that stripe's 4 filtered bottom rows,
+and it returns the 3 of those rows its filters changed (to send back up)
+and its own bottom rows (the halo of the stripe below).
+
 Layout:
   coeffs   (B, N, 24, 16) int16 dequantized raster coefficients,
            N = mb_h * mb_w
@@ -34,8 +41,7 @@ MODE_BYTES = 18
 def _configure(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.recon_filter_mb_launch.restype = ctypes.c_int
-    lib.recon_filter_mb_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i,
-                                           p]
+    lib.recon_filter_mb_launch.argtypes = [p] * 8 + [i] * 5 + [p] * 3
 
 
 LIBRARY = CudaLibrary("vp8_recon.cu", _configure)
@@ -144,16 +150,12 @@ def recon_filter_mb_plain(coeffs, modes, fparams, mb_w: int, mb_h: int,
                                 fparams, mb_w, mb_h, filter_type)
 
 
-def recon_filter_mb(coeffs, modes, fparams, mb_w: int, mb_h: int,
-                    filter_type: int):
-    """Kernel on a CUDA tensor, plain version on a CPU tensor → the
-    filtered (Y, U, V) uint8 planes.  ``filter_type`` 0 filters nothing.
-    ``recon_filter_mb.launches`` counts kernel launches (one per call on
-    CUDA)."""
+def _launch(coeffs, modes, fparams, mb_w: int, mb_h: int, filter_type: int,
+            stripe: bool = False, above=None):
+    """One launch of the kernel (its stripe form with ``stripe``) → the
+    planes (y, u, v), the top-samples buffer and, with ``above``, the
+    filtered rows buffer the kernel wrote back into."""
     dev = coeffs.device
-    if dev.type == "cpu":
-        return recon_filter_mb_plain(coeffs, modes, fparams, mb_w, mb_h,
-                                     filter_type)
     if dev.type != "cuda":
         raise ValueError(f"recon_filter_mb: unsupported device {dev}")
     _check(coeffs, modes, fparams, mb_w, mb_h, filter_type)
@@ -167,18 +169,129 @@ def recon_filter_mb(coeffs, modes, fparams, mb_w: int, mb_h: int,
     # top samples: each MB row's unfiltered bottom row, Y then U then V
     ts = torch.empty(B * mb_h * 32 * mb_w, dtype=U8, device=dev)
     sync = _sync(B * mb_h, dev)
+    hts = hf = None
+    if above is not None:
+        hts, hf = _halo_buffers(above, B, mb_w, dev)
     err = lib.recon_filter_mb_launch(
         coeffs.data_ptr(), modes.data_ptr(), fp.data_ptr(), y.data_ptr(),
         u.data_ptr(), v.data_ptr(), ts.data_ptr(), sync.data_ptr(), B, mb_h,
-        mb_w, int(filter_type), stream_handle(dev))
+        mb_w, int(filter_type), int(stripe),
+        None if hts is None else hts.data_ptr(),
+        None if hf is None else hf.data_ptr(), stream_handle(dev))
     if err != 0:
         raise RuntimeError(
             f"recon_filter_mb kernel launch failed: CUDA error {err}")
     recon_filter_mb.launches += 1
-    return y, u, v
+    recon_filter_mb.stripe_launches += stripe
+    return (y, u, v), ts, hf
+
+
+def recon_filter_mb(coeffs, modes, fparams, mb_w: int, mb_h: int,
+                    filter_type: int):
+    """Kernel on a CUDA tensor, plain version on a CPU tensor → the
+    filtered (Y, U, V) uint8 planes.  ``filter_type`` 0 filters nothing.
+    ``recon_filter_mb.launches`` counts kernel launches (one per call on
+    CUDA)."""
+    if coeffs.device.type == "cpu":
+        return recon_filter_mb_plain(coeffs, modes, fparams, mb_w, mb_h,
+                                     filter_type)
+    return _launch(coeffs, modes, fparams, mb_w, mb_h, filter_type)[0]
+
+
+def _halo_buffers(above, B: int, mb_w: int, dev):
+    """The stripe above's edge → the kernel's ``hts`` (its unfiltered
+    bottom rows, Y then U then V) and ``hf`` (its 4 filtered bottom rows
+    of each plane), fresh buffers the launch may write into."""
+    ty, tu, tv, fy, fu, fv = above
+    W, Wc = 16 * mb_w, 8 * mb_w
+    for name, t, shape in (("ts y", ty, (B, W)), ("ts u", tu, (B, Wc)),
+                           ("ts v", tv, (B, Wc)), ("rows y", fy, (B, 4, W)),
+                           ("rows u", fu, (B, 4, Wc)),
+                           ("rows v", fv, (B, 4, Wc))):
+        if t.dtype != U8 or tuple(t.shape) != shape or t.device != dev:
+            raise ValueError(f"recon_filter_mb_stripe: above {name} must be "
+                             f"{shape} uint8 on {dev}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    hts = torch.cat([t.reshape(-1) for t in (ty, tu, tv)])
+    hf = torch.cat([t.reshape(-1) for t in (fy, fu, fv)])
+    return hts, hf
+
+
+def _edge(y, u, v, ts_rows):
+    """A stripe's edge for the stripe below: its unfiltered bottom rows
+    (ty, tu, tv) and its 4 filtered bottom rows of each plane."""
+    return (*ts_rows, *(p[:, -4:].contiguous() for p in (y, u, v)))
+
+
+def recon_filter_mb_stripe_plain(coeffs, modes, fparams, mb_w: int,
+                                 mb_h: int, filter_type: int, above=None):
+    """Plain torch version of the kernel's stripe form (any device): the
+    recon, then the filter over the whole stripe, on bordered planes whose
+    border rows hold the stripe above's rows → as
+    ``recon_filter_mb_stripe``."""
+    _check(coeffs, modes, fparams, mb_w, mb_h, filter_type)
+    B, P, dev = coeffs.shape[0], plain.PAD, coeffs.device
+    W, Wc = 16 * mb_w, 8 * mb_w
+    dg = plain.Diagonals(mb_w, mb_h, dev, top=above is not None)
+    m = modes.to(I32)
+    PY, PC = plain.recon_wavefront(
+        *plain.residual_blocks(coeffs.to(I32)), m[..., 0], m[..., 2:],
+        m[..., 1], dg,
+        above=None if above is None else (above[0], torch.cat(above[1:3])))
+    ts_rows = (PY[:, -1, P:P + W].to(U8), PC[:B, -1, P:P + Wc].to(U8),
+               PC[B:, -1, P:P + Wc].to(U8))
+    if above is not None:
+        PY[:, :P, P:P + W] = above[3].to(I32)
+        PC[:, :P, P:P + Wc] = torch.cat(above[4:6]).to(I32)
+    plain.loop_filter_wavefront(PY, PC, fparams.reshape(B, mb_h, mb_w, 4),
+                                dg, filter_type)
+    y, u, v = plain.crop_planes(PY, PC, mb_w)
+    back = None
+    if above is not None:
+        back = (PY[:, 1:P, P:P + W].to(U8), PC[:B, 1:P, P:P + Wc].to(U8),
+                PC[B:, 1:P, P:P + Wc].to(U8))
+    return (y, u, v), _edge(y, u, v, ts_rows), back
+
+
+def recon_filter_mb_stripe(coeffs, modes, fparams, mb_w: int, mb_h: int,
+                           filter_type: int, above=None):
+    """One stripe of MB rows of a frame split over devices → ((Y, U, V),
+    edge, back).
+
+    ``above`` is None for the frame's top stripe, else the ``edge`` of
+    the stripe above: its unfiltered bottom rows ty (B, 16*mb_w), tu, tv
+    (B, 8*mb_w) and its 4 filtered bottom rows fy (B, 4, 16*mb_w), fu, fv
+    (B, 4, 8*mb_w), uint8.  ``edge`` is this stripe's own, for the stripe
+    below.  ``back`` (None without ``above``) holds rows 1-3 of fy, fu, fv
+    after this stripe's top-edge filters: the stripe above's last 3 rows
+    of each plane, which it takes in place of its own.  The kernel's
+    stripe form on a CUDA tensor (counted in
+    ``recon_filter_mb.stripe_launches`` as well as ``launches``), the
+    plain version on a CPU tensor.
+    """
+    if coeffs.device.type == "cpu":
+        return recon_filter_mb_stripe_plain(coeffs, modes, fparams, mb_w,
+                                            mb_h, filter_type, above)
+    (y, u, v), ts, hf = _launch(coeffs, modes, fparams, mb_w, mb_h,
+                                filter_type, stripe=True, above=above)
+    B, W, Wc = coeffs.shape[0], 16 * mb_w, 8 * mb_w
+    n = B * mb_h
+    last = torch.arange(mb_h - 1, n, mb_h, device=ts.device)  # each image's
+    ts_rows = (ts[:n * W].view(n, W)[last],
+               ts[n * W:n * (W + Wc)].view(n, Wc)[last],
+               ts[n * (W + Wc):].view(n, Wc)[last])
+    back = None
+    if hf is not None:
+        fy = hf[:B * 4 * W].view(B, 4, W)
+        fu = hf[B * 4 * W:B * 4 * (W + Wc)].view(B, 4, Wc)
+        fv = hf[B * 4 * (W + Wc):].view(B, 4, Wc)
+        back = tuple(f[:, 1:].contiguous() for f in (fy, fu, fv))
+    return (y, u, v), _edge(y, u, v, ts_rows), back
 
 
 recon_filter_mb.launches = 0
+recon_filter_mb.stripe_launches = 0
 
 __all__ = ["LIBRARY", "loop_filter_mb_plain", "pack_modes", "recon_filter_mb",
-           "recon_filter_mb_plain", "recon_mb_plain"]
+           "recon_filter_mb_plain", "recon_filter_mb_stripe",
+           "recon_filter_mb_stripe_plain", "recon_mb_plain"]

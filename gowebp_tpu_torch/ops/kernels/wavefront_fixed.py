@@ -148,7 +148,8 @@ def wavefront_fixed_plain(y, u, v, seg, qsteps, ymode, uvmode, is_i4, imodes,
 
 
 def wavefront_plain(y, u, v, seg, qsteps, decide, *, use_derr: bool,
-                    want_recon: bool, trellis=None):
+                    want_recon: bool, trellis=None, above=None,
+                    want_edge: bool = False):
     """The closed-loop MB encode as a per-diagonal torch loop (any device),
     each MB's modes picked by ``decide`` (``GivenModes``, or the in-loop
     search of ops/kernels/wavefront_search.py), every block's levels
@@ -157,6 +158,14 @@ def wavefront_plain(y, u, v, seg, qsteps, decide, *, use_derr: bool,
     Returns the kernel's outputs plus the modes coded: int32 ymode,
     uvmode, is_i4 (B, mh, mw) and imodes (B, mh, mw, 16), where an i16
     MB's imodes repeat its ymode.
+
+    A stripe of MB rows below another stripe of the frame passes
+    ``above`` = (hy (B, W), hu, hv (B, W/2) uint8, the stripe above's last
+    recon rows; hdt (B, mw, 4) int16, its last MB row's UV DC carries
+    [ch][k]): MB row 0 then has a row above and reads it from them.  They
+    sit in a one-row apron above the recon and carry tensors.
+    ``want_edge`` adds out["edge"], the same four of this stripe's last
+    row, for the stripe below.
     """
     B, H, W = y.shape
     mh, mw = H // 16, W // 16
@@ -164,11 +173,18 @@ def wavefront_plain(y, u, v, seg, qsteps, decide, *, use_derr: bool,
     qs = qsteps.to(I32)
     iqs = (1 << 17) // qs.clamp_min(1)
     ys, us, vs = (_tiles(p.to(I32), s) for p, s in ((y, 16), (u, 8), (v, 8)))
-    Ry = torch.zeros((B, mh, mw, 16, 16), dtype=I32, device=dev)
-    Rc = torch.zeros((2, B, mh, mw, 8, 8), dtype=I32, device=dev)
+    o = 0 if above is None else 1        # the apron's rows
+    Ry = torch.zeros((B, mh + o, mw, 16, 16), dtype=I32, device=dev)
+    Rc = torch.zeros((2, B, mh + o, mw, 8, 8), dtype=I32, device=dev)
     # UV DC error-diffusion carries [ch][pair], stored as int16 values
-    Dt = torch.zeros((B, mh, mw, 2, 2), dtype=I32, device=dev)
+    Dt = torch.zeros((B, mh + o, mw, 2, 2), dtype=I32, device=dev)
     Dl = torch.zeros((B, mh, mw, 2, 2), dtype=I32, device=dev)
+    if above is not None:
+        hy, hu, hv, hdt = above
+        Ry[:, 0, :, 15] = hy.to(I32).reshape(B, mw, 16)
+        Rc[0, :, 0, :, 7] = hu.to(I32).reshape(B, mw, 8)
+        Rc[1, :, 0, :, 7] = hv.to(I32).reshape(B, mw, 8)
+        Dt[:, 0] = hdt.to(I32).reshape(B, mw, 2, 2)
     out_y = torch.zeros((B, mh, mw, 16, 16), dtype=I32, device=dev)
     out_y2 = torch.zeros((B, mh, mw, 16), dtype=I32, device=dev)
     out_uv = torch.zeros((B, mh, mw, 8, 16), dtype=I32, device=dev)
@@ -185,8 +201,10 @@ def wavefront_plain(y, u, v, seg, qsteps, decide, *, use_derr: bool,
         mb = (bb, my, mx)
         M = bb.shape[0]
         lanes = torch.arange(M, device=dev)
-        ht, hl = my > 0, mx > 0
-        myu, mxl = (my - 1).clamp_min(0), (mx - 1).clamp_min(0)
+        ht, hl = (my > 0) | (o > 0), mx > 0
+        # rows of the apron-shifted recon and carry tensors
+        myo, myu = my + o, (my - 1 + o).clamp_min(0)
+        mxl = (mx - 1).clamp_min(0)
         mxr = (mx + 1).clamp_max(mw - 1)
         ht1, hl1 = ht[:, None], hl[:, None]
         sg = seg[mb].long()
@@ -205,7 +223,7 @@ def wavefront_plain(y, u, v, seg, qsteps, decide, *, use_derr: bool,
         tr4 = torch.where((mx == mw - 1)[:, None], top16[:, 15:16],
                           Ry[bb, myu, mxr, 15, 0:4])
         tr4 = torch.where(ht1, tr4, 127)
-        left16 = torch.where(hl1, Ry[bb, my, mxl][..., :, 15], 129)
+        left16 = torch.where(hl1, Ry[bb, myo, mxl][..., :, 15], 129)
         tl = torch.where(ht, torch.where(hl, Ry[bb, myu, mxl, 15, 15], 129),
                          127)
         src = ys[mb]                                    # (M, 16, 16)
@@ -268,7 +286,7 @@ def wavefront_plain(y, u, v, seg, qsteps, decide, *, use_derr: bool,
 
         # ---- chroma (U and V on a leading channel axis) ----
         ctop = torch.where(ht1[None], Rc[:, bb, myu, mx][..., 7, :], 127)
-        cleft = torch.where(hl1[None], Rc[:, bb, my, mxl][..., :, 7], 129)
+        cleft = torch.where(hl1[None], Rc[:, bb, myo, mxl][..., :, 7], 129)
         ctl = torch.where(ht[None], torch.where(
             hl[None], Rc[:, bb, myu, mxl][..., 7, 7], 129), 127)
         cpred4 = predict4_blocks(ctop, cleft, ctl, ht[None], hl[None], 8)
@@ -310,7 +328,7 @@ def wavefront_plain(y, u, v, seg, qsteps, decide, *, use_derr: bool,
                 nt.append(torch.stack([e2, e3 - lv1], -1))
             as16 = lambda a: a.to(torch.int16).to(I32)  # noqa: E731
             Dl[bb, my, mx] = as16(torch.stack(nl, 1))
-            Dt[bb, my, mx] = as16(torch.stack(nt, 1))
+            Dt[bb, myo, mx] = as16(torch.stack(nt, 1))
         clv, cdq = _quant_rows(ccf.permute(1, 0, 2, 3, 4, 5).reshape(
             M, 8, 4, 4), iq, q, 4, 5, BIAS["uv_dc"], BIAS["uv_ac"],
             refine=refine.get("uv"))
@@ -318,8 +336,8 @@ def wavefront_plain(y, u, v, seg, qsteps, decide, *, use_derr: bool,
         crec = idct_add_clip(cdq.reshape(M, 2, 2, 2, 4, 4), cpred_blk)
         crec = crec.permute(1, 0, 2, 4, 3, 5).reshape(2, M, 8, 8)
 
-        Ry[bb, my, mx] = recon_y
-        Rc[:, bb, my, mx] = crec
+        Ry[bb, myo, mx] = recon_y
+        Rc[:, bb, myo, mx] = crec
         out_y[bb, my, mx] = y_lv
         out_y2[bb, my, mx] = y2_lv
         out_uv[bb, my, mx] = clv
@@ -331,11 +349,16 @@ def wavefront_plain(y, u, v, seg, qsteps, decide, *, use_derr: bool,
            "uv_levels": out_uv.to(I16), "ymode": out_modes[..., 0],
            "uvmode": out_modes[..., 1], "is_i4": out_modes[..., 2],
            "imodes": out_modes[..., 3:]}
+    U8 = torch.uint8
     if want_recon:
-        U8 = torch.uint8
-        out["recon_y"] = _plane(Ry).to(U8)
-        out["recon_u"] = _plane(Rc[0]).to(U8)
-        out["recon_v"] = _plane(Rc[1]).to(U8)
+        out["recon_y"] = _plane(Ry[:, o:]).to(U8)
+        out["recon_u"] = _plane(Rc[0, :, o:]).to(U8)
+        out["recon_v"] = _plane(Rc[1, :, o:]).to(U8)
+    if want_edge:
+        out["edge"] = (Ry[:, -1, :, 15].reshape(B, W).to(U8),
+                       Rc[0, :, -1, :, 7].reshape(B, W // 2).to(U8),
+                       Rc[1, :, -1, :, 7].reshape(B, W // 2).to(U8),
+                       Dt[:, -1].reshape(B, mw, 4).to(I16))
     return out
 
 

@@ -95,6 +95,15 @@
 //   table (55,296 bytes of dynamic shared memory, 3 blocks an SM), with
 //   each table's zero-run sums (256 bytes, made at the launch's start);
 //   the lambdas come per segment (lams).
+// - The stripe form (kStripe, a template parameter; method <= 5 only):
+//   one stripe of MB rows of a frame split over devices
+//   (gowebp_tpu_torch/parallel/shard.py sharded_wavefront_encode, after
+//   gowebp_tpu/ops/encode_wavefront_jax.py:616 _wavefront_impl with
+//   axis_name), below another stripe.  Its MB row 0 has a row above: it
+//   reads the top context from the halo the stripe above sent (its last
+//   recon luma row hy, chroma rows hu, hv, and its last MB row's DC
+//   carries hdt), which is whole before the launch, so row 0 waits on
+//   nothing.  The other forms leave the halo unread.
 
 #include <cuda_runtime.h>
 
@@ -148,6 +157,11 @@ struct Args {
   int* progress;    // (B*mh) MBs published per row, zeroed by the caller
   int* ticket;      // next ticket (my * B + b) to claim, zeroed by the caller
   int B, mh, mw, use_derr;
+  // the stripe form: the stripe above's last recon rows and DC carries
+  const uint8_t* hy;   // (B, W)
+  const uint8_t* hu;   // (B, W/2)
+  const uint8_t* hv;
+  const int16_t* hdt;  // (B, mw, 4)
 };
 
 // Sum over the 32 lanes of a warp, in every lane.
@@ -172,7 +186,7 @@ __device__ __forceinline__ int argmin4(const int* c) {
 
 // 4 blocks an SM: the dynamic tables (41,472 bytes) and the static state
 // fit 4 times in an SM's shared memory (3 times in the trellis form).
-template <bool kI4, bool kTrellis>
+template <bool kI4, bool kTrellis, bool kStripe = false>
 __global__ void __launch_bounds__(kThreads, 4) wavefront_search_kernel(Args a) {
   constexpr bool kTables = kI4 || kTrellis;
   extern __shared__ __align__(16) unsigned char s_tables[];  // Tables[3], or [4] (kTrellis)
@@ -221,7 +235,8 @@ __global__ void __launch_bounds__(kThreads, 4) wavefront_search_kernel(Args a) {
     if (t >= a.B * mh) return;
     const int my = t / a.B, b = t - my * a.B;
     const int row = b * mh + my;
-    const bool ht = my > 0;
+    const bool ht = kStripe || my > 0;  // the stripe form: row 0 has the halo above
+    const bool from_halo = kStripe && my == 0;
     const uint8_t* ysrc = a.y + (size_t)b * H * W;
     uint8_t* yrec = a.ry + (size_t)b * H * W;
     const int y0 = 16 * my, cy0 = 8 * my;
@@ -273,7 +288,7 @@ __global__ void __launch_bounds__(kThreads, 4) wavefront_search_kernel(Args a) {
         if (mx + 1 < mw) next = fetch(mx + 1);
       }
       // ---- wait for the row above ----
-      if (tid == 0 && ht) {
+      if (tid == 0 && my > 0) {
         const int need = min(mx + 2, mw);
         for (unsigned spins = 0; seen < need; spins++) {
           seen = vp8::ld_acquire(a.progress + row - 1);
@@ -291,7 +306,7 @@ __global__ void __launch_bounds__(kThreads, 4) wavefront_search_kernel(Args a) {
         int top = 127;
         if (lane < 20 && ht) {
           const int col = lane < 16 ? x0 + lane : (mx == mw - 1 ? x0 + 15 : x0 + lane);
-          top = __ldcg(yrec + (size_t)(y0 - 1) * W + col);
+          top = __ldcg((from_halo ? a.hy + (size_t)b * W : yrec + (size_t)(y0 - 1) * W) + col);
         }
         const int left = hl ? sy[(1 + k) * kSW + 16] : 129;
         const int tl = hl ? sy[16] : (ht ? 129 : 127);
@@ -307,11 +322,14 @@ __global__ void __launch_bounds__(kThreads, 4) wavefront_search_kernel(Args a) {
         int* S = sc[half];
         int top = 127;
         if (k < 8 && ht) {
-          const uint8_t* crec = (half ? a.rv : a.ru) + (size_t)b * Hc * Wc;
-          top = __ldcg(crec + (size_t)(cy0 - 1) * Wc + cx0 + k);
+          const uint8_t* crec = from_halo ? (half ? a.hv : a.hu) + (size_t)b * Wc
+                                          : (half ? a.rv : a.ru) + (size_t)b * Hc * Wc +
+                                                (size_t)(cy0 - 1) * Wc;
+          top = __ldcg(crec + cx0 + k);
         }
         if (k == 0 && a.use_derr && ht) {
-          const int16_t* p = a.dtop + (mb - mw) * 4 + 2 * half;
+          const int16_t* p = (from_halo ? a.hdt + ((size_t)b * mw + mx) * 4 : a.dtop + (mb - mw) * 4) +
+                             2 * half;
           dt0 = __ldcg(p);
           dt1 = __ldcg(p + 1);
         }
@@ -600,7 +618,7 @@ __global__ void __launch_bounds__(kThreads, 4) wavefront_search_kernel(Args a) {
 // The card's SMs and the blocks an SM holds at once at the launch's
 // shared memory and thread count (cached): every block of the ticket grid
 // must be resident, or a row could wait on a block that never runs.
-template <bool kI4, bool kTrellis>
+template <bool kI4, bool kTrellis, bool kStripe = false>
 cudaError_t occupancy(int* sms_out, int* per_sm_out) {
   static int sms = 0, per_sm = 0;
   if (sms == 0) {
@@ -610,10 +628,10 @@ cudaError_t occupancy(int* sms_out, int* per_sm_out) {
     cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
     // raise the dynamic limit first: the occupancy, and so the ticket
     // grid, must be that of the launch's shared memory
-    cudaFuncSetAttribute(wavefront_search_kernel<kI4, kTrellis>,
+    cudaFuncSetAttribute(wavefront_search_kernel<kI4, kTrellis, kStripe>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&p, wavefront_search_kernel<kI4, kTrellis>,
-                                                  kThreads, smem);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &p, wavefront_search_kernel<kI4, kTrellis, kStripe>, kThreads, smem);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     sms = n;
@@ -624,15 +642,15 @@ cudaError_t occupancy(int* sms_out, int* per_sm_out) {
   return cudaSuccess;
 }
 
-template <bool kI4, bool kTrellis>
+template <bool kI4, bool kTrellis, bool kStripe = false>
 int launch(const Args& a, cudaStream_t stream) {
   int sms = 0, per_sm = 0;
-  const cudaError_t err = occupancy<kI4, kTrellis>(&sms, &per_sm);
+  const cudaError_t err = occupancy<kI4, kTrellis, kStripe>(&sms, &per_sm);
   if (err != cudaSuccess) return (int)err;
   const int resident = sms * per_sm > 0 ? sms * per_sm : 1;
   const int rows = a.B * a.mh;
   const int grid = rows < resident ? rows : resident;
-  wavefront_search_kernel<kI4, kTrellis>
+  wavefront_search_kernel<kI4, kTrellis, kStripe>
       <<<grid, kThreads, table_bytes(kI4, kTrellis), stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -643,20 +661,30 @@ int launch(const Args& a, cudaStream_t stream) {
 // `sync` holds B*mh progress counters and the ticket, all zero.  `form`:
 // bit 0 try_i4, bit 1 the trellis form.  pens are read only with try_i4,
 // lams only in the trellis form, the rate tables p0/p1/val (3 types, 4 in
-// the trellis form) only in either (else they may be null).  Returns the
-// CUDA error of the launch (0 = accepted).
+// the trellis form) only in either (else they may be null).  hy non-null
+// runs the stripe form (not with the trellis): hy (B, 16 mw), hu and hv
+// (B, 8 mw) the stripe above's last recon rows, hdt (B, mw, 4) its last MB
+// row's UV DC carries (read only with use_derr); the frame's top stripe
+// passes all four null.  Returns the CUDA error of the launch (0 =
+// accepted).
 extern "C" int wavefront_search_launch(
     const uint8_t* y, const uint8_t* u, const uint8_t* v, const int* seg, const int* qsteps,
     const int* pens, const int* p0, const int* p1, const int* val, const int* lams, uint8_t* ry,
     uint8_t* ru, uint8_t* rv, int16_t* dtop, int16_t* ylv, int16_t* y2lv, int16_t* uvlv,
     uint8_t* ymode, uint8_t* uvmode, uint8_t* is_i4, uint8_t* imodes, int* sync, int B, int mh,
-    int mw, int use_derr, int form, void* stream) {
+    int mw, int use_derr, int form, const uint8_t* hy, const uint8_t* hu, const uint8_t* hv,
+    const int16_t* hdt, void* stream) {
   const int rows = B * mh;
   if (rows <= 0 || mw <= 0) return 0;
   const Args a{y,    u,    v,    seg,    qsteps, pens,  p0,     p1,   val,  lams,
                ry,   ru,   rv,   dtop,   ylv,    y2lv,  uvlv,   ymode, uvmode,
-               is_i4, imodes, sync, sync + rows, B, mh, mw, use_derr};
+               is_i4, imodes, sync, sync + rows, B, mh, mw, use_derr,
+               hy,   hu,   hv,   hdt};
   const cudaStream_t st = (cudaStream_t)stream;
+  if (hy) {
+    if (form & 2) return (int)cudaErrorInvalidValue;
+    return form & 1 ? launch<true, false, true>(a, st) : launch<false, false, true>(a, st);
+  }
   switch (form & 3) {
     case 0: return launch<false, false>(a, st);
     case 1: return launch<true, false>(a, st);

@@ -27,6 +27,12 @@ every i4 sub-block before it is scored, and the 8 chroma blocks after
 the DC error diffusion.  Its rate tables are those of the first pass's
 adapted probabilities, for the search's rate model as for the trellis.
 
+``wavefront_search_stripe`` codes one stripe of MB rows of a frame split
+over devices (parallel/shard.py ``sharded_wavefront_encode``): below
+another stripe, its MB row 0 reads its top context from the halo the
+stripe above sent (the kernel's stripe form), and it returns its own last
+row's halo for the stripe below.
+
 On CUDA tensors it runs the kernel in ``wavefront_search.cu``, one
 persistent launch (it replaces gowebp_tpu/ops/encode_wavefront_jax.py
 ``_wavefront_impl`` with ``modes=None``, which the JAX package ran in
@@ -68,7 +74,7 @@ def _configure(lib) -> None:
     p = ctypes.c_void_p
     i = ctypes.c_int
     lib.wavefront_search_launch.restype = i
-    lib.wavefront_search_launch.argtypes = [p] * 22 + [i] * 5 + [p]
+    lib.wavefront_search_launch.argtypes = [p] * 22 + [i] * 5 + [p] * 5
     lib.wavefront_search_occupancy.restype = i
     lib.wavefront_search_occupancy.argtypes = [i, i] + [
         ctypes.POINTER(ctypes.c_int)] * 2
@@ -178,23 +184,12 @@ def wavefront_search_plain(y, u, v, seg, qsteps, pens, rate, *,
     return out
 
 
-def wavefront_search(y, u, v, seg, qsteps, pens, rate, *, try_i4: bool,
-                     use_derr: bool, want_recon: bool, lams=None):
-    """Kernel on CUDA tensors, plain version on CPU tensors.
-
-    ``wavefront_search.launches`` counts kernel launches (one per call on
-    CUDA: the whole wavefront, search included, is one persistent
-    launch) of the method <= 5 form, ``wavefront_search.trellis_launches``
-    those of the trellis form (``lams`` given).  With ``try_i4`` False,
-    ``pens`` is not read
-    and may be None, and so may ``rate`` unless ``lams`` is given (the
-    trellis form reads all 4 of its types).
-    """
+def _launch(y, u, v, seg, qsteps, pens, rate, *, try_i4: bool,
+            use_derr: bool, lams=None, above=None):
+    """One launch of the kernel (the stripe form with ``above``) → (out,
+    (ry, ru, rv, dtop)): the outputs without the recon, and the kernel's
+    recon planes and DC carries."""
     dev = y.device
-    if dev.type == "cpu":
-        return wavefront_search_plain(y, u, v, seg, qsteps, pens, rate,
-                                      try_i4=try_i4, use_derr=use_derr,
-                                      want_recon=want_recon, lams=lams)
     if dev.type != "cuda":
         raise ValueError(f"wavefront_search: unsupported device {dev}")
     B, H, W = y.shape
@@ -208,6 +203,8 @@ def wavefront_search(y, u, v, seg, qsteps, pens, rate, *, try_i4: bool,
     check_tensor("seg", seg, I32, (B, mh, mw), dev)
     check_tensor("qsteps", qsteps, I32, (B, 4, 6), dev)
     trellis = lams is not None
+    if trellis and above is not None:
+        raise ValueError("wavefront_search: the stripe form has no trellis")
     ptrs = [None] * 5
     if try_i4:
         check_tensor("pens", pens, I32, (B, 4), dev)
@@ -236,12 +233,20 @@ def wavefront_search(y, u, v, seg, qsteps, pens, rate, *, try_i4: bool,
     modes = {k: torch.empty((B, mh, mw), dtype=U8, device=dev)
              for k in MODE_KEYS[:3]}
     modes["imodes"] = torch.empty((B, mh, mw, 16), dtype=U8, device=dev)
+    planes = [t.data_ptr() for t in (y, u, v, seg, qsteps)]
+    outs = [t.data_ptr() for t in (ry, ru, rv, dtop, ylv, y2lv, uvlv)]
+    outs += [modes[k].data_ptr() for k in MODE_KEYS] + [sync.data_ptr()]
+    halo = [None] * 4
+    if above is not None:
+        hy, hu, hv, hdt = above
+        check_tensor("above y", hy, U8, (B, W), dev)
+        check_tensor("above u", hu, U8, (B, W // 2), dev)
+        check_tensor("above v", hv, U8, (B, W // 2), dev)
+        check_tensor("above dtop", hdt, I16, (B, mw, 4), dev)
+        halo = [t.data_ptr() for t in above]
     err = lib.wavefront_search_launch(
-        *(t.data_ptr() for t in (y, u, v, seg, qsteps)), *ptrs,
-        *(t.data_ptr() for t in (ry, ru, rv, dtop, ylv, y2lv, uvlv)),
-        *(modes[k].data_ptr() for k in MODE_KEYS), sync.data_ptr(),
-        B, mh, mw, int(bool(use_derr)), int(bool(try_i4)) | trellis << 1,
-        stream_handle(dev))
+        *planes, *ptrs, *outs, B, mh, mw, int(bool(use_derr)),
+        int(bool(try_i4)) | trellis << 1, *halo, stream_handle(dev))
     if err != 0:
         raise RuntimeError(
             f"wavefront_search kernel launch failed: CUDA error {err}")
@@ -249,15 +254,76 @@ def wavefront_search(y, u, v, seg, qsteps, pens, rate, *, try_i4: bool,
         wavefront_search.trellis_launches += 1
     else:
         wavefront_search.launches += 1
-    out = dict(modes, y_levels=ylv, y2_levels=y2lv, uv_levels=uvlv)
+        wavefront_search.stripe_launches += above is not None
+    return (dict(modes, y_levels=ylv, y2_levels=y2lv, uv_levels=uvlv),
+            (ry, ru, rv, dtop))
+
+
+def wavefront_search(y, u, v, seg, qsteps, pens, rate, *, try_i4: bool,
+                     use_derr: bool, want_recon: bool, lams=None):
+    """Kernel on CUDA tensors, plain version on CPU tensors.
+
+    ``wavefront_search.launches`` counts kernel launches (one per call on
+    CUDA: the whole wavefront, search included, is one persistent
+    launch) of the method <= 5 form, ``wavefront_search.trellis_launches``
+    those of the trellis form (``lams`` given).  With ``try_i4`` False,
+    ``pens`` is not read
+    and may be None, and so may ``rate`` unless ``lams`` is given (the
+    trellis form reads all 4 of its types).
+    """
+    if y.device.type == "cpu":
+        return wavefront_search_plain(y, u, v, seg, qsteps, pens, rate,
+                                      try_i4=try_i4, use_derr=use_derr,
+                                      want_recon=want_recon, lams=lams)
+    out, (ry, ru, rv, _) = _launch(y, u, v, seg, qsteps, pens, rate,
+                                   try_i4=try_i4, use_derr=use_derr,
+                                   lams=lams)
     if want_recon:
         out.update(recon_y=ry, recon_u=ru, recon_v=rv)
     return out
 
 
+def wavefront_search_stripe_plain(y, u, v, seg, qsteps, pens, rate, *,
+                                  try_i4: bool, use_derr: bool, above=None):
+    """Plain torch version of the kernel's stripe form (any device), with
+    ``wavefront_search_stripe``'s contract."""
+    out = wavefront_plain(y, u, v, seg, qsteps,
+                          SearchModes(pens, rate, try_i4),
+                          use_derr=use_derr, want_recon=False,
+                          above=above, want_edge=True)
+    for k in MODE_KEYS:
+        out[k] = out[k].to(U8)
+    return out, out.pop("edge")
+
+
+def wavefront_search_stripe(y, u, v, seg, qsteps, pens, rate, *,
+                            try_i4: bool, use_derr: bool, above=None):
+    """One stripe of MB rows of a frame split over devices → (out, edge).
+
+    ``above`` is None for the frame's top stripe, else the halo of the
+    stripe above: its ``edge``.  ``out`` is ``wavefront_search``'s without
+    the recon; ``edge`` = (its last recon rows y (B, W), u, v (B, W/2)
+    uint8, its last MB row's UV DC carries (B, mw, 4) int16), the halo of
+    the stripe below.  The kernel on CUDA tensors (the stripe form when
+    ``above`` is given, counted in ``wavefront_search.stripe_launches``
+    as well as ``launches``), the plain version on CPU tensors.
+    """
+    if y.device.type == "cpu":
+        return wavefront_search_stripe_plain(
+            y, u, v, seg, qsteps, pens, rate, try_i4=try_i4,
+            use_derr=use_derr, above=above)
+    out, (ry, ru, rv, dtop) = _launch(y, u, v, seg, qsteps, pens, rate,
+                                      try_i4=try_i4, use_derr=use_derr,
+                                      above=above)
+    return out, (ry[:, -1].contiguous(), ru[:, -1].contiguous(),
+                 rv[:, -1].contiguous(), dtop[:, -1].contiguous())
+
+
 wavefront_search.launches = 0
 wavefront_search.trellis_launches = 0
+wavefront_search.stripe_launches = 0
 
 __all__ = ["LIBRARY", "RATE_TYPES", "SearchModes", "occupancy",
            "search_tables", "search_trellis", "wavefront_search",
-           "wavefront_search_plain"]
+           "wavefront_search_plain", "wavefront_search_stripe",
+           "wavefront_search_stripe_plain"]

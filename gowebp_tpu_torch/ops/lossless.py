@@ -1,5 +1,7 @@
 """The VP8L encoder's predictors and per-tile predictor chooser on torch
-tensors.
+tensors, and the decode side's inverses: ``add_green_inverse`` and
+``predictor_inverse`` (ops/kernels/vp8l_inverse.py: a kernel on a CUDA
+tensor, its plain version on a CPU tensor).
 
 ``predictor_search_entropy`` picks, for each (1 << bits)-square tile of
 an ARGB image, the one of the 14 VP8L predictors whose residuals code
@@ -32,6 +34,10 @@ import torch
 # (H, W) int32 ARGB bits → the (th, tw) int32 mode map: the kernel on a
 # CUDA tensor, its plain version on a CPU tensor (the same modes).
 from .kernels.vp8l_predictor import predictor_search_entropy
+# (B, h, w) int32 residuals, (th, tw) int32 mode image → (B, h, w) int32
+# pixels, optionally through the add-green inverse: the kernel on a CUDA
+# tensor, its plain version on a CPU tensor.
+from .kernels.vp8l_inverse import predictor_inverse
 
 I64 = torch.int64
 BLACK = 0xFF000000
@@ -186,6 +192,14 @@ def refine_table(glob: np.ndarray, mcount: np.ndarray, tiles: int) -> np.ndarray
     return np.concatenate([_fixed(nlogp.reshape(-1)), _fixed(mode_cost)])
 
 
+def add_green_inverse(argb: torch.Tensor) -> torch.Tensor:
+    """The add-green inverse of int32 ARGB bits (any shape): green added to
+    red and blue, mod 256; elementwise torch ops on any device."""
+    from .kernels.vp8l_inverse import add_green_words, to_bits
+
+    return to_bits(add_green_words(to_words(argb)))
+
+
 def check_search(argb, bits: int, refine_iters: int) -> None:
     if argb.dim() != 2 or argb.shape[0] < 1 or argb.shape[1] < 1:
         raise ValueError(f"predictor_search_entropy: argb must be a non-empty "
@@ -200,5 +214,6 @@ def check_search(argb, bits: int, refine_iters: int) -> None:
         raise ValueError(f"predictor_search_entropy: refine_iters must be "
                          f">= 0, got {refine_iters}")
 
-__all__ = ["apply_predictor", "predict_plane", "predictor_search_entropy",
-           "refine_table", "stage1_table", "to_words"]
+__all__ = ["add_green_inverse", "apply_predictor", "predict_plane",
+           "predictor_inverse", "predictor_search_entropy", "refine_table",
+           "stage1_table", "to_words"]

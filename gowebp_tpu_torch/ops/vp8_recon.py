@@ -197,12 +197,15 @@ def predict4_blocks(top, left, tl, have_top, have_left, size: int):
     return torch.stack([pred_dc, pred_tm.to(I32), pred_ve, pred_he])
 
 
-def mb_context(cy, mh, mw, size):
+def mb_context(cy, mh, mw, size, left_halo=None):
     """Plane (B, H, W) → per-MB top/left/top-left context (B, N, ...).
 
     Edge rules of the intra encoders: the top MB row reads 127
     (corner included), the left MB column 129; the top-right 4 pixels
     of the last MB column repeat the row above's last pixel.
+    ``left_halo`` (B, H), the column left of the plane (a width tile's
+    left neighbour's last column): the MB column 0 reads its left and
+    corner from it and has a left neighbour.
     Returns (top (B,N,s), tr4 (B,N,4) [luma only, else None],
     left (B,N,s), tl (B,N)) with the edge fills applied, plus the (N,)
     have_top/have_left masks.
@@ -214,10 +217,16 @@ def mb_context(cy, mh, mw, size):
     row_above = cy[:, (size * my - 1).clamp_min(0)]            # (B, mh, W)
     top = row_above.reshape(B, mh, mw, size)
     col_left = cy[:, :, (size * mx - 1).clamp_min(0)]          # (B, H, mw)
-    left = col_left.reshape(B, mh, size, mw).transpose(2, 3)
     tl = row_above[:, :, (size * mx - 1).clamp_min(0)]         # (B, mh, mw)
+    hl = mx > 0
+    if left_halo is not None:
+        halo = left_halo.to(cy.dtype)
+        col_left[:, :, 0] = halo
+        tl[:, :, 0] = halo[:, (size * my - 1).clamp_min(0)]
+        hl = torch.ones_like(hl)
+    left = col_left.reshape(B, mh, size, mw).transpose(2, 3)
     ht = (my > 0)[:, None].expand(mh, mw).reshape(-1)
-    hl = (mx > 0)[None, :].expand(mh, mw).reshape(-1)
+    hl = hl[None, :].expand(mh, mw).reshape(-1)
     top = torch.where(ht[:, None], top.reshape(B, -1, size), 127)
     left = torch.where(hl[:, None], left.reshape(B, -1, size), 129)
     tl = torch.where(ht, torch.where(hl, tl.reshape(B, -1), 129), 127)
@@ -275,10 +284,11 @@ class Diagonals:
     MBs are listed diagonal by diagonal (t = 2*mb_y + mb_x, mb_y rising
     within a diagonal); ``spans()`` gives each diagonal's slice of that
     list.  The index tensors are built once per frame shape on the
-    device; every step only slices them.
+    device; every step only slices them.  ``top``: the frame is a stripe
+    below another, so its MB row 0 has a row above too.
     """
 
-    def __init__(self, mb_w: int, mb_h: int, device):
+    def __init__(self, mb_w: int, mb_h: int, device, top: bool = False):
         self.mb_w, self.mb_h = mb_w, mb_h
         ys, offs = [], [0]
         for t in range(num_diagonals(mb_w, mb_h)):
@@ -293,7 +303,7 @@ class Diagonals:
         self.my = torch.as_tensor(my, dtype=torch.int64, device=device)
         self.mx = torch.as_tensor(mx, dtype=torch.int64, device=device)
         self.mb = self.my * mb_w + self.mx                 # flat MB index
-        self.has_top = self.my > 0
+        self.has_top = (self.my > 0) | top
         self.has_left = self.mx > 0
         self.last_col = self.mx == mb_w - 1
 
@@ -335,17 +345,26 @@ def _select(preds, mode):
 # Decode: reconstruction wavefront
 # ---------------------------------------------------------------------------
 
-def recon_wavefront(Yres, Ures, Vres, is_i4, imodes, uvmode, dg: Diagonals):
+def recon_wavefront(Yres, Ures, Vres, is_i4, imodes, uvmode, dg: Diagonals,
+                    above=None):
     """Intra-predict + add residuals over the MB anti-diagonal wavefront.
 
     Inputs are per-MB tensors (B, N, ...) (N = mb_h*mb_w, raster order);
     returns the bordered int32 planes (PY (B, PAD+16*mb_h, 16*mb_w+2*PAD),
     PC (2B, PAD+8*mb_h, 8*mb_w+2*PAD), U then V on the batch axis).
+    ``above`` (a stripe below another: ``dg`` built with ``top``) = (the
+    stripe above's unfiltered bottom luma row (B, 16*mb_w), its chroma
+    rows (2B, 8*mb_w), U then V) takes the border row's 127 fill, and the
+    corner left of it reads 129, as inside a frame.
     """
     B, dev = Yres.shape[0], Yres.device
     H, W = 16 * dg.mb_h, 16 * dg.mb_w
     PY = _bordered(B, H, W, dev)
     PC = _bordered(2 * B, H // 2, W // 2, dev)
+    if above is not None:
+        for P, row in zip((PY, PC), above):
+            P[:, PAD - 1, PAD:PAD + row.shape[1]] = row.to(I32)
+            P[:, PAD - 1, PAD - 1] = 129
     sy, sc = PY.shape[2], PC.shape[2]
     PYf, PCf = PY.view(B, -1), PC.view(2 * B, -1)
     r16, c16 = 16 * dg.my, 16 * dg.mx

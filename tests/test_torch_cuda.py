@@ -1020,8 +1020,9 @@ def test_wavefront_search_trellis_kernel_matches_plain_on_ties(cuda, derr, B,
 
 
 def test_wavefront_search_ptxas_has_no_stack_or_spills(cuda, tmp_path):
-    """All four forms of wavefront_search.cu (try_i4 x trellis) compile to
-    no stack frame and no spills (nvcc -Xptxas -v, built here anew)."""
+    """All six forms of wavefront_search.cu (try_i4 x trellis, and the
+    stripe form with and without try_i4) compile to no stack frame and no
+    spills (nvcc -Xptxas -v, built here anew)."""
     import subprocess
 
     from gowebp_tpu_torch.ops.kernels.cuda_build import NVCC_FLAGS, nvcc
@@ -1036,7 +1037,7 @@ def test_wavefront_search_ptxas_has_no_stack_or_spills(cuda, tmp_path):
                                 "wavefront_search_kernel")
     forms = {smoke.search_form(name): (stack, st, ld)
              for name, _, stack, st, ld in report}
-    assert len(forms) == 4, report
+    assert len(forms) == 6, report
     assert all(v == (0, 0, 0) for v in forms.values()), forms
 
 
@@ -1511,3 +1512,244 @@ def test_picture_rescale_gpu_equals_cpu(cuda):
             got = picture_rescale(img, w, h, device="cuda")
             want = picture_rescale(img, w, h, device="cpu")
             assert got.shape == want.shape and np.array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# The halo and stripe forms (parallel/) and the VP8L predictor inverse
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("b,h,w,quality", [
+    (3, 64, 96, 75.0),
+    (2, 16, 64, 99.0),       # one MB row
+    (1, 64, 16, 40.0),       # one MB column
+])
+def test_encode_plane_halo_forms_match_plain(cuda, b, h, w, quality):
+    """encode_luma/encode_chroma with a left halo column == their plain
+    versions with it; one launch each, counted as halo launches."""
+    from gowebp_tpu_torch.ops.kernels import encode_plane as ep
+
+    g = torch.Generator().manual_seed(h * 7 + w)
+    y = torch.randint(0, 256, (b, h, w), generator=g, dtype=torch.uint8)
+    u, v = (torch.randint(0, 256, (b, h // 2, w // 2), generator=g,
+                          dtype=torch.uint8) for _ in "uv")
+    hy = torch.randint(0, 256, (b, h), generator=g, dtype=torch.uint8)
+    hu, hv = (torch.randint(0, 256, (b, h // 2), generator=g,
+                            dtype=torch.uint8) for _ in "uv")
+    lq, y2q, cq = _plane_quants(quality)
+    before = [(k.launches, k.halo_launches)
+              for k in (ep.encode_luma, ep.encode_chroma)]
+    got = (ep.encode_luma(y.to(cuda), lq, y2q, halo=hy.to(cuda))
+           + ep.encode_chroma(u.to(cuda), v.to(cuda), cq,
+                              halo=(hu.to(cuda), hv.to(cuda))))
+    want = (ep.encode_luma_plain(y, lq, y2q, hy)
+            + ep.encode_chroma_plain(u, v, cq, (hu, hv)))
+    torch.cuda.synchronize()
+    assert [(k.launches, k.halo_launches) for k in (
+        ep.encode_luma, ep.encode_chroma)] == [(a + 1, c + 1)
+                                               for a, c in before]
+    for a, e in zip(got, want):
+        assert a.dtype == e.dtype and torch.equal(a.cpu(), e)
+    # without a halo the MB column 0 differs (the 129 fill)
+    plain = ep.encode_luma(y.to(cuda), lq, y2q)
+    assert not all(torch.equal(a, c) for a, c in zip(plain, got[:3]))
+
+
+@pytest.mark.parametrize("try_i4", [True, False])
+@pytest.mark.parametrize("derr", [False, True])
+@pytest.mark.parametrize("B,mh,mw,cuts", [(2, 4, 6, (1, 3)), (1, 5, 1, (2,)),
+                                          (3, 6, 5, (3,))])
+def test_wavefront_search_stripe_form_matches_plain(cuda, try_i4, derr, B,
+                                                    mh, mw, cuts):
+    """Stripes run in turn through wavefront_search_stripe (the stripe
+    form below the first) == the plain stripes, and together == one
+    unsharded launch."""
+    from gowebp_tpu_torch.ops.kernels.wavefront_search import (
+        search_tables, wavefront_search, wavefront_search_stripe)
+
+    y, u, v, seg, qs, pens = _search_case(cuda, mh * 10 + mw, B, 16 * mh,
+                                          16 * mw)
+    rate = search_tables(_tables(cuda))
+    whole = wavefront_search(y, u, v, seg, qs, pens, rate, try_i4=try_i4,
+                             use_derr=derr, want_recon=False)
+    rows = (0, *cuts, mh)
+    kernel, plain = [], []
+    k_above = p_above = None
+    before = wavefront_search.stripe_launches
+    for a, b in zip(rows, rows[1:]):
+        part = [t[:, s * a:s * b].contiguous() for t, s in (
+            (y, 16), (u, 8), (v, 8), (seg, 1))]
+        out, k_above = wavefront_search_stripe(
+            *part, qs, pens, rate, try_i4=try_i4, use_derr=derr,
+            above=k_above)
+        kernel.append(out)
+        out, p_above = wavefront_search_stripe(
+            *(t.cpu() for t in part), qs.cpu(), pens.cpu(),
+            tuple(t.cpu() for t in rate), try_i4=try_i4, use_derr=derr,
+            above=p_above)
+        plain.append(out)
+        for e_k, e_p in zip(k_above, p_above):
+            assert torch.equal(e_k.cpu(), e_p) or not derr and \
+                e_k.dtype == torch.int16
+    torch.cuda.synchronize()
+    assert wavefront_search.stripe_launches == before + len(rows) - 2
+    for k in whole:
+        got = torch.cat([o[k] for o in kernel], 1)
+        assert torch.equal(got, whole[k]), k
+        assert torch.equal(got.cpu(), torch.cat([o[k] for o in plain], 1)), k
+
+
+@pytest.mark.parametrize("filter_type", [0, 1, 2])
+@pytest.mark.parametrize("B,mb_h,mb_w,cuts", [(2, 4, 5, (1, 3)),
+                                              (1, 5, 1, (2, 3)),
+                                              (3, 6, 4, (3,))])
+def test_recon_filter_mb_stripe_form_matches_plain(cuda, filter_type, B,
+                                                   mb_h, mb_w, cuts):
+    """The decode's stripes in turn through the stripe form == the plain
+    stripes (planes, edges, written-back rows), and with the write-backs
+    applied == one unsharded launch."""
+    from gowebp_tpu_torch.ops.kernels.vp8_recon import (
+        recon_filter_mb, recon_filter_mb_stripe)
+
+    coeffs, modes, fp = _recon_case(B * 13 + mb_h * 5 + mb_w, B, mb_h, mb_w)
+    whole = recon_filter_mb(coeffs.to(cuda), modes.to(cuda), fp.to(cuda),
+                            mb_w, mb_h, filter_type)
+    rows = (0, *cuts, mb_h)
+    k_above = p_above = None
+    outs, backs = [], []
+    before = recon_filter_mb.stripe_launches
+    for a, b in zip(rows, rows[1:]):
+        part = (coeffs[:, a * mb_w:b * mb_w].contiguous(),
+                modes[:, a * mb_w:b * mb_w].contiguous(),
+                fp[:, a:b].contiguous())
+        k_planes, k_above, k_back = recon_filter_mb_stripe(
+            *(t.to(cuda) for t in part), mb_w, b - a, filter_type, k_above)
+        p_planes, p_above, p_back = recon_filter_mb_stripe(
+            *part, mb_w, b - a, filter_type, p_above)
+        for g, w in zip((*k_planes, *k_above, *(k_back or ())),
+                        (*p_planes, *p_above, *(p_back or ()))):
+            assert torch.equal(g.cpu(), w)
+        outs.append([p.clone() for p in k_planes])
+        backs.append(k_back)
+    torch.cuda.synchronize()
+    assert recon_filter_mb.stripe_launches == before + len(rows) - 1
+    for i in range(1, len(outs)):
+        for p in range(3):
+            outs[i - 1][p][:, -3:] = backs[i][p]
+    for p in range(3):
+        assert torch.equal(torch.cat([o[p] for o in outs], 1), whole[p])
+
+
+@pytest.mark.parametrize("add_green", [False, True])
+@pytest.mark.parametrize("B,h,w,bits", [
+    (2, 9, 13, 2), (1, 1, 1, 3), (3, 1, 40, 4), (2, 33, 1, 5),
+    (1, 1100, 7, 2),        # two bands of rows
+    (2, 64, 96, 4), (1, 2049, 3, 3),
+])
+def test_vp8l_inverse_kernel_matches_plain(cuda, add_green, B, h, w, bits):
+    from gowebp_tpu_torch.ops.kernels.vp8l_inverse import (
+        predictor_inverse, predictor_inverse_plain)
+
+    rng = np.random.default_rng(h * 31 + w + bits)
+    th, tw = -(-h // (1 << bits)), -(-w // (1 << bits))
+    res = torch.from_numpy(rng.integers(0, 1 << 32, (B, h, w),
+                                        dtype=np.uint32).view(np.int32))
+    modes = torch.from_numpy(((rng.integers(0, 16, (th, tw), dtype=np.uint32)
+                               << 8) | 0xFF000000).view(np.int32))
+    before = predictor_inverse.launches
+    got = predictor_inverse(res.to(cuda), modes.to(cuda), bits, add_green)
+    torch.cuda.synchronize()
+    assert predictor_inverse.launches == before + 1
+    want = predictor_inverse_plain(res, modes, bits, add_green)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_vp8l_inverse_rejects_bad_tensors(cuda):
+    from gowebp_tpu_torch.ops.kernels.vp8l_inverse import predictor_inverse
+
+    res = torch.zeros((1, 8, 8), dtype=torch.int32, device=cuda)
+    modes = torch.zeros((2, 2), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        predictor_inverse(res.to(torch.int64), modes, 2)
+    with pytest.raises(ValueError):
+        predictor_inverse(res, modes.cpu(), 2)
+    with pytest.raises(ValueError):
+        predictor_inverse(res, modes[:1], 2)
+
+
+def test_parallel_kernels_ptxas_have_no_stack_or_spills(cuda, tmp_path):
+    """vp8l_inverse.cu and the halo and stripe forms of encode_plane.cu and
+    vp8_recon.cu compile to no stack frame and no spills."""
+    import subprocess
+
+    from gowebp_tpu_torch.ops.kernels import encode_plane, vp8_recon
+    from gowebp_tpu_torch.ops.kernels import vp8l_inverse
+    from gowebp_tpu_torch.ops.kernels.cuda_build import NVCC_FLAGS, nvcc
+
+    smoke = _chip_smoke()
+    for lib, kernel, n in ((vp8l_inverse.LIBRARY, "vp8l_inverse_kernel", 1),
+                           (encode_plane.LIBRARY, "encode_", 6),
+                           (vp8_recon.LIBRARY, "recon_filter_mb_kernel", 2)):
+        out = subprocess.run(
+            [nvcc(), *NVCC_FLAGS, "-o", str(tmp_path / "lib.so"),
+             str(lib.source)], capture_output=True, text=True)
+        assert out.returncode == 0, out.stdout + out.stderr
+        report = smoke.ptxas_report(out.stdout + out.stderr, kernel)
+        assert len(report) == n, report
+        assert all(r[2:] == (0, 0, 0) for r in report), report
+
+
+def test_sharded_steps_in_a_two_rank_job_on_one_card(cuda, tmp_path):
+    """chip_smoke.py's two-rank gloo job on cuda:0 (halos staged through
+    host memory), at a small size: every step's full tensors equal the
+    unsharded calls'."""
+    smoke = _chip_smoke()
+    inputs = smoke.parallel_inputs(cuda, small=True)
+    want = smoke.parallel_digests(smoke.unsharded_results(inputs))
+    got = smoke.run_parallel_job(inputs, 2, tmp_path)
+    assert got["digests"] == want
+    assert got["staged_bytes"] > 0
+
+
+_BATCH_SYMBOLS = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+from gowebp_tpu_torch.constants import CHUNK_VP8
+from gowebp_tpu_torch.container.riff import parse_riff
+from gowebp_tpu_torch.models.vp8 import decoder as dec
+
+payload = parse_riff(open(sys.argv[2], "rb").read()).find(CHUNK_VP8).payload
+st, coeffs, modes = dec.decode_vp8_symbols(payload)
+((_, bc, bm),) = dec.decode_vp8_symbols_batch([payload])
+print("EQUAL", np.array_equal(bc, coeffs), np.array_equal(bm, modes),
+      len(st.partition_bytes[0]), dec.symbol_engine(), flush=True)
+"""
+
+
+def test_batch_symbols_of_the_hybrid_4096_file(cuda, tmp_path):
+    """The hybrid engine's q75 file of a 4096x4096 mosaic of corpus
+    images: one token partition of some 1.6 MB, which the batch symbol
+    decoder reads with one lane while 31 sit parked (it ended the process
+    there until parked lanes stopped refilling).  In a subprocess, so
+    that a crash fails the test: the batch decode equals the
+    single-stream decode."""
+    import subprocess
+    import sys
+
+    from gowebp_tpu_torch import encode_rgba_batch
+    from gowebp_tpu_torch.utils.corpus import natural_images
+
+    big = _chip_smoke().mosaic(list(natural_images(16, 1024, 1024, seed=7)),
+                               4)
+    path = tmp_path / "hybrid4096.webp"
+    path.write_bytes(encode_rgba_batch([big], quality=75.0,
+                                       device="cuda")[0])
+    root = Path(__file__).resolve().parent.parent
+    out = subprocess.run([sys.executable, "-c", _BATCH_SYMBOLS, str(root),
+                          str(path)], capture_output=True, text=True,
+                         timeout=600)
+    assert out.returncode == 0, out.stdout + out.stderr
+    equal, part = out.stdout.split()[1:3], int(out.stdout.split()[3])
+    assert equal == ["True", "True"], out.stdout
+    assert part > 1 << 20, part

@@ -107,6 +107,34 @@ def test_symbols_match_jax(engine):
                                       jdec.vp8_filter_params(jst, jm))
 
 
+def test_batch_symbols_of_one_long_partition_decoded_alone():
+    """One image, one token partition of some 1.7M boolean decisions: the
+    batch engine's one busy lane runs while 31 stay parked for more than
+    2^20 steps, past the bit budget a parked lane starts with (its refill
+    reads must stay off; the hybrid engine's 4096x4096 file ended the
+    process there).  Every block codes a non-zero at position 15 behind
+    a run of cheap zeros.  Equal to the single-stream decoder."""
+    from gowebp_tpu_torch.config import EncoderConfig as PConfig
+    from gowebp_tpu_torch.models.vp8.encoder import emit_frame_arrays
+
+    mb = 64
+    total = mb * mb
+    y2 = np.zeros((total, 16), np.int16)
+    yl = np.zeros((total, 16, 16), np.int16)
+    uvl = np.zeros((total, 8, 16), np.int16)
+    for lv in (y2, yl, uvl):
+        lv[..., 15] = 1
+    z = np.zeros(total, np.uint8)
+    payload = emit_frame_arrays(y2, yl, uvl, z, z, z, mb, mb, 16 * mb,
+                                16 * mb, 40, PConfig(lossless=False))
+    st, coeffs, modes = pdec.decode_vp8_symbols(payload)
+    assert len(st.partition_bytes) == 1
+    assert int((coeffs != 0).sum()) == total * 40
+    ((bst, bc, bm),) = pdec.decode_vp8_symbols_batch([payload])
+    np.testing.assert_array_equal(bc, coeffs)
+    np.testing.assert_array_equal(bm, modes)
+
+
 # ---------------------------------------------------------------------------
 # Reconstruction
 # ---------------------------------------------------------------------------

@@ -279,3 +279,109 @@ def test_cuda_build_needs_nvcc(monkeypatch, tmp_path):
         pytest.skip("this host has nvcc")
     with pytest.raises(cuda_build.KernelBuildError):
         cuda_build.nvcc()
+
+
+def test_boundary_scan_covers_the_parallel_modules():
+    names = {str(f.relative_to(ROOT)) for f in _port_files()}
+    for mod in ("parallel/__init__.py", "parallel/mesh.py",
+                "parallel/distributed.py", "parallel/shard.py",
+                "ops/kernels/vp8l_inverse.py"):
+        assert f"gowebp_tpu_torch/{mod}" in names
+
+
+def test_parallel_default_device_is_cuda_and_raises_without_it(monkeypatch):
+    """make_mesh and initialize without device= need CUDA: without it they
+    raise before touching torch.distributed."""
+    import torch.distributed as dist
+
+    from gowebp_tpu_torch.parallel import distributed
+    from gowebp_tpu_torch.parallel.mesh import make_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ran = []
+    monkeypatch.setattr(dist, "init_process_group",
+                        lambda *a, **k: ran.append(1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh(1, data=1, tile=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        distributed.initialize()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        distributed.initialize("localhost:1", 1, 0)
+    assert not ran
+
+
+@pytest.mark.parametrize("step", ["sharded_encode_plane_step",
+                                  "sharded_wavefront_encode",
+                                  "sharded_recon_frame",
+                                  "sharded_recon_step",
+                                  "sharded_lossless_inverse"])
+def test_sharded_steps_on_a_cuda_mesh_raise_without_cuda(monkeypatch, step):
+    """A rank whose mesh is CUDA and that finds no card raises before any
+    work or exchange."""
+    import types
+
+    from gowebp_tpu_torch.parallel import shard
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    sent = []
+    monkeypatch.setattr(shard, "send_halo", lambda *a: sent.append(1))
+    monkeypatch.setattr(shard, "recv_halo", lambda *a: sent.append(1))
+    mesh = types.SimpleNamespace(device_type="cuda")
+    planes = [np.zeros((1, 16, 16), np.int32),
+              np.zeros((1, 8, 8), np.int32), np.zeros((1, 8, 8), np.int32)]
+    recon = [np.zeros((1, 1, 24, 16), np.int16), np.zeros((1, 1), np.int32),
+             np.zeros((1, 1, 16), np.int32), np.zeros((1, 1), np.int32),
+             np.zeros((1, 1, 1, 4), np.int32)]
+    call = {
+        "sharded_encode_plane_step": lambda f: f(mesh, *planes, quants={}),
+        "sharded_wavefront_encode": lambda f: f(
+            mesh, *planes, np.zeros((1, 1, 1), np.int32),
+            np.ones((1, 4, 6), np.int32), (), try_i4=False),
+        "sharded_recon_frame": lambda f: f(mesh, *recon, mb_w=1, mb_h=1,
+                                           filter_type=2),
+        "sharded_recon_step": lambda f: f(mesh, *recon, mb_w=1, mb_h=1,
+                                          filter_type=2),
+        "sharded_lossless_inverse": lambda f: f(
+            mesh, np.zeros((1, 4, 4), np.uint32), np.zeros((1, 1), np.uint32),
+            bits=2),
+    }[step]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call(getattr(shard, step))
+    assert not sent
+
+
+def test_new_kernel_wrappers_route_cpu_tensors_to_plain_versions():
+    """predictor_inverse and the halo and stripe forms run their plain
+    versions on CPU tensors and count no kernel launch."""
+    from gowebp_tpu_torch.ops.kernels import encode_plane as epm
+    from gowebp_tpu_torch.ops.kernels.vp8_recon import (
+        recon_filter_mb, recon_filter_mb_stripe)
+    from gowebp_tpu_torch.ops.kernels.vp8l_inverse import predictor_inverse
+    from gowebp_tpu_torch.ops.kernels.wavefront_search import (
+        wavefront_search, wavefront_search_stripe)
+
+    counts = lambda: (predictor_inverse.launches, epm.encode_luma.launches,  # noqa: E731
+                      epm.encode_chroma.launches, wavefront_search.launches,
+                      recon_filter_mb.launches)
+    before = counts()
+    out = predictor_inverse(torch.zeros((2, 3, 5), dtype=torch.int32),
+                            torch.zeros((1, 2), dtype=torch.int32), 2,
+                            add_green=True)
+    assert out.shape == (2, 3, 5) and out.dtype == torch.int32
+    q = (8192, 12288, 6553, 14080)
+    y = torch.zeros((1, 16, 16), dtype=torch.uint8)
+    c = torch.zeros((1, 8, 8), dtype=torch.uint8)
+    epm.encode_luma(y, q, q, halo=torch.zeros((1, 16), dtype=torch.uint8))
+    epm.encode_chroma(c, c, q, halo=(torch.zeros((1, 8), dtype=torch.uint8),
+                                     torch.zeros((1, 8), dtype=torch.uint8)))
+    qs = torch.full((1, 4, 6), 20, dtype=torch.int32)
+    wavefront_search_stripe(y, c, c, torch.zeros((1, 1, 1), dtype=torch.int32),
+                            qs, None, None, try_i4=False, use_derr=True)
+    coeffs = torch.zeros((1, 1, 24, 16), dtype=torch.int16)
+    modes = torch.zeros((1, 1, 18), dtype=torch.uint8)
+    recon_filter_mb_stripe(coeffs, modes, torch.zeros((1, 1, 1, 4),
+                                                      dtype=torch.int16),
+                           1, 1, 2)
+    assert counts() == before

@@ -61,15 +61,14 @@ PATCHES = [
     ("    for (int tick = 0; tick < mw + 2 * (kRows - 1); tick++) {\n",
      "      " + T + "{ tA = clock64(); if (tick > 0) g_clk[8 * sub] += 1; }\n"),
     ("                         a.ftype == 1};\n        }\n      }\n", mark(1, 6)),
-    ("      if (tid == 0 && act && ht) wait_progress(a.progress + row - 1, min(mx + 2, mw),"
+    ("      if (tid == 0 && act && my > 0) wait_progress(a.progress + row - 1, min(mx + 2, mw),"
      " seen);\n      __syncthreads();\n", mark(2, 6)),
     ("        if (on && ht && lane < 16) unpack4(R.wy + kr * kWY + 4 + 4 * kc, above);\n"
      "        __syncwarp();\n", mark(3, 8)),
     ("          store_row16(tsy + (size_t)row * W + x0, R.sy + 16 * kSW + 1);\n", mark(4, 8)),
     ("        filter_mb<20, kWY, kSW>(R.wy, R.sy + kSW + 1, lane, lane < 16, on, hl, ht, e);\n",
      mark(5, 8)),
-    ("          store_row16(yp + (size_t)(y0 - 4 + r) * W + x0, R.wy + r * kWY + 4);\n"
-     "        }\n", mark(6, 8)),
+    ("                      R.wy + r * kWY + 4);\n        }\n", mark(6, 8)),
     ("      if (act && sub == kRows - 1 && (tid & 63) == 0) st_release(a.progress + row,"
      " mx + 1);\n", mark(7, 6)),
 ]

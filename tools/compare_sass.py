@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Compare the SASS of the port's CUDA kernels built from two checkouts.
 
-    python3 tools/compare_sass.py [--ops] OLD_CHECKOUT NEW_CHECKOUT [SOURCE ...]
+    python3 tools/compare_sass.py [--ops] [--forms] OLD_CHECKOUT NEW_CHECKOUT [SOURCE ...]
 
 Builds each named ``gowebp_tpu_torch/ops/kernels`` source (default: every
 ``*.cu`` both checkouts have) in each checkout with that checkout's own
@@ -14,6 +14,11 @@ nothing.  Prints one line per kernel, the start of a diff of each kernel
 that differs, and exits 1 when any kernel differs or exists on one side
 only.  With ``--ops`` it also prints each kernel's count of every SASS
 opcode (e.g. LDG, SHFL, IDP, the I2F/MUFU/F2I of an integer division).
+With ``--forms`` a kernel is named by its form: its name up to its
+template flags, trailing false flags dropped, and without its parameter
+list; so a kernel that gained a template flag whose default (false) form
+is the old kernel, and parameters after the old ones, is compared with
+its old self, and its new forms show as new.
 Needs nvcc and cuobjdump (the CUDA toolkit:
 $CUDA_HOME/bin, PATH or /usr/local/cuda/bin), not a card.
 """
@@ -63,9 +68,28 @@ def sass(library: Path) -> dict:
             current = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "", m.group(1))
             kernels[current] = []
         elif current is not None and "/*" in line:
-            kernels[current].append(re.sub(r"/\*[0-9a-f]{4}\*/", "",
-                                           line).strip())
+            # (cuobjdump pads an instruction to a column that depends on
+            # the function, so the whitespace is not compared)
+            kernels[current].append(" ".join(re.sub(
+                r"/\*[0-9a-f]{4}\*/", "", line).split()))
     return kernels
+
+
+def form(name: str) -> str:
+    """A kernel's mangled name up to its bool template flags, trailing
+    false flags dropped (the form a later default flag leaves as it
+    was), without its parameter list."""
+    m = re.match(r"(.*?_kernel)((?:I(?:Lb[01]E)+E)?)", name)
+    if not m:
+        return name
+    flags = re.findall(r"Lb([01])E", m.group(2))
+    while flags and flags[-1] == "0":
+        flags.pop()
+    return m.group(1) + "".join(f"<{f}>" for f in flags)
+
+
+def by_form(kernels: dict) -> dict:
+    return {form(name): code for name, code in kernels.items()}
 
 
 def opcodes(instructions) -> str:
@@ -79,7 +103,8 @@ def opcodes(instructions) -> str:
 
 def main(argv) -> int:
     show_ops = "--ops" in argv
-    argv = [a for a in argv if a != "--ops"]
+    forms = "--forms" in argv
+    argv = [a for a in argv if a not in ("--ops", "--forms")]
     if len(argv) < 2:
         print(__doc__, file=sys.stderr)
         return 2
@@ -91,6 +116,8 @@ def main(argv) -> int:
     same_all = True
     for source in sources:
         a, b = sass(libs_old[source]), sass(libs_new[source])
+        if forms:
+            a, b = by_form(a), by_form(b)
         for name in sorted(set(a) | set(b)):
             same = a.get(name) == b.get(name)
             same_all &= same
