@@ -203,8 +203,9 @@ Phases (any failure raises and exits non-zero; no result is printed):
      joined shards against its kernel's unsharded form (the plain
      versions' seconds and each form's device ms beside the no-halo
      form's on the same shard printed), predictor_inverse
-     against its plain version and the source words (timed: ms,
-     device_ms, bound); the five sharded steps in a one-rank NCCL job
+     against its plain version and the source words, and at B=1
+     4096x4096 (the 4x4 mosaic) against its source words (both timed:
+     ms, device_ms, us a step, share of bound); the five sharded steps in a one-rank NCCL job
      (counts reset just before and read just after, as the "parallel"
      path: every kernel of the path must launch) and in a two-rank gloo
      job on cuda:0 (halos staged through host memory, the bytes
@@ -3026,8 +3027,9 @@ def check_parallel(dev, images, files, reset_counts, read_counts, tag):
     holds each halo form against its plain version and the joined shards
     against its kernel's unsharded form (check_halo_forms) and
     predictor_inverse against its plain version (B=8 1024x1024, bits 4,
-    with the add-green epilogue; its pixels are the source words), times
-    predictor_inverse; runs the five sharded steps in a one-rank NCCL job
+    with the add-green epilogue; its pixels are the source words) and, at
+    B=1 4096x4096 (the 4x4 mosaic), against its source words, times
+    predictor_inverse on both; runs the five sharded steps in a one-rank NCCL job
     in this process (counts reset just before and read just after: every
     kernel of the path must launch) and in a two-rank gloo job on cuda:0,
     whose full tensors must equal the unsharded calls'.  Returns
@@ -3076,13 +3078,34 @@ def check_parallel(dev, images, files, reset_counts, read_counts, tag):
             f"{st_}/{ld_} bytes spill stores/loads")
         if stack or st_ or ld_:
             raise AssertionError("vp8l_inverse: a stack frame or spills")
-    nbytes = 2 * li["residuals"].numel() * 4 + li["mode_img"].numel() * 4
-    bound_ms, bound_by = bound(nbytes, B * hh * ww * OPS_VP8L_INVERSE_PIXEL)
-    steps = ww + 2 * (hh - 1)
-    ms = time_ms(lambda: vim.predictor_inverse(*args), reps=10, warmup=2)
-    log(f"predictor_inverse: {ms:.3f} ms a call ({steps} dependent steps, "
-        f"{ms / steps * 1e3:.2f} us a step; bound {bound_ms:.4f} ms by "
-        f"{bound_by}) {tag}")
+    # one 4096x4096 image, the 4x4 mosaic of the wavefront's input, held to
+    # its source words (its plain run, ~12,300 diagonal steps, would take
+    # minutes)
+    big_res, big_modes, big_words = lossless_case(
+        dev, [mosaic(images[:16], 4)], 4, seed=20)
+    big = (big_res, big_modes, 4, True)
+    if not torch.equal(vim.predictor_inverse(*big), big_words):
+        raise AssertionError("predictor_inverse at 4096x4096 != the source "
+                             "words")
+    log("predictor_inverse B=1 4096x4096 bits 4 with add-green: == the "
+        "source words")
+    cases = {}
+    for name, a in (("B=8 1024x1024", args), ("B=1 4096x4096", big)):
+        b_, h_, w_ = a[0].shape
+        nbytes = 2 * a[0].numel() * 4 + a[1].numel() * 4
+        bound_ms, bound_by = bound(nbytes, b_ * h_ * w_
+                                   * OPS_VP8L_INVERSE_PIXEL)
+        steps = w_ + 2 * (h_ - 1)
+        ms = time_ms(lambda a=a: vim.predictor_inverse(*a), reps=10,
+                     warmup=2)
+        dms = queued_ms(lambda a=a: vim.predictor_inverse(*a),
+                        reps=max(5, min(50, int(20 / ms))))[0]
+        log(f"predictor_inverse {name}: {ms:.4f} ms a call, {dms:.4f} ms a "
+            f"launch on the device ({steps} dependent steps, "
+            f"{dms / steps * 1e3:.4f} us a step); bound {bound_ms:.4f} ms "
+            f"by {bound_by}, {bound_ms / dms:.1%} of the device time {tag}")
+        cases[name] = (ms, bound_ms, bound_by)
+    ms, bound_ms, bound_by = cases["B=8 1024x1024"]
     row = {"name": "predictor_inverse", "max_abs_err": inv_err, "ms": ms,
            "fn": lambda: vim.predictor_inverse(*args),
            "plain_ms": t0.elapsed_time(t1), "bound_ms": bound_ms,

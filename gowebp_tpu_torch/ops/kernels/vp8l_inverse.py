@@ -10,8 +10,10 @@ above; the last column's top-right is the current row's pixel 0).
 ``add_green`` then applies the add-green inverse to every pixel.  On a
 CUDA tensor it launches ``vp8l_inverse.cu`` (replacing the XLA functions
 gowebp_tpu/ops/lossless_jax.py:363 ``predictor_inverse`` and, with the
-epilogue, :39 ``add_green_inverse``); on a CPU tensor it runs
-``predictor_inverse_plain``, the same recurrence as torch ops, one
+epilogue, :39 ``add_green_inverse``): a warp a group of 32 rows, row
+groups pipelined across SMs through edge rows in a zeroed scratch buffer
+that the wrapper allocates with the launch's ticket; on a CPU tensor it
+runs ``predictor_inverse_plain``, the same recurrence as torch ops, one
 anti-diagonal (t = x + 2y) of the whole batch a step.
 
 Layout:
@@ -37,7 +39,9 @@ BLACK = 0xFF000000
 def _configure(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.vp8l_inverse_launch.restype = ctypes.c_int
-    lib.vp8l_inverse_launch.argtypes = [p, p, p, i, i, i, i, i, p]
+    lib.vp8l_inverse_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+    lib.vp8l_inverse_scratch_words.restype = ctypes.c_longlong
+    lib.vp8l_inverse_scratch_words.argtypes = [i, i, i]
 
 
 LIBRARY = CudaLibrary("vp8l_inverse.cu", _configure)
@@ -132,18 +136,30 @@ def predictor_inverse(residuals, mode_img, bits: int,
         return predictor_inverse_plain(residuals, mode_img, bits, add_green)
     if dev.type != "cuda":
         raise ValueError(f"predictor_inverse: unsupported device {dev}")
+    out = launch(residuals, mode_img, bits, add_green)
+    predictor_inverse.launches += 1
+    return out
+
+
+def launch(residuals, mode_img, bits: int, add_green: bool = False,
+           warps: int = 0):
+    """One launch of the kernel on CUDA tensors, ``warps`` warps a CTA (0:
+    the kernel's default); counts nothing."""
     B, h, w = residuals.shape
+    dev = residuals.device
     check_tensor("residuals", residuals, I32, (B, h, w), dev)
     check_tensor("mode_img", mode_img, I32, tuple(mode_img.shape), dev)
     lib = LIBRARY.load()
     out = torch.empty((B, h, w), dtype=I32, device=dev)
+    scratch = torch.zeros(lib.vp8l_inverse_scratch_words(B, h, w),
+                          dtype=I64, device=dev)
     err = lib.vp8l_inverse_launch(
-        residuals.data_ptr(), mode_img.data_ptr(), out.data_ptr(), B, h, w,
-        int(bits), int(bool(add_green)), stream_handle(dev))
+        residuals.data_ptr(), mode_img.data_ptr(), out.data_ptr(),
+        scratch.data_ptr(), B, h, w, int(bits), int(bool(add_green)),
+        int(warps), stream_handle(dev))
     if err != 0:
         raise RuntimeError(
             f"predictor_inverse kernel launch failed: CUDA error {err}")
-    predictor_inverse.launches += 1
     return out
 
 

@@ -1640,28 +1640,75 @@ def test_recon_filter_mb_stripe_form_matches_plain(cuda, filter_type, B,
         assert torch.equal(torch.cat([o[p] for o in outs], 1), whole[p])
 
 
-@pytest.mark.parametrize("add_green", [False, True])
-@pytest.mark.parametrize("B,h,w,bits", [
-    (2, 9, 13, 2), (1, 1, 1, 3), (3, 1, 40, 4), (2, 33, 1, 5),
-    (1, 1100, 7, 2),        # two bands of rows
-    (2, 64, 96, 4), (1, 2049, 3, 3),
-])
-def test_vp8l_inverse_kernel_matches_plain(cuda, add_green, B, h, w, bits):
-    from gowebp_tpu_torch.ops.kernels.vp8l_inverse import (
-        predictor_inverse, predictor_inverse_plain)
-
+def _inverse_case(B, h, w, bits):
     rng = np.random.default_rng(h * 31 + w + bits)
     th, tw = -(-h // (1 << bits)), -(-w // (1 << bits))
     res = torch.from_numpy(rng.integers(0, 1 << 32, (B, h, w),
                                         dtype=np.uint32).view(np.int32))
     modes = torch.from_numpy(((rng.integers(0, 16, (th, tw), dtype=np.uint32)
                                << 8) | 0xFF000000).view(np.int32))
+    return res, modes
+
+
+@pytest.mark.parametrize("add_green", [False, True])
+@pytest.mark.parametrize("B,h,w,bits", [
+    (2, 9, 13, 2), (1, 1, 1, 3), (3, 1, 40, 4), (2, 33, 1, 5),
+    (1, 1100, 7, 2),        # many row groups, scalar accesses
+    (2, 64, 96, 4), (1, 2049, 3, 3),
+    # heights off the 32 rows of a warp and the 128 of a CTA
+    (1, 100, 40, 3), (2, 129, 64, 4), (1, 33, 16, 2), (1, 1030, 100, 4),
+    # widths the 16-byte vectors do not fit
+    (2, 70, 1, 2), (2, 70, 2, 2), (1, 70, 3, 3), (1, 70, 5, 2),
+    # a tile a pixel, one tile
+    (1, 40, 36, 0), (2, 300, 50, 16),
+])
+def test_vp8l_inverse_kernel_matches_plain(cuda, add_green, B, h, w, bits):
+    from gowebp_tpu_torch.ops.kernels.vp8l_inverse import (
+        predictor_inverse, predictor_inverse_plain)
+
+    res, modes = _inverse_case(B, h, w, bits)
     before = predictor_inverse.launches
     got = predictor_inverse(res.to(cuda), modes.to(cuda), bits, add_green)
     torch.cuda.synchronize()
     assert predictor_inverse.launches == before + 1
     want = predictor_inverse_plain(res, modes, bits, add_green)
     assert torch.equal(got.cpu(), want)
+
+
+def test_vp8l_inverse_more_ctas_than_the_card_holds(cuda):
+    """B=512 at 2048x8: 8,192 CTAs of 4 warps, far more than are resident
+    at once; a CTA waiting on one not yet started would hang here."""
+    from gowebp_tpu_torch.ops.kernels.vp8l_inverse import (
+        predictor_inverse, predictor_inverse_plain)
+
+    res, modes = _inverse_case(512, 2048, 8, 2)
+    before = predictor_inverse.launches
+    got = predictor_inverse(res.to(cuda), modes.to(cuda), 2, True)
+    torch.cuda.synchronize()
+    assert predictor_inverse.launches == before + 1
+    assert torch.equal(got.cpu(), predictor_inverse_plain(res, modes, 2, True))
+
+
+def test_vp8l_inverse_misaligned_and_warps_a_cta(cuda):
+    """A view 4 bytes past an aligned address (w % 4 == 0: the scalar
+    accesses), and 1, 2, 4 and 8 warps a CTA, equal the plain version."""
+    from gowebp_tpu_torch.ops.kernels import vp8l_inverse as vim
+
+    B, h, w, bits = 2, 200, 64, 3
+    res, modes = _inverse_case(B, h, w, bits)
+    want = vim.predictor_inverse_plain(res, modes, bits, True)
+    flat = torch.zeros(B * h * w + 1, dtype=torch.int32, device=cuda)
+    view = flat[1:].view(B, h, w)
+    view.copy_(res.to(cuda))
+    assert view.data_ptr() % 16 == 4
+    got = vim.predictor_inverse(view, modes.to(cuda), bits, True)
+    assert torch.equal(got.cpu(), want)
+    for warps in (1, 2, 4, 8):
+        got = vim.launch(res.to(cuda), modes.to(cuda), bits, True, warps)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), warps
+    with pytest.raises(RuntimeError):
+        vim.launch(res.to(cuda), modes.to(cuda), bits, True, 9)
 
 
 def test_vp8l_inverse_rejects_bad_tensors(cuda):

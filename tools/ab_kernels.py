@@ -109,6 +109,20 @@ Needs a CUDA card and nvcc.  KERNEL is one of:
     (``b32_device_ms``), and B=1 (one image: the chain of 190 MB steps,
     ``b1_ms`` and ``us_per_chained_mb_step``); an older checkout also
     gives each of its two kernels' device times.
+
+``vp8l_inverse``
+    The sharded lossless inverse's ``predictor_inverse`` with the
+    add-green epilogue, at bits 4, on ``chip_smoke.py`` phase 10's inputs
+    (``chip_smoke.lossless_case``): the first 8 of ``natural_images(32,
+    1024, 1024, seed=7)`` as subtract-green residuals of a random tile map
+    (seed 19; ``b8_*``), the first of them alone (``b1_*``) and the 4x4
+    mosaic of the first 16 as one 4096x4096 image (seed 20; ``big_*``).
+    Times each as one call (``*_ms``, median of 20 after a warm-up) and as
+    the device time of a launch (``*_device_ms``), with ``*_us_per_step``
+    the device time over the chain's w + 2 (h - 1) steps.  Where the
+    checkout's wrapper takes a CTA's warps (``vp8l_inverse.launch``), also
+    B=8 at 1, 2, 4 and 8 warps a CTA (``b8_warps*_device_ms``).  Every
+    run's pixels must equal the first run's.
 """
 
 from __future__ import annotations
@@ -399,6 +413,30 @@ for name, fn in parts.items():
     row[name + "_b32_device_ms"] = queued_ms(fn, reps=20)
 print(json.dumps(row))
 """,
+    "vp8l_inverse": r"""
+from gowebp_tpu_torch.ops.kernels import vp8l_inverse as vim
+
+vim.LIBRARY.load()
+out, row = {}, {}
+for name in ("b8", "b1", "big"):
+    res, modes = (t.to(dev) for t in saved[name])
+    call = lambda r=res, m=modes: vim.predictor_inverse(r, m, 4, True)
+    out[name] = call()
+    _, h, w = res.shape
+    row[name + "_ms"] = time_ms(call, 20)
+    row[name + "_device_ms"] = queued_ms(call, reps=10)
+    row[name + "_us_per_step"] = row[name + "_device_ms"] / (w + 2 * (h - 1)) * 1e3
+if hasattr(vim, "launch"):
+    res, modes = (t.to(dev) for t in saved["b8"])
+    for warps in (1, 2, 4, 8):
+        got = vim.launch(res, modes, 4, True, warps)
+        assert torch.equal(got, out["b8"]), warps
+        row[f"b8_warps{warps}_device_ms"] = queued_ms(
+            lambda: vim.launch(res, modes, 4, True, warps), reps=10)
+torch.cuda.synchronize()
+torch.save({k: t.cpu() for k, t in out.items()}, sys.argv[2])
+print(json.dumps(row))
+""",
 }
 
 
@@ -513,12 +551,22 @@ def unpack_coeffs_inputs(chip_smoke, dev, images) -> dict:
     return out
 
 
+def vp8l_inverse_inputs(chip_smoke, dev, images) -> dict:
+    b8 = chip_smoke.lossless_case(dev, images[:8], 4, seed=19)[:2]
+    big = chip_smoke.lossless_case(dev, [chip_smoke.mosaic(images[:16], 4)],
+                                   4, seed=20)[:2]
+    return {"b8": [t.cpu() for t in b8],
+            "b1": [b8[0][:1].cpu().contiguous(), b8[1].cpu()],
+            "big": [t.cpu() for t in big]}
+
+
 INPUTS = {"wavefront_search": wavefront_search_inputs,
           "decode": decode_inputs,
           "encode_plane": encode_plane_inputs,
           "encode_rgba": encode_rgba_inputs,
           "unpack_coeffs": unpack_coeffs_inputs,
           "vp8_recon": vp8_recon_inputs,
+          "vp8l_inverse": vp8l_inverse_inputs,
           "vp8l_predictor": vp8l_predictor_inputs}
 
 
