@@ -210,6 +210,28 @@ Phases (any failure raises and exits non-zero; no result is printed):
      path: every kernel of the path must launch) and in a two-rank gloo
      job on cuda:0 (halos staged through host memory, the bytes
      printed), whose full tensors must equal the unsharded calls';
+  11. (run after 10) containers, animation, the CLI: a lossy q75
+     animation of 8 opaque 1024x1024 frames (a 256x256 patch of image 1
+     moving over image 0, one repeat, one full-frame change) through
+     AnimationEncoder(kmin=2, kmax=4, device="cuda") (counts reset just
+     before: only wavefront_search, once a candidate encode) and
+     decode_animation(device="cuda") (unpack_coeffs, recon_filter_mb and
+     yuv420_to_rgba once a lossy shape group, nothing else); every
+     canvas == Pillow's and >= 20 dB against its source; offsets,
+     durations (the repeat merged) and loop count as built; a lossless
+     animation (a 1 MP keyframe and two small deltas): the chooser
+     kernel launches on its 1 MP candidate encodes alone, the decode on
+     none, canvases == the sources == Pillow's, bytes == the CPU file
+     with the plain chooser at 1 MP (the "animation" path's counts read
+     here); a 256x192 crop of the lossy frames and a 128x96 soft-alpha
+     case, bytes and canvases == device="cpu"; Mux.from_bytes round
+     trip, with ICC/EXIF/XMP read by Pillow; the CLI in process with
+     its default device ("cli" path: encode of a 1 MP PNG launches
+     wavefront_search once and recon_filter_mb once for EncodeStats'
+     PSNR, bytes == encode_rgba's; decode == decode()'s; info JSON);
+     bit_accounting on a phase-4 file and the 8d file (classes within
+     total_bits, partitions summing to residuals); the times: encode and
+     decode ms a frame, CLI encode and decode ms;
   9. the kernels' JSON line (each kernel's launches on its own path, and
      on every path driven in ``launches_by_path``; ``ms`` one call alone
      and ``device_ms`` the device time of a launch, both from phase 3),
@@ -2378,7 +2400,7 @@ def check_vp8l_predictor(dev, img):
 def lossless_encode(dev, images, reset_counts, read_counts, tag):
     """Phase 8d: the lossless encode of corpus image 12 on the card (see
     the module docstring).  Returns predictor_search_entropy's launches of
-    the default encode."""
+    the default encode and its file."""
     import os
 
     import numpy as np
@@ -2485,7 +2507,7 @@ def lossless_encode(dev, images, reset_counts, read_counts, tag):
     decodes_to(got, None)
     log(f"lossless near_lossless=60: {len(got)} bytes, {ms:.1f} ms, {n} "
         f"launches; the port's decode == Pillow's")
-    return launches
+    return launches, data
 
 
 def incremental_decode(dev, data, full, small, reset_counts, read_counts,
@@ -3154,6 +3176,466 @@ def check_parallel(dev, images, files, reset_counts, read_counts, tag):
     return row, counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: containers, animation, the CLI and bit accounting
+# ---------------------------------------------------------------------------
+
+ANIM_PATCH = 256
+ANIM_CROP = (192, 256)    # the card-against-CPU check's crop, (h, w)
+
+
+def anim_frames(images):
+    """Phase 11's lossy animation: 8 opaque 1024x1024 frames.  A 256x256
+    patch of corpus image 1 moves over image 0 (frames 0-3: each change
+    rectangle a sub-rect), frame 4 repeats frame 3, frame 5 changes the
+    whole frame (image 2 under the patch), frames 6-7 move the patch on.
+    Returns (frames, durations)."""
+    import numpy as np
+
+    patch = images[1][:ANIM_PATCH, :ANIM_PATCH]
+    steps = [(0, 0), (64, 48), (128, 96), (192, 144), (192, 144),
+             (256, 192), (320, 240), (384, 288)]
+    frames = []
+    for k, (x, y) in enumerate(steps):
+        f = np.array(images[0 if k < 5 else 2])
+        f[y:y + ANIM_PATCH, x:x + ANIM_PATCH] = patch
+        frames.append(f)
+    return frames, [40 + 10 * k for k in range(len(frames))]
+
+
+class CandidateLog:
+    """Counts AnimationEncoder's candidate encodes (``anim._encode_candidate``
+    wrapped inside ``with``), each with its image's pixels and the
+    predictor_search_entropy launches it made; with ``switch_big`` the
+    lossless chooser switch is set for the candidates the card sends to
+    its device chooser (1 MP or more), so that a CPU run takes the same
+    chooser as the card."""
+
+    def __init__(self, chooser_fn=None, switch_big: bool = False):
+        self.chooser_fn, self.switch_big = chooser_fn, switch_big
+        self.calls = []
+
+    def __enter__(self):
+        import os
+
+        from gowebp_tpu_torch.container import anim
+        from gowebp_tpu_torch.models.vp8l import encoder as vp8l_enc
+
+        self._orig = orig = anim._encode_candidate
+
+        def counted(sub, lossless, quality, device):
+            pixels = sub.shape[0] * sub.shape[1]
+            switch = (self.switch_big and lossless
+                      and pixels >= vp8l_enc.DEVICE_CHOOSER_PIXELS)
+            before = (self.chooser_fn.launches if self.chooser_fn else 0)
+            if switch:
+                os.environ[vp8l_enc.ANALYSIS_SWITCH] = "1"
+            try:
+                return orig(sub, lossless, quality, device)
+            finally:
+                if switch:
+                    del os.environ[vp8l_enc.ANALYSIS_SWITCH]
+                after = (self.chooser_fn.launches if self.chooser_fn else 0)
+                self.calls.append((pixels, bool(lossless), after - before))
+
+        anim._encode_candidate = counted
+        return self
+
+    def __exit__(self, *exc):
+        from gowebp_tpu_torch.container import anim
+
+        anim._encode_candidate = self._orig
+        return False
+
+
+def encode_animation(frames, durations, device, lossless: bool = False,
+                     switch_big: bool = False, chooser_fn=None, **kw):
+    """(file, the encoder, its CandidateLog, seconds) of ``frames`` through
+    AnimationEncoder on ``device``."""
+    import torch
+
+    from gowebp_tpu_torch.container.anim import AnimationEncoder
+
+    enc = AnimationEncoder(device=device, **kw)
+    with CandidateLog(chooser_fn, switch_big) as cands:
+        t0 = time.perf_counter()
+        for f, ms in zip(frames, durations):
+            enc.add_frame(f, ms, lossless=lossless, quality=75.0)
+        data = enc.assemble()
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    return data, enc, cands, secs
+
+
+def pillow_frames(data: bytes):
+    """Every composited frame of an animation decoded by Pillow (libwebp's
+    WebPAnimDecoder), RGBA."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    im = Image.open(io.BytesIO(data))
+    out = []
+    for i in range(getattr(im, "n_frames", 1)):
+        im.seek(i)
+        out.append(np.asarray(im.convert("RGBA")))
+    return out
+
+
+def lossy_groups(d) -> int:
+    """The batch decode's lossy shape groups of a demuxed file's frames:
+    (width, height, filter type, alpha)."""
+    from gowebp_tpu_torch.models.vp8.decoder import parse_frame_header
+
+    keys = set()
+    for f in d.frames:
+        if not f.is_lossless:
+            st, _ = parse_frame_header(f.image_payload)
+            keys.add((st.width, st.height, st.filter_type,
+                      f.alpha_payload is not None))
+    return len(keys)
+
+
+def launched(before: dict, after: dict) -> dict:
+    """The kernels launched between two counter snapshots."""
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def check_demuxed(d, enc, loop_count: int) -> None:
+    """The demuxed frames' offsets, durations, blend and dispose flags and
+    the loop count are the encoder's own."""
+    built = [(f.x, f.y, f.duration_ms, f.blend, f.dispose_background)
+             for f in enc._mux.frames]
+    got = [(f.x, f.y, f.duration_ms, f.blend, f.dispose_background)
+           for f in d.frames]
+    if got != built or d.loop_count != loop_count:
+        raise AssertionError(f"demuxed frames {got} (loop {d.loop_count}), "
+                             f"built {built} (loop {loop_count})")
+
+
+def anim_lossy(images, peek_counts, tag):
+    """Phase 11's lossy animation on the card: the encode and decode with
+    their launches checked, the canvases against Pillow and the sources.
+    Returns (file, frames, durations)."""
+    import numpy as np
+
+    from gowebp_tpu_torch.container.anim import decode_animation
+
+    frames, durations = anim_frames(images)
+    start = peek_counts()
+    data, enc, cands, enc_s = encode_animation(
+        frames, durations, "cuda", kmin=2, kmax=4, loop_count=3)
+    mid = peek_counts()
+    got = launched(start, mid)
+    if got != {"wavefront_search": len(cands.calls)}:
+        raise AssertionError(f"lossy animation encode: launches {got}, "
+                             f"expected wavefront_search once for each of "
+                             f"{len(cands.calls)} candidate encodes")
+    t0 = time.perf_counter()
+    canvases, d = decode_animation(data, device="cuda")
+    dec_s = time.perf_counter() - t0
+    groups = lossy_groups(d)
+    got = launched(mid, peek_counts())
+    want = {k: groups for k in DECODE_KERNELS}
+    if got != want:
+        raise AssertionError(f"lossy animation decode: launches {got}, "
+                             f"expected {want} ({groups} shape groups)")
+    log(f"lossy animation 1024x1024 q75, 8 frames, kmin 2 kmax 4: "
+        f"{len(data)} bytes, {d.num_frames} frames, {len(cands.calls)} "
+        f"candidate encodes (wavefront_search {len(cands.calls)} launches); "
+        f"decode: {groups} shape groups, {got}")
+    log(f"lossy animation: encode {enc_s * 1e3 / len(frames):.3f} ms a "
+        f"frame ({enc_s * 1e3:.1f} ms for {len(frames)} frames), decode "
+        f"{dec_s * 1e3 / d.num_frames:.3f} ms a frame ({dec_s * 1e3:.1f} ms "
+        f"for {d.num_frames}) {tag}")
+
+    check_demuxed(d, enc, 3)
+    kept = [k for k in range(len(frames))
+            if k == 0 or not np.array_equal(frames[k], frames[k - 1])]
+    if len(kept) != d.num_frames or len(canvases) != d.num_frames:
+        raise AssertionError(f"{d.num_frames} frames, expected {len(kept)} "
+                             f"(one repeat merged)")
+    if sum(f.duration_ms for f in d.frames) != sum(durations):
+        raise AssertionError("the merged durations do not sum to the inputs'")
+    theirs = pillow_frames(data)
+    if len(theirs) != len(canvases):
+        raise AssertionError("Pillow reads another frame count")
+    worst = 99.0
+    for j, (c, p) in enumerate(zip(canvases, theirs)):
+        if not np.array_equal(c.rgba, p):
+            raise AssertionError(f"canvas {j}: the port's != Pillow's")
+        db = psnr(c.rgba[..., :3], frames[kept[j]])
+        worst = min(worst, db)
+        if db < 20.0:
+            raise AssertionError(f"canvas {j}: {db:.2f} dB against its "
+                                 f"source, under 20")
+    log(f"lossy animation: every canvas == Pillow's; PSNR against the "
+        f"sources >= {worst:.3f} dB; offsets, durations (one merged) and "
+        f"loop count as built")
+    return data, frames, durations
+
+
+def anim_card_vs_cpu(frames, durations) -> None:
+    """Phase 11's lossy animations on the card against the CPU (the
+    kernels' plain versions): a crop of the frames, and a small case with
+    alpha (ALPH chunks, blended frames); bytes and canvases."""
+    import numpy as np
+
+    from gowebp_tpu_torch.container.anim import decode_animation
+
+    h, w = ANIM_CROP
+    crop = [np.ascontiguousarray(f[:h, :w]) for f in frames]
+    gpu, _, gc, _ = encode_animation(crop, durations, "cuda", kmin=2, kmax=4)
+    t0 = time.perf_counter()
+    cpu, _, _, _ = encode_animation(crop, durations, "cpu", kmin=2, kmax=4)
+    cpu_s = time.perf_counter() - t0
+    if gpu != cpu:
+        raise AssertionError(f"lossy animation {w}x{h}: GPU bytes != CPU "
+                             f"bytes")
+    a, _ = decode_animation(gpu, device="cuda")
+    b, _ = decode_animation(gpu, device="cpu")
+    if [x.duration_ms for x in a] != [x.duration_ms for x in b] or not all(
+            np.array_equal(x.rgba, y.rgba) for x, y in zip(a, b)):
+        raise AssertionError(f"lossy animation {w}x{h}: GPU canvases != CPU "
+                             f"canvases")
+    log(f"lossy animation {w}x{h} crop: GPU bytes == CPU bytes "
+        f"({len(gpu)} bytes, {len(a)} frames, {len(gc.calls)} candidate "
+        f"encodes; the CPU run {cpu_s:.2f} s), canvases equal")
+
+    # alpha on a small case: lossy frames with ALPH chunks, blended
+    soft = [soft_alpha_image(f[:96, :128]) for f in crop[:4]]
+    gpu, _, _, _ = encode_animation(soft, durations[:4], "cuda")
+    cpu, _, _, _ = encode_animation(soft, durations[:4], "cpu")
+    a, d = decode_animation(gpu, device="cuda")
+    b, _ = decode_animation(gpu, device="cpu")
+    if gpu != cpu or not all(np.array_equal(x.rgba, y.rgba)
+                             for x, y in zip(a, b)):
+        raise AssertionError("lossy animation with alpha 128x96: GPU != CPU")
+    if not any(f.alpha_payload for f in d.frames):
+        raise AssertionError("the alpha animation has no ALPH chunk")
+    log(f"lossy animation with alpha 128x96: GPU bytes and canvases == CPU "
+        f"({len(gpu)} bytes, {len(a)} frames)")
+
+
+def anim_lossless(images, peek_counts, tag):
+    """Phase 11's lossless animation on the card: a 1024x1024 keyframe and
+    two small deltas; the chooser kernel runs on the encodes of 1 MP or
+    more only; bytes == the CPU file with the plain chooser there."""
+    import numpy as np
+
+    from gowebp_tpu_torch.container.anim import decode_animation
+    from gowebp_tpu_torch.models.vp8l import encoder as vp8l_enc
+    from gowebp_tpu_torch.ops.kernels import vp8l_predictor as vpm
+
+    key = np.dstack([images[3], np.full((1024, 1024), 255, np.uint8)])
+    f1 = key.copy()
+    f1[100:148, 200:264, :3] = images[4][:48, :64]
+    f2 = f1.copy()
+    f2[600:632, 700:740, :3] = images[5][:32, :40]
+    frames, durations = [key, f1, f2], [100, 50, 50]
+    start = peek_counts()
+    data, enc, cands, enc_s = encode_animation(
+        frames, durations, "cuda", lossless=True,
+        chooser_fn=vpm.predictor_search_entropy)
+    mid = peek_counts()
+    got = launched(start, mid)
+    big = [c for c in cands.calls
+           if c[0] >= vp8l_enc.DEVICE_CHOOSER_PIXELS]
+    if (set(got) != {"predictor_search_entropy"} or not big
+            or cands.calls[0][0] != 1024 * 1024
+            or any((n > 0) != (p >= vp8l_enc.DEVICE_CHOOSER_PIXELS)
+                   for p, _, n in cands.calls)):
+        raise AssertionError(f"lossless animation: launches {got}, "
+                             f"candidates (pixels, lossless, chooser "
+                             f"launches) {cands.calls}")
+    t0 = time.perf_counter()
+    canvases, d = decode_animation(data, device="cuda")
+    dec_s = time.perf_counter() - t0
+    got_dec = launched(mid, peek_counts())
+    if got_dec:
+        raise AssertionError(f"lossless animation decode launched {got_dec}")
+    log(f"lossless animation 1024x1024, keyframe + 2 deltas: {len(data)} "
+        f"bytes, {len(cands.calls)} candidate encodes (pixels, "
+        f"predictor_search_entropy launches): "
+        f"{[(p, n) for p, _, n in cands.calls]}; the 1 MP ones are the "
+        f"keyframe and the second frame's dispose-to-background candidate "
+        f"(the keyframe's whole rectangle cleared); encode "
+        f"{enc_s * 1e3:.1f} ms, decode {dec_s * 1e3:.1f} ms (VP8L on the "
+        f"host, no kernel) {tag}")
+    check_demuxed(d, enc, 0)
+    theirs = pillow_frames(data)
+    for j, (c, src) in enumerate(zip(canvases, frames)):
+        if not (np.array_equal(c.rgba, src) and np.array_equal(c.rgba,
+                                                               theirs[j])):
+            raise AssertionError(f"lossless canvas {j} != its source or "
+                                 f"Pillow's")
+    t0 = time.perf_counter()
+    cpu, _, _, _ = encode_animation(frames, durations, "cpu", lossless=True,
+                                    switch_big=True)
+    if cpu != data:
+        raise AssertionError("lossless animation: GPU bytes != the CPU "
+                             "bytes with the plain chooser at 1 MP")
+    log(f"lossless animation: canvases == sources == Pillow's; GPU bytes == "
+        f"CPU bytes, the plain chooser at 1 MP (the CPU run "
+        f"{time.perf_counter() - t0:.2f} s)")
+    return data
+
+
+def mux_roundtrip(data: bytes) -> None:
+    """Mux.from_bytes(...).assemble() gives the file back; with ICC, EXIF
+    and XMP added Pillow still reads every frame."""
+    import numpy as np
+
+    from gowebp_tpu_torch.container.demux import demux
+    from gowebp_tpu_torch.container.mux import Mux
+
+    m = Mux.from_bytes(data)
+    if m.assemble() != data:
+        raise AssertionError("Mux.from_bytes(file).assemble() != the file")
+    m.set_chunk("ICCP", b"\x00" * 128)
+    m.set_chunk("EXIF", b"Exif\x00\x00smoke")
+    m.set_chunk("XMP ", b"<x:xmpmeta/>")
+    meta = m.assemble()
+    d = demux(meta)
+    if (d.iccp, d.exif, d.xmp) != (b"\x00" * 128, b"Exif\x00\x00smoke",
+                                   b"<x:xmpmeta/>"):
+        raise AssertionError("metadata chunks did not round-trip")
+    a, b = pillow_frames(data), pillow_frames(meta)
+    if len(a) != len(b) or not all(np.array_equal(x, y)
+                                   for x, y in zip(a, b)):
+        raise AssertionError("Pillow reads other frames with ICC/EXIF/XMP")
+    log(f"mux: from_bytes round-trips {len(data)} bytes; with ICC, EXIF "
+        f"and XMP ({len(meta)} bytes) Pillow reads the same {len(b)} frames")
+
+
+def cli_phase(images, anim_data, peek_counts, reset_counts, read_counts,
+              tag):
+    """Phase 11's CLI in-process with its default device (CUDA): encode a
+    1 MP PNG, decode it, info on it and on the animation."""
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    import gowebp_tpu_torch as T
+    from gowebp_tpu_torch.__main__ import main as cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        Image.fromarray(images[6]).save(tmp / "in.png")
+        anim = tmp / "anim.webp"
+        anim.write_bytes(anim_data)
+        reset_counts()
+        start = peek_counts()
+        t0 = time.perf_counter()
+        if cli(["encode", str(tmp / "in.png"), str(tmp / "out.webp")]):
+            raise AssertionError("the CLI's encode failed")
+        torch.cuda.synchronize()
+        enc_ms = (time.perf_counter() - t0) * 1e3
+        mid = peek_counts()
+        t0 = time.perf_counter()
+        if cli(["decode", str(tmp / "out.webp"), str(tmp / "out.png")]):
+            raise AssertionError("the CLI's decode failed")
+        torch.cuda.synchronize()
+        dec_ms = (time.perf_counter() - t0) * 1e3
+        counts = read_counts("cli")
+        # the CLI always fills EncodeStats, as the reference's does: its
+        # PSNR decodes the frame once (recon_filter_mb)
+        want = {"wavefront_search": 1, "recon_filter_mb": 1}
+        if launched(start, mid) != want:
+            raise AssertionError(f"CLI encode launches "
+                                 f"{launched(start, mid)}, expected {want}")
+        want = {k: 1 for k in SINGLE_DECODE_KERNELS}
+        if launched(mid, counts) != want:
+            raise AssertionError(f"CLI decode launches "
+                                 f"{launched(mid, counts)}, expected {want}")
+        data = (tmp / "out.webp").read_bytes()
+        rgba = np.asarray(Image.open(tmp / "in.png").convert("RGBA"))
+        cfg = T.EncoderConfig(lossless=False, quality=75.0, method=4,
+                              near_lossless=100, target_size=0,
+                              use_sharp_yuv=False, autofilter=False,
+                              partitions=0, segments=4)
+        t0 = time.perf_counter()
+        again = T.encode_rgba(rgba, config=cfg, stats=T.EncodeStats(),
+                              device="cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pixels = T.decode(data, device="cuda")
+        t2 = time.perf_counter()
+        if data != again:
+            raise AssertionError("CLI encode bytes != encode_rgba's")
+        png = np.asarray(Image.open(tmp / "out.png"))
+        if not np.array_equal(png, pixels):
+            raise AssertionError("CLI decode pixels != decode()'s")
+        infos = []
+        for path in (tmp / "out.webp", anim):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                if cli(["info", str(path)]):
+                    raise AssertionError("the CLI's info failed")
+            infos.append(json.loads(out.getvalue()))
+    want = [{"width": 1024, "height": 1024, "format": "lossy",
+             "has_alpha": False, "has_animation": False, "frames": 1,
+             "loop_count": 0, "metadata": [], "size_bytes": len(data)},
+            {"width": 1024, "height": 1024, "format": "mixed",
+             "has_alpha": False, "has_animation": True, "frames": 7,
+             "loop_count": 3, "metadata": [], "size_bytes": len(anim_data)}]
+    if infos != want:
+        raise AssertionError(f"CLI info {infos}, expected {want}")
+    log(f"CLI (default device): encode of a 1 MP PNG == encode_rgba("
+        f"device='cuda') ({len(data)} bytes; wavefront_search once, and "
+        f"recon_filter_mb once for EncodeStats' PSNR), decode == "
+        f"decode(device='cuda') (recon_filter_mb and yuv420_to_rgba once), "
+        f"info JSON as expected on the file and the animation")
+    log(f"CLI: encode {enc_ms:.3f} ms, decode {dec_ms:.3f} ms (PNG read and "
+        f"write through Pillow included; the same encode_rgba call alone "
+        f"{(t1 - t0) * 1e3:.3f} ms, decode() alone {(t2 - t1) * 1e3:.3f} ms) "
+        f"{tag}")
+
+
+def bittrace_phase(files, tag) -> None:
+    """bit_accounting on a hybrid file and a lossless file: the classes sum
+    to at most total_bits, the partitions' residuals to residuals."""
+    from gowebp_tpu_torch.utils.bittrace import bit_accounting
+
+    for name, data in files:
+        t0 = time.perf_counter()
+        r = bit_accounting(data)
+        ms = (time.perf_counter() - t0) * 1e3
+        c = r["classes"]
+        if not 0 < sum(c.values()) <= r["total_bits"]:
+            raise AssertionError(f"bit_accounting {name}: classes {c} "
+                                 f"against {r['total_bits']} bits")
+        if (r["format"] == "lossy"
+                and sum(r["residuals_per_partition"]) != c["residuals"]):
+            raise AssertionError(f"bit_accounting {name}: partitions "
+                                 f"{r['residuals_per_partition']} != "
+                                 f"{c['residuals']}")
+        log(f"bit_accounting {name}: {r['format']}, {r['total_bits']} bits, "
+            f"{c}, {ms:.1f} ms on the host {tag}")
+
+
+def containers_phase(images, hybrid_file, lossless_file, peek_counts,
+                     reset_counts, read_counts, tag) -> None:
+    """Phase 11 (see the module docstring)."""
+    t_phase = time.perf_counter()
+    reset_counts()
+    lossy, frames, durations = anim_lossy(images, peek_counts, tag)
+    anim_lossless(images, peek_counts, tag)
+    read_counts("animation")
+    anim_card_vs_cpu(frames, durations)
+    mux_roundtrip(lossy)
+    cli_phase(images, lossy, peek_counts, reset_counts, read_counts, tag)
+    bittrace_phase([("phase-4 hybrid file", hybrid_file),
+                    ("phase-8d lossless file", lossless_file)], tag)
+    log(f"phase 11 (containers, animation, CLI): "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import numpy as np
@@ -3208,10 +3690,13 @@ def main() -> int:
             setattr(fn, attr, 0)
         torch.cuda.synchronize()
 
+    def peek_counts():
+        """Every kernel's launches since reset_counts."""
+        return {n: getattr(fn, attr) for n, (fn, attr) in counters.items()}
+
     def read_counts(path):
         """Every kernel's launches since reset_counts, kept as ``path``'s."""
-        by_path[path] = {n: getattr(fn, attr)
-                         for n, (fn, attr) in counters.items()}
+        by_path[path] = peek_counts()
         return by_path[path]
 
     dev = torch.device("cuda:0")
@@ -3784,7 +4269,7 @@ def main() -> int:
         dev, images, reset_counts, read_counts, tag)
 
     # ---- phase 8d: the lossless encode ----
-    launches["predictor_search_entropy"] = lossless_encode(
+    launches["predictor_search_entropy"], lossless_file = lossless_encode(
         dev, images, reset_counts, read_counts, tag)
 
     # ---- phase 10: parallel/, the sharded steps ----
@@ -3793,6 +4278,10 @@ def main() -> int:
     time_rows([inverse_row], tag)
     rows.append(inverse_row)
     launches["predictor_inverse"] = counts["predictor_inverse"]
+
+    # ---- phase 11: containers, animation, the CLI, bit accounting ----
+    containers_phase(images, out[0], lossless_file, peek_counts,
+                     reset_counts, read_counts, tag)
 
     # ---- phase 9: result lines ----
     kernels = []

@@ -19,9 +19,17 @@ single-file ``decode(data, config=None, mode="RGBA", device=None)`` with
 ``IncrementalDecoder(device=None)`` (``append`` bytes, read the finished
 rows with ``get_partial_output``); and the picture helpers
 ``picture_view``, ``picture_crop`` and ``picture_rescale(rgba, width,
-height, device=None)``.  ``device`` None means CUDA and raises without
-it; ``device="cpu"`` runs the kernels' plain torch versions and gives
-identical bytes and pixels.
+height, device=None)``.
+Containers and animation: ``container.mux`` (``Mux``, ``MuxFrame``),
+``container.demux`` (``demux``, ``Demuxer``, ``FrameInfo``) and
+``container.anim`` (``AnimationEncoder(..., device=None)``, whose frames
+encode through ``encode_rgba``, and ``decode_animation(data,
+device=None)``, whose frames decode in one ``decode_rgba_batch`` call);
+``utils.bittrace.bit_accounting`` and ``utils.metrics`` (``psnr``,
+``plane_psnr``, ``ssim``), on the host; and the command line,
+``python -m gowebp_tpu_torch encode|decode|info``.  ``device`` None
+means CUDA and raises without it; ``device="cpu"`` runs the kernels'
+plain torch versions and gives identical bytes and pixels.
 """
 
 from .decode import (decode, decode_into, decode_rgb, decode_rgba,
@@ -35,6 +43,8 @@ from .idec import IncrementalDecoder
 from .picture import picture_crop, picture_rescale, picture_view
 from .stats import EncodeStats
 
+__version__ = "0.1.0"
+
 __all__ = [
     "BitstreamError",
     "DecoderConfig",
@@ -46,6 +56,7 @@ __all__ = [
     "NotEnoughData",
     "UnsupportedFeature",
     "WebPError",
+    "__version__",
     "decode",
     "decode_into",
     "decode_rgb",

@@ -2,11 +2,13 @@
 
 The writer emits a RIFF wrapper holding one bare "VP8 " chunk (a simple
 file), or a VP8X header, an ALPH chunk and the "VP8 " chunk (a lossy
-file with alpha).  The reader splits a WebP file (simple
-or VP8X extended) into its chunks, which the decode routes by, checks
-and reads the VP8X header, probes a VP8 key frame's or a VP8L header's
-dimensions, and reports a file's features without decoding it.  Written
-from the WebP container spec.
+file with alpha), and builds the VP8X (with its alpha, animation, ICC,
+EXIF and XMP flags), ANIM and ANMF headers the muxer assembles.  The
+reader splits a WebP file (simple or VP8X extended) into its chunks,
+which the decode and the demuxer route by, checks and reads the VP8X
+header, probes a VP8 key frame's or a VP8L header's dimensions, and
+reports a file's features without decoding it.  Written from the WebP
+container spec.
 """
 
 from __future__ import annotations
@@ -14,11 +16,14 @@ from __future__ import annotations
 import struct
 from dataclasses import dataclass, field
 
-from ..constants import (CHUNK_ALPHA, CHUNK_ANMF, CHUNK_HEADER_SIZE,
-                         CHUNK_VP8, CHUNK_VP8L, CHUNK_VP8X, RIFF_HEADER_SIZE,
-                         RIFF_MAGIC, VP8_SIGNATURE, VP8L_SIGNATURE,
-                         VP8X_CHUNK_SIZE, VP8X_FLAG_ALPHA,
-                         VP8X_FLAG_ANIMATION, WEBP_MAGIC)
+from ..constants import (ANIM_CHUNK_SIZE, ANMF_CHUNK_SIZE,
+                         ANMF_FLAG_DISPOSE_BACKGROUND, ANMF_FLAG_NO_BLEND,
+                         CHUNK_ALPHA, CHUNK_ANIM, CHUNK_ANMF,
+                         CHUNK_HEADER_SIZE, CHUNK_VP8, CHUNK_VP8L, CHUNK_VP8X,
+                         RIFF_HEADER_SIZE, RIFF_MAGIC, VP8_SIGNATURE,
+                         VP8L_SIGNATURE, VP8X_CHUNK_SIZE, VP8X_FLAG_ALPHA,
+                         VP8X_FLAG_ANIMATION, VP8X_FLAG_EXIF, VP8X_FLAG_ICC,
+                         VP8X_FLAG_XMP, WEBP_MAGIC)
 from ..errors import BitstreamError, NotEnoughData
 
 
@@ -59,6 +64,10 @@ class ParsedWebP:
             if c.tag == tag:
                 return c
         return None
+
+    def find_all(self, tag: bytes) -> list[Chunk]:
+        """Every chunk with this fourcc, in file order."""
+        return [c for c in self.chunks if c.tag == tag]
 
 
 def parse_riff(data: bytes, tolerant: bool = False) -> ParsedWebP:
@@ -179,12 +188,40 @@ def get_features(data: bytes, tolerant: bool = False) -> WebPFeatures:
     return WebPFeatures(width, height, has_alpha, has_anim, fmt)
 
 
-def build_vp8x(width: int, height: int, *, has_alpha: bool = False) -> Chunk:
-    """The VP8X extended-header chunk (only the alpha flag is used)."""
-    flags = VP8X_FLAG_ALPHA if has_alpha else 0
+def build_vp8x(width: int, height: int, *, has_alpha: bool = False,
+               has_animation: bool = False, has_icc: bool = False,
+               has_exif: bool = False, has_xmp: bool = False) -> Chunk:
+    """The VP8X extended-header chunk: the feature flags and the canvas."""
+    flags = 0
+    for on, bit in ((has_alpha, VP8X_FLAG_ALPHA),
+                    (has_animation, VP8X_FLAG_ANIMATION),
+                    (has_icc, VP8X_FLAG_ICC), (has_exif, VP8X_FLAG_EXIF),
+                    (has_xmp, VP8X_FLAG_XMP)):
+        if on:
+            flags |= bit
     payload = (struct.pack("<I", flags) + _pack_u24le(width - 1)
                + _pack_u24le(height - 1))
     return Chunk(CHUNK_VP8X, payload)
+
+
+def build_anim_chunk(background_color: int = 0xFFFFFFFF,
+                     loop_count: int = 0) -> Chunk:
+    """The ANIM chunk: background colour (BGRA) and loop count."""
+    return Chunk(CHUNK_ANIM, struct.pack("<IH", background_color, loop_count))
+
+
+def build_anmf_header(x: int, y: int, width: int, height: int,
+                      duration_ms: int, *, dispose_background: bool = False,
+                      no_blend: bool = False) -> bytes:
+    """The 16-byte ANMF frame header; the frame's image chunks follow it.
+    An odd offset raises ValueError (the format stores x/2 and y/2)."""
+    if x % 2 or y % 2:
+        raise ValueError("ANMF frame offsets must be even")
+    flags = ((ANMF_FLAG_NO_BLEND if no_blend else 0)
+             | (ANMF_FLAG_DISPOSE_BACKGROUND if dispose_background else 0))
+    return (_pack_u24le(x // 2) + _pack_u24le(y // 2)
+            + _pack_u24le(width - 1) + _pack_u24le(height - 1)
+            + _pack_u24le(duration_ms) + bytes([flags]))
 
 
 def _pack_u24le(v: int) -> bytes:
@@ -202,6 +239,7 @@ def assemble_simple(image_chunk: Chunk) -> bytes:
     return assemble([image_chunk])
 
 
-__all__ = ["Chunk", "ParsedWebP", "WebPFeatures", "assemble",
-           "assemble_simple", "build_vp8x", "get_features", "parse_riff", "vp8_dimensions",
-           "vp8l_dimensions"]
+__all__ = ["ANIM_CHUNK_SIZE", "ANMF_CHUNK_SIZE", "Chunk", "ParsedWebP",
+           "WebPFeatures", "assemble", "assemble_simple", "build_anim_chunk",
+           "build_anmf_header", "build_vp8x", "get_features", "parse_riff",
+           "vp8_dimensions", "vp8l_dimensions"]

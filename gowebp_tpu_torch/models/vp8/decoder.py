@@ -11,7 +11,9 @@ the device in ops/vp8_recon.py, ops/yuv.py and the yuv420_to_rgba kernel.
 The incremental decoder (idec.py) parses MB by MB in Python instead
 (``_parse_intra_mode``, ``_parse_residuals``), so that it can stop and
 resume anywhere in a stream that has not all arrived; ``mb_symbols``
-turns its parsed MBs into the native engine's arrays.
+turns its parsed MBs into the native engine's arrays.  The bit
+accounting (utils/bittrace.py) parses a whole frame the same way
+(``_parse_frame_mbs``), counting the bits each syntax class consumes.
 ``recon_vp8_yuv_host`` and ``yuv_planes_to_rgba`` do the same work in the
 native layer instead (the batch decode's ``recon_backend="host"``), with
 the same pixels.
@@ -517,6 +519,63 @@ def mb_symbols(mbs) -> tuple[np.ndarray, np.ndarray]:
                         mb.dither)
         modes[i, 5:] = mb.imodes
     return coeffs, modes
+
+
+def _bitpos(bd: BoolDecoder) -> int:
+    """A monotone count of the bits a boolean decoder has consumed."""
+    return 8 * bd.pos + bd.bit_count
+
+
+def _parse_frame_mbs(st: FrameState, bd: BoolDecoder,
+                     trace: dict | None = None) -> list:
+    """The whole frame's modes (partition 0) and tokens, parsed in Python
+    with ``_parse_intra_mode`` and ``_parse_residuals``: the mb_h x mb_w
+    grid of MBData.
+
+    With ``trace`` (a dict holding "intra_modes" and a "residuals" list,
+    one entry a token partition), the bits each MB row consumes are added
+    to it: its modes to "intra_modes", its tokens to its partition's
+    entry (the bit accounting of utils/bittrace.py).
+    """
+    mb_w, mb_h = st.mb_w, st.mb_h
+    parts = [BoolDecoder(pb) for pb in st.partition_bytes]
+    intra_t = np.full(4 * mb_w, B_DC, np.int32)
+    mbs = [[MBData() for _ in range(mb_w)] for _ in range(mb_h)]
+    ctx_above = [[0, 0] for _ in range(mb_w)]   # [nz, nz_dc] per column
+    for mb_y in range(mb_h):
+        intra_l = np.full(4, B_DC, np.int32)
+        ctx_left = [0, 0]
+        part_idx = mb_y & (len(parts) - 1)
+        token_bd = parts[part_idx]
+        t0, p0 = _bitpos(bd), _bitpos(token_bd)
+        for mb_x in range(mb_w):
+            mb = mbs[mb_y][mb_x]
+            (mb.segment, mb.skip, mb.is_i4, mb.imodes, mb.uvmode) = \
+                _parse_intra_mode(bd, st, intra_t[4 * mb_x : 4 * mb_x + 4],
+                                  intra_l)
+        if trace is not None:
+            trace["intra_modes"] += _bitpos(bd) - t0
+        for mb_x in range(mb_w):
+            mb = mbs[mb_y][mb_x]
+            skip = mb.skip if st.use_skip_proba else 0
+            if not skip:
+                mb.skip = int(_parse_residuals(token_bd, st, mb,
+                                               ctx_above[mb_x], ctx_left))
+            else:
+                ctx_above[mb_x][0] = 0
+                ctx_left[0] = 0
+                if not mb.is_i4:
+                    ctx_above[mb_x][1] = 0
+                    ctx_left[1] = 0
+                mb.coeffs = np.zeros((25, 16), np.int32)
+                mb.non_zero_y = 0
+                mb.non_zero_uv = 0
+                mb.skip = 1
+            if token_bd.exhausted():
+                raise BitstreamError("truncated token partition")
+        if trace is not None:
+            trace["residuals"][part_idx] += _bitpos(token_bd) - p0
+    return mbs
 
 
 # ---------------------------------------------------------------------------

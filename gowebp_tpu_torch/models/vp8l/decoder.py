@@ -198,18 +198,29 @@ class _StreamHeader:
 
 
 def _parse_stream_header(br: BitReader, xsize: int, ysize: int, *,
-                         top_level: bool) -> _StreamHeader:
-    """Everything before the pixel loop."""
+                         top_level: bool,
+                         trace: dict | None = None) -> _StreamHeader:
+    """Everything before the pixel loop.
+
+    With ``trace`` (a dict) the bits of the transforms, of the meta prefix
+    image (colour cache bits included) and of the prefix codes are
+    stored under "transforms", "meta_huffman" and "huffman_codes" (the
+    bit accounting of utils/bittrace.py).
+    """
     hdr = _StreamHeader()
     transforms: list[Transform] = []
     seen: set[int] = set()
     cur_xsize = xsize
+    p0 = br.bit_pos
     if top_level:
         while br.read_bit():
             t, cur_xsize = _read_transform(br, cur_xsize, ysize, seen)
             transforms.append(t)
             if len(transforms) > 4:
                 raise BitstreamError("too many transforms")
+    if trace is not None:
+        trace["transforms"] = br.bit_pos - p0
+        p0 = br.bit_pos
 
     cache_bits = 0
     if br.read_bit():
@@ -227,6 +238,9 @@ def _parse_stream_header(br: BitReader, xsize: int, ysize: int, *,
         raw = _decode_image_stream(br, hw, hh, top_level=False)
         huffman_image = ((raw >> 8) & 0xFFFF).astype(np.int32)
         num_groups = int(huffman_image.max()) + 1
+    if trace is not None:
+        trace["meta_huffman"] = br.bit_pos - p0
+        p0 = br.bit_pos
 
     hdr.transforms = transforms
     hdr.cur_xsize = cur_xsize
@@ -234,6 +248,8 @@ def _parse_stream_header(br: BitReader, xsize: int, ysize: int, *,
     hdr.huffman_image = huffman_image
     hdr.huffman_bits = huffman_bits
     hdr.lengths = _read_prefix_groups(br, num_groups, cache_bits)
+    if trace is not None:
+        trace["huffman_codes"] = br.bit_pos - p0
     return hdr
 
 

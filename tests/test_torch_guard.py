@@ -385,3 +385,78 @@ def test_new_kernel_wrappers_route_cpu_tensors_to_plain_versions():
                                                       dtype=torch.int16),
                            1, 1, 2)
     assert counts() == before
+
+
+def test_boundary_scan_covers_the_container_and_cli_modules():
+    names = {str(f.relative_to(ROOT)) for f in _port_files()}
+    for mod in ("container/demux.py", "container/mux.py", "container/anim.py",
+                "utils/bittrace.py", "utils/metrics.py", "__main__.py"):
+        assert f"gowebp_tpu_torch/{mod}" in names
+
+
+def _still(**kw):
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(np.zeros((16, 16, 3), np.uint8)).save(buf, "WEBP", **kw)
+    return buf.getvalue()
+
+
+def test_animation_default_device_is_cuda_and_raises_without_it(monkeypatch):
+    """AnimationEncoder and decode_animation without device= need CUDA:
+    without it they raise before any encode, demux or decode."""
+    from gowebp_tpu_torch.container import anim
+    dec = importlib.import_module("gowebp_tpu_torch.decode")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ran = []
+    monkeypatch.setattr(anim, "_encode_candidate",
+                        lambda *a, **k: ran.append(1))
+    monkeypatch.setattr(anim, "demux", lambda *a, **k: ran.append(1))
+    monkeypatch.setattr(dec, "decode_rgba_batch",
+                        lambda *a, **k: ran.append(1))
+    for kw in ({}, {"device": "cuda"}):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            anim.AnimationEncoder(**kw)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            anim.decode_animation(_still(lossless=True), **kw)
+    assert not ran
+
+
+@pytest.mark.parametrize("cmd", ["encode", "decode"])
+def test_cli_default_device_is_cuda_and_raises_without_it(monkeypatch,
+                                                          tmp_path, cmd):
+    """The CLI's encode and decode without --device need CUDA: in process
+    they raise before any work; as a program they exit non-zero."""
+    import os
+    import subprocess
+    import sys
+
+    from PIL import Image
+
+    import gowebp_tpu_torch.encode as enc_mod
+    from gowebp_tpu_torch.__main__ import main
+    dec = importlib.import_module("gowebp_tpu_torch.decode")
+
+    src = tmp_path / ("in.png" if cmd == "encode" else "in.webp")
+    if cmd == "encode":
+        Image.fromarray(np.zeros((16, 16, 3), np.uint8)).save(src)
+    else:
+        src.write_bytes(_still())
+    out = tmp_path / ("out.webp" if cmd == "encode" else "out.png")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ran = []
+    monkeypatch.setattr(enc_mod, "_encode_lossless",
+                        lambda *a, **k: ran.append(1))
+    monkeypatch.setattr(dec, "_vp8_planes", lambda *a, **k: ran.append(1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main([cmd, str(src), str(out)])
+    assert not ran and not out.exists()
+    r = subprocess.run([sys.executable, "-m", "gowebp_tpu_torch", cmd,
+                        str(src), str(out)], cwd=ROOT, capture_output=True,
+                       text=True, timeout=300,
+                       env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert r.returncode != 0 and "CUDA" in r.stderr
+    assert not out.exists()
