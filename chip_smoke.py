@@ -1856,7 +1856,7 @@ def stage_spans(dev, inputs, reps: int):
     warm-up run."""
     import torch
 
-    from gowebp_tpu_torch.device import StageClock
+    from gowebp_tpu_torch.tracing import StageClock
     from gowebp_tpu_torch.ops.encode_wavefront import encode_hybrid_core
 
     samples = {k: [] for k in HYBRID_STAGES}
@@ -3649,7 +3649,7 @@ def main() -> int:
     from gowebp_tpu_torch import (DecoderConfig, decode, decode_rgba_batch,
                                   decode_yuva, encode_rgba_batch)
     from gowebp_tpu_torch.decode import _upload, _upload_packed
-    from gowebp_tpu_torch.device import StageClock
+    from gowebp_tpu_torch.tracing import StageClock
     from gowebp_tpu_torch.config import EncoderConfig
     from gowebp_tpu_torch.container.riff import parse_riff
     from gowebp_tpu_torch.models.vp8.decoder import (decode_vp8_symbols,

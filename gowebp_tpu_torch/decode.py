@@ -55,7 +55,6 @@ torch version.
 from __future__ import annotations
 
 import concurrent.futures as cf
-import time
 
 import numpy as np
 import torch
@@ -63,7 +62,8 @@ import torch
 from .constants import CHUNK_ALPHA, CHUNK_VP8, CHUNK_VP8L
 from .container.riff import WebPFeatures, get_features, parse_riff
 from .decode_options import DecoderConfig, _rescale, apply_output_options
-from .device import StageClock, resolve_device
+from . import tracing
+from .device import resolve_device
 from .errors import BitstreamError
 from .models.vp8.alpha import decode_alpha
 from .models.vp8.decoder import (decode_vp8_symbols, decode_vp8_symbols_batch,
@@ -170,12 +170,11 @@ def _upload_packed(recs, packed, dev):
             rest[2] if len(rest) > 2 else None, nbytes)
 
 
-def _decode_group(recs, packed, dev, device_out: bool, timings):
+def _decode_group(recs, packed, dev, device_out: bool, clock):
     """Device phases of one (width, height, filter_type, has_alpha) group
-    from its packed coefficients → (B, H, W, 4) uint8 RGBA, on the device
-    or as a NumPy array."""
+    from its packed coefficients → ((B, H, W, 4) uint8 RGBA, on the
+    device or as a NumPy array; the bytes copied up)."""
     st = recs[0][1]
-    clock = StageClock(dev) if timings is not None else None
 
     def mark(name):
         if clock is not None:
@@ -194,22 +193,12 @@ def _decode_group(recs, packed, dev, device_out: bool, timings):
     if not device_out:
         rgba = rgba.cpu().numpy()
         mark("d2h")
-    if clock is not None:
-        _add_spans(timings, clock)
-        timings["h2d_bytes"] = timings.get("h2d_bytes", 0) + nbytes
-    return rgba
+    return rgba, nbytes
 
 
-def _add_spans(timings, clock) -> None:
-    stage = timings.setdefault("stage_ms", {})
-    for k, ms in clock.spans_ms().items():
-        stage[k] = stage.get(k, 0.0) + ms
-
-
-def _upload_host_images(items, results, dev, timings) -> None:
+def _upload_host_images(items, results, dev, clock) -> None:
     """``device_out``: the host-decoded (index, RGBA) images go up in one
     h2d copy per shape; each result is a view of its batch."""
-    clock = StageClock(dev) if timings is not None else None
     by_shape = {}
     for i, rgba in items:
         by_shape.setdefault(rgba.shape, []).append((i, rgba))
@@ -219,7 +208,13 @@ def _upload_host_images(items, results, dev, timings) -> None:
             results[i] = batch[k]
     if clock is not None:
         clock("h2d_host_rgba")
-        _add_spans(timings, clock)
+
+
+# span → ``timings`` key of its summed seconds, per recon backend
+_SUMS = {"decode.symbols": "symbols_s", "decode.alpha": "alpha_s",
+         "decode.vp8l": "vp8l_s"}
+_SUMS_DEVICE = {**_SUMS, "decode.pack": "pack_s"}
+_SUMS_HOST = {**_SUMS, "decode.recon_host": "recon_host_s"}
 
 
 def decode_rgba_batch(datas: list, *, threads: int = 0, device=None,
@@ -235,17 +230,24 @@ def decode_rgba_batch(datas: list, *, threads: int = 0, device=None,
     with the native layer (identical pixels).  Results are NumPy arrays,
     or with ``device_out=True`` uint8 tensors on ``device``.  A file with
     no VP8 or VP8L chunk raises BitstreamError before any work.
-    ``timings``, if given, gathers per-stage milliseconds under
-    "stage_ms" (CUDA-event spans on the card: h2d, unpack, recon,
-    yuv420_to_rgba, d2h), the bytes of the groups' h2d copies under
-    "h2d_bytes", and host thread seconds: "symbols_s" (the symbol
-    engine), "alpha_s" (ALPH planes), "pack_s" (the coefficient pack),
-    "vp8l_s" (VP8L files) and, with the host backend, "recon_host_s".
+
+    ``timings``, if given, gathers the call's spans (tracing.py) under
+    "spans"; per-stage milliseconds under "stage_ms" (CUDA-event spans on
+    the card: h2d, unpack, recon, yuv420_to_rgba, d2h), resolved once, as
+    the call ends; the bytes of the groups' copies under "h2d_bytes" and
+    "d2h_bytes"; "kernels.loads"; and the host spans' summed seconds:
+    "symbols_s" (the symbol engine), "alpha_s" (ALPH planes), "pack_s"
+    (the coefficient pack), "vp8l_s" (VP8L files) and, with the host
+    backend, "recon_host_s".  Under ``torch.profiler`` the spans go to
+    ``tracing.recorded()``.
     """
     dev = resolve_device(device)
     if recon_backend not in RECON_BACKENDS:
         raise ValueError(f"recon_backend must be one of {RECON_BACKENDS}, "
                          f"got {recon_backend!r}")
+    on_host = recon_backend == "host"
+    rec = tracing.recorder("decode.call", timings,
+                           _SUMS_HOST if on_host else _SUMS_DEVICE)
     routed = [_route(d) for d in datas]
     if not routed:
         return []
@@ -253,99 +255,112 @@ def decode_rgba_batch(datas: list, *, threads: int = 0, device=None,
              if kind == "vp8"]
     lossless = [(i, p) for i, (kind, p, _) in enumerate(routed)
                 if kind == "vp8l"]
-    on_host = recon_backend == "host"
-    secs = {"symbols_s": 0.0, "alpha_s": 0.0, "vp8l_s": 0.0}
-    secs["recon_host_s" if on_host else "pack_s"] = 0.0
     workers = threads if threads > 0 else min(8, len(datas))
     ng = min(workers, -(-len(lossy) // STREAMS_PER_ENGINE))
     groups = [lossy[g::ng] for g in range(ng)]
 
-    def symbols(items):
-        """Symbol phase of one engine call, with its ALPH planes; on the
+    def symbols(g):
+        """Symbol phase of engine call ``g``, with its ALPH planes; on the
         device backend then the pack of each shape group, on the host
         backend recon, conversion and the alpha merge."""
-        t0 = time.perf_counter()
+        items = groups[g]
+        sp = rec.begin("decode.symbols") if rec is not None else None
         syms = decode_vp8_symbols_batch([p for _, p, _ in items])
-        took = {"symbols_s": time.perf_counter() - t0, "alpha_s": 0.0,
-                "recon_host_s": 0.0, "pack_s": 0.0}
+        fps = ([None] * len(syms) if on_host else
+               [vp8_filter_params(st, modes) for st, _, modes in syms])
+        if sp is not None:
+            rec.end(sp, group=g, files=len(items),
+                    bytes_in=sum(len(p) for _, p, _ in items))
         out = []
-        for (i, _, ap), (st, coeffs, modes) in zip(items, syms):
-            t0 = time.perf_counter()
-            plane = (None if ap is None
-                     else decode_alpha(ap, st.width, st.height))
-            t1 = time.perf_counter()
-            took["alpha_s"] += t1 - t0
+        for (i, _, ap), (st, coeffs, modes), fpar in zip(items, syms, fps):
+            plane = None
+            if ap is not None:
+                sp = rec.begin("decode.alpha") if rec is not None else None
+                plane = decode_alpha(ap, st.width, st.height)
+                if sp is not None:
+                    rec.end(sp, file=i)
             if on_host:
+                sp = (rec.begin("decode.recon_host") if rec is not None
+                      else None)
                 rgba = yuv_planes_to_rgba(*recon_vp8_yuv_host(st, coeffs,
                                                               modes))
                 if plane is not None:
                     rgba[..., 3] = plane
                 out.append((i, rgba))
-                took["recon_host_s"] += time.perf_counter() - t1
+                if sp is not None:
+                    rec.end(sp, file=i)
             else:
-                out.append((i, st, coeffs, modes,
-                            vp8_filter_params(st, modes), plane))
-                took["symbols_s"] += time.perf_counter() - t1
+                out.append((i, st, coeffs, modes, fpar, plane))
         if on_host:
-            return out, took
-        t0 = time.perf_counter()
+            return out
+        sp = rec.begin("decode.pack") if rec is not None else None
         by_shape = {}
-        for rec in out:
-            st = rec[1]
-            key = (st.width, st.height, st.filter_type, rec[5] is not None)
-            by_shape.setdefault(key, []).append(rec)
+        for r in out:
+            st = r[1]
+            key = (st.width, st.height, st.filter_type, r[5] is not None)
+            by_shape.setdefault(key, []).append(r)
         packed = [(grp, _pack_group(grp)[0]) for grp in by_shape.values()]
-        took["pack_s"] = time.perf_counter() - t0
-        return packed, took
+        if sp is not None:
+            rec.end(sp, group=g, shapes=len(packed))
+        return packed
 
     def lossless_one(item):
         i, payload = item
-        t0 = time.perf_counter()
+        sp = rec.begin("decode.vp8l") if rec is not None else None
         rgba = decode_vp8l(payload)
-        return [(i, rgba)], {"vp8l_s": time.perf_counter() - t0}
+        if sp is not None:
+            rec.end(sp, file=i)
+        return [(i, rgba)]
 
     results = [None] * len(datas)
     host_images = []
 
-    def device_phase(groups):
-        for grp, packed in groups:
-            rgba = _decode_group(grp, packed, dev, device_out, timings)
-            for k, rec in enumerate(grp):
-                results[rec[0]] = rgba[k]
+    def device_phase(g, out):
+        """Group ``g``'s shape groups through the device, on the calling
+        thread."""
+        for grp, packed in out:
+            sp = rec.begin("decode.device") if rec is not None else None
+            clock = rec.clock(dev) if rec is not None else None
+            rgba, nbytes = _decode_group(grp, packed, dev, device_out, clock)
+            for k, r in enumerate(grp):
+                results[r[0]] = rgba[k]
+            if sp is not None:
+                rec.end(sp, group=g, files=len(grp), h2d_bytes=nbytes,
+                        d2h_bytes=0 if device_out else rgba.nbytes)
 
-    def finish(out, took, lossy_group: bool):
-        for k, s in took.items():
-            if k in secs:
-                secs[k] += s
-        if lossy_group and not on_host:
-            device_phase(out)
+    def finish(g, out):
+        if g is not None and not on_host:
+            device_phase(g, out)
         else:
             host_images.extend(out)
 
     if workers <= 1 or (ng <= 1 and not lossless):
-        for g in groups:
-            finish(*symbols(g), True)
+        for g in range(ng):
+            finish(g, symbols(g))
         for item in lossless:
-            finish(*lossless_one(item), False)
+            finish(None, lossless_one(item))
     else:
         # a group's device phase overlaps the later groups' symbol phases
         # and the VP8L decodes
         with cf.ThreadPoolExecutor(max_workers=workers) as pool:
-            lossy_futs = [pool.submit(symbols, g) for g in groups]
-            lossless_futs = [pool.submit(lossless_one, it) for it in lossless]
-            for fut in lossy_futs:
-                finish(*fut.result(), True)
-            for fut in lossless_futs:
-                finish(*fut.result(), False)
+            futs = ([(g, pool.submit(symbols, g)) for g in range(ng)]
+                    + [(None, pool.submit(lossless_one, it))
+                       for it in lossless])
+            for g, fut in futs:
+                sp = rec.begin("decode.wait") if rec is not None else None
+                out = fut.result()
+                if sp is not None:
+                    rec.end(sp, group=-1 if g is None else g)
+                finish(g, out)
 
     if device_out and host_images:
-        _upload_host_images(host_images, results, dev, timings)
+        _upload_host_images(host_images, results, dev,
+                            rec.clock(dev) if rec is not None else None)
     else:
         for i, rgba in host_images:
             results[i] = rgba
-    if timings is not None:
-        for k, s in secs.items():
-            timings[k] = timings.get(k, 0.0) + s
+    if rec is not None:
+        rec.finish(files=len(datas), groups=ng)
     return results
 
 

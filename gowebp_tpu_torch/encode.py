@@ -144,7 +144,8 @@ def encode_yuv(y: np.ndarray, u: np.ndarray, v: np.ndarray, *,
 
 def encode_rgba_batch(images: list, *, quality: float = 75.0,
                       threads: int = 0, device=None,
-                      engine: str = "hybrid") -> list:
+                      engine: str = "hybrid",
+                      timings: dict | None = None) -> list:
     """Lossy-encode a batch of same-shaped (H, W, 3|4) uint8 images.
 
     Runs the pipelined batch encoder (ops/encode_pipeline.py, chunks of
@@ -162,7 +163,9 @@ def encode_rgba_batch(images: list, *, quality: float = 75.0,
     reference encodes it: image by image through ``encode_rgba`` at
     ``quality`` (the host encoder's decisions, an ALPH chunk for a
     non-opaque image), whatever ``engine`` says.  Returns one .webp byte
-    string per image, in input order.
+    string per image, in input order.  ``timings``, if given, gathers the
+    pipeline's spans, stage milliseconds and host seconds
+    (``encode_rgba_batch_pipelined``); a mixed batch records none.
     """
     from .device import resolve_device
     from .ops.encode_pipeline import check_engine, encode_rgba_batch_pipelined
@@ -181,7 +184,8 @@ def encode_rgba_batch(images: list, *, quality: float = 75.0,
     return encode_rgba_batch_pipelined(
         arrays, quality=quality,
         threads=(threads if threads > 0 else min(8, len(arrays))),
-        chunk=min(16, len(arrays)), device=dev, engine=engine)
+        chunk=min(16, len(arrays)), device=dev, engine=engine,
+        timings=timings)
 
 
 def _cleanup_transparent_area(rgba: np.ndarray) -> np.ndarray:

@@ -42,8 +42,6 @@ from __future__ import annotations
 
 import concurrent.futures as cf
 import contextlib
-import threading
-import time
 from collections import deque
 
 import numpy as np
@@ -52,7 +50,8 @@ import torch
 from ..config import EncoderConfig
 from ..constants import CHUNK_VP8
 from ..container.riff import Chunk, assemble_simple
-from ..device import StageClock, resolve_device
+from .. import tracing
+from ..device import resolve_device
 from ..errors import EncodeError
 from ..models.vp8.encoder import (ERROR_DIFFUSION_QUALITY, _default_cost_tables,
                                   _i4_config_seg, _segment_tree_probs,
@@ -410,6 +409,11 @@ def check_hybrid_options(refine: int, cold: str, i4_topk) -> None:
     check_topk(i4_topk)
 
 
+# span → ``timings`` key of its summed seconds
+_SUMS = {"encode.prep": "prep", "encode.h2d": "h2d", "encode.fetch": "fetch",
+         "encode.emit": "emit_thread_s", "encode.call": "total"}
+
+
 def encode_rgba_batch_pipelined(images, *, quality: float = 75.0,
                                 threads: int = 2, chunk: int = 8,
                                 device=None, engine: str = "hybrid",
@@ -433,12 +437,21 @@ def encode_rgba_batch_pipelined(images, *, quality: float = 75.0,
 
     Returns a list of complete .webp byte strings (order preserved).
     ``device`` None means CUDA (raises without it); "cpu" runs the
-    kernels' plain versions with identical output.  ``timings``, if
-    given, accumulates per-stage milliseconds under "stage_ms" (device
-    stages from CUDA events on a GPU) and host seconds under "prep"
-    (chunk prep, thread time), "h2d" (the main thread's upload), "fetch"
-    (the fetch thread's d2h), "emit_thread_s" (emission, thread time)
-    and "total" (the wall clock).
+    kernels' plain versions with identical output.
+
+    ``timings``, if given, gathers the call's spans (tracing.py) under
+    "spans", per-stage milliseconds under "stage_ms" (device stages from
+    CUDA events on a GPU, resolved once, as the call ends), and the
+    spans' summed seconds: "prep" (``encode.prep``: a chunk's prep on its
+    prep thread, which hands each image to the emission pool), "h2d"
+    (``encode.h2d``: the main thread's upload, inside
+    ``encode.dispatch``, its enqueue of the chunk), "fetch"
+    (``encode.fetch``: the fetch thread's d2h), "emit_thread_s"
+    (``encode.emit``: one an image) and "total" (``encode.call``).
+    ``encode.wait`` marks the main thread blocked on a future, its
+    ``stage`` attribute 0 for a prep, 1 for a fetch, 2 for the
+    emissions.  Under ``torch.profiler`` the spans go to
+    ``tracing.recorded()``.
     """
     check_engine(engine)
     check_hybrid_options(refine, cold, i4_topk)
@@ -447,7 +460,7 @@ def encode_rgba_batch_pipelined(images, *, quality: float = 75.0,
     dev = resolve_device(device)
     cuda = dev.type == "cuda"
     openloop = engine == "openloop"
-    t_total = time.perf_counter()
+    rec = tracing.recorder("encode.call", timings, _SUMS)
     first = np.asarray(images[0])
     h, w = first.shape[:2]
     setup = encode_setup(quality, h, w, config)
@@ -459,16 +472,6 @@ def encode_rgba_batch_pipelined(images, *, quality: float = 75.0,
     mh, mw = plan["mb_h"], plan["mb_w"]
     cap_s = plan["n_group_pad"] // 2
     cap_b = plan["n_group_pad"] // 4
-    tm = timings if timings is not None else {}
-    tm.setdefault("stage_ms", {})
-    for k in ("prep", "h2d", "fetch", "emit_thread_s", "total"):
-        tm.setdefault(k, 0.0)
-    tm_lock = threading.Lock()
-
-    def acc(key, t0):
-        with tm_lock:
-            tm[key] += time.perf_counter() - t0
-
     chunk = max(1, min(chunk, n))
     starts = list(range(0, n, chunk))
     ahead = max(1, depth)
@@ -484,16 +487,18 @@ def encode_rgba_batch_pipelined(images, *, quality: float = 75.0,
 
     def prep_chunk(i, pool):
         """Host prep of chunk ``i`` into its staging buffer."""
-        t0 = time.perf_counter()
+        sp = rec.begin("encode.prep") if rec is not None else None
         s = starts[i]
         prepped = list(pool.map(prep_one, images[s:s + chunk]))
         slot = staging.slot(i)
         for j, p in enumerate(prepped):
             slot[j] = p[0]
-        acc("prep", t0)
-        return (len(prepped), [p[1] for p in prepped],
-                np.stack([p[2] for p in prepped]),
-                np.stack([p[3] for p in prepped]))
+        out = (len(prepped), [p[1] for p in prepped],
+               np.stack([p[2] for p in prepped]),
+               np.stack([p[3] for p in prepped]))
+        if sp is not None:
+            rec.end(sp, chunk=i, images=len(prepped))
+        return out
 
     sticky = {"ks": min(FIRST_BUCKET, cap_s), "kb": min(FIRST_BUCKET, cap_b)}
 
@@ -501,9 +506,12 @@ def encode_rgba_batch_pipelined(images, *, quality: float = 75.0,
         """Main thread: enqueue chunk ``i``'s h2d, dense encode, pack and
         export at the sticky buckets; nothing here waits on the device."""
         nb, segs, qs, pens = prepped
-        t0 = time.perf_counter()
+        sp = rec.begin("encode.dispatch") if rec is not None else None
+        sh = rec.begin("encode.h2d", sp) if rec is not None else None
         yd, ud, vd = split_planes(staging.upload(i, nb), plan)  # ONE h2d
-        acc("h2d", t0)
+        if sh is not None:
+            rec.end(sh, chunk=i, h2d_bytes=yd.numel() + ud.numel()
+                    + vd.numel())
         if clock is not None:
             clock("h2d")
         if openloop:
@@ -524,6 +532,8 @@ def encode_rgba_batch_pipelined(images, *, quality: float = 75.0,
         if cuda:
             exported = torch.cuda.Event()
             exported.record()
+        if sp is not None:
+            rec.end(sp, chunk=i)
         return out, buf, ks, kb, exported
 
     def download(buf, after=None):
@@ -550,7 +560,6 @@ def encode_rgba_batch_pipelined(images, *, quality: float = 75.0,
     def fetch(out, buf, ks, kb, exported, clock):
         """Fetch thread: the d2h at the export's buckets; one re-export,
         at buckets grown to fit, when a chunk overflows them."""
-        t0 = time.perf_counter()
         host = download(buf, exported)
         hdr = host[:, :12].copy().view(np.int32).reshape(-1, 3)
         need_ks = _bucket(max(1, int(hdr[:, 0].max())), cap_s)
@@ -565,7 +574,6 @@ def encode_rgba_batch_pipelined(images, *, quality: float = 75.0,
         if clock is not None:
             with on_side():
                 clock("d2h")
-        acc("fetch", t0)
         nb = host.shape[0]
         o = 12
         got = {"cs": hdr[:, 0], "cb": hdr[:, 1], "maxabs": hdr[:, 2]}
@@ -583,8 +591,8 @@ def encode_rgba_batch_pipelined(images, *, quality: float = 75.0,
             got["imodes"] = (None,) * nb
         return got
 
-    def emit_one(j, fetched, seg, dense):
-        t0 = time.perf_counter()
+    def emit_one(gi, j, fetched, seg, dense):
+        sp = rec.begin("encode.emit") if rec is not None else None
         try:
             if dense is None:
                 y2, yl, uvl = unpack_g4v2(
@@ -599,14 +607,18 @@ def encode_rgba_batch_pipelined(images, *, quality: float = 75.0,
                 imodes=fetched["imodes"][j], seg=seg)
             return assemble_simple(Chunk(CHUNK_VP8, payload))
         finally:
-            acc("emit_thread_s", t0)
+            if sp is not None:
+                rec.end(sp, image=gi)
 
     def fetch_and_emit(i, segs, job, clock, pool):
         """Fetch thread: chunk ``i``'s d2h, then its emit submissions, in
         image order; an image that escapes the compact pack takes its
         dense levels (a d2h on the side stream too)."""
         out = job[0]
+        sp = rec.begin("encode.fetch") if rec is not None else None
         got = fetch(*job, clock)
+        if sp is not None:
+            rec.end(sp, chunk=i)
         futs = []
         for j, seg in enumerate(segs):
             dense = None
@@ -616,14 +628,18 @@ def encode_rgba_batch_pipelined(images, *, quality: float = 75.0,
                     dense = (out["y2_levels"][j].cpu().numpy().reshape(t, 16),
                              out["y_levels"][j].cpu().numpy().reshape(t, 16, 16),
                              out["uv_levels"][j].cpu().numpy().reshape(t, 8, 16))
-            futs.append((starts[i] + j, pool.submit(emit_one, j, got, seg,
-                                                    dense)))
-        if clock is not None:
-            spans = clock.spans_ms()
-            with tm_lock:
-                for k, ms in spans.items():
-                    tm["stage_ms"][k] = tm["stage_ms"].get(k, 0.0) + ms
+            gi = starts[i] + j
+            futs.append((gi, pool.submit(emit_one, gi, j, got, seg, dense)))
         return futs
+
+    def wait(fut, k: int, stage: int):
+        """The main thread blocked on ``fut``: chunk ``k``'s prep (stage
+        0), fetch (1) or an emission (2)."""
+        sp = rec.begin("encode.wait") if rec is not None else None
+        got = fut.result()
+        if sp is not None:
+            rec.end(sp, chunk=k, stage=stage)
+        return got
 
     results = [None] * n
     with cf.ThreadPoolExecutor(max_workers=max(1, threads)) as pool, \
@@ -634,20 +650,24 @@ def encode_rgba_batch_pipelined(images, *, quality: float = 75.0,
         preps = deque(prep_pool.submit(prep_chunk, i, pool)
                       for i in range(min(ahead, len(starts))))
         for i in range(len(starts)):
-            prepped = preps.popleft().result()
+            prepped = wait(preps.popleft(), i, 0)
             if i + ahead < len(starts):
                 preps.append(prep_pool.submit(prep_chunk, i + ahead, pool))
-            clock = StageClock(dev) if timings is not None else None
+            clock = rec.clock(dev) if rec is not None else None
             job = dispatch(i, prepped, clock)
-            pending.append(fetch_pool.submit(fetch_and_emit, i, prepped[1],
-                                             job, clock, pool))
+            pending.append((i, fetch_pool.submit(fetch_and_emit, i,
+                                                 prepped[1], job, clock,
+                                                 pool)))
             while len(pending) >= ahead:
-                emit_futs.extend(pending.popleft().result())
+                k, fut = pending.popleft()
+                emit_futs.extend(wait(fut, k, 1))
         while pending:
-            emit_futs.extend(pending.popleft().result())
+            k, fut = pending.popleft()
+            emit_futs.extend(wait(fut, k, 1))
         for gi, fut in emit_futs:
-            results[gi] = fut.result()
-    acc("total", t_total)
+            results[gi] = wait(fut, gi // chunk, 2)
+    if rec is not None:
+        rec.finish(images=n, chunks=len(starts))
     return results
 
 

@@ -21,6 +21,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+from ...tracing import count
+
 KERNEL_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNEL_DIR.parent.parent / "_build"
 NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
@@ -92,7 +94,8 @@ class CudaLibrary:
         tmp.replace(so)
 
     def load(self):
-        """The loaded library; builds it first if needed."""
+        """The loaded library; builds it first if needed.  Building or
+        opening it counts one ``kernels.loads`` (tracing.py)."""
         if self._lib is not None:
             return self._lib
         with self._lock:
@@ -101,6 +104,7 @@ class CudaLibrary:
                 lib = ctypes.CDLL(str(self._so_path()))
                 self._configure(lib)
                 self._lib = lib
+                count("kernels.loads")
         return self._lib
 
 

@@ -1471,6 +1471,42 @@ def test_batch_decode_launches_unpack_once_a_group(cuda):
     assert unpack_coeffs.launches == before
 
 
+def test_timed_device_out_decode_waits_for_the_card_once(cuda, monkeypatch):
+    """With ``timings`` and the pixels left on the card, the batch decode
+    runs the schedule it runs untimed: its stage clocks are resolved by
+    one wait for the device as the call ends, not one a group."""
+    from gowebp_tpu_torch import decode_rgba_batch
+    from gowebp_tpu_torch.utils.corpus import natural_image
+
+    datas = [_pillow(natural_image(32, 48, seed=s), quality=75)
+             for s in range(40)]
+    want = decode_rgba_batch(datas, device="cuda", threads=2)
+    waits = []
+
+    def counted(kind, fn):
+        def wait(*a, **k):
+            waits.append(kind)
+            return fn(*a, **k)
+        return wait
+
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        counted("device", torch.cuda.synchronize))
+    monkeypatch.setattr(torch.cuda.Event, "synchronize",
+                        counted("event", torch.cuda.Event.synchronize))
+    monkeypatch.setattr(torch.cuda.Stream, "synchronize",
+                        counted("stream", torch.cuda.Stream.synchronize))
+    timings = {}
+    got = decode_rgba_batch(datas, device="cuda", threads=2,
+                            device_out=True, timings=timings)
+    assert waits == ["device"]
+    groups = [s for s in timings["spans"] if s.name == "decode.device"]
+    assert len(groups) == 2 and timings["kernels.loads"] == 0
+    assert set(timings["stage_ms"]) == {"h2d", "unpack", "recon",
+                                        "yuv420_to_rgba"}
+    for g, w in zip(got, want):
+        assert g.is_cuda and np.array_equal(g.cpu().numpy(), w)
+
+
 def test_incremental_decoder_gpu_equals_cpu(cuda):
     """IncrementalDecoder(device="cuda"): the same states, rows and
     partial outputs as device="cpu", chunk by chunk; each partial lossy

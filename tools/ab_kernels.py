@@ -363,7 +363,8 @@ for name in ("hybrid", "mixed"):
     row[name + "_mps_min_max"] = [mp / max(times), mp / min(times)]
     timings = {}
     decode_rgba_batch(files, device="cuda", timings=timings)
-    row[name + "_timings"] = timings
+    row[name + "_timings"] = {k: v for k, v in timings.items()
+                              if k != "spans"}
 torch.save(out, sys.argv[2])
 print(json.dumps(row))
 """,
