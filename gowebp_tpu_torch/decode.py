@@ -149,12 +149,12 @@ def _upload(recs, dev):
     return (*views[:3], views[3] if len(views) > 3 else None)
 
 
-def _pack_group(recs):
+def _pack_group(recs, counts=None):
     """The sparse wire layout of one group's coefficients (on the symbol
-    thread): (dict of numpy arrays, K)."""
+    thread): (dict of numpy arrays, K); ``counts`` as ``pack_images``."""
     return pack_images([r[2] for r in recs], [r[3][:, 2] for r in recs],
                        [r[3][:, 0] for r in recs],
-                       [r[1].quant_rows() for r in recs])
+                       [r[1].quant_rows() for r in recs], counts)
 
 
 def _upload_packed(recs, packed, dev):
@@ -294,14 +294,16 @@ def decode_rgba_batch(datas: list, *, threads: int = 0, device=None,
         if on_host:
             return out
         sp = rec.begin("decode.pack") if rec is not None else None
+        counts = None if sp is None else {}
         by_shape = {}
         for r in out:
             st = r[1]
             key = (st.width, st.height, st.filter_type, r[5] is not None)
             by_shape.setdefault(key, []).append(r)
-        packed = [(grp, _pack_group(grp)[0]) for grp in by_shape.values()]
+        packed = [(grp, _pack_group(grp, counts)[0])
+                  for grp in by_shape.values()]
         if sp is not None:
-            rec.end(sp, group=g, shapes=len(packed))
+            rec.end(sp, group=g, shapes=len(packed), **counts)
         return packed
 
     def lossless_one(item):

@@ -20,6 +20,7 @@
 #if defined(__SSE2__)
 #include <immintrin.h>
 #endif
+#include <cmath>
 #include <cstdint>
 #include <cstring>
 #include <vector>
@@ -1528,146 +1529,189 @@ void wtpu_yuv_to_rgba_fancy(const uint8_t* yp, const uint8_t* up,
 
 // ----------------------------------------------------------------------
 // Sparse coefficient-upload pack (ops/coeff_pack.py).  Re-compresses the
-// symbol engines' dequantized (N, 24, 16) int16 coefficients into int8
-// zigzag levels (the first K a block), the i16 MBs' luma DC side plane,
-// a tail table (the levels past K of the blocks that have them) and a
-// raw exception table (blocks whose levels do not fit int8 or do not
-// divide by their quantizer), for the batch decode's upload.  Equal to
+// symbol engines' dequantized (N, 24, 16) int16 coefficients of a group
+// of B images into int8 zigzag levels (the first K a block), the i16 MBs'
+// luma DC side plane, a tail table (the levels past K of the blocks that
+// have them) and a raw exception table (blocks whose levels do not fit
+// int8 or do not divide by their quantizer), in two passes:
+//
+// - wtpu_vp8_pack_scan reads each dense block once.  A level is the
+//   coefficient times the float reciprocal of its quantizer, rounded:
+//   |v| < 2^15, so the product is within 2^-8 of v / q and rounds to it
+//   wherever q divides v; multiplying back checks it.  No integer
+//   division.  It writes the wire layout of K = 4: each block's first 4
+//   levels, the tail rows of the blocks whose non-zeros reach past 4 (in
+//   block order: the index and levels 4-15) and the exception blocks'
+//   indices, and counts what the K chooser needs.
+// - wtpu_vp8_pack_emit, once K is chosen, writes the exception rows (the
+//   raw zigzag row, re-read from the dense array for those blocks only)
+//   and, at K = 8 or 16, lv8 and the tail table from the K = 4 layout.
+//
+// The AVX-512 path handles a block in one 32-byte load and a few vector
+// instructions; the scalar path gives the same bytes.  Equal to
 // ops/coeff_pack.py's numpy pack_coeffs_plain (tests).
 // ----------------------------------------------------------------------
+
+#if defined(__AVX512F__) && defined(__AVX512BW__) && defined(__AVX512VL__)
+#define WTPU_PACK_AVX512 1
+#endif
 
 namespace {
 static const int kPackZZ[16] = {0, 1, 4, 8, 5, 2, 3, 6,
                                 9, 12, 13, 10, 7, 11, 14, 15};
 
-struct PackBlockInfo {
-  int16_t lv[16];   // zigzag-order levels (valid when ok)
-  int raw_eob;      // last non-zero raw zigzag position + 1, the dropped
-                    // i16 DC included (the truncation's rank)
-  bool ok;          // divisible and |level| <= 127
+// One segment's quantizers by lane: [0] luma, [1] chroma; lane 0 the DC
+// quantizer, lanes 1-15 the AC one.
+struct PackQuant {
+  alignas(64) int32_t q[2][16];
+  alignas(64) float r[2][16];
 };
 
-static inline bool block_is_zero(const int16_t* c) {
-  uint64_t w[4];
-  std::memcpy(w, c, sizeof(w));
-  return (w[0] | w[1] | w[2] | w[3]) == 0;
+static void pack_quants(const int32_t* qm /* [4][6] */, PackQuant* pq) {
+  for (int s = 0; s < 4; s++) {
+    for (int uv = 0; uv < 2; uv++) {
+      for (int n = 0; n < 16; n++) {
+        const int32_t q = qm[s * 6 + (uv ? 4 : 0) + (n ? 1 : 0)];
+        pq[s].q[uv][n] = q;
+        pq[s].r[uv][n] = 1.0f / (float)q;
+      }
+    }
+  }
 }
 
-// An all-zero block (most of them) is ok with raw_eob 0 and zero levels;
-// callers test block_is_zero first and skip this.
-static inline void pack_block(const int16_t* c, int q_dc, int q_ac,
-                              bool drop_dc, PackBlockInfo& out) {
-  out.raw_eob = 0;
-  out.ok = true;
+// A block's 16 zigzag levels → its raw eob (the last non-zero raw
+// position + 1, the dropped i16 DC included; 0 for a zero block), or -1
+// for an exception.
+#ifdef WTPU_PACK_AVX512
+static inline int pack_block(const int16_t* c, const int32_t* q,
+                             const float* r, bool drop_dc, int8_t* lv) {
+  const __m256i kZZ = _mm256_setr_epi16(0, 1, 4, 8, 5, 2, 3, 6, 9, 12, 13,
+                                        10, 7, 11, 14, 15);
+  const __m256i zz = _mm256_permutexvar_epi16(
+      kZZ, _mm256_loadu_si256(reinterpret_cast<const __m256i*>(c)));
+  const __mmask16 nz = _mm256_test_epi16_mask(zz, zz);
+  const __mmask16 live = drop_dc ? (__mmask16)(nz & 0xFFFE) : nz;
+  const __m512i v = _mm512_cvtepi16_epi32(zz);
+  const __m512i l = _mm512_maskz_cvtps_epi32(
+      live, _mm512_mul_ps(_mm512_cvtepi32_ps(v), _mm512_load_ps(r)));
+  const __m512i back = _mm512_mullo_epi32(l, _mm512_load_si512(q));
+  const __mmask16 bad =
+      _mm512_mask_cmpneq_epi32_mask(live, back, v) |
+      _mm512_mask_cmpgt_epu32_mask(live, _mm512_add_epi32(
+          l, _mm512_set1_epi32(127)), _mm512_set1_epi32(254));
+  _mm_storeu_si128(reinterpret_cast<__m128i*>(lv), _mm512_cvtepi32_epi8(l));
+  return bad ? -1 : 32 - (int)_lzcnt_u32((unsigned)nz);
+}
+#else
+static inline int pack_block(const int16_t* c, const int32_t* q,
+                             const float* r, bool drop_dc, int8_t* lv) {
+  int eob = 0;
+  bool ok = true;
   for (int n = 0; n < 16; n++) {
-    int32_t v = c[kPackZZ[n]];
-    if (v != 0) out.raw_eob = n + 1;
-    if (n == 0 && drop_dc) v = 0;
-    if (v == 0) {
-      out.lv[n] = 0;
-      continue;
-    }
-    const int32_t q = n == 0 ? q_dc : q_ac;
-    const int32_t lvl = v / q;
-    if (lvl * q != v || lvl > 127 || lvl < -127) out.ok = false;
-    out.lv[n] = (int16_t)lvl;
+    const int32_t raw = c[kPackZZ[n]];
+    if (raw != 0) eob = n + 1;
+    const int32_t v = (n == 0 && drop_dc) ? 0 : raw;
+    const int32_t l = v ? (int32_t)lrintf((float)v * r[n]) : 0;
+    ok &= (int64_t)l * q[n] == v && l >= -127 && l <= 127;
+    lv[n] = (int8_t)l;
   }
+  return ok ? eob : -1;
+}
+#endif
+
+static inline bool any_nonzero8(const int8_t* p) {
+  uint64_t w;
+  std::memcpy(&w, p, 8);
+  return w != 0;
 }
 }  // namespace
 
-// First pass: exception/tail counts for the K chooser.
-// out_counts = [n_base, n_tail4, n_tail8] (tails exclude base blocks).
-extern "C" void wtpu_vp8_pack_stats(
-    const int16_t* coeffs, const uint8_t* seg, const uint8_t* is_i4,
-    const int32_t* qmat /* [B][4][6] */, int B, int N,
-    int32_t* out_counts) {
-  int64_t n_base = 0, n_t4 = 0, n_t8 = 0;
+// First pass.  coeffs[b] is image b's (N, 24, 16) array; seg, is_i4
+// [B*N]; qmat [B][4][6].  Writes head [B*N*24][4] (lv8 at K = 4; zero
+// for an exception), dc16 [B*N][16], the K = 4 tail table (t4_idx,
+// t4_val [rows][12]) and exc_idx, each table in block order with room
+// for every block.
+// counts = [zero blocks, exception blocks, tails past 4, tails past 8]
+// (tails exclude exceptions).
+extern "C" void wtpu_vp8_pack_scan(
+    const int16_t* const* coeffs, const uint8_t* seg, const uint8_t* is_i4,
+    const int32_t* qmat, int B, int N, int8_t* head, int16_t* dc16,
+    int32_t* t4_idx, int8_t* t4_val, int32_t* exc_idx, int64_t* counts) {
+  int64_t n_zero = 0, n_exc = 0, n_t4 = 0, n_t8 = 0;
+  PackQuant pq[4];
   for (int b = 0; b < B; b++) {
-    const int32_t* qm = qmat + (size_t)b * 24;
+    pack_quants(qmat + (size_t)b * 24, pq);
+    const int16_t* c = coeffs[b];
     for (int i = 0; i < N; i++) {
       const size_t mb = (size_t)b * N + i;
-      const int32_t* q = qm + seg[mb] * 6;
+      const PackQuant& q = pq[seg[mb] < 4 ? seg[mb] : 0];
       const bool i16 = is_i4[mb] == 0;
-      const int16_t* c = coeffs + mb * 24 * 16;
-      for (int blk = 0; blk < 24; blk++, c += 16) {
-        if (block_is_zero(c)) continue;
-        const bool luma = blk < 16;
-        PackBlockInfo bi;
-        pack_block(c, luma ? q[0] : q[4], luma ? q[1] : q[5],
-                   luma && i16, bi);
-        if (!bi.ok) {
-          n_base++;
-        } else {
-          if (bi.raw_eob > 8) n_t8++;
-          if (bi.raw_eob > 4) n_t4++;
-        }
-      }
-    }
-  }
-  out_counts[0] = (int32_t)n_base;
-  out_counts[1] = (int32_t)n_t4;
-  out_counts[2] = (int32_t)n_t8;
-}
-
-// Second pass: emit the wire layout for a chosen K.  Returns 0 on
-// success; 1 when a table overflowed its capacity (counts_out then
-// holds the sizes it needed).
-extern "C" int wtpu_vp8_pack_emit(
-    const int16_t* coeffs, const uint8_t* seg, const uint8_t* is_i4,
-    const int32_t* qmat, int B, int N, int K,
-    int8_t* lv8 /* [B*N][24][K] */, int16_t* dc16 /* [B*N][16] */,
-    int32_t* tail_idx, int8_t* tail_val /* [tail_cap][16-K] */,
-    int64_t tail_cap,
-    int32_t* exc_idx, int16_t* exc_val /* [exc_cap][16] */,
-    int64_t exc_cap, int64_t* counts_out /* [ntail, nexc] */) {
-  const int tw = 16 - K;
-  int64_t ntail = 0, nexc = 0;
-  for (int b = 0; b < B; b++) {
-    const int32_t* qm = qmat + (size_t)b * 24;
-    for (int i = 0; i < N; i++) {
-      const size_t mb = (size_t)b * N + i;
-      const int32_t* q = qm + seg[mb] * 6;
-      const bool i16 = is_i4[mb] == 0;
-      const int16_t* c = coeffs + mb * 24 * 16;
       int16_t* dcrow = dc16 + mb * 16;
       for (int blk = 0; blk < 24; blk++, c += 16) {
+        // Branch-free but for exceptions: every block writes its head and
+        // a tail row at the table's end, which only a tail keeps.
+        const size_t k = mb * 24 + blk;
         const bool luma = blk < 16;
-        if (luma) dcrow[blk] = (i16 ? c[0] : 0);
-        int8_t* out = lv8 + (mb * 24 + blk) * K;
-        if (block_is_zero(c)) {
-          std::memset(out, 0, K);
+        if (luma) dcrow[blk] = i16 ? c[0] : 0;
+        const int uv = luma ? 0 : 1;
+        int8_t lv[16];
+        const int eob = pack_block(c, q.q[uv], q.r[uv], luma && i16, lv);
+        if (eob < 0) {
+          std::memset(head + k * 4, 0, 4);
+          exc_idx[n_exc++] = (int32_t)k;
           continue;
         }
-        PackBlockInfo bi;
-        pack_block(c, luma ? q[0] : q[4], luma ? q[1] : q[5],
-                   luma && i16, bi);
-        const int raw_eob = bi.raw_eob;
-        if (!bi.ok) {
-          std::memset(out, 0, K);
-          if (nexc < exc_cap) {
-            exc_idx[nexc] = (int32_t)(mb * 24 + blk);
-            int16_t* ev = exc_val + nexc * 16;
-            for (int n = 0; n < 16; n++) {
-              int32_t v = c[kPackZZ[n]];
-              ev[n] = (int16_t)v;
-            }
-          }
-          nexc++;
-          continue;
-        }
-        for (int n = 0; n < K; n++) out[n] = (int8_t)bi.lv[n];
-        if (K < 16 && raw_eob > K) {
-          if (ntail < tail_cap) {
-            tail_idx[ntail] = (int32_t)(mb * 24 + blk);
-            int8_t* tv = tail_val + ntail * tw;
-            for (int n = K; n < 16; n++) tv[n - K] = (int8_t)bi.lv[n];
-          }
-          ntail++;
-        }
+        std::memcpy(head + k * 4, lv, 4);
+        std::memcpy(t4_val + n_t4 * 12, lv + 4, 12);
+        t4_idx[n_t4] = (int32_t)k;
+        n_zero += eob == 0;
+        n_t4 += eob > 4;
+        n_t8 += eob > 8;
       }
     }
   }
-  counts_out[0] = ntail;
-  counts_out[1] = nexc;
-  return (ntail > tail_cap || nexc > exc_cap) ? 1 : 0;
+  counts[0] = n_zero;
+  counts[1] = n_exc;
+  counts[2] = n_t4;
+  counts[3] = n_t8;
+}
+
+// Second pass, for the chosen K, from the scan's tables: exc_val [n_exc]
+// [16] raw zigzag rows; at K = 8 or 16 also lv8 [B*N*24][K] and, at
+// K = 8, the tail table (tail_idx, tail_val [rows][8]; the rows of the
+// K = 4 table with a non-zero past position 8).  At K = 4 the scan's
+// head and table are already the wire arrays.  Returns the tail rows
+// written, or -1 for a K other than 4, 8 or 16 or a table larger than
+// tail_cap.
+extern "C" int64_t wtpu_vp8_pack_emit(
+    const int16_t* const* coeffs, int B, int N, int K, const int8_t* head,
+    const int32_t* t4_idx, const int8_t* t4_val, int64_t n_t4,
+    const int32_t* exc_idx, int64_t n_exc, int16_t* exc_val, int8_t* lv8,
+    int32_t* tail_idx, int8_t* tail_val, int64_t tail_cap) {
+  if (K != 4 && K != 8 && K != 16) return -1;
+  const int64_t per = (int64_t)N * 24;
+  for (int64_t e = 0; e < n_exc; e++) {
+    const int64_t k = exc_idx[e];
+    const int16_t* c = coeffs[k / per] + (k % per) * 16;
+    for (int n = 0; n < 16; n++) exc_val[e * 16 + n] = c[kPackZZ[n]];
+  }
+  if (K == 4) return n_t4;
+  const int64_t nblocks = (int64_t)B * per;
+  for (int64_t k = 0; k < nblocks; k++) {
+    std::memcpy(lv8 + k * K, head + k * 4, 4);
+    std::memset(lv8 + k * K + 4, 0, K - 4);
+  }
+  int64_t ntail = 0;
+  for (int64_t r = 0; r < n_t4; r++) {
+    const int64_t k = t4_idx[r];
+    const int8_t* row = t4_val + r * 12;
+    std::memcpy(lv8 + k * K + 4, row, K - 4);
+    if (K == 8 && any_nonzero8(row + 4)) {
+      if (ntail == tail_cap) return -1;
+      tail_idx[ntail] = (int32_t)k;
+      std::memcpy(tail_val + ntail * 8, row + 4, 8);
+      ntail++;
+    }
+  }
+  return ntail;
 }

@@ -150,18 +150,20 @@ def _configure(lib) -> None:
     # the batch decode's sparse coefficient pack (ops/coeff_pack.py)
     i8p = c.POINTER(c.c_int8)
     i64p = c.POINTER(c.c_int64)
-    lib.wtpu_vp8_pack_stats.restype = None
-    lib.wtpu_vp8_pack_stats.argtypes = [
-        i16p, u8p, u8p, i32p,                 # coeffs, seg, is_i4, qmat
-        c.c_int, c.c_int, i32p,               # B, N, counts out
+    vpp = c.POINTER(c.c_void_p)
+    lib.wtpu_vp8_pack_scan.restype = None
+    lib.wtpu_vp8_pack_scan.argtypes = [
+        vpp, u8p, u8p, i32p,                  # coeffs[B], seg, is_i4, qmat
+        c.c_int, c.c_int,                     # B, N
+        i8p, i16p,                            # head, dc16
+        i32p, i8p, i32p, i64p,                # t4_idx, t4_val, exc_idx, counts
     ]
-    lib.wtpu_vp8_pack_emit.restype = c.c_int
+    lib.wtpu_vp8_pack_emit.restype = c.c_int64
     lib.wtpu_vp8_pack_emit.argtypes = [
-        i16p, u8p, u8p, i32p, c.c_int, c.c_int, c.c_int,  # ..., B, N, K
-        i8p, i16p,                            # lv8, dc16
-        i32p, i8p, c.c_int64,                 # tail_idx, tail_val, cap
-        i32p, i16p, c.c_int64,                # exc_idx, exc_val, cap
-        i64p,                                 # counts out
+        vpp, c.c_int, c.c_int, c.c_int,       # coeffs[B], B, N, K
+        i8p, i32p, i8p, c.c_int64,            # head, t4_idx, t4_val, rows
+        i32p, c.c_int64, i16p,                # exc_idx, rows, exc_val
+        i8p, i32p, i8p, c.c_int64,            # lv8, tail_idx, tail_val, cap
     ]
 
     # VP8L decode and the ALPH unfilter

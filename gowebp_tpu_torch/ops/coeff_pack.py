@@ -20,11 +20,14 @@ every non-zero one is a quantization level times its quantizer, so
   the levels back.
 
 The tables hold exactly their rows, in block order.  The pack runs in the
-native layer (entropy/native/vp8_dec.cpp ``wtpu_vp8_pack_stats`` and
-``wtpu_vp8_pack_emit``, one call per image, GIL released) on the symbol
-thread that decoded the group; ``pack_coeffs_plain`` is its numpy
-version, which only the tests run.  The device's unpack is the
-``unpack_coeffs`` kernel (ops/kernels/coeff_unpack.py).
+native layer (entropy/native/vp8_dec.cpp ``wtpu_vp8_pack_scan`` and
+``wtpu_vp8_pack_emit``, one call each a group, GIL released) on the
+symbol thread that decoded the group: the scan reads each dense block
+once, with no integer division, into the wire layout of K = 4, and the
+emit writes the exception rows and, at K = 8 or 16, the wider layout.
+``pack_coeffs_plain`` is its numpy version, which only the tests run.
+The device's unpack is the ``unpack_coeffs`` kernel
+(ops/kernels/coeff_unpack.py).
 """
 
 from __future__ import annotations
@@ -66,70 +69,80 @@ def _ptr(a: np.ndarray, t):
     return a.ctypes.data_as(ctypes.POINTER(t))
 
 
-def pack_images(coeffs, seg, is_i4, qmat) -> tuple[dict, int]:
+def pack_images(coeffs, seg, is_i4, qmat, counts=None) -> tuple[dict, int]:
     """Pack B images given one by one: ``coeffs[b]`` (N, 24, 16) int16
     raster (the symbol engine's output, no copy made), ``seg[b]`` and
     ``is_i4[b]`` (N,) per MB, ``qmat[b]`` (4, 6) int32 rows (y1_dc,
     y1_ac, y2_dc, y2_ac, uv_dc, uv_ac) → (dict of numpy arrays, K).
-    Each image runs the native stats, then the native emit into its
-    slices of the batch's arrays."""
+
+    Two native calls for the whole group: the scan reads every dense
+    block once and writes the wire layout of K = 4, then, with K chosen
+    from its counts, the emit writes the exception rows and, at K = 8 or
+    16, lv8 and the tail table from that layout.  ``counts``, when given,
+    is a dict to which the group's ``blocks``, ``zero_blocks``,
+    ``tail_rows`` and ``exc_rows`` are added and whose ``K`` becomes the
+    largest K it has seen."""
     lib = get_lib()
     B, N = len(coeffs), coeffs[0].shape[0]
-    ins = []
-    counts = np.zeros((B, 3), np.int32)
-    for b in range(B):
-        one = (np.ascontiguousarray(coeffs[b], np.int16),
-               np.ascontiguousarray(seg[b], np.uint8),
-               np.ascontiguousarray(is_i4[b], np.uint8),
-               np.ascontiguousarray(qmat[b], np.int32))
-        if one[0].shape != (N, 24, 16):
-            raise ValueError(f"pack: image {b} coeffs {one[0].shape} is not "
+    cs = [np.ascontiguousarray(c, np.int16) for c in coeffs]
+    for b, c in enumerate(cs):
+        if c.shape != (N, 24, 16):
+            raise ValueError(f"pack: image {b} coeffs {c.shape} is not "
                              f"({N}, 24, 16)")
-        lib.wtpu_vp8_pack_stats(
-            _ptr(one[0], ctypes.c_int16), _ptr(one[1], ctypes.c_uint8),
-            _ptr(one[2], ctypes.c_uint8), _ptr(one[3], ctypes.c_int32), 1, N,
-            _ptr(counts[b], ctypes.c_int32))
-        ins.append(one)
-    n_base, n_t4, n_t8 = (int(x) for x in counts.sum(0))
-    K = _choose_k(B * N * 24, n_base, n_t4, n_t8)
-    ntail = (np.zeros(B, np.int64) if K == 16
-             else counts[:, 2 if K == 8 else 1].astype(np.int64))
-    nexc = counts[:, 0].astype(np.int64)
-    toff = np.concatenate([[0], np.cumsum(ntail)])
-    eoff = np.concatenate([[0], np.cumsum(nexc)])
+    ptrs = (ctypes.c_void_p * B)(*(c.ctypes.data for c in cs))
+    seg = np.stack(seg).astype(np.uint8, copy=False)
+    is_i4 = np.stack(is_i4).astype(np.uint8, copy=False)
+    qmat = np.stack(qmat).astype(np.int32, copy=False)
+    if seg.shape != (B, N) or is_i4.shape != (B, N) or \
+            qmat.shape != (B, 4, 6):
+        raise ValueError(f"pack: seg {seg.shape}, is_i4 {is_i4.shape} and "
+                         f"qmat {qmat.shape} do not fit {B} images of {N} "
+                         f"MBs")
+    nblocks = B * N * 24
+    # the K = 4 layout, each table with room for every block (only the
+    # pages of its rows are ever touched)
+    head = np.empty((B, N, 24, 4), np.int8)
+    dc16 = np.empty((B, N, 16), np.int16)
+    t4_idx = np.empty(nblocks, np.int32)
+    t4_val = np.empty(nblocks * 12, np.int8)
+    exc_idx = np.empty(nblocks, np.int32)
+    scan = np.zeros(4, np.int64)
+    lib.wtpu_vp8_pack_scan(
+        ptrs, _ptr(seg, ctypes.c_uint8), _ptr(is_i4, ctypes.c_uint8),
+        _ptr(qmat, ctypes.c_int32), B, N, _ptr(head, ctypes.c_int8),
+        _ptr(dc16, ctypes.c_int16), _ptr(t4_idx, ctypes.c_int32),
+        _ptr(t4_val, ctypes.c_int8), _ptr(exc_idx, ctypes.c_int32),
+        _ptr(scan, ctypes.c_int64))
+    n_zero, n_exc, n_t4, n_t8 = (int(x) for x in scan)
+    K = _choose_k(nblocks, n_exc, n_t4, n_t8)
+    ntail = 0 if K == 16 else n_t8 if K == 8 else n_t4
     tw = max(1, 16 - K)
-    out = {
-        "lv8": np.empty((B, N, 24, K), np.int8),
-        "dc16": np.empty((B, N, 16), np.int16),
-        "tail_idx": np.empty(int(toff[-1]), np.int32),
-        "tail_val": np.zeros((int(toff[-1]), tw), np.int8),
-        "exc_idx": np.empty(int(eoff[-1]), np.int32),
-        "exc_val": np.empty((int(eoff[-1]), 16), np.int16),
-        "seg": np.stack([one[1] for one in ins]),
-        "is_i4": np.stack([one[2] for one in ins]),
-        "qmat": np.stack([one[3] for one in ins]),
-    }
-    done = np.zeros(2, np.int64)
-    for b, (c, s, i4, q) in enumerate(ins):
-        ti = out["tail_idx"][toff[b]:toff[b + 1]]
-        tv = out["tail_val"][toff[b]:toff[b + 1]]
-        ei = out["exc_idx"][eoff[b]:eoff[b + 1]]
-        ev = out["exc_val"][eoff[b]:eoff[b + 1]]
-        rc = lib.wtpu_vp8_pack_emit(
-            _ptr(c, ctypes.c_int16), _ptr(s, ctypes.c_uint8),
-            _ptr(i4, ctypes.c_uint8), _ptr(q, ctypes.c_int32), 1, N, K,
-            _ptr(out["lv8"][b], ctypes.c_int8),
-            _ptr(out["dc16"][b], ctypes.c_int16),
-            _ptr(ti, ctypes.c_int32), _ptr(tv, ctypes.c_int8), len(ti),
-            _ptr(ei, ctypes.c_int32), _ptr(ev, ctypes.c_int16), len(ei),
-            _ptr(done, ctypes.c_int64))
-        if rc != 0 or done[0] != len(ti) or done[1] != len(ei):
-            raise RuntimeError(f"pack: image {b} emitted {done.tolist()} "
-                               f"rows, its stats counted "
-                               f"{[len(ti), len(ei)]}")
-        ti += b * N * 24
-        ei += b * N * 24
-    return out, K
+    if K == 4:
+        lv8, tail_idx = head, t4_idx[:n_t4]
+        tail_val = t4_val[:n_t4 * 12].reshape(n_t4, 12)
+    else:
+        lv8 = np.empty((B, N, 24, K), np.int8)
+        tail_idx = np.empty(ntail, np.int32)
+        tail_val = np.empty((ntail, tw), np.int8)
+    exc_val = np.empty((n_exc, 16), np.int16)
+    got = lib.wtpu_vp8_pack_emit(
+        ptrs, B, N, K, _ptr(head, ctypes.c_int8),
+        _ptr(t4_idx, ctypes.c_int32), _ptr(t4_val, ctypes.c_int8), n_t4,
+        _ptr(exc_idx, ctypes.c_int32), n_exc, _ptr(exc_val, ctypes.c_int16),
+        _ptr(lv8, ctypes.c_int8), _ptr(tail_idx, ctypes.c_int32),
+        _ptr(tail_val, ctypes.c_int8), ntail)
+    if got != ntail:
+        raise RuntimeError(f"pack: emitted {got} tail rows at K={K}, the "
+                           f"scan counted {ntail}")
+    if counts is not None:
+        for key, n in (("blocks", nblocks), ("zero_blocks", n_zero),
+                       ("tail_rows", ntail), ("exc_rows", n_exc)):
+            counts[key] = counts.get(key, 0) + n
+        counts["K"] = max(counts.get("K", 0), K)
+    return {"lv8": lv8, "dc16": dc16, "tail_idx": tail_idx,
+            "tail_val": tail_val, "exc_idx": exc_idx[:n_exc],
+            "exc_val": exc_val, "seg": seg, "is_i4": is_i4,
+            "qmat": qmat}, K
 
 
 def pack_coeffs(coeffs: np.ndarray, seg: np.ndarray, is_i4: np.ndarray,

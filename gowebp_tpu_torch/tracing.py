@@ -12,7 +12,9 @@ spans on whatever thread runs it:
   profiler's own export), the thread's CPU nanoseconds over it, its
   parent span, the id of its entry call (the call's own span, shared by
   every span of that call on every thread) and a few integer attributes
-  (files, bytes, group index);
+  (files, bytes, group index; on ``decode.pack`` the pack's ``K``, the
+  group's ``blocks`` and ``zero_blocks``, and its ``tail_rows`` and
+  ``exc_rows``, the blocks the pack sent past K and raw);
 - device stages are ``StageClock`` marks (CUDA events on the card),
   resolved once, when the entry call ends.
 

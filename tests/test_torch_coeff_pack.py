@@ -10,7 +10,13 @@ package's ops/coeff_pack.py, bit for bit.
   port's tables hold exactly their rows, which equal the reference's
   first rows, and the rest of the reference's are padding.
 - The native pack == ``pack_coeffs_plain`` (numpy), at forced and chosen
-  K, and on real symbols.
+  K, and on real symbols; the edge groups (``EDGES``: every block an
+  exception, levels at +-127 and +-128, coefficients one off a multiple,
+  eobs of exactly 4, 8 and 16, i16 MBs with only a DC, the tables'
+  smallest and largest quantizers, odd MB counts, B = 1 and B = 33) also
+  against the reference.
+- The scalar path of the native pack (a build without AVX-512) gives the
+  vector path's bytes on every group here.
 - ``unpack_coeffs_plain`` of a pack is the dense input, and equals the
   reference's ``unpack_coeffs`` (JAX on the CPU), on the port's dict and
   on the reference's padded one.
@@ -18,7 +24,10 @@ package's ops/coeff_pack.py, bit for bit.
   on a mixed batch.
 """
 
+import ctypes
+import functools
 import importlib.util
+import subprocess
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -28,10 +37,12 @@ import torch
 
 import gowebp_tpu
 from gowebp_tpu.ops import coeff_pack as jpack
+from gowebp_tpu_torch.entropy import native_loader
 from gowebp_tpu_torch import decode_rgba_batch
 from gowebp_tpu_torch.ops import coeff_pack as ppack
 from gowebp_tpu_torch.ops.kernels.coeff_unpack import (unpack_coeffs,
                                                        unpack_coeffs_plain)
+from gowebp_tpu_torch.utils.corpus import natural_image
 
 from util import pil_encode_lossless, pil_encode_lossy
 
@@ -50,7 +61,80 @@ CASES = {"3x(4x5)": (1, 3, 4, 5), "1x(1x1)": (2, 1, 1, 1),
          "2x(1x5)": (3, 2, 1, 5), "2x(5x1)": (4, 2, 5, 1)}
 
 
+def _from_levels(lv, seg, is_i4, qmat, dc=None):
+    """(B, N, 24, 16) zigzag levels times their quantizers, as the raster
+    int16 coefficients of the symbol engine; ``dc`` the i16 MBs' luma DC
+    lanes (inverse-WHT outputs, any value)."""
+    B = lv.shape[0]
+    luma = np.arange(24)[:, None] < 16
+    col = np.where(luma, np.where(np.arange(16) == 0, 0, 1),
+                   np.where(np.arange(16) == 0, 4, 5))
+    zz = lv * qmat[np.arange(B)[:, None, None, None],
+                   seg[:, :, None, None].astype(np.int64), col[None, None]]
+    assert np.abs(zz).max(initial=0) < 2 ** 15
+    coeffs = np.zeros_like(zz)
+    coeffs[..., [0, 1, 4, 8, 5, 2, 3, 6, 9, 12, 13, 10, 7, 11, 14, 15]] = zz
+    if dc is not None:
+        i16 = (is_i4 == 0)[:, :, None]
+        coeffs[:, :, :16, 0] = np.where(i16, dc, coeffs[:, :, :16, 0])
+    return coeffs.astype(np.int16), seg, is_i4, qmat
+
+
+def _edge(name):
+    """The pack's edge groups → (coeffs, seg, is_i4, qmat)."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    B, N = {"b1_odd_mbs": (1, 7), "b33": (33, 3)}.get(name, (2, 5))
+    seg = rng.integers(0, 4, (B, N)).astype(np.uint8)
+    is_i4 = rng.integers(0, 2, (B, N)).astype(np.uint8)
+    qmat = rng.integers(4, 201, (B, 4, 6)).astype(np.int32)
+    dc = rng.integers(-2000, 2001, (B, N, 16))
+    shape = (B, N, 24, 16)
+    lv = rng.integers(-30, 31, shape) * (rng.random(shape) < 0.3)
+    if name == "all_exceptions":
+        c, *rest = _from_levels(lv, seg, is_i4, qmat, dc)
+        c[..., 1] += 1            # raster 1 = zigzag 1, an AC lane: q >= 4
+        return (c, *rest)
+    if name == "levels_127_128":
+        qmat = rng.integers(4, 256, (B, 4, 6)).astype(np.int32)
+        lv = rng.choice([-128, -127, -126, 0, 0, 126, 127, 128], shape)
+        lv *= rng.random(shape) < 0.2
+        return _from_levels(lv, seg, is_i4, qmat, dc)
+    if name == "one_off":
+        c, *rest = _from_levels(lv, seg, is_i4, qmat, dc)
+        flat = c.reshape(-1, 16)
+        rows = rng.choice(len(flat), len(flat) // 4, replace=False)
+        flat[rows, rng.integers(0, 16, len(rows))] += rng.choice(
+            np.array([-1, 1], np.int16), len(rows))
+        return (c, *rest)
+    if name == "eob_4_8_16":
+        eob = rng.choice([1, 3, 4, 5, 8, 9, 15, 16], shape[:3])
+        pos = np.arange(16)
+        lv = np.where(pos < eob[..., None], lv, 0)
+        last = rng.integers(1, 31, shape[:3]) * rng.choice([-1, 1], shape[:3])
+        lv = np.where(pos == eob[..., None] - 1, last[..., None], lv)
+        return _from_levels(lv, seg, np.ones_like(is_i4), qmat)
+    if name == "i16_dc_only":
+        is_i4 = np.zeros_like(is_i4)
+        return _from_levels(np.zeros(shape, np.int64), seg, is_i4, qmat, dc)
+    if name == "q_min_max":
+        # kDcTable runs 4-157 (uv_dc capped at 132), kAcTable 4-284
+        for col, hi in ((0, 157), (1, 284), (4, 132), (5, 284)):
+            qmat[..., col] = rng.choice([4, hi], (B, 4))
+        lv = rng.integers(-115, 116, shape) * (rng.random(shape) < 0.3)
+        return _from_levels(lv, seg, is_i4, qmat, dc)
+    c, *rest = _from_levels(lv, seg, is_i4, qmat, dc)  # odd MBs, B = 33
+    flat = c.reshape(-1)
+    flat[rng.choice(flat.size, flat.size // 100, replace=False)] += 1
+    return (c, *rest)
+
+
+EDGES = ("all_exceptions", "levels_127_128", "one_off", "eob_4_8_16",
+         "i16_dc_only", "q_min_max", "b1_odd_mbs", "b33")
+
+
 def _case(name, exceptions=True):
+    if name in EDGES:
+        return _edge(name)
     return _chip_smoke().coeff_case(*CASES[name], exceptions=exceptions)
 
 
@@ -73,21 +157,34 @@ def _assert_same_dict(ours, ref, nblocks):
 
 
 @pytest.mark.parametrize("K", [4, 8, 16])
-@pytest.mark.parametrize("name", list(CASES))
+@pytest.mark.parametrize("name", list(CASES) + list(EDGES))
 def test_native_pack_equals_reference(monkeypatch, name, K):
     _force_k(monkeypatch, K)
     c = _case(name)
     ours, k = ppack.pack_coeffs(*c)
     ref, rk, _cap = jpack.pack_coeffs(*c)
     assert k == rk == K
-    assert len(ours["exc_idx"]) > 0 or c[0].size < 2000
     _assert_same_dict(ours, ref, c[0].shape[0] * c[0].shape[1] * 24)
-    if K < 16:
-        assert len(ours["tail_idx"]) > 0
+    nblocks = c[0].shape[0] * c[0].shape[1] * 24
+    if name in CASES:
+        assert len(ours["exc_idx"]) > 0 or c[0].size < 2000
+        if K < 16:
+            assert len(ours["tail_idx"]) > 0
+    elif name == "all_exceptions":
+        assert len(ours["exc_idx"]) == nblocks
+        assert not ours["lv8"].any() and len(ours["tail_idx"]) == 0
+    elif name == "levels_127_128":
+        assert len(ours["exc_idx"]) > 0 and (ours["lv8"] == 127).any()
+        assert (ours["lv8"] == -127).any() and not (ours["lv8"] == -128).any()
+    elif name == "eob_4_8_16" and K < 16:
+        assert len(ours["tail_idx"]) > 0 and len(ours["exc_idx"]) == 0
+    elif name == "i16_dc_only":
+        assert not ours["lv8"].any() and ours["dc16"].any()
+        assert len(ours["tail_idx"]) == len(ours["exc_idx"]) == 0
 
 
 @pytest.mark.parametrize("K", [4, 8, 16, None])
-@pytest.mark.parametrize("name", list(CASES))
+@pytest.mark.parametrize("name", list(CASES) + list(EDGES))
 def test_native_pack_equals_plain(monkeypatch, name, K):
     if K is not None:
         _force_k(monkeypatch, K)
@@ -190,6 +287,76 @@ def test_pack_of_real_symbols(quality):
     np.testing.assert_array_equal(got.numpy(), c[0])
     if quality == 100:
         assert len(ours["exc_idx"]) > 0
+
+
+@functools.lru_cache(maxsize=None)
+def _real32(quality):
+    """The symbols of 32 libwebp (Pillow) files of one size: a group as
+    the batch decode packs it."""
+    return _symbols([pil_encode_lossy(natural_image(48, 64, seed=k),
+                                      quality=quality) for k in range(32)])
+
+
+@pytest.mark.parametrize("quality", [5, 75, 100])
+def test_pack_of_32_real_files(monkeypatch, quality):
+    """32 libwebp files in one group: native == plain at the chosen K,
+    == the reference's first rows at that K, and the round trip."""
+    c = _real32(quality)
+    ours, k = ppack.pack_coeffs(*c)
+    plain, pk = ppack.pack_coeffs_plain(*c)
+    assert k == pk
+    for key in ours:
+        np.testing.assert_array_equal(ours[key], plain[key], err_msg=key)
+    monkeypatch.setattr(jpack, "_choose_k", lambda *a: k)
+    ref, _, _ = jpack.pack_coeffs(*c)
+    _assert_same_dict(ours, ref, c[0].shape[0] * c[0].shape[1] * 24)
+    got = unpack_coeffs({key: torch.from_numpy(v) for key, v in ours.items()})
+    np.testing.assert_array_equal(got.numpy(), c[0])
+
+
+@pytest.fixture(scope="module")
+def scalar_lib(tmp_path_factory):
+    """The native pack built without AVX-512, so its scalar path."""
+    so = tmp_path_factory.mktemp("scalar_pack") / "libpack_scalar.so"
+    subprocess.run(["g++", *native_loader._FLAGS, "-mno-avx512f", "-o",
+                    str(so), str(native_loader._NATIVE_DIR / "vp8_dec.cpp")],
+                   check=True, capture_output=True, timeout=300)
+    lib = ctypes.CDLL(str(so))
+    main = native_loader.get_lib()
+    for f in ("wtpu_vp8_pack_scan", "wtpu_vp8_pack_emit"):
+        getattr(lib, f).argtypes = getattr(main, f).argtypes
+        getattr(lib, f).restype = getattr(main, f).restype
+    return lib
+
+
+@pytest.mark.parametrize("K", [4, 8, 16, None])
+@pytest.mark.parametrize("name", list(CASES) + list(EDGES)
+                         + ["real32_q5", "real32_q75", "real32_q100"])
+def test_scalar_pack_equals_vector_pack(monkeypatch, scalar_lib, name, K):
+    """The scalar path gives the bytes of the library the port loads
+    (its AVX-512 path, on a host that has AVX-512)."""
+    if K is not None:
+        _force_k(monkeypatch, K)
+    c = _real32(int(name[8:])) if name.startswith("real32") else _case(name)
+    vec, kv = ppack.pack_coeffs(*c)
+    monkeypatch.setattr(ppack, "get_lib", lambda: scalar_lib)
+    sca, ks = ppack.pack_coeffs(*c)
+    assert kv == ks and list(vec) == list(sca)
+    for key in vec:
+        assert vec[key].dtype == sca[key].dtype, key
+        np.testing.assert_array_equal(vec[key], sca[key], err_msg=key)
+
+
+@pytest.mark.parametrize("bad", ["coeffs", "seg", "is_i4", "qmat"])
+def test_pack_images_rejects_shapes_that_do_not_fit(bad):
+    """Per-image arrays that do not fit the first image's MB count are
+    refused before the native pack reads them."""
+    c, seg, is_i4, qmat = (list(a) for a in _case("2x(1x5)"))
+    cut = {"coeffs": c, "seg": seg, "is_i4": is_i4, "qmat": qmat}[bad]
+    for b in range(1 if bad == "coeffs" else 0, len(cut)):
+        cut[b] = cut[b][:-1]
+    with pytest.raises(ValueError, match="pack"):
+        ppack.pack_images(c, seg, is_i4, qmat)
 
 
 def test_decode_batch_matches_reference_on_a_mixed_batch():

@@ -164,6 +164,62 @@ def test_decode_spans_nest_on_their_threads():
         int(np.prod(Image.open(io.BytesIO(d)).size)) for d in DATAS[:42])
 
 
+def _plain_pack_counts(datas, group, ngroups):
+    """What ``pack_coeffs_plain`` gives for the lossy files of symbol
+    group ``group``, packed by shape group as the decode packs them:
+    the summed counts, and K the largest."""
+    from gowebp_tpu_torch.container.riff import parse_riff
+    from gowebp_tpu_torch.models.vp8.decoder import decode_vp8_symbols
+    from gowebp_tpu_torch.ops.coeff_pack import pack_coeffs_plain
+
+    lossy = [parse_riff(d) for d in datas]
+    lossy = [r for r in lossy if r.find(b"VP8 ") is not None]
+    shapes = {}
+    for r in lossy[group::ngroups]:
+        st, c, m = decode_vp8_symbols(r.find(b"VP8 ").payload)
+        key = (st.width, st.height, st.filter_type,
+               r.find(b"ALPH") is not None)
+        shapes.setdefault(key, []).append((st, c, m))
+    want = {"K": 0, "blocks": 0, "zero_blocks": 0, "tail_rows": 0,
+            "exc_rows": 0}
+    for recs in shapes.values():
+        coeffs = np.stack([c for _, c, _ in recs])
+        modes = np.stack([m for _, _, m in recs])
+        packed, K = pack_coeffs_plain(
+            coeffs, modes[..., 2], modes[..., 0],
+            np.stack([st.quant_rows() for st, _, _ in recs]))
+        want["K"] = max(want["K"], K)
+        want["blocks"] += coeffs.size // 16
+        want["zero_blocks"] += int((coeffs.reshape(-1, 16) == 0).all(1).sum())
+        want["tail_rows"] += len(packed["tail_idx"])
+        want["exc_rows"] += len(packed["exc_idx"])
+    return want
+
+
+def test_pack_span_counts_equal_the_plain_pack():
+    """Each ``decode.pack`` span carries its group's K and block and row
+    counts, those of ``pack_coeffs_plain`` on the same files: two
+    symbol groups of two sizes with ALPH files (tail rows; the small ALPH
+    group takes K = 16, the largest), and q100 files (K = 16, an
+    exception row)."""
+    q100 = [_webp(natural_image(32, 40, seed=1 + k), quality=100)
+            for k in range(3)]
+    for datas, threads in ((DATAS, 2), (q100, 1)):
+        timings = {}
+        decode_rgba_batch(datas, device="cpu", threads=threads,
+                          timings=timings)
+        packs = _by_name(timings["spans"])["decode.pack"]
+        assert len(packs) == threads
+        for s in packs:
+            want = _plain_pack_counts(datas, s.attrs["group"], threads)
+            assert {k: s.attrs[k] for k in want} == want
+            assert 0 < want["zero_blocks"] < want["blocks"]
+            if threads == 1:
+                assert want["K"] == 16 and want["exc_rows"] > 0
+            else:
+                assert want["tail_rows"] > 0
+
+
 def test_span_sums_are_the_timings_seconds():
     timings = {}
     decode_rgba_batch(DATAS, device="cpu", threads=2, timings=timings)

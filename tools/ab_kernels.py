@@ -98,6 +98,18 @@ Needs a CUDA card and nvcc.  KERNEL is one of:
     as the device time of a launch (``*_device_ms``, median of 5 means of
     50 queued calls); every run's coefficients must equal the first's.
 
+``pack``
+    The batch decode's coefficient pack alone, on the host: the 32 files
+    of ``natural_images(32, 1024, 1024, seed=7)`` as libwebp (Pillow) made
+    them at q75 method 4, as the benchmark's decode pool is made, through
+    the checkout's own symbol engine (``chip_smoke.decode_recs``) once,
+    then its ``decode._pack_group`` (``pack_images``).  Times the group
+    on one thread (``one_thread_ms_per_file``: the median of 7 calls over
+    32) and four groups on four threads at once, as the decode's symbol
+    threads run them (``four_threads_ms_per_file``: the median of 5 walls
+    over 32), and reports the chosen ``K``.  Every run's packed arrays
+    must equal the first run's.  Nothing of it runs on the card.
+
 ``vp8_recon``
     The decode's recon and loop filter on the decode path's inputs for
     the 32 hybrid files of ``natural_images(32, 1024, 1024, seed=7)`` at
@@ -384,6 +396,34 @@ torch.cuda.synchronize()
 torch.save({k: t.cpu() for k, t in out.items()}, sys.argv[2])
 print(json.dumps(row))
 """,
+    "pack": r"""
+from concurrent.futures import ThreadPoolExecutor
+
+import chip_smoke
+from gowebp_tpu_torch.decode import _pack_group
+
+files = [bytes(t.numpy()) for t in saved["files"]]
+recs = chip_smoke.decode_recs(files)
+packed, K = _pack_group(recs)
+torch.save({k: torch.from_numpy(a.copy()) for k, a in packed.items()},
+           sys.argv[2])
+one = []
+for _ in range(7):
+    t0 = time.perf_counter()
+    _pack_group(recs)
+    one.append((time.perf_counter() - t0) * 1e3 / len(recs))
+four = []
+with ThreadPoolExecutor(4) as ex:
+    list(ex.map(lambda _: _pack_group(recs), range(4)))
+    for _ in range(5):
+        t0 = time.perf_counter()
+        list(ex.map(lambda _: _pack_group(recs), range(4)))
+        four.append((time.perf_counter() - t0) * 1e3 / len(recs))
+print(json.dumps({"K": K, "one_thread_ms_per_file": statistics.median(one),
+                  "one_thread_min_max": [min(one), max(one)],
+                  "four_threads_ms_per_file": statistics.median(four),
+                  "four_threads_min_max": [min(four), max(four)]}))
+""",
     "vp8_recon": r"""
 from gowebp_tpu_torch.ops.kernels import vp8_recon as kvr
 
@@ -552,6 +592,20 @@ def unpack_coeffs_inputs(chip_smoke, dev, images) -> dict:
     return out
 
 
+def pack_inputs(chip_smoke, dev, images) -> dict:
+    import io
+
+    import torch
+    from PIL import Image
+
+    def one(im):
+        b = io.BytesIO()
+        Image.fromarray(im).save(b, "WEBP", quality=75, method=4)
+        return torch.frombuffer(bytearray(b.getvalue()), dtype=torch.uint8)
+
+    return {"files": [one(im) for im in images]}
+
+
 def vp8l_inverse_inputs(chip_smoke, dev, images) -> dict:
     b8 = chip_smoke.lossless_case(dev, images[:8], 4, seed=19)[:2]
     big = chip_smoke.lossless_case(dev, [chip_smoke.mosaic(images[:16], 4)],
@@ -566,6 +620,7 @@ INPUTS = {"wavefront_search": wavefront_search_inputs,
           "encode_plane": encode_plane_inputs,
           "encode_rgba": encode_rgba_inputs,
           "unpack_coeffs": unpack_coeffs_inputs,
+          "pack": pack_inputs,
           "vp8_recon": vp8_recon_inputs,
           "vp8l_inverse": vp8l_inverse_inputs,
           "vp8l_predictor": vp8l_predictor_inputs}
