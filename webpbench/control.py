@@ -10,9 +10,10 @@ guarantee that its configuration states:
 - encode cells: the program's own open-loop engine (engine="openloop"),
   which predicts from the source instead of the decoded picture (no closed
   loop) and drops the segments;
-- decode cells: the reference decoder with the loop filter left out
-  (libwebp's bypass_filtering, the step that would tempt a later change),
-  put in the program's place.
+- decode cells: the reference decoder put in the program's place, with
+  the step that would tempt a later change left out: a VP8 frame's loop
+  filter (libwebp's bypass_filtering; a frame with an ALPH plane too),
+  and a VP8L image's inverse predictor transform.
 """
 
 from __future__ import annotations
@@ -36,7 +37,8 @@ class OpenLoop:
 
 
 class UnfilteredReference:
-    """The reference decoder without the loop filter, a file decoded once."""
+    """The reference decoder without the loop filter or the inverse
+    predictor, a file decoded once."""
 
     def __init__(self, program):
         self.memo = {}
@@ -47,7 +49,8 @@ class UnfilteredReference:
         out = []
         for f in files:
             if f not in self.memo:
-                self.memo[f] = decode_rgba(f, loop_filter_on=False)
+                self.memo[f] = decode_rgba(f, loop_filter_on=False,
+                                           predictor_on=False)
             out.append(self.memo[f])
         return out
 

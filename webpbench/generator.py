@@ -11,6 +11,18 @@ A mix's parameters:
               ``pool``: every call holds each pool item m times, in an
               order the seed shuffles (``call_order``)
   device_out  decode only: leave the pixels on the card
+
+A configuration's ``image`` and ``decode_files`` (all keys but the first
+of each optional; where one is absent the inputs are those of a pool of
+``height`` x ``width`` RGB images coded at ``quality`` and ``method``):
+  image.height, image.width   every item's size, where ``sizes`` is absent
+  image.sizes                 [[height, width], ...]: pool/len(sizes) items
+                              of each size, which item gets which drawn
+                              from the seed (every seed does the same work)
+  image.channels, image.alpha 4 and the name of a model in alpha_models.py:
+                              RGBA sources (decode mixes only)
+  decode_files.libwebp_version, .quality, .method; .lossless, .exact,
+  .alpha_quality              passed to Pillow's WebP writer where stated
 """
 
 from __future__ import annotations
@@ -23,13 +35,16 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from .alpha_models import MODELS
 from .bench import log
-from .corpus import natural_images
+from .corpus import natural_image
+
+PILLOW_OPTIONS = ("lossless", "exact", "alpha_quality")
 
 
 @dataclass
 class Inputs:
-    images: np.ndarray              # (pool, H, W, 3) uint8 sources
+    images: list                    # (H, W, 3 or 4) uint8 sources, an item
     files: list | None = None       # the pool's .webp files, to decode
 
 
@@ -48,12 +63,34 @@ class Window:
     call_s: list = field(default_factory=list)       # each call's seconds
 
 
-def check_params(traffic: dict) -> None:
+def check_params(traffic: dict, config: dict | None = None) -> None:
+    """Refuses a mix, or a configuration's image for that mix, that the
+    generator cannot make."""
     if traffic["op"] not in ("encode", "decode"):
         raise ValueError(f"unknown op {traffic['op']!r}")
     pool, batch = traffic["pool"], traffic["batch"]
     if batch % pool or pool % (batch // pool):
         raise ValueError("batch must be m * pool with m dividing pool")
+    if config is None:
+        return
+    im = config["image"]
+    sizes = im.get("sizes")
+    if sizes is not None:
+        if not sizes or pool % len(sizes):
+            raise ValueError(f"pool {pool} is not a multiple of the "
+                             f"{len(sizes)} image.sizes")
+        if any(len(s) != 2 or min(s) < 1 for s in sizes):
+            raise ValueError(f"image.sizes must be [height, width] pairs: "
+                             f"{sizes}")
+    channels = im.get("channels", 3)
+    if channels == 4:
+        if im.get("alpha") not in MODELS:
+            raise ValueError(f"image.alpha must name one of {sorted(MODELS)}")
+        if traffic["op"] != "decode":
+            raise ValueError("RGBA sources are for decode mixes only")
+    elif channels != 3 or "alpha" in im:
+        raise ValueError(f"image.channels {channels} with image.alpha "
+                         f"{im.get('alpha')!r}")
 
 
 def seed_words(seed: int, stream: int) -> list:
@@ -62,34 +99,59 @@ def seed_words(seed: int, stream: int) -> list:
     return [s & 0xFFFFFFFF, (s >> 32) & 0xFFFFFFFF, int(s < 0), stream]
 
 
-def libwebp_files(images, quality: float, method: int, want: str) -> list:
-    """Lossy .webp files of ``images`` by the libwebp that Pillow carries,
-    which must be version ``want``."""
+def libwebp_files(images, src: dict) -> list:
+    """.webp files of ``images`` by the libwebp that Pillow carries, which
+    must be version ``src["libwebp_version"]``, at ``src``'s quality and
+    method, and its lossless, exact and alpha_quality where it states
+    them."""
     from PIL import Image, features
 
-    have = features.version("webp")
+    have, want = features.version("webp"), src["libwebp_version"]
     if have != want:
         raise RuntimeError(f"Pillow carries libwebp {have}, the configuration "
                            f"states {want}")
+    opts = {"quality": src["quality"], "method": src["method"],
+            **{k: src[k] for k in PILLOW_OPTIONS if k in src}}
 
     def one(im):
         b = io.BytesIO()
-        Image.fromarray(im).save(b, "WEBP", quality=quality, method=method)
+        Image.fromarray(im).save(b, "WEBP", **opts)
         return b.getvalue()
 
     with ThreadPoolExecutor(4) as ex:
         return list(ex.map(one, images))
 
 
+def item_sizes(image: dict, pool: int, seed: int) -> list:
+    """(height, width) of each pool item."""
+    if "sizes" not in image:
+        return [(image["height"], image["width"])] * pool
+    sizes = [tuple(s) for s in image["sizes"]]
+    turn = np.random.default_rng(seed_words(seed, 4)).permutation(pool)
+    return [sizes[k % len(sizes)] for k in turn]
+
+
 def make_inputs(config: dict, traffic: dict, seed: int) -> Inputs:
+    """The pool's images (item i: ``natural_image`` of seed
+    seed * 1000 + i, as ``corpus.natural_images`` makes them, and with
+    RGBA sources the alpha model's plane of the same seed) and, to decode,
+    their files."""
     im = config["image"]
-    images = natural_images(traffic["pool"], im["height"], im["width"],
-                            seed=seed)
+    sizes = item_sizes(im, traffic["pool"], seed)
+    alpha = im.get("alpha") if im.get("channels", 3) == 4 else None
+
+    def one(i):
+        h, w = sizes[i]
+        rgb = natural_image(h, w, seed=seed * 1000 + i)
+        if alpha is None:
+            return rgb
+        return np.dstack([rgb, MODELS[alpha](h, w, seed * 1000 + i)])
+
+    with ThreadPoolExecutor(min(4, len(sizes))) as ex:
+        images = list(ex.map(one, range(len(sizes))))
     inp = Inputs(images=images)
     if traffic["op"] == "decode":
-        src = config["decode_files"]
-        inp.files = libwebp_files(images, src["quality"], src["method"],
-                                  src["libwebp_version"])
+        inp.files = libwebp_files(images, config["decode_files"])
     return inp
 
 
@@ -202,8 +264,7 @@ def run_window(program: Program, inputs: Inputs, traffic: dict, seed: int,
     pick = np.random.default_rng(seed_words(seed, 3 + 10 * stream))
     encode = traffic["op"] == "encode"
     op = program.encode if encode else program.decode
-    h, w = inputs.images.shape[1:3]
-    mp_item = h * w / 1e6
+    pixels = np.array([im.shape[0] * im.shape[1] for im in inputs.images])
     pool = traffic["pool"]
     turn, nxt = pick.permutation(pool), None
     win = Window()
@@ -230,7 +291,7 @@ def run_window(program: Program, inputs: Inputs, traffic: dict, seed: int,
                 if out is not None:
                     win.errors.append(f"{len(out)} outputs for {len(idx)}")
             else:
-                win.megapixels += mp_item * len(idx)
+                win.megapixels += int(pixels[idx].sum()) / 1e6
                 if encode:
                     pos = range(len(idx))
                 else:

@@ -50,9 +50,12 @@ def filter_ops(lines: dict) -> int:
 
 def count(works):
     """(int32 operations, bytes) of the decode of files whose reference
-    decodes did ``works`` (one dict a file)."""
+    decodes did ``works`` (one dict a file; a VP8L file's is empty and
+    adds nothing)."""
     ops = nbytes = 0
     for w in works:
+        if "mb" not in w:
+            continue
         n_mb, n_i4 = w["mb"], w["i4"]
         ops += (n_mb * 8 * OPS_PRED_I16 + n_i4 * 16 * OPS_PRED_B4
                 + (n_mb - n_i4) * 16 * OPS_PRED_I16

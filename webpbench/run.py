@@ -42,7 +42,7 @@ def load_cell(name: str):
     cell = bench.load_json("workloads", name)
     config = bench.load_json("configs", cell["config"])
     traffic = bench.load_json("traffic", cell["traffic"])
-    generator.check_params(traffic)
+    generator.check_params(traffic, config)
     return cell, config, traffic
 
 
@@ -60,6 +60,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
         config = {**config, **config_override}
     if traffic_override:
         traffic = {**traffic, **traffic_override}
+    generator.check_params(traffic, config)
     cuda = device is None
     if cuda:
         torch.cuda.reset_peak_memory_stats()

@@ -1,6 +1,8 @@
 """``correct`` comes out false under the control and under each fault a
 cell can have, with the rest of a run driven as the benchmark drives it
-(here on the CPU at a tiny size; the card is not looked for)."""
+(here on the CPU at a tiny size; the card is not looked for), for each
+cell and for the decode cells with each kind of pool a configuration can
+state (mixed sizes, RGBA cut-outs, lossless files)."""
 
 import time
 
@@ -9,6 +11,7 @@ import pytest
 
 from webpbench import run
 from webpbench.control import control_for
+from webpbench.tests.conftest import POOLS
 
 SMALL_CFG = {"image": {"height": 48, "width": 64, "channels": 3}}
 SMALL_TR = {"pool": 2, "batch": 4}
@@ -76,4 +79,39 @@ def test_the_control_is_not_correct(cell):
 @pytest.mark.parametrize("cell", CELLS)
 def test_each_fault_is_not_correct(cell, kind):
     res, numbers = _run(cell, lambda p: Fault(p, kind))
+    assert not res["correct"], (kind, numbers, res["failed"])
+
+
+def _run_pool(cell, pool, wrap):
+    cfg, tr = POOLS[pool]
+    res, table = run.run_cell(cell, 2**32 + 91, 0.3, False,
+                              t_start=time.time(), device="cpu",
+                              wrap_program=wrap, config_override=cfg,
+                              traffic_override=tr)
+    return res, {k: v["value"] for k, v in table.items()}
+
+
+@pytest.mark.parametrize("pool", list(POOLS))
+@pytest.mark.parametrize("cell", ["photo1mp-q75m4.decode-device",
+                                  "photo1mp-q75m4.decode-host"])
+def test_a_sound_run_of_each_pool_is_correct(cell, pool):
+    res, numbers = _run_pool(cell, pool, None)
+    assert res["correct"] and res["failed"] == 0, numbers
+    assert all(v == 0 for v in numbers.values())
+
+
+@pytest.mark.parametrize("pool", list(POOLS))
+def test_the_control_is_not_correct_on_each_pool(pool):
+    res, numbers = _run_pool("photo1mp-q75m4.decode-host", pool,
+                             control_for("decode"))
+    assert not res["correct"], numbers
+    assert numbers["pixel_mismatch"] > 0
+
+
+@pytest.mark.parametrize("kind", ["half_left_out", "state_unchanged",
+                                  "answer_altered"])
+@pytest.mark.parametrize("pool", list(POOLS))
+def test_each_fault_is_not_correct_on_each_pool(pool, kind):
+    res, numbers = _run_pool("photo1mp-q75m4.decode-host", pool,
+                             lambda p: Fault(p, kind))
     assert not res["correct"], (kind, numbers, res["failed"])

@@ -259,7 +259,8 @@ def test_the_reference_imports_nothing_of_the_program():
     for path in (bench.ROOT / "vp8ref").rglob("*.py"):
         for mod in _imports(path):
             assert not mod.startswith("gowebp"), (path, mod)
-    for path in (bench.ROOT / "checks.py", bench.ROOT / "corpus.py"):
+    for path in (bench.ROOT / "checks.py", bench.ROOT / "corpus.py",
+                 bench.ROOT / "alpha_models.py"):
         for mod in _imports(path):
             assert not mod.startswith("gowebp"), (path, mod)
 
@@ -300,3 +301,125 @@ def test_a_cell_runs_on_the_card(capsys):
                               config_override=SMALL_CFG,
                               traffic_override=SMALL_TR)
     assert res["correct"] and res["device"]["platform"] == "gpu"
+
+
+# sha256 of three calls' orders of the decode mixes (pool 32, batch 128) at
+# each seed, as the harness drew them before configurations could state
+# sizes, alpha or lossless files
+ORDERS = {1: "262a276240fe50c6", 2**31 + 5: "a545c7788d1b033c",
+          4100000000101: "401c8fd00447380e"}
+
+
+@pytest.mark.parametrize("seed", list(ORDERS))
+def test_a_configuration_without_the_new_keys_makes_the_same_inputs(seed):
+    import hashlib
+
+    from PIL import Image
+
+    from webpbench.corpus import natural_images
+
+    cfg = {**bench.load_json("configs", "photo1mp-q75m4"), **SMALL_CFG}
+    tr = {**bench.load_json("traffic", "decode-batch128-host"), **SMALL_TR}
+    inp = generator.make_inputs(cfg, tr, seed)
+    want = natural_images(2, 48, 80, seed=seed)
+    assert len(inp.images) == 2
+    assert all(np.array_equal(a, b) for a, b in zip(inp.images, want))
+    for im, f in zip(want, inp.files):
+        b = io.BytesIO()
+        Image.fromarray(im).save(b, "WEBP", quality=75, method=4)
+        assert f == b.getvalue()
+    rng = np.random.default_rng(generator.seed_words(seed, 2))
+    tr = bench.load_json("traffic", "decode-batch128-device")
+    orders = [generator.call_order(rng, tr) for _ in range(3)]
+    digest = hashlib.sha256(np.concatenate(orders).astype(np.int64)
+                            .tobytes()).hexdigest()
+    assert digest[:16] == ORDERS[seed]
+
+
+@pytest.mark.parametrize("image,traffic", [
+    ({"sizes": [[32, 32], [16, 48]], "channels": 3}, {"pool": 3, "batch": 3}),
+    ({"sizes": [], "channels": 3}, {"pool": 2, "batch": 4}),
+    ({"sizes": [[32]], "channels": 3}, {"pool": 2, "batch": 4}),
+    ({"height": 32, "width": 32, "channels": 4}, {"pool": 2, "batch": 4}),
+    ({"height": 32, "width": 32, "channels": 4, "alpha": "glass"},
+     {"pool": 2, "batch": 4}),
+    ({"height": 32, "width": 32, "channels": 3, "alpha": "cutout"},
+     {"pool": 2, "batch": 4}),
+    ({"height": 32, "width": 32, "channels": 4, "alpha": "cutout"},
+     {"op": "encode", "pool": 2, "batch": 4})])
+def test_a_configuration_the_generator_cannot_make_is_refused(image,
+                                                              traffic):
+    tr = {**bench.load_json("traffic", "decode-batch128-host"), **traffic}
+    with pytest.raises(ValueError):
+        generator.check_params(tr, {"image": image})
+    with pytest.raises(ValueError):
+        run.run_cell("photo1mp-q75m4.decode-host", 1, 0.1, False,
+                     t_start=time.time(), device="cpu",
+                     config_override={"image": image},
+                     traffic_override=traffic)
+
+
+@pytest.mark.parametrize("seed", [3, 2**33 + 17, 4100000000202])
+def test_each_size_gets_its_share_of_the_pool(seed):
+    sizes = [[48, 64], [17, 9], [33, 50]]
+    got = generator.item_sizes({"sizes": sizes}, 12, seed)
+    assert sorted(got) == sorted([tuple(s) for s in sizes] * 4)
+    assert got != generator.item_sizes({"sizes": sizes}, 12, seed + 1)
+    cfg = {"image": {"sizes": sizes, "channels": 3}}
+    inp = generator.make_inputs(cfg, {"op": "encode", "pool": 12,
+                                      "batch": 12}, seed)
+    assert [im.shape for im in inp.images] == [(*s, 3) for s in got]
+    win = generator.run_window(
+        type("Echo", (), {"encode": lambda self, x, timings=None: x})(),
+        inp, {"op": "encode", "pool": 12, "batch": 12}, seed, 0.0, 0)
+    assert win.megapixels == win.calls * sum(h * w for h, w in got) / 1e6
+
+
+@pytest.mark.parametrize("h,w,seed", [(1024, 1024, 11), (375, 500, 2**32),
+                                      (256, 256, 5)])
+def test_the_cutout_alpha_model(h, w, seed):
+    from webpbench.alpha_models import cutout
+
+    a = cutout(h, w, seed)
+    assert a.shape == (h, w) and a.dtype == np.uint8
+    assert np.array_equal(a, cutout(h, w, seed))
+    assert 0.35 <= (a == 255).mean() <= 0.65          # the object
+    assert 0.005 <= ((a > 0) & (a < 255)).mean() <= 0.2   # edge and shadow
+    assert (a == 0).mean() >= 0.25
+    assert not np.array_equal(a, cutout(h, w, seed + 1))
+
+
+def test_a_lossless_file_adds_no_recon_work():
+    from PIL import Image
+
+    from webpbench.corpus import natural_image
+    from webpbench.vp8ref import decode_rgba
+
+    rf = bench.load_module("roofline", "recon_filter_mb")
+    b = io.BytesIO()
+    Image.fromarray(natural_image(32, 48, 1)).save(b, "WEBP", lossless=True)
+    none, lossy = {}, {}
+    decode_rgba(b.getvalue(), work=none)
+    decode_rgba(_tiny_file(32, 48, 3), work=lossy)
+    assert none == {} and lossy["mb"] == 6
+    assert rf.count([none, lossy, none]) == rf.count([lossy])
+
+
+@pytest.mark.parametrize("metric,key", [
+    ("decode.symbols_ms_per_image", "symbols_s"),
+    ("decode.pack_ms_per_image", "pack_s")])
+def test_a_host_sum_with_no_lossy_file_reads_nothing(metric, key):
+    """A call of VP8L files alone runs no symbol engine and no pack; the
+    program's sums then read 0, and the reader returns nothing."""
+    from webpbench.layers import LayerContext
+    from webpbench.trace import Trace
+
+    mod = bench.load_module("metrics", metric)
+
+    def ctx(seconds):
+        return LayerContext(op="decode", timings={key: seconds},
+                            timed_items=4, trace=Trace(), traced_items=4,
+                            orders=[], files={})
+
+    assert mod.read(ctx(0.0)) is None
+    assert mod.read(ctx(0.02)) == pytest.approx(5.0)

@@ -1,5 +1,5 @@
-"""Plain parse of a lossy WebP file: RIFF container, VP8 frame header,
-the first partition (segment, filter and quantizer headers, token
+"""Plain parse of a lossy WebP file: its VP8 chunk (container.py), the
+frame header, the first partition (segment, filter and quantizer headers, token
 probabilities, every macroblock's modes) and the coefficient tokens.
 
 Written from RFC 6386 (sections 9, 13, 19, 20) in plain Python and NumPy
@@ -116,21 +116,12 @@ class Frame:
 
 def vp8_payload(data: bytes) -> bytes:
     """The VP8 chunk of a simple or extended lossy file."""
-    if len(data) < 20 or data[:4] != b"RIFF" or data[8:12] != b"WEBP":
-        raise StreamError("not a RIFF WEBP file")
-    pos = 12
-    while pos + 8 <= len(data):
-        tag = data[pos:pos + 4]
-        size = int.from_bytes(data[pos + 4:pos + 8], "little")
-        body = data[pos + 8:pos + 8 + size]
-        if tag == b"VP8 ":
-            if len(body) != size:
-                raise StreamError("truncated VP8 chunk")
-            return body
-        if tag in (b"VP8L", b"ALPH", b"ANIM", b"ANMF"):
-            raise StreamError(f"chunk {tag!r} is outside this reference")
-        pos += 8 + size + (size & 1)
-    raise StreamError("no VP8 chunk")
+    from .container import read_still
+
+    still = read_still(data)
+    if still.kind != "vp8":
+        raise StreamError("a lossless file has no VP8 chunk")
+    return still.payload
 
 
 def _quant_steps(q: int, d: tuple) -> list:
@@ -144,8 +135,13 @@ def _quant_steps(q: int, d: tuple) -> list:
 
 
 def parse(data: bytes, tokens: bool = True) -> Frame:
-    """Frame header and first partition; with ``tokens`` the levels too."""
-    vp8 = vp8_payload(data)
+    """Frame header and first partition of a lossy file; with ``tokens``
+    the levels too."""
+    return parse_frame(vp8_payload(data), tokens)
+
+
+def parse_frame(vp8: bytes, tokens: bool = True) -> Frame:
+    """``parse`` of a VP8 chunk's payload."""
     if len(vp8) < 10:
         raise StreamError("VP8 chunk too short")
     tag = vp8[0] | (vp8[1] << 8) | (vp8[2] << 16)
